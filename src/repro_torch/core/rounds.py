@@ -1,0 +1,263 @@
+"""EnFed Algorithm 1 — the requesting device's session loop (port of the
+loop engine of ``repro.core.rounds``).
+
+Handshake (contract selection + AES key exchange), then per round:
+collect every contributor's fp32 update over AES-128-CTR, aggregate with
+eq. 14, fit the requester's model with masked Adam over the counter-based
+schedule, score it, and account for it (eqs. 4-7 and the battery); the
+session stops on the desired accuracy, the battery threshold, or the
+round budget.  The hot loops run through the port's kernel ops: the
+cipher in ``core/crypto.py``, eq. 14 in ``core/aggregation.py`` and the
+LSTM cell in the classifier.
+
+This slice covers the static, lockstep, fp32 world: ``encrypt`` on or
+off and any ``strategy``.  Every other knob of ``EnFedConfig`` raises
+``NotImplementedError`` naming the ``ROADMAP.md`` slice that ports it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation, crypto, protocol
+from repro_torch.core.battery import BatteryState
+from repro_torch.core.energy import CostModel, EnergyReport
+from repro_torch.core.incentive import Contract, NeighborDevice, select_contributors
+from repro_torch.core.topology import AggregationStrategy
+from repro_torch.kernels.common import resolve_device
+from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_size,
+                                    unflatten_from_vector)
+
+ROBUST_METHODS = ("none", "clip", "trimmed_mean", "median")
+
+
+@dataclasses.dataclass
+class EnFedConfig:
+    desired_accuracy: float = 0.95   # A_A
+    max_rounds: int = 10             # R_A  (paper sets 10)
+    n_max: int = 5                   # N_max contributors (paper setup: 5 VMs)
+    battery_threshold: float = 0.2   # B_min (paper: 20%)
+    offered_incentive: float = 0.6
+    epochs: int = 5                  # E  (local fit epochs per round)
+    batch_size: int = 32             # B_A
+    encrypt: bool = True
+    contributor_refresh_epochs: int = 1  # contributors keep training between rounds
+    seed: int = 0
+    # which signed contributors feed eq. (14) each round (None = all)
+    strategy: Optional[AggregationStrategy] = None
+    # The knobs below belong to later slices of the port; the session
+    # raises NotImplementedError unless they keep their defaults.
+    compress: Optional[str] = None          # int8 wire tier: slice D
+    mobility: Optional[object] = None       # opportunistic world: slice E
+    faults: Optional[object] = None         # unreliable links: slice E
+    cadence: Optional[object] = None        # asynchronous cadence: slice E
+    adversary: Optional[object] = None      # Byzantine contributors: slice E
+    robust: str = "none"                    # robust AGGREGATE: slice E
+    staleness_gamma: float = 1.0            # decayed weights: slice E
+
+    def __post_init__(self):
+        if self.compress not in (None, "int8", "auto"):
+            raise ValueError(
+                f"unknown compress mode {self.compress!r} (None|'int8'|'auto')")
+        if self.robust not in ROBUST_METHODS:
+            raise ValueError(
+                f"robust must be one of {ROBUST_METHODS} (got {self.robust!r})")
+        if not 0.0 <= self.staleness_gamma <= 1.0:
+            raise ValueError(
+                f"staleness_gamma must be within [0, 1] "
+                f"(got {self.staleness_gamma})")
+
+
+def _unported(cfg: EnFedConfig) -> Optional[str]:
+    """The first knob of ``cfg`` this slice does not run, with its slice."""
+    if cfg.compress is not None:
+        return f"compress={cfg.compress!r} (int8 wire tier, ROADMAP.md slice D)"
+    for name in ("mobility", "faults", "cadence", "adversary"):
+        if getattr(cfg, name) is not None:
+            return f"{name} (world state, ROADMAP.md slice E)"
+    if cfg.robust != "none":
+        return f"robust={cfg.robust!r} (robust AGGREGATE, ROADMAP.md slice E)"
+    if cfg.staleness_gamma < 1.0:
+        return "staleness_gamma < 1 (decayed weights, ROADMAP.md slice E)"
+    return None
+
+
+@dataclasses.dataclass
+class SessionResult:
+    accuracy: float
+    rounds: int
+    n_contributors: int
+    report: EnergyReport
+    battery: BatteryState
+    history_raw: Dict[str, List[float]] = dataclasses.field(repr=False,
+                                                            compare=False)
+    stop_reason: str
+    params: object = None
+    model_bytes: int = 0   # one update's wire bytes
+    # wall seconds per protocol phase, each timed between device syncs
+    phase_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class EnFedSession:
+    """One requesting device M building its model for application A.
+
+    ``task`` provides ``fit``, ``evaluate`` and ``init`` (see
+    :class:`repro_torch.core.federated.SupervisedTask`) on the session's
+    ``device``, which is the GPU unless the caller names another; with no
+    device named and no GPU present the session raises.
+    ``contributor_states`` maps a device id to ``{"params", "data"}``.
+    """
+
+    def __init__(self, task, own_train, own_test, fleet: List[NeighborDevice],
+                 contributor_states: Dict[int, dict],
+                 cfg: Optional[EnFedConfig] = None,
+                 cost_model: Optional[CostModel] = None,
+                 battery: Optional[BatteryState] = None, *, device=None):
+        self.device = resolve_device(device)
+        if torch.device(task.device) != self.device:
+            raise ValueError(f"the task runs on {task.device}, the session on "
+                             f"{self.device}")
+        self.task = task
+        self.own_train = own_train
+        self.own_test = own_test
+        self.fleet = fleet
+        self.contributor_states = contributor_states
+        self.cfg = cfg if cfg is not None else EnFedConfig()
+        self.cost = cost_model or CostModel()
+        self.battery = battery or BatteryState()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def _clock(self, phase_s: Dict[str, float], phase: str):
+        """Add the wall time of the block to ``phase_s[phase]``, with a
+        device sync before each clock read."""
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        phase_s[phase] = phase_s.get(phase, 0.0) + time.perf_counter() - t0
+
+    # -- protocol phases (protocol.Phase.HANDSHAKE) ---------------------------
+    def handshake(self) -> List[Contract]:
+        contracts = select_contributors(self.fleet, self.cfg.offered_incentive,
+                                        self.cfg.n_max)
+        rng = np.random.default_rng(self.cfg.seed)
+        self.keys = {c.device_id: rng.integers(0, 256, 16).astype(np.uint8)
+                     for c in contracts}
+        self.nonces = {c.device_id: rng.integers(0, 256, 8).astype(np.uint8)
+                       for c in contracts}
+        return contracts
+
+    def _collect_update(self, device_id: int):
+        """Phase.COLLECT: contributor -> (encrypt) -> wire -> (decrypt).
+        Returns the received tree and its wire bytes."""
+        params = self.contributor_states[device_id]["params"]
+        if not self.cfg.encrypt:
+            return params, tree_bytes(params)
+        vec, _ = flatten_to_vector(params)
+        cipher = crypto.encrypt_update(vec, self.keys[device_id], self.nonces[device_id])
+        plain = crypto.decrypt_update(cipher, self.keys[device_id], self.nonces[device_id])
+        return unflatten_from_vector(plain, params), int(cipher.shape[0])
+
+    def _refresh_contributors(self, contracts: List[Contract]):
+        """Phase.REFRESH: contributors keep improving between rounds."""
+        if self.cfg.contributor_refresh_epochs <= 0:
+            return
+        for c in contracts:
+            st = self.contributor_states[c.device_id]
+            st["params"], _ = self.task.fit(
+                st["params"], st["data"], self.cfg.contributor_refresh_epochs,
+                self.cfg.batch_size, seed=self.cfg.seed + c.device_id)
+
+    # -- Algorithm 1 ----------------------------------------------------------
+    def run(self, engine: str = "loop", *, checkpoint_dir: Optional[str] = None,
+            resume_from: Optional[str] = None) -> SessionResult:
+        """Execute the session with the loop engine."""
+        if engine == "fleet":
+            raise NotImplementedError(
+                "engine='fleet' is the batched fleet engine, ROADMAP.md slice C")
+        if engine != "loop":
+            raise ValueError(f"unknown engine {engine!r} (loop|fleet)")
+        if checkpoint_dir is not None or resume_from is not None:
+            raise NotImplementedError(
+                "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
+        unported = _unported(self.cfg)
+        if unported is not None:
+            raise NotImplementedError(f"{unported} is not ported yet")
+
+        cfg = self.cfg
+        phase_s: Dict[str, float] = {}
+        with self._clock(phase_s, "handshake"):
+            contracts = self.handshake()
+        if not contracts:
+            raise RuntimeError("no nearby device agreed to the incentive (N_d < 1)")
+        n_c = len(contracts)
+        round_w = protocol.round_weights(n_c, cfg.strategy)
+
+        history = {"accuracy": [], "loss": [], "battery": [],
+                   "round_executed": []}
+        params = None
+        rounds = 0
+        stop = protocol.STOP_MAX_ROUNDS
+        model_bytes = 0
+
+        for r in range(cfg.max_rounds):
+            with self._clock(phase_s, "collect"):
+                updates = []
+                for c in contracts:
+                    upd, nbytes = self._collect_update(c.device_id)
+                    model_bytes = max(model_bytes, nbytes)
+                    updates.append(upd)
+            # Phase.AGGREGATE (eq. 14): one launch over the (1, N, P) buffer
+            with self._clock(phase_s, "aggregate"):
+                global_params = aggregation.masked_fedavg(updates, round_w)
+            with self._clock(phase_s, "fit"):
+                params, losses = self.task.fit(global_params, self.own_train,
+                                               cfg.epochs, cfg.batch_size,
+                                               seed=cfg.seed + r)
+            # Phase.SCORE
+            with self._clock(phase_s, "score"):
+                acc = float(self.task.evaluate(params, self.own_test))
+            rounds = r + 1
+            history["accuracy"].append(acc)
+            history["loss"].append(float(losses[-1]))
+            history["round_executed"].append(1.0)
+
+            # Phase.ACCOUNT: battery bookkeeping for this round
+            e_round = self.cost.round_energy(
+                n_contrib=n_c, num_params=tree_size(params),
+                model_bytes=model_bytes,
+                num_samples=len(self.own_train[0]), epochs=cfg.epochs,
+                n_devices=len(self.fleet), encrypt=cfg.encrypt)
+            self.battery = self.battery.discharge(e_round,
+                                                  avg_power_w=self.cost.device.p_train)
+            history["battery"].append(self.battery.level)
+
+            if acc >= cfg.desired_accuracy:
+                stop = protocol.STOP_ACCURACY
+                break
+            if self.battery.below(cfg.battery_threshold):
+                stop = protocol.STOP_BATTERY
+                break
+            with self._clock(phase_s, "refresh"):
+                self._refresh_contributors(contracts)
+
+        report = self.cost.session(
+            rounds=rounds, n_contrib=n_c, num_params=tree_size(params),
+            model_bytes=model_bytes, num_samples=len(self.own_train[0]),
+            epochs=cfg.epochs, n_devices=len(self.fleet),
+            measured_local_time=phase_s.get("fit", 0.0), encrypt=cfg.encrypt)
+        return SessionResult(
+            accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_c,
+            report=report, battery=self.battery, history_raw=history,
+            stop_reason=protocol.stop_reason_name(stop), params=params,
+            model_bytes=model_bytes, phase_s=phase_s)

@@ -1,0 +1,27 @@
+"""Public op: eq. 14 over a flat (R, N, L) buffer.
+
+A CPU tensor runs the plain twin (``ref.py``); a CUDA tensor launches the
+hand-written kernel (``kernel.py``) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import is_cpu
+from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
+from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
+
+
+def fedavg_flat_batched(updates: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """updates (R, N, L), weights (R, N) -> (R, L) fp32.  An all-zero
+    weight row gives a zero row."""
+    if is_cpu(updates):
+        return fedavg_batched_ref(updates, weights)
+    return fedavg_batched_cuda(updates, weights)
+
+
+def fedavg_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """updates (N, L), weights (N,) -> (L,) fp32: one session."""
+    return fedavg_flat_batched(updates[None], weights[None])[0]

@@ -1,0 +1,3 @@
+from repro_torch.optim.optimizers import AdamState, Optimizer, adam, apply_updates
+
+__all__ = ["AdamState", "Optimizer", "adam", "apply_updates"]

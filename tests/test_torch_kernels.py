@@ -1,0 +1,297 @@
+"""The port's kernel twins against the JAX Pallas kernels (interpret mode)
+and the JAX oracles; the CUDA kernels against their twins on a card.
+
+The comparisons with the JAX package skip where jax is absent, and the
+kernel-against-twin cases (marker ``cuda``) skip where there is no CUDA
+device; on the card they run with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+"""
+
+import ctypes
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import crypto
+from repro_torch.kernels import _build
+from repro_torch.kernels.aes_ctr import ops as aes_ops
+from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
+from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref, counter_blocks_ref
+from repro_torch.kernels.fedavg import ops as fedavg_ops
+from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
+from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
+from repro_torch.kernels.lstm_cell import ops as lstm_ops
+from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+# eq. 14 sums in another order than XLA's einsum: fp32 rounding only
+FEDAVG_TOL = dict(rtol=1e-6, atol=1e-6)
+# the cell's two matmuls + transcendental functions, fp32
+LSTM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def ref():
+    """The JAX package's kernels and oracles; skips where jax is absent
+    (the machine with the card has none)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import crypto as jcrypto
+    from repro.kernels.aes_ctr.kernel import aes_ctr_pallas
+    from repro.kernels.fedavg.kernel import fedavg_batched_pallas, fedavg_pallas
+    from repro.kernels.fedavg.ref import fedavg_ref
+    from repro.kernels.lstm_cell.kernel import lstm_cell_pallas
+    from repro.kernels.lstm_cell.ref import lstm_cell_ref as jlstm_ref
+
+    return SimpleNamespace(jax=jax, jnp=jnp, jcrypto=jcrypto, aes_ctr_pallas=aes_ctr_pallas,
+                           fedavg_batched_pallas=fedavg_batched_pallas,
+                           fedavg_pallas=fedavg_pallas, fedavg_ref=fedavg_ref,
+                           lstm_cell_pallas=lstm_cell_pallas, jlstm_ref=jlstm_ref)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+# ---------------------------------------------------------------------------
+# eq. 14
+# ---------------------------------------------------------------------------
+
+FEDAVG_SHAPES = [(1, 5, 4096), (2, 3, 1000 + 7), (1, 1, 513), (3, 4, 2048 + 1)]
+
+
+@pytest.mark.parametrize("r,n,l", FEDAVG_SHAPES)
+def test_fedavg_ref_matches_pallas_batched(r, n, l, ref):
+    rng = np.random.default_rng(r * 100 + n)
+    u = rng.standard_normal((r, n, l)).astype(np.float32)
+    w = (rng.random((r, n)) + 0.1).astype(np.float32)
+    if r == 3:
+        w[1] = 0.0                          # an all-zero weight row
+    want = np.asarray(ref.fedavg_batched_pallas(ref.jnp.asarray(u), ref.jnp.asarray(w),
+                                            interpret=True))
+    got = fedavg_batched_ref(_t(u), _t(w)).numpy()
+    np.testing.assert_allclose(got, want, **FEDAVG_TOL)
+    if r == 3:
+        assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("n,l", [(5, 4096), (1, 513), (4, 1000 + 7)])
+def test_fedavg_flat_matches_pallas_and_jnp_oracle(n, l, ref):
+    rng = np.random.default_rng(n + l)
+    u = rng.standard_normal((n, l)).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    got = fedavg_ops.fedavg_flat(_t(u), _t(w)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref.fedavg_pallas(
+        ref.jnp.asarray(u), ref.jnp.asarray(w), interpret=True)), **FEDAVG_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref.fedavg_ref(ref.jnp.asarray(u),
+                                                              ref.jnp.asarray(w))),
+                               **FEDAVG_TOL)
+
+
+def test_fedavg_cpu_dispatch_runs_the_twin_without_launching():
+    kernels.reset_launch_counts()
+    u, w = torch.randn(1, 3, 10), torch.ones(1, 3)
+    assert torch.equal(fedavg_ops.fedavg_flat_batched(u, w), fedavg_batched_ref(u, w))
+    assert kernels.launch_counts()["fedavg"] == 0
+
+
+def test_fedavg_kernel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        fedavg_batched_cuda(torch.randn(1, 2, 3), torch.ones(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,l", FEDAVG_SHAPES + [(1, 5, 18566)])
+def test_fedavg_kernel_matches_twin_on_card(r, n, l, cuda_device):
+    g = torch.Generator().manual_seed(r + n + l)
+    u = torch.randn((r, n, l), generator=g).to(cuda_device)
+    w = (torch.rand((r, n), generator=g) + 0.1).to(cuda_device)
+    if r == 3:
+        w[1] = 0.0
+    before = kernels.launch_counts()["fedavg"]
+    got = fedavg_ops.fedavg_flat_batched(u, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fedavg"] == before + 1
+    torch.testing.assert_close(got, fedavg_batched_ref(u, w), **FEDAVG_TOL)
+
+
+# ---------------------------------------------------------------------------
+# LSTM cell
+# ---------------------------------------------------------------------------
+
+LSTM_SHAPES = [(8, 6, 16), (33, 5, 40), (1, 6, 16), (32, 6, 64)]
+
+
+def _lstm_inputs(b, f, h, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * sc).astype(np.float32) for s, sc in [
+        ((b, f), 1.0), ((b, h), 0.5), ((b, h), 0.5), ((f, 4 * h), 0.4),
+        ((h, 4 * h), 1.0 / np.sqrt(h)), ((4 * h,), 0.1)]]
+
+
+@pytest.mark.parametrize("b,f,h", LSTM_SHAPES)
+def test_lstm_ref_matches_pallas(b, f, h, ref):
+    args = _lstm_inputs(b, f, h, b * f * h)
+    hp, cp = ref.lstm_cell_pallas(*(ref.jnp.asarray(a) for a in args), interpret=True)
+    ht, ct = lstm_ops.lstm_cell(*(_t(a) for a in args))
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hp), **LSTM_TOL)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cp), **LSTM_TOL)
+
+
+@pytest.mark.parametrize("b,f,h", LSTM_SHAPES[:3])
+def test_lstm_backward_matches_jax_grad(b, f, h, ref):
+    """The autograd Function's hand-written backward against jax.grad of
+    the reference cell, for all six inputs."""
+    args = _lstm_inputs(b, f, h, 7 + b)
+    rng = np.random.default_rng(99)
+    a = rng.standard_normal((b, h)).astype(np.float32)
+    c = rng.standard_normal((b, h)).astype(np.float32)
+
+    def jloss(*xs):
+        hn, cn = ref.jlstm_ref(*xs)
+        return ref.jnp.sum(hn * a) + ref.jnp.sum(cn * c)
+
+    want = ref.jax.grad(jloss, argnums=tuple(range(6)))(*(ref.jnp.asarray(x) for x in args))
+    targs = [_t(x).requires_grad_(True) for x in args]
+    hn, cn = lstm_ops.lstm_cell_autograd(*targs)
+    (torch.sum(hn * _t(a)) + torch.sum(cn * _t(c))).backward()
+    for name, w, t in zip(("x", "h", "c", "wx", "wh", "b"), want, targs):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_lstm_backward_matches_autograd_of_the_twin():
+    args = [_t(x).double().requires_grad_(True) for x in _lstm_inputs(4, 3, 5, 1)]
+    assert torch.autograd.gradcheck(lstm_ops.lstm_cell_autograd, args)
+
+
+def test_lstm_kernel_wrapper_rejects_cpu_tensors():
+    args = [_t(x) for x in _lstm_inputs(2, 3, 4, 0)]
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_cell_cuda(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,h", LSTM_SHAPES + [(45, 6, 64)])
+def test_lstm_kernel_matches_twin_on_card(b, f, h, cuda_device):
+    args = [_t(x).to(cuda_device) for x in _lstm_inputs(b, f, h, b + f + h)]
+    hk, ck = lstm_ops.lstm_cell(*args)
+    torch.cuda.synchronize()
+    hr, cr = lstm_cell_ref(*args)
+    torch.testing.assert_close(hk, hr, **LSTM_TOL)
+    torch.testing.assert_close(ck, cr, **LSTM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# AES-128-CTR
+# ---------------------------------------------------------------------------
+
+AES_SIZES = [7, 16, 1000 + 5, 4096 + 8]
+
+
+def test_fips197_block_through_the_port():
+    key = np.arange(16, dtype=np.uint8)
+    block = torch.tensor([list(bytes.fromhex("00112233445566778899aabbccddeeff"))],
+                         dtype=torch.uint8)
+    out = crypto.aes128_encrypt_blocks(block, crypto.expand_key(key))
+    assert bytes(out[0].tolist()).hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
+
+
+def test_tables_and_key_schedule_match_reference(ref):
+    assert np.array_equal(crypto.TABLES[0], ref.jcrypto._SBOX)
+    assert np.array_equal(crypto.TABLES[1], ref.jcrypto._MUL2)
+    assert np.array_equal(crypto.TABLES[2], ref.jcrypto._MUL3)
+    key = np.random.default_rng(0).integers(0, 256, 16).astype(np.uint8)
+    assert np.array_equal(crypto.expand_key(key), ref.jcrypto.expand_key(key))
+
+
+def test_counter_blocks_match_reference(ref):
+    nonce = np.random.default_rng(1).integers(0, 256, 8).astype(np.uint8)
+    got = counter_blocks_ref(_t(nonce), 300).numpy()
+    assert np.array_equal(got, ref.jcrypto._counter_blocks(nonce, 300))
+
+
+@pytest.mark.parametrize("n", AES_SIZES)
+def test_aes_ref_matches_pallas_byte_exact(n, ref):
+    rng = np.random.default_rng(n)
+    key = rng.integers(0, 256, 16).astype(np.uint8)
+    nonce = rng.integers(0, 256, 8).astype(np.uint8)
+    pay = rng.integers(0, 256, n).astype(np.uint8)
+    rk = ref.jcrypto.expand_key(key)
+    ctr = ref.jcrypto._counter_blocks(nonce, (n + 15) // 16)
+    want = np.asarray(ref.aes_ctr_pallas(ref.jnp.asarray(pay), ref.jnp.asarray(rk),
+                                         ref.jnp.asarray(ctr), interpret=True))
+    got = aes_ctr_ref(_t(pay), _t(rk), _t(nonce), _t(crypto.TABLES)).numpy()
+    assert np.array_equal(got, want)
+    port = crypto.encrypt_bytes(_t(pay), key, nonce).numpy()
+    want_port = ref.jcrypto.encrypt_bytes(ref.jnp.asarray(pay), key, nonce)
+    assert np.array_equal(port, np.asarray(want_port))
+    assert np.array_equal(crypto.decrypt_bytes(_t(port), key, nonce).numpy(), pay)
+
+
+def test_update_bytes_are_little_endian_fp32(ref):
+    vec = np.random.default_rng(3).standard_normal(33).astype(np.float32)
+    got = crypto.float_vector_to_bytes(_t(vec)).numpy()
+    want = ref.jcrypto.float_vector_to_bytes(ref.jnp.asarray(vec))
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(crypto.bytes_to_float_vector(_t(got)).numpy(), vec)
+
+
+def test_aes_kernel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        aes_ctr_cuda(torch.zeros(16, dtype=torch.uint8), torch.zeros(11, 16, dtype=torch.uint8),
+                     torch.zeros(8, dtype=torch.uint8), _t(crypto.TABLES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(n, 0) for n in AES_SIZES] + [(74264, 0), (1003, 1)])
+def test_aes_kernel_matches_twin_on_card(n, offset, cuda_device):
+    rng = np.random.default_rng(n + offset)
+    rk = _t(crypto.expand_key(rng.integers(0, 256, 16).astype(np.uint8))).to(cuda_device)
+    nonce = _t(rng.integers(0, 256, 8).astype(np.uint8)).to(cuda_device)
+    tables = _t(crypto.TABLES).to(cuda_device)
+    buf = _t(rng.integers(0, 256, n + offset).astype(np.uint8)).to(cuda_device)
+    pay = buf[offset:]
+    got = aes_ops.aes_ctr(pay, rk, nonce, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_ctr_ref(pay, rk, nonce, tables))
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def test_build_covers_every_source_and_hashes_them(tmp_path, monkeypatch):
+    names = {p.name for p in _build.sources()}
+    assert names == {"fedavg.cu", "lstm_cell.cu", "aes_ctr.cu"}
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    h = _build.source_hash()
+    for src in _build.sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.source_hash() == h
+    (tmp_path / "fedavg.cu").write_text((tmp_path / "fedavg.cu").read_text() + "\n// edit\n")
+    assert _build.source_hash() != h
+
+
+def test_launchers_declare_pointer_args_as_void_p():
+    from repro_torch.kernels.aes_ctr import kernel as ak
+    from repro_torch.kernels.fedavg import kernel as fk
+    from repro_torch.kernels.lstm_cell import kernel as lk
+
+    for argtypes in (fk._ARGTYPES, lk._ARGTYPES, ak._ARGTYPES):
+        assert argtypes[-1] is ctypes.c_void_p            # the stream
+        assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}

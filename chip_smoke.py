@@ -7,18 +7,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels from ``src/repro_torch/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   main path's shapes and at edge shapes (AES byte-exact, eq. 14 within
-   1e-6 of the largest output, the LSTM cell within 1e-5);
-4. the main path: Algorithm 1 as ``examples/quickstart.py`` runs it, at full
-   width (3,000 HAR windows, T=32, F=6, H=64, 6 classes, 5 contributors
-   pretrained for 6 epochs, 10 rounds of 8 epochs, AES transport) with
-   every launch count set to 0 just before ``EnFedSession.run`` and read
-   just after; then the same world over the whole round budget (timing
-   only), and one round of it on the card and on the CPU, whose parameters
-   must agree;
-5. time each kernel with CUDA events at the main path's shapes, beside its
+   main paths' shapes and at edge shapes (AES, quantize and dequantize
+   bit-exact, eq. 14 dense and int8 within 1e-6 of the largest output, the
+   LSTM cell within 1e-5, one lane and the fleet's fit, score and refresh
+   lanes, with the weights as views of the fleet's flat buffers);
+4. the main paths, each with every launch count set to 0 just before it
+   and read just after:
+   - Algorithm 1 as ``examples/quickstart.py`` runs it, at full width
+     (3,000 HAR windows, T=32, F=6, H=64, 6 classes, 5 contributors
+     pretrained for 6 epochs, 10 rounds of 8 epochs, AES transport); then
+     the same world over the whole round budget (timing only), and one
+     round of it on the card and on the CPU, whose parameters must agree;
+   - the same session with ``compress="int8"``;
+   - the fleet engine: 64 requesters of the HAR LSTM at full width sharing
+     those 5 contributors, with ``compress=None`` and ``"int8"``; then one
+     fleet round of 4 requesters (8 fit epochs) on the card and on the CPU,
+     whose parameters must agree within a limit that lies above the CPU's
+     own spread under a one-ulp perturbation of the contributors and below
+     the difference a 1e-4 relative fault makes;
+5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card;
-6. trace one fit epoch: device-busy share and the kernels that take it;
+6. trace one fit epoch of the loop engine and one round of the 64-requester
+   fleet: device-busy share and the kernels that take it;
 7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -28,6 +38,7 @@ It imports only ``repro_torch`` (no JAX) and needs one CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -43,6 +54,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 AES_OPS_PER_BLOCK = 11 * 16 + 10 * 16 + 9 * 4 * 20 + 16   # xor, S-box, MixColumns, payload
 FIT_EPOCHS, MAX_ROUNDS, PRETRAIN_EPOCHS = 8, 10, 6
+FLEET_R = 64                   # requesters of the fleet path
+TILE = 1024                    # int8 wire tile
+# one fp32 fleet round (8 epochs of Adam), card vs CPU: the CPU's own spread
+# under a 1e-7 relative perturbation of the contributors stays below it, a
+# 1e-4 relative fault lands above it (both measured in every run)
+FLEET_ROUND_TOL = 2e-3
+ULP_REL, FAULT_REL = 1e-7, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -102,13 +120,16 @@ def bound_ms(nbytes: float, ops: float):
 # ---------------------------------------------------------------------------
 
 
-def check_fedavg(dev, main_shape):
+def check_fedavg(dev, main_shape, fleet_shape):
+    """Eq. 14 at the loop's (1, N, P), at the fleet's (R, N, P) and at edge
+    shapes; returns the max abs errors at the two main shapes."""
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
     from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
 
     g = torch.Generator().manual_seed(0)
-    main_err = None
-    cases = [("main", main_shape, None), ("ragged L", (2, 3, 1000 + 7), None),
+    errs = {}
+    cases = [("main", main_shape, None), ("fleet", fleet_shape, None),
+             ("ragged L", (2, 3, 1000 + 7), None),
              ("zero weight row", (3, 4, 2048 + 1), 1), ("N=1", (1, 1, 513), None),
              ("R=8", (8, 5, 4096), None)]
     for name, (r, n, l), zero_row in cases:
@@ -126,9 +147,8 @@ def check_fedavg(dev, main_shape):
         if zero_row is not None and bool(got[zero_row].ne(0).any()):
             fail("fedavg: an all-zero weight row must give zeros")
         print(f"  fedavg {name:16s} R,N,L={r},{n},{l}: max abs err {err:.3e}")
-        if name == "main":
-            main_err = err
-    return main_err
+        errs[name] = err
+    return errs["main"], errs["fleet"]
 
 
 def check_lstm(dev, fit_b, score_b, f, h):
@@ -178,8 +198,117 @@ def check_aes(dev, main_n):
     return 0.0
 
 
+def check_lane_lstm(dev, spec, n_params, fit_b, score_b, refresh_rows):
+    """The cell with a lane axis at the fleet's shapes, as the fleet calls
+    it: wx, wh and b are ``tree_unravel`` views of a flat (L, P) buffer (the
+    fp32 aggregate, the trained params, the refresh rows) or of an
+    (L, Lp)[:, :P] slice (the int8 aggregate and the dequantized refresh
+    rows), so the lane stride is P or Lp.  Returns the largest error."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+    from repro_torch.utils.tree import tree_unravel
+
+    g = torch.Generator().manual_seed(5)
+    lp = n_params + (-n_params) % TILE
+    worst = 0.0
+    for name, lanes, b, padded in [("fit fp32", FLEET_R, fit_b, False),
+                                   ("fit int8", FLEET_R, fit_b, True),
+                                   ("score", FLEET_R, score_b, False),
+                                   ("refresh fp32", refresh_rows, fit_b, False),
+                                   ("refresh int8", refresh_rows, fit_b, True)]:
+        buf = torch.randn((lanes, lp if padded else n_params), generator=g).to(dev) * 0.3
+        p = tree_unravel(spec, buf[:, :n_params])
+        wx, wh, bias = p["wx"], p["wh"], p["b"]
+        f, h = wx.shape[1], wh.shape[1]
+        x, h0, c0 = (torch.randn(sh, generator=g).to(dev) * sc for sh, sc in [
+            ((lanes, b, f), 1.0), ((lanes, b, h), 0.5), ((lanes, b, h), 0.5)])
+        hk, ck = lstm_cell_cuda(x, h0, c0, wx, wh, bias)
+        torch.cuda.synchronize()
+        hr, cr = lstm_cell_ref(x, h0, c0, wx, wh, bias)
+        err = max(float((hk - hr).abs().max()), float((ck - cr).abs().max()))
+        if not err <= 1e-5:
+            fail(f"lstm_cell {name} L,B,F,H={lanes},{b},{f},{h}: max abs err {err}")
+        print(f"  lstm_cell {name:13s} L,B,F,H={lanes},{b},{f},{h}, lane stride "
+              f"{wx.stride(0)}: max abs err {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_quantize(dev, n_params, rows):
+    """Codes and scales bit-equal to the twin: the 1-D update, the fleet's
+    staging rows, an off-tile length, an all-zero tile, half-way codes."""
+    from repro_torch.kernels.quantize.kernel import quantize_cuda
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+
+    g = torch.Generator().manual_seed(6)
+    half = torch.zeros(1, 2 * TILE)
+    half[0, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    zero_tile = torch.randn((3, 3 * TILE), generator=g)
+    zero_tile[1, TILE:2 * TILE] = 0.0
+    cases = [("main 1-D", torch.randn((n_params,), generator=g) * 0.3),
+             (f"{rows} rows", torch.randn((rows, n_params), generator=g) * 0.3),
+             ("off-tile", torch.randn((2, 1000 + 7), generator=g)),
+             ("zero tile", zero_tile), ("half-way", half)]
+    for name, x in cases:
+        xd = x.to(dev)
+        q, s = quantize_cuda(xd)
+        torch.cuda.synchronize()
+        qr, sr = quantize_batched_ref(xd)
+        if not (torch.equal(q, qr) and torch.equal(s, sr)):
+            fail(f"quantize {name} {tuple(x.shape)}: codes or scales differ from the twin")
+        if name == "half-way" and q[0, :6].tolist() != [127, 0, 2, 2, 0, -2]:
+            fail(f"quantize half-way: codes {q[0, :6].tolist()} are not round-half-even")
+        print(f"  quantize {name:10s} {str(tuple(x.shape)):14s}: codes and scales bit-equal")
+    return 0.0
+
+
+def check_dequantize(dev, n_params):
+    from repro_torch.kernels.quantize.kernel import dequantize_cuda
+    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_batched_ref
+
+    g = torch.Generator().manual_seed(7)
+    for n in (n_params, 1000 + 7, TILE):
+        q, s = quantize_batched_ref(torch.randn((n,), generator=g).to(dev))
+        got = dequantize_cuda(q, s, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dequantize_ref(q, s, n)):
+            fail(f"dequantize n={n}: differs from the twin")
+        print(f"  dequantize n={n}: bit-equal")
+    return 0.0
+
+
+def check_fedavg_q8(dev, main_shape):
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+
+    g = torch.Generator().manual_seed(8)
+    main_err = None
+    for name, (r, n, lp), zero_row in [("main", main_shape, None),
+                                       ("zero weight row", (3, 4, 2 * TILE), 1),
+                                       ("N=1", (1, 1, TILE), None)]:
+        q, s = quantize_batched_ref(torch.randn((r * n, lp), generator=g).to(dev) * 0.3)
+        q, s = q.reshape(r, n, lp), s.reshape(r, n, -1)
+        w = (torch.rand((r, n), generator=g) + 0.1).to(dev)
+        if zero_row is not None:
+            w[zero_row] = 0.0
+        got = fedavg_batched_q8_cuda(q, s, w)
+        torch.cuda.synchronize()
+        want = fedavg_batched_q8_ref(q, s, w)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= 1e-6 * max(scale, 1.0):
+            fail(f"fedavg_q8 {name} {(r, n, lp)}: max abs err {err} (scale {scale})")
+        if zero_row is not None and bool(got[zero_row].ne(0).any()):
+            fail("fedavg_q8: an all-zero weight row must give zeros")
+        print(f"  fedavg_q8 {name:16s} R,N,Lp={r},{n},{lp}: max abs err {err:.3e}")
+        if name == "main":
+            main_err = err
+    return main_err
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -220,7 +349,6 @@ def contributor_states(pretrained, shards, fleet, device):
 def run_main_path(device, world):
     from repro_torch import kernels
     from repro_torch.core import EnFedSession, SupervisedTask
-    from repro_torch.core.protocol import STOP_REASONS
     from repro_torch.models import LSTMClassifier
     from repro_torch.utils.tree import tree_leaves
 
@@ -247,12 +375,7 @@ def run_main_path(device, world):
 
     if not all(counts[k] > 0 for k in ("fedavg", "lstm_cell", "aes_ctr")):
         fail(f"a kernel of the main path was never launched: {counts}")
-    if not (math.isfinite(res.accuracy) and res.accuracy > 1.0 / 6):
-        fail(f"accuracy {res.accuracy} is not finite and above chance")
-    if res.stop_reason not in STOP_REASONS:
-        fail(f"invalid stop reason {res.stop_reason!r}")
-    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)):
-        fail("non-finite parameters after the session")
+    check_session(res, "session")
     print(f"  accuracy {res.accuracy:.4f}, rounds {res.rounds}, stop {res.stop_reason}, "
           f"{res.n_contributors} contributors, {res.model_bytes} B per update")
     print(f"  session wall {wall:.2f} s; per phase (s): "
@@ -289,7 +412,180 @@ def run_main_path(device, world):
           f"loss {card.history_raw['loss'][-1]:.6f} vs {host.history_raw['loss'][-1]:.6f}")
     if not diff <= tol:
         fail(f"one round on the card and on the CPU differ by {diff}")
+    return counts, pretrained
+
+
+def check_session(res, what):
+    from repro_torch.core.protocol import STOP_REASONS
+    from repro_torch.utils.tree import tree_leaves
+
+    if not (math.isfinite(res.accuracy) and res.accuracy > 1.0 / 6):
+        fail(f"{what}: accuracy {res.accuracy} is not finite and above chance")
+    if res.stop_reason not in STOP_REASONS:
+        fail(f"{what}: invalid stop reason {res.stop_reason!r}")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(res.params)):
+        fail(f"{what}: non-finite parameters")
+
+
+def run_loop_int8(device, world, pretrained):
+    """The quickstart session with the int8 wire: AES over codes + scales."""
+    from repro_torch import kernels
+    from repro_torch.core import EnFedSession
+
+    task, shards, own_train, own_test, fleet = world
+    session = EnFedSession(task, own_train, own_test, fleet,
+                           contributor_states(pretrained, shards, fleet, device),
+                           dataclasses.replace(session_cfg(MAX_ROUNDS), compress="int8"),
+                           device=device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = session.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    need = ("quantize", "dequantize", "aes_ctr", "fedavg", "lstm_cell")
+    if not all(counts[k] > 0 for k in need):
+        fail(f"int8 session: a kernel of its path was never launched: {counts}")
+    check_session(res, "int8 session")
+    print(f"  int8 session: accuracy {res.accuracy:.4f}, rounds {res.rounds}, stop "
+          f"{res.stop_reason}, {res.model_bytes} B per update, wall {wall:.2f} s")
+    print(f"  launches in the int8 session: {counts}")
     return counts
+
+
+@functools.lru_cache(maxsize=None)
+def fleet_split():
+    """Each requester's (train, test): one shard (80/20) of a HAR set of
+    200 * (FLEET_R + 5) windows split over FLEET_R + 5 clients (Dirichlet
+    alpha=1), for the first FLEET_R clients."""
+    from repro_torch.data import HARDatasetConfig, dirichlet_partition, make_har_windows
+
+    x, y, _ = make_har_windows(HARDatasetConfig(num_samples=200 * (FLEET_R + 5), seq_len=32))
+    parts = dirichlet_partition(y, num_clients=FLEET_R + 5, alpha=1.0, seed=0)
+    out = []
+    for p in parts[:FLEET_R]:
+        n = int(len(p) * 0.8)
+        out.append(((x[p[:n]], y[p[:n]]), (x[p[n:]], y[p[n:]])))
+    return out
+
+
+def fleet_specs(device, world, pretrained, r_count):
+    """``r_count`` requesters of :func:`fleet_split`, all sharing the
+    quickstart's 5 pretrained contributors."""
+    from repro_torch.core import RequesterSpec
+
+    _, shards, _, _, fleet = world
+    states = contributor_states(pretrained, shards, fleet, device)
+    return [RequesterSpec(train, test, fleet, states) for train, test in fleet_split()[:r_count]]
+
+
+def run_fleet_path(device, world, pretrained):
+    """The fleet engine at R = 64, fp32 and int8 wire; then one round of 4
+    requesters on the card and on the CPU (:func:`fleet_round_check`)."""
+    from repro_torch import kernels
+    from repro_torch.core import run_fleet
+    from repro_torch.core.protocol import STOP_REASONS
+    from repro_torch.utils.tree import tree_leaves
+
+    task = world[0]
+    all_counts = {}
+    for compress, need in ((None, ("fedavg", "lstm_cell")),
+                           ("int8", ("fedavg_q8", "quantize", "lstm_cell"))):
+        specs = fleet_specs(device, world, pretrained, FLEET_R)
+        cfg = dataclasses.replace(session_cfg(MAX_ROUNDS), compress=compress)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_fleet(task, specs, cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        tag = f"fleet {compress or 'fp32'}"
+        if not all(counts[k] > 0 for k in need):
+            fail(f"{tag}: a kernel of its path was never launched: {counts}")
+        if not (np.isfinite(res.accuracy).all() and res.accuracy.mean() > 1.0 / 6):
+            fail(f"{tag}: accuracies {res.accuracy} are not finite and above chance")
+        if not all(s.stop_reason in STOP_REASONS for s in res.sessions):
+            fail(f"{tag}: invalid stop reasons")
+        if not all(bool(torch.isfinite(p).all()) for s in res.sessions
+                   for p in tree_leaves(s.params)):
+            fail(f"{tag}: non-finite parameters")
+        lane_rounds = int(res.rounds.sum())
+        executed = int(res.history["round_executed"].sum())
+        stops = {r: sum(s.stop_reason == r for s in res.sessions) for r in STOP_REASONS}
+        print(f"  {tag} R={FLEET_R}: wall {wall:.2f} s, {executed} rounds executed, "
+              f"{lane_rounds} lane-rounds, {lane_rounds / wall:.2f} lane-rounds/s; accuracy "
+              f"mean {res.accuracy.mean():.4f} min {res.accuracy.min():.4f}; stops {stops}; "
+              f"{res.sessions[0].model_bytes} B per update, round state "
+              f"{res.device_round_state_bytes} B")
+        print(f"  launches in the {tag} run: {counts}")
+        all_counts[compress or "fp32"] = counts
+
+    fleet_round_check(device, world, pretrained)
+    return all_counts
+
+
+def fleet_round_check(device, world, pretrained):
+    """One fleet round of 4 requesters (8 fit epochs, refresh) on the card
+    and on the CPU.  Over 8 epochs Adam amplifies rounding on the weights
+    whose second moment is near zero, so the card's other summation order
+    shows in the params.  The limit is set between two CPU-only readings
+    taken here: the spread from a 1e-7 relative perturbation of the
+    contributors' params (one ulp, 3 seeds), which must stay below it, and
+    a 1e-4 relative fault of the same params, which must land above it.
+    Under int8 the limit is the tile bound ``max(scale) / 2 + 1e-6``."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_ravel
+
+    task = world[0]
+    cpu = torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    scales = quantize_batched_ref(torch.stack([tree_ravel(p)[0] for p in host_pre]))[1]
+
+    def lanes(res):
+        return torch.stack([tree_ravel(s.params)[0].cpu() for s in res.sessions])
+
+    def perturbed(rel, seed):
+        g = torch.Generator().manual_seed(seed)
+        return [tree_map(lambda t: t * (1 + rel * torch.randn(t.shape, generator=g)), p)
+                for p in host_pre]
+
+    for compress, tol in ((None, FLEET_ROUND_TOL), ("int8", float(scales.max()) / 2 + 1e-6)):
+        tag = compress or "fp32"
+        cfg = dataclasses.replace(session_cfg(1), compress=compress)
+
+        def run(d, tk, pre):
+            specs = fleet_specs(d, world, pre, 4)
+            return run_fleet(tk, specs, cfg, device=d), specs
+
+        (card, cspecs), (host, hspecs) = run(device, task, pretrained), run(cpu, cpu_task, host_pre)
+        ref = lanes(host)
+        per_lane = (lanes(card) - ref).abs().max(dim=1).values
+        diff = float(per_lane.max())
+        noise = max(float((lanes(run(cpu, cpu_task, perturbed(ULP_REL, sd))[0]) - ref).abs().max())
+                    for sd in range(3))
+        fault = float((lanes(run(cpu, cpu_task, perturbed(FAULT_REL, 0))[0]) - ref).abs().max())
+        wdiff = max(float((a.cpu() - b).abs().max())
+                    for did, st in cspecs[0].contributor_states.items()
+                    for a, b in zip(tree_leaves(st["params"]),
+                                    tree_leaves(hspecs[0].contributor_states[did]["params"])))
+        print(f"  one fleet round R=4 {tag} card vs CPU: max abs param diff {diff:.3e} "
+              f"(per lane {', '.join(f'{v:.3e}' for v in per_lane.tolist())}; limit {tol:.3e}); "
+              f"CPU vs CPU: {ULP_REL:g} perturbation {noise:.3e}, {FAULT_REL:g} fault "
+              f"{fault:.3e}; refreshed contributors {wdiff:.3e}; rounds "
+              f"{card.rounds.tolist()} vs {host.rounds.tolist()}")
+        if not noise < tol:
+            fail(f"fleet round ({tag}): the CPU's own spread {noise} reaches the limit {tol}")
+        if not fault > tol:
+            fail(f"fleet round ({tag}): a {FAULT_REL:g} fault ({fault}) stays within the "
+                 f"limit {tol}, which therefore checks nothing")
+        if not diff <= tol:
+            fail(f"one fleet round ({tag}) on the card and on the CPU differ by {diff}")
+        if not np.array_equal(card.stop_codes, host.stop_codes):
+            fail("one fleet round: stop codes differ between the card and the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +594,108 @@ def run_main_path(device, world):
 
 
 def time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
+    rows = time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
+    rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib)
+    time_lane_cell(dev, FLEET_R, fit_b, f, h)
+    for row in rows:
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
+        dus = "not measured" if row["device_us"] is None else f"{row['device_us']:.3f}"
+        print(f"  {row['name']:10s} {row['shape']}: kernel_ms {row['ms']:.5f}  device_us {dus}  "
+              f"plain_ms {row['plain_ms']:.5f}  library_ms {lib}  "
+              f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']})  "
+              f"launches on the main paths {row['launches']}")
+    return rows
+
+
+def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
+    """The int8 wire kernels at the fleet's shapes (R = 64, N = 5) and at
+    one loop-engine update.  No single PyTorch call computes any of them:
+    ``library_ms`` is null."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref
+    from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
+    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_batched_ref
+
+    g = torch.Generator().manual_seed(9)
+    rows = []
+    lp = n_params + (-n_params) % TILE
+    tiles = lp // TILE
+
+    # fused dequant -> eq. 14 at the fleet's AGGREGATE, (R, N, Lp) = (64, 5, Lp)
+    r, n = FLEET_R, n_contrib
+    q, s = quantize_batched_ref(torch.randn((r * n, n_params), generator=g).to(dev) * 0.3)
+    q, s = q.reshape(r, n, lp), s.reshape(r, n, tiles)
+    w = torch.ones((r, n), device=dev)
+    ms = cuda_ms(lambda: fedavg_batched_q8_cuda(q, s, w))
+    plain = cuda_ms(lambda: fedavg_batched_q8_ref(q, s, w), iters=50, warmup=5)
+    b_ms, b_by = bound_ms(r * n * lp + 4 * (r * n * tiles + r * n + r * lp),
+                          3 * r * n * lp + r * lp)
+    rows.append(dict(name="fedavg_q8", route="cuda", source="src/repro_torch/csrc/fedavg.cu",
+                     replaces="src/repro/kernels/fedavg/kernel.py:83",
+                     device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
+                                         "fedavg_q8_kernel"),
+                     launches=counts["fedavg_q8"], max_abs_err=errs["fedavg_q8"], ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     shape=f"R,N,Lp={r},{n},{lp}"))
+
+    # quantize at the fleet's staging: R * N rows of P, ragged to Lp
+    x = torch.randn((r * n, n_params), generator=g).to(dev) * 0.3
+    ms = cuda_ms(lambda: quantize_cuda(x))
+    plain = cuda_ms(lambda: quantize_batched_ref(x), iters=50, warmup=5)
+    b_ms, b_by = bound_ms(4 * r * n * n_params + r * n * lp + 4 * r * n * tiles,
+                          6 * r * n * n_params)
+    rows.append(dict(name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/kernel.py:89",
+                     device_us=device_us(lambda: quantize_cuda(x), "quantize_kernel"),
+                     launches=counts["quantize"], max_abs_err=errs["quantize"], ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     shape=f"B,L={r * n},{n_params} -> Lp={lp}"))
+    # the same kernel on one update (the loop engine's compress_update)
+    v = x[0].contiguous()
+    ms1 = cuda_ms(lambda: quantize_cuda(v))
+    plain1 = cuda_ms(lambda: quantize_batched_ref(v), iters=50, warmup=5)
+    dus1 = device_us(lambda: quantize_cuda(v), "quantize_kernel")
+    b1, b1_by = bound_ms(4 * n_params + lp + 4 * tiles, 6 * n_params)
+    print(f"  quantize   L={n_params} (one update): kernel_ms {ms1:.5f}  device_us "
+          f"{'not measured' if dus1 is None else f'{dus1:.3f}'}  plain_ms {plain1:.5f}  "
+          f"library_ms none  bound_ms {b1:.6f} ({b1_by})")
+
+    # dequantize of one update (the loop engine's decompress_update)
+    q1, s1 = quantize_batched_ref(v)
+    ms = cuda_ms(lambda: dequantize_cuda(q1, s1, n_params))
+    plain = cuda_ms(lambda: dequantize_ref(q1, s1, n_params), iters=50, warmup=5)
+    b_ms, b_by = bound_ms(n_params + 4 * tiles + 4 * n_params, n_params)
+    rows.append(dict(name="dequantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/kernel.py:120",
+                     device_us=device_us(lambda: dequantize_cuda(q1, s1, n_params),
+                                         "dequantize_kernel"),
+                     launches=counts["dequantize"], max_abs_err=errs["dequantize"], ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     shape=f"Lp={lp} -> L={n_params}"))
+    return rows
+
+
+def time_lane_cell(dev, lanes, b, f, h):
+    """The LSTM cell at the fleet's fit shape, 64 lanes in one launch."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    g = torch.Generator().manual_seed(10)
+    args = [torch.randn(sh, generator=g).to(dev) * 0.3 for sh in [
+        (lanes, b, f), (lanes, b, h), (lanes, b, h), (lanes, f, 4 * h), (lanes, h, 4 * h),
+        (lanes, 4 * h)]]
+    ms = cuda_ms(lambda: lstm_cell_cuda(*args))
+    plain = cuda_ms(lambda: lstm_cell_ref(*args))
+    dus = device_us(lambda: lstm_cell_cuda(*args), "lstm_cell_kernel")
+    nbytes = 4 * lanes * (b * f + 2 * b * h + f * 4 * h + h * 4 * h + 4 * h + 2 * b * h)
+    ops = lanes * (2 * b * (f + h) * 4 * h + 2 * b * 4 * h + 10 * b * h)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"  lstm_cell  L,B,F,H={lanes},{b},{f},{h} (fleet fit): kernel_ms {ms:.5f}  device_us "
+          f"{'not measured' if dus is None else f'{dus:.3f}'}  plain_ms {plain:.5f}  "
+          f"library_ms none  bound_ms {b_ms:.6f} ({b_by})")
+
+
+def time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
@@ -309,21 +707,23 @@ def time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
     g = torch.Generator().manual_seed(3)
     rows = []
 
-    # eq. 14 at (R, N, L) = (1, 5, P)
-    r, n, l = 1, n_contrib, n_params
-    u = torch.randn((r, n, l), generator=g).to(dev)
-    w = torch.ones((r, n)).to(dev)
-    ms = cuda_ms(lambda: fedavg_batched_cuda(u, w))
-    plain = cuda_ms(lambda: fedavg_batched_ref(u, w))
-    lib = cuda_ms(lambda: torch.einsum("rn,rnl->rl", w, u) / w.sum(dim=1, keepdim=True))
-    b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
-    dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
-    rows.append(dict(name="fedavg", route="cuda", device_us=dev_us,
-                     source="src/repro_torch/csrc/fedavg.cu",
-                     replaces="src/repro/kernels/fedavg/kernel.py:157",
-                     launches=counts["fedavg"], max_abs_err=errs["fedavg"], ms=ms,
-                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                     shape=f"R,N,L={r},{n},{l}"))
+    # eq. 14 at the loop's (R, N, L) = (1, 5, P) and the fleet's (64, 5, P)
+    for name, r, replaces in (("fedavg", 1, "src/repro/kernels/fedavg/kernel.py:157"),
+                              ("fedavg_batched", FLEET_R,
+                               "src/repro/kernels/fedavg/kernel.py:122")):
+        n, l = n_contrib, n_params
+        u = torch.randn((r, n, l), generator=g).to(dev)
+        w = torch.ones((r, n)).to(dev)
+        ms = cuda_ms(lambda: fedavg_batched_cuda(u, w))
+        plain = cuda_ms(lambda: fedavg_batched_ref(u, w))
+        lib = cuda_ms(lambda: torch.einsum("rn,rnl->rl", w, u) / w.sum(dim=1, keepdim=True))
+        b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
+        dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
+        rows.append(dict(name=name, route="cuda", device_us=dev_us,
+                         source="src/repro_torch/csrc/fedavg.cu", replaces=replaces,
+                         launches=counts[name], max_abs_err=errs[name], ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                         shape=f"R,N,L={r},{n},{l}"))
 
     # LSTM cell at the fit shape (B, F, H) = (32, 6, 64)
     b = fit_b
@@ -366,13 +766,6 @@ def time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
                      launches=counts["aes_ctr"], max_abs_err=errs["aes_ctr"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape=f"n={nb} B ({blocks} blocks)"))
-    for row in rows:
-        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
-        dus = "not measured" if row["device_us"] is None else f"{row['device_us']:.3f}"
-        print(f"  {row['name']:9s} {row['shape']}: kernel_ms {row['ms']:.5f}  device_us {dus}  "
-              f"plain_ms {row['plain_ms']:.5f}  library_ms {lib}  "
-              f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']})  "
-              f"launches/session {row['launches']}")
     return rows
 
 
@@ -411,6 +804,41 @@ def fit_device_view(task, own_train):
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  {e.key[:90]}")
 
 
+def fleet_device_view(device, world, pretrained):
+    """One round of the 64-requester fleet (fp32), untraced and traced:
+    wall, device-busy share and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import run_fleet
+
+    task = world[0]
+    cfg = dataclasses.replace(session_cfg(1), desired_accuracy=1.01)
+    run_fleet(task, fleet_specs(device, world, pretrained, FLEET_R), cfg, device=device)
+    torch.cuda.synchronize()
+    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    t0 = time.perf_counter()
+    run_fleet(task, specs, cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_fleet(task, specs, cfg, device=device)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_s = sum(e.self_device_time_total for e in kern) * 1e-6
+    print(f"  one fleet round (R={FLEET_R}, {FIT_EPOCHS} epochs, refresh included): wall "
+          f"{wall * 1e3:.2f} ms untraced, {traced * 1e3:.2f} ms traced; device busy "
+          f"{busy_s * 1e3:.3f} ms ({100 * busy_s / traced:.1f} % of the traced wall, "
+          f"{100 * busy_s / wall:.1f} % of the untraced one)")
+    if not kern:
+        print("  device time: not measured (the profiler saw no kernels)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -418,7 +846,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (sets the TF32 policy)
     from repro_torch.kernels import _build
-    from repro_torch.utils.tree import tree_size
+    from repro_torch.utils.tree import tree_ravel, tree_size
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -441,19 +869,44 @@ def main() -> int:
     f, h, n_contrib = cfg.input_dim, cfg.hidden, 5
     n_params = tree_size(task.init(0))
     fit_b, score_b = min(32, len(own_train[0])), len(own_test[0])
+    lp = n_params + (-n_params) % TILE
     print("[3] kernels against their plain versions on the card")
-    errs = {"fedavg": check_fedavg(dev, (1, n_contrib, n_params)),
-            "lstm_cell": check_lstm(dev, fit_b, score_b, f, h),
-            "aes_ctr": check_aes(dev, 4 * n_params)}
+    errs = {}
+    errs["fedavg"], errs["fedavg_batched"] = check_fedavg(
+        dev, (1, n_contrib, n_params), (FLEET_R, n_contrib, n_params))
+    errs.update(fedavg_q8=check_fedavg_q8(dev, (FLEET_R, n_contrib, lp)),
+                quantize=check_quantize(dev, n_params, FLEET_R * n_contrib),
+                dequantize=check_dequantize(dev, n_params),
+                lstm_cell=check_lstm(dev, fit_b, score_b, f, h),
+                aes_ctr=check_aes(dev, 4 * n_params))
+    # the fleet's lanes: every requester's test set pads to the longest, and
+    # REFRESH trains one row per contributor (all 64 requesters share the 5)
+    fleet_score_b = max(len(test[0]) for _, test in fleet_split())
+    errs["lstm_cell"] = max(errs["lstm_cell"], check_lane_lstm(
+        dev, tree_ravel(task.init(0))[1], n_params, fit_b, fleet_score_b, n_contrib))
 
-    print("[4] main path: the quickstart session at full width on the card")
-    counts = run_main_path(dev, world)
+    print("[4] main paths at full width on the card")
+    print(" [4a] the quickstart session (loop engine, fp32 wire)")
+    loop_counts, pretrained = run_main_path(dev, world)
+    print(" [4b] the quickstart session with the int8 wire")
+    int8_counts = run_loop_int8(dev, world, pretrained)
+    print(f" [4c] the fleet engine, {FLEET_R} requesters")
+    fleet_counts = run_fleet_path(dev, world, pretrained)
+    paths = [loop_counts, int8_counts, fleet_counts["fp32"], fleet_counts["int8"]]
+    counts = {k: sum(c[k] for c in paths) for k in loop_counts}
+    # eq. 14 at R = 1 (row 1 of the kernel table) runs in the loop engine,
+    # at R = 64 (row 2) in the fleet: one wrapper, counted per path
+    counts["fedavg"] = loop_counts["fedavg"] + int8_counts["fedavg"]
+    counts["fedavg_batched"] = fleet_counts["fp32"]["fedavg"] + fleet_counts["int8"]["fedavg"]
+    print(f"  launches over the main paths: {counts}")
+    print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
-    print("[5] kernel timings at the main path's shapes (CUDA events)")
+    print("[5] kernel timings at the main paths' shapes (CUDA events)")
     rows = time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
 
-    print("[6] where the time goes in fit (torch.profiler)")
+    print("[6] where the time goes (torch.profiler)")
     fit_device_view(task, own_train)
+    fleet_device_view(dev, world, pretrained)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{k: row[k] for k in ("name", "route", "source", "replaces", "launches",

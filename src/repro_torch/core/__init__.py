@@ -1,7 +1,9 @@
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, DeviceProfile, EnergyReport, LinkProfile
 from repro_torch.core.federated import SupervisedTask
-from repro_torch.core.incentive import Contract, NeighborDevice, make_fleet, select_contributors
+from repro_torch.core.fleet import FleetResult, RequesterSpec, run_fleet
+from repro_torch.core.incentive import (Contract, NeighborDevice, make_fleet,
+                                        select_contributors, sign_contracts_fleet)
 from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
 from repro_torch.core.topology import AggregationStrategy
 
@@ -14,10 +16,14 @@ __all__ = [
     "EnFedConfig",
     "EnFedSession",
     "EnergyReport",
+    "FleetResult",
     "LinkProfile",
     "NeighborDevice",
+    "RequesterSpec",
     "SessionResult",
     "SupervisedTask",
     "make_fleet",
+    "run_fleet",
     "select_contributors",
+    "sign_contracts_fleet",
 ]

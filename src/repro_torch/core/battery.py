@@ -7,12 +7,15 @@ energy-to-charge conversion with a load-dependent efficiency factor so
 heavy phases (training) drain proportionally more than their Joule count.
 
 :class:`BatteryState` is the host-side state of one requesting device
-(``repro_torch.core.rounds``); :func:`discharge_level` is its formula.
+(``repro_torch.core.rounds``); :func:`discharge_level` is its formula, on
+floats there and on the fleet's per-lane fp32 tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 def load_efficiency(avg_power_w: float, high_load_penalty: float,
@@ -22,8 +25,12 @@ def load_efficiency(avg_power_w: float, high_load_penalty: float,
 
 
 def discharge_level(level, energy_j, capacity_j, efficiency=1.0):
-    """New battery fraction after spending ``energy_j`` joules."""
-    return max(level - efficiency * energy_j / capacity_j, 0.0)
+    """New battery fraction after spending ``energy_j`` joules; floats
+    (the loop engine) or tensors of per-lane levels (the fleet)."""
+    new_level = level - efficiency * energy_j / capacity_j
+    if isinstance(new_level, torch.Tensor):
+        return torch.clamp_min(new_level, 0.0)
+    return max(new_level, 0.0)
 
 
 @dataclasses.dataclass

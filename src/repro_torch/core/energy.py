@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.kernels.quantize.ops import compressed_nbytes, resolve_compress
+
 
 def update_wire_bytes(num_params: int, *, encrypt: bool = True,
                       compress: Optional[str] = None,
@@ -27,15 +29,17 @@ def update_wire_bytes(num_params: int, *, encrypt: bool = True,
     """Bytes ONE model update occupies on the wire — the ``model_bytes``
     every eq. (4)-(7) term is priced from.
 
-    An encrypted fp32 update is the serialized stream (``4 *
-    num_params``); a plaintext one is the raw tree bytes when the caller
-    supplies them.  The int8 wire tier is a later slice of the port
-    (``ROADMAP.md`` slice D) and raises here.
+    Under ``compress="int8"`` the update is a tile-padded int8 payload
+    plus one fp32 scale per tile
+    (``repro_torch.kernels.quantize.ops.compressed_nbytes``), the same
+    count encrypted or not; ``"auto"`` resolves through the engines' own
+    ``resolve_compress`` first.  An encrypted fp32 update is the
+    serialized stream (``4 * num_params``); a plaintext one is the raw
+    tree bytes when the caller supplies them.
     """
-    if compress is not None:
-        raise NotImplementedError(
-            f"compress={compress!r} is the int8 wire tier, ROADMAP.md slice D "
-            "(not ported yet)")
+    compress = resolve_compress(compress, num_params)
+    if compress == "int8":
+        return compressed_nbytes(num_params)
     if encrypt or raw_bytes is None:
         return 4 * num_params
     return raw_bytes

@@ -1,5 +1,6 @@
 """Contract-theory incentive mechanism (paper §III, [31]); copy of the
-static-neighbourhood part of ``repro.core.incentive``.
+static-neighbourhood part of ``repro.core.incentive``, for one requester
+(:func:`select_contributors`) and for a fleet (:func:`sign_contracts_fleet`).
 
 The requesting device publishes an offered incentive; each nearby device
 has a private reservation price (its cost of participating: battery it
@@ -60,6 +61,25 @@ def select_contributors(devices: Sequence[NeighborDevice], offered_incentive: fl
     return [Contract(device_id=d.device_id, incentive=offered_incentive,
                      utility=contract_utility(d, max_data))
             for d in ranked[:n_max]]
+
+
+def sign_contracts_fleet(neighborhoods: Sequence[Sequence[NeighborDevice]],
+                         offered_incentive: float, n_max: int,
+                         min_battery: float = 0.1):
+    """Handshake phase for a whole fleet of requesters at once.
+
+    ``neighborhoods[i]`` is requester *i*'s view of the device population.
+    Returns ``(contracts, mask)``: ``contracts[i]`` is requester *i*'s
+    ranked contract list and ``mask`` an (R, n_max) float32 matrix with
+    1.0 at slot (i, j) iff requester *i* signed a j-th contributor (slot
+    order is contract rank, the loop engine's aggregation order).
+    """
+    contracts = [select_contributors(devs, offered_incentive, n_max, min_battery)
+                 for devs in neighborhoods]
+    mask = np.zeros((len(contracts), n_max), np.float32)
+    for i, cs in enumerate(contracts):
+        mask[i, :len(cs)] = 1.0
+    return contracts, mask
 
 
 def make_fleet(num_devices: int, seed: int = 0, p_has_model: float = 0.9) -> List[NeighborDevice]:

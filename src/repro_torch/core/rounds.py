@@ -2,16 +2,25 @@
 loop engine of ``repro.core.rounds``).
 
 Handshake (contract selection + AES key exchange), then per round:
-collect every contributor's fp32 update over AES-128-CTR, aggregate with
+collect every contributor's update over AES-128-CTR, aggregate with
 eq. 14, fit the requester's model with masked Adam over the counter-based
 schedule, score it, and account for it (eqs. 4-7 and the battery); the
 session stops on the desired accuracy, the battery threshold, or the
 round budget.  The hot loops run through the port's kernel ops: the
-cipher in ``core/crypto.py``, eq. 14 in ``core/aggregation.py`` and the
-LSTM cell in the classifier.
+cipher in ``core/crypto.py``, eq. 14 in ``core/aggregation.py``, the int8
+wire in ``kernels/quantize`` and the LSTM cell in the classifier.
 
-This slice covers the static, lockstep, fp32 world: ``encrypt`` on or
-off and any ``strategy``.  Every other knob of ``EnFedConfig`` raises
+Under ``compress="int8"`` (or ``"auto"`` resolved to it) every transported
+update is int8 codes plus one fp32 scale per 1024-element tile: the
+contributors' states are packed at the handshake and after every refresh
+(``_wire_pack``), the AES round trip runs over exactly those bytes, and
+the refresh trains from the dequantized wire image (``_wire_image``), as
+the fleet engine's int8 round state does.
+
+``run(engine="fleet")`` runs the session as a one-requester fleet
+(:func:`repro_torch.core.fleet.run_fleet`).  This slice covers the static,
+lockstep world: ``encrypt`` on or off, any ``strategy`` and any
+``compress``.  Every other knob of ``EnFedConfig`` raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` slice that ports it.
 """
 
@@ -31,6 +40,8 @@ from repro_torch.core.energy import CostModel, EnergyReport
 from repro_torch.core.incentive import Contract, NeighborDevice, select_contributors
 from repro_torch.core.topology import AggregationStrategy
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.quantize.ops import (compress_update, decompress_update,
+                                              resolve_compress)
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_size,
                                     unflatten_from_vector)
 
@@ -51,9 +62,9 @@ class EnFedConfig:
     seed: int = 0
     # which signed contributors feed eq. (14) each round (None = all)
     strategy: Optional[AggregationStrategy] = None
-    # The knobs below belong to later slices of the port; the session
-    # raises NotImplementedError unless they keep their defaults.
-    compress: Optional[str] = None          # int8 wire tier: slice D
+    compress: Optional[str] = None          # None | "int8" | "auto" wire format
+    # The knobs below belong to later slices of the port; the engines
+    # raise NotImplementedError unless they keep their defaults.
     mobility: Optional[object] = None       # opportunistic world: slice E
     faults: Optional[object] = None         # unreliable links: slice E
     cadence: Optional[object] = None        # asynchronous cadence: slice E
@@ -76,8 +87,6 @@ class EnFedConfig:
 
 def _unported(cfg: EnFedConfig) -> Optional[str]:
     """The first knob of ``cfg`` this slice does not run, with its slice."""
-    if cfg.compress is not None:
-        return f"compress={cfg.compress!r} (int8 wire tier, ROADMAP.md slice D)"
     for name in ("mobility", "faults", "cadence", "adversary"):
         if getattr(cfg, name) is not None:
             return f"{name} (world state, ROADMAP.md slice E)"
@@ -131,6 +140,11 @@ class EnFedSession:
         self.cfg = cfg if cfg is not None else EnFedConfig()
         self.cost = cost_model or CostModel()
         self.battery = battery or BatteryState()
+        # "auto" resolves once, from the model size, as run_fleet resolves it
+        self._compress = self.cfg.compress
+        if self._compress == "auto" and contributor_states:
+            template = next(iter(contributor_states.values()))["params"]
+            self._compress = resolve_compress("auto", tree_size(template))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -155,12 +169,49 @@ class EnFedSession:
                      for c in contracts}
         self.nonces = {c.device_id: rng.integers(0, 256, 8).astype(np.uint8)
                        for c in contracts}
+        self._wire = {}
+        if self._compress == "int8":
+            for c in contracts:
+                self._wire_pack(c.device_id,
+                                self.contributor_states[c.device_id]["params"])
         return contracts
 
+    def _wire_pack(self, device_id: int, params):
+        """Under int8 a contributor's transported state IS wire format:
+        quantize ``params`` into the (q, scales) cache and return the
+        dequantized image of that payload."""
+        q, s, n = compress_update(flatten_to_vector(params)[0])
+        self._wire[device_id] = (q, s, n)
+        return unflatten_from_vector(decompress_update(q, s, n), params)
+
+    def _wire_image(self, device_id: int, template):
+        """The dequantized fp32 image of a cached wire payload: what the
+        receiver (and the refresh trainer) sees."""
+        q, s, n = self._wire[device_id]
+        return unflatten_from_vector(decompress_update(q, s, n), template)
+
     def _collect_update(self, device_id: int):
-        """Phase.COLLECT: contributor -> (encrypt) -> wire -> (decrypt).
-        Returns the received tree and its wire bytes."""
+        """Phase.COLLECT: contributor -> (compress) -> (encrypt) -> wire ->
+        (decrypt) -> (decompress).  Returns the received tree and its wire
+        bytes."""
         params = self.contributor_states[device_id]["params"]
+        if self._compress == "int8":
+            # the payload is the int8 codes followed by the little-endian
+            # fp32 scales; CTR keeps the length, so the wire bytes are the
+            # compressed count either way
+            q, s, n = self._wire[device_id]
+            if not self.cfg.encrypt:
+                return (unflatten_from_vector(decompress_update(q, s, n), params),
+                        int(q.shape[0]) + 4 * int(s.shape[0]))
+            payload = torch.cat([q.view(torch.uint8), crypto.float_vector_to_bytes(s)])
+            key, nonce = self.keys[device_id], self.nonces[device_id]
+            cipher = crypto.encrypt_bytes(payload, key, nonce)
+            plain = crypto.decrypt_bytes(cipher, key, nonce)
+            nq = int(q.shape[0])
+            qr = plain[:nq].view(torch.int8)
+            sr = crypto.bytes_to_float_vector(plain[nq:])
+            return (unflatten_from_vector(decompress_update(qr, sr, n), params),
+                    int(cipher.shape[0]))
         if not self.cfg.encrypt:
             return params, tree_bytes(params)
         vec, _ = flatten_to_vector(params)
@@ -169,22 +220,42 @@ class EnFedSession:
         return unflatten_from_vector(plain, params), int(cipher.shape[0])
 
     def _refresh_contributors(self, contracts: List[Contract]):
-        """Phase.REFRESH: contributors keep improving between rounds."""
+        """Phase.REFRESH: contributors keep improving between rounds.
+        Under int8 a contributor trains from its wire image and its result
+        is packed back into wire format."""
         if self.cfg.contributor_refresh_epochs <= 0:
             return
+        compress = self._compress == "int8"
         for c in contracts:
             st = self.contributor_states[c.device_id]
-            st["params"], _ = self.task.fit(
-                st["params"], st["data"], self.cfg.contributor_refresh_epochs,
+            base = (self._wire_image(c.device_id, st["params"]) if compress
+                    else st["params"])
+            fitted, _ = self.task.fit(
+                base, st["data"], self.cfg.contributor_refresh_epochs,
                 self.cfg.batch_size, seed=self.cfg.seed + c.device_id)
+            st["params"] = (self._wire_pack(c.device_id, fitted) if compress
+                            else fitted)
 
     # -- Algorithm 1 ----------------------------------------------------------
     def run(self, engine: str = "loop", *, checkpoint_dir: Optional[str] = None,
             resume_from: Optional[str] = None) -> SessionResult:
-        """Execute the session with the loop engine."""
+        """Execute the session with the loop engine, or as a one-requester
+        fleet (``engine="fleet"``)."""
         if engine == "fleet":
-            raise NotImplementedError(
-                "engine='fleet' is the batched fleet engine, ROADMAP.md slice C")
+            from repro_torch.core import fleet as fleet_mod
+
+            spec = fleet_mod.RequesterSpec(
+                own_train=self.own_train, own_test=self.own_test,
+                neighborhood=self.fleet,
+                contributor_states=self.contributor_states,
+                battery=self.battery)
+            result = fleet_mod.run_fleet(self.task, [spec], self.cfg,
+                                         cost_model=self.cost,
+                                         checkpoint_dir=checkpoint_dir,
+                                         resume_from=resume_from,
+                                         device=self.device)
+            self.battery = result.sessions[0].battery
+            return result.sessions[0]
         if engine != "loop":
             raise ValueError(f"unknown engine {engine!r} (loop|fleet)")
         if checkpoint_dir is not None or resume_from is not None:

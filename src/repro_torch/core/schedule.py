@@ -10,7 +10,8 @@ the last partial batch; smaller shards run as one padded batch whose
 padding weighs zero.
 
 The plan is computed on the host (CPU tensors), like the JAX loop engine
-does; callers move ``idx`` to their device once per fit.  Requester fit in
+does; callers move ``idx`` to their device once per fit.  The fleet plans
+all its lanes at once with :func:`lane_plans`.  Requester fit in
 round ``r`` uses ``seed = cfg.seed + r``; contributor refresh uses
 ``seed = cfg.seed + device_id``.
 """
@@ -45,19 +46,35 @@ def plan_from_scores(scores: torch.Tensor, n: int, batch: int, steps: int):
     indices and ``w`` (epochs, steps, batch) fp32 sample weights.
     Positions past the usable budget (``(n // batch) * batch``, or ``n``
     for a sub-batch shard) get weight 0 and index 0."""
-    epochs, n_pad = scores.shape
+    idx, w = lane_plans(scores, [n], batch, steps)
+    return idx[0], w[0]
+
+
+def lane_plans(scores: torch.Tensor, n, batch: int, steps: int):
+    """The plans of R lanes at once (:func:`plan_from_scores` is the case
+    R = 1).  ``scores`` is (epochs, n_pad), shared by every lane (the
+    fleet's requesters in a static lockstep world score with ``seed + r``),
+    or (R, epochs, n_pad), one row per lane (the refresh rows' own seeds);
+    ``n`` holds the R true shard sizes.  Returns ``idx, w`` of shape
+    (R, epochs, steps, batch): one batched stable argsort, no Python loop
+    over lanes."""
+    n = torch.as_tensor(n, dtype=torch.int64)
+    lanes = n.shape[0]
+    if scores.dim() == 2:
+        scores = scores.expand(lanes, *scores.shape)
+    epochs, n_pad = scores.shape[1:]
     take = steps * batch
     pos = torch.arange(n_pad, dtype=torch.int64)
-    masked = torch.where(pos[None, :] < n, scores,
+    masked = torch.where(pos[None, None, :] < n[:, None, None], scores,
                          torch.full_like(scores, _UINT32_MAX))
     perm = torch.argsort(masked, dim=-1, stable=True)   # valid first
     if take > n_pad:
         perm = torch.nn.functional.pad(perm, (0, take - n_pad))
-    n_limit = (n // batch) * batch if n >= batch else n
-    w = (torch.arange(take) < n_limit).to(torch.float32)
-    idx = torch.where(w > 0, perm[:, :take], torch.zeros_like(perm[:, :take]))
-    return (idx.reshape(epochs, steps, batch),
-            w.reshape(1, steps, batch).expand(epochs, steps, batch).clone())
+    n_limit = torch.where(n >= batch, (n // batch) * batch, n)
+    w = (torch.arange(take)[None, :] < n_limit[:, None]).to(torch.float32)
+    idx = torch.where(w[:, None, :] > 0, perm[..., :take], torch.zeros_like(perm[..., :take]))
+    return (idx.reshape(lanes, epochs, steps, batch),
+            w.reshape(lanes, 1, steps, batch).expand(lanes, epochs, steps, batch).clone())
 
 
 def fit_steps(n: int, batch: int) -> int:

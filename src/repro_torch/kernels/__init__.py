@@ -1,6 +1,6 @@
 """The port's hand-written Hopper kernels, one package each:
-``kernel.py`` (ctypes launcher of ``csrc/<name>.cu`` with its launch
-count), ``ref.py`` (the plain PyTorch twin, which is the spec) and
+``kernel.py`` (ctypes launchers of ``csrc/<name>.cu`` with their launch
+counts), ``ref.py`` (the plain PyTorch twins, which are the spec) and
 ``ops.py`` (dispatch on the tensor's device)."""
 
 from __future__ import annotations
@@ -10,15 +10,24 @@ from typing import Dict
 from repro_torch.kernels.aes_ctr import kernel as _aes_ctr
 from repro_torch.kernels.fedavg import kernel as _fedavg
 from repro_torch.kernels.lstm_cell import kernel as _lstm_cell
+from repro_torch.kernels.quantize import kernel as _quantize
 
-_KERNELS = {"fedavg": _fedavg, "lstm_cell": _lstm_cell, "aes_ctr": _aes_ctr}
+# kernel name -> (launcher module, name of its launch counter)
+_COUNTERS = {
+    "fedavg": (_fedavg, "launches"),
+    "fedavg_q8": (_fedavg, "q8_launches"),
+    "lstm_cell": (_lstm_cell, "launches"),
+    "aes_ctr": (_aes_ctr, "launches"),
+    "quantize": (_quantize, "launches"),
+    "dequantize": (_quantize, "dequantize_launches"),
+}
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

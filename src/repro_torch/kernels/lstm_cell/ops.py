@@ -6,7 +6,9 @@ kernel has no VJP, so :class:`LSTMCellFunction` supplies one: its forward
 goes through ``lstm_cell`` and its backward is plain PyTorch
 (``ref.lstm_cell_backward_ref``) that recomputes the gates from the saved
 inputs.  The classifier always calls the Function, so the CPU tests
-exercise the same backward the card runs.
+exercise the same backward the card runs.  Inputs may carry a leading
+lane axis (x (L, B, F), b (L, 4H)); the fleet trains its lanes that way and
+the loop engine is the case L = 1.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from repro_torch.kernels.lstm_cell.ref import lstm_cell_backward_ref, lstm_cell_
 
 
 def lstm_cell(x, h, c, wx, wh, b):
-    """(h', c') of one timestep; shapes as in ``ref.lstm_cell_ref``."""
+    """(h', c') of one timestep, with or without the lane axis; shapes as
+    in ``ref.lstm_cell_ref``."""
     if is_cpu(x):
         return lstm_cell_ref(x, h, c, wx, wh, b)
     return lstm_cell_cuda(x, h, c, wx, wh, b)

@@ -1,5 +1,10 @@
 """Plain PyTorch LSTM cell and its gradient: the spec of
-``csrc/lstm_cell.cu`` and of a later backward kernel."""
+``csrc/lstm_cell.cu`` and of a later backward kernel.
+
+Every tensor may carry a leading lane axis (the fleet trains L lanes with
+different params at once): x (L, B, F), h and c (L, B, H), wx (L, F, 4H),
+wh (L, H, 4H), b (L, 4H).  Without it, x is (B, F) and b is (4H,).
+"""
 
 from __future__ import annotations
 
@@ -7,9 +12,9 @@ import torch
 
 
 def lstm_cell_ref(x, h, c, wx, wh, b):
-    """x (B, F); h, c (B, H); wx (F, 4H); wh (H, 4H); b (4H,).  Gate layout
-    [i | f | g | o] along 4H.  Returns (h', c')."""
-    gates = x @ wx + h @ wh + b
+    """One timestep.  Gate layout [i | f | g | o] along 4H.  Returns
+    (h', c')."""
+    gates = x @ wx + h @ wh + b[..., None, :]
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -19,8 +24,9 @@ def lstm_cell_ref(x, h, c, wx, wh, b):
 def lstm_cell_backward_ref(x, h, c, wx, wh, b, dh_new, dc_new):
     """Gradient of :func:`lstm_cell_ref` given the output cotangents,
     recomputing the gates from the inputs.  Returns
-    (dx, dh, dc, dwx, dwh, db)."""
-    gates = x @ wx + h @ wh + b
+    (dx, dh, dc, dwx, dwh, db); the bias gradient sums over the batch
+    axis only, so each lane keeps its own."""
+    gates = x @ wx + h @ wh + b[..., None, :]
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
     c_new = sf * c + si * tg
@@ -31,5 +37,6 @@ def lstm_cell_backward_ref(x, h, c, wx, wh, b, dh_new, dc_new):
     d_g = dc_tot * si * (1.0 - tg * tg)
     d_o = dh_new * tc * so * (1.0 - so)
     dgates = torch.cat([d_i, d_f, d_g, d_o], dim=-1)
-    return (dgates @ wx.t(), dgates @ wh.t(), dc_tot * sf,
-            x.t() @ dgates, h.t() @ dgates, dgates.sum(dim=0))
+    return (dgates @ wx.transpose(-1, -2), dgates @ wh.transpose(-1, -2), dc_tot * sf,
+            x.transpose(-1, -2) @ dgates, h.transpose(-1, -2) @ dgates,
+            dgates.sum(dim=-2))

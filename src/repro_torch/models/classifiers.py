@@ -10,6 +10,10 @@ Python loop over T whose body is the differentiable cell op
 (``repro_torch.kernels.lstm_cell.ops``): the hand-written kernel on the
 card, its plain twin on the CPU.  The output head and the MLP stay
 ``torch.matmul``, as the JAX package leaves them to XLA.
+
+:meth:`lane_logits` is the fleet's form: every parameter leaf carries a
+leading lane axis L (each lane trains its own params) and x is (L, B, ...).
+:meth:`logits` is its case L = 1, for both models.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.lstm_cell.ops import lstm_cell_autograd
 from repro_torch.models.layers import dense_init
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +70,11 @@ class _Classifier(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.logits(self.param_tree(), x)
 
+    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """One set of params, x (B, ...) -> logits (B, num_classes): the
+        lane form at L = 1."""
+        return self.lane_logits(tree_map(lambda p: p[None], params), x[None])[0]
+
 
 # ---------------------------------------------------------------------------
 # LSTM
@@ -92,16 +102,16 @@ class LSTMClassifier(_Classifier):
             "b_out": torch.zeros((cfg.num_classes,), dtype=torch.float32, device=dev),
         }
 
-    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, F) -> logits (B, num_classes)."""
-        B, T = x.shape[0], x.shape[1]
-        steps = x.transpose(0, 1).contiguous()   # (T, B, F): contiguous x_t
-        h = torch.zeros((B, self.cfg.hidden), dtype=torch.float32, device=x.device)
+    def lane_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Leaves (L, ...), x (L, B, T, F) -> logits (L, B, num_classes)."""
+        L, B, T = x.shape[0], x.shape[1], x.shape[2]
+        steps = x.permute(2, 0, 1, 3).contiguous()   # (T, L, B, F): contiguous x_t
+        h = torch.zeros((L, B, self.cfg.hidden), dtype=torch.float32, device=x.device)
         c = torch.zeros_like(h)
         for t in range(T):
             h, c = lstm_cell_autograd(steps[t], h, c, params["wx"],
                                       params["wh"], params["b"])
-        return h @ params["w_out"] + params["b_out"]
+        return h @ params["w_out"] + params["b_out"].unsqueeze(-2)
 
 
 # ---------------------------------------------------------------------------
@@ -138,12 +148,12 @@ class MLPClassifier(_Classifier):
             for i in range(len(dims) - 1)
         }
 
-    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """x (B, F) -> logits (B, num_classes)."""
+    def lane_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Leaves (L, ...), x (L, B, F) -> logits (L, B, num_classes)."""
         n = len(params)
         for i in range(n):
             lp = params[f"layer{i}"]
-            x = x @ lp["w"] + lp["b"]
+            x = torch.matmul(x, lp["w"]) + lp["b"].unsqueeze(-2)
             if i < n - 1:
                 x = torch.relu(x)
         return x
@@ -157,10 +167,13 @@ class MLPClassifier(_Classifier):
 def masked_cross_entropy_loss(logits, labels, weights):
     """Per-sample-weighted categorical cross-entropy; ``weights`` is the
     minibatch's 0/1 sample mask from the schedule.  Denominator
-    ``max(sum(w), 1)``."""
+    ``max(sum(w), 1)``.  Logits (..., B, C), labels and weights (..., B)
+    -> (...): with a lane axis, one loss per lane.  Lanes are independent,
+    so the gradient of the sum over lanes is each lane's own gradient."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
-    return torch.sum(nll * weights) / torch.clamp_min(torch.sum(weights), 1.0)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return (torch.sum(nll * weights, dim=-1)
+            / torch.clamp_min(torch.sum(weights, dim=-1), 1.0))
 
 
 def accuracy(logits, labels):

@@ -9,6 +9,9 @@ API mirrors the JAX package:
     state = opt.init(params)
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
+
+:func:`lane_adam_step` is the fleet's form of the same update on a flat
+(L, P) buffer, with a per-lane step count.
 """
 
 from __future__ import annotations
@@ -69,3 +72,38 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def apply_updates(params, updates):
     return tree_map(torch.add, params, updates)
+
+
+class LaneAdamState(NamedTuple):
+    step: torch.Tensor   # (L,) int32 steps taken by each lane
+    mu: torch.Tensor     # (L, P) fp32
+    nu: torch.Tensor     # (L, P) fp32
+
+
+def lane_adam_init(flat: torch.Tensor) -> LaneAdamState:
+    return LaneAdamState(
+        step=torch.zeros(flat.shape[0], dtype=torch.int32, device=flat.device),
+        mu=torch.zeros(flat.shape, dtype=torch.float32, device=flat.device),
+        nu=torch.zeros(flat.shape, dtype=torch.float32, device=flat.device))
+
+
+def lane_adam_step(flat: torch.Tensor, grads: torch.Tensor, state: LaneAdamState,
+                   take: torch.Tensor, lr: float, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-8):
+    """One Adam step of every lane of a flat (L, P) buffer, as
+    :func:`adam` writes it, with each lane's own step count and fp32 bias
+    corrections.  A lane whose ``take`` is False (its minibatch weights
+    sum to 0) keeps params, moments and count, with no host sync.
+    Returns ``(flat, state)``."""
+    step = state.step + 1
+    mu = b1 * state.mu + (1 - b1) * grads
+    nu = b2 * state.nu + (1 - b2) * torch.square(grads)
+    step_f = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=flat.device), step_f)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=flat.device), step_f)
+    upd = -(lr * (mu / bc1[:, None]) / (torch.sqrt(nu / bc2[:, None]) + eps))
+    t = take[:, None]
+    return (torch.where(t, flat + upd, flat),
+            LaneAdamState(step=torch.where(take, step, state.step),
+                          mu=torch.where(t, mu, state.mu),
+                          nu=torch.where(t, nu, state.nu)))

@@ -10,6 +10,7 @@ wire format.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -78,30 +79,59 @@ def tree_weighted_mean(trees, weights):
     return tree_map(_avg, *trees)
 
 
+def tree_spec(tree, batch_ndim: int = 0):
+    """A tree of ``(leaf_shape, dtype)`` past the first ``batch_ndim``
+    axes: what :func:`tree_unravel` needs to rebuild ``tree``'s layout."""
+    return tree_map(lambda l: (tuple(l.shape[batch_ndim:]), l.dtype), tree)
+
+
+def tree_ravel(tree, batch_ndim: int = 0):
+    """Ravel a (possibly batch-stacked) tree into one fp32 buffer.
+
+    The first ``batch_ndim`` axes of every leaf are shared batch axes (the
+    fleet's (R, N) requester x contributor grid); the rest of each leaf is
+    concatenated, in jax leaf order, into a trailing parameter axis.
+    Returns ``(flat, spec)``: ``flat`` of shape ``batch_shape + (P,)`` and
+    ``spec`` (:func:`tree_spec`) for :func:`tree_unravel`.
+    """
+    leaves = tree_leaves(tree)
+    batch = tuple(leaves[0].shape[:batch_ndim])
+    flat = torch.cat([l.reshape(batch + (-1,)).to(torch.float32) for l in leaves],
+                     dim=-1)
+    return flat, tree_spec(tree, batch_ndim)
+
+
+def tree_unravel(spec, flat: torch.Tensor):
+    """Inverse of :func:`tree_ravel` for any leading batch shape.  The
+    leaves are **views** of ``flat`` (for fp32 leaves), so autograd through
+    them gives the gradient of ``flat`` directly, with no copy."""
+    batch = tuple(flat.shape[:-1])
+    out, off = [], 0
+    for shape, dtype in tree_leaves(spec):
+        size = int(np.prod(shape, dtype=np.int64))
+        out.append(flat[..., off:off + size].reshape(batch + shape).to(dtype))
+        off += size
+    if off != flat.shape[-1]:
+        raise ValueError(f"spec covers {off} parameters, the buffer holds "
+                         f"{flat.shape[-1]}")
+    return tree_from_leaves(spec, out)
+
+
 def flatten_to_vector(tree) -> Tuple[torch.Tensor, Callable]:
-    """All leaves concatenated (jax order) into one 1-D fp32 vector.
+    """All leaves concatenated (jax order) into one 1-D fp32 vector:
+    :func:`tree_ravel` with no batch axis.
 
     Returns ``(vector, unflatten_fn)``; the crypto layer serializes this
     vector as the transported update.
     """
-    leaves = tree_leaves(tree)
-    vec = torch.cat([l.reshape(-1).to(torch.float32) for l in leaves])
-
-    def unflatten(v):
-        return unflatten_from_vector(v, tree)
-
-    return vec, unflatten
+    vec, spec = tree_ravel(tree)
+    return vec, functools.partial(tree_unravel, spec)
 
 
 def unflatten_from_vector(vec: torch.Tensor, like_tree):
     """Inverse of :func:`flatten_to_vector` given a template tree.  The
     leaves are views of ``vec`` where the dtype allows it."""
-    out, offset = [], 0
-    for l in tree_leaves(like_tree):
-        size = int(l.numel())
-        out.append(vec[offset:offset + size].reshape(l.shape).to(l.dtype))
-        offset += size
-    return tree_from_leaves(like_tree, out)
+    return tree_unravel(tree_spec(like_tree), vec)
 
 
 def from_jax_params(np_tree, device) -> dict:

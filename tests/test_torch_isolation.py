@@ -25,6 +25,8 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
              or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
+print("NEW", sorted(m for m in sys.modules if m.endswith((".fleet", ".quantize.ops",
+                                                          ".quantize.kernel"))))
 """
 
 
@@ -35,7 +37,9 @@ def test_port_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(out.stdout.split("LOADED")[1].split()[0])
-    assert loaded >= 25, out.stdout
+    assert loaded >= 30, out.stdout
+    assert ("NEW ['repro_torch.core.fleet', 'repro_torch.kernels.quantize.kernel', "
+            "'repro_torch.kernels.quantize.ops']") in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -46,6 +50,13 @@ def test_no_port_file_imports_jax_or_repro(path):
             continue
         top = m.group(1).split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name}:{lineno}: {line.strip()}"
+
+
+def test_every_new_port_module_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/fleet.py", "src/repro_torch/kernels/quantize/ops.py",
+            "src/repro_torch/kernels/quantize/kernel.py",
+            "src/repro_torch/kernels/quantize/ref.py"} <= names
 
 
 def test_session_without_device_raises_on_a_host_without_gpu(monkeypatch):

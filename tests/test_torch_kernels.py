@@ -22,11 +22,15 @@ from repro_torch.kernels.aes_ctr import ops as aes_ops
 from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
 from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref, counter_blocks_ref
 from repro_torch.kernels.fedavg import ops as fedavg_ops
-from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
-from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
+from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda, fedavg_batched_q8_cuda
+from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref, fedavg_batched_ref
 from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.quantize import ops as quant_ops
+from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
+from repro_torch.kernels.quantize.ref import (dequantize_batched_ref, dequantize_ref,
+                                              quantize_batched_ref)
 
 # eq. 14 sums in another order than XLA's einsum: fp32 rounding only
 FEDAVG_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -112,7 +116,7 @@ def test_fedavg_kernel_wrapper_rejects_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,n,l", FEDAVG_SHAPES + [(1, 5, 18566)])
+@pytest.mark.parametrize("r,n,l", FEDAVG_SHAPES + [(1, 5, 18566), (64, 5, 18566)])
 def test_fedavg_kernel_matches_twin_on_card(r, n, l, cuda_device):
     g = torch.Generator().manual_seed(r + n + l)
     u = torch.randn((r, n, l), generator=g).to(cuda_device)
@@ -191,6 +195,147 @@ def test_lstm_kernel_matches_twin_on_card(b, f, h, cuda_device):
     hr, cr = lstm_cell_ref(*args)
     torch.testing.assert_close(hk, hr, **LSTM_TOL)
     torch.testing.assert_close(ck, cr, **LSTM_TOL)
+
+
+def _lane_lstm_inputs(lanes, b, f, h, seed):
+    per = [_lstm_inputs(b, f, h, seed + i) for i in range(lanes)]
+    return [_t(np.stack([p[k] for p in per])) for k in range(6)]
+
+
+def test_lane_cell_equals_single_lane_calls():
+    args = _lane_lstm_inputs(3, 5, 4, 6, 11)
+    hl, cl = lstm_ops.lstm_cell(*args)
+    for i in range(3):
+        hi, ci = lstm_ops.lstm_cell(*(a[i] for a in args))
+        torch.testing.assert_close(hl[i], hi, **LSTM_TOL)
+        torch.testing.assert_close(cl[i], ci, **LSTM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,b,f,h", [(64, 32, 6, 64), (5, 45, 6, 64), (3, 33, 5, 40)])
+def test_lane_cell_kernel_matches_twin_on_card(lanes, b, f, h, cuda_device):
+    args = [a.to(cuda_device) for a in _lane_lstm_inputs(lanes, b, f, h, lanes + b)]
+    hk, ck = lstm_ops.lstm_cell(*args)
+    torch.cuda.synchronize()
+    hr, cr = lstm_cell_ref(*args)
+    torch.testing.assert_close(hk, hr, **LSTM_TOL)
+    torch.testing.assert_close(ck, cr, **LSTM_TOL)
+
+
+@pytest.mark.cuda
+def test_lane_cell_kernel_takes_views_of_a_flat_buffer(cuda_device):
+    """Weights as lane-strided views of one (L, P) buffer, as the fleet
+    passes them, give the same result as contiguous copies."""
+    x, hh, cc, wx, wh, b = _lane_lstm_inputs(4, 8, 6, 16, 3)
+    flat = torch.cat([t.reshape(4, -1) for t in (wx, wh, b)], dim=1).to(cuda_device)
+    nwx, nwh = wx[0].numel(), wh[0].numel()
+    views = (flat[:, :nwx].reshape(wx.shape), flat[:, nwx:nwx + nwh].reshape(wh.shape),
+             flat[:, nwx + nwh:])
+    dev = [t.to(cuda_device) for t in (x, hh, cc)]
+    got = lstm_cell_cuda(*dev, *views)
+    want = lstm_cell_cuda(*dev, *(v.contiguous() for v in views))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("width", [18566, 19456])
+def test_lane_cell_launcher_accepts_the_fleets_buffer_views(width):
+    """The fleet passes wx, wh and b as ``tree_unravel`` views of an (L, P)
+    buffer or of an (L, Lp)[:, :P] slice: the launcher's checks take them,
+    with the buffer's row stride as the lane stride."""
+    from repro_torch.kernels.lstm_cell.kernel import _lane_arg
+    from repro_torch.utils.tree import tree_ravel, tree_unravel
+
+    f, h, c = 6, 64, 6
+    like = {"b": torch.zeros(4 * h), "b_out": torch.zeros(c), "w_out": torch.zeros(h, c),
+            "wh": torch.zeros(h, 4 * h), "wx": torch.zeros(f, 4 * h)}
+    _, spec = tree_ravel(like)
+    p = tree_unravel(spec, torch.zeros(5, width)[:, :18566])
+    strides = [_lane_arg(k, p[k], (5,) + tuple(p[k].shape[1:]), torch.device("cpu"))
+               for k in ("wx", "wh", "b")]
+    assert strides == [width] * 3
+    with pytest.raises(ValueError, match="contiguous within a lane"):
+        _lane_arg("wx", p["wx"].transpose(1, 2), (5, 4 * h, f), torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# int8 wire: quantize, dequantize, fused q8 eq. 14
+# ---------------------------------------------------------------------------
+
+
+def _quant_cases():
+    """(name, x (B, L)) cases: off-tile, a zero tile, exact half-way codes."""
+    rng = np.random.default_rng(5)
+    half = np.zeros((1, 2048), np.float32)
+    half[0, :6] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5]        # scale 1: x/s = k + 0.5
+    half[0, 1024:1030] = [-127.0, 126.5, -126.5, 3.5, 4.5, -3.5]
+    zero_tile = rng.standard_normal((3, 3072)).astype(np.float32)
+    zero_tile[1, 1024:2048] = 0.0
+    return [("main 1-D", rng.standard_normal((1, 18566)).astype(np.float32)),
+            ("rows", rng.standard_normal((320, 2048)).astype(np.float32) * 0.1),
+            ("off-tile", rng.standard_normal((2, 1000 + 7)).astype(np.float32)),
+            ("zero tile", zero_tile), ("half-way", half)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_quantize_kernel_matches_twin_bit_for_bit_on_card(case, cuda_device):
+    name, x = _quant_cases()[case]
+    xd = _t(x).to(cuda_device)
+    q, s = quant_ops.quantize_flat_batched(xd)
+    torch.cuda.synchronize()
+    qr, sr = quantize_batched_ref(xd)
+    assert torch.equal(q, qr), name
+    assert torch.equal(s, sr), name
+    q1, s1, n = quant_ops.compress_update(xd[0])
+    assert torch.equal(q1, qr[0]) and torch.equal(s1, sr[0]) and n == x.shape[1]
+    back = quant_ops.decompress_update(q1, s1, n)
+    torch.cuda.synchronize()
+    assert torch.equal(back, dequantize_ref(qr[0], sr[0], n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,lp", [(64, 5, 19456), (3, 4, 2048), (1, 1, 1024)])
+def test_fedavg_q8_kernel_matches_twin_on_card(r, n, lp, cuda_device):
+    g = torch.Generator().manual_seed(r + n + lp)
+    q, s = quantize_batched_ref(torch.randn((r * n, lp), generator=g))
+    q, s = q.reshape(r, n, lp).to(cuda_device), s.reshape(r, n, -1).to(cuda_device)
+    w = (torch.rand((r, n), generator=g) + 0.1).to(cuda_device)
+    if r > 1:
+        w[1] = 0.0
+    got = fedavg_ops.fedavg_flat_batched_q8(q, s, w)
+    torch.cuda.synchronize()
+    want = fedavg_batched_q8_ref(q, s, w)
+    assert float((got - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1.0)
+    if r > 1:
+        assert bool((got[1] == 0).all())
+
+
+def test_quantize_cpu_dispatch_runs_the_twins_without_launching():
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 1500)
+    q, s = quant_ops.quantize_flat_batched(x)
+    assert (q.shape, s.shape) == ((2, 2048), (2, 2))
+    qf, sf, n = quant_ops.compress_update(x[0])
+    assert torch.equal(qf, q[0]) and n == 1500
+    assert quant_ops.decompress_update(qf, sf, n).shape == (1500,)
+    u = fedavg_ops.fedavg_flat_batched_q8(q[None], s[None], torch.ones(1, 2))
+    assert torch.equal(u, fedavg_batched_ref(dequantize_batched_ref(q, s)[None],
+                                             torch.ones(1, 2)))
+    counts = kernels.launch_counts()
+    assert set(counts) == {"fedavg", "fedavg_q8", "lstm_cell", "aes_ctr", "quantize",
+                           "dequantize"}
+    assert not any(counts.values())
+
+
+def test_int8_kernel_wrappers_reject_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_cuda(torch.randn(2, 1024))
+    with pytest.raises(ValueError, match="CUDA"):
+        dequantize_cuda(torch.zeros(1024, dtype=torch.int8), torch.ones(1), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        fedavg_batched_q8_cuda(torch.zeros(1, 2, 1024, dtype=torch.int8),
+                               torch.ones(1, 2, 1), torch.ones(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +420,7 @@ def test_aes_kernel_matches_twin_on_card(n, offset, cuda_device):
 
 def test_build_covers_every_source_and_hashes_them(tmp_path, monkeypatch):
     names = {p.name for p in _build.sources()}
-    assert names == {"fedavg.cu", "lstm_cell.cu", "aes_ctr.cu"}
+    assert names == {"fedavg.cu", "lstm_cell.cu", "aes_ctr.cu", "quantize.cu"}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -291,7 +436,9 @@ def test_launchers_declare_pointer_args_as_void_p():
     from repro_torch.kernels.aes_ctr import kernel as ak
     from repro_torch.kernels.fedavg import kernel as fk
     from repro_torch.kernels.lstm_cell import kernel as lk
+    from repro_torch.kernels.quantize import kernel as qk
 
-    for argtypes in (fk._ARGTYPES, lk._ARGTYPES, ak._ARGTYPES):
+    for argtypes in (fk._ARGTYPES, fk._Q8_ARGTYPES, lk._ARGTYPES, ak._ARGTYPES,
+                     qk._QUANT_ARGTYPES, qk._DEQUANT_ARGTYPES):
         assert argtypes[-1] is ctypes.c_void_p            # the stream
         assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}

@@ -22,11 +22,15 @@ from repro.utils.tree import flatten_to_vector as jflatten  # noqa: E402
 from repro_torch.core.federated import SupervisedTask  # noqa: E402
 from repro_torch.data import (HARDatasetConfig, dirichlet_partition,  # noqa: E402
                               make_calories_tabular, make_har_windows)
+from repro.utils.tree import tree_ravel as jravel  # noqa: E402
+from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E402
                                 MLPClassifier, MLPClassifierConfig,
                                 masked_cross_entropy_loss)
+from repro_torch.optim import lane_adam_init, lane_adam_step  # noqa: E402
 from repro_torch.utils.tree import (flatten_to_vector, from_jax_params,  # noqa: E402
-                                    to_numpy, tree_bytes, tree_size,
+                                    to_numpy, tree_bytes, tree_leaves, tree_map,
+                                    tree_ravel, tree_size, tree_unravel,
                                     tree_weighted_mean, tree_where,
                                     unflatten_from_vector)
 
@@ -242,6 +246,91 @@ def test_unflatten_tree_where_and_weighted_mean():
     mean = tree_weighted_mean([a, b], [1.0, 3.0])
     torch.testing.assert_close(mean["w"], torch.full((2, 3), 2.5))
     torch.testing.assert_close(mean["b"]["x"], torch.full((4,), 1.5))
+
+
+def test_tree_ravel_matches_jax_and_unravel_returns_views():
+    jm, _ = _mlp_pair(hidden=(3,) * 10)               # layer10 sorts before layer2
+    trees = [jm.init(jax.random.PRNGKey(i)) for i in range(6)]
+    stacked = jax.tree_util.tree_map(lambda *xs: np.stack(xs).reshape((2, 3) + xs[0].shape),
+                                     *[_np_tree(t) for t in trees])
+    jflat, _ = jravel(stacked, batch_ndim=2)
+    flat, spec = tree_ravel(from_jax_params(stacked, CPU), batch_ndim=2)
+    assert np.array_equal(flat.numpy(), np.asarray(jflat))
+    back = tree_unravel(spec, flat)
+    _assert_trees_close(stacked, back, rtol=0, atol=0)
+    for leaf in tree_leaves(back):
+        assert leaf.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+    # autograd through the views gives the flat gradient
+    lanes = flat.reshape(6, -1).clone().requires_grad_(True)
+    total = sum((leaf * leaf).sum() for leaf in tree_leaves(tree_unravel(spec, lanes)))
+    total.backward()
+    torch.testing.assert_close(lanes.grad, 2 * lanes.detach())
+
+
+def _lane_stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "mlp"])
+def test_lane_logits_loss_and_grads_equal_single_lane_calls(kind):
+    _, tm = PAIRS[kind]()
+    lanes = 3
+    params = [tm.init(torch.Generator().manual_seed(20 + i)) for i in range(lanes)]
+    batches = [_batch(kind, 9, seed=30 + i) for i in range(lanes)]
+    x = torch.from_numpy(np.stack([b[0] for b in batches]))
+    y = torch.from_numpy(np.stack([b[1] for b in batches]))
+    w = torch.ones(lanes, 9)
+    w[1, 5:] = 0.0
+    flat, spec = tree_ravel(_lane_stack(params), batch_ndim=1)
+    flat.requires_grad_(True)
+    logits = tm.lane_logits(tree_unravel(spec, flat), x)
+    losses = masked_cross_entropy_loss(logits, y, w)
+    (grad,) = torch.autograd.grad(losses.sum(), flat)
+    for i in range(lanes):
+        p = tree_map(lambda t: t.clone().requires_grad_(True), params[i])
+        li = tm.logits(p, x[i])
+        torch.testing.assert_close(logits[i].detach(), li.detach(), **FWD_TOL)
+        loss = masked_cross_entropy_loss(li, y[i], w[i])
+        torch.testing.assert_close(losses[i].detach(), loss.detach(), **FWD_TOL)
+        gi = torch.autograd.grad(loss, tree_leaves(p))
+        torch.testing.assert_close(grad[i], torch.cat([g.reshape(-1) for g in gi]), **FWD_TOL)
+
+
+def test_lane_cell_backward_equals_single_lane_backward():
+    rng = np.random.default_rng(4)
+    shapes = [(3, 5, 4), (3, 5, 6), (3, 5, 6), (3, 4, 24), (3, 6, 24), (3, 24)]
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5) for s in shapes]
+    lane = [a.clone().requires_grad_(True) for a in args]
+    hn, cn = lstm_ops.lstm_cell_autograd(*lane)
+    (hn.sum() + 2 * cn.sum()).backward()
+    for i in range(3):
+        one = [a[i].clone().requires_grad_(True) for a in args]
+        h1, c1 = lstm_ops.lstm_cell_autograd(*one)
+        (h1.sum() + 2 * c1.sum()).backward()
+        for name, a, b in zip(("x", "h", "c", "wx", "wh", "b"), lane, one):
+            torch.testing.assert_close(a.grad[i], b.grad, **FWD_TOL, msg=name)
+
+
+def test_lane_adam_equals_tree_adam_and_skips_idle_lanes():
+    _, tm = _mlp_pair()
+    tt = SupervisedTask(tm, lr=3e-3)
+    params = [tm.init(torch.Generator().manual_seed(i)) for i in range(2)]
+    grads = [tm.init(torch.Generator().manual_seed(10 + i)) for i in range(2)]
+    flat, spec = tree_ravel(_lane_stack(params), batch_ndim=1)
+    gflat, _ = tree_ravel(_lane_stack(grads), batch_ndim=1)
+    state = lane_adam_init(flat)
+    take = torch.tensor([True, False])
+    for _ in range(2):
+        flat, state = lane_adam_step(flat, gflat, state, take, 3e-3)
+    assert state.step.tolist() == [2, 0]
+    torch.testing.assert_close(flat[1], tree_ravel(params[1])[0], rtol=0, atol=0)
+    assert not state.mu[1].any()
+    opt_state = tt._opt.init(params[0])
+    p0 = params[0]
+    for _ in range(2):
+        upd, opt_state = tt._opt.update(grads[0], opt_state, p0)
+        p0 = tree_map(torch.add, p0, upd)
+    torch.testing.assert_close(flat[0], tree_ravel(p0)[0], rtol=1e-6, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

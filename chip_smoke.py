@@ -10,13 +10,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    main paths' shapes and at edge shapes (AES, quantize and dequantize
    bit-exact, eq. 14 dense and int8 within 1e-6 of the largest output, the
    LSTM cell within 1e-5, one lane and the fleet's fit, score and refresh
-   lanes, with the weights as views of the fleet's flat buffers);
+   lanes, with the weights as views of the fleet's flat buffers; the robust
+   trimmed mean and median within 1e-6 of the largest output, the squared
+   norm within 1e-5 relative, each int8 robust kernel bit-equal to its
+   dense kernel on the dequantized buffer);
 4. the main paths, each with every launch count set to 0 just before it
    and read just after:
    - Algorithm 1 as ``examples/quickstart.py`` runs it, at full width
      (3,000 HAR windows, T=32, F=6, H=64, 6 classes, 5 contributors
      pretrained for 6 epochs, 10 rounds of 8 epochs, AES transport); then
-     the same world over the whole round budget (timing only), and one
+     the same world over 4 rounds with refresh (timing only), and one
      round of it on the card and on the CPU, whose parameters must agree;
    - the same session with ``compress="int8"``;
    - the fleet engine: 64 requesters of the HAR LSTM at full width sharing
@@ -25,6 +28,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      whose parameters must agree within a limit that lies above the CPU's
      own spread under a one-ulp perturbation of the contributors and below
      the difference a 1e-4 relative fault makes;
+   - the Byzantine world (20 % of the links send noise of scale 10): the
+     quickstart session with ``robust="clip"``, fp32 and int8, 3 rounds;
+     the 64-requester fleet for 3 rounds undefended and with each robust
+     method, fp32 and int8; one 4-requester round under clip on the card
+     and on the CPU, whose corrupted and clipped masks must be equal;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
@@ -54,6 +62,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 AES_OPS_PER_BLOCK = 11 * 16 + 10 * 16 + 9 * 4 * 20 + 16   # xor, S-box, MixColumns, payload
 FIT_EPOCHS, MAX_ROUNDS, PRETRAIN_EPOCHS = 8, 10, 6
+TIMING_ROUNDS = 4              # depth of the loop engine's timing session
 FLEET_R = 64                   # requesters of the fleet path
 TILE = 1024                    # int8 wire tile
 # one fp32 fleet round (8 epochs of Adam), card vs CPU: the CPU's own spread
@@ -61,6 +70,9 @@ TILE = 1024                    # int8 wire tile
 # 1e-4 relative fault lands above it (both measured in every run)
 FLEET_ROUND_TOL = 2e-3
 ULP_REL, FAULT_REL = 1e-7, 1e-4
+# the Byzantine world of [4d]: 20 % of the links deliver noise of scale 10
+ADVERSARY = dict(p_byzantine=0.2, attack="noise", scale=10.0, seed=7)
+ADV_ROUNDS = 3
 
 
 def fail(msg: str) -> None:
@@ -307,6 +319,84 @@ def check_fedavg_q8(dev, main_shape):
     return main_err
 
 
+def check_robust(dev, n_params, n_contrib):
+    """The six robust kernels against their twins, at the fleet's (64, 5, P)
+    fp32 and (64, 5, Lp) int8 state and at edge shapes (L off 256, N = 1, 2,
+    3, 6 and 16, an all-zero weight row, an inactive lane, tied values and
+    tied contributors, a noise-sized outlier).  Each q8 kernel must equal
+    its dense kernel on the dequantized buffer bit for bit, and the q8
+    squared norm over Lp the dense one over P.  Returns the max abs errors
+    at the fleet's shapes."""
+    from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
+    from repro_torch.kernels.robust import kernel as rk
+    from repro_torch.kernels.robust import ref as rr
+
+    g = torch.Generator().manual_seed(11)
+    errs = {}
+    columns = (("trimmed_mean", rk.trimmed_mean_cuda, rk.trimmed_mean_q8_cuda,
+                rr.trimmed_mean_batched_ref),
+               ("median", rk.median_cuda, rk.median_q8_cuda, rr.median_batched_ref))
+    cases = [("fleet", (FLEET_R, n_contrib, n_params)), ("L%256!=0", (3, 4, 1000 + 7)),
+             ("N=1", (2, 1, 777)), ("N=2", (2, 2, 513)), ("N=3", (3, 3, 2048)),
+             ("N=6", (4, 6, 1500)), ("N=16", (2, 16, 300))]
+    for name, (r, n, l) in cases:
+        x = torch.randn((r, n, l), generator=g) * 0.3
+        x[0, 0] = torch.randn((l,), generator=g) * 10.0     # a noise-sized outlier
+        x[:, :, :64] = torch.round(x[:, :, :64] * 2)         # tied values in a column
+        if n > 2:
+            x[r - 1, 1] = x[r - 1, 0]                        # tied contributors
+        w = torch.rand((r, n), generator=g) + 0.1
+        if n > 1:
+            w[0, n - 1] = 0.0                                # an inactive lane
+        if r > 1:
+            w[1] = 0.0                                       # an all-zero weight row
+        q, sc = quantize_batched_ref(x.reshape(r * n, l))
+        xd, wd = x.to(dev), w.to(dev)
+        qd, sd = q.reshape(r, n, -1).to(dev), sc.reshape(r, n, -1).to(dev)
+        dq = dequantize_batched_ref(qd, sd).contiguous()
+        line = []
+        for kname, dense_k, q8_k, twin in columns:
+            got = dense_k(xd, wd)
+            got8 = q8_k(qd, sd, wd)
+            torch.cuda.synchronize()
+            want = twin(xd, wd)
+            err = float((got - want).abs().max())
+            err8 = float((got8 - twin(dq, wd)).abs().max())
+            scale = max(float(want.abs().max()), 1.0)
+            if not err <= 1e-6 * scale:
+                fail(f"{kname} {name} {(r, n, l)}: max abs err {err} (scale {scale})")
+            if r > 1 and bool(got[1].ne(0).any()):
+                fail(f"{kname} {name}: an all-zero weight row must give zeros")
+            if not torch.equal(got8, dense_k(dq, wd)):
+                fail(f"{kname}_q8 {name}: not bit-equal to the dense kernel on the "
+                     "dequantized buffer")
+            line.append(f"{kname} {err:.3e} (q8 {err8:.3e}, bit-equal to dense)")
+            if name == "fleet":
+                errs[kname], errs[kname + "_q8"] = err, err8
+        sq = rk.sqnorm_cuda(xd)
+        sq8 = rk.sqnorm_q8_cuda(qd, sd)
+        torch.cuda.synchronize()
+        want = rr.sqnorm_batched_ref(xd)
+        rel = float(((sq - want).abs() / want.clamp_min(1e-30)).max())
+        if not rel <= 1e-5:
+            fail(f"sqnorm {name} {(r, n, l)}: max rel err {rel}")
+        if not torch.equal(sq8, rk.sqnorm_cuda(dq[..., :l].contiguous())):
+            fail(f"sqnorm_q8 {name}: the sum over Lp is not bit-equal to the dense sum over P")
+        err8 = float((sq8 - rr.sqnorm_batched_q8_ref(qd, sd)).abs().max())
+        if name == "fleet":
+            errs["sqnorm"], errs["sqnorm_q8"] = float((sq - want).abs().max()), err8
+        print(f"  robust {name:8s} R,N,L={r},{n},{l}: " + "; ".join(line)
+              + f"; sqnorm rel {rel:.3e} (q8 over Lp bit-equal to dense over P)")
+    too_many = torch.zeros((1, rk.MAX_N + 1, 8), device=dev)
+    try:
+        rk.median_cuda(too_many, torch.ones((1, rk.MAX_N + 1), device=dev))
+    except ValueError:
+        pass
+    else:
+        fail(f"the robust column kernels accepted N = {rk.MAX_N + 1} > MAX_N")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -384,15 +474,15 @@ def run_main_path(device, world):
     print(f"  eq.4 T_train {res.report.t_train:.3f} s, E_tot {res.report.e_tot:.3f} J, "
           f"battery {res.battery.percent:.2f} %")
 
-    # the whole round budget (an accuracy no round reaches), refresh included
+    # TIMING_ROUNDS rounds at an accuracy no round reaches, refresh included
     full = EnFedSession(task, own_train, own_test, fleet,
                         contributor_states(pretrained, shards, fleet, device),
-                        dataclasses.replace(session_cfg(MAX_ROUNDS), desired_accuracy=1.01),
+                        dataclasses.replace(session_cfg(TIMING_ROUNDS), desired_accuracy=1.01),
                         device=device)
     t0 = time.perf_counter()
     fres = full.run()
     torch.cuda.synchronize()
-    print(f"  full budget ({fres.rounds} rounds, stop {fres.stop_reason}): wall "
+    print(f"  timing session ({fres.rounds} rounds, stop {fres.stop_reason}): wall "
           f"{time.perf_counter() - t0:.2f} s, accuracy {fres.accuracy:.4f}; per phase (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in fres.phase_s.items()))
 
@@ -521,8 +611,8 @@ def run_fleet_path(device, world, pretrained):
         print(f"  launches in the {tag} run: {counts}")
         all_counts[compress or "fp32"] = counts
 
-    fleet_round_check(device, world, pretrained)
-    return all_counts
+    limits = fleet_round_check(device, world, pretrained)
+    return all_counts, limits
 
 
 def fleet_round_check(device, world, pretrained):
@@ -533,7 +623,8 @@ def fleet_round_check(device, world, pretrained):
     taken here: the spread from a 1e-7 relative perturbation of the
     contributors' params (one ulp, 3 seeds), which must stay below it, and
     a 1e-4 relative fault of the same params, which must land above it.
-    Under int8 the limit is the tile bound ``max(scale) / 2 + 1e-6``."""
+    Under int8 the limit is the tile bound ``max(scale) / 2 + 1e-6``.
+    Returns the limit of each wire."""
     from repro_torch.core import SupervisedTask, run_fleet
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.models import LSTMClassifier
@@ -553,7 +644,8 @@ def fleet_round_check(device, world, pretrained):
         return [tree_map(lambda t: t * (1 + rel * torch.randn(t.shape, generator=g)), p)
                 for p in host_pre]
 
-    for compress, tol in ((None, FLEET_ROUND_TOL), ("int8", float(scales.max()) / 2 + 1e-6)):
+    limits = {"fp32": FLEET_ROUND_TOL, "int8": float(scales.max()) / 2 + 1e-6}
+    for compress, tol in ((None, limits["fp32"]), ("int8", limits["int8"])):
         tag = compress or "fp32"
         cfg = dataclasses.replace(session_cfg(1), compress=compress)
 
@@ -586,6 +678,139 @@ def fleet_round_check(device, world, pretrained):
             fail(f"one fleet round ({tag}) on the card and on the CPU differ by {diff}")
         if not np.array_equal(card.stop_codes, host.stop_codes):
             fail("one fleet round: stop codes differ between the card and the CPU")
+    return limits
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the Byzantine world
+# ---------------------------------------------------------------------------
+
+
+def adversary_cfg(compress, robust, max_rounds=ADV_ROUNDS):
+    """The quickstart config in the Byzantine world, with an accuracy no
+    round reaches, so every run takes its whole round budget."""
+    from repro_torch.core import AdversaryConfig
+
+    return dataclasses.replace(session_cfg(max_rounds), desired_accuracy=1.01,
+                               compress=compress, adversary=AdversaryConfig(**ADVERSARY),
+                               robust=robust)
+
+
+def run_loop_adversary(device, world, pretrained):
+    """The quickstart session under the noise attack with ``robust="clip"``,
+    fp32 and int8 wire: AES runs over the corrupted payloads, the squared
+    norm and eq. 14 aggregate, the cell fits."""
+    from repro_torch import kernels
+    from repro_torch.core import EnFedSession
+
+    task, shards, own_train, own_test, fleet = world
+    out = {}
+    for compress in (None, "int8"):
+        tag = f"loop {compress or 'fp32'} clip"
+        session = EnFedSession(task, own_train, own_test, fleet,
+                               contributor_states(pretrained, shards, fleet, device),
+                               adversary_cfg(compress, "clip"), device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = session.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        need = ("sqnorm", "fedavg", "aes_ctr", "lstm_cell") + (
+            ("quantize", "dequantize") if compress else ())
+        if not all(counts[k] > 0 for k in need):
+            fail(f"{tag}: a kernel of its path was never launched: {counts}")
+        check_session(res, tag)
+        corrupted = int(np.sum(res.history_raw["corrupted_mask"]))
+        clipped = int(np.sum(res.history_raw["clipped_mask"]))
+        if corrupted == 0 or clipped == 0:
+            fail(f"{tag}: {corrupted} links corrupted, {clipped} clipped; both must fire")
+        print(f"  {tag}: wall {wall:.2f} s, rounds {res.rounds}, {corrupted} corrupted and "
+              f"{clipped} clipped links, accuracy {res.accuracy:.4f}, t_agg "
+              f"{res.report.times.t_agg:.6f} s (screening priced)")
+        print(f"  launches in the {tag} session: {counts}")
+        out[tag] = counts
+    return out
+
+
+FLEET_ADVERSARY_RUNS = (
+    (None, "none", ("fedavg",)), (None, "clip", ("sqnorm", "fedavg")),
+    (None, "trimmed_mean", ("trimmed_mean",)), (None, "median", ("median",)),
+    ("int8", "clip", ("sqnorm_q8", "fedavg_q8")), ("int8", "trimmed_mean", ("trimmed_mean_q8",)),
+    ("int8", "median", ("median_q8",)))
+
+
+def run_fleet_adversary(device, world, pretrained):
+    """The 64-requester fleet in the Byzantine world, undefended and with
+    each robust method, fp32 and int8.  Returns each run's launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import run_fleet
+    from repro_torch.utils.tree import tree_leaves
+
+    task = world[0]
+    out = {}
+    for compress, robust, need in FLEET_ADVERSARY_RUNS:
+        tag = f"fleet {compress or 'fp32'} {robust}"
+        specs = fleet_specs(device, world, pretrained, FLEET_R)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_fleet(task, specs, adversary_cfg(compress, robust), device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if not all(counts[k] > 0 for k in need + ("lstm_cell",)):
+            fail(f"{tag}: a kernel of its path was never launched: {counts}")
+        if not np.isfinite(res.accuracy).all() or not all(
+                bool(torch.isfinite(p).all()) for s in res.sessions for p in tree_leaves(s.params)):
+            fail(f"{tag}: non-finite accuracy or parameters")
+        corrupted = int(res.history["corrupted"].sum())
+        clipped = int(res.history["clipped"].sum()) if robust != "none" else 0
+        if corrupted == 0 or (robust == "clip" and clipped == 0):
+            fail(f"{tag}: {corrupted} links corrupted, {clipped} clipped")
+        lane_rounds = int(res.rounds.sum())
+        executed = int(res.history["round_executed"].sum())
+        print(f"  {tag:22s} R={FLEET_R}: wall {wall:.2f} s, {executed} rounds executed, "
+              f"{lane_rounds / wall:.2f} lane-rounds/s; {corrupted} corrupted, {clipped} "
+              f"clipped links; accuracy mean {res.accuracy.mean():.4f} min "
+              f"{res.accuracy.min():.4f}")
+        print(f"    launches: {counts}")
+        out[tag] = counts
+    return out
+
+
+def fleet_adversary_round_check(device, world, pretrained, limits):
+    """One round of 4 requesters under noise + clip on the card and on the
+    CPU: the corrupted and clipped masks must be equal, the params within
+    the limits :func:`fleet_round_check` derived."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_map, tree_ravel
+
+    task = world[0]
+    cpu = torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    for compress in (None, "int8"):
+        tag = compress or "fp32"
+        cfg = adversary_cfg(compress, "clip", max_rounds=1)
+        card = run_fleet(task, fleet_specs(device, world, pretrained, 4), cfg, device=device)
+        host = run_fleet(cpu_task, fleet_specs(cpu, world, host_pre, 4), cfg, device=cpu)
+        diff = max(float((tree_ravel(a.params)[0].cpu() - tree_ravel(b.params)[0]).abs().max())
+                   for a, b in zip(card.sessions, host.sessions))
+        corrupted, clipped = card.history["corrupted"], card.history["clipped"]
+        print(f"  one fleet round R=4 {tag} noise + clip, card vs CPU: {int(corrupted.sum())} "
+              f"corrupted and {int(clipped.sum())} clipped links on both: masks "
+              f"{'equal' if np.array_equal(corrupted, host.history['corrupted']) and np.array_equal(clipped, host.history['clipped']) else 'DIFFER'}; "
+              f"max abs param diff {diff:.3e} (limit {limits[tag]:.3e})")
+        if not (np.array_equal(corrupted, host.history["corrupted"])
+                and np.array_equal(clipped, host.history["clipped"])):
+            fail(f"fleet round under noise + clip ({tag}): masks differ between card and CPU")
+        if corrupted.sum() == 0:
+            fail(f"fleet round under noise + clip ({tag}): no link was corrupted")
+        if not diff <= limits[tag]:
+            fail(f"fleet round under noise + clip ({tag}): card and CPU differ by {diff}")
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +821,7 @@ def fleet_round_check(device, world, pretrained):
 def time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
     rows = time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
     rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib)
+    rows += time_robust_kernels(dev, counts, errs, n_params, n_contrib)
     time_lane_cell(dev, FLEET_R, fit_b, f, h)
     for row in rows:
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
@@ -644,21 +870,24 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
     plain = cuda_ms(lambda: quantize_batched_ref(x), iters=50, warmup=5)
     b_ms, b_by = bound_ms(4 * r * n * n_params + r * n * lp + 4 * r * n * tiles,
                           6 * r * n * n_params)
-    rows.append(dict(name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+    rows.append(dict(name="quantize_batched", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:89",
                      device_us=device_us(lambda: quantize_cuda(x), "quantize_kernel"),
-                     launches=counts["quantize"], max_abs_err=errs["quantize"], ms=ms,
+                     launches=counts["quantize_batched"], max_abs_err=errs["quantize"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape=f"B,L={r * n},{n_params} -> Lp={lp}"))
     # the same kernel on one update (the loop engine's compress_update)
     v = x[0].contiguous()
     ms1 = cuda_ms(lambda: quantize_cuda(v))
     plain1 = cuda_ms(lambda: quantize_batched_ref(v), iters=50, warmup=5)
-    dus1 = device_us(lambda: quantize_cuda(v), "quantize_kernel")
     b1, b1_by = bound_ms(4 * n_params + lp + 4 * tiles, 6 * n_params)
-    print(f"  quantize   L={n_params} (one update): kernel_ms {ms1:.5f}  device_us "
-          f"{'not measured' if dus1 is None else f'{dus1:.3f}'}  plain_ms {plain1:.5f}  "
-          f"library_ms none  bound_ms {b1:.6f} ({b1_by})")
+    rows.append(dict(name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/kernel.py:41",
+                     device_us=device_us(lambda: quantize_cuda(v), "quantize_kernel"),
+                     launches=counts["quantize"], max_abs_err=errs["quantize"], ms=ms1,
+                     plain_ms=plain1, bound_ms=b1, bound_by=b1_by, library_ms=None,
+                     shape=f"L={n_params} (one update) -> Lp={lp}"))
 
     # dequantize of one update (the loop engine's decompress_update)
     q1, s1 = quantize_batched_ref(v)
@@ -672,6 +901,62 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      launches=counts["dequantize"], max_abs_err=errs["dequantize"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape=f"Lp={lp} -> L={n_params}"))
+    return rows
+
+
+def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
+    """The six robust kernels at the fleet's AGGREGATE, (R, N) = (64, 5):
+    fp32 (R, N, P) and int8 (R, N, Lp), all contributors active.  The
+    squared norm's yardstick is ``torch.linalg.vector_norm``; no single
+    PyTorch call computes the other four."""
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+    from repro_torch.kernels.robust import kernel as rk
+    from repro_torch.kernels.robust import ref as rr
+
+    g = torch.Generator().manual_seed(12)
+    r, n, l = FLEET_R, n_contrib, n_params
+    lp = l + (-l) % TILE
+    tiles = lp // TILE
+    x = (torch.randn((r, n, l), generator=g) * 0.3).to(dev)
+    w = torch.ones((r, n), device=dev)
+    q, s = quantize_batched_ref(x.reshape(r * n, l))
+    q, s = q.reshape(r, n, lp), s.reshape(r, n, tiles)
+    src = "src/repro_torch/csrc/robust.cu"
+    dense_bytes = 4 * (r * n * l + r * n + r * l)
+    q8_bytes = r * n * lp + 4 * (r * n * tiles + r * n + r * lp)
+    # compares and selects per column: the trimmed mean's two scans and
+    # weighted sum, the median's n-phase network (n * n min/max) and the
+    # dequantize multiply of the q8 forms
+    specs = [
+        ("trimmed_mean", "kernel.py:254", lambda: rk.trimmed_mean_cuda(x, w),
+         lambda: rr.trimmed_mean_batched_ref(x, w), None, "trimmed_mean_kernel",
+         dense_bytes, r * l * (5 * n + 1), f"R,N,L={r},{n},{l}"),
+        ("trimmed_mean_q8", "kernel.py:261", lambda: rk.trimmed_mean_q8_cuda(q, s, w),
+         lambda: rr.trimmed_mean_batched_q8_ref(q, s, w), None, "trimmed_mean_kernel",
+         q8_bytes, r * lp * (6 * n + 1), f"R,N,Lp={r},{n},{lp}"),
+        ("median", "kernel.py:269", lambda: rk.median_cuda(x, w),
+         lambda: rr.median_batched_ref(x, w), None, "median_kernel",
+         dense_bytes, r * l * (n * n + n + 2), f"R,N,L={r},{n},{l}"),
+        ("median_q8", "kernel.py:276", lambda: rk.median_q8_cuda(q, s, w),
+         lambda: rr.median_batched_q8_ref(q, s, w), None, "median_kernel",
+         q8_bytes, r * lp * (n * n + 2 * n + 2), f"R,N,Lp={r},{n},{lp}"),
+        ("sqnorm", "kernel.py:284", lambda: rk.sqnorm_cuda(x),
+         lambda: rr.sqnorm_batched_ref(x), lambda: torch.linalg.vector_norm(x, dim=-1),
+         "sqnorm_kernel", 4 * (r * n * l + r * n), 2 * r * n * l, f"R,N,L={r},{n},{l}"),
+        ("sqnorm_q8", "kernel.py:310", lambda: rk.sqnorm_q8_cuda(q, s),
+         lambda: rr.sqnorm_batched_q8_ref(q, s), None, "sqnorm_kernel",
+         r * n * lp + 4 * (r * n * tiles + r * n), 3 * r * n * lp, f"R,N,Lp={r},{n},{lp}"),
+    ]
+    rows = []
+    for name, line, kern, plain_fn, lib_fn, kname, nbytes, ops, shape in specs:
+        b_ms, b_by = bound_ms(nbytes, ops)
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=f"src/repro/kernels/robust/{line}",
+                         device_us=device_us(kern, kname), launches=counts[name],
+                         max_abs_err=errs[name], ms=cuda_ms(kern),
+                         plain_ms=cuda_ms(plain_fn, iters=50, warmup=5),
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None if lib_fn is None else cuda_ms(lib_fn), shape=shape))
     return rows
 
 
@@ -884,6 +1169,7 @@ def main() -> int:
     fleet_score_b = max(len(test[0]) for _, test in fleet_split())
     errs["lstm_cell"] = max(errs["lstm_cell"], check_lane_lstm(
         dev, tree_ravel(task.init(0))[1], n_params, fit_b, fleet_score_b, n_contrib))
+    errs.update(check_robust(dev, n_params, n_contrib))
 
     print("[4] main paths at full width on the card")
     print(" [4a] the quickstart session (loop engine, fp32 wire)")
@@ -891,18 +1177,26 @@ def main() -> int:
     print(" [4b] the quickstart session with the int8 wire")
     int8_counts = run_loop_int8(dev, world, pretrained)
     print(f" [4c] the fleet engine, {FLEET_R} requesters")
-    fleet_counts = run_fleet_path(dev, world, pretrained)
-    paths = [loop_counts, int8_counts, fleet_counts["fp32"], fleet_counts["int8"]]
-    counts = {k: sum(c[k] for c in paths) for k in loop_counts}
-    # eq. 14 at R = 1 (row 1 of the kernel table) runs in the loop engine,
-    # at R = 64 (row 2) in the fleet: one wrapper, counted per path
-    counts["fedavg"] = loop_counts["fedavg"] + int8_counts["fedavg"]
-    counts["fedavg_batched"] = fleet_counts["fp32"]["fedavg"] + fleet_counts["int8"]["fedavg"]
+    fleet_counts, limits = run_fleet_path(dev, world, pretrained)
+    print(f" [4d] the Byzantine world ({ADVERSARY}), {ADV_ROUNDS} rounds")
+    adv_loop = run_loop_adversary(dev, world, pretrained)
+    adv_fleet = run_fleet_adversary(dev, world, pretrained)
+    fleet_adversary_round_check(dev, world, pretrained, limits)
+    loop_paths = [loop_counts, int8_counts, *adv_loop.values()]
+    fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values()]
+    counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
+    # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
+    # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:
+    # one wrapper each, counted per path
+    for name, batched in (("fedavg", "fedavg_batched"), ("quantize", "quantize_batched")):
+        counts[name] = sum(c[name] for c in loop_paths)
+        counts[batched] = sum(c[name] for c in fleet_paths)
     print(f"  launches over the main paths: {counts}")
     print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
     print("[5] kernel timings at the main paths' shapes (CUDA events)")
     rows = time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
+    print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
     print("[6] where the time goes (torch.profiler)")
     fit_device_view(task, own_train)

@@ -1,3 +1,4 @@
+from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, DeviceProfile, EnergyReport, LinkProfile
 from repro_torch.core.federated import SupervisedTask
@@ -8,6 +9,7 @@ from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
 from repro_torch.core.topology import AggregationStrategy
 
 __all__ = [
+    "AdversaryConfig",
     "AggregationStrategy",
     "BatteryState",
     "Contract",

@@ -192,6 +192,17 @@ class CostModel:
                             epochs=epochs, n_devices=n_devices,
                             encrypt=encrypt).e_tot
 
+    def screening_energy(self, *, n_contrib: int, num_params: int):
+        """Cost of ONE round's Byzantine-robust screening pass, split as
+        ``(e_screen, t_screen_s)``: one more pass over the ``n_contrib x
+        num_params`` delivered buffer at the aggregation throughput and
+        power.  Both engines add it post hoc to the report's ``t_agg`` and
+        ``e_comp`` per executed round; it never drains the simulated
+        battery, so a defended and an undefended run of one world keep
+        equal battery traces."""
+        t_screen = self.t_aggregate(n_contrib, num_params)
+        return t_screen * self.device.p_agg, t_screen
+
     def _energy(self, t: PhaseTimes) -> EnergyReport:
         d = self.device
         e_comp = (t.t_init * d.p_init + (t.t_enc + t.t_dec) * d.p_crypto

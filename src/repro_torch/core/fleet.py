@@ -34,11 +34,20 @@ Design, as in the reference:
   sync beside thousands of launches, which reproduces the reference's
   ``round_executed`` whatever its ``round_chunk``.
 
+* **Byzantine world.**  Under ``adversary=`` lane ``i`` draws its
+  corruption weather as requester ``requester_id + i`` over its
+  contributors' real device ids, and the round body corrupts a copy of
+  the delivered buffer (codes and scales under int8, whose padding tail
+  is then zeroed so noise codes there cannot reach the q8 norms); the
+  carried state is never overwritten.  Under ``robust != "none"`` the
+  robust statistic of :mod:`repro_torch.kernels.robust.ops` replaces
+  eq. 14, on the fused int8 state or the fp32 one.
+
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  Mobility, faults, cadence, adversaries, robust aggregation,
-staleness decay, the dfl/cfl lanes, checkpoints and tracing raise
-``NotImplementedError`` naming their ``ROADMAP.md`` slice.
+transport.  Mobility, faults, cadence, staleness decay, the dfl/cfl lanes,
+checkpoints and tracing raise ``NotImplementedError`` naming their
+``ROADMAP.md`` slice.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import adversary as adversary_mod
 from repro_torch.core import protocol, schedule
 from repro_torch.core.battery import BatteryState, discharge_level, load_efficiency
 from repro_torch.core.energy import CostModel, update_wire_bytes
@@ -59,6 +69,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
 from repro_torch.kernels.quantize.ops import (dequantize_flat_batched,
                                               quantize_flat_batched, resolve_compress)
+from repro_torch.kernels.robust.ops import robust_aggregate, robust_aggregate_q8
 from repro_torch.models.classifiers import masked_cross_entropy_loss
 from repro_torch.optim import lane_adam_init, lane_adam_step
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_ravel,
@@ -200,6 +211,16 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     round_w = np.zeros((R, N), np.float32)
     for i, cs in enumerate(contracts):
         round_w[i, :len(cs)] = protocol.round_weights(len(cs), cfg.strategy)
+    ac, robust = cfg.adversary, cfg.robust
+    if ac is not None:
+        # lane i rolls its corruption dice as requester requester_id + i, over
+        # its contributors' real device ids; asigned masks the padded lanes
+        areq_ids = np.arange(R, dtype=np.int64) + ac.requester_id
+        acand_ids = np.zeros((R, N), np.int64)
+        asigned = np.zeros((R, N), bool)
+        for i, cs in enumerate(contracts):
+            acand_ids[i, :len(cs)] = [c.device_id for c in cs]
+            asigned[i, :len(cs)] = True
 
     # ---- contributor round state and deduplicated shards --------------------
     template = requesters[0].contributor_states[contracts[0][0].device_id]["params"]
@@ -324,6 +345,9 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     desired = f32(cfg.desired_accuracy)
     threshold = f32(cfg.battery_threshold)
     round_w_t = f32(round_w)
+    if ac is not None:
+        areq_ids, acand_ids, asigned = (torch.from_numpy(a).to(dev)
+                                        for a in (areq_ids, acand_ids, asigned))
 
     # ---- the round loop -------------------------------------------------------
     level = f32([b.level for b in batteries])
@@ -333,17 +357,47 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     rounds_done = torch.zeros(R, dtype=torch.int32, device=dev)
     acc_h, loss_h, bat_h, exec_h = (
         torch.zeros((cfg.max_rounds, R), dtype=torch.float32, device=dev) for _ in range(4))
+    # (max_rounds, R, N) corrupted-delivery and clipped traces
+    corrupt_h, clip_h = (torch.zeros((cfg.max_rounds, R, N), dtype=torch.float32, device=dev)
+                         for _ in range(2))
     body_h = np.zeros((cfg.max_rounds,), np.float32)
     any_active = True
     for r in range(cfg.max_rounds):
         if not any_active:
             break
         body_h[r] = 1.0
-        # Phase.COLLECT + Phase.AGGREGATE: one launch over the round state
-        if wire_compress == "int8":
-            glob = fedavg_flat_batched_q8(contrib, cscale, round_w_t)[:, :P]
+        # Phase.COLLECT: the delivered buffer is the round state, or under
+        # an adversary a corrupted copy of it, keyed on the delivering round
+        src, src_s = contrib, cscale
+        if ac is not None:
+            cmask = adversary_mod.corruption_mask(ac, r, areq_ids, acand_ids,
+                                                  partitionable=partitionable)
+            if wire_compress == "int8":
+                src, src_s = adversary_mod.corrupt_wire_batched(
+                    ac, src, src_s, cmask, r, areq_ids, acand_ids,
+                    partitionable=partitionable)
+                # the padding tail is no part of the update: the loop engine
+                # slices to P before any statistic, so noise codes there must
+                # not reach the q8 norms (honest tails are zero codes already)
+                if P < src.shape[-1]:
+                    src = src * (torch.arange(src.shape[-1], device=dev) < P).to(src.dtype)
+            else:
+                src = adversary_mod.corrupt_dense_batched(
+                    ac, src, cmask, r, areq_ids, acand_ids, partitionable=partitionable)
+            corrupt_h[r] = (cmask & asigned & active[:, None]).to(torch.float32)
+        # Phase.AGGREGATE: eq. 14, or the robust statistic, in one launch
+        # over the whole buffer
+        if robust != "none":
+            if wire_compress == "int8":
+                glob, clipped = robust_aggregate_q8(src, src_s, round_w_t, method=robust)
+                glob = glob[:, :P]
+            else:
+                glob, clipped = robust_aggregate(src, round_w_t, method=robust)
+            clip_h[r] = (clipped & active[:, None]).to(torch.float32)
+        elif wire_compress == "int8":
+            glob = fedavg_flat_batched_q8(src, src_s, round_w_t)[:, :P]
         else:
-            glob = fedavg_flat_batched(contrib, round_w_t)
+            glob = fedavg_flat_batched(src, round_w_t)
         # Phase.FIT + Phase.SCORE, every requester as a lane
         scores = schedule.epoch_scores(cfg.seed + r, cfg.epochs, n_pad,
                                        partitionable=partitionable)
@@ -384,7 +438,8 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     rounds_np = rounds_done.cpu().numpy()
     codes_np = stop_code.cpu().numpy()
     level_np = level.cpu().numpy()
-    acc_h, loss_h, bat_h, exec_h = (t.cpu().numpy() for t in (acc_h, loss_h, bat_h, exec_h))
+    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h = (
+        t.cpu().numpy() for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h))
     if do_refresh:
         final = (dequantize_flat_batched(contrib, cscale)[..., :P]
                  if cscale is not None else contrib)
@@ -400,22 +455,37 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
             rounds=r_i, n_contrib=float(len(cs)), num_params=P,
             model_bytes=model_bytes, num_samples=len(rspec.own_train[0]),
             epochs=cfg.epochs, n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
+        if robust != "none" and r_i:
+            # one screening pass over the session's N x P buffer per executed
+            # round, priced post hoc (never drains the simulated battery)
+            e_scr, t_scr = cost.screening_energy(n_contrib=len(cs), num_params=P)
+            report.times.t_agg += r_i * t_scr
+            report.e_comp += r_i * e_scr
         total_e += report.e_tot
         history = {"accuracy": [float(a) for a in acc_h[:r_i, i]],
                    "loss": [float(v) for v in loss_h[:r_i, i]],
                    "battery": [float(v) for v in bat_h[:r_i, i]],
                    "round_executed": [float(v) for v in exec_h[:r_i, i]]}
+        if ac is not None:
+            history["corrupted_mask"] = [corrupt_h[t, i].copy() for t in range(r_i)]
+        if robust != "none":
+            history["clipped_mask"] = [clip_h[t, i].copy() for t in range(r_i)]
         sessions.append(SessionResult(
             accuracy=history["accuracy"][-1] if history["accuracy"] else 0.0,
             rounds=r_i, n_contributors=len(cs), report=report,
             battery=dataclasses.replace(b0, level=float(level_np[i])),
             history_raw=history, stop_reason=protocol.stop_reason_name(codes_np[i]),
             params=tree_unravel(spec, last[i]), model_bytes=model_bytes))
+    fleet_hist = {"accuracy": acc_h, "loss": loss_h, "battery": bat_h,
+                  "executed": exec_h, "round_executed": body_h}
+    if ac is not None:
+        fleet_hist["corrupted"] = corrupt_h
+    if robust != "none":
+        fleet_hist["clipped"] = clip_h
     return FleetResult(
         sessions=sessions, rounds=rounds_np, stop_codes=codes_np,
         accuracy=np.array([s.accuracy for s in sessions], np.float32),
         battery_level=level_np, total_energy_j=float(total_e),
-        history={"accuracy": acc_h, "loss": loss_h, "battery": bat_h,
-                 "executed": exec_h, "round_executed": body_h},
+        history=fleet_hist,
         staged_param_bytes=int(staged_param_bytes),
         device_round_state_bytes=int(staged_param_bytes))

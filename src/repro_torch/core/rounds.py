@@ -17,11 +17,20 @@ contributors' states are packed at the handshake and after every refresh
 the refresh trains from the dequantized wire image (``_wire_image``), as
 the fleet engine's int8 round state does.
 
+Under ``adversary=AdversaryConfig(...)`` some delivered payloads are
+corrupted (:mod:`repro_torch.core.adversary`): ``_collect_update`` applies
+the attack to the outgoing wire image, before AES, keyed on the delivering
+round.  Under ``robust != "none"`` AGGREGATE runs the robust statistic of
+:mod:`repro_torch.kernels.robust.ops` over the (1, N, P) buffer instead of
+eq. 14, records which contributors it clipped, and the report prices one
+screening pass per executed round.
+
 ``run(engine="fleet")`` runs the session as a one-requester fleet
 (:func:`repro_torch.core.fleet.run_fleet`).  This slice covers the static,
-lockstep world: ``encrypt`` on or off, any ``strategy`` and any
-``compress``.  Every other knob of ``EnFedConfig`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` slice that ports it.
+lockstep world: ``encrypt`` on or off, any ``strategy``, any ``compress``,
+Byzantine contributors and the robust AGGREGATE.  Every other knob of
+``EnFedConfig`` raises ``NotImplementedError`` naming the ``ROADMAP.md``
+slice that ports it.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import adversary as adversary_mod
 from repro_torch.core import aggregation, crypto, protocol
+from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, EnergyReport
 from repro_torch.core.incentive import Contract, NeighborDevice, select_contributors
@@ -42,10 +53,9 @@ from repro_torch.core.topology import AggregationStrategy
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.quantize.ops import (compress_update, decompress_update,
                                               resolve_compress)
+from repro_torch.kernels.robust.ops import ROBUST_METHODS, robust_aggregate
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_size,
                                     unflatten_from_vector)
-
-ROBUST_METHODS = ("none", "clip", "trimmed_mean", "median")
 
 
 @dataclasses.dataclass
@@ -63,13 +73,14 @@ class EnFedConfig:
     # which signed contributors feed eq. (14) each round (None = all)
     strategy: Optional[AggregationStrategy] = None
     compress: Optional[str] = None          # None | "int8" | "auto" wire format
-    # The knobs below belong to later slices of the port; the engines
-    # raise NotImplementedError unless they keep their defaults.
+    # mobility, faults, cadence and staleness_gamma < 1 belong to later
+    # slices of the port; the engines raise NotImplementedError for them.
     mobility: Optional[object] = None       # opportunistic world: slice E
     faults: Optional[object] = None         # unreliable links: slice E
     cadence: Optional[object] = None        # asynchronous cadence: slice E
-    adversary: Optional[object] = None      # Byzantine contributors: slice E
-    robust: str = "none"                    # robust AGGREGATE: slice E
+    adversary: Optional[AdversaryConfig] = None   # Byzantine contributors
+    # robust AGGREGATE: "none" (eq. 14) | "clip" | "trimmed_mean" | "median"
+    robust: str = "none"
     staleness_gamma: float = 1.0            # decayed weights: slice E
 
     def __post_init__(self):
@@ -87,11 +98,9 @@ class EnFedConfig:
 
 def _unported(cfg: EnFedConfig) -> Optional[str]:
     """The first knob of ``cfg`` this slice does not run, with its slice."""
-    for name in ("mobility", "faults", "cadence", "adversary"):
+    for name in ("mobility", "faults", "cadence"):
         if getattr(cfg, name) is not None:
             return f"{name} (world state, ROADMAP.md slice E)"
-    if cfg.robust != "none":
-        return f"robust={cfg.robust!r} (robust AGGREGATE, ROADMAP.md slice E)"
     if cfg.staleness_gamma < 1.0:
         return "staleness_gamma < 1 (decayed weights, ROADMAP.md slice E)"
     return None
@@ -190,16 +199,26 @@ class EnFedSession:
         q, s, n = self._wire[device_id]
         return unflatten_from_vector(decompress_update(q, s, n), template)
 
-    def _collect_update(self, device_id: int):
-        """Phase.COLLECT: contributor -> (compress) -> (encrypt) -> wire ->
-        (decrypt) -> (decompress).  Returns the received tree and its wire
-        bytes."""
+    def _collect_update(self, device_id: int, corrupt: bool = False, step: int = 0):
+        """Phase.COLLECT: contributor -> (compress) -> (corrupt) ->
+        (encrypt) -> wire -> (decrypt) -> (decompress).  Returns the
+        received tree and its wire bytes.
+
+        ``corrupt`` applies the adversary's attack to the outgoing payload,
+        in wire format under int8 (codes and scales), keyed on the
+        delivering round ``step``; the cipher then runs over the corrupted
+        bytes.  The resident params and wire cache are never modified."""
+        ac = self.cfg.adversary
+        part = self.task.threefry_partitionable
         params = self.contributor_states[device_id]["params"]
         if self._compress == "int8":
             # the payload is the int8 codes followed by the little-endian
             # fp32 scales; CTR keeps the length, so the wire bytes are the
             # compressed count either way
             q, s, n = self._wire[device_id]
+            if corrupt:
+                q, s = adversary_mod.corrupt_wire(ac, q, s, True, step, ac.requester_id,
+                                                  device_id, partitionable=part)
             if not self.cfg.encrypt:
                 return (unflatten_from_vector(decompress_update(q, s, n), params),
                         int(q.shape[0]) + 4 * int(s.shape[0]))
@@ -212,12 +231,29 @@ class EnFedSession:
             sr = crypto.bytes_to_float_vector(plain[nq:])
             return (unflatten_from_vector(decompress_update(qr, sr, n), params),
                     int(cipher.shape[0]))
-        if not self.cfg.encrypt:
+        if not self.cfg.encrypt and not corrupt:
             return params, tree_bytes(params)
         vec, _ = flatten_to_vector(params)
+        if corrupt:
+            vec = adversary_mod.corrupt_dense(ac, vec, True, step, ac.requester_id,
+                                              device_id, partitionable=part)
+        if not self.cfg.encrypt:
+            return unflatten_from_vector(vec, params), tree_bytes(params)
         cipher = crypto.encrypt_update(vec, self.keys[device_id], self.nonces[device_id])
         plain = crypto.decrypt_update(cipher, self.keys[device_id], self.nonces[device_id])
         return unflatten_from_vector(plain, params), int(cipher.shape[0])
+
+    def _robust_aggregate_full(self, updates, weights):
+        """Phase.AGGREGATE under ``robust != "none"``: stack the delivered
+        updates into a (1, N, P) buffer on the session's device and run the
+        one :func:`repro_torch.kernels.robust.ops.robust_aggregate` the
+        fleet also calls.  Returns the aggregated tree and the clipped
+        mask (N,) as float32."""
+        stacked = torch.stack([flatten_to_vector(u)[0] for u in updates])
+        w = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(stacked.device)
+        agg, clipped = robust_aggregate(stacked[None], w[None], method=self.cfg.robust)
+        return (unflatten_from_vector(agg[0], updates[0]),
+                clipped[0].cpu().numpy().astype(np.float32))
 
     def _refresh_contributors(self, contracts: List[Contract]):
         """Phase.REFRESH: contributors keep improving between rounds.
@@ -273,24 +309,44 @@ class EnFedSession:
             raise RuntimeError("no nearby device agreed to the incentive (N_d < 1)")
         n_c = len(contracts)
         round_w = protocol.round_weights(n_c, cfg.strategy)
+        ids = np.array([c.device_id for c in contracts], np.int64)
+        ac = cfg.adversary
 
         history = {"accuracy": [], "loss": [], "battery": [],
                    "round_executed": []}
+        if ac is not None:
+            history["corrupted_mask"] = []
+        if cfg.robust != "none":
+            history["clipped_mask"] = []
         params = None
         rounds = 0
         stop = protocol.STOP_MAX_ROUNDS
         model_bytes = 0
 
         for r in range(cfg.max_rounds):
+            # Byzantine weather of this round: pure world state, keyed on
+            # the delivering round (lockstep: the event step is r)
+            cmask = (adversary_mod.corruption_mask(
+                ac, r, ac.requester_id, ids,
+                partitionable=self.task.threefry_partitionable).numpy()
+                if ac is not None else np.zeros((n_c,), bool))
             with self._clock(phase_s, "collect"):
                 updates = []
-                for c in contracts:
-                    upd, nbytes = self._collect_update(c.device_id)
+                for j, c in enumerate(contracts):
+                    upd, nbytes = self._collect_update(c.device_id, corrupt=bool(cmask[j]),
+                                                       step=r)
                     model_bytes = max(model_bytes, nbytes)
                     updates.append(upd)
-            # Phase.AGGREGATE (eq. 14): one launch over the (1, N, P) buffer
+            if ac is not None:
+                history["corrupted_mask"].append(cmask.astype(np.float32))
+            # Phase.AGGREGATE: eq. 14, or the robust statistic, in one
+            # launch over the (1, N, P) buffer
             with self._clock(phase_s, "aggregate"):
-                global_params = aggregation.masked_fedavg(updates, round_w)
+                if cfg.robust != "none":
+                    global_params, clipped = self._robust_aggregate_full(updates, round_w)
+                    history["clipped_mask"].append(clipped)
+                else:
+                    global_params = aggregation.masked_fedavg(updates, round_w)
             with self._clock(phase_s, "fit"):
                 params, losses = self.task.fit(global_params, self.own_train,
                                                cfg.epochs, cfg.batch_size,
@@ -327,6 +383,13 @@ class EnFedSession:
             model_bytes=model_bytes, num_samples=len(self.own_train[0]),
             epochs=cfg.epochs, n_devices=len(self.fleet),
             measured_local_time=phase_s.get("fit", 0.0), encrypt=cfg.encrypt)
+        if cfg.robust != "none" and rounds:
+            # one screening pass over the N x P buffer per executed round,
+            # priced post hoc (never drains the simulated battery)
+            e_scr, t_scr = self.cost.screening_energy(n_contrib=n_c,
+                                                      num_params=tree_size(params))
+            report.times.t_agg += rounds * t_scr
+            report.e_comp += rounds * e_scr
         return SessionResult(
             accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_c,
             report=report, battery=self.battery, history_raw=history,

@@ -11,6 +11,7 @@ from repro_torch.kernels.aes_ctr import kernel as _aes_ctr
 from repro_torch.kernels.fedavg import kernel as _fedavg
 from repro_torch.kernels.lstm_cell import kernel as _lstm_cell
 from repro_torch.kernels.quantize import kernel as _quantize
+from repro_torch.kernels.robust import kernel as _robust
 
 # kernel name -> (launcher module, name of its launch counter)
 _COUNTERS = {
@@ -20,6 +21,12 @@ _COUNTERS = {
     "aes_ctr": (_aes_ctr, "launches"),
     "quantize": (_quantize, "launches"),
     "dequantize": (_quantize, "dequantize_launches"),
+    "trimmed_mean": (_robust, "trimmed_mean_launches"),
+    "trimmed_mean_q8": (_robust, "trimmed_mean_q8_launches"),
+    "median": (_robust, "median_launches"),
+    "median_q8": (_robust, "median_q8_launches"),
+    "sqnorm": (_robust, "sqnorm_launches"),
+    "sqnorm_q8": (_robust, "sqnorm_q8_launches"),
 }
 
 

@@ -261,10 +261,17 @@ def test_fleet_write_back_holds_refreshed_contributors():
     assert {d: id(v["params"]) for d, v in st.items()} == ids
 
 
+_AC = tcore.AdversaryConfig(p_byzantine=0.5)
+
+
 @pytest.mark.parametrize("knob,kwargs", [
     (dict(mobility=object()), {}), (dict(faults=object()), {}),
-    (dict(cadence=object()), {}), (dict(adversary=object()), {}),
-    (dict(robust="trimmed_mean"), {}), (dict(staleness_gamma=0.5), {}),
+    (dict(cadence=object()), {}), (dict(staleness_gamma=0.5), {}),
+    (dict(adversary=_AC, faults=object()), {}),
+    (dict(adversary=_AC, robust="clip", cadence=object()), {}),
+    (dict(adversary=_AC, mobility=object()), {}),
+    (dict(adversary=_AC, robust="median"), dict(method="dfl")),
+    (dict(adversary=_AC), dict(method="cfl")),
     ({}, dict(method="dfl")), ({}, dict(method="cfl")),
     ({}, dict(checkpoint_dir="ckpt")), ({}, dict(resume_from="ckpt")),
     ({}, dict(timeline=object())), ({}, dict(trace=object()))])

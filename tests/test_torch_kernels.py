@@ -31,6 +31,8 @@ from repro_torch.kernels.quantize import ops as quant_ops
 from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
 from repro_torch.kernels.quantize.ref import (dequantize_batched_ref, dequantize_ref,
                                               quantize_batched_ref)
+from repro_torch.kernels.robust import kernel as robust_kernel
+from repro_torch.kernels.robust import ref as robust_ref
 
 # eq. 14 sums in another order than XLA's einsum: fp32 rounding only
 FEDAVG_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -324,7 +326,8 @@ def test_quantize_cpu_dispatch_runs_the_twins_without_launching():
                                              torch.ones(1, 2)))
     counts = kernels.launch_counts()
     assert set(counts) == {"fedavg", "fedavg_q8", "lstm_cell", "aes_ctr", "quantize",
-                           "dequantize"}
+                           "dequantize", "trimmed_mean", "trimmed_mean_q8", "median",
+                           "median_q8", "sqnorm", "sqnorm_q8"}
     assert not any(counts.values())
 
 
@@ -336,6 +339,69 @@ def test_int8_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fedavg_batched_q8_cuda(torch.zeros(1, 2, 1024, dtype=torch.int8),
                                torch.ones(1, 2, 1), torch.ones(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# robust statistics (trimmed mean, median, squared norm; dense and int8)
+# ---------------------------------------------------------------------------
+
+ROBUST_SHAPES = [(64, 5, 18566), (3, 6, 1000 + 7), (2, 1, 300), (2, 2, 513), (4, 3, 256),
+                 (5, 16, 777)]
+
+
+def _robust_world(r, n, l, seed):
+    """Normal values with an all-zero weight row, ties and a noise-sized
+    outlier, as int8 codes + scales and their dequantized fp32 buffer."""
+    g = torch.Generator().manual_seed(seed)
+    lp = l + (-l) % 1024
+    x = torch.randn((r, n, l), generator=g)
+    x[0, 0, : min(l, 64)] *= 1e3                               # a noise-sized outlier
+    if n > 2:
+        x[-1, 1] = x[-1, 0]                                    # tied rows
+    q, s = quantize_batched_ref(x.reshape(r * n, l))
+    q, s = q.reshape(r, n, lp), s.reshape(r, n, -1)
+    w = torch.rand((r, n), generator=g) + 0.1
+    w[0, -1] = 0.0                                             # an inactive lane
+    if r > 1:
+        w[1] = 0.0                                             # an all-zero weight row
+    return x, q, s, dequantize_batched_ref(q, s), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,l", ROBUST_SHAPES)
+def test_robust_kernels_match_twins_on_card(r, n, l, cuda_device):
+    x, q, s, dq, w = (t.to(cuda_device) for t in _robust_world(r, n, l, r + n + l))
+    for dense_k, q8_k, twin in ((robust_kernel.trimmed_mean_cuda,
+                                 robust_kernel.trimmed_mean_q8_cuda,
+                                 robust_ref.trimmed_mean_batched_ref),
+                                (robust_kernel.median_cuda, robust_kernel.median_q8_cuda,
+                                 robust_ref.median_batched_ref)):
+        got = dense_k(x.contiguous(), w)
+        want = twin(x, w)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1.0)
+        if r > 1:
+            assert bool((got[1] == 0).all())
+        # the q8 kernel is bitwise the dense kernel on the dequantized buffer
+        assert torch.equal(q8_k(q, s, w), dense_k(dq.contiguous(), w))
+    sq = robust_kernel.sqnorm_cuda(x.contiguous())
+    torch.testing.assert_close(sq, robust_ref.sqnorm_batched_ref(x), rtol=1e-5, atol=1e-6)
+    # the q8 sum over the padded Lp is bitwise the dense sum over P
+    sq8 = robust_kernel.sqnorm_q8_cuda(q, s)
+    assert torch.equal(sq8, robust_kernel.sqnorm_cuda(dq[..., :l].contiguous()))
+    assert torch.equal(sq8, robust_kernel.sqnorm_cuda(dq.contiguous()))
+
+
+@pytest.mark.cuda
+def test_robust_kernels_are_deterministic_and_reject_too_many_contributors(cuda_device):
+    x = torch.randn((4, 5, 4099), device=cuda_device)
+    a, b = robust_kernel.sqnorm_cuda(x), robust_kernel.sqnorm_cuda(x)
+    assert torch.equal(a, b)
+    w = torch.ones((1, robust_kernel.MAX_N + 1), device=cuda_device)
+    u = torch.zeros((1, robust_kernel.MAX_N + 1, 8), device=cuda_device)
+    for call in (robust_kernel.trimmed_mean_cuda, robust_kernel.median_cuda):
+        with pytest.raises(ValueError, match=f"1 to {robust_kernel.MAX_N}"):
+            call(u, w)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +486,7 @@ def test_aes_kernel_matches_twin_on_card(n, offset, cuda_device):
 
 def test_build_covers_every_source_and_hashes_them(tmp_path, monkeypatch):
     names = {p.name for p in _build.sources()}
-    assert names == {"fedavg.cu", "lstm_cell.cu", "aes_ctr.cu", "quantize.cu"}
+    assert names == {"fedavg.cu", "lstm_cell.cu", "aes_ctr.cu", "quantize.cu", "robust.cu"}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
@@ -438,7 +504,9 @@ def test_launchers_declare_pointer_args_as_void_p():
     from repro_torch.kernels.lstm_cell import kernel as lk
     from repro_torch.kernels.quantize import kernel as qk
 
+    rk = robust_kernel
     for argtypes in (fk._ARGTYPES, fk._Q8_ARGTYPES, lk._ARGTYPES, ak._ARGTYPES,
-                     qk._QUANT_ARGTYPES, qk._DEQUANT_ARGTYPES):
+                     qk._QUANT_ARGTYPES, qk._DEQUANT_ARGTYPES, rk._COLUMN_ARGTYPES,
+                     rk._COLUMN_Q8_ARGTYPES, rk._SQNORM_ARGTYPES, rk._SQNORM_Q8_ARGTYPES):
         assert argtypes[-1] is ctypes.c_void_p            # the stream
         assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}

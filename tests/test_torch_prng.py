@@ -68,3 +68,81 @@ def test_bits_modes_differ():
     """The two modes are genuinely different streams, so the flag matters."""
     k = prng.fold_in(prng.prng_key(3), 1)
     assert int(prng.bits(k, partitionable=True)) != int(prng.bits(k, partitionable=False))
+
+
+# ---------------------------------------------------------------------------
+# split, shaped bits, randint, uniform, normal (the adversary's draws)
+# ---------------------------------------------------------------------------
+
+SHAPES = [(), (1,), (5,), (6,), (2, 3), (1025,)]
+
+
+def _key(seed, d=3):
+    return (jax.random.fold_in(jax.random.PRNGKey(seed), jnp.uint32(d)),
+            prng.fold_in(prng.prng_key(seed), d))
+
+
+@pytest.mark.parametrize("num", [2, 3, 5])
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+def test_split_matches_jax(num, seed, threefry_mode):
+    k, tk = _key(seed)
+    want = _np(jax.random.split(k, num))
+    assert np.array_equal(prng.split(tk, num, partitionable=threefry_mode).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_shaped_bits_match_jax(shape, threefry_mode):
+    for seed in (0, 7):
+        k, tk = _key(seed)
+        want = _np(jax.random.bits(k, shape, jnp.uint32))
+        got = prng.random_bits(tk, shape, partitionable=threefry_mode)
+        assert got.shape == shape
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_scalar_random_bits_equal_bits(threefry_mode):
+    tk = prng.fold_in(prng.prng_key(1), torch.arange(8))
+    assert torch.equal(prng.random_bits(tk, (), partitionable=threefry_mode),
+                       prng.bits(tk, partitionable=threefry_mode))
+
+
+@pytest.mark.parametrize("lo,hi", [(-127, 128), (0, 2 ** 31 - 1), (3, 10), (5, 5),
+                                   (-2 ** 31, 2 ** 31 - 1)])
+@pytest.mark.parametrize("shape", [(), (7,), (2, 1024)])
+def test_randint_matches_jax(lo, hi, shape, threefry_mode):
+    for seed in (0, 12345):
+        k, tk = _key(seed)
+        want = _np(jax.random.randint(k, shape, lo, hi, jnp.int32))
+        got = prng.randint(tk, shape, lo, hi, partitionable=threefry_mode)
+        assert np.array_equal(got.numpy(), want), (seed, lo, hi)
+
+
+def test_randint_over_a_batch_of_keys_matches_per_key_draws(threefry_mode):
+    keys = prng.fold_in(prng.prng_key(1), torch.arange(4))
+    batch = prng.randint(keys[None], (9,), -127, 128, partitionable=threefry_mode)
+    for i in range(4):
+        k = jax.random.fold_in(jax.random.PRNGKey(1), jnp.uint32(i))
+        assert np.array_equal(batch[0, i].numpy(),
+                              _np(jax.random.randint(k, (9,), -127, 128, jnp.int32)))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_uniform_bits_match_jax(shape, threefry_mode):
+    k, tk = _key(17)
+    want = np.asarray(jax.random.uniform(k, shape, jnp.float32))
+    got = prng.uniform(tk, shape, partitionable=threefry_mode).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    want = np.asarray(jax.random.uniform(k, shape, jnp.float32, lo, 1.0))
+    got = prng.uniform(tk, shape, float(lo), 1.0, partitionable=threefry_mode).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_normal_matches_jax(shape, threefry_mode):
+    """torch.erfinv and XLA's erf_inv differ by a few ulps in the tails."""
+    for seed in (0, 7):
+        k, tk = _key(seed)
+        want = np.asarray(jax.random.normal(k, shape, jnp.float32))
+        got = prng.normal(tk, shape, partitionable=threefry_mode).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)

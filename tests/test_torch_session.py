@@ -230,10 +230,15 @@ def test_int8_session_matches_jax_loop_engine(kind, partitionable, encrypt, comp
         jax.config.update("jax_threefry_partitionable", old)
 
 
+_AC = tcore.AdversaryConfig(p_byzantine=0.5)
+
+
 @pytest.mark.parametrize("knob", [
-    dict(robust="clip"), dict(mobility=object()), dict(faults=object()),
-    dict(cadence=object()), dict(adversary=object()), dict(robust="median"),
-    dict(staleness_gamma=0.5)])
+    dict(mobility=object()), dict(faults=object()), dict(cadence=object()),
+    dict(staleness_gamma=0.5), dict(adversary=_AC, faults=object()),
+    dict(adversary=_AC, robust="clip", cadence=object()),
+    dict(adversary=_AC, robust="median", mobility=object()),
+    dict(adversary=_AC, robust="trimmed_mean", staleness_gamma=0.5)])
 def test_unported_knobs_raise_naming_their_slice(knob):
     _, shards, own_train, own_test, _ = _world("mlp")
     _, tfleet = _fleets()

@@ -10,16 +10,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    main paths' shapes and at edge shapes (AES, quantize and dequantize
    bit-exact, eq. 14 dense and int8 within 1e-6 of the largest output, the
    LSTM cell within 1e-5, one lane and the fleet's fit, score and refresh
-   lanes, with the weights as views of the fleet's flat buffers; the robust
+   lanes, with the weights as views of the fleet's flat buffers; the LSTM's
+   whole-sequence forward within 1e-5 (every saved state) and its backward
+   within 1e-4 of each output's largest value, at the loop's and the
+   fleet's fit and scoring shapes; the robust
    trimmed mean and median within 1e-6 of the largest output, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
    dense kernel on the dequantized buffer);
 4. the main paths, each with every launch count set to 0 just before it
-   and read just after:
+   and read just after; on each, the sequence forward is launched once per
+   forward pass of the LSTM and the backward once per training pass:
    - Algorithm 1 as ``examples/quickstart.py`` runs it, at full width
      (3,000 HAR windows, T=32, F=6, H=64, 6 classes, 5 contributors
      pretrained for 6 epochs, 10 rounds of 8 epochs, AES transport); then
-     the same world over 4 rounds with refresh (timing only), and one
+     the same world over 10 rounds with refresh (timing only), and one
      round of it on the card and on the CPU, whose parameters must agree;
    - the same session with ``compress="int8"``;
    - the fleet engine: 64 requesters of the HAR LSTM at full width sharing
@@ -34,9 +38,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      method, fp32 and int8; one 4-requester round under clip on the card
      and on the CPU, whose corrupted and clipped masks must be equal;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
-   plain twin, the closest PyTorch library call and its bound on the card;
+   plain twin, the closest PyTorch library call and its bound on the card
+   (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
+   ``torch.lstm``);
 6. trace one fit epoch of the loop engine and one round of the 64-requester
-   fleet: device-busy share and the kernels that take it;
+   fleet: device-busy share, launches per Adam step and the kernels that
+   take the device time;
 7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -62,7 +69,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 AES_OPS_PER_BLOCK = 11 * 16 + 10 * 16 + 9 * 4 * 20 + 16   # xor, S-box, MixColumns, payload
 FIT_EPOCHS, MAX_ROUNDS, PRETRAIN_EPOCHS = 8, 10, 6
-TIMING_ROUNDS = 4              # depth of the loop engine's timing session
+TIMING_ROUNDS = 10             # depth of the loop engine's timing session
 FLEET_R = 64                   # requesters of the fleet path
 TILE = 1024                    # int8 wire tile
 # one fp32 fleet round (8 epochs of Adam), card vs CPU: the CPU's own spread
@@ -246,6 +253,66 @@ def check_lane_lstm(dev, spec, n_params, fit_b, score_b, refresh_rows):
     return worst
 
 
+def check_lstm_seq(dev, spec, n_params, fit_b, score_b, fleet_score_b, seq_len):
+    """The whole-sequence forward and backward kernels at (L, B) = (1, fit),
+    (1, score), (64, fit) and (64, fleet score), T = ``seq_len``; at 64
+    lanes the weights are ``tree_unravel`` views of a flat (L, P) buffer
+    (fp32 fit) or of an (L, Lp)[:, :P] slice (int8).  The forward must
+    agree with its twin within 1e-5 on h_T, c_T and every saved state; the
+    backward (from the kernel's saved states) within 1e-4 of each twin
+    output's largest value on dgates, dh0, dc0 and on the weight gradients
+    the wrapper forms from dgates.  Returns the largest forward and backward
+    abs errors."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+    from repro_torch.utils.tree import tree_unravel
+
+    g = torch.Generator().manual_seed(13)
+    lp = n_params + (-n_params) % TILE
+    fwd_worst = bwd_worst = 0.0
+    for name, lanes, b, padded in [("loop fit", 1, fit_b, False),
+                                   ("loop score", 1, score_b, False),
+                                   ("fleet fit fp32", FLEET_R, fit_b, False),
+                                   ("fleet fit int8", FLEET_R, fit_b, True),
+                                   ("fleet score", FLEET_R, fleet_score_b, False)]:
+        buf = torch.randn((lanes, lp if padded else n_params), generator=g).to(dev) * 0.3
+        p = tree_unravel(spec, buf[:, :n_params])
+        wx, wh, bias = p["wx"], p["wh"], p["b"]
+        f, h = wx.shape[1], wh.shape[1]
+        x = torch.randn((lanes, seq_len, b, f), generator=g).to(dev)
+        h0, c0, dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) * 0.5
+                          for _ in range(4))
+        hs, cs = lstm_seq_cuda(x, h0, c0, wx, wh, bias, save=True)
+        h_t, c_t = lstm_seq_cuda(x, h0, c0, wx, wh, bias)
+        torch.cuda.synchronize()
+        hr, cr = lstm_seq_ref(x, h0, c0, wx, wh, bias)
+        ferr = max(float((hs - hr).abs().max()), float((cs - cr).abs().max()))
+        if not ferr <= 1e-5:
+            fail(f"lstm_seq forward {name} L,B,T={lanes},{b},{seq_len}: max abs err {ferr}")
+        if not (torch.equal(h_t, hs[:, -1]) and torch.equal(c_t, cs[:, -1])
+                and torch.equal(hs[:, 0], h0) and torch.equal(cs[:, 0], c0)):
+            fail(f"lstm_seq forward {name}: final or initial states differ from the saved ones")
+        dgates, dh0, dc0 = lstm_seq_backward_cuda(x, hs, cs, wx, wh, bias, dh, dc)
+        full = lstm_seq_backward(x, hs, cs, wx, wh, bias, dh, dc, need_dx=False)
+        torch.cuda.synchronize()
+        want = lstm_seq_backward_ref(x, hs, cs, wx, wh, bias, dh, dc)
+        parts = []
+        for out, got, w in zip(("dgates", "dh0", "dc0", "dwx", "dwh", "db"),
+                               (dgates, dh0, dc0) + tuple(full[4:]), want[:3] + want[4:]):
+            err = float((got - w).abs().max())
+            scale = float(w.abs().max())
+            if not err <= 1e-4 * scale:
+                fail(f"lstm_seq backward {name} {out}: max abs err {err} (largest {scale})")
+            parts.append(f"{out} {err:.2e}/{scale:.2e}")
+            bwd_worst = max(bwd_worst, err)
+        fwd_worst = max(fwd_worst, ferr)
+        print(f"  lstm_seq {name:14s} L,B,F,H,T={lanes},{b},{f},{h},{seq_len}, lane stride "
+              f"{wx.stride(0)}: forward max abs err {ferr:.3e}; backward err/largest "
+              + ", ".join(parts))
+    return fwd_worst, bwd_worst
+
+
 def check_quantize(dev, n_params, rows):
     """Codes and scales bit-equal to the twin: the 1-D update, the fleet's
     staging rows, an off-tile length, an all-zero tile, half-way codes."""
@@ -402,6 +469,49 @@ def check_robust(dev, n_params, n_contrib):
 # ---------------------------------------------------------------------------
 
 
+class LSTMPasses:
+    """Counts the forward passes of the world's LSTM (calls of its
+    ``lane_logits``, through which every path reaches the cell) and, of
+    those, the ones made with grad mode on, each of which a backward
+    follows."""
+
+    def __init__(self, model):
+        self.inner = model.lane_logits
+        self.total = self.training = 0
+        model.lane_logits = self
+
+    def __call__(self, params, x):
+        self.total += 1
+        self.training += int(torch.is_grad_enabled())
+        return self.inner(params, x)
+
+
+PASSES = None   # the LSTMPasses of the world's model, set in main()
+
+
+def reset_counts() -> None:
+    """Every launch count and pass count to 0, just before a path."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    PASSES.total = PASSES.training = 0
+
+
+def read_counts() -> dict:
+    """The launch counts just after a path.  The sequence forward must have
+    been launched once per forward pass of the LSTM (not once per
+    timestep) and the backward once per training pass."""
+    from repro_torch import kernels
+
+    counts = kernels.launch_counts()
+    print(f"    LSTM passes {PASSES.total} ({PASSES.training} training): lstm_cell "
+          f"{counts['lstm_cell']} launches, lstm_cell_bwd {counts['lstm_cell_bwd']}")
+    if counts["lstm_cell"] != PASSES.total or counts["lstm_cell_bwd"] != PASSES.training:
+        fail(f"the LSTM's kernels were not launched once per pass: {PASSES.total} forward "
+             f"and {PASSES.training} training passes, launches {counts}")
+    return counts
+
+
 def quickstart_world(device):
     from repro_torch.core import SupervisedTask, make_fleet
     from repro_torch.data import HARDatasetConfig, dirichlet_partition, make_har_windows
@@ -437,7 +547,6 @@ def contributor_states(pretrained, shards, fleet, device):
 
 
 def run_main_path(device, world):
-    from repro_torch import kernels
     from repro_torch.core import EnFedSession, SupervisedTask
     from repro_torch.models import LSTMClassifier
     from repro_torch.utils.tree import tree_leaves
@@ -456,14 +565,14 @@ def run_main_path(device, world):
     session = EnFedSession(task, own_train, own_test, fleet,
                            contributor_states(pretrained, shards, fleet, device),
                            session_cfg(MAX_ROUNDS), device=device)
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = session.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = read_counts()
 
-    if not all(counts[k] > 0 for k in ("fedavg", "lstm_cell", "aes_ctr")):
+    if not all(counts[k] > 0 for k in ("fedavg", "lstm_cell", "lstm_cell_bwd", "aes_ctr")):
         fail(f"a kernel of the main path was never launched: {counts}")
     check_session(res, "session")
     print(f"  accuracy {res.accuracy:.4f}, rounds {res.rounds}, stop {res.stop_reason}, "
@@ -496,7 +605,10 @@ def run_main_path(device, world):
     diff = max(float((a.cpu() - b).abs().max()) for a, b in
                zip(tree_leaves(card.params), tree_leaves(host.params)))
     # fp32 sums in another order on the card than on the CPU, compounded
-    # over 8 epochs of Adam (2.1e-7 observed on an H100): 500x headroom
+    # over 8 epochs of Adam: the card forms each weight gradient as one
+    # product over the T * B rows of a batch, the CPU as T per-step
+    # products summed (2.066e-5 observed on an H100, 2.1e-7 while both
+    # summed per step)
     tol = 1e-4
     print(f"  one round card vs CPU: max abs param diff {diff:.3e} (tolerance {tol}), "
           f"loss {card.history_raw['loss'][-1]:.6f} vs {host.history_raw['loss'][-1]:.6f}")
@@ -519,7 +631,6 @@ def check_session(res, what):
 
 def run_loop_int8(device, world, pretrained):
     """The quickstart session with the int8 wire: AES over codes + scales."""
-    from repro_torch import kernels
     from repro_torch.core import EnFedSession
 
     task, shards, own_train, own_test, fleet = world
@@ -527,13 +638,13 @@ def run_loop_int8(device, world, pretrained):
                            contributor_states(pretrained, shards, fleet, device),
                            dataclasses.replace(session_cfg(MAX_ROUNDS), compress="int8"),
                            device=device)
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = session.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    need = ("quantize", "dequantize", "aes_ctr", "fedavg", "lstm_cell")
+    counts = read_counts()
+    need = ("quantize", "dequantize", "aes_ctr", "fedavg", "lstm_cell", "lstm_cell_bwd")
     if not all(counts[k] > 0 for k in need):
         fail(f"int8 session: a kernel of its path was never launched: {counts}")
     check_session(res, "int8 session")
@@ -572,24 +683,23 @@ def fleet_specs(device, world, pretrained, r_count):
 def run_fleet_path(device, world, pretrained):
     """The fleet engine at R = 64, fp32 and int8 wire; then one round of 4
     requesters on the card and on the CPU (:func:`fleet_round_check`)."""
-    from repro_torch import kernels
     from repro_torch.core import run_fleet
     from repro_torch.core.protocol import STOP_REASONS
     from repro_torch.utils.tree import tree_leaves
 
     task = world[0]
     all_counts = {}
-    for compress, need in ((None, ("fedavg", "lstm_cell")),
-                           ("int8", ("fedavg_q8", "quantize", "lstm_cell"))):
+    for compress, need in ((None, ("fedavg", "lstm_cell", "lstm_cell_bwd")),
+                           ("int8", ("fedavg_q8", "quantize", "lstm_cell", "lstm_cell_bwd"))):
         specs = fleet_specs(device, world, pretrained, FLEET_R)
         cfg = dataclasses.replace(session_cfg(MAX_ROUNDS), compress=compress)
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = run_fleet(task, specs, cfg, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        counts = read_counts()
         tag = f"fleet {compress or 'fp32'}"
         if not all(counts[k] > 0 for k in need):
             fail(f"{tag}: a kernel of its path was never launched: {counts}")
@@ -700,7 +810,6 @@ def run_loop_adversary(device, world, pretrained):
     """The quickstart session under the noise attack with ``robust="clip"``,
     fp32 and int8 wire: AES runs over the corrupted payloads, the squared
     norm and eq. 14 aggregate, the cell fits."""
-    from repro_torch import kernels
     from repro_torch.core import EnFedSession
 
     task, shards, own_train, own_test, fleet = world
@@ -711,13 +820,13 @@ def run_loop_adversary(device, world, pretrained):
                                contributor_states(pretrained, shards, fleet, device),
                                adversary_cfg(compress, "clip"), device=device)
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = session.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        need = ("sqnorm", "fedavg", "aes_ctr", "lstm_cell") + (
+        counts = read_counts()
+        need = ("sqnorm", "fedavg", "aes_ctr", "lstm_cell", "lstm_cell_bwd") + (
             ("quantize", "dequantize") if compress else ())
         if not all(counts[k] > 0 for k in need):
             fail(f"{tag}: a kernel of its path was never launched: {counts}")
@@ -744,7 +853,6 @@ FLEET_ADVERSARY_RUNS = (
 def run_fleet_adversary(device, world, pretrained):
     """The 64-requester fleet in the Byzantine world, undefended and with
     each robust method, fp32 and int8.  Returns each run's launch counts."""
-    from repro_torch import kernels
     from repro_torch.core import run_fleet
     from repro_torch.utils.tree import tree_leaves
 
@@ -754,13 +862,13 @@ def run_fleet_adversary(device, world, pretrained):
         tag = f"fleet {compress or 'fp32'} {robust}"
         specs = fleet_specs(device, world, pretrained, FLEET_R)
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = run_fleet(task, specs, adversary_cfg(compress, robust), device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        if not all(counts[k] > 0 for k in need + ("lstm_cell",)):
+        counts = read_counts()
+        if not all(counts[k] > 0 for k in need + ("lstm_cell", "lstm_cell_bwd")):
             fail(f"{tag}: a kernel of its path was never launched: {counts}")
         if not np.isfinite(res.accuracy).all() or not all(
                 bool(torch.isfinite(p).all()) for s in res.sessions for p in tree_leaves(s.params)):
@@ -818,11 +926,11 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 # ---------------------------------------------------------------------------
 
 
-def time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
-    rows = time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
+def time_kernels(dev, counts, errs, n_params, fit_b, f, h, seq_len, n_contrib):
+    rows = time_loop_kernels(dev, counts, errs, n_params, n_contrib)
+    rows += time_lstm(dev, counts, errs, fit_b, f, h, seq_len)
     rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib)
     rows += time_robust_kernels(dev, counts, errs, n_params, n_contrib)
-    time_lane_cell(dev, FLEET_R, fit_b, f, h)
     for row in rows:
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
         dus = "not measured" if row["device_us"] is None else f"{row['device_us']:.3f}"
@@ -907,8 +1015,9 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
 def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
     """The six robust kernels at the fleet's AGGREGATE, (R, N) = (64, 5):
     fp32 (R, N, P) and int8 (R, N, Lp), all contributors active.  The
-    squared norm's yardstick is ``torch.linalg.vector_norm``; no single
-    PyTorch call computes the other four."""
+    squared norm's yardstick is ``torch.linalg.vector_norm``, the dense
+    median's ``torch.nanquantile`` over the active entries; no single
+    PyTorch call computes the other three."""
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
@@ -924,6 +1033,12 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
     src = "src/repro_torch/csrc/robust.cu"
     dense_bytes = 4 * (r * n * l + r * n + r * l)
     q8_bytes = r * n * lp + 4 * (r * n * tiles + r * n + r * lp)
+    def median_library():
+        """The midpoint median over the active contributors, inactive
+        entries set to NaN by one ``torch.where`` (timed with it)."""
+        u = torch.where(w[:, :, None] > 0, x, float("nan"))
+        return torch.nanquantile(u, 0.5, dim=1, interpolation="midpoint")
+
     # compares and selects per column: the trimmed mean's two scans and
     # weighted sum, the median's n-phase network (n * n min/max) and the
     # dequantize multiply of the q8 forms
@@ -935,7 +1050,7 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
          lambda: rr.trimmed_mean_batched_q8_ref(q, s, w), None, "trimmed_mean_kernel",
          q8_bytes, r * lp * (6 * n + 1), f"R,N,Lp={r},{n},{lp}"),
         ("median", "kernel.py:269", lambda: rk.median_cuda(x, w),
-         lambda: rr.median_batched_ref(x, w), None, "median_kernel",
+         lambda: rr.median_batched_ref(x, w), median_library, "median_kernel",
          dense_bytes, r * l * (n * n + n + 2), f"R,N,L={r},{n},{l}"),
         ("median_q8", "kernel.py:276", lambda: rk.median_q8_cuda(q, s, w),
          lambda: rr.median_batched_q8_ref(q, s, w), None, "median_kernel",
@@ -960,34 +1075,134 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
     return rows
 
 
-def time_lane_cell(dev, lanes, b, f, h):
-    """The LSTM cell at the fleet's fit shape, 64 lanes in one launch."""
-    from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
-    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+def lstm_bounds(lanes, b, f, h, t):
+    """((bytes, ops) of the forward, (bytes, ops) of the backward) for one
+    sequence of T steps: each input read once, each output written once.
+    The forward writes the T + 1 saved states (a training pass); the
+    backward reads them and the final states' cotangents and writes dgates,
+    dh0 and dc0.  Ops: the gate products (recomputed in the backward), the
+    bias, the backward's dgates wh^T, and the elementwise cell."""
+    g4 = 4 * h
+    weights = f * g4 + h * g4 + g4
+    states = 2 * (t + 1) * b * h
+    gates = 2 * b * (f + h) * g4 + 2 * b * g4
+    fwd = (4 * lanes * (t * b * f + 2 * b * h + weights + states),
+           lanes * t * (gates + 10 * b * h))
+    bwd = (4 * lanes * (t * b * f + states + weights + 2 * b * h + t * b * g4 + 2 * b * h),
+           lanes * t * (gates + 2 * b * g4 * h + 40 * b * h))
+    return fwd, bwd
+
+
+def time_cudnn_lstm(x, h0, c0, wx, wh, b, dh, dc, h_last):
+    """cuDNN's LSTM (``torch.nn.LSTM``, fp32 with TF32 off) over one lane's
+    sequence x (T, B, F) with the same weights, as the yardstick of the
+    two kernels: ms of its training forward, and of its backward through
+    autograd (which forms the weight gradients too).  Also the largest
+    difference of its h_T from the kernel's ``h_last``."""
+    lstm = torch.nn.LSTM(wx.shape[0], wh.shape[0]).to(x.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    state = (h0[None].contiguous(), c0[None].contiguous())
+    fwd_ms = cuda_ms(lambda: lstm(x, state))
+    _, (hn, cn) = lstm(x, state)
+    params = list(lstm.parameters())
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad((hn, cn), params, (dh[None], dc[None]),
+                                                 retain_graph=True))
+    return fwd_ms, bwd_ms, float((hn[0].detach() - h_last).abs().max())
+
+
+def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
+    """The LSTM's two kernels per sequence (T = ``seq_len``, the fit batch)
+    at one lane (the loop engine: the rows of the kernel table) and at the
+    fleet's 64 lanes, beside their plain twins, cuDNN at one lane and
+    their bounds; the backward also with the weight gradients the wrapper
+    forms from dgates.  Then the one-step op (T = 1) at one lane, the
+    measure of this row before the sequence kernels."""
+    from repro_torch.kernels.lstm_cell.kernel import (lstm_cell_cuda, lstm_seq_backward_cuda,
+                                                      lstm_seq_cuda)
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward
+    from repro_torch.kernels.lstm_cell.ref import (lstm_cell_ref, lstm_seq_backward_ref,
+                                                   lstm_seq_ref)
 
     g = torch.Generator().manual_seed(10)
-    args = [torch.randn(sh, generator=g).to(dev) * 0.3 for sh in [
-        (lanes, b, f), (lanes, b, h), (lanes, b, h), (lanes, f, 4 * h), (lanes, h, 4 * h),
-        (lanes, 4 * h)]]
-    ms = cuda_ms(lambda: lstm_cell_cuda(*args))
-    plain = cuda_ms(lambda: lstm_cell_ref(*args))
-    dus = device_us(lambda: lstm_cell_cuda(*args), "lstm_cell_kernel")
-    nbytes = 4 * lanes * (b * f + 2 * b * h + f * 4 * h + h * 4 * h + 4 * h + 2 * b * h)
-    ops = lanes * (2 * b * (f + h) * 4 * h + 2 * b * 4 * h + 10 * b * h)
-    b_ms, b_by = bound_ms(nbytes, ops)
-    print(f"  lstm_cell  L,B,F,H={lanes},{b},{f},{h} (fleet fit): kernel_ms {ms:.5f}  device_us "
-          f"{'not measured' if dus is None else f'{dus:.3f}'}  plain_ms {plain:.5f}  "
-          f"library_ms none  bound_ms {b_ms:.6f} ({b_by})")
+    src, t, b = "src/repro_torch/csrc/lstm_cell.cu", seq_len, fit_b
+    rows = []
+    for lanes in (1, FLEET_R):
+        x = torch.randn((lanes, t, b, f), generator=g).to(dev)
+        h0, c0, dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) * 0.5
+                          for _ in range(4))
+        w = ((torch.randn((lanes, f, 4 * h), generator=g) * 0.4).to(dev),
+             (torch.randn((lanes, h, 4 * h), generator=g) / math.sqrt(h)).to(dev),
+             (torch.randn((lanes, 4 * h), generator=g) * 0.1).to(dev))
+        hs, cs = lstm_seq_cuda(x, h0, c0, *w, save=True)
+
+        def fwd():
+            return lstm_seq_cuda(x, h0, c0, *w, save=True)
+
+        def bwd():
+            return lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc)
+
+        (fb, fo), (bb, bo) = lstm_bounds(lanes, b, f, h, t)
+        f_bound, f_by = bound_ms(fb, fo)
+        b_bound, b_by = bound_ms(bb, bo)
+        fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)
+        score_ms = cuda_ms(lambda: lstm_seq_cuda(x, h0, c0, *w))
+        grads_ms = cuda_ms(lambda: lstm_seq_backward(x, hs, cs, *w, dh, dc, need_dx=False))
+        fwd_plain = cuda_ms(lambda: lstm_seq_ref(x, h0, c0, *w), iters=20, warmup=3)
+        bwd_plain = cuda_ms(lambda: lstm_seq_backward_ref(x, hs, cs, *w, dh, dc),
+                            iters=20, warmup=3)
+        fwd_us, bwd_us = device_us(fwd, "lstm_seq_fwd_kernel"), device_us(bwd, "lstm_seq_bwd_kernel")
+        lib_fwd = lib_bwd = None
+        if lanes == 1:
+            lib_fwd, lib_bwd, lib_diff = time_cudnn_lstm(
+                x[0], h0[0], c0[0], *(p[0] for p in w), dh[0], dc[0], hs[0, -1])
+            print(f"  cuDNN LSTM at L,B,T=1,{b},{t}: forward {lib_fwd:.5f} ms, backward "
+                  f"(autograd, weight gradients included) {lib_bwd:.5f} ms; its h_T differs "
+                  f"from the kernel's by {lib_diff:.3e}")
+        shape = f"L,B,F,H,T={lanes},{b},{f},{h},{t}"
+        dus = [("not measured" if v is None else f"{v:.3f}") for v in (fwd_us, bwd_us)]
+        print(f"  lstm_seq {shape}: forward kernel_ms {fwd_ms:.5f} (states saved; "
+              f"{score_ms:.5f} without) device_us {dus[0]} plain_ms {fwd_plain:.5f} "
+              f"bound_ms {f_bound:.6f} ({f_by}); backward kernel_ms {bwd_ms:.5f} device_us "
+              f"{dus[1]} (with the weight-gradient products {grads_ms:.5f} ms) plain_ms "
+              f"{bwd_plain:.5f} bound_ms {b_bound:.6f} ({b_by})")
+        if lanes == 1:
+            rows.append(dict(name="lstm_cell", route="cuda", device_us=fwd_us, source=src,
+                             replaces="src/repro/kernels/lstm_cell/kernel.py:66",
+                             launches=counts["lstm_cell"], max_abs_err=errs["lstm_cell"],
+                             ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
+                             library_ms=lib_fwd, shape=f"{shape} (forward, states saved)"))
+            rows.append(dict(name="lstm_cell_bwd", route="cuda", device_us=bwd_us, source=src,
+                             replaces="src/repro/kernels/lstm_cell/kernel.py:66 (its VJP, "
+                                      "by XLA autodiff in the reference)",
+                             launches=counts["lstm_cell_bwd"],
+                             max_abs_err=errs["lstm_cell_bwd"], ms=bwd_ms, plain_ms=bwd_plain,
+                             bound_ms=b_bound, bound_by=b_by, library_ms=lib_bwd,
+                             shape=f"{shape} (backward: dgates, dh0, dc0)"))
+
+    # the one-step op, T = 1 of the forward kernel, at the fit shape
+    x1, h1, c1 = x[0, 0], h0[0], c0[0]
+    w1 = tuple(p[0] for p in w)
+    wx_t, wh_t, zero_b = w1[0].t().contiguous(), w1[1].t().contiguous(), torch.zeros_like(w1[2])
+    step_ms = cuda_ms(lambda: lstm_cell_cuda(x1, h1, c1, *w1))
+    step_plain = cuda_ms(lambda: lstm_cell_ref(x1, h1, c1, *w1))
+    step_lib = cuda_ms(lambda: torch.lstm_cell(x1, (h1, c1), wx_t, wh_t, w1[2], zero_b))
+    step_us = device_us(lambda: lstm_cell_cuda(x1, h1, c1, *w1), "lstm_seq_fwd_kernel")
+    print(f"  lstm_cell one step B,F,H={b},{f},{h}: kernel_ms {step_ms:.5f} device_us "
+          f"{'not measured' if step_us is None else f'{step_us:.3f}'} plain_ms "
+          f"{step_plain:.5f} library_ms {step_lib:.5f} (torch.lstm_cell)")
+    return rows
 
 
-def time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib):
+def time_loop_kernels(dev, counts, errs, n_params, n_contrib):
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
     from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
-    from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
-    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
     g = torch.Generator().manual_seed(3)
     rows = []
@@ -1009,29 +1224,6 @@ def time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contr
                          launches=counts[name], max_abs_err=errs[name], ms=ms,
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                          shape=f"R,N,L={r},{n},{l}"))
-
-    # LSTM cell at the fit shape (B, F, H) = (32, 6, 64)
-    b = fit_b
-    x = torch.randn((b, f), generator=g).to(dev)
-    hh = torch.randn((b, h), generator=g).to(dev) * 0.5
-    cc = torch.randn((b, h), generator=g).to(dev) * 0.5
-    wx = torch.randn((f, 4 * h), generator=g).to(dev) * 0.4
-    wh = torch.randn((h, 4 * h), generator=g).to(dev) / math.sqrt(h)
-    bb = torch.randn((4 * h,), generator=g).to(dev) * 0.1
-    wx_t, wh_t, zero_b = wx.t().contiguous(), wh.t().contiguous(), torch.zeros_like(bb)
-    ms = cuda_ms(lambda: lstm_cell_cuda(x, hh, cc, wx, wh, bb))
-    plain = cuda_ms(lambda: lstm_cell_ref(x, hh, cc, wx, wh, bb))
-    lib = cuda_ms(lambda: torch.lstm_cell(x, (hh, cc), wx_t, wh_t, bb, zero_b))
-    nbytes = 4 * (b * f + 2 * b * h + f * 4 * h + h * 4 * h + 4 * h + 2 * b * h)
-    ops = 2 * b * (f + h) * 4 * h + 2 * b * 4 * h + 10 * b * h
-    b_ms, b_by = bound_ms(nbytes, ops)
-    dev_us = device_us(lambda: lstm_cell_cuda(x, hh, cc, wx, wh, bb), "lstm_cell_kernel")
-    rows.append(dict(name="lstm_cell", route="cuda", device_us=dev_us,
-                     source="src/repro_torch/csrc/lstm_cell.cu",
-                     replaces="src/repro/kernels/lstm_cell/kernel.py:66",
-                     launches=counts["lstm_cell"], max_abs_err=errs["lstm_cell"], ms=ms,
-                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                     shape=f"B,F,H={b},{f},{h} (scoring uses B={score_b})"))
 
     # AES-CTR over one fp32 update
     nb = 4 * n_params
@@ -1059,11 +1251,39 @@ def time_loop_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contr
 # ---------------------------------------------------------------------------
 
 
-def fit_device_view(task, own_train):
-    """One requester fit epoch at the main path's shapes, traced: wall time,
-    device-busy time, and the kernels that take the device time."""
+def traced_view(what, run, wall, top):
+    """Runs ``run`` once under ``torch.profiler`` and prints, beside the
+    untraced ``wall``, the device-busy time and share, the device
+    operations (kernels and copies) per Adam step (the backward kernel is
+    launched once per step) and the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
+
+    steps0 = kernels.launch_counts()["lstm_cell_bwd"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    steps = kernels.launch_counts()["lstm_cell_bwd"] - steps0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_s = sum(e.self_device_time_total for e in kern) * 1e-6
+    ops = sum(e.count for e in kern)
+    print(f"  {what}: wall {wall * 1e3:.2f} ms untraced, {traced * 1e3:.2f} ms traced; device "
+          f"busy {busy_s * 1e3:.3f} ms ({100 * busy_s / traced:.1f} % of the traced wall, "
+          f"{100 * busy_s / wall:.1f} % of the untraced one); {ops} device operations over "
+          f"{steps} Adam steps, {ops / max(steps, 1):.1f} per step")
+    if not kern:
+        print("  device time: not measured (the profiler saw no kernels)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  {e.key[:90]}")
+
+
+def fit_device_view(task, own_train):
+    """One requester fit epoch at the main path's shapes, untraced and
+    traced (:func:`traced_view`)."""
     params = task.init(0)
     task.fit(params, own_train, 1, 32, seed=0)
     torch.cuda.synchronize()
@@ -1071,29 +1291,13 @@ def fit_device_view(task, own_train):
     task.fit(params, own_train, 1, 32, seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        task.fit(params, own_train, 1, 32, seed=1)
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_s = sum(e.self_device_time_total for e in kern) * 1e-6
-    steps = len(own_train[0]) // 32
-    print(f"  one fit epoch ({steps} steps of B=32): wall {wall * 1e3:.2f} ms untraced, "
-          f"{traced * 1e3:.2f} ms traced; device busy {busy_s * 1e3:.3f} ms "
-          f"({100 * busy_s / traced:.1f} % of the traced wall, idle {100 - 100 * busy_s / traced:.1f} %)")
-    if not kern:
-        print("  device time: not measured (the profiler saw no kernels)")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  {e.key[:90]}")
+    traced_view(f"one fit epoch (B=32, {len(own_train[0])} windows)",
+                lambda: task.fit(params, own_train, 1, 32, seed=1), wall, 8)
 
 
 def fleet_device_view(device, world, pretrained):
-    """One round of the 64-requester fleet (fp32), untraced and traced:
-    wall, device-busy share and the kernels that take the device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One round of the 64-requester fleet (fp32), untraced and traced
+    (:func:`traced_view`)."""
     from repro_torch.core import run_fleet
 
     task = world[0]
@@ -1106,22 +1310,8 @@ def fleet_device_view(device, world, pretrained):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     specs = fleet_specs(device, world, pretrained, FLEET_R)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_fleet(task, specs, cfg, device=device)
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_s = sum(e.self_device_time_total for e in kern) * 1e-6
-    print(f"  one fleet round (R={FLEET_R}, {FIT_EPOCHS} epochs, refresh included): wall "
-          f"{wall * 1e3:.2f} ms untraced, {traced * 1e3:.2f} ms traced; device busy "
-          f"{busy_s * 1e3:.3f} ms ({100 * busy_s / traced:.1f} % of the traced wall, "
-          f"{100 * busy_s / wall:.1f} % of the untraced one)")
-    if not kern:
-        print("  device time: not measured (the profiler saw no kernels)")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  {e.key[:90]}")
+    traced_view(f"one fleet round (R={FLEET_R}, {FIT_EPOCHS} epochs, refresh included)",
+                lambda: run_fleet(task, specs, cfg, device=device), wall, 10)
 
 
 def main() -> int:
@@ -1150,6 +1340,8 @@ def main() -> int:
     # the main path's shapes, from the quickstart world itself
     world = quickstart_world(dev)
     task, _, own_train, own_test, _ = world
+    global PASSES
+    PASSES = LSTMPasses(task.model)
     cfg = task.model.cfg
     f, h, n_contrib = cfg.input_dim, cfg.hidden, 5
     n_params = tree_size(task.init(0))
@@ -1167,8 +1359,12 @@ def main() -> int:
     # the fleet's lanes: every requester's test set pads to the longest, and
     # REFRESH trains one row per contributor (all 64 requesters share the 5)
     fleet_score_b = max(len(test[0]) for _, test in fleet_split())
+    spec = tree_ravel(task.init(0))[1]
     errs["lstm_cell"] = max(errs["lstm_cell"], check_lane_lstm(
-        dev, tree_ravel(task.init(0))[1], n_params, fit_b, fleet_score_b, n_contrib))
+        dev, spec, n_params, fit_b, fleet_score_b, n_contrib))
+    seq_fwd, errs["lstm_cell_bwd"] = check_lstm_seq(dev, spec, n_params, fit_b, score_b,
+                                                    fleet_score_b, cfg.seq_len)
+    errs["lstm_cell"] = max(errs["lstm_cell"], seq_fwd)
     errs.update(check_robust(dev, n_params, n_contrib))
 
     print("[4] main paths at full width on the card")
@@ -1195,7 +1391,7 @@ def main() -> int:
     print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
     print("[5] kernel timings at the main paths' shapes (CUDA events)")
-    rows = time_kernels(dev, counts, errs, n_params, fit_b, score_b, f, h, n_contrib)
+    rows = time_kernels(dev, counts, errs, n_params, fit_b, f, h, cfg.seq_len, n_contrib)
     print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
     print("[6] where the time goes (torch.profiler)")

@@ -18,6 +18,7 @@ _COUNTERS = {
     "fedavg": (_fedavg, "launches"),
     "fedavg_q8": (_fedavg, "q8_launches"),
     "lstm_cell": (_lstm_cell, "launches"),
+    "lstm_cell_bwd": (_lstm_cell, "bwd_launches"),
     "aes_ctr": (_aes_ctr, "launches"),
     "quantize": (_quantize, "launches"),
     "dequantize": (_quantize, "dequantize_launches"),

@@ -5,10 +5,11 @@ Both are ``nn.Module``s whose parameters carry the JAX names (``wx``,
 ``wh``, ``b``, ``w_out``, ``b_out``; ``layer{i}.w`` / ``layer{i}.b``).
 Training runs functionally: :meth:`logits` takes a parameter tree (nested
 dict of tensors, the JAX package's layout) and the module's own
-parameters are just one such tree.  The LSTM's ``lax.scan`` over time is a
-Python loop over T whose body is the differentiable cell op
-(``repro_torch.kernels.lstm_cell.ops``): the hand-written kernel on the
-card, its plain twin on the CPU.  The output head and the MLP stay
+parameters are just one such tree.  The LSTM's ``lax.scan`` over time is
+one call of the differentiable sequence op
+(``repro_torch.kernels.lstm_cell.ops.lstm_seq_autograd``): a hand-written
+kernel for the T steps of the forward and one for the backward on the
+card, their plain twins on the CPU.  The output head and the MLP stay
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
 :meth:`lane_logits` is the fleet's form: every parameter leaf carries a
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.lstm_cell.ops import lstm_cell_autograd
+from repro_torch.kernels.lstm_cell.ops import lstm_seq_autograd
 from repro_torch.models.layers import dense_init
 from repro_torch.utils.tree import tree_map
 
@@ -104,13 +105,11 @@ class LSTMClassifier(_Classifier):
 
     def lane_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Leaves (L, ...), x (L, B, T, F) -> logits (L, B, num_classes)."""
-        L, B, T = x.shape[0], x.shape[1], x.shape[2]
-        steps = x.permute(2, 0, 1, 3).contiguous()   # (T, L, B, F): contiguous x_t
-        h = torch.zeros((L, B, self.cfg.hidden), dtype=torch.float32, device=x.device)
-        c = torch.zeros_like(h)
-        for t in range(T):
-            h, c = lstm_cell_autograd(steps[t], h, c, params["wx"],
-                                      params["wh"], params["b"])
+        L, B = x.shape[0], x.shape[1]
+        steps = x.permute(0, 2, 1, 3).contiguous()   # (L, T, B, F): contiguous x_t
+        h0 = torch.zeros((L, B, self.cfg.hidden), dtype=torch.float32, device=x.device)
+        h, _ = lstm_seq_autograd(steps, h0, torch.zeros_like(h0), params["wx"],
+                                 params["wh"], params["b"])
         return h @ params["w_out"] + params["b_out"].unsqueeze(-2)
 
 

@@ -260,6 +260,100 @@ def test_lane_cell_launcher_accepts_the_fleets_buffer_views(width):
         _lane_arg("wx", p["wx"].transpose(1, 2), (5, 4 * h, f), torch.device("cpu"))
 
 
+# the whole-sequence forward and backward kernels: (L, B, F, H, T) at the
+# fleet's fit and scoring shapes, the loop engine's, and edge shapes
+SEQ_SHAPES = [(64, 32, 6, 64, 32), (1, 32, 6, 64, 32), (1, 45, 6, 64, 32),
+              (64, 45, 6, 64, 32), (1, 1, 6, 64, 1), (64, 32, 6, 64, 64), (3, 33, 5, 40, 8),
+              (2, 7, 3, 5, 3)]
+# the backward: T reverse steps and a batched product over T * B rows, in
+# another order than the twin's per-step sums, relative to the largest value
+SEQ_BWD_REL = 1e-4
+
+
+def _seq_inputs_as_fleet_views(lanes, b, f, h, t, dev):
+    """x_seq, h0, c0 and the weights as lane-strided views of one flat
+    (L, P + 7) buffer, as ``tree_unravel`` gives them to the fleet."""
+    g = torch.Generator().manual_seed(lanes + b + f + h + t)
+    x = torch.randn((lanes, t, b, f), generator=g)
+    h0, c0 = (torch.randn((lanes, b, h), generator=g) * 0.5 for _ in range(2))
+    nwx, nwh = f * 4 * h, h * 4 * h
+    flat = torch.randn((lanes, nwx + nwh + 4 * h + 7), generator=g) * 0.3
+    flat[:, nwx:nwx + nwh] *= 1.0 / (0.3 * h ** 0.5)
+    flat = flat.to(dev)
+    views = (flat[:, :nwx].view(lanes, f, 4 * h), flat[:, nwx:nwx + nwh].view(lanes, h, 4 * h),
+             flat[:, nwx + nwh:nwx + nwh + 4 * h])
+    return [x.to(dev), h0.to(dev), c0.to(dev), *views]
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,b,f,h,t", SEQ_SHAPES)
+def test_seq_kernels_match_twins_on_card(lanes, b, f, h, t, cuda_device):
+    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+
+    args = _seq_inputs_as_fleet_views(lanes, b, f, h, t, cuda_device)
+    before = kernels.launch_counts()
+    hs, cs = lstm_seq_cuda(*args, save=True)
+    h_t, c_t = lstm_seq_cuda(*args)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["lstm_cell"] == before["lstm_cell"] + 2
+    hr, cr = lstm_seq_ref(*args)
+    torch.testing.assert_close(hs, hr, **LSTM_TOL)
+    torch.testing.assert_close(cs, cr, **LSTM_TOL)
+    assert torch.equal(h_t, hs[:, -1]) and torch.equal(c_t, cs[:, -1])
+    assert torch.equal(hs[:, 0], args[1]) and torch.equal(cs[:, 0], args[2])
+
+    g = torch.Generator().manual_seed(7)
+    dh, dc = (torch.randn((lanes, b, h), generator=g).to(cuda_device) for _ in range(2))
+    x, wx, wh, bias = args[0], args[3], args[4], args[5]
+    dgates, dh0, dc0 = lstm_seq_backward_cuda(x, hs, cs, wx, wh, bias, dh, dc)
+    full = lstm_ops.lstm_seq_backward(x, hs, cs, wx, wh, bias, dh, dc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lstm_cell_bwd"] == after["lstm_cell_bwd"] + 2
+    want = lstm_seq_backward_ref(x, hs, cs, wx, wh, bias, dh, dc)
+    for name, got, w in zip(("dgates", "dh0", "dc0", "dx", "dwx", "dwh", "db"),
+                            (dgates, dh0, dc0) + tuple(full[3:]), want):
+        assert _rel_err(got, w) <= SEQ_BWD_REL, name
+    assert torch.equal(full[0], dgates)
+
+
+@pytest.mark.cuda
+def test_seq_kernels_take_views_of_a_flat_buffer(cuda_device):
+    """Weights as lane-strided views give the results of contiguous copies,
+    bit for bit, in both kernels."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+
+    args = _seq_inputs_as_fleet_views(4, 9, 6, 16, 5, cuda_device)
+    dense = args[:3] + [a.contiguous() for a in args[3:]]
+    got, want = lstm_seq_cuda(*args, save=True), lstm_seq_cuda(*dense, save=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dh = torch.ones_like(args[1])
+    gb = lstm_seq_backward_cuda(args[0], *got, *args[3:], dh, dh)
+    wb = lstm_seq_backward_cuda(dense[0], *want, *dense[3:], dh, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(gb, wb))
+
+
+@pytest.mark.cuda
+def test_seq_function_on_card_matches_the_cpu(cuda_device):
+    """The classifier's path, LSTMSeqFunction forward and backward, on the
+    card against the same Function on the CPU."""
+    host = _seq_inputs_as_fleet_views(3, 32, 6, 64, 32, torch.device("cpu"))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ins = [a.to(dev).clone().requires_grad_(True) for a in host]
+        h_t, c_t = lstm_ops.LSTMSeqFunction.apply(*ins)
+        (h_t.sum() + (c_t * c_t).sum()).backward()
+        outs.append([h_t.detach().cpu()] + [a.grad.cpu() for a in ins])
+    for name, got, want in zip(("h_T", "x", "h0", "c0", "wx", "wh", "b"), *outs):
+        assert _rel_err(got, want) <= SEQ_BWD_REL, name
+
+
 # ---------------------------------------------------------------------------
 # int8 wire: quantize, dequantize, fused q8 eq. 14
 # ---------------------------------------------------------------------------
@@ -325,7 +419,8 @@ def test_quantize_cpu_dispatch_runs_the_twins_without_launching():
     assert torch.equal(u, fedavg_batched_ref(dequantize_batched_ref(q, s)[None],
                                              torch.ones(1, 2)))
     counts = kernels.launch_counts()
-    assert set(counts) == {"fedavg", "fedavg_q8", "lstm_cell", "aes_ctr", "quantize",
+    assert set(counts) == {"fedavg", "fedavg_q8", "lstm_cell", "lstm_cell_bwd", "aes_ctr",
+                           "quantize",
                            "dequantize", "trimmed_mean", "trimmed_mean_q8", "median",
                            "median_q8", "sqnorm", "sqnorm_q8"}
     assert not any(counts.values())
@@ -505,7 +600,8 @@ def test_launchers_declare_pointer_args_as_void_p():
     from repro_torch.kernels.quantize import kernel as qk
 
     rk = robust_kernel
-    for argtypes in (fk._ARGTYPES, fk._Q8_ARGTYPES, lk._ARGTYPES, ak._ARGTYPES,
+    for argtypes in (fk._ARGTYPES, fk._Q8_ARGTYPES, lk._FWD_ARGTYPES, lk._BWD_ARGTYPES,
+                     ak._ARGTYPES,
                      qk._QUANT_ARGTYPES, qk._DEQUANT_ARGTYPES, rk._COLUMN_ARGTYPES,
                      rk._COLUMN_Q8_ARGTYPES, rk._SQNORM_ARGTYPES, rk._SQNORM_Q8_ARGTYPES):
         assert argtypes[-1] is ctypes.c_void_p            # the stream

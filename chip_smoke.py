@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fleet's fit and scoring shapes; the robust
    trimmed mean and median within 1e-6 of the largest output, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
-   dense kernel on the dequantized buffer);
+   dense kernel on the dequantized buffer; dequantize also bit-equal to one
+   ``torch.mul``, its timing yardstick);
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -40,7 +41,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
-   ``torch.lstm``);
+   ``torch.lstm``), with the host's enqueue time of each wrapper, each
+   kernel's device time from the profiler, and for AES and the squared
+   norms also with the L2 flushed between launches; then the host time of
+   each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
    fleet: device-busy share, launches per Adam step and the kernels that
    take the device time;
@@ -67,7 +71,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-AES_OPS_PER_BLOCK = 11 * 16 + 10 * 16 + 9 * 4 * 20 + 16   # xor, S-box, MixColumns, payload
+# shared memory serves 32 banks of one 32-bit word each per clock on every
+# SM (CUDA C++ Programming Guide, "Shared Memory"): the rate of table lookups
+SMEM_LOOKUPS_PER_CLOCK = 32
+# the least lookups of AES-128 per 16-byte block, by 32-bit T-tables: 16
+# words in each of the 9 full rounds, 16 S-box bytes in the last one
+AES_LOOKUPS_PER_BLOCK = 9 * 16 + 16
+L2_FLUSH_BYTES = 128 * 2 ** 20   # written and read between launches of a cold timing (L2: 50 MB)
+HOST_CALLS, HOST_BURST = 10_000, 200
 FIT_EPOCHS, MAX_ROUNDS, PRETRAIN_EPOCHS = 8, 10, 6
 TIMING_ROUNDS = 10             # depth of the loop engine's timing session
 FLEET_R = 64                   # requesters of the fleet path
@@ -96,6 +107,16 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi`` ``clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     """Mean milliseconds per call of ``fn`` between two CUDA events, after
     warm-up (host launch overhead included, as the path pays it)."""
@@ -112,25 +133,56 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, kernel_name: str, iters: int = 50):
+def host_us(fn, calls: int = HOST_CALLS, burst: int = HOST_BURST) -> float:
+    """Mean host microseconds to enqueue one call of ``fn``: ``perf_counter``
+    around bursts of ``burst`` calls with no synchronise inside, ``calls``
+    calls in all.  The device drains between bursts, off the clock, so a
+    kernel that runs longer than its enqueue never fills the launch queue
+    and stalls the host into measuring the device."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // burst):
+        t0 = time.perf_counter()
+        for _ in range(burst):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (calls // burst * burst) * 1e6
+
+
+def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3):
     """Mean device microseconds per launch of the CUDA kernel whose name
     contains ``kernel_name``, from ``torch.profiler``; None if the profiler
-    saw no device time."""
+    saw no device time in ``tries`` windows.  With ``flush`` (a tensor
+    larger than the L2) each launch follows a write of it and then a read,
+    so the kernel reads its inputs cold, from HBM, and evicts clean lines
+    (the read writes the dirty ones back first); both are other kernels and
+    are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key]
-    total = sum(e.self_device_time_total for e in hits)
-    return total / sum(e.count for e in hits) if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        total = sum(e.self_device_time_total for e in hits)
+        if total > 0:
+            return total / sum(e.count for e in hits)
+    return None
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """The least milliseconds of the work: bytes over the HBM rate or
+    operations over ``ops_per_s`` (fp32 unless the caller names the rate
+    of its operations), whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -194,7 +246,7 @@ def check_lstm(dev, fit_b, score_b, f, h):
     return main_err
 
 
-def check_aes(dev, main_n):
+def check_aes(dev, main_n, int8_n):
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
@@ -203,8 +255,9 @@ def check_aes(dev, main_n):
     tables = torch.from_numpy(crypto.TABLES).to(dev)
     rk = torch.from_numpy(crypto.expand_key(rng.integers(0, 256, 16).astype(np.uint8))).to(dev)
     nonce = torch.from_numpy(rng.integers(0, 256, 8).astype(np.uint8)).to(dev)
-    for name, n, offset in [("main", main_n, 0), ("n%16!=0", main_n + 5, 0),
-                            ("n<16", 7, 0), ("n=16", 16, 0), ("unaligned", 1000 + 3, 1)]:
+    for name, n, offset in [("main", main_n, 0), ("int8 wire", int8_n, 0),
+                            ("n%16!=0", main_n + 5, 0), ("n<16", 7, 0), ("n=16", 16, 0),
+                            ("unaligned", 1000 + 3, 1)]:
         buf = torch.from_numpy(rng.integers(0, 256, n + offset).astype(np.uint8)).to(dev)
         pay = buf[offset:]
         got = aes_ctr_cuda(pay, rk, nonce, tables)
@@ -341,7 +394,15 @@ def check_quantize(dev, n_params, rows):
     return 0.0
 
 
+def dequantize_library(q, s, n):
+    """One PyTorch call that computes dequantize: int8 promotes to fp32
+    exactly, each product rounds once, and the slice is a view."""
+    return torch.mul(q.view(-1, TILE), s.view(-1, 1)).view(-1)[:n]
+
+
 def check_dequantize(dev, n_params):
+    """Bit-equal to the twin, and to :func:`dequantize_library` (the
+    yardstick of its timing row)."""
     from repro_torch.kernels.quantize.kernel import dequantize_cuda
     from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_batched_ref
 
@@ -352,7 +413,9 @@ def check_dequantize(dev, n_params):
         torch.cuda.synchronize()
         if not torch.equal(got, dequantize_ref(q, s, n)):
             fail(f"dequantize n={n}: differs from the twin")
-        print(f"  dequantize n={n}: bit-equal")
+        if not torch.equal(got, dequantize_library(q, s, n)):
+            fail(f"dequantize n={n}: differs from torch.mul of the tiles by their scales")
+        print(f"  dequantize n={n}: bit-equal to the twin and to torch.mul")
     return 0.0
 
 
@@ -927,23 +990,89 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 
 
 def time_kernels(dev, counts, errs, n_params, fit_b, f, h, seq_len, n_contrib):
-    rows = time_loop_kernels(dev, counts, errs, n_params, n_contrib)
+    """Every row of the kernel table: ``ms`` (CUDA events over back-to-back
+    wrapper calls on L2-warm inputs), ``host_us`` (the wrapper's enqueue,
+    :func:`host_us`), device µs warm and, for AES and the squared norms,
+    after an L2 flush, the plain twin's and the library call's ms and the
+    bound."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rows = time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush)
     rows += time_lstm(dev, counts, errs, fit_b, f, h, seq_len)
     rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib)
-    rows += time_robust_kernels(dev, counts, errs, n_params, n_contrib)
+    rows += time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush)
+    del flush
     for row in rows:
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
         dus = "not measured" if row["device_us"] is None else f"{row['device_us']:.3f}"
-        print(f"  {row['name']:10s} {row['shape']}: kernel_ms {row['ms']:.5f}  device_us {dus}  "
-              f"plain_ms {row['plain_ms']:.5f}  library_ms {lib}  "
-              f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']})  "
+        cold = row.get("device_us_cold", "")
+        if cold != "":
+            cold = " cold " + ("not measured" if cold is None else f"{cold:.3f}")
+        print(f"  {row['name']:10s} {row['shape']}: kernel_ms {row['ms']:.5f}  host_us "
+              f"{row['host_us']:.3f}  device_us {dus}{cold}  plain_ms {row['plain_ms']:.5f}  "
+              f"library_ms {lib}{row.get('library_note', '')}  "
+              f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}{row.get('bound_note', '')})  "
               f"launches on the main paths {row['launches']}")
     return rows
 
 
+def launch_path_breakdown(dev, n_params, n_contrib):
+    """Host µs of each piece of one wrapper call, on the squared norm at
+    the fleet's shape (64, 5, P), each piece alone in a loop of
+    :func:`host_us`: the checks, the output, the stream handle and the C
+    call, in the form the launchers use and in the public-API form beside
+    it; then the wrapper whole, and the library calls it is held against."""
+    from repro_torch.kernels.common import check_args, current_stream
+    from repro_torch.kernels.robust import kernel as rk
+
+    x = torch.randn((FLEET_R, n_contrib, n_params), device=dev)
+    w = torch.ones((FLEET_R, n_contrib), device=dev)
+    r, n, l = x.shape
+    idx = x.get_device()
+    out = x.new_empty((r, n))
+    f32 = torch.float32
+
+    def device_object_check(name, t, dtype, shape, device):
+        """One argument checked through ``torch.device`` objects."""
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(name)
+        if t.dtype != dtype or (shape is not None and tuple(t.shape) != tuple(shape)):
+            raise ValueError(name)
+        if not t.is_contiguous():
+            raise ValueError(name)
+
+    rk.sqnorm_cuda(x)                                 # resolves the C function
+    c_fn = rk._sqnorm.fn
+    args = (x.data_ptr(), out.data_ptr(), r * n, l, current_stream(idx))
+    pieces = [
+        ("check_args, 1 argument", lambda: check_args(("updates", x, f32, None))),
+        ("check_args, 2 arguments", lambda: check_args(("updates", x, f32, None),
+                                                       ("weights", w, f32, (r, n)))),
+        ("check through torch.device, 1 argument",
+         lambda: device_object_check("updates", x, f32, None, x.device)),
+        ("x.new_empty((R, N))", lambda: x.new_empty((r, n))),
+        ("torch.empty((R, N), dtype, device=x.device)",
+         lambda: torch.empty((r, n), dtype=f32, device=x.device)),
+        ("current_stream(index) (raw handle)", lambda: current_stream(idx)),
+        ("torch.cuda.current_stream(index).cuda_stream",
+         lambda: torch.cuda.current_stream(idx).cuda_stream),
+        ("3 data_ptr() calls", lambda: (x.data_ptr(), out.data_ptr(), w.data_ptr())),
+        ("ctypes call itself (launch included)", lambda: c_fn(*args)),
+        ("CFunction call (ctypes + error check)", lambda: rk._sqnorm(*args)),
+        ("sqnorm_cuda, whole wrapper", lambda: rk.sqnorm_cuda(x)),
+        ("torch.linalg.vecdot(x, x, dim=-1)", lambda: torch.linalg.vecdot(x, x, dim=-1)),
+        ("torch.linalg.vector_norm(x, dim=-1)", lambda: torch.linalg.vector_norm(x, dim=-1)),
+    ]
+    print(f"  launch path of sqnorm_cuda at R,N,L={r},{n},{l}, host us per call "
+          f"({HOST_CALLS} calls, bursts of {HOST_BURST}):")
+    for what, fn in pieces:
+        print(f"    {host_us(fn):8.3f}  {what}")
+
+
 def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
     """The int8 wire kernels at the fleet's shapes (R = 64, N = 5) and at
-    one loop-engine update.  No single PyTorch call computes any of them:
+    one loop-engine update.  Dequantize's yardstick is
+    :func:`dequantize_library`, one ``torch.mul`` (bit-equal to the kernel,
+    phase 3); no single PyTorch call computes the other three, whose
     ``library_ms`` is null."""
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_q8_cuda
     from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref
@@ -968,6 +1097,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      replaces="src/repro/kernels/fedavg/kernel.py:83",
                      device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
                                          "fedavg_q8_kernel"),
+                     host_us=host_us(lambda: fedavg_batched_q8_cuda(q, s, w)),
                      launches=counts["fedavg_q8"], max_abs_err=errs["fedavg_q8"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape=f"R,N,Lp={r},{n},{lp}"))
@@ -982,6 +1112,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:89",
                      device_us=device_us(lambda: quantize_cuda(x), "quantize_kernel"),
+                     host_us=host_us(lambda: quantize_cuda(x)),
                      launches=counts["quantize_batched"], max_abs_err=errs["quantize"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                      shape=f"B,L={r * n},{n_params} -> Lp={lp}"))
@@ -993,6 +1124,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
     rows.append(dict(name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:41",
                      device_us=device_us(lambda: quantize_cuda(v), "quantize_kernel"),
+                     host_us=host_us(lambda: quantize_cuda(v)),
                      launches=counts["quantize"], max_abs_err=errs["quantize"], ms=ms1,
                      plain_ms=plain1, bound_ms=b1, bound_by=b1_by, library_ms=None,
                      shape=f"L={n_params} (one update) -> Lp={lp}"))
@@ -1006,18 +1138,24 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      replaces="src/repro/kernels/quantize/kernel.py:120",
                      device_us=device_us(lambda: dequantize_cuda(q1, s1, n_params),
                                          "dequantize_kernel"),
+                     host_us=host_us(lambda: dequantize_cuda(q1, s1, n_params)),
                      launches=counts["dequantize"], max_abs_err=errs["dequantize"], ms=ms,
-                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=cuda_ms(lambda: dequantize_library(q1, s1, n_params)),
+                     library_note=" (torch.mul of the tiles by their scales)",
                      shape=f"Lp={lp} -> L={n_params}"))
     return rows
 
 
-def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
+def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
     """The six robust kernels at the fleet's AGGREGATE, (R, N) = (64, 5):
     fp32 (R, N, P) and int8 (R, N, Lp), all contributors active.  The
-    squared norm's yardstick is ``torch.linalg.vector_norm``, the dense
-    median's ``torch.nanquantile`` over the active entries; no single
-    PyTorch call computes the other three."""
+    squared norm's yardstick is ``torch.linalg.vecdot(x, x)``, the same
+    function (``vector_norm``, its square root, is printed beside it), the
+    dense median's ``torch.nanquantile`` over the active entries; no single
+    PyTorch call computes the other three.  The squared norms are also
+    timed cold (``flush`` written between launches): the fleet reads its
+    (R, N, P) buffer from HBM."""
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
@@ -1056,7 +1194,7 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
          lambda: rr.median_batched_q8_ref(q, s, w), None, "median_kernel",
          q8_bytes, r * lp * (n * n + 2 * n + 2), f"R,N,Lp={r},{n},{lp}"),
         ("sqnorm", "kernel.py:284", lambda: rk.sqnorm_cuda(x),
-         lambda: rr.sqnorm_batched_ref(x), lambda: torch.linalg.vector_norm(x, dim=-1),
+         lambda: rr.sqnorm_batched_ref(x), lambda: torch.linalg.vecdot(x, x, dim=-1),
          "sqnorm_kernel", 4 * (r * n * l + r * n), 2 * r * n * l, f"R,N,L={r},{n},{l}"),
         ("sqnorm_q8", "kernel.py:310", lambda: rk.sqnorm_q8_cuda(q, s),
          lambda: rr.sqnorm_batched_q8_ref(q, s), None, "sqnorm_kernel",
@@ -1065,13 +1203,19 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib):
     rows = []
     for name, line, kern, plain_fn, lib_fn, kname, nbytes, ops, shape in specs:
         b_ms, b_by = bound_ms(nbytes, ops)
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=f"src/repro/kernels/robust/{line}",
-                         device_us=device_us(kern, kname), launches=counts[name],
-                         max_abs_err=errs[name], ms=cuda_ms(kern),
-                         plain_ms=cuda_ms(plain_fn, iters=50, warmup=5),
-                         bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None if lib_fn is None else cuda_ms(lib_fn), shape=shape))
+        row = dict(name=name, route="cuda", source=src,
+                   replaces=f"src/repro/kernels/robust/{line}",
+                   device_us=device_us(kern, kname), host_us=host_us(kern),
+                   launches=counts[name], max_abs_err=errs[name], ms=cuda_ms(kern),
+                   plain_ms=cuda_ms(plain_fn, iters=50, warmup=5),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None if lib_fn is None else cuda_ms(lib_fn), shape=shape)
+        if name.startswith("sqnorm"):
+            row["device_us_cold"] = device_us(kern, kname, flush=flush)
+        if name == "sqnorm":
+            row["library_note"] = (" (linalg.vecdot; linalg.vector_norm "
+                                   f"{cuda_ms(lambda: torch.linalg.vector_norm(x, dim=-1)):.5f})")
+        rows.append(row)
     return rows
 
 
@@ -1171,11 +1315,13 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
               f"{bwd_plain:.5f} bound_ms {b_bound:.6f} ({b_by})")
         if lanes == 1:
             rows.append(dict(name="lstm_cell", route="cuda", device_us=fwd_us, source=src,
+                             host_us=host_us(fwd),
                              replaces="src/repro/kernels/lstm_cell/kernel.py:66",
                              launches=counts["lstm_cell"], max_abs_err=errs["lstm_cell"],
                              ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
                              library_ms=lib_fwd, shape=f"{shape} (forward, states saved)"))
             rows.append(dict(name="lstm_cell_bwd", route="cuda", device_us=bwd_us, source=src,
+                             host_us=host_us(bwd),
                              replaces="src/repro/kernels/lstm_cell/kernel.py:66 (its VJP, "
                                       "by XLA autodiff in the reference)",
                              launches=counts["lstm_cell_bwd"],
@@ -1197,7 +1343,11 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
     return rows
 
 
-def time_loop_kernels(dev, counts, errs, n_params, n_contrib):
+def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
+    """Eq. 14 at the loop's and the fleet's shapes, and AES-CTR over one fp32
+    update, warm and cold (``flush`` written between launches: the path
+    encrypts each update once).  AES's bound is the larger of its bytes over
+    HBM and its table lookups over the card's shared-memory rate."""
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
@@ -1220,10 +1370,11 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib):
         b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
         dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
         rows.append(dict(name=name, route="cuda", device_us=dev_us,
+                         host_us=host_us(lambda: fedavg_batched_cuda(u, w)),
                          source="src/repro_torch/csrc/fedavg.cu", replaces=replaces,
                          launches=counts[name], max_abs_err=errs[name], ms=ms,
                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                         shape=f"R,N,L={r},{n},{l}"))
+                         library_note=" (einsum + div)", shape=f"R,N,L={r},{n},{l}"))
 
     # AES-CTR over one fp32 update
     nb = 4 * n_params
@@ -1232,16 +1383,26 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib):
     tables = torch.from_numpy(crypto.TABLES).to(dev)
     rk = torch.from_numpy(crypto.expand_key(rng.integers(0, 256, 16).astype(np.uint8))).to(dev)
     nonce = torch.from_numpy(rng.integers(0, 256, 8).astype(np.uint8)).to(dev)
-    ms = cuda_ms(lambda: aes_ctr_cuda(pay, rk, nonce, tables))
+
+    def aes():
+        return aes_ctr_cuda(pay, rk, nonce, tables)
+
+    ms = cuda_ms(aes)
     plain = cuda_ms(lambda: aes_ctr_ref(pay, rk, nonce, tables), iters=50, warmup=5)
     blocks = (nb + 15) // 16
-    b_ms, b_by = bound_ms(2 * nb + 768 + 176 + 8, blocks * AES_OPS_PER_BLOCK)
-    dev_us = device_us(lambda: aes_ctr_cuda(pay, rk, nonce, tables), "aes_ctr_kernel")
-    rows.append(dict(name="aes_ctr", route="cuda", device_us=dev_us,
-                     source="src/repro_torch/csrc/aes_ctr.cu",
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b_ms, b_by = bound_ms(2 * nb + 768 + 176 + 8, blocks * AES_LOOKUPS_PER_BLOCK,
+                          SMEM_LOOKUPS_PER_CLOCK * sms * clock)
+    rows.append(dict(name="aes_ctr", route="cuda", device_us=device_us(aes, "aes_ctr_kernel"),
+                     device_us_cold=device_us(aes, "aes_ctr_kernel", flush=flush),
+                     host_us=host_us(aes), source="src/repro_torch/csrc/aes_ctr.cu",
                      replaces="src/repro/kernels/aes_ctr/kernel.py:70",
                      launches=counts["aes_ctr"], max_abs_err=errs["aes_ctr"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     bound_note=(f"; {AES_LOOKUPS_PER_BLOCK} shared-memory lookups a block at "
+                                 f"{SMEM_LOOKUPS_PER_CLOCK} a clock on {sms} SMs at "
+                                 f"{clock / 1e6:.0f} MHz"),
                      shape=f"n={nb} B ({blocks} blocks)"))
     return rows
 
@@ -1355,7 +1516,7 @@ def main() -> int:
                 quantize=check_quantize(dev, n_params, FLEET_R * n_contrib),
                 dequantize=check_dequantize(dev, n_params),
                 lstm_cell=check_lstm(dev, fit_b, score_b, f, h),
-                aes_ctr=check_aes(dev, 4 * n_params))
+                aes_ctr=check_aes(dev, 4 * n_params, lp + 4 * (lp // TILE)))
     # the fleet's lanes: every requester's test set pads to the longest, and
     # REFRESH trains one row per contributor (all 64 requesters share the 5)
     fleet_score_b = max(len(test[0]) for _, test in fleet_split())
@@ -1392,6 +1553,7 @@ def main() -> int:
 
     print("[5] kernel timings at the main paths' shapes (CUDA events)")
     rows = time_kernels(dev, counts, errs, n_params, fit_b, f, h, cfg.seq_len, n_contrib)
+    launch_path_breakdown(dev, n_params, n_contrib)
     print(f"    {time.perf_counter() - t_start:.1f} s so far")
 
     print("[6] where the time goes (torch.profiler)")

@@ -6,63 +6,66 @@
 //
 // Replaces: src/repro/kernels/aes_ctr/kernel.py::aes_ctr_pallas.
 //
-// What bounds it on an H100: integer work.  The payload is read once and
-// written once (2n bytes), but each 16-byte block costs ~1,100 byte-table
-// lookups and XORs over its 10 rounds, so ~70 operations per byte moved.
-// At the loop engine's payload (74,264 B = 4,642 blocks) a launch is also
-// far shorter than its launch latency.
+// What bounds it on an H100: table lookups in shared memory.  The payload
+// is read once and written once (2n bytes), but each 16-byte block costs
+// 160 word lookups (16 in each of the 9 full rounds, 16 S-box bytes in the
+// last) and ~500 integer operations around them.  At the loop engine's
+// payload (74,264 B = 4,642 blocks) a launch is also far shorter than its
+// launch latency, which is the floor of the device time there.
 //
-// Design: one thread per 16-byte block, so the 16-byte state lives in
-// registers (every index below is a compile-time constant after unrolling).
-// The S-box, the GF(2^8) x2 and x3 tables (built on the host from the field
-// arithmetic, 768 B) and the 11 round keys (176 B) are staged in shared
-// memory once per block of 256 threads.  The counter block is built in the
-// kernel from the block index.  A full, 16-byte-aligned block is read and
-// written as one 16-byte vector; the ragged tail (n % 16 != 0) and unaligned
-// buffers go byte by byte.
+// Design: 32-bit T-table rounds, one thread per 16-byte block.  The state
+// is 4 column words in registers (byte r of word c is row r, column c:
+// the FIPS-197 byte order, little-endian), so a full round is, per output
+// column c,
+//
+//     Te0[b0(w_c)] ^ rotl8(Te0[b1(w_c+1)]) ^ rotl16(Te0[b2(w_c+2)])
+//                  ^ rotl24(Te0[b3(w_c+3)]) ^ rk[c]
+//
+// with Te0[x] = (2 S[x], S[x], S[x], 3 S[x]): SubBytes, ShiftRows and
+// MixColumns in 4 word lookups, 3 rotations and 4 XORs.  Te1-Te3 are the
+// rotations of Te0 (one funnel shift each), so one 1 KB table serves all
+// four, and the last round reads S[x], byte 1 of Te0[x].  Each block of 64
+// threads builds Te0 in shared memory from the `tables` argument (S-box,
+// x2, x3, 768 B) and stages the 44 round-key words and the nonce, while
+// its threads' payload loads are already in flight; the small blocks
+// spread the 4,642 blocks of an fp32 update over 73 SMs (the int8 wire's
+// 1,221 over 20).  A full, 16-byte-aligned block is read and written as
+// one 16-byte vector; the ragged tail (n % 16 != 0) and unaligned buffers
+// go byte by byte.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;
 
-// SubBytes then ShiftRows on the column-major state (byte i = row + 4*col):
-// output (row r, col c) comes from input (row r, col (c + r) mod 4).
-__device__ __forceinline__ void sub_shift(uint8_t s[16], const uint8_t* sbox) {
-  uint8_t t[16];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) t[r + 4 * c] = sbox[s[r + 4 * ((c + r) & 3)]];
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = t[i];
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int bits) {
+  return __funnelshift_l(x, x, bits);
 }
 
-__device__ __forceinline__ void mix_columns(uint8_t s[16], const uint8_t* mul2,
-                                            const uint8_t* mul3) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint8_t a0 = s[4 * c], a1 = s[4 * c + 1], a2 = s[4 * c + 2],
-                  a3 = s[4 * c + 3];
-    s[4 * c] = mul2[a0] ^ mul3[a1] ^ a2 ^ a3;
-    s[4 * c + 1] = a0 ^ mul2[a1] ^ mul3[a2] ^ a3;
-    s[4 * c + 2] = a0 ^ a1 ^ mul2[a2] ^ mul3[a3];
-    s[4 * c + 3] = mul3[a0] ^ a1 ^ a2 ^ mul2[a3];
-  }
+__device__ __forceinline__ uint32_t byte_at(uint32_t w, int r) {
+  return (w >> (8 * r)) & 0xffu;
 }
 
-__device__ __forceinline__ void add_key(uint8_t s[16], const uint8_t* k) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] ^= k[i];
+// bytes 4i..4i+3 of p as a little-endian word
+__device__ __forceinline__ uint32_t le_word(const uint8_t* p, int i) {
+  return static_cast<uint32_t>(p[4 * i]) | (static_cast<uint32_t>(p[4 * i + 1]) << 8) |
+         (static_cast<uint32_t>(p[4 * i + 2]) << 16) |
+         (static_cast<uint32_t>(p[4 * i + 3]) << 24);
 }
 
-__device__ __forceinline__ uint32_t word(const uint8_t s[16], int w) {
-  return static_cast<uint32_t>(s[4 * w]) |
-         (static_cast<uint32_t>(s[4 * w + 1]) << 8) |
-         (static_cast<uint32_t>(s[4 * w + 2]) << 16) |
-         (static_cast<uint32_t>(s[4 * w + 3]) << 24);
+__device__ __forceinline__ uint32_t full_round(const uint32_t* te, uint32_t a, uint32_t b,
+                                               uint32_t c, uint32_t d, uint32_t key) {
+  return te[byte_at(a, 0)] ^ rotl(te[byte_at(b, 1)], 8) ^ rotl(te[byte_at(c, 2)], 16) ^
+         rotl(te[byte_at(d, 3)], 24) ^ key;
+}
+
+// the last round: SubBytes and ShiftRows only; S[x] is byte 1 of Te0[x]
+__device__ __forceinline__ uint32_t last_round(const uint32_t* te, uint32_t a, uint32_t b,
+                                               uint32_t c, uint32_t d, uint32_t key) {
+  return (((te[byte_at(a, 0)] >> 8) & 0x000000ffu) | (te[byte_at(b, 1)] & 0x0000ff00u) |
+          ((te[byte_at(c, 2)] << 8) & 0x00ff0000u) | ((te[byte_at(d, 3)] << 16) & 0xff000000u)) ^
+         key;
 }
 
 __global__ void aes_ctr_kernel(const uint8_t* __restrict__ in,
@@ -70,47 +73,62 @@ __global__ void aes_ctr_kernel(const uint8_t* __restrict__ in,
                                const uint8_t* __restrict__ tables,
                                const uint8_t* __restrict__ round_keys,
                                const uint8_t* __restrict__ nonce) {
-  __shared__ uint8_t s_tab[768];  // sbox | x2 | x3
-  __shared__ uint8_t s_rk[176];
-  __shared__ uint8_t s_nonce[8];
-  for (int i = threadIdx.x; i < 768; i += blockDim.x) s_tab[i] = tables[i];
-  for (int i = threadIdx.x; i < 176; i += blockDim.x) s_rk[i] = round_keys[i];
-  if (threadIdx.x < 8) s_nonce[threadIdx.x] = nonce[threadIdx.x];
-  __syncthreads();
+  __shared__ uint32_t s_te[256];
+  __shared__ uint32_t s_key[46];  // 44 round-key words, then the 2 nonce words
 
   const long long blk = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long base = blk * 16;
+  const bool vector =
+      base + 16 <= n &&
+      ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (vector) v = __ldg(reinterpret_cast<const uint4*>(in + base));
+
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    const uint32_t s = __ldg(tables + i);
+    const uint32_t x2 = __ldg(tables + 256 + s), x3 = __ldg(tables + 512 + s);
+    s_te[i] = x2 | (s << 8) | (s << 16) | (x3 << 24);
+  }
+  for (int i = threadIdx.x; i < 46; i += blockDim.x)
+    s_key[i] = i < 44 ? le_word(round_keys, i) : le_word(nonce, i - 44);
+  __syncthreads();
   if (base >= n) return;
 
-  uint8_t s[16];
+  const uint32_t* rk = s_key;
+  const auto hi = static_cast<uint32_t>(static_cast<unsigned long long>(blk) >> 32);
+  const auto lo = static_cast<uint32_t>(blk);
+  uint32_t w0 = s_key[44] ^ rk[0];
+  uint32_t w1 = s_key[45] ^ rk[1];
+  uint32_t w2 = __byte_perm(hi, 0, 0x0123) ^ rk[2];  // counter bytes, big-endian
+  uint32_t w3 = __byte_perm(lo, 0, 0x0123) ^ rk[3];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = s_nonce[i];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    s[8 + i] = static_cast<uint8_t>(static_cast<unsigned long long>(blk) >> (56 - 8 * i));
-
-  add_key(s, s_rk);
   for (int rnd = 1; rnd < 10; ++rnd) {
-    sub_shift(s, s_tab);
-    mix_columns(s, s_tab + 256, s_tab + 512);
-    add_key(s, s_rk + 16 * rnd);
+    const uint32_t* k = rk + 4 * rnd;
+    const uint32_t t0 = full_round(s_te, w0, w1, w2, w3, k[0]);
+    const uint32_t t1 = full_round(s_te, w1, w2, w3, w0, k[1]);
+    const uint32_t t2 = full_round(s_te, w2, w3, w0, w1, k[2]);
+    const uint32_t t3 = full_round(s_te, w3, w0, w1, w2, k[3]);
+    w0 = t0;
+    w1 = t1;
+    w2 = t2;
+    w3 = t3;
   }
-  sub_shift(s, s_tab);
-  add_key(s, s_rk + 160);
+  const uint32_t o0 = last_round(s_te, w0, w1, w2, w3, rk[40]);
+  const uint32_t o1 = last_round(s_te, w1, w2, w3, w0, rk[41]);
+  const uint32_t o2 = last_round(s_te, w2, w3, w0, w1, rk[42]);
+  const uint32_t o3 = last_round(s_te, w3, w0, w1, w2, rk[43]);
 
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  if (aligned && base + 16 <= n) {
-    uint4 v = *reinterpret_cast<const uint4*>(in + base);
-    v.x ^= word(s, 0);
-    v.y ^= word(s, 1);
-    v.z ^= word(s, 2);
-    v.w ^= word(s, 3);
+  if (vector) {
+    v.x ^= o0;
+    v.y ^= o1;
+    v.z ^= o2;
+    v.w ^= o3;
     *reinterpret_cast<uint4*>(out + base) = v;
   } else {
+    const uint32_t ks[4] = {o0, o1, o2, o3};
 #pragma unroll
     for (int i = 0; i < 16; ++i)
-      if (base + i < n) out[base + i] = in[base + i] ^ s[i];
+      if (base + i < n) out[base + i] = in[base + i] ^ static_cast<uint8_t>(byte_at(ks[i / 4], i % 4));
   }
 }
 

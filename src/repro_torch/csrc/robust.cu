@@ -27,7 +27,8 @@
 // compares and selects in registers: at the fleet's shapes (R = 64, N = 5,
 // L = 18,566) the dense kernels move 28.5 MB (~8.5 us at 3.35 TB/s) and the
 // q8 kernels 11.2 MB (~3.35 us).  The squared norm reads 23.8 MB dense
-// (~7.1 us) or 6.25 MB of codes (~1.9 us) for one fma per element.
+// (~7.1 us) or 6.25 MB of codes (~1.9 us) for one fma per element, from
+// HBM when the caller's buffer has left the 50 MB L2.
 //
 // Design.  Trimmed mean and median: grid (ceil(L / 256), R), one thread
 // per column l, so a warp reads 32 consecutive columns of each contributor
@@ -39,25 +40,60 @@
 // tie, like argmax), and divides (no reciprocal).  The median sorts with
 // the odd-even transposition network of the reference (n phases of
 // min/max on neighbours) and selects the two middle ranks.
-// Squared norm: one block per (r, n) row; thread t sums elements t,
-// t + 256, ... in order with fmaf, then a fixed shuffle tree and a fixed
-// sum over the 8 warps: no atomics, the same result in every run.  An
-// element's thread does not depend on L, so the q8 sum over the padded Lp
-// adds exact +0.0 after the dense sum over P and equals it bit for bit.
+// Squared norm: one block of 512 threads per (r, n) row, which it walks
+// in chunks of 8,192 elements.  In a chunk, thread t loads the four
+// 4-element groups t, t + 512, t + 1024 and t + 1536 (64 bytes of a
+// thread's loads in flight at once, ~10 MB over the fleet's 320 rows), as
+// one float4, two float2 or four scalars as the row's address allows (a
+// row of L = 18,566 floats starts 8-byte aligned), or as one char4 of
+// codes and the group's scale, read once per 1024-element tile; it squares
+// them into four accumulators, one per position in the group.  Then a
+// fixed shuffle tree and a fixed sum over the 16 warps: no atomics, the
+// same result in every run.  Two other shapes lost on an H100: a cluster
+// of 4 blocks per row, adding its partials through distributed shared
+// memory, took twice as long with the buffer in L2, and 384 threads of 8
+// groups (128 bytes in flight each) gained 0.2 us on the dense form and
+// lost 0.8 us on the int8 one, cold.  Which thread, accumulator and order
+// an element goes to depends on its index alone, never on L or on the
+// load path, and the two loaders share the body, so the q8 sum over the
+// padded Lp adds exact +0.0 to the dense sum over P and equals it bit for
+// bit.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 16;
 constexpr int kTile = 1024;
+constexpr int kSqThreads = 512;
+constexpr int kSqWarps = kSqThreads / 32;
+constexpr int kSqVec = 4;                                  // elements in a group
+constexpr int kSqGroups = 4;                               // groups a thread loads at once
+constexpr int kSqChunk = kSqThreads * kSqVec * kSqGroups;  // 8,192 elements
 
 struct LoadDense {
   const float* u;
   int l;
   __device__ __forceinline__ float operator()(size_t row, int col) const {
     return __ldg(u + row * l + col);
+  }
+  // the group of 4 elements at col (col % 4 == 0, col < l) of row; 0.0
+  // past the end of a ragged row
+  __device__ __forceinline__ float4 group(size_t row, int col) const {
+    const float* p = u + row * l + col;
+    if (col + kSqVec <= l) {
+      const auto a = reinterpret_cast<uintptr_t>(p);
+      if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
+      if ((a & 7) == 0) {
+        const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
+        const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
+        return make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+    }
+    return make_float4(__ldg(p), col + 1 < l ? __ldg(p + 1) : 0.f,
+                       col + 2 < l ? __ldg(p + 2) : 0.f, 0.f);
   }
 };
 
@@ -68,6 +104,19 @@ struct LoadQ8 {
   __device__ __forceinline__ float operator()(size_t row, int col) const {
     const float code = static_cast<float>(__ldg(q + row * lp + col));
     return __fmul_rn(code, __ldg(s + row * (lp / kTile) + col / kTile));
+  }
+  // the group of 4 elements at col (col % 4 == 0, col < lp): one char4 of
+  // codes (lp % 1024 == 0, so a group never leaves its tile or the row)
+  __device__ __forceinline__ float4 group(size_t row, int col) const {
+    const signed char* p = q + row * lp + col;
+    const float sc = __ldg(s + row * (lp / kTile) + col / kTile);
+    const char4 c = (reinterpret_cast<uintptr_t>(p) & 3) == 0
+                        ? __ldg(reinterpret_cast<const char4*>(p))
+                        : make_char4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+    return make_float4(__fmul_rn(static_cast<float>(c.x), sc),
+                       __fmul_rn(static_cast<float>(c.y), sc),
+                       __fmul_rn(static_cast<float>(c.z), sc),
+                       __fmul_rn(static_cast<float>(c.w), sc));
   }
 };
 
@@ -161,24 +210,39 @@ __global__ void median_kernel(Load load, const float* __restrict__ w,
   out[static_cast<size_t>(r) * l + col] = m > 0 ? 0.5f * (vlo + vhi) : 0.f;
 }
 
+__device__ __forceinline__ void add_squares(const float4 v, float (&acc)[kSqVec]) {
+  acc[0] = fmaf(v.x, v.x, acc[0]);
+  acc[1] = fmaf(v.y, v.y, acc[1]);
+  acc[2] = fmaf(v.z, v.z, acc[2]);
+  acc[3] = fmaf(v.w, v.w, acc[3]);
+}
+
 template <class Load>
-__global__ void sqnorm_kernel(Load load, float* __restrict__ out, int l) {
+__global__ void __launch_bounds__(kSqThreads)
+    sqnorm_kernel(Load load, float* __restrict__ out, int l) {
   const size_t row = blockIdx.x;
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < l; i += kThreads) {
-    const float v = load(row, i);
-    acc = fmaf(v, v, acc);
+  float acc[kSqVec] = {0.f, 0.f, 0.f, 0.f};
+  for (long long chunk = 0; chunk < l; chunk += kSqChunk) {
+    float4 v[kSqGroups];
+#pragma unroll
+    for (int j = 0; j < kSqGroups; ++j) {
+      const long long col = chunk + kSqVec * (threadIdx.x + j * kSqThreads);
+      v[j] = col < l ? load.group(row, static_cast<int>(col)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kSqGroups; ++j) add_squares(v[j], acc);
   }
+  float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  __shared__ float warp_sum[kWarps];
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+    sum += __shfl_down_sync(0xffffffffu, sum, off);
+  __shared__ float warp_sum[kSqWarps];
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = sum;
   __syncthreads();
   if (threadIdx.x == 0) {
     float t = warp_sum[0];
 #pragma unroll
-    for (int k = 1; k < kWarps; ++k) t += warp_sum[k];
+    for (int k = 1; k < kSqWarps; ++k) t += warp_sum[k];
     out[row] = t;
   }
 }
@@ -202,7 +266,8 @@ int launch_columns(bool median, Load load, const void* w, void* out, int r,
 template <class Load>
 int launch_rows(Load load, void* out, int rows, int l, void* stream) {
   if (rows <= 0) return 0;
-  sqnorm_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (l < 0) return static_cast<int>(cudaErrorInvalidValue);
+  sqnorm_kernel<<<rows, kSqThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       load, static_cast<float*>(out), l);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,7 +32,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_functions: Dict[str, object] = {}
 
 
 def sources() -> Sequence[Path]:
@@ -114,11 +113,33 @@ def load() -> ctypes.CDLL:
 def function(name: str, argtypes: Sequence) -> object:
     """A C function of the library with its ``argtypes`` declared and an
     ``int`` (the CUDA error code) as its result."""
-    fn = _functions.get(name)
-    if fn is None:
-        fn = getattr(load(), name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _functions[name] = fn
+    fn = getattr(load(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
     return fn
 
+
+class CFunction:
+    """One C launcher of the library, held by its launcher module.
+
+    It is resolved at its first call, which builds and loads the library
+    if needed; every later call goes straight to the ctypes function.  The
+    launcher returns ``cudaGetLastError()`` after its launch, and a
+    non-zero code raises here: a refused launch never runs, and no later
+    synchronise would report it.
+    """
+
+    __slots__ = ("name", "argtypes", "fn")
+
+    def __init__(self, name: str, argtypes: Sequence):
+        self.name = name
+        self.argtypes = list(argtypes)
+        self.fn = None
+
+    def __call__(self, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = function(self.name, self.argtypes)
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{self.name} failed with CUDA error {err}")

@@ -11,13 +11,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_arg
+from repro_torch.kernels.common import check_args, current_stream
 
 launches = 0
 
+U8 = torch.uint8
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p]
+_aes_ctr = _build.CFunction("aes_ctr_launch", _ARGTYPES)
 
 
 def aes_ctr_cuda(payload: torch.Tensor, round_keys: torch.Tensor,
@@ -29,21 +31,13 @@ def aes_ctr_cuda(payload: torch.Tensor, round_keys: torch.Tensor,
     if payload.dim() != 1:
         raise ValueError(f"payload must be 1-D (got {tuple(payload.shape)})")
     n = payload.shape[0]
-    dev = payload.device
-    check_cuda_arg("payload", payload, torch.uint8)
-    check_cuda_arg("round_keys", round_keys, torch.uint8, (11, 16), dev)
-    check_cuda_arg("nonce", nonce, torch.uint8, (8,), dev)
-    check_cuda_arg("tables", tables, torch.uint8, (3, 256), dev)
+    dev = check_args(("payload", payload, U8, None), ("round_keys", round_keys, U8, (11, 16)),
+                     ("nonce", nonce, U8, (8,)), ("tables", tables, U8, (3, 256)))
     if n >= 2 ** 31:
         raise ValueError(f"payload of {n} bytes exceeds the 2 GiB limit")
     out = torch.empty_like(payload)
-    if n == 0:
-        return out
-    fn = _build.function("aes_ctr_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(payload.data_ptr(), out.data_ptr(), n, tables.data_ptr(),
-             round_keys.data_ptr(), nonce.data_ptr(), stream)
-    launches += 1
-    if err != 0:
-        raise RuntimeError(f"aes_ctr kernel launch failed with CUDA error {err}")
+    if n:
+        _aes_ctr(payload.data_ptr(), out.data_ptr(), n, tables.data_ptr(),
+                 round_keys.data_ptr(), nonce.data_ptr(), current_stream(dev))
+        launches += 1
     return out

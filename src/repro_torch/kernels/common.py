@@ -10,8 +10,6 @@ hand-written kernel, anything else raises.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
 import torch
 
 
@@ -30,25 +28,53 @@ def resolve_device(device=None) -> torch.device:
 def is_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain twin), False for a CUDA tensor
     (kernel); raises for any other device."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return False
+    if t.is_cpu:
+        return True
     raise ValueError(f"unsupported device {t.device} (cpu or cuda)")
 
 
-def check_cuda_arg(name: str, t: torch.Tensor, dtype: torch.dtype,
-                   shape: Optional[Sequence[int]] = None,
-                   device: Optional[torch.device] = None) -> None:
-    """Validate one kernel argument before its pointer is passed on."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)} "
-                         f"(got {tuple(t.shape)})")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def check_args(*specs) -> int:
+    """Validate the tensor arguments of one launch before their pointers
+    are passed on.  Each spec is ``(name, tensor, dtype, shape)``, with
+    ``shape`` None for any shape.  Every tensor must have its dtype and
+    shape, be contiguous, and lie on one CUDA device.  Returns that
+    device's index.
+
+    Every argument's dtype, shape and contiguity are checked before it is
+    known that the first one is a CUDA tensor, so a tensor that breaks them
+    is refused with that reason on the CPU too.  One call per launch, and
+    no ``torch.device`` is built: the checks read ``Tensor.get_device()``,
+    which is -1 off the GPU.
+    """
+    index = first = None
+    for name, t, dtype, shape in specs:
+        if t.dtype is not dtype:
+            raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
+        if shape is not None and t.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)} "
+                             f"(got {tuple(t.shape)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if first is None:
+            index, first = t.get_device(), t
+        elif t.get_device() != index:
+            raise ValueError(f"{name} must be a CUDA tensor on {first.device} "
+                             f"(got {t.device})")
+    if not first.is_cuda:
+        raise ValueError(f"{specs[0][0]} must be a CUDA tensor (got {first.device})")
+    return index
+
+
+def _stream_handle(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# current_stream(index) -> the raw handle (an int) of PyTorch's current
+# stream on CUDA device ``index``: the one a ``torch.cuda.stream(s)`` block
+# sets.  PyTorch's own accessor returns it without building the
+# ``torch.cuda.Stream`` object that ``torch.cuda.current_stream`` makes on
+# every call (Triton's launcher reads it the same way); a build without it
+# (the CPU-only one) gets the public call.
+current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or _stream_handle

@@ -14,15 +14,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_arg
+from repro_torch.kernels.common import check_args, current_stream
 from repro_torch.kernels.quantize.ref import TILE
 
 launches = 0
 q8_launches = 0
 
+F32 = torch.float32
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_fedavg = _build.CFunction("fedavg_launch", _ARGTYPES)
+_fedavg_q8 = _build.CFunction("fedavg_q8_launch", _Q8_ARGTYPES)
 
 
 def fedavg_batched_cuda(updates: torch.Tensor,
@@ -33,20 +36,14 @@ def fedavg_batched_cuda(updates: torch.Tensor,
     if updates.dim() != 3:
         raise ValueError(f"updates must be (R, N, L) (got {tuple(updates.shape)})")
     r, n, l = updates.shape
-    check_cuda_arg("updates", updates, torch.float32)
-    check_cuda_arg("weights", weights, torch.float32, (r, n), updates.device)
+    dev = check_args(("updates", updates, F32, None), ("weights", weights, F32, (r, n)))
     if r > 65535:
         raise ValueError(f"at most 65535 sessions per launch (got {r})")
-    out = torch.empty((r, l), dtype=torch.float32, device=updates.device)
-    if r == 0 or l == 0:
-        return out
-    fn = _build.function("fedavg_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
-    err = fn(updates.data_ptr(), weights.data_ptr(), out.data_ptr(),
-             r, n, l, stream)
-    launches += 1
-    if err != 0:
-        raise RuntimeError(f"fedavg kernel launch failed with CUDA error {err}")
+    out = updates.new_empty((r, l))
+    if r and l:
+        _fedavg(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), r, n, l,
+                current_stream(dev))
+        launches += 1
     return out
 
 
@@ -60,19 +57,13 @@ def fedavg_batched_q8_cuda(q: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"q must be (R, N, Lp) with Lp % {TILE} == 0 "
                          f"(got {tuple(q.shape)})")
     r, n, lp = q.shape
-    check_cuda_arg("q", q, torch.int8)
-    check_cuda_arg("scales", scales, torch.float32, (r, n, lp // TILE), q.device)
-    check_cuda_arg("weights", weights, torch.float32, (r, n), q.device)
+    dev = check_args(("q", q, torch.int8, None), ("scales", scales, F32, (r, n, lp // TILE)),
+                     ("weights", weights, F32, (r, n)))
     if r > 65535:
         raise ValueError(f"at most 65535 sessions per launch (got {r})")
-    out = torch.empty((r, lp), dtype=torch.float32, device=q.device)
-    if r == 0 or lp == 0:
-        return out
-    fn = _build.function("fedavg_q8_launch", _Q8_ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
-             r, n, lp, stream)
-    q8_launches += 1
-    if err != 0:
-        raise RuntimeError(f"fedavg_q8 kernel launch failed with CUDA error {err}")
+    out = scales.new_empty((r, lp))
+    if r and lp:
+        _fedavg_q8(q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                   r, n, lp, current_stream(dev))
+        q8_launches += 1
     return out

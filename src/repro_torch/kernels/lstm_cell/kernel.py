@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_arg
+from repro_torch.kernels.common import check_args, current_stream
 
 launches = 0
 bwd_launches = 0
@@ -33,6 +33,8 @@ MAX_HIDDEN = 1024            # one thread per column j: at most 1024 threads
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_fwd = _build.CFunction("lstm_seq_fwd_launch", _FWD_ARGTYPES)
+_bwd = _build.CFunction("lstm_seq_bwd_launch", _BWD_ARGTYPES)
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -68,28 +70,33 @@ def plan(batch: int, f: int, hidden: int, backward: bool = False) -> Tuple[int, 
     return groups, smem
 
 
-def _lane_arg(name: str, t: torch.Tensor, shape, device) -> int:
-    """Check one input (fp32 on ``device``, the given shape, each lane's
-    block contiguous) and return its lane stride in elements."""
-    if t.device != device:
-        raise ValueError(f"{name} must be a CUDA tensor on {device} (got {t.device})")
-    if t.dtype != torch.float32:
+def _lane_arg(name: str, t: torch.Tensor, shape, index: int) -> int:
+    """Check one input (fp32, the given shape, each lane's block
+    contiguous, on the device whose ``Tensor.get_device()`` is ``index``:
+    x_seq's, -1 off the GPU, which :func:`_require_cuda` refuses after the
+    layouts) and return its lane stride in elements."""
+    if t.dtype is not torch.float32:
         raise ValueError(f"{name} must be torch.float32 (got {t.dtype})")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {tuple(shape)} (got {tuple(t.shape)})")
-    for dim in range(1, len(shape)):
-        dense = int(torch.Size(shape[dim + 1:]).numel())
-        if shape[dim] > 1 and t.stride(dim) != dense:
+    strides = t.stride()
+    dense = 1
+    for dim in range(len(shape) - 1, 0, -1):
+        if shape[dim] > 1 and strides[dim] != dense:
             raise ValueError(f"{name} must be contiguous within a lane")
-    stride = t.stride(0) if shape[0] > 1 else 0
+        dense *= shape[dim]
+    if t.get_device() != index:
+        raise ValueError(f"{name} must be a CUDA tensor on x_seq's device (got {t.device})")
+    stride = strides[0] if shape[0] > 1 else 0
     if not 0 <= stride <= _INT_MAX or t.numel() > _INT_MAX:
         raise ValueError(f"{name} is too large for 32-bit offsets")
     return stride
 
 
 def _seq_shapes(x_seq, h, backward):
-    """(lanes, steps, batch, f, hidden, groups, smem) of a launch, the plan
-    checked before the device."""
+    """(lanes, steps, batch, f, hidden, groups, smem, device index) of a
+    launch: the plan checked, the device not yet (the index is
+    ``x_seq.get_device()``, -1 off the GPU; see :func:`_require_cuda`)."""
     if x_seq.dim() != 4 or h.dim() != 3:
         raise ValueError("x_seq must be (L, T, B, F) and the states (L, B, H)")
     lanes, steps, batch, f = x_seq.shape
@@ -97,11 +104,16 @@ def _seq_shapes(x_seq, h, backward):
     groups, smem = plan(batch, f, hidden, backward)
     if steps < 1:
         raise ValueError("the sequence needs at least one step")
-    if x_seq.device.type != "cuda":
-        raise ValueError(f"x_seq must be a CUDA tensor (got {x_seq.device})")
     if lanes > 65535:
         raise ValueError(f"at most 65535 lanes per launch (got {lanes})")
-    return lanes, steps, batch, f, hidden, groups, smem
+    return lanes, steps, batch, f, hidden, groups, smem, x_seq.get_device()
+
+
+def _require_cuda(x_seq) -> None:
+    """After every argument's layout is checked against x_seq's device:
+    that device must be a GPU."""
+    if not x_seq.is_cuda:
+        raise ValueError(f"x_seq must be a CUDA tensor (got {x_seq.device})")
 
 
 def _weight_strides(wx, wh, b, lanes, f, hidden, dev):
@@ -117,25 +129,21 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False):
     (L, B, H), or with ``save`` the states before and after every step,
     each a contiguous (L, T+1, B, H) whose [:, 0] is h0, c0."""
     global launches
-    lanes, steps, batch, f, hidden, groups, smem = _seq_shapes(x_seq, h0, False)
-    dev = x_seq.device
+    lanes, steps, batch, f, hidden, groups, smem, dev = _seq_shapes(x_seq, h0, False)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     h_ls = _lane_arg("h0", h0, (lanes, batch, hidden), dev)
     c_ls = _lane_arg("c0", c0, (lanes, batch, hidden), dev)
     w_ls = _weight_strides(wx, wh, b, lanes, f, hidden, dev)
+    _require_cuda(x_seq)
     shape = (lanes, steps + 1, batch, hidden) if save else (lanes, batch, hidden)
-    h_out = torch.empty(shape, dtype=torch.float32, device=dev)
-    c_out = torch.empty(shape, dtype=torch.float32, device=dev)
+    h_out = x_seq.new_empty(shape)
+    c_out = x_seq.new_empty(shape)
     if lanes * batch * hidden == 0:
         return h_out, c_out
-    fn = _build.function("lstm_seq_fwd_launch", _FWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), lanes, steps, batch, f,
-             hidden, groups, int(save), x_ls, h_ls, c_ls, *w_ls, smem, stream)
+    _fwd(x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), lanes, steps, batch, f,
+         hidden, groups, int(save), x_ls, h_ls, c_ls, *w_ls, smem, current_stream(dev))
     launches += 1
-    if err != 0:
-        raise RuntimeError(f"lstm_seq forward kernel launch failed with CUDA error {err}")
     return h_out, c_out
 
 
@@ -146,29 +154,25 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last):
     (dgates (L, T, B, 4H), dh0, dc0 (L, B, H)), contiguous: the cotangents
     of each step's gate pre-activations and of the initial states."""
     global bwd_launches
-    lanes, steps, batch, f, hidden, groups, smem = _seq_shapes(x_seq, dh_last, True)
-    dev = x_seq.device
+    lanes, steps, batch, f, hidden, groups, smem, dev = _seq_shapes(x_seq, dh_last, True)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
-    for name, t, shape in (("h_seq", h_seq, (lanes, steps + 1, batch, hidden)),
-                           ("c_seq", c_seq, (lanes, steps + 1, batch, hidden)),
-                           ("dh_last", dh_last, (lanes, batch, hidden)),
-                           ("dc_last", dc_last, (lanes, batch, hidden))):
-        check_cuda_arg(name, t, torch.float32, shape, dev)
     w_ls = _weight_strides(wx, wh, b, lanes, f, hidden, dev)
-    dgates = torch.empty((lanes, steps, batch, 4 * hidden), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((lanes, batch, hidden), dtype=torch.float32, device=dev)
-    dc0 = torch.empty_like(dh0)
+    seq, last = (lanes, steps + 1, batch, hidden), (lanes, batch, hidden)
+    if check_args(("h_seq", h_seq, torch.float32, seq), ("c_seq", c_seq, torch.float32, seq),
+                  ("dh_last", dh_last, torch.float32, last),
+                  ("dc_last", dc_last, torch.float32, last)) != dev:
+        raise ValueError(f"h_seq must be a CUDA tensor on x_seq's device (got {h_seq.device})")
+    _require_cuda(x_seq)
+    dgates = x_seq.new_empty((lanes, steps, batch, 4 * hidden))
+    dh0 = x_seq.new_empty(last)
+    dc0 = x_seq.new_empty(last)
     if lanes * batch * hidden == 0:
         return dgates, dh0, dc0
-    fn = _build.function("lstm_seq_bwd_launch", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(x_seq.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), wx.data_ptr(),
-             wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
-             dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), lanes, steps, batch, f,
-             hidden, groups, x_ls, *w_ls, smem, stream)
+    _bwd(x_seq.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), wx.data_ptr(),
+         wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
+         dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), lanes, steps, batch, f,
+         hidden, groups, x_ls, *w_ls, smem, current_stream(dev))
     bwd_launches += 1
-    if err != 0:
-        raise RuntimeError(f"lstm_seq backward kernel launch failed with CUDA error {err}")
     return dgates, dh0, dc0
 
 

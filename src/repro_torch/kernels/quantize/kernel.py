@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_arg
+from repro_torch.kernels.common import check_args, current_stream
 from repro_torch.kernels.quantize.ref import TILE
 
 launches = 0
@@ -22,6 +22,8 @@ dequantize_launches = 0
 
 _QUANT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _DEQUANT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
+_quantize = _build.CFunction("quantize_launch", _QUANT_ARGTYPES)
+_dequantize = _build.CFunction("dequantize_launch", _DEQUANT_ARGTYPES)
 
 
 def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,21 +33,17 @@ def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be (L,) or (B, L) (got {tuple(x.shape)})")
-    check_cuda_arg("x", x, torch.float32)
+    dev = check_args(("x", x, torch.float32, None))
     rows = x[None] if x.dim() == 1 else x
     b, l = rows.shape
     if b > 65535:
         raise ValueError(f"at most 65535 rows per launch (got {b})")
     lp = l + (-l) % TILE
-    q = torch.empty((b, lp), dtype=torch.int8, device=x.device)
-    s = torch.empty((b, lp // TILE), dtype=torch.float32, device=x.device)
+    q = x.new_empty((b, lp), dtype=torch.int8)
+    s = x.new_empty((b, lp // TILE))
     if b and lp:
-        fn = _build.function("quantize_launch", _QUANT_ARGTYPES)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), b, l, lp, stream)
+        _quantize(x.data_ptr(), q.data_ptr(), s.data_ptr(), b, l, lp, current_stream(dev))
         launches += 1
-        if err != 0:
-            raise RuntimeError(f"quantize kernel launch failed with CUDA error {err}")
     return (q[0], s[0]) if x.dim() == 1 else (q, s)
 
 
@@ -59,14 +57,10 @@ def dequantize_cuda(q: torch.Tensor, scales: torch.Tensor,
     lp = q.shape[0]
     if not 0 <= orig_len <= lp:
         raise ValueError(f"orig_len must be within [0, {lp}] (got {orig_len})")
-    check_cuda_arg("q", q, torch.int8)
-    check_cuda_arg("scales", scales, torch.float32, (lp // TILE,), q.device)
-    out = torch.empty((orig_len,), dtype=torch.float32, device=q.device)
+    dev = check_args(("q", q, torch.int8, None), ("scales", scales, torch.float32, (lp // TILE,)))
+    out = scales.new_empty((orig_len,))
     if orig_len:
-        fn = _build.function("dequantize_launch", _DEQUANT_ARGTYPES)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), orig_len, stream)
+        _dequantize(q.data_ptr(), scales.data_ptr(), out.data_ptr(), orig_len,
+                    current_stream(dev))
         dequantize_launches += 1
-        if err != 0:
-            raise RuntimeError(f"dequantize kernel launch failed with CUDA error {err}")
     return out

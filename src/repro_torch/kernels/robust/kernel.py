@@ -20,10 +20,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_arg
+from repro_torch.kernels.common import check_args, current_stream
 from repro_torch.kernels.quantize.ref import TILE
 
 MAX_N = 16   # kMaxN of csrc/robust.cu
+F32, I8 = torch.float32, torch.int8
 
 trimmed_mean_launches = 0
 trimmed_mean_q8_launches = 0
@@ -37,33 +38,27 @@ _COLUMN_Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_voi
 _SQNORM_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _SQNORM_Q8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
+_C = {name: _build.CFunction(f"robust_{name}_launch", argtypes) for name, argtypes in (
+    ("trimmed_mean", _COLUMN_ARGTYPES), ("median", _COLUMN_ARGTYPES),
+    ("trimmed_mean_q8", _COLUMN_Q8_ARGTYPES), ("median_q8", _COLUMN_Q8_ARGTYPES))}
+_sqnorm = _build.CFunction("robust_sqnorm_launch", _SQNORM_ARGTYPES)
+_sqnorm_q8 = _build.CFunction("robust_sqnorm_q8_launch", _SQNORM_Q8_ARGTYPES)
 
-def _launch(name: str, argtypes, device, *args) -> None:
-    fn = _build.function(name, argtypes)
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed with CUDA error {err}")
 
-
-def _check_updates(updates: torch.Tensor):
+def _updates_shape(updates: torch.Tensor):
     if updates.dim() != 3:
         raise ValueError(f"updates must be (R, N, L) (got {tuple(updates.shape)})")
-    check_cuda_arg("updates", updates, torch.float32)
     return updates.shape
 
 
-def _check_wire(q: torch.Tensor, scales: torch.Tensor):
+def _wire_shape(q: torch.Tensor):
     if q.dim() != 3 or q.shape[-1] % TILE:
         raise ValueError(f"q must be (R, N, Lp) with Lp % {TILE} == 0 "
                          f"(got {tuple(q.shape)})")
-    r, n, lp = q.shape
-    check_cuda_arg("q", q, torch.int8)
-    check_cuda_arg("scales", scales, torch.float32, (r, n, lp // TILE), q.device)
     return q.shape
 
 
-def _check_columns(weights: torch.Tensor, r: int, n: int, device) -> None:
-    check_cuda_arg("weights", weights, torch.float32, (r, n), device)
+def _check_columns(r: int, n: int) -> None:
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the robust column kernels take 1 to {MAX_N} contributors "
                          f"(MAX_N, kMaxN of csrc/robust.cu), got N = {n}")
@@ -73,24 +68,26 @@ def _check_columns(weights: torch.Tensor, r: int, n: int, device) -> None:
 
 def _columns(kind: str, updates: torch.Tensor, weights: torch.Tensor):
     """(out, whether the kernel was launched)."""
-    r, n, l = _check_updates(updates)
-    _check_columns(weights, r, n, updates.device)
-    out = torch.empty((r, l), dtype=torch.float32, device=updates.device)
+    r, n, l = _updates_shape(updates)
+    dev = check_args(("updates", updates, F32, None), ("weights", weights, F32, (r, n)))
+    _check_columns(r, n)
+    out = updates.new_empty((r, l))
     if r and l:
-        _launch(f"robust_{kind}_launch", _COLUMN_ARGTYPES, updates.device,
-                updates.data_ptr(), weights.data_ptr(), out.data_ptr(), r, n, l)
+        _C[kind](updates.data_ptr(), weights.data_ptr(), out.data_ptr(), r, n, l,
+                 current_stream(dev))
     return out, bool(r and l)
 
 
 def _columns_q8(kind: str, q: torch.Tensor, scales: torch.Tensor,
                 weights: torch.Tensor):
-    r, n, lp = _check_wire(q, scales)
-    _check_columns(weights, r, n, q.device)
-    out = torch.empty((r, lp), dtype=torch.float32, device=q.device)
+    r, n, lp = _wire_shape(q)
+    dev = check_args(("q", q, I8, None), ("scales", scales, F32, (r, n, lp // TILE)),
+                     ("weights", weights, F32, (r, n)))
+    _check_columns(r, n)
+    out = scales.new_empty((r, lp))
     if r and lp:
-        _launch(f"robust_{kind}_q8_launch", _COLUMN_Q8_ARGTYPES, q.device,
-                q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                r, n, lp)
+        _C[kind + "_q8"](q.data_ptr(), scales.data_ptr(), weights.data_ptr(),
+                         out.data_ptr(), r, n, lp, current_stream(dev))
     return out, bool(r and lp)
 
 
@@ -139,11 +136,11 @@ def sqnorm_cuda(updates: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L) fp32, contiguous on a CUDA device -> (R, N) fp32
     squared L2 norms."""
     global sqnorm_launches
-    r, n, l = _check_updates(updates)
-    out = torch.empty((r, n), dtype=torch.float32, device=updates.device)
+    r, n, l = _updates_shape(updates)
+    dev = check_args(("updates", updates, F32, None))
+    out = updates.new_empty((r, n))
     if r * n:
-        _launch("robust_sqnorm_launch", _SQNORM_ARGTYPES, updates.device,
-                updates.data_ptr(), out.data_ptr(), r * n, l)
+        _sqnorm(updates.data_ptr(), out.data_ptr(), r * n, l, current_stream(dev))
         sqnorm_launches += 1
     return out
 
@@ -152,10 +149,11 @@ def sqnorm_q8_cuda(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024) fp32 -> (R, N) fp32
     squared L2 norms of ``q * scale``."""
     global sqnorm_q8_launches
-    r, n, lp = _check_wire(q, scales)
-    out = torch.empty((r, n), dtype=torch.float32, device=q.device)
+    r, n, lp = _wire_shape(q)
+    dev = check_args(("q", q, I8, None), ("scales", scales, F32, (r, n, lp // TILE)))
+    out = scales.new_empty((r, n))
     if r * n:
-        _launch("robust_sqnorm_q8_launch", _SQNORM_Q8_ARGTYPES, q.device,
-                q.data_ptr(), scales.data_ptr(), out.data_ptr(), r * n, lp)
+        _sqnorm_q8(q.data_ptr(), scales.data_ptr(), out.data_ptr(), r * n, lp,
+                   current_stream(dev))
         sqnorm_q8_launches += 1
     return out

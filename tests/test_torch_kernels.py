@@ -253,11 +253,12 @@ def test_lane_cell_launcher_accepts_the_fleets_buffer_views(width):
             "wh": torch.zeros(h, 4 * h), "wx": torch.zeros(f, 4 * h)}
     _, spec = tree_ravel(like)
     p = tree_unravel(spec, torch.zeros(5, width)[:, :18566])
-    strides = [_lane_arg(k, p[k], (5,) + tuple(p[k].shape[1:]), torch.device("cpu"))
+    cpu = torch.zeros(()).get_device()          # the device index the checks compare
+    strides = [_lane_arg(k, p[k], (5,) + tuple(p[k].shape[1:]), cpu)
                for k in ("wx", "wh", "b")]
     assert strides == [width] * 3
     with pytest.raises(ValueError, match="contiguous within a lane"):
-        _lane_arg("wx", p["wx"].transpose(1, 2), (5, 4 * h, f), torch.device("cpu"))
+        _lane_arg("wx", p["wx"].transpose(1, 2), (5, 4 * h, f), cpu)
 
 
 # the whole-sequence forward and backward kernels: (L, B, F, H, T) at the

@@ -13,11 +13,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    lanes, with the weights as views of the fleet's flat buffers; the LSTM's
    whole-sequence forward within 1e-5 (every saved state) and its backward
    within 1e-4 of each output's largest value, at the loop's and the
-   fleet's fit and scoring shapes; the robust
-   trimmed mean and median within 1e-6 of the largest output, the squared
+   fleet's fit and scoring shapes; the robust trimmed mean and median
+   within 1e-6 of the largest output at every N from 1 to 16, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
-   dense kernel on the dequantized buffer; dequantize also bit-equal to one
-   ``torch.mul``, its timing yardstick);
+   dense kernel on the dequantized buffer; dequantize also bit-equal to
+   one ``torch.mul``, its timing yardstick);
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -36,15 +36,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    - the Byzantine world (20 % of the links send noise of scale 10): the
      quickstart session with ``robust="clip"``, fp32 and int8, 3 rounds;
      the 64-requester fleet for 3 rounds undefended and with each robust
-     method, fp32 and int8; one 4-requester round under clip on the card
-     and on the CPU, whose corrupted and clipped masks must be equal;
+     method, fp32 and int8, whose accuracies under the trimmed mean and the
+     median must equal, to four digits, what the earlier column kernels
+     gave; one 4-requester round under clip on the card and on the CPU,
+     whose corrupted and clipped masks must be equal;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
    ``torch.lstm``), with the host's enqueue time of each wrapper, each
-   kernel's device time from the profiler, and for AES and the squared
-   norms also with the L2 flushed between launches; then the host time of
-   each piece of one launch;
+   kernel's device time from the profiler, and for AES and every kernel
+   that moves 6 MB or more also with the L2 flushed between launches (the
+   dense trimmed mean and median also at the loop engine's R = 1); then the
+   host time of each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
    fleet: device-busy share, launches per Adam step and the kernels that
    take the device time;
@@ -91,6 +94,13 @@ ULP_REL, FAULT_REL = 1e-7, 1e-4
 # the Byzantine world of [4d]: 20 % of the links deliver noise of scale 10
 ADVERSARY = dict(p_byzantine=0.2, attack="noise", scale=10.0, seed=7)
 ADV_ROUNDS = 3
+# the 64-requester Byzantine fleet's accuracy (mean, min) under the column
+# statistics, as the one-column-a-thread kernels gave it on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W); kernels that compute the same bits give the same
+# four digits
+ROBUST_FLEET_ACCURACY = {
+    "fp32 trimmed_mean": (0.6511, 0.1333), "int8 trimmed_mean": (0.6496, 0.0588),
+    "fp32 median": (0.7676, 0.0556), "int8 median": (0.7658, 0.0556)}
 
 
 def fail(msg: str) -> None:
@@ -176,6 +186,12 @@ def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3)
         if total > 0:
             return total / sum(e.count for e in hits)
     return None
+
+
+def us_text(us) -> str:
+    """A device time from :func:`device_us` as printed: 3 decimals, or "not
+    measured" where the profiler saw none."""
+    return "not measured" if us is None else f"{us:.3f}"
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -451,12 +467,14 @@ def check_fedavg_q8(dev, main_shape):
 
 def check_robust(dev, n_params, n_contrib):
     """The six robust kernels against their twins, at the fleet's (64, 5, P)
-    fp32 and (64, 5, Lp) int8 state and at edge shapes (L off 256, N = 1, 2,
-    3, 6 and 16, an all-zero weight row, an inactive lane, tied values and
-    tied contributors, a noise-sized outlier).  Each q8 kernel must equal
-    its dense kernel on the dequantized buffer bit for bit, and the q8
-    squared norm over Lp the dense one over P.  Returns the max abs errors
-    at the fleet's shapes."""
+    fp32 and (64, 5, Lp) int8 state and at edge shapes: every N from 1 to
+    16 (each its own instantiation of the column kernels), L off 4 and off
+    512, rows at 4-, 8- and 16-byte alignment, an all-zero weight row, one
+    and two active contributors, an inactive lane, tied values and tied
+    contributors, a noise-sized outlier.  Each q8 kernel must equal its
+    dense kernel on the dequantized buffer bit for bit, and the q8 squared
+    norm over Lp the dense one over P.  Returns the max abs errors at the
+    fleet's shapes."""
     from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
@@ -466,9 +484,11 @@ def check_robust(dev, n_params, n_contrib):
     columns = (("trimmed_mean", rk.trimmed_mean_cuda, rk.trimmed_mean_q8_cuda,
                 rr.trimmed_mean_batched_ref),
                ("median", rk.median_cuda, rk.median_q8_cuda, rr.median_batched_ref))
-    cases = [("fleet", (FLEET_R, n_contrib, n_params)), ("L%256!=0", (3, 4, 1000 + 7)),
-             ("N=1", (2, 1, 777)), ("N=2", (2, 2, 513)), ("N=3", (3, 3, 2048)),
-             ("N=6", (4, 6, 1500)), ("N=16", (2, 16, 300))]
+    # every N from 1 to 16, at lengths that cover each L % 4 and rows that
+    # start 4, 8 and 16 bytes aligned
+    lengths = (777, 513, 2048, 1007, 1500, 300, 4099, 1030, 3, 2050, 1, 5121, 258, 19, 1025, 6)
+    cases = [("fleet", (FLEET_R, n_contrib, n_params)), ("L%256!=0", (3, 4, 1000 + 7))]
+    cases += [(f"N={n}", (5, n, lengths[n - 1])) for n in range(1, rk.MAX_N + 1)]
     for name, (r, n, l) in cases:
         x = torch.randn((r, n, l), generator=g) * 0.3
         x[0, 0] = torch.randn((l,), generator=g) * 10.0     # a noise-sized outlier
@@ -480,6 +500,9 @@ def check_robust(dev, n_params, n_contrib):
             w[0, n - 1] = 0.0                                # an inactive lane
         if r > 1:
             w[1] = 0.0                                       # an all-zero weight row
+        if r > 3 and n > 2:
+            w[2, 1:] = 0.0                                   # one active contributor
+            w[3, 2:] = 0.0                                   # two active
         q, sc = quantize_batched_ref(x.reshape(r * n, l))
         xd, wd = x.to(dev), w.to(dev)
         qd, sd = q.reshape(r, n, -1).to(dev), sc.reshape(r, n, -1).to(dev)
@@ -497,7 +520,7 @@ def check_robust(dev, n_params, n_contrib):
                 fail(f"{kname} {name} {(r, n, l)}: max abs err {err} (scale {scale})")
             if r > 1 and bool(got[1].ne(0).any()):
                 fail(f"{kname} {name}: an all-zero weight row must give zeros")
-            if not torch.equal(got8, dense_k(dq, wd)):
+            if not torch.equal(got8.view(torch.int32), dense_k(dq, wd).view(torch.int32)):
                 fail(f"{kname}_q8 {name}: not bit-equal to the dense kernel on the "
                      "dequantized buffer")
             line.append(f"{kname} {err:.3e} (q8 {err8:.3e}, bit-equal to dense)")
@@ -947,6 +970,13 @@ def run_fleet_adversary(device, world, pretrained):
               f"clipped links; accuracy mean {res.accuracy.mean():.4f} min "
               f"{res.accuracy.min():.4f}")
         print(f"    launches: {counts}")
+        want = ROBUST_FLEET_ACCURACY.get(f"{compress or 'fp32'} {robust}")
+        if want is not None:
+            got = (f"{res.accuracy.mean():.4f}", f"{res.accuracy.min():.4f}")
+            print(f"    accuracy mean / min {got[0]} / {got[1]}; the earlier kernels gave "
+                  f"{want[0]:.4f} / {want[1]:.4f}")
+            if got != (f"{want[0]:.4f}", f"{want[1]:.4f}"):
+                fail(f"{tag}: accuracy {got} differs from the earlier kernels' {want}")
         out[tag] = counts
     return out
 
@@ -992,23 +1022,21 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 def time_kernels(dev, counts, errs, n_params, fit_b, f, h, seq_len, n_contrib):
     """Every row of the kernel table: ``ms`` (CUDA events over back-to-back
     wrapper calls on L2-warm inputs), ``host_us`` (the wrapper's enqueue,
-    :func:`host_us`), device µs warm and, for AES and the squared norms,
-    after an L2 flush, the plain twin's and the library call's ms and the
-    bound."""
+    :func:`host_us`), device µs warm and, for AES and every kernel that
+    moves 6 MB or more at its shape, after an L2 flush, the plain twin's and
+    the library call's ms and the bound."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rows = time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush)
     rows += time_lstm(dev, counts, errs, fit_b, f, h, seq_len)
-    rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib)
+    rows += time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush)
     rows += time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush)
     del flush
     for row in rows:
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
-        dus = "not measured" if row["device_us"] is None else f"{row['device_us']:.3f}"
-        cold = row.get("device_us_cold", "")
-        if cold != "":
-            cold = " cold " + ("not measured" if cold is None else f"{cold:.3f}")
+        cold = f" cold {us_text(row['device_us_cold'])}" if "device_us_cold" in row else ""
         print(f"  {row['name']:10s} {row['shape']}: kernel_ms {row['ms']:.5f}  host_us "
-              f"{row['host_us']:.3f}  device_us {dus}{cold}  plain_ms {row['plain_ms']:.5f}  "
+              f"{row['host_us']:.3f}  device_us {us_text(row['device_us'])}{cold}"
+              f"{row.get('device_note', '')}  plain_ms {row['plain_ms']:.5f}  "
               f"library_ms {lib}{row.get('library_note', '')}  "
               f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}{row.get('bound_note', '')})  "
               f"launches on the main paths {row['launches']}")
@@ -1068,9 +1096,10 @@ def launch_path_breakdown(dev, n_params, n_contrib):
         print(f"    {host_us(fn):8.3f}  {what}")
 
 
-def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
-    """The int8 wire kernels at the fleet's shapes (R = 64, N = 5) and at
-    one loop-engine update.  Dequantize's yardstick is
+def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
+    """The int8 wire kernels at the fleet's shapes (R = 64, N = 5), also
+    cold (``flush`` written between launches), and at one loop-engine
+    update.  Dequantize's yardstick is
     :func:`dequantize_library`, one ``torch.mul`` (bit-equal to the kernel,
     phase 3); no single PyTorch call computes the other three, whose
     ``library_ms`` is null."""
@@ -1097,6 +1126,8 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      replaces="src/repro/kernels/fedavg/kernel.py:83",
                      device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
                                          "fedavg_q8_kernel"),
+                     device_us_cold=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
+                                              "fedavg_q8_kernel", flush=flush),
                      host_us=host_us(lambda: fedavg_batched_q8_cuda(q, s, w)),
                      launches=counts["fedavg_q8"], max_abs_err=errs["fedavg_q8"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1112,6 +1143,8 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib):
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:89",
                      device_us=device_us(lambda: quantize_cuda(x), "quantize_kernel"),
+                     device_us_cold=device_us(lambda: quantize_cuda(x), "quantize_kernel",
+                                              flush=flush),
                      host_us=host_us(lambda: quantize_cuda(x)),
                      launches=counts["quantize_batched"], max_abs_err=errs["quantize"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1153,9 +1186,10 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
     squared norm's yardstick is ``torch.linalg.vecdot(x, x)``, the same
     function (``vector_norm``, its square root, is printed beside it), the
     dense median's ``torch.nanquantile`` over the active entries; no single
-    PyTorch call computes the other three.  The squared norms are also
-    timed cold (``flush`` written between launches): the fleet reads its
-    (R, N, P) buffer from HBM."""
+    PyTorch call computes the other three.  Every row is also timed cold
+    (``flush`` written between launches): the fleet reads its (R, N, P)
+    buffer from HBM.  The two dense column kernels are also timed at the
+    loop engine's (1, N, P), warm and cold (``r1_us``, ``r1_us_cold``)."""
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
@@ -1210,8 +1244,14 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
                    plain_ms=cuda_ms(plain_fn, iters=50, warmup=5),
                    bound_ms=b_ms, bound_by=b_by,
                    library_ms=None if lib_fn is None else cuda_ms(lib_fn), shape=shape)
-        if name.startswith("sqnorm"):
-            row["device_us_cold"] = device_us(kern, kname, flush=flush)
+        row["device_us_cold"] = device_us(kern, kname, flush=flush)
+        if name in ("trimmed_mean", "median"):
+            one = getattr(rk, name + "_cuda")
+            x1, w1 = x[:1].contiguous(), w[:1].contiguous()
+            row["r1_us"] = device_us(lambda: one(x1, w1), kname)
+            row["r1_us_cold"] = device_us(lambda: one(x1, w1), kname, flush=flush)
+            row["device_note"] = (f"; at R,N,L=1,{n},{l} {us_text(row['r1_us'])}, cold "
+                                  f"{us_text(row['r1_us_cold'])}")
         if name == "sqnorm":
             row["library_note"] = (" (linalg.vecdot; linalg.vector_norm "
                                    f"{cuda_ms(lambda: torch.linalg.vector_norm(x, dim=-1)):.5f})")
@@ -1344,10 +1384,11 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
 
 
 def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
-    """Eq. 14 at the loop's and the fleet's shapes, and AES-CTR over one fp32
-    update, warm and cold (``flush`` written between launches: the path
-    encrypts each update once).  AES's bound is the larger of its bytes over
-    HBM and its table lookups over the card's shared-memory rate."""
+    """Eq. 14 at the loop's and the fleet's shapes (the fleet's also cold:
+    ``flush`` written between launches), and AES-CTR over one fp32 update,
+    warm and cold (the path encrypts each update once).  AES's bound is the
+    larger of its bytes over HBM and its table lookups over the card's
+    shared-memory rate."""
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
@@ -1369,7 +1410,9 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
         lib = cuda_ms(lambda: torch.einsum("rn,rnl->rl", w, u) / w.sum(dim=1, keepdim=True))
         b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
         dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
-        rows.append(dict(name=name, route="cuda", device_us=dev_us,
+        cold = {} if r == 1 else dict(device_us_cold=device_us(
+            lambda: fedavg_batched_cuda(u, w), "fedavg_kernel", flush=flush))
+        rows.append(dict(name=name, route="cuda", device_us=dev_us, **cold,
                          host_us=host_us(lambda: fedavg_batched_cuda(u, w)),
                          source="src/repro_torch/csrc/fedavg.cu", replaces=replaces,
                          launches=counts[name], max_abs_err=errs[name], ms=ms,

@@ -22,67 +22,102 @@
 // buffer, which keeps the loop engine (dense, dequantized) and the fleet
 // (fused q8) in agreement.
 //
-// What bounds them on an H100: memory.  The trimmed mean and the median
-// read N values per output and do O(N) (scan) or O(N^2) (sorting network)
-// compares and selects in registers: at the fleet's shapes (R = 64, N = 5,
-// L = 18,566) the dense kernels move 28.5 MB (~8.5 us at 3.35 TB/s) and the
-// q8 kernels 11.2 MB (~3.35 us).  The squared norm reads 23.8 MB dense
-// (~7.1 us) or 6.25 MB of codes (~1.9 us) for one fma per element, from
-// HBM when the caller's buffer has left the 50 MB L2.
+// What bounds them on an H100.  Their bytes: at the fleet's shapes (R =
+// 64, N = 5, L = 18,566) the dense column kernels move 28.5 MB (8.5 us at
+// 3.35 TB/s) and the q8 ones 11.2 MB (3.35 us), from HBM, since the
+// fleet's round state has left the 50 MB L2 by the time it is aggregated;
+// the squared norm reads 23.8 MB dense (7.1 us) or 6.25 MB of codes (1.9
+// us) for one fma per element.  And the column kernels' instructions: each
+// column takes a trimmed mean's two index-tracking scans, its selects and
+// an IEEE division, or a median's N-phase network, over 1.2 M columns.
+// Once every load of a thread is in flight, the dense median is bound by
+// bytes and the trimmed mean and both q8 forms by instructions.
 //
-// Design.  Trimmed mean and median: grid (ceil(L / 256), R), one thread
-// per column l, so a warp reads 32 consecutive columns of each contributor
-// row (128 bytes dense, 32 bytes of codes).  The thread keeps the N values
-// and weights in registers: arrays of the compile-time bound kMaxN = 16,
-// indexed only by unrolled loop counters and guarded by the runtime n, so
-// they never spill to local memory.  The trimmed mean finds its two
-// extremes with strict > / < scans in n order (the first index wins a
-// tie, like argmax), and divides (no reciprocal).  The median sorts with
-// the odd-even transposition network of the reference (n phases of
-// min/max on neighbours) and selects the two middle ranks.
+// Design of the column kernels.  N is a template parameter (1 ... 16,
+// dispatched by a switch in launch_columns), so every array is indexed by
+// unrolled counters and nothing is guarded by a runtime n.  A block of 128
+// threads covers 512 consecutive columns of one session r, thread t the 4
+// at 4t, so a warp's request to a contributor row is 512 bytes dense or
+// 128 bytes of codes, neighbours on neighbours.  The thread first issues
+// every load it will use: its N contributor groups (one float4, two float2
+// or four scalars as the row's address allows: a row of L = 18,566 floats
+// starts only 8-byte aligned; or one char4 of codes with its tile's
+// scale) and then the N weights, none of them guarded by a value, so all
+// of them are in flight before the first compare.  Only then does it
+// dequantize, mask the inactive rows and compute each column with the
+// plain version's arithmetic: the trimmed mean's strict > and < scans in n
+// order (the first index wins a tie, like argmax), its fma chain in n
+// order and an IEEE division; the median's odd-even transposition network
+// of the reference (N phases over neighbours) and its two middle ranks.
+// When all N contributors of the session are active (one branch for the
+// whole block), a specialised form of the same arithmetic skips the
+// masks, the activity tests of the scans and the run-time rank selection:
+// 66 instructions a column of the trimmed mean at N = 5, not 116.  It
+// stores its 4 results with the widest store the output row's address
+// allows.  Which thread computes a column changes nothing in its
+// arithmetic, so the outputs are bitwise those of the one-column-a-thread
+// kernels this design replaced, NaN, infinities and signed zeros included.
+//
+// What lost on an H100 80GB HBM3 at 700 W (device us, warm / cold, at the
+// fleet's shapes): four 4-column groups a thread in the q8 forms (128
+// registers, 1.5 waves: trimmed mean 12.9 / 15.3, median 11.2 / 18.2);
+// int8 -> float by PRMT and FADD in place of I2F (q8 trimmed mean 11.2 /
+// 11.5 and median 6.9 / 7.7 against 11.0 / 10.9 and 6.5 / 6.7: the I2F
+// pipe runs beside the ALU that the column arithmetic fills); blocks of
+// 256 threads (0.2-0.6 us slower on every form); and a persistent grid of
+// 4 blocks an SM staging each tile's N rows in shared memory, double
+// buffered, by cp.async of 16, 8 or 4 bytes (dense rows) or one
+// cp.async.bulk a row on an mbarrier (codes): 11.5 / 14.4 (trimmed mean),
+// 8.5 / 11.7 (median), 12.2 / 13.5 and 8.1 / 9.5 (q8), against 10.3 /
+// 12.8, 6.9 / 10.5, 11.2 / 11.5 and 6.9 / 7.7 for the same arithmetic fed
+// straight into registers, before the all-active form: with every load of
+// a thread in flight, the shared-memory pass and its barriers only add
+// work.
+//
 // Squared norm: one block of 512 threads per (r, n) row, which it walks
 // in chunks of 8,192 elements.  In a chunk, thread t loads the four
 // 4-element groups t, t + 512, t + 1024 and t + 1536 (64 bytes of a
 // thread's loads in flight at once, ~10 MB over the fleet's 320 rows), as
-// one float4, two float2 or four scalars as the row's address allows (a
-// row of L = 18,566 floats starts 8-byte aligned), or as one char4 of
-// codes and the group's scale, read once per 1024-element tile; it squares
-// them into four accumulators, one per position in the group.  Then a
-// fixed shuffle tree and a fixed sum over the 16 warps: no atomics, the
-// same result in every run.  Two other shapes lost on an H100: a cluster
-// of 4 blocks per row, adding its partials through distributed shared
-// memory, took twice as long with the buffer in L2, and 384 threads of 8
-// groups (128 bytes in flight each) gained 0.2 us on the dense form and
-// lost 0.8 us on the int8 one, cold.  Which thread, accumulator and order
-// an element goes to depends on its index alone, never on L or on the
-// load path, and the two loaders share the body, so the q8 sum over the
-// padded Lp adds exact +0.0 to the dense sum over P and equals it bit for
-// bit.
+// one float4, two float2 or four scalars as the row's address allows, or
+// as one char4 of codes and the group's scale, read once per 1024-element
+// tile; it squares them into four accumulators, one per position in the
+// group.  Then a fixed shuffle tree and a fixed sum over the 16 warps: no
+// atomics, the same result in every run.  Two other shapes lost on an
+// H100: a cluster of 4 blocks per row, adding its partials through
+// distributed shared memory, took twice as long with the buffer in L2,
+// and 384 threads of 8 groups (128 bytes in flight each) gained 0.2 us on
+// the dense form and lost 0.8 us on the int8 one, cold.  Which thread,
+// accumulator and order an element goes to depends on its index alone,
+// never on L or on the load path, and the two loaders share the body, so
+// the q8 sum over the padded Lp adds exact +0.0 to the dense sum over P and
+// equals it bit for bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxN = 16;
 constexpr int kTile = 1024;
+constexpr int kVec = 4;                                 // elements in a group
+constexpr int kColThreads = 128;
+constexpr int kColSpan = kColThreads * kVec;            // columns of a column block: 512
 constexpr int kSqThreads = 512;
 constexpr int kSqWarps = kSqThreads / 32;
-constexpr int kSqVec = 4;                                  // elements in a group
-constexpr int kSqGroups = 4;                               // groups a thread loads at once
-constexpr int kSqChunk = kSqThreads * kSqVec * kSqGroups;  // 8,192 elements
+constexpr int kSqGroups = 4;                            // groups a thread loads at once
+constexpr int kSqChunk = kSqThreads * kVec * kSqGroups; // 8,192 elements
 
+// Each loader reads a group of 4 elements in two steps, so that the column
+// kernels can issue every load before the first use: fetch issues the
+// loads (Raw holds what they return), expand turns that into 4 floats.
 struct LoadDense {
+  using Raw = float4;
   const float* u;
   int l;
-  __device__ __forceinline__ float operator()(size_t row, int col) const {
-    return __ldg(u + row * l + col);
-  }
   // the group of 4 elements at col (col % 4 == 0, col < l) of row; 0.0
   // past the end of a ragged row
   __device__ __forceinline__ float4 group(size_t row, int col) const {
     const float* p = u + row * l + col;
-    if (col + kSqVec <= l) {
+    if (col + kVec <= l) {
       const auto a = reinterpret_cast<uintptr_t>(p);
       if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
       if ((a & 7) == 0) {
@@ -95,122 +130,241 @@ struct LoadDense {
     return make_float4(__ldg(p), col + 1 < l ? __ldg(p + 1) : 0.f,
                        col + 2 < l ? __ldg(p + 2) : 0.f, 0.f);
   }
+  __device__ __forceinline__ Raw fetch(size_t row, int col) const { return group(row, col); }
+  __device__ __forceinline__ static float4 expand(const Raw& raw) { return raw; }
 };
 
 struct LoadQ8 {
+  struct Raw {
+    char4 c;
+    float s;
+  };
   const signed char* q;
   const float* s;
   int lp;
-  __device__ __forceinline__ float operator()(size_t row, int col) const {
-    const float code = static_cast<float>(__ldg(q + row * lp + col));
-    return __fmul_rn(code, __ldg(s + row * (lp / kTile) + col / kTile));
-  }
-  // the group of 4 elements at col (col % 4 == 0, col < lp): one char4 of
-  // codes (lp % 1024 == 0, so a group never leaves its tile or the row)
-  __device__ __forceinline__ float4 group(size_t row, int col) const {
+  // the codes of the group of 4 elements at col (col % 4 == 0, col < lp)
+  // and their tile's scale (lp % 1024 == 0, so a group never leaves its
+  // tile or the row)
+  __device__ __forceinline__ Raw fetch(size_t row, int col) const {
     const signed char* p = q + row * lp + col;
     const float sc = __ldg(s + row * (lp / kTile) + col / kTile);
     const char4 c = (reinterpret_cast<uintptr_t>(p) & 3) == 0
                         ? __ldg(reinterpret_cast<const char4*>(p))
                         : make_char4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-    return make_float4(__fmul_rn(static_cast<float>(c.x), sc),
-                       __fmul_rn(static_cast<float>(c.y), sc),
-                       __fmul_rn(static_cast<float>(c.z), sc),
-                       __fmul_rn(static_cast<float>(c.w), sc));
+    return Raw{c, sc};
+  }
+  __device__ __forceinline__ static float4 expand(const Raw& raw) {
+    return make_float4(__fmul_rn(static_cast<float>(raw.c.x), raw.s),
+                       __fmul_rn(static_cast<float>(raw.c.y), raw.s),
+                       __fmul_rn(static_cast<float>(raw.c.z), raw.s),
+                       __fmul_rn(static_cast<float>(raw.c.w), raw.s));
+  }
+  __device__ __forceinline__ float4 group(size_t row, int col) const {
+    return expand(fetch(row, col));
   }
 };
 
-template <class Load>
-__global__ void trimmed_mean_kernel(Load load, const float* __restrict__ w,
-                                    float* __restrict__ out, int n, int l) {
-  const int r = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= l) return;
-  const size_t row0 = static_cast<size_t>(r) * n;
-  float v[kMaxN], wb[kMaxN];
-  bool act[kMaxN];
-  int m = 0;
-  int amax = n;
-  float vmax = 0.f;
+__device__ __forceinline__ float component(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One column's trimmed mean over v[0 .. N-1]; wb is w where active, else 0.
+struct TrimmedMean {
+  template <int N>
+  __device__ __forceinline__ static float column(const float (&v)[N], const float (&wb)[N],
+                                                 const bool (&act)[N], int m) {
+    int amax = N;
+    float vmax = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < n) {
-      const float wj = __ldg(w + row0 + j);
-      act[j] = wj > 0.f;
-      wb[j] = act[j] ? wj : 0.f;
-      v[j] = load(row0 + j, col);
-      m += act[j];
-      if (act[j] && (amax == n || v[j] > vmax)) {
+    for (int j = 0; j < N; ++j) {
+      if (act[j] && (amax == N || v[j] > vmax)) {
         amax = j;
         vmax = v[j];
       }
     }
-  }
-  int amin = n;
-  float vmin = 0.f;
+    int amin = N;
+    float vmin = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < n && act[j] && j != amax && (amin == n || v[j] < vmin)) {
-      amin = j;
-      vmin = v[j];
+    for (int j = 0; j < N; ++j) {
+      if (act[j] && j != amax && (amin == N || v[j] < vmin)) {
+        amin = j;
+        vmin = v[j];
+      }
     }
-  }
-  float num = 0.f, den = 0.f;
+    float num = 0.f, den = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < n) {
+    for (int j = 0; j < N; ++j) {
       const float wu = (m > 2 && (j == amax || j == amin)) ? 0.f : wb[j];
       num = fmaf(wu, act[j] ? v[j] : 0.f, num);
       den += wu;
     }
+    return num / fmaxf(den, 1e-9f);
   }
-  out[static_cast<size_t>(r) * l + col] = num / fmaxf(den, 1e-9f);
-}
-
-template <class Load>
-__global__ void median_kernel(Load load, const float* __restrict__ w,
-                              float* __restrict__ out, int n, int l) {
-  const int r = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= l) return;
-  const size_t row0 = static_cast<size_t>(r) * n;
-  float x[kMaxN];
-  int m = 0;
+  // column() with every contributor active (m == N, wb == w), in fewer
+  // instructions: the max scan starts at v[0], the min scan at the first
+  // index other than amax, where column()'s amax == N and amin == N tests
+  // put them
+  template <int N>
+  __device__ __forceinline__ static float full(const float (&v)[N], const float (&w)[N]) {
+    int amax = 0;
+    float vmax = v[0];
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    x[j] = INFINITY;
-    if (j < n) {
-      const bool a = __ldg(w + row0 + j) > 0.f;
-      m += a;
-      if (a) x[j] = load(row0 + j, col);
+    for (int j = 1; j < N; ++j) {
+      if (v[j] > vmax) {
+        amax = j;
+        vmax = v[j];
+      }
     }
-  }
-  // odd-even transposition: n phases over neighbours (j, j + 1), j + 1 < n
+    int amin = amax == 0 ? 1 : 0;
+    if constexpr (N > 1) {
+      float vmin = amax == 0 ? v[1] : v[0];
 #pragma unroll
-  for (int phase = 0; phase < kMaxN; ++phase) {
-    if (phase < n) {
-#pragma unroll
-      for (int j = phase % 2; j + 1 < kMaxN; j += 2) {
-        if (j + 1 < n) {
-          const float a = x[j], b = x[j + 1];
-          x[j] = fminf(a, b);
-          x[j + 1] = fmaxf(a, b);
+      for (int j = 1; j < N; ++j) {
+        if (j != amax && v[j] < vmin) {
+          amin = j;
+          vmin = v[j];
         }
       }
     }
-  }
-  const int lo = m > 0 ? (m - 1) / 2 : 0;
-  const int hi = m / 2;
-  float vlo = 0.f, vhi = 0.f;
+    float num = 0.f, den = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j == lo) vlo = x[j];
-    if (j == hi) vhi = x[j];
+    for (int j = 0; j < N; ++j) {
+      const float wu = (N > 2 && (j == amax || j == amin)) ? 0.f : w[j];
+      num = fmaf(wu, v[j], num);
+      den += wu;
+    }
+    return num / fmaxf(den, 1e-9f);
   }
-  out[static_cast<size_t>(r) * l + col] = m > 0 ? 0.5f * (vlo + vhi) : 0.f;
+};
+
+// The reference's odd-even transposition network: N phases of min/max on
+// neighbours (j, j + 1), j even in even phases, odd in odd ones.
+template <int N>
+__device__ __forceinline__ void sort_network(float (&x)[N]) {
+#pragma unroll
+  for (int phase = 0; phase < N; ++phase) {
+#pragma unroll
+    for (int j = phase % 2; j + 1 < N; j += 2) {
+      const float a = x[j], b = x[j + 1];
+      x[j] = fminf(a, b);
+      x[j + 1] = fmaxf(a, b);
+    }
+  }
 }
 
-__device__ __forceinline__ void add_squares(const float4 v, float (&acc)[kSqVec]) {
+// One column's median: sort_network over v with the inactive entries at
+// +inf, then ranks (m - 1) / 2 and m / 2.
+struct Median {
+  template <int N>
+  __device__ __forceinline__ static float column(const float (&v)[N], const float (&)[N],
+                                                 const bool (&act)[N], int m) {
+    float x[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = act[j] ? v[j] : INFINITY;
+    sort_network<N>(x);
+    const int lo = m > 0 ? (m - 1) / 2 : 0;
+    const int hi = m / 2;
+    float vlo = 0.f, vhi = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j == lo) vlo = x[j];
+      if (j == hi) vhi = x[j];
+    }
+    return m > 0 ? 0.5f * (vlo + vhi) : 0.f;
+  }
+  // column() with every contributor active: no +inf entries, and the two
+  // middle ranks known at compile time
+  template <int N>
+  __device__ __forceinline__ static float full(const float (&v)[N], const float (&)[N]) {
+    float x[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = v[j];
+    sort_network<N>(x);
+    return 0.5f * (x[(N - 1) / 2] + x[N / 2]);
+  }
+};
+
+// res[0 .. 3] into p = out_row + col, the last group of a row cut at l
+__device__ __forceinline__ void store_group(float* p, int col, int l, const float (&res)[kVec]) {
+  if (col + kVec <= l) {
+    const auto a = reinterpret_cast<uintptr_t>(p);
+    if ((a & 15) == 0) {
+      *reinterpret_cast<float4*>(p) = make_float4(res[0], res[1], res[2], res[3]);
+      return;
+    }
+    if ((a & 7) == 0) {
+      reinterpret_cast<float2*>(p)[0] = make_float2(res[0], res[1]);
+      reinterpret_cast<float2*>(p)[1] = make_float2(res[2], res[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kVec; ++k)
+    if (col + k < l) p[k] = res[k];
+}
+
+// The body both column kernels share: session blockIdx.y, the 4 columns
+// at 4 * threadIdx.x of the block's 512.
+template <class Stat, int N, class Load>
+__device__ __forceinline__ void columns(const Load& load, const float* __restrict__ w,
+                                        float* __restrict__ out, int l) {
+  const int col = blockIdx.x * kColSpan + kVec * threadIdx.x;
+  if (col >= l) return;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * N;
+  // every load of the thread, before any of them is used
+  typename Load::Raw raw[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) raw[j] = load.fetch(row0 + j, col);
+  float wv[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) wv[j] = __ldg(w + row0 + j);
+  float wb[N];
+  bool act[N];
+  int m = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    act[j] = wv[j] > 0.f;
+    wb[j] = act[j] ? wv[j] : 0.f;
+    m += act[j];
+  }
+  float4 v4[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) v4[j] = Load::expand(raw[j]);
+  float res[kVec];
+  // m is the session's, so the branch is the same for the whole block
+  if (m == N) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      float v[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = component(v4[j], k);
+      res[k] = Stat::template full<N>(v, wv);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      float v[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = component(v4[j], k);
+      res[k] = Stat::template column<N>(v, wb, act, m);
+    }
+  }
+  store_group(out + static_cast<size_t>(blockIdx.y) * l + col, col, l, res);
+}
+
+template <int N, class Load>
+__global__ void __launch_bounds__(kColThreads)
+    trimmed_mean_kernel(Load load, const float* __restrict__ w, float* __restrict__ out, int l) {
+  columns<TrimmedMean, N>(load, w, out, l);
+}
+
+template <int N, class Load>
+__global__ void __launch_bounds__(kColThreads)
+    median_kernel(Load load, const float* __restrict__ w, float* __restrict__ out, int l) {
+  columns<Median, N>(load, w, out, l);
+}
+
+__device__ __forceinline__ void add_squares(const float4 v, float (&acc)[kVec]) {
   acc[0] = fmaf(v.x, v.x, acc[0]);
   acc[1] = fmaf(v.y, v.y, acc[1]);
   acc[2] = fmaf(v.z, v.z, acc[2]);
@@ -221,12 +375,12 @@ template <class Load>
 __global__ void __launch_bounds__(kSqThreads)
     sqnorm_kernel(Load load, float* __restrict__ out, int l) {
   const size_t row = blockIdx.x;
-  float acc[kSqVec] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kVec] = {0.f, 0.f, 0.f, 0.f};
   for (long long chunk = 0; chunk < l; chunk += kSqChunk) {
     float4 v[kSqGroups];
 #pragma unroll
     for (int j = 0; j < kSqGroups; ++j) {
-      const long long col = chunk + kSqVec * (threadIdx.x + j * kSqThreads);
+      const long long col = chunk + kVec * (threadIdx.x + j * kSqThreads);
       v[j] = col < l ? load.group(row, static_cast<int>(col)) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
@@ -247,20 +401,37 @@ __global__ void __launch_bounds__(kSqThreads)
   }
 }
 
+template <int N, class Load>
+int launch_n(bool median, Load load, const float* w, float* out, int r, int l,
+             cudaStream_t stream) {
+  const dim3 grid((l - 1) / kColSpan + 1, r);
+  if (median)
+    median_kernel<N><<<grid, kColThreads, 0, stream>>>(load, w, out, l);
+  else
+    trimmed_mean_kernel<N><<<grid, kColThreads, 0, stream>>>(load, w, out, l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static_assert(kMaxN == 16, "launch_columns instantiates N = 1 ... 16");
+
 template <class Load>
-int launch_columns(bool median, Load load, const void* w, void* out, int r,
-                   int n, int l, void* stream) {
+int launch_columns(bool median, Load load, const void* w, void* out, int r, int n, int l,
+                   void* stream) {
   if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   if (r <= 0 || l <= 0) return 0;
-  const dim3 grid((l + kThreads - 1) / kThreads, r);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* wf = static_cast<const float*>(w);
   auto* of = static_cast<float*>(out);
-  if (median)
-    median_kernel<<<grid, kThreads, 0, st>>>(load, wf, of, n, l);
-  else
-    trimmed_mean_kernel<<<grid, kThreads, 0, st>>>(load, wf, of, n, l);
-  return static_cast<int>(cudaGetLastError());
+  switch (n) {
+#define ROBUST_N(K) \
+  case K:           \
+    return launch_n<K>(median, load, wf, of, r, l, st);
+    ROBUST_N(1) ROBUST_N(2) ROBUST_N(3) ROBUST_N(4) ROBUST_N(5) ROBUST_N(6) ROBUST_N(7)
+    ROBUST_N(8) ROBUST_N(9) ROBUST_N(10) ROBUST_N(11) ROBUST_N(12) ROBUST_N(13)
+    ROBUST_N(14) ROBUST_N(15) ROBUST_N(16)
+#undef ROBUST_N
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <class Load>

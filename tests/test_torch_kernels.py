@@ -488,6 +488,74 @@ def test_robust_kernels_match_twins_on_card(r, n, l, cuda_device):
     assert torch.equal(sq8, robust_kernel.sqnorm_cuda(dq.contiguous()))
 
 
+COLUMN_KERNELS = ((robust_kernel.trimmed_mean_cuda, robust_kernel.trimmed_mean_q8_cuda,
+                   robust_ref.trimmed_mean_batched_ref),
+                  (robust_kernel.median_cuda, robust_kernel.median_q8_cuda,
+                   robust_ref.median_batched_ref))
+# every L % 4, L below one 4-column group, and lengths around the 512
+# columns of a column block
+COLUMN_LENGTHS = (1, 2, 3, 5, 6, 7, 511, 513, 1030, 2047)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _column_world(n, l, seed):
+    """(5, n, l) values with tied values (signed zeros among them), tied
+    contributors and a noise-sized outlier; weights with an inactive lane
+    (row 0), an all-zero row (1), one active contributor (2) and two (3)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((5, n, l), generator=g)
+    x[0, 0, : min(l, 64)] *= 1e3
+    x[:, :, : min(l, 32)] = torch.round(x[:, :, : min(l, 32)] * 2)
+    if n > 2:
+        x[-1, 1] = x[-1, 0]
+    w = torch.rand((5, n), generator=g) + 0.1
+    if n > 1:
+        w[0, -1] = 0.0
+    w[1] = 0.0
+    w[2, 1:] = 0.0
+    w[3, 2:] = 0.0
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, robust_kernel.MAX_N + 1))
+def test_robust_column_kernels_at_every_n(n, cuda_device):
+    """Each N's instantiation of the trimmed mean and the median, dense and
+    q8, against the twin within 1e-6 of the largest output, at each length
+    of COLUMN_LENGTHS; the dense kernels give the same bits on a buffer that
+    starts 4, 8 and 12 bytes past a 16-byte boundary (rows at 4-, 8- and
+    16-byte alignment), the q8 kernels on codes 1-3 bytes past a word, and
+    each q8 kernel equals its dense kernel on the dequantized buffer bit for
+    bit."""
+    for l in COLUMN_LENGTHS:
+        x, w = _column_world(n, l, n * 10_007 + l)
+        q, s = quantize_batched_ref(x.reshape(5 * n, l))
+        lp = q.shape[-1]
+        q, s = q.reshape(5, n, lp).to(cuda_device), s.reshape(5, n, -1).to(cuda_device)
+        dq = dequantize_batched_ref(q, s).contiguous()
+        xd, wd = x.to(cuda_device), w.to(cuda_device)
+        flat = torch.empty(x.numel() + 3, device=cuda_device)
+        codes = torch.empty(q.numel() + 3, dtype=torch.int8, device=cuda_device)
+        for kernel, q8_kernel, twin in COLUMN_KERNELS:
+            got = kernel(xd, wd)
+            want = twin(xd, wd)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            assert err <= 1e-6 * max(float(want.abs().max()), 1.0), (l, err)
+            assert bool((got[1] == 0).all())
+            for off in (1, 2, 3):
+                xo = flat[off:off + x.numel()].view(x.shape)
+                xo.copy_(xd)
+                assert torch.equal(_bits(kernel(xo, wd)), _bits(got)), (l, off)
+                qo = codes[off:off + q.numel()].view(q.shape)
+                qo.copy_(q)
+                assert torch.equal(_bits(q8_kernel(qo, s, wd)), _bits(q8_kernel(q, s, wd)))
+            assert torch.equal(_bits(q8_kernel(q, s, wd)), _bits(kernel(dq, wd))), l
+
+
 @pytest.mark.cuda
 def test_robust_kernels_are_deterministic_and_reject_too_many_contributors(cuda_device):
     x = torch.randn((4, 5, 4099), device=cuda_device)

@@ -8,12 +8,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build the hand-written kernels from ``src/repro_torch/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch twin on the card, at the
    main paths' shapes and at edge shapes (AES, quantize and dequantize
-   bit-exact, eq. 14 dense and int8 within 1e-6 of the largest output, the
-   LSTM cell within 1e-5, one lane and the fleet's fit, score and refresh
-   lanes, with the weights as views of the fleet's flat buffers; the LSTM's
-   whole-sequence forward within 1e-5 (every saved state) and its backward
-   within 1e-4 of each output's largest value, at the loop's and the
-   fleet's fit and scoring shapes; the robust trimmed mean and median
+   bit-exact, quantize also on rows at every alignment; eq. 14 dense and
+   int8 within 1e-6 of the largest output, int8 bit-equal to dense on the
+   dequantized buffer at every N from 1 to 17; the LSTM cell within 1e-5,
+   one lane and the fleet's fit, score and refresh lanes, with the weights
+   as views of the fleet's flat buffers; the LSTM's whole-sequence forward
+   within 1e-5 (every saved state) and its backward within 1e-4 of each
+   output's largest value, at the loop's and the fleet's fit and scoring
+   shapes; the robust trimmed mean and median
    within 1e-6 of the largest output at every N from 1 to 16, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
    dense kernel on the dequantized buffer; dequantize also bit-equal to
@@ -46,8 +48,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``torch.lstm``), with the host's enqueue time of each wrapper, each
    kernel's device time from the profiler, and for AES and every kernel
    that moves 6 MB or more also with the L2 flushed between launches (the
-   dense trimmed mean and median also at the loop engine's R = 1); then the
-   host time of each piece of one launch;
+   dense trimmed mean and median also at the loop engine's R = 1), and the
+   floor of one launch (dequantize of one element); then the host time of
+   each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
    fleet: device-busy share, launches per Adam step and the kernels that
    take the device time;
@@ -63,6 +66,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -161,10 +165,21 @@ def host_us(fn, calls: int = HOST_CALLS, burst: int = HOST_BURST) -> float:
     return total / (calls // burst * burst) * 1e6
 
 
+def kernel_name_of(key: str) -> str:
+    """The kernel's own name in a profiler key, without its return type,
+    namespaces, template arguments and parameters: ``void (anonymous
+    namespace)::fedavg_q8_kernel<5>(signed char const*, ...)`` ->
+    ``fedavg_q8_kernel``."""
+    head = re.split(r"[<(]", key.replace("(anonymous namespace)::", ""), maxsplit=1)[0].split()
+    return head[-1].split("::")[-1] if head else ""
+
+
 def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3):
-    """Mean device microseconds per launch of the CUDA kernel whose name
-    contains ``kernel_name``, from ``torch.profiler``; None if the profiler
-    saw no device time in ``tries`` windows.  With ``flush`` (a tensor
+    """Mean device microseconds per launch of the CUDA kernel named
+    ``kernel_name`` (:func:`kernel_name_of` of the profiler's key equal to
+    it, so that ``quantize_kernel`` never counts ``dequantize_kernel``),
+    from ``torch.profiler``; None if the profiler saw no device time in
+    ``tries`` windows.  With ``flush`` (a tensor
     larger than the L2) each launch follows a write of it and then a read,
     so the kernel reads its inputs cold, from HBM, and evicts clean lines
     (the read writes the dirty ones back first); both are other kernels and
@@ -181,7 +196,7 @@ def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3)
                     flush.sum()
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        hits = [e for e in prof.key_averages() if kernel_name_of(e.key) == kernel_name]
         total = sum(e.self_device_time_total for e in hits)
         if total > 0:
             return total / sum(e.count for e in hits)
@@ -382,9 +397,33 @@ def check_lstm_seq(dev, spec, n_params, fit_b, score_b, fleet_score_b, seq_len):
     return fwd_worst, bwd_worst
 
 
+def near_tie_rows(seed, rows=16):
+    """(rows, 1024) fp32 tiles, each at its own absmax from 1e-13 to 1e37:
+    the absmax, every half-integer multiple of the tile's scale and both
+    fp32 neighbours of each, then uniform values.  There x / s lies within a
+    few ulps of a half-integer, where the kernel's reciprocal rule must hand
+    over to the division: a margin 16x too small, or RN(1/s) 8 ulps off,
+    gives other codes than the twin's division."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    out = np.empty((rows, TILE), f32)
+    for i, absmax in enumerate((f32(10.0) ** rng.uniform(-13, 37, rows)).astype(f32)):
+        s = f32(np.maximum(absmax, f32(1e-12)) * f32(1.0 / 127.0))
+        near = ((np.arange(-127, 127) + 0.5) * np.float64(s)).astype(f32)
+        ties = np.concatenate([near, np.nextafter(near, f32(np.inf)),
+                               np.nextafter(near, f32(-np.inf))])
+        fill = (rng.uniform(-1, 1, TILE - 1 - ties.size) * absmax).astype(f32)
+        out[i] = np.concatenate([[absmax], ties, fill])
+    return torch.from_numpy(out)
+
+
 def check_quantize(dev, n_params, rows):
-    """Codes and scales bit-equal to the twin: the 1-D update, the fleet's
-    staging rows, an off-tile length, an all-zero tile, half-way codes."""
+    """Codes and scales bit-equal to the twin: the 1-D update (1-D outputs
+    that are no views), the fleet's staging rows, an off-tile length, an
+    all-zero tile, half-way codes, near-ties (:func:`near_tie_rows`, as 16
+    rows and as one 1-D row), every L % 4, L below one tile, and each of
+    them on rows that start 4, 8 and 12 bytes past a 16-byte boundary (the
+    kernel's scalar, float2 and float4 loads)."""
     from repro_torch.kernels.quantize.kernel import quantize_cuda
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
 
@@ -396,7 +435,12 @@ def check_quantize(dev, n_params, rows):
     cases = [("main 1-D", torch.randn((n_params,), generator=g) * 0.3),
              (f"{rows} rows", torch.randn((rows, n_params), generator=g) * 0.3),
              ("off-tile", torch.randn((2, 1000 + 7), generator=g)),
-             ("zero tile", zero_tile), ("half-way", half)]
+             ("zero tile", zero_tile), ("half-way", half),
+             ("near-ties", near_tie_rows(0)), ("near-ties 1-D", near_tie_rows(1).reshape(-1)),
+             ("L % 4 = 1", torch.randn((3, TILE + 1), generator=g)),
+             ("L % 4 = 2", torch.randn((3, 2 * TILE + 2), generator=g)),
+             ("L % 4 = 3", torch.randn((3, 3 * TILE + 3), generator=g)),
+             ("L < 1024", torch.randn((5, 515), generator=g) * 1e-3)]
     for name, x in cases:
         xd = x.to(dev)
         q, s = quantize_cuda(xd)
@@ -406,7 +450,19 @@ def check_quantize(dev, n_params, rows):
             fail(f"quantize {name} {tuple(x.shape)}: codes or scales differ from the twin")
         if name == "half-way" and q[0, :6].tolist() != [127, 0, 2, 2, 0, -2]:
             fail(f"quantize half-way: codes {q[0, :6].tolist()} are not round-half-even")
-        print(f"  quantize {name:10s} {str(tuple(x.shape)):14s}: codes and scales bit-equal")
+        if x.dim() == 1 and not (q.dim() == s.dim() == 1 and q._base is None
+                                 and s._base is None):
+            fail("quantize of one row: the outputs must be 1-D tensors of their own")
+        flat = torch.empty(x.numel() + 3, device=dev)
+        for off in (1, 2, 3):
+            xo = flat[off:off + x.numel()].view(x.shape)
+            xo.copy_(xd)
+            qo, so = quantize_cuda(xo)
+            if not (torch.equal(qo, qr) and torch.equal(so, sr)):
+                fail(f"quantize {name} {tuple(x.shape)} at {4 * off} bytes past a 16-byte "
+                     "boundary: codes or scales differ from the twin")
+        print(f"  quantize {name:10s} {str(tuple(x.shape)):14s}: codes and scales bit-equal"
+              " (rows at every alignment)")
     return 0.0
 
 
@@ -436,20 +492,31 @@ def check_dequantize(dev, n_params):
 
 
 def check_fedavg_q8(dev, main_shape):
-    from repro_torch.kernels.fedavg.kernel import fedavg_batched_q8_cuda
+    """Eq. 14 on the int8 wire against the twin within 1e-6 of the largest
+    output at the fleet's (R, N, Lp) and at edge shapes; then at every N
+    from 1 to 17 (the kernel's 16 instantiations and its any-N form) bit
+    for bit the dense kernel on the dequantized buffer, at Lp = 1024, 2048
+    and 19,456, with an all-zero weight row and at R = 1; codes that start
+    1-3 bytes past a word must be refused.  Returns the max abs error at
+    the main shape."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda, fedavg_batched_q8_cuda
     from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref
-    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+    from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
 
     g = torch.Generator().manual_seed(8)
+
+    def wire(r, n, lp, zero_row):
+        q, s = quantize_batched_ref(torch.randn((r * n, lp), generator=g).to(dev) * 0.3)
+        w = (torch.rand((r, n), generator=g) + 0.1).to(dev)
+        if zero_row is not None:
+            w[zero_row] = 0.0
+        return q.reshape(r, n, lp), s.reshape(r, n, -1), w
+
     main_err = None
     for name, (r, n, lp), zero_row in [("main", main_shape, None),
                                        ("zero weight row", (3, 4, 2 * TILE), 1),
                                        ("N=1", (1, 1, TILE), None)]:
-        q, s = quantize_batched_ref(torch.randn((r * n, lp), generator=g).to(dev) * 0.3)
-        q, s = q.reshape(r, n, lp), s.reshape(r, n, -1)
-        w = (torch.rand((r, n), generator=g) + 0.1).to(dev)
-        if zero_row is not None:
-            w[zero_row] = 0.0
+        q, s, w = wire(r, n, lp, zero_row)
         got = fedavg_batched_q8_cuda(q, s, w)
         torch.cuda.synchronize()
         want = fedavg_batched_q8_ref(q, s, w)
@@ -462,6 +529,25 @@ def check_fedavg_q8(dev, main_shape):
         print(f"  fedavg_q8 {name:16s} R,N,Lp={r},{n},{lp}: max abs err {err:.3e}")
         if name == "main":
             main_err = err
+    for n in range(1, 18):
+        for r, lp in ((3, TILE), (2, 2 * TILE), (1, 19 * TILE)):
+            q, s, w = wire(r, n, lp, 1 if r > 1 else None)
+            got = fedavg_batched_q8_cuda(q, s, w)
+            dense = fedavg_batched_cuda(dequantize_batched_ref(q, s).contiguous(), w)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), dense.view(torch.int32)):
+                fail(f"fedavg_q8 N={n} R,Lp={r},{lp}: not bit-equal to fedavg on the "
+                     "dequantized buffer")
+    print("  fedavg_q8 N=1..17, Lp=1024/2048/19456, a zero weight row, R=1: bit-equal to "
+          "fedavg on the dequantized buffer")
+    codes = torch.empty(q.numel() + 3, dtype=torch.int8, device=dev)
+    for off in (1, 2, 3):
+        try:
+            fedavg_batched_q8_cuda(codes[off:off + q.numel()].view(q.shape), s, w)
+        except ValueError:
+            continue
+        fail(f"fedavg_q8: codes {off} bytes past a word were not refused")
+    print("  fedavg_q8 codes 1-3 bytes past a word: refused")
     return main_err
 
 
@@ -1099,7 +1185,8 @@ def launch_path_breakdown(dev, n_params, n_contrib):
 def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     """The int8 wire kernels at the fleet's shapes (R = 64, N = 5), also
     cold (``flush`` written between launches), and at one loop-engine
-    update.  Dequantize's yardstick is
+    update, and the launch floor: the device time of dequantize at n = 1,
+    one block of one live thread.  Dequantize's yardstick is
     :func:`dequantize_library`, one ``torch.mul`` (bit-equal to the kernel,
     phase 3); no single PyTorch call computes the other three, whose
     ``library_ms`` is null."""
@@ -1167,8 +1254,14 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     ms = cuda_ms(lambda: dequantize_cuda(q1, s1, n_params))
     plain = cuda_ms(lambda: dequantize_ref(q1, s1, n_params), iters=50, warmup=5)
     b_ms, b_by = bound_ms(n_params + 4 * tiles + 4 * n_params, n_params)
+    # the launch floor: dequantize at n = 1, one block of one live thread,
+    # through the same ctypes path
+    q0, s0 = q1[:TILE].contiguous(), s1[:1].contiguous()
+    floor = device_us(lambda: dequantize_cuda(q0, s0, 1), "dequantize_kernel")
     rows.append(dict(name="dequantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:120",
+                     floor_us=floor,
+                     device_note=f"; launch floor (n = 1, one live thread) {us_text(floor)}",
                      device_us=device_us(lambda: dequantize_cuda(q1, s1, n_params),
                                          "dequantize_kernel"),
                      host_us=host_us(lambda: dequantize_cuda(q1, s1, n_params)),

@@ -29,7 +29,7 @@ import chip_smoke
 
 ROOT = Path(__file__).resolve().parent
 KEYS = ("name", "ms", "host_us", "device_us", "device_us_cold", "r1_us", "r1_us_cold",
-        "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
+        "floor_us", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
 
 
 def main() -> int:

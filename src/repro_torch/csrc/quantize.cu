@@ -17,72 +17,153 @@
 // reads ~1 and writes 4 for one multiply.  At the fleet's staging (320 rows
 // of Lp = 19,456) quantize moves ~31 MB, ~9.3 us at 3.35 TB/s; at one LSTM
 // update (L = 18,566) either kernel moves ~94 KB, ~0.03 us, so a single call
-// there is bound by launch latency.
+// there is bound by launch latency and by the chain of one tile: its loads,
+// its absmax, then its divisions and stores.  The IEEE division is a dozen
+// instructions and a branch to its slow path, for every element.
 //
-// Design: one block of 256 threads per (row, tile); each thread owns 4
-// consecutive elements (four bounded scalar loads: a model update's length,
-// P = 18,566 for the HAR LSTM, is rarely a multiple of 4, so rows are not
-// 16-byte aligned) and stores its 4 codes as one char4.  The tile's
-// absmax is a warp-shuffle max, then a max over the 8 warps in shared
-// memory: a max is exact in any order, so the scale is bit-equal to the
-// plain version's.  The scale multiplies by the fp32 reciprocal of 127, as
-// XLA compiles the reference's absmax / 127 (an exact division differs by
-// one ulp on some tiles).  The code divides by the scale (never multiplies
-// by its reciprocal; IEEE division without --use_fast_math) and rounds with
-// rintf, which is round-half-to-even like jnp.round.  Dequantize is one
-// thread per output element.
+// Design of quantize_kernel: one block of 128 threads per (row, tile), a
+// 1-D grid.  Thread t owns the groups of 4 elements at 4 t and 512 + 4 t,
+// so each warp request is 512 consecutive bytes, and issues both loads
+// before the first fabsf: one float4, two float2 or four scalars a group,
+// as the row's address allows (a model update's length, P = 18,566 for the
+// HAR LSTM, is rarely a multiple of 4, so rows are not all 16-byte
+// aligned), and 0.0 past L.  The tile's absmax is a warp-shuffle max, then
+// one barrier, after which every thread takes the max of the 4 warps'
+// words itself: a max is exact in any order, so the scale is bit-equal to
+// the plain version's.  The scale multiplies by the fp32 reciprocal of
+// 127, as XLA compiles the reference's absmax / 127 (an exact division
+// differs by one ulp on some tiles).  The codes are rintf(x / s), the IEEE
+// division (no --use_fast_math) rounded half to even like jnp.round, but
+// computed as rint_by_reciprocal says: a multiply by RN(1 / s) decides
+// almost every element exactly, and the rest take the division.  Each
+// group's 4 codes leave as one char4.
+//
+// What lost on an H100 80GB HBM3 at 700 W (device us: one update; the
+// fleet's staging warm / cold): the first design (256 threads a tile,
+// scalar loads, two barriers around a serial 8-way max, a division per
+// element) 1.89 / 10.6 / 12.1; one warp a tile, no barrier, a division
+// per element 5.7 / 13.3 / 16.4, and with the reciprocal 3.1 / 9.1 /
+// 13.0 (its lanes' 32-element chains, alone on their schedulers, set the
+// time of one update, and a single wave leaves no memory-compute
+// overlap); two warps a tile joined by a 64-thread named barrier 2.1 /
+// 11.2 / 14.0; 256 threads a tile with one barrier 1.47 / 11.2 / 12.3;
+// this form with a division per element 2.4 / 11.0 / 12.4.  This form:
+// 1.55-1.62 / 8.6 / 10.5.  Dequantize is one thread per output element.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTile = 1024;
-constexpr int kThreads = 256;   // x 4 elements = one tile
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;                                // dequantize
+constexpr int kVec = 4;                                      // elements in a group
+constexpr int kTileThreads = 128;                            // a quantize block: one tile
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kThreadGroups = kTile / (kVec * kTileThreads); // groups of a thread: 2
 
-__device__ __forceinline__ signed char to_code(float v, float s) {
-  const float r = rintf(v / s);
-  return static_cast<signed char>(fminf(fmaxf(r, -127.f), 127.f));
+// rintf(v / s) without the division where a multiply by r = RN(1 / s)
+// decides it.  s = RN(absmax * fp32(1/127)), so |v / s| < 127.0001, and
+// t = RN(v * r) lies within |v / s| * 2^-23 < 2^-16 of v / s, RN(v / s)
+// within 2^-18 of it (half an ulp below 128).  Where t is at least
+// 2^-14 away from the nearest half-integer, t and RN(v / s) therefore lie
+// strictly inside the same unit interval around rintf(t) and round to
+// the same integer; a subnormal or zero quotient rounds to 0 on both
+// sides.  `undecided` is set for the rest (a distance below the margin,
+// NaN), which take the IEEE division: exact_rint.
+constexpr float kDecided = 0.5f - 1.0f / 16384.0f;
+
+__device__ __forceinline__ float rint_by_reciprocal(float v, float r, bool& undecided) {
+  const float t = __fmul_rn(v, r);
+  const float k = rintf(t);
+  undecided |= !(fabsf(t - k) < kDecided);
+  return k;
 }
 
-__global__ void quantize_kernel(const float* __restrict__ x,
-                                signed char* __restrict__ q,
-                                float* __restrict__ s, int l, int lp) {
-  const int tile = blockIdx.x;
-  const int row = blockIdx.y;
+__device__ __forceinline__ float exact_rint(float v, float s, float r, float k) {
+  const float t = __fmul_rn(v, r);
+  if (!(fabsf(t - k) < kDecided)) k = rintf(v / s);
+  return k;
+}
+
+__device__ __forceinline__ signed char to_code(float k) {
+  return static_cast<signed char>(fminf(fmaxf(k, -127.f), 127.f));
+}
+
+// the group of 4 elements at col (col % 4 == 0, col < l) of the row at xr;
+// 0.0 past the end of a ragged row
+__device__ __forceinline__ float4 load_group(const float* xr, int col, int l) {
+  const float* p = xr + col;
+  if (col + kVec <= l) {
+    const auto a = reinterpret_cast<uintptr_t>(p);
+    if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
+    if ((a & 7) == 0) {
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
+      const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
+      return make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+  }
+  return make_float4(__ldg(p), col + 1 < l ? __ldg(p + 1) : 0.f,
+                     col + 2 < l ? __ldg(p + 2) : 0.f, 0.f);
+}
+
+__device__ __forceinline__ float absmax4(const float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// block blockIdx.x quantizes tile (blockIdx.x mod tiles) of row
+// (blockIdx.x / tiles); thread t its groups at 4 t and 512 + 4 t
+__global__ void __launch_bounds__(kTileThreads)
+    quantize_kernel(const float* __restrict__ x, signed char* __restrict__ q,
+                    float* __restrict__ s, int l, int lp) {
   const int tiles = lp / kTile;
-  const int col = tile * kTile + threadIdx.x * 4;
+  const int row = static_cast<int>(blockIdx.x / tiles);
+  const int tile = static_cast<int>(blockIdx.x % tiles);
+  const int col0 = tile * kTile + kVec * threadIdx.x;
   const float* xr = x + static_cast<size_t>(row) * l;
 
-  float v[4];
+  // every load of the thread, before any of them is used
+  float4 v[kThreadGroups];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = col + k < l ? __ldg(xr + col + k) : 0.f;
-  float m = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+  for (int g = 0; g < kThreadGroups; ++g) {
+    const int col = col0 + kVec * kTileThreads * g;
+    v[g] = col < l ? load_group(xr, col, l) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = absmax4(v[0]);
+#pragma unroll
+  for (int g = 1; g < kThreadGroups; ++g) m = fmaxf(m, absmax4(v[g]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-
-  __shared__ float warp_max[kWarps];
-  __shared__ float tile_scale;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = m;
+  __shared__ float warp_max[kTileWarps];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = warp_max[0];
+  m = warp_max[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) t = fmaxf(t, warp_max[w]);
-    const float sc = fmaxf(t, 1e-12f) * (1.0f / 127.0f);
-    tile_scale = sc;
-    s[static_cast<size_t>(row) * tiles + tile] = sc;
+  for (int w = 1; w < kTileWarps; ++w) m = fmaxf(m, warp_max[w]);
+  const float sc = fmaxf(m, 1e-12f) * (1.0f / 127.0f);
+  if (threadIdx.x == 0) s[static_cast<size_t>(row) * tiles + tile] = sc;
+
+  const float r = __frcp_rn(sc);
+  bool undecided = false;
+  float4 k[kThreadGroups];
+#pragma unroll
+  for (int g = 0; g < kThreadGroups; ++g)
+    k[g] = make_float4(rint_by_reciprocal(v[g].x, r, undecided),
+                       rint_by_reciprocal(v[g].y, r, undecided),
+                       rint_by_reciprocal(v[g].z, r, undecided),
+                       rint_by_reciprocal(v[g].w, r, undecided));
+  if (undecided) {
+#pragma unroll
+    for (int g = 0; g < kThreadGroups; ++g)
+      k[g] = make_float4(exact_rint(v[g].x, sc, r, k[g].x), exact_rint(v[g].y, sc, r, k[g].y),
+                         exact_rint(v[g].z, sc, r, k[g].z), exact_rint(v[g].w, sc, r, k[g].w));
   }
-  __syncthreads();
-  const float sc = tile_scale;
-  char4 out;
-  out.x = to_code(v[0], sc);
-  out.y = to_code(v[1], sc);
-  out.z = to_code(v[2], sc);
-  out.w = to_code(v[3], sc);
-  *reinterpret_cast<char4*>(q + static_cast<size_t>(row) * lp + col) = out;
+  signed char* qr = q + static_cast<size_t>(row) * lp + col0;
+#pragma unroll
+  for (int g = 0; g < kThreadGroups; ++g)
+    *reinterpret_cast<char4*>(qr + kVec * kTileThreads * g) =
+        make_char4(to_code(k[g].x), to_code(k[g].y), to_code(k[g].z), to_code(k[g].w));
 }
 
 __global__ void dequantize_kernel(const signed char* __restrict__ q,
@@ -101,8 +182,8 @@ __global__ void dequantize_kernel(const signed char* __restrict__ q,
 extern "C" int quantize_launch(const void* x, void* q, void* s, int b, int l,
                                int lp, void* stream) {
   if (b <= 0 || lp <= 0) return 0;
-  const dim3 grid(lp / kTile, b);
-  quantize_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = static_cast<unsigned>(static_cast<long long>(b) * (lp / kTile));
+  quantize_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<signed char*>(q),
       static_cast<float*>(s), l, lp);
   return static_cast<int>(cudaGetLastError());

@@ -49,13 +49,17 @@ def fedavg_batched_cuda(updates: torch.Tensor,
 
 def fedavg_batched_q8_cuda(q: torch.Tensor, scales: torch.Tensor,
                            weights: torch.Tensor) -> torch.Tensor:
-    """q (R, N, Lp) int8 with Lp % 1024 == 0, scales (R, N, Lp / 1024)
+    """q (R, N, Lp) int8 with Lp % 1024 == 0, starting on a 4-byte
+    boundary (the kernel reads 4 codes a load), scales (R, N, Lp / 1024)
     fp32, weights (R, N) fp32, all contiguous on one CUDA device -> (R, Lp)
     fp32 per-session weighted means of ``q * scale``."""
     global q8_launches
     if q.dim() != 3 or q.shape[-1] % TILE:
         raise ValueError(f"q must be (R, N, Lp) with Lp % {TILE} == 0 "
                          f"(got {tuple(q.shape)})")
+    if q.data_ptr() % 4:
+        raise ValueError("q must start on a 4-byte boundary "
+                         f"(got an address {q.data_ptr() % 4} bytes past one)")
     r, n, lp = q.shape
     dev = check_args(("q", q, torch.int8, None), ("scales", scales, F32, (r, n, lp // TILE)),
                      ("weights", weights, F32, (r, n)))

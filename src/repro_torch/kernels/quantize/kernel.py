@@ -34,17 +34,16 @@ def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.dim() not in (1, 2):
         raise ValueError(f"x must be (L,) or (B, L) (got {tuple(x.shape)})")
     dev = check_args(("x", x, torch.float32, None))
-    rows = x[None] if x.dim() == 1 else x
-    b, l = rows.shape
-    if b > 65535:
-        raise ValueError(f"at most 65535 rows per launch (got {b})")
+    b, l = (1, x.shape[0]) if x.dim() == 1 else x.shape
     lp = l + (-l) % TILE
-    q = x.new_empty((b, lp), dtype=torch.int8)
-    s = x.new_empty((b, lp // TILE))
+    # one row's outputs are allocated 1-D, not as views of (1, Lp) tensors
+    lead = x.shape[:-1]
+    q = x.new_empty(lead + (lp,), dtype=torch.int8)
+    s = x.new_empty(lead + (lp // TILE,))
     if b and lp:
         _quantize(x.data_ptr(), q.data_ptr(), s.data_ptr(), b, l, lp, current_stream(dev))
         launches += 1
-    return (q[0], s[0]) if x.dim() == 1 else (q, s)
+    return q, s
 
 
 def dequantize_cuda(q: torch.Tensor, scales: torch.Tensor,

@@ -29,7 +29,7 @@ from repro_torch.kernels.lstm_cell.kernel import lstm_cell_cuda
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 from repro_torch.kernels.quantize import ops as quant_ops
 from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
-from repro_torch.kernels.quantize.ref import (dequantize_batched_ref, dequantize_ref,
+from repro_torch.kernels.quantize.ref import (TILE, dequantize_batched_ref, dequantize_ref,
                                               quantize_batched_ref)
 from repro_torch.kernels.robust import kernel as robust_kernel
 from repro_torch.kernels.robust import ref as robust_ref
@@ -406,6 +406,154 @@ def test_fedavg_q8_kernel_matches_twin_on_card(r, n, lp, cuda_device):
     assert float((got - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1.0)
     if r > 1:
         assert bool((got[1] == 0).all())
+
+
+def _q8_wire(r, n, lp, seed):
+    """(R, N, Lp) codes and scales of seeded updates, and weights with an
+    all-zero row 1 where R > 1."""
+    g = torch.Generator().manual_seed(seed)
+    q, s = quantize_batched_ref(torch.randn((r * n, lp), generator=g) * 0.3)
+    w = torch.rand((r, n), generator=g) + 0.1
+    if r > 1:
+        w[1] = 0.0
+    return q.reshape(r, n, lp), s.reshape(r, n, -1), w
+
+
+@pytest.mark.parametrize("n", range(1, 18))
+def test_q8_fedavg_twin_is_the_dense_twin_on_the_dequantized_buffer(n):
+    """The q8 twin dequantizes (one rounded product an element) and then
+    runs the dense twin, so the two agree bit for bit."""
+    q, s, w = _q8_wire(2, n, 2048, n)
+    got = fedavg_batched_q8_ref(q, s, w)
+    want = fedavg_batched_ref(dequantize_batched_ref(q, s), w)
+    assert torch.equal(_bits(got), _bits(want))
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, 18))
+def test_fedavg_q8_kernel_is_the_dense_kernel_on_the_dequantized_buffer(n, cuda_device):
+    """Eq. 14 on the int8 wire, bit for bit the dense kernel on the
+    dequantized buffer, for each N's instantiation (N = 17: the any-N
+    form), at Lp = 1024, 2048 and 19,456, with an all-zero weight row, and
+    at R = 1 (the loop engine)."""
+    for r, lp in ((3, 1024), (2, 2048), (1, 19456), (2, 19456)):
+        q, s, w = (t.to(cuda_device) for t in _q8_wire(r, n, lp, n * 7 + lp))
+        got = fedavg_batched_q8_cuda(q, s, w)
+        dense = fedavg_batched_cuda(dequantize_batched_ref(q, s).contiguous(), w)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(dense)), (r, lp)
+        if r > 1:
+            assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 3, 515, 1024, 1025, 2050, 3075, 18566])
+def test_quantize_kernel_at_every_alignment(l, cuda_device):
+    """Codes and scales bit-equal to the twin for every L % 4, L below one
+    tile, one tile, and the HAR LSTM's P, on rows that start 0, 4, 8 and 12
+    bytes past a 16-byte boundary (the float4, scalar, float2 and scalar
+    loads), for five rows and for one (1-D) row."""
+    g = torch.Generator().manual_seed(l)
+    x = (torch.randn((5, l), generator=g) * 0.3).to(cuda_device)
+    x[2, : min(l, 1024)] = 0.0                                 # an all-zero tile
+    qr, sr = quantize_batched_ref(x)
+    flat = torch.empty(x.numel() + 3, device=cuda_device)
+    for off in range(4):
+        xo = flat[off:off + x.numel()].view(x.shape)
+        xo.copy_(x)
+        q, s = quantize_cuda(xo)
+        q1, s1 = quantize_cuda(xo[3])
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(s, sr), off
+        assert torch.equal(q1, qr[3]) and torch.equal(s1, sr[3]), off
+
+
+def _near_tie_rows(seed, rows=16):
+    """(rows, 1024) fp32 tiles, each at its own absmax from 1e-13 to 1e37:
+    the absmax, every half-integer multiple of the tile's scale and both
+    fp32 neighbours of each, then uniform values.  x / s lies within a few
+    ulps of a half-integer on 762 elements a tile, where the reciprocal
+    rule of ``csrc/quantize.cu`` must hand over to the division."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    out = np.empty((rows, TILE), f32)
+    for i, absmax in enumerate((f32(10.0) ** rng.uniform(-13, 37, rows)).astype(f32)):
+        s = f32(np.maximum(absmax, f32(1e-12)) * f32(1.0 / 127.0))
+        near = ((np.arange(-127, 127) + 0.5) * np.float64(s)).astype(f32)
+        ties = np.concatenate([near, np.nextafter(near, f32(np.inf)),
+                               np.nextafter(near, f32(-np.inf))])
+        fill = (rng.uniform(-1, 1, TILE - 1 - ties.size) * absmax).astype(f32)
+        out[i] = np.concatenate([[absmax], ties, fill])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_quantize_kernel_divides_at_near_ties(seed, cuda_device):
+    """Codes bit-equal to the twin, which divides, on tiles of near-ties
+    (:func:`_near_tie_rows`), where a margin of the reciprocal rule 16x too
+    small, or a reciprocal 8 ulps off, changes codes that random data never
+    reaches (:func:`test_near_tie_rows_reach_the_division`).  As (16, 1024)
+    rows and as one 1-D row of 16 tiles."""
+    x = torch.from_numpy(_near_tie_rows(seed)).to(cuda_device)
+    for xs in (x, x.reshape(-1)):
+        q, s = quantize_cuda(xs)
+        qr, sr = quantize_batched_ref(xs.reshape(-1, xs.shape[-1]))
+        torch.cuda.synchronize()
+        assert torch.equal(q.reshape(qr.shape), qr) and torch.equal(s.reshape(sr.shape), sr)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_near_tie_rows_reach_the_division(seed):
+    """On :func:`_near_tie_rows` the reciprocal rule gives the division's
+    codes at its margin of 2^-14 and with RN(1/s), and other codes at a
+    margin of 2^-18 or with RN(1/s) 8 ulps high: the rows can tell a right
+    rule from a wrong one (numpy's fp32 arithmetic rounds like the
+    card's)."""
+    f32 = np.float32
+    x = _near_tie_rows(seed)
+    s = np.maximum(np.abs(x).max(axis=1, keepdims=True), f32(1e-12)) * f32(1.0 / 127.0)
+    exact = np.rint(x / s)
+    rcp = f32(1.0) / s
+
+    def rule(margin, r):
+        t = x * r
+        k = np.rint(t)
+        return np.where(np.abs(t - k) < f32(0.5) - f32(margin), k, exact)
+
+    assert np.array_equal(rule(2.0 ** -14, rcp), exact)
+    assert not np.array_equal(rule(2.0 ** -18, rcp), exact)
+    assert not np.array_equal(rule(2.0 ** -14, (rcp.view(np.uint32) + 8).view(f32)), exact)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quantize_reciprocal_rule_agrees_with_division(seed):
+    """``csrc/quantize.cu`` rounds RN(x * RN(1/s)) in place of RN(x / s)
+    where the product lies at least 2^-14 from a half-integer: on every
+    element the rule decides, the two round to the same integer.  Tiles
+    of uniform values, values next to half-integer multiples of the scale
+    and random bit patterns, at scales from 1e-13 to 1e37 (numpy's fp32
+    arithmetic rounds like the card's)."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    decided_total = 0
+    for absmax in (f32(10.0) ** rng.uniform(-13, 37, 6)).astype(f32):
+        s = f32(np.maximum(absmax, f32(1e-12)) * f32(1.0 / 127.0))
+        half = rng.integers(-127, 127, 100_000) + 0.5
+        near = (half * np.float64(s)).astype(f32)
+        bits = rng.integers(0, 2 ** 32, 100_000, dtype=np.uint64).astype(np.uint32).view(f32)
+        x = np.concatenate([
+            (rng.uniform(-1, 1, 100_000) * absmax).astype(f32), near,
+            np.nextafter(near, f32(np.inf)), np.nextafter(near, f32(-np.inf)),
+            bits[np.isfinite(bits) & (np.abs(bits) <= absmax)]])
+        with np.errstate(all="ignore"):
+            t = x * (f32(1.0) / s)
+            k = np.rint(t)
+            decided = np.abs(t - k) < f32(0.5) - f32(2.0 ** -14)
+            assert np.array_equal(np.rint(x / s)[decided], k[decided])
+        decided_total += int(decided.sum())
+    assert decided_total > 500_000
 
 
 def test_quantize_cpu_dispatch_runs_the_twins_without_launching():

@@ -1,7 +1,7 @@
 """The port's shared launch path (``kernels/common.py``, ``kernels/_build.py``)
 and what every launcher checks before it passes a pointer on; on a card,
-the redesigned squared-norm and AES-128-CTR kernels at edge shapes and
-every launcher on a non-default stream.
+the redesigned squared-norm and AES-128-CTR kernels at edge shapes, the
+1-D quantize path's outputs, and every launcher on a non-default stream.
 
 The CPU cases run anywhere; the ``cuda``-marked ones skip without a card
 and run on it with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -214,6 +214,22 @@ def test_launcher_refuses_before_launching(name, fault):
     assert not any(kernels.launch_counts().values())
 
 
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_fedavg_q8_refuses_codes_off_a_word(off):
+    """The int8 eq. 14 kernel reads 4 codes a load, so codes that start
+    1-3 bytes past a 4-byte boundary raise, naming it, and nothing is
+    launched."""
+    from repro_torch import kernels
+
+    q, s, w = _robust_args(True)
+    codes = torch.zeros(q.numel() + 3, dtype=I8)[off:off + q.numel()].view(q.shape)
+    assert codes.data_ptr() % 4
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        fk.fedavg_batched_q8_cuda(codes, s, w)
+    assert not any(kernels.launch_counts().values())
+
+
 # ---------------------------------------------------------------------------
 # on the card: the squared norm
 # ---------------------------------------------------------------------------
@@ -264,6 +280,29 @@ def test_sqnorm_takes_rows_at_every_alignment(cuda_device):
         assert torch.equal(got, ref)
         torch.testing.assert_close(got, rr.sqnorm_batched_ref(x), rtol=1e-5, atol=1e-6)
     assert want.shape == (3, 5)
+
+
+# ---------------------------------------------------------------------------
+# on the card: quantize of one row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 1000 + 7, 18566])
+def test_quantize_of_one_row_returns_1d_tensors_of_their_own(l, cuda_device):
+    """A 1-D update gets (Lp,) codes and (Lp / 1024,) scales allocated as
+    such, contiguous and no views of a (1, Lp) tensor, bit-equal to the
+    twin's."""
+    g = torch.Generator().manual_seed(l)
+    v = (torch.randn((l,), generator=g) * 0.3).to(cuda_device)
+    q, s = qk.quantize_cuda(v)
+    torch.cuda.synchronize()
+    lp = l + (-l) % 1024
+    assert (q.shape, s.shape) == ((lp,), (lp // 1024,))
+    assert q.is_contiguous() and s.is_contiguous()
+    assert q._base is None and s._base is None
+    qr, sr = quantize_batched_ref(v)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 # ---------------------------------------------------------------------------

@@ -101,8 +101,12 @@ def test_batched_quantize_of_a_ragged_row_equals_the_padded_row():
 
 
 @pytest.mark.parametrize("r,n,lp,zero_row", [(3, 4, 2048, 1), (2, 5, 19456, None),
-                                             (1, 1, 1024, None)])
+                                             (1, 1, 1024, None)]
+                         + [(2, n, 2048, 1) for n in range(1, 18)])
 def test_q8_fedavg_twin_matches_pallas(r, n, lp, zero_row):
+    """At the fleet's Lp and edge shapes, and at every N from 1 to 17 (the
+    CUDA kernel's 16 instantiations and its any-N form are held to this
+    twin on the card)."""
     rng = np.random.default_rng(r + n + lp)
     q, s = quantize_ref(_t(rng.standard_normal((r * n, lp)).astype(np.float32)))
     q, s = q.reshape(r, n, lp), s.reshape(r, n, -1)

@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. hold each kernel against its plain PyTorch twin on the card, at the
    main paths' shapes and at edge shapes (AES, quantize and dequantize
    bit-exact, quantize also on rows at every alignment; eq. 14 dense and
-   int8 within 1e-6 of the largest output, int8 bit-equal to dense on the
-   dequantized buffer at every N from 1 to 17; the LSTM cell within 1e-5,
+   int8 within 1e-6 of the largest output, dense at every N from 1 to 17
+   and every L % 4 with the same bits on rows at every alignment, int8
+   bit-equal to dense on the dequantized buffer at every N from 1 to 17;
+   the LSTM cell within 1e-5,
    one lane and the fleet's fit, score and refresh lanes, with the weights
    as views of the fleet's flat buffers; the LSTM's whole-sequence forward
    within 1e-5 (every saved state) and its backward within 1e-4 of each
@@ -46,9 +48,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
    ``torch.lstm``), with the host's enqueue time of each wrapper, each
-   kernel's device time from the profiler, and for AES and every kernel
-   that moves 6 MB or more also with the L2 flushed between launches (the
-   dense trimmed mean and median also at the loop engine's R = 1), and the
+   kernel's device time from the profiler, and for AES, eq. 14 and every
+   kernel that moves 6 MB or more also with the L2 flushed between launches
+   (the dense trimmed mean and median also at the loop engine's R = 1), and the
    floor of one launch (dequantize of one element); then the host time of
    each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
@@ -174,12 +176,13 @@ def kernel_name_of(key: str) -> str:
     return head[-1].split("::")[-1] if head else ""
 
 
-def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3):
+def device_us(fn, kernel_name, iters: int = 50, flush=None, tries: int = 3):
     """Mean device microseconds per launch of the CUDA kernel named
     ``kernel_name`` (:func:`kernel_name_of` of the profiler's key equal to
-    it, so that ``quantize_kernel`` never counts ``dequantize_kernel``),
-    from ``torch.profiler``; None if the profiler saw no device time in
-    ``tries`` windows.  With ``flush`` (a tensor
+    it, so that ``quantize_kernel`` never counts ``dequantize_kernel``; a
+    tuple names the kernel in each source tree that ``kernel_bench.py``
+    may time), from ``torch.profiler``; None if the profiler saw no device
+    time in ``tries`` windows.  With ``flush`` (a tensor
     larger than the L2) each launch follows a write of it and then a read,
     so the kernel reads its inputs cold, from HBM, and evicts clean lines
     (the read writes the dirty ones back first); both are other kernels and
@@ -196,7 +199,8 @@ def device_us(fn, kernel_name: str, iters: int = 50, flush=None, tries: int = 3)
                     flush.sum()
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel_name_of(e.key) == kernel_name]
+        names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
+        hits = [e for e in prof.key_averages() if kernel_name_of(e.key) in names]
         total = sum(e.self_device_time_total for e in hits)
         if total > 0:
             return total / sum(e.count for e in hits)
@@ -224,7 +228,11 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 def check_fedavg(dev, main_shape, fleet_shape):
     """Eq. 14 at the loop's (1, N, P), at the fleet's (R, N, P) and at edge
-    shapes; returns the max abs errors at the two main shapes."""
+    shapes, within 1e-6 of the largest output; then at every N from 1 to
+    17 (the kernel's 16 instantiations and its any-N form) at R = 1 and 3,
+    every L % 4, and on buffers that start 1-3 floats past an allocation
+    (rows at every alignment), which must give the same bits.  Returns the
+    max abs errors at the two main shapes."""
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
     from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
 
@@ -250,6 +258,32 @@ def check_fedavg(dev, main_shape, fleet_shape):
             fail("fedavg: an all-zero weight row must give zeros")
         print(f"  fedavg {name:16s} R,N,L={r},{n},{l}: max abs err {err:.3e}")
         errs[name] = err
+    worst = 0.0
+    for n in range(1, 18):
+        for r, l in ((1, main_shape[2]), (3, 4096 + n % 4)):
+            u = torch.randn((r, n, l), generator=g).to(dev)
+            w = (torch.rand((r, n), generator=g) + 0.1).to(dev)
+            if r > 1:
+                w[1] = 0.0
+            got = fedavg_batched_cuda(u, w)
+            want = fedavg_batched_ref(u, w)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not err <= 1e-6 * max(float(want.abs().max()), 1.0):
+                fail(f"fedavg N={n} R,L={r},{l}: max abs err {err}")
+            if r > 1 and bool(got[1].ne(0).any()):
+                fail(f"fedavg N={n}: an all-zero weight row must give zeros")
+            worst = max(worst, err)
+            flat = torch.empty(u.numel() + 3, device=dev)
+            for off in (1, 2, 3):
+                uo = flat[off:off + u.numel()].view(u.shape)
+                uo.copy_(u)
+                if not torch.equal(fedavg_batched_cuda(uo, w).view(torch.int32),
+                                   got.view(torch.int32)):
+                    fail(f"fedavg N={n} R,L={r},{l}: a buffer {off} floats past an "
+                         "allocation gives other bits")
+    print(f"  fedavg N=1..17, R=1 and 3, every L % 4, a zero weight row: max abs err "
+          f"{worst:.3e}; the same bits 1-3 floats past an allocation")
     return errs["main"], errs["fleet"]
 
 
@@ -479,7 +513,7 @@ def check_dequantize(dev, n_params):
     from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_batched_ref
 
     g = torch.Generator().manual_seed(7)
-    for n in (n_params, 1000 + 7, TILE):
+    for n in (n_params, 1000 + 7, TILE, TILE + 1):
         q, s = quantize_batched_ref(torch.randn((n,), generator=g).to(dev))
         got = dequantize_cuda(q, s, n)
         torch.cuda.synchronize()
@@ -1108,8 +1142,8 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 def time_kernels(dev, counts, errs, n_params, fit_b, f, h, seq_len, n_contrib):
     """Every row of the kernel table: ``ms`` (CUDA events over back-to-back
     wrapper calls on L2-warm inputs), ``host_us`` (the wrapper's enqueue,
-    :func:`host_us`), device µs warm and, for AES and every kernel that
-    moves 6 MB or more at its shape, after an L2 flush, the plain twin's and
+    :func:`host_us`), device µs warm and, for AES, eq. 14 and every kernel
+    that moves 6 MB or more at its shape, after an L2 flush, the plain twin's and
     the library call's ms and the bound."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rows = time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush)
@@ -1205,16 +1239,18 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     q, s = quantize_batched_ref(torch.randn((r * n, n_params), generator=g).to(dev) * 0.3)
     q, s = q.reshape(r, n, lp), s.reshape(r, n, tiles)
     w = torch.ones((r, n), device=dev)
+    # fedavg_kernel<N, LoadQ8>: the dense body with the int8 loader;
+    # fedavg_q8_kernel in trees where the int8 form had a body of its own
+    names = ("fedavg_kernel", "fedavg_q8_kernel")
     ms = cuda_ms(lambda: fedavg_batched_q8_cuda(q, s, w))
     plain = cuda_ms(lambda: fedavg_batched_q8_ref(q, s, w), iters=50, warmup=5)
     b_ms, b_by = bound_ms(r * n * lp + 4 * (r * n * tiles + r * n + r * lp),
                           3 * r * n * lp + r * lp)
     rows.append(dict(name="fedavg_q8", route="cuda", source="src/repro_torch/csrc/fedavg.cu",
                      replaces="src/repro/kernels/fedavg/kernel.py:83",
-                     device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
-                                         "fedavg_q8_kernel"),
-                     device_us_cold=device_us(lambda: fedavg_batched_q8_cuda(q, s, w),
-                                              "fedavg_q8_kernel", flush=flush),
+                     device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w), names),
+                     device_us_cold=device_us(lambda: fedavg_batched_q8_cuda(q, s, w), names,
+                                              flush=flush),
                      host_us=host_us(lambda: fedavg_batched_q8_cuda(q, s, w)),
                      launches=counts["fedavg_q8"], max_abs_err=errs["fedavg_q8"], ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1477,8 +1513,8 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
 
 
 def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
-    """Eq. 14 at the loop's and the fleet's shapes (the fleet's also cold:
-    ``flush`` written between launches), and AES-CTR over one fp32 update,
+    """Eq. 14 at the loop's and the fleet's shapes, warm and cold (``flush``
+    written between launches), and AES-CTR over one fp32 update,
     warm and cold (the path encrypts each update once).  AES's bound is the
     larger of its bytes over HBM and its table lookups over the card's
     shared-memory rate."""
@@ -1503,9 +1539,8 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
         lib = cuda_ms(lambda: torch.einsum("rn,rnl->rl", w, u) / w.sum(dim=1, keepdim=True))
         b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
         dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
-        cold = {} if r == 1 else dict(device_us_cold=device_us(
-            lambda: fedavg_batched_cuda(u, w), "fedavg_kernel", flush=flush))
-        rows.append(dict(name=name, route="cuda", device_us=dev_us, **cold,
+        cold = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel", flush=flush)
+        rows.append(dict(name=name, route="cuda", device_us=dev_us, device_us_cold=cold,
                          host_us=host_us(lambda: fedavg_batched_cuda(u, w)),
                          source="src/repro_torch/csrc/fedavg.cu", replaces=replaces,
                          launches=counts[name], max_abs_err=errs[name], ms=ms,

@@ -48,15 +48,20 @@
 // overlap); two warps a tile joined by a 64-thread named barrier 2.1 /
 // 11.2 / 14.0; 256 threads a tile with one barrier 1.47 / 11.2 / 12.3;
 // this form with a division per element 2.4 / 11.0 / 12.4.  This form:
-// 1.55-1.62 / 8.6 / 10.5.  Dequantize is one thread per output element.
+// 1.55-1.62 / 8.6 / 10.5.
+//
+// Dequantize is one thread per output element.  One update (n = 18,566)
+// is bound by the launch: 1.117 us against 1.05-1.07 for the same launch
+// at n = 1.  4 elements a thread (one char4 of codes, one scale, a float4
+// or float2 store) read 1.127-1.141 on the same card, and lost.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "loaders.cuh"
+
 namespace {
 
-constexpr int kTile = 1024;
 constexpr int kThreads = 256;                                // dequantize
-constexpr int kVec = 4;                                      // elements in a group
 constexpr int kTileThreads = 128;                            // a quantize block: one tile
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kThreadGroups = kTile / (kVec * kTileThreads); // groups of a thread: 2
@@ -89,24 +94,6 @@ __device__ __forceinline__ signed char to_code(float k) {
   return static_cast<signed char>(fminf(fmaxf(k, -127.f), 127.f));
 }
 
-// the group of 4 elements at col (col % 4 == 0, col < l) of the row at xr;
-// 0.0 past the end of a ragged row
-__device__ __forceinline__ float4 load_group(const float* xr, int col, int l) {
-  const float* p = xr + col;
-  if (col + kVec <= l) {
-    const auto a = reinterpret_cast<uintptr_t>(p);
-    if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
-    if ((a & 7) == 0) {
-      const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
-      const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
-      return make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
-    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-  }
-  return make_float4(__ldg(p), col + 1 < l ? __ldg(p + 1) : 0.f,
-                     col + 2 < l ? __ldg(p + 2) : 0.f, 0.f);
-}
-
 __device__ __forceinline__ float absmax4(const float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
@@ -120,14 +107,14 @@ __global__ void __launch_bounds__(kTileThreads)
   const int row = static_cast<int>(blockIdx.x / tiles);
   const int tile = static_cast<int>(blockIdx.x % tiles);
   const int col0 = tile * kTile + kVec * threadIdx.x;
-  const float* xr = x + static_cast<size_t>(row) * l;
+  const LoadDense rows{x, l};
 
   // every load of the thread, before any of them is used
   float4 v[kThreadGroups];
 #pragma unroll
   for (int g = 0; g < kThreadGroups; ++g) {
     const int col = col0 + kVec * kTileThreads * g;
-    v[g] = col < l ? load_group(xr, col, l) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[g] = col < l ? rows.group(row, col) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = absmax4(v[0]);
 #pragma unroll

@@ -14,10 +14,11 @@
 // ::median_batched_q8_pallas, ::sqnorm_batched_pallas and
 // ::sqnorm_batched_q8_pallas.
 //
-// Three kernel bodies, each instantiated for two loaders.  LoadDense reads
-// u[row, l]; LoadQ8 reads q[row, l] * s[row, l / 1024], the product rounded
-// (__fmul_rn, never contracted into a later fma) as the plain version
-// rounds its dequantized buffer.  The rest of each body is shared, so the
+// Three kernel bodies, each instantiated for two loaders (loaders.cuh,
+// shared with fedavg.cu).  LoadDense reads u[row, l]; LoadQ8 reads
+// q[row, l] * s[row, l / 1024], the product rounded (__fmul_rn, never
+// contracted into a later fma) as the plain version rounds its
+// dequantized buffer.  The rest of each body is shared, so the
 // q8 kernel on (q, s) is bitwise the dense kernel on the dequantized
 // buffer, which keeps the loop engine (dense, dequantized) and the fleet
 // (fused q8) in agreement.
@@ -94,79 +95,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "loaders.cuh"
+
 namespace {
 
 constexpr int kMaxN = 16;
-constexpr int kTile = 1024;
-constexpr int kVec = 4;                                 // elements in a group
 constexpr int kColThreads = 128;
 constexpr int kColSpan = kColThreads * kVec;            // columns of a column block: 512
 constexpr int kSqThreads = 512;
 constexpr int kSqWarps = kSqThreads / 32;
 constexpr int kSqGroups = 4;                            // groups a thread loads at once
 constexpr int kSqChunk = kSqThreads * kVec * kSqGroups; // 8,192 elements
-
-// Each loader reads a group of 4 elements in two steps, so that the column
-// kernels can issue every load before the first use: fetch issues the
-// loads (Raw holds what they return), expand turns that into 4 floats.
-struct LoadDense {
-  using Raw = float4;
-  const float* u;
-  int l;
-  // the group of 4 elements at col (col % 4 == 0, col < l) of row; 0.0
-  // past the end of a ragged row
-  __device__ __forceinline__ float4 group(size_t row, int col) const {
-    const float* p = u + row * l + col;
-    if (col + kVec <= l) {
-      const auto a = reinterpret_cast<uintptr_t>(p);
-      if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
-      if ((a & 7) == 0) {
-        const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
-        const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
-        return make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
-      return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-    }
-    return make_float4(__ldg(p), col + 1 < l ? __ldg(p + 1) : 0.f,
-                       col + 2 < l ? __ldg(p + 2) : 0.f, 0.f);
-  }
-  __device__ __forceinline__ Raw fetch(size_t row, int col) const { return group(row, col); }
-  __device__ __forceinline__ static float4 expand(const Raw& raw) { return raw; }
-};
-
-struct LoadQ8 {
-  struct Raw {
-    char4 c;
-    float s;
-  };
-  const signed char* q;
-  const float* s;
-  int lp;
-  // the codes of the group of 4 elements at col (col % 4 == 0, col < lp)
-  // and their tile's scale (lp % 1024 == 0, so a group never leaves its
-  // tile or the row)
-  __device__ __forceinline__ Raw fetch(size_t row, int col) const {
-    const signed char* p = q + row * lp + col;
-    const float sc = __ldg(s + row * (lp / kTile) + col / kTile);
-    const char4 c = (reinterpret_cast<uintptr_t>(p) & 3) == 0
-                        ? __ldg(reinterpret_cast<const char4*>(p))
-                        : make_char4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-    return Raw{c, sc};
-  }
-  __device__ __forceinline__ static float4 expand(const Raw& raw) {
-    return make_float4(__fmul_rn(static_cast<float>(raw.c.x), raw.s),
-                       __fmul_rn(static_cast<float>(raw.c.y), raw.s),
-                       __fmul_rn(static_cast<float>(raw.c.z), raw.s),
-                       __fmul_rn(static_cast<float>(raw.c.w), raw.s));
-  }
-  __device__ __forceinline__ float4 group(size_t row, int col) const {
-    return expand(fetch(row, col));
-  }
-};
-
-__device__ __forceinline__ float component(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
 
 // One column's trimmed mean over v[0 .. N-1]; wb is w where active, else 0.
 struct TrimmedMean {
@@ -283,25 +222,6 @@ struct Median {
     return 0.5f * (x[(N - 1) / 2] + x[N / 2]);
   }
 };
-
-// res[0 .. 3] into p = out_row + col, the last group of a row cut at l
-__device__ __forceinline__ void store_group(float* p, int col, int l, const float (&res)[kVec]) {
-  if (col + kVec <= l) {
-    const auto a = reinterpret_cast<uintptr_t>(p);
-    if ((a & 15) == 0) {
-      *reinterpret_cast<float4*>(p) = make_float4(res[0], res[1], res[2], res[3]);
-      return;
-    }
-    if ((a & 7) == 0) {
-      reinterpret_cast<float2*>(p)[0] = make_float2(res[0], res[1]);
-      reinterpret_cast<float2*>(p)[1] = make_float2(res[2], res[3]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kVec; ++k)
-    if (col + k < l) p[k] = res[k];
-}
 
 // The body both column kernels share: session blockIdx.y, the 4 columns
 // at 4 * threadIdx.x of the block's 512.
@@ -447,8 +367,9 @@ LoadDense dense(const void* u, int l) {
   return LoadDense{static_cast<const float*>(u), l};
 }
 
-LoadQ8 q8(const void* q, const void* s, int lp) {
-  return LoadQ8{static_cast<const signed char*>(q), static_cast<const float*>(s), lp};
+// codes at any byte: robust_*_q8_launch takes views that start anywhere
+LoadQ8<false> q8(const void* q, const void* s, int lp) {
+  return LoadQ8<false>{static_cast<const signed char*>(q), static_cast<const float*>(s), lp};
 }
 
 }  // namespace

@@ -3,8 +3,9 @@
 ``fedavg_batched_cuda`` replaces ``repro.kernels.fedavg.kernel.fedavg_pallas``
 and ``fedavg_batched_pallas``: one CUDA kernel over an (R, N, L) buffer.
 ``fedavg_batched_q8_cuda`` replaces ``fedavg_batched_q8_pallas``: eq. 14
-read straight from the int8 wire format.  ``launches`` counts the fp32
-launches, ``q8_launches`` the int8 ones.
+read straight from the int8 wire format, by the same kernel body with the
+int8 loader, so it equals the dense kernel on the dequantized buffer bit for
+bit.  ``launches`` counts the fp32 launches, ``q8_launches`` the int8 ones.
 """
 
 from __future__ import annotations

@@ -117,9 +117,18 @@ def test_fedavg_kernel_wrapper_rejects_cpu_tensors():
         fedavg_batched_cuda(torch.randn(1, 2, 3), torch.ones(1, 2))
 
 
+# the loop engine's (1, N, P) and the fleet's (64, N, P) at every N the
+# kernel instantiates (N = 17: its any-N form), and every L % 4 with an
+# all-zero weight row (R = 3)
+FEDAVG_CARD_SHAPES = (FEDAVG_SHAPES + [(r, n, 18566) for r in (1, 64) for n in range(1, 18)]
+                      + [(3, 5, 4096 + k) for k in (2, 3, 4)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,n,l", FEDAVG_SHAPES + [(1, 5, 18566), (64, 5, 18566)])
+@pytest.mark.parametrize("r,n,l", FEDAVG_CARD_SHAPES)
 def test_fedavg_kernel_matches_twin_on_card(r, n, l, cuda_device):
+    """Against the twin within FEDAVG_TOL; and the same bits on a buffer
+    that starts 1-3 floats past an allocation (every row alignment)."""
     g = torch.Generator().manual_seed(r + n + l)
     u = torch.randn((r, n, l), generator=g).to(cuda_device)
     w = (torch.rand((r, n), generator=g) + 0.1).to(cuda_device)
@@ -130,6 +139,13 @@ def test_fedavg_kernel_matches_twin_on_card(r, n, l, cuda_device):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["fedavg"] == before + 1
     torch.testing.assert_close(got, fedavg_batched_ref(u, w), **FEDAVG_TOL)
+    if r == 3:
+        assert bool((got[1] == 0).all())
+    flat = torch.empty(u.numel() + 3, device=cuda_device)
+    for off in (1, 2, 3):
+        uo = flat[off:off + u.numel()].view(u.shape)
+        uo.copy_(u)
+        assert torch.equal(_bits(fedavg_batched_cuda(uo, w)), _bits(got)), off
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +461,33 @@ def test_fedavg_q8_kernel_is_the_dense_kernel_on_the_dequantized_buffer(n, cuda_
         assert torch.equal(_bits(got), _bits(dense)), (r, lp)
         if r > 1:
             assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 1021, 1022, 1023, 1024, 18566, 18567, 18568, 18569])
+def test_dequantize_kernel_at_every_alignment(n, cuda_device):
+    """Bit-equal to the twin at every n % 4, on codes that start 0-3 bytes
+    past a word and into outputs that start 0-3 floats past a 16-byte
+    boundary (the launcher itself, since the wrapper allocates its own)."""
+    from repro_torch.kernels.common import current_stream
+    from repro_torch.kernels.quantize import kernel as qk
+
+    lp = n + (-n) % TILE
+    g = torch.Generator().manual_seed(n)
+    q, s = (t.to(cuda_device) for t in quantize_batched_ref(torch.randn((lp,), generator=g)))
+    want = dequantize_ref(q, s, n)
+    codes = torch.empty(lp + 3, dtype=torch.int8, device=cuda_device)
+    out = torch.full((n + 3,), 7.0, device=cuda_device)
+    for off in (0, 1, 2, 3):
+        qo = codes[off:off + lp]
+        qo.copy_(q)
+        assert torch.equal(_bits(dequantize_cuda(qo, s, n)), _bits(want)), off
+        qk._dequantize(q.data_ptr(), s.data_ptr(), out[off:].data_ptr(), n,
+                       current_stream(q.get_device()))
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out[off:off + n]), _bits(want)), off
+        assert bool((out[off + n:] == 7.0).all()), off
+        out.fill_(7.0)
 
 
 @pytest.mark.cuda
@@ -802,12 +845,17 @@ def test_build_covers_every_source_and_hashes_them(tmp_path, monkeypatch):
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     h = _build.source_hash()
-    for src in _build.sources():
+    # the units and the header they share (loaders.cuh, not a unit itself)
+    files = sorted(_build.CSRC.glob("*.cu*"))
+    assert {p.name for p in files} == names | {"loaders.cuh"}
+    for src in files:
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build.source_hash() == h
-    (tmp_path / "fedavg.cu").write_text((tmp_path / "fedavg.cu").read_text() + "\n// edit\n")
-    assert _build.source_hash() != h
+    for name in ("fedavg.cu", "loaders.cuh"):
+        (tmp_path / name).write_text((tmp_path / name).read_text() + "\n// edit\n")
+        assert _build.source_hash() != h
+        h = _build.source_hash()
 
 
 def test_launchers_declare_pointer_args_as_void_p():

@@ -1,31 +1,30 @@
 from repro_torch.core.adversary import AdversaryConfig
+from repro_torch.core.aggregation import fedavg, masked_fedavg, masked_weighted_mean_stacked
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, DeviceProfile, EnergyReport, LinkProfile
-from repro_torch.core.federated import SupervisedTask
+from repro_torch.core.federated import (BaselineResult, CFLLearner, DFLLearner,
+                                        SupervisedTask, cloud_only_baseline,
+                                        cloud_only_config)
 from repro_torch.core.fleet import FleetResult, RequesterSpec, run_fleet
 from repro_torch.core.incentive import (Contract, NeighborDevice, make_fleet,
                                         select_contributors, sign_contracts_fleet)
+from repro_torch.core.protocol import Phase
 from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
-from repro_torch.core.topology import AggregationStrategy
+from repro_torch.core.topology import AggregationStrategy, group_mixing_matrix
 
 __all__ = [
-    "AdversaryConfig",
-    "AggregationStrategy",
-    "BatteryState",
-    "Contract",
-    "CostModel",
-    "DeviceProfile",
-    "EnFedConfig",
-    "EnFedSession",
-    "EnergyReport",
-    "FleetResult",
-    "LinkProfile",
-    "NeighborDevice",
-    "RequesterSpec",
-    "SessionResult",
-    "SupervisedTask",
-    "make_fleet",
-    "run_fleet",
-    "select_contributors",
-    "sign_contracts_fleet",
+    # aggregation + battery + cost model
+    "fedavg", "masked_fedavg", "masked_weighted_mean_stacked",
+    "BatteryState", "CostModel", "DeviceProfile", "EnergyReport", "LinkProfile",
+    # incentives / world
+    "Contract", "NeighborDevice", "make_fleet", "select_contributors",
+    "sign_contracts_fleet", "AdversaryConfig",
+    # EnFed engines + protocol vocabulary
+    "EnFedConfig", "EnFedSession", "SessionResult",
+    "FleetResult", "RequesterSpec", "run_fleet", "Phase",
+    # baselines
+    "SupervisedTask", "BaselineResult", "CFLLearner", "DFLLearner",
+    "cloud_only_baseline", "cloud_only_config",
+    # topologies
+    "AggregationStrategy", "group_mixing_matrix",
 ]

@@ -209,3 +209,75 @@ class CostModel:
                   + t.t_agg * d.p_agg + t.t_loc * d.p_train)
         e_comm = (t.t_dev + t.t_hand) * d.p_tx + (t.t_hand + t.t_key + t.t_com) * d.p_rx
         return EnergyReport(times=t, e_comp=e_comp, e_comm=e_comm)
+
+    # --- baseline frameworks (paper §IV comparisons) ------------------------
+    def cfl_session(self, *, rounds: int, num_params: int, model_bytes: int,
+                    num_samples: int, epochs: int,
+                    measured_local_time: Optional[float] = None) -> EnergyReport:
+        """Centralized FL: each round upload + download the model to a server
+        over the WAN and train locally. Cost for one participating device."""
+        t = PhaseTimes()
+        per_xfer = 8.0 * model_bytes / self.link.wan_rate_bps + self.link.cloud_rtt_s
+        t.t_com = rounds * 2 * per_xfer          # upload + download
+        t.t_init = 1e-3
+        t.t_loc = (measured_local_time if measured_local_time is not None
+                   else rounds * self.t_local_fit(num_params, num_samples, epochs))
+        d = self.device
+        e_comp = t.t_init * d.p_init + t.t_loc * d.p_train
+        e_comm = rounds * per_xfer * d.p_tx + rounds * per_xfer * d.p_rx
+        return EnergyReport(times=t, e_comp=e_comp, e_comm=e_comm)
+
+    def dfl_session(self, *, rounds: int, n_peers: int, num_params: int,
+                    model_bytes: int, num_samples: int, epochs: int,
+                    topology: str = "mesh",
+                    measured_local_time: Optional[float] = None) -> EnergyReport:
+        """Decentralized FL: exchange updates with peers each round.
+        mesh: every node sends to / receives from all n_peers;
+        ring: 2 neighbours only (paper observes ring << mesh cost)."""
+        fan = n_peers if topology == "mesh" else 2
+        t = PhaseTimes()
+        per_xfer = 8.0 * model_bytes / self.link.rate_bps
+        t.t_com = rounds * fan * per_xfer                 # receive
+        t_send = rounds * fan * per_xfer                  # transmit
+        t.t_agg = rounds * self.t_aggregate(fan, num_params)
+        t.t_enc = rounds * fan * self.t_crypto(model_bytes)
+        t.t_dec = rounds * fan * self.t_crypto(model_bytes)
+        t.t_init = 1e-3
+        t.t_loc = (measured_local_time if measured_local_time is not None
+                   else rounds * self.t_local_fit(num_params, num_samples, epochs))
+        d = self.device
+        e_comp = (t.t_init * d.p_init + (t.t_enc + t.t_dec) * d.p_crypto
+                  + t.t_agg * d.p_agg + t.t_loc * d.p_train)
+        e_comm = t_send * d.p_tx + t.t_com * d.p_rx
+        rep = EnergyReport(times=t, e_comp=e_comp, e_comm=e_comm)
+        rep.times.t_com += t_send  # total wall time includes sending
+        return rep
+
+    def cloud_session(self, *, data_bytes: int,
+                      cloud_train_s: float) -> EnergyReport:
+        """Device-side cost of the §IV-G no-FL baseline, in the same
+        :class:`EnergyReport` schema as every FL method, so "cloud" sits
+        in one table with EnFed/DFL/CFL under one cost model.
+
+        The device uploads its raw dataset (``t_dev`` at transmit
+        power), idles through the WAN round trips (``t_com`` at receive
+        power), and waits out the server's measured training walltime
+        (``t_loc``, burning NO device energy — the training joules are
+        the cloud's).  ``times.total`` is therefore exactly the paper's
+        response time: upload + RTT + cloud training + RTT.
+        """
+        t = PhaseTimes()
+        t.t_dev = 8.0 * data_bytes / self.link.wan_rate_bps
+        t.t_com = 2.0 * self.link.cloud_rtt_s
+        t.t_loc = cloud_train_s
+        e_comm = t.t_dev * self.device.p_tx + t.t_com * self.device.p_rx
+        return EnergyReport(times=t, e_comp=0.0, e_comm=e_comm)
+
+    def cloud_only_response(self, *, data_bytes: int, num_params: int,
+                            num_samples: int, epochs: int,
+                            cloud_flops: float = 2e11) -> float:
+        """Response time of the no-FL cloud baseline: ship raw data up,
+        train/infer on the server, ship the result down."""
+        t_up = 8.0 * data_bytes / self.link.wan_rate_bps
+        t_train = 6.0 * num_params * num_samples * epochs / cloud_flops
+        return t_up + self.link.cloud_rtt_s + t_train + self.link.cloud_rtt_s

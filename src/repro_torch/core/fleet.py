@@ -43,11 +43,19 @@ Design, as in the reference:
   robust statistic of :mod:`repro_torch.kernels.robust.ops` replaces
   eq. 14, on the fused int8 state or the fp32 one.
 
+* **Baselines.**  ``method="cfl"|"dfl"`` runs the paper's baselines on
+  the same scaffolding (:func:`_run_fleet_baseline`): lane (i, j) is
+  client j of requester i's roster (its own shard, then every neighbour
+  with data), all R·N lanes fit in one lane-batched call per step, and
+  AGGREGATE is one eq. 14 launch on the shard sizes (cfl) or one launch
+  per row of the mixing matrix (dfl).  No refresh, no battery.
+
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  Mobility, faults, cadence, staleness decay, the dfl/cfl lanes,
-checkpoints and tracing raise ``NotImplementedError`` naming their
-``ROADMAP.md`` slice.
+transport.  Mobility, faults, cadence, staleness decay, checkpoints and
+tracing raise ``NotImplementedError`` naming their ``ROADMAP.md`` slice
+(under a baseline method, the enfed-only knobs raise ``ValueError`` as in
+the reference).
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import adversary as adversary_mod
-from repro_torch.core import protocol, schedule
+from repro_torch.core import protocol, schedule, topology
 from repro_torch.core.battery import BatteryState, discharge_level, load_efficiency
 from repro_torch.core.energy import CostModel, update_wire_bytes
 from repro_torch.core.incentive import NeighborDevice, sign_contracts_fleet
@@ -156,20 +164,38 @@ def _eval_lanes(model, spec, flat, x, y, mask):
         return torch.sum(correct * mask, dim=-1) / torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
 
 
-def _check_ported(cfg, method, checkpoint_dir, checkpoint_every, resume_from,
-                  timeline, trace) -> None:
-    if method in ("dfl", "cfl"):
-        raise NotImplementedError(
-            f"method={method!r} (baseline lanes, ROADMAP.md slice C item 9) is not "
-            "ported yet")
-    if method != "enfed":
-        raise ValueError(f"unknown method {method!r} (enfed|dfl|cfl)")
+def _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
+                  resume_from, timeline, trace) -> None:
+    protocol.method_phases(method)         # validate the method's name
+    baseline = method != "enfed"
+    # the reference's refusals of enfed-only knobs under a baseline method
+    if baseline and (checkpoint_dir or resume_from):
+        raise ValueError(f"checkpointing is enfed-only (got method={method!r})")
+    if baseline and cfg.cadence is not None:
+        raise ValueError(
+            f"cadence is enfed-only (got method={method!r}) — the "
+            "baselines' loop oracles tick on one global round clock")
+    if baseline and (cfg.adversary is not None or cfg.robust != "none"
+                     or float(cfg.staleness_gamma) != 1.0):
+        raise ValueError(
+            f"adversary/robust/staleness_gamma are enfed-only (got "
+            f"method={method!r}) — the baselines' loop oracles define "
+            "their aggregation semantics without Phase.DELIVER")
+    if baseline and dfl_topology not in ("mesh", "ring"):
+        raise ValueError(f"unknown dfl topology {dfl_topology!r} (mesh|ring)")
     if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
         raise NotImplementedError(
             "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
     if timeline is not None or trace is not None:
         raise NotImplementedError(
             "timeline/trace exports are ROADMAP.md slice F (not ported yet)")
+    if baseline:
+        # the baselines have no renegotiation, so mobility does not apply to
+        # them (the reference drops it); their fault pricing is slice E's
+        if cfg.faults is not None:
+            raise NotImplementedError(
+                "faults (world state, ROADMAP.md slice E) is not ported yet")
+        return
     unported = _unported(cfg)
     if unported is not None:
         raise NotImplementedError(f"{unported} is not ported yet")
@@ -179,6 +205,7 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
               cfg: Optional[EnFedConfig] = None,
               cost_model: Optional[CostModel] = None, *,
               method: str = "enfed",
+              dfl_topology: str = "mesh",
               checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0,
               resume_from: Optional[str] = None,
@@ -188,17 +215,25 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     task must run there).  Each requester's ``contributor_states`` end up
     holding that session's final contributor params (the dequantized wire
     image under int8); requesters sharing one states dict see the last
-    writer's lanes."""
+    writer's lanes.
+
+    ``method="cfl"|"dfl"`` runs the paper's baselines instead
+    (:func:`_run_fleet_baseline`; ``dfl_topology`` "mesh" or "ring"): each
+    requester's lanes are the loop learners' client list, and its
+    ``SessionResult`` carries ``battery=None`` and a
+    ``cfl_session``/``dfl_session`` report."""
     cfg = cfg if cfg is not None else EnFedConfig()
     cost = cost_model or CostModel()
     dev = resolve_device(device)
     if torch.device(task.device) != dev:
         raise ValueError(f"the task runs on {task.device}, the fleet on {dev}")
-    _check_ported(cfg, method, checkpoint_dir, checkpoint_every, resume_from,
-                  timeline, trace)
+    _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
+                  resume_from, timeline, trace)
     R = len(requesters)
     if R == 0:
         raise ValueError("empty fleet")
+    if method != "enfed":
+        return _run_fleet_baseline(task, requesters, cfg, cost, method, dfl_topology, dev)
 
     # ---- Phase.HANDSHAKE (host, static) -------------------------------------
     contracts, contract_mask = sign_contracts_fleet(
@@ -489,3 +524,185 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
         history=fleet_hist,
         staged_param_bytes=int(staged_param_bytes),
         device_round_state_bytes=int(staged_param_bytes))
+
+
+def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
+                        cost: CostModel, method: str, dfl_topology: str,
+                        dev: torch.device) -> FleetResult:
+    """The cfl/dfl protocol variants on the flat (R, N, P) round state.
+
+    Requester i's roster is ``[own shard] + every neighbour with data``, in
+    neighbourhood order: the loop learners' ``client_data``.  Shards are
+    staged once per content (blake2b key) into a table plus (R, N) gather
+    indices.  Per round every lane fits with seed ``seed + stride·r + j``
+    (stride 31 cfl, 77 dfl) from the shared global (cfl) or its own params
+    (dfl); cfl aggregates with one eq. 14 launch weighted by shard size
+    (0 on padded lanes), dfl with N launches, one per row of each
+    requester's mixing matrix (padded lanes mix with themselves).  The
+    global (cfl) or node 0 (dfl) is scored on the requester's test stack;
+    a session stops on accuracy or the round budget.  Sessions are priced
+    with ``cfl_session``/``dfl_session`` and the modelled fit time; wire
+    bytes follow ``cfg.compress``, though the state stays fp32.
+    """
+    R = len(requesters)
+    rosters = []
+    for rspec in requesters:
+        shards = [rspec.own_train]
+        for nd in rspec.neighborhood:
+            st = rspec.contributor_states.get(nd.device_id)
+            if st is not None:
+                shards.append(st["data"])
+        rosters.append(shards)
+    N = max(len(s) for s in rosters)
+
+    # ---- deduplicated shard table + per-lane gather indices -----------------
+    shard_rows: dict = {}
+    shard_x, shard_y = [], []
+    cidx = np.zeros((R, N), np.int64)
+    cli_n = np.zeros((R, N), np.int64)
+    for i, shards in enumerate(rosters):
+        for j, (xs, ys) in enumerate(shards):
+            xa = np.ascontiguousarray(xs, np.float32)
+            ya = np.ascontiguousarray(ys, np.int64)
+            key = (xa.shape, hashlib.blake2b(xa.tobytes(), digest_size=16).digest(),
+                   hashlib.blake2b(ya.tobytes(), digest_size=16).digest())
+            u = shard_rows.setdefault(key, len(shard_x))
+            if u == len(shard_x):
+                shard_x.append(xa)
+                shard_y.append(ya)
+            cidx[i, j] = u
+            cli_n[i, j] = len(xa)
+    cx_tab, _ = _pad_stack(shard_x, max(len(x) for x in shard_x), np.float32)
+    cy_tab, _ = _pad_stack(shard_y, cx_tab.shape[1], np.int64)
+    cx_tab, cy_tab = torch.from_numpy(cx_tab).to(dev), torch.from_numpy(cy_tab).to(dev)
+    nc_pad = cx_tab.shape[1]
+    lane_rows = torch.from_numpy(cidx.reshape(R * N)).to(dev)[:, None]
+
+    # ---- node params: the flat (R, N, P) round state ------------------------
+    template = task.init(cfg.seed)
+    init_flat, spec = tree_ravel(template)
+    P = int(init_flat.shape[-1])
+    if method == "dfl":
+        # DFLLearner: node j of every requester inits from seed + j
+        node_inits = torch.stack([init_flat] + [tree_ravel(task.init(cfg.seed + j))[0]
+                                                for j in range(1, N)])
+        contrib = node_inits[None].expand(R, N, P).clone()
+        last = contrib[:, 0].clone()
+        strategy = topology.AggregationStrategy(
+            kind="dfl_mesh" if dfl_topology == "mesh" else "dfl_ring")
+        mix_w = np.zeros((R, N, N), np.float32)
+        for i, shards in enumerate(rosters):
+            n_i = len(shards)
+            mix_w[i, :n_i, :n_i] = topology.group_mixing_matrix(n_i, strategy)
+            for k in range(n_i, N):
+                mix_w[i, k, k] = 1.0          # padded lanes mix with themselves
+        # row k of every requester's matrix, each a contiguous (R, N) block
+        mix_rows = [torch.from_numpy(np.ascontiguousarray(mix_w[:, k])).to(dev)
+                    for k in range(N)]
+    else:
+        # CFL carries ONE global; the lanes hold each round's client fits
+        last = init_flat.expand(R, P).clone()
+        cli_w = torch.from_numpy(cli_n.astype(np.float32)).to(dev)
+
+    # ---- requester test stacks + schedule bounds ----------------------------
+    test_x, test_mask = _pad_stack([np.asarray(s.own_test[0], np.float32) for s in requesters],
+                                   max(len(s.own_test[0]) for s in requesters), np.float32)
+    test_y, _ = _pad_stack([np.asarray(s.own_test[1], np.int64) for s in requesters],
+                           test_x.shape[1], np.int64)
+    test_x, test_y, test_mask = (torch.from_numpy(a).to(dev)
+                                 for a in (test_x, test_y, test_mask))
+    batch = cfg.batch_size
+    steps_max = max(schedule.fit_steps(int(n), batch) for n in cli_n[cli_n > 0])
+    stride = 31 if method == "cfl" else 77
+    lane_j = np.tile(np.arange(N), R)
+    desired = torch.tensor(cfg.desired_accuracy, dtype=torch.float32, device=dev)
+
+    def client_batch(ib):
+        return cx_tab[lane_rows, ib], cy_tab[lane_rows, ib]
+
+    # ---- the round loop -------------------------------------------------------
+    active = torch.ones(R, dtype=torch.bool, device=dev)
+    stop_code = torch.full((R,), protocol.STOP_MAX_ROUNDS, dtype=torch.int32, device=dev)
+    rounds_done = torch.zeros(R, dtype=torch.int32, device=dev)
+    acc_h, loss_h, exec_h = (
+        torch.zeros((cfg.max_rounds, R), dtype=torch.float32, device=dev) for _ in range(3))
+    body_h = np.zeros((cfg.max_rounds,), np.float32)
+    any_active = True
+    for r in range(cfg.max_rounds):
+        if not any_active:
+            break
+        body_h[r] = 1.0
+        # Phase.FIT at every client lane, client j seeded seed + stride*r + j;
+        # padded lanes (n = 0) are zero-weight no-op steps
+        scores = torch.stack([
+            schedule.epoch_scores(cfg.seed + stride * r + j, cfg.epochs, nc_pad,
+                                  partitionable=task.threefry_partitionable)
+            for j in range(N)])
+        idx, w = schedule.lane_plans(scores[lane_j], cli_n.reshape(R * N), batch, steps_max)
+        src = (last[:, None].expand(R, N, P) if method == "cfl" else contrib).reshape(R * N, P)
+        fitted, fit_loss = _fit_lanes(task, spec, src, client_batch, idx.to(dev), w.to(dev),
+                                      (w.sum(-1) > 0).numpy())
+        fitted = fitted.reshape(R, N, P)
+        # Phase.COLLECT + Phase.AGGREGATE: the server's data-size-weighted
+        # eq. 14 (one launch), or each node's mixing row (N launches; rows
+        # sum to 1, so the normalized mean is the gossip mix)
+        if method == "cfl":
+            new_last = fedavg_flat_batched(fitted, cli_w)
+        else:
+            mixed = torch.stack([fedavg_flat_batched(fitted, row) for row in mix_rows], dim=1)
+            contrib = torch.where(active[:, None, None], mixed, contrib)
+            new_last = mixed[:, 0]
+        # Phase.SCORE: the global (cfl) / node 0 (dfl) on the requester's test
+        acc = _eval_lanes(task.model, spec, new_last, test_x, test_y, test_mask)
+        # Phase.ACCOUNT without a battery: stop on accuracy or the budget
+        reached = acc >= desired
+        stop_code = torch.where(active & reached, protocol.STOP_ACCURACY, stop_code)
+        rounds_done = rounds_done + active.to(torch.int32)
+        last = torch.where(active[:, None], new_last, last)
+        next_active = active & ~reached
+        acc_h[r] = acc
+        loss_h[r] = fit_loss.reshape(R, N)[:, 0]      # the requester lane's fit loss
+        exec_h[r] = active.to(torch.float32)
+        any_active = bool(next_active.any())          # the round's one host sync
+        active = next_active
+
+    # ---- per-session views, priced like the loop learners ------------------
+    rounds_np = rounds_done.cpu().numpy()
+    codes_np = stop_code.cpu().numpy()
+    acc_h, loss_h, exec_h = (t.cpu().numpy() for t in (acc_h, loss_h, exec_h))
+    model_bytes = update_wire_bytes(P, encrypt=False, compress=cfg.compress,
+                                    raw_bytes=tree_bytes(template))
+    sessions = []
+    total_e = 0.0
+    for i, rspec in enumerate(requesters):
+        r_i = int(rounds_np[i])
+        n_cli = len(rosters[i])
+        accs = [float(a) for a in acc_h[:r_i, i]]
+        if method == "cfl":
+            report = cost.cfl_session(
+                rounds=r_i, num_params=P, model_bytes=model_bytes,
+                num_samples=len(rspec.own_train[0]), epochs=cfg.epochs)
+            history = {"accuracy": accs, "loss": []}
+        else:
+            report = cost.dfl_session(
+                rounds=r_i, n_peers=n_cli - 1, num_params=P, model_bytes=model_bytes,
+                num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
+                topology=dfl_topology)
+            history = {"accuracy": accs}
+        total_e += report.e_tot
+        sessions.append(SessionResult(
+            accuracy=accs[-1] if accs else 0.0, rounds=r_i, n_contributors=n_cli - 1,
+            report=report, battery=None, history_raw=history,
+            stop_reason=protocol.stop_reason_name(codes_np[i]),
+            params=tree_unravel(spec, last[i]), model_bytes=model_bytes))
+    staged_param_bytes = R * N * P * 4
+    return FleetResult(
+        sessions=sessions, rounds=rounds_np, stop_codes=codes_np,
+        accuracy=np.array([s.accuracy for s in sessions], np.float32),
+        battery_level=np.ones((R,), np.float32), total_energy_j=float(total_e),
+        # no battery drains: every executed round records the full level
+        history={"accuracy": acc_h, "loss": loss_h,
+                 "battery": np.repeat(body_h[:, None], R, axis=1),
+                 "executed": exec_h, "round_executed": body_h},
+        staged_param_bytes=staged_param_bytes,
+        device_round_state_bytes=staged_param_bytes)

@@ -1,8 +1,11 @@
-"""Adam over parameter trees, as ``repro.optim.optimizers`` writes it.
+"""Adam, AdamW and SGD over parameter trees, as ``repro.optim.optimizers``
+writes them.
 
-The update is ``-lr * (m / bc1) / (sqrt(v / bc2) + eps)`` with fp32
+The Adam update is ``-lr * (m / bc1) / (sqrt(v / bc2) + eps)`` with fp32
 moments, the same expression and order as the JAX package (not
-``torch.optim.Adam``, which folds the bias corrections differently).
+``torch.optim.Adam``, which folds the bias corrections differently).  A
+learning rate is a float or a schedule: a callable of the step count (an
+int32 scalar tensor, counting from 1) returning the step's rate.
 API mirrors the JAX package:
 
     opt = adam(1e-3)
@@ -17,11 +20,23 @@ API mirrors the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_map
+
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _lr_at(lr: Schedule, step: int):
+    """The step's learning rate: a float as given (torch rounds it to fp32
+    in every fp32 product, as ``jnp.float32(lr)``), or the schedule's value
+    at ``step`` as an fp32 tensor."""
+    if not callable(lr):
+        return lr
+    return torch.as_tensor(lr(torch.tensor(step, dtype=torch.int32)), dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +51,7 @@ class AdamState(NamedTuple):
     nu: object
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          weight_decay: float = 0.0, grad_clip: Optional[float] = None) -> Optimizer:
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -57,15 +72,47 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         step_f = torch.tensor(float(step), dtype=torch.float32)
         bc1 = float(1 - torch.pow(torch.tensor(b1, dtype=torch.float32), step_f))
         bc2 = float(1 - torch.pow(torch.tensor(b2, dtype=torch.float32), step_f))
+        lr_t = _lr_at(lr, step)
+        # lr * weight_decay rounded in fp32 first, as jnp multiplies them
+        decay = float(np.float32(lr_t) * np.float32(weight_decay))
 
         def upd(m, v, p):
-            u = -(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+            u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
             if weight_decay:
-                u = u - lr * weight_decay * p.float()
+                u = u - decay * p.float()
             return u.to(p.dtype)
 
         updates = tree_map(upd, mu, nu, params)
         return updates, AdamState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init=init, update=update)
+
+
+def adamw(lr: Schedule, weight_decay: float = 0.01, **kw) -> Optimizer:
+    return adam(lr, weight_decay=weight_decay, **kw)
+
+
+class SGDState(NamedTuple):
+    step: int
+    momentum: object
+
+
+def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
+    """Plain SGD, or heavy-ball with fp32 ``momentum * m + g``."""
+    def init(params):
+        mom = (tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                        params) if momentum else None)
+        return SGDState(step=0, momentum=mom)
+
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = _lr_at(lr, step)
+        if momentum:
+            mom = tree_map(lambda m, g: momentum * m + g.float(), state.momentum, grads)
+            updates = tree_map(lambda m, p: (-lr_t * m).to(p.dtype), mom, params)
+            return updates, SGDState(step=step, momentum=mom)
+        updates = tree_map(lambda g, p: (-lr_t * g.float()).to(p.dtype), grads, params)
+        return updates, SGDState(step=step, momentum=None)
 
     return Optimizer(init=init, update=update)
 

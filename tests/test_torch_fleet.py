@@ -270,9 +270,10 @@ _AC = tcore.AdversaryConfig(p_byzantine=0.5)
     (dict(adversary=_AC, faults=object()), {}),
     (dict(adversary=_AC, robust="clip", cadence=object()), {}),
     (dict(adversary=_AC, mobility=object()), {}),
-    (dict(adversary=_AC, robust="median"), dict(method="dfl")),
-    (dict(adversary=_AC), dict(method="cfl")),
-    ({}, dict(method="dfl")), ({}, dict(method="cfl")),
+    # under a baseline method: fault pricing and the exports
+    (dict(faults=object()), dict(method="dfl")),
+    (dict(faults=object()), dict(method="cfl")),
+    ({}, dict(method="dfl", timeline=object())), ({}, dict(method="cfl", trace=object())),
     ({}, dict(checkpoint_dir="ckpt")), ({}, dict(resume_from="ckpt")),
     ({}, dict(timeline=object())), ({}, dict(trace=object()))])
 def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 _PROBE = """

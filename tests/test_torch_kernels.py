@@ -148,6 +148,36 @@ def test_fedavg_kernel_matches_twin_on_card(r, n, l, cuda_device):
         assert torch.equal(_bits(fedavg_batched_cuda(uo, w)), _bits(got)), off
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dfl_mesh", "dfl_ring"])
+def test_fedavg_kernel_mixes_the_fleet_dfl_round_on_card(kind, cuda_device):
+    """The fleet's DFL mixing at its shape: 64 requesters of 6 lanes (every
+    fourth roster one client short, its padded lane mixing with itself),
+    one launch per row k of the (R, 6, 6) mixing weights, each against the
+    twin."""
+    from repro_torch.core import topology
+
+    r, n, l = 64, 6, 18566
+    strat = topology.AggregationStrategy(kind=kind)
+    mix_w = np.zeros((r, n, n), np.float32)
+    for i in range(r):
+        n_i = n - 1 if i % 4 == 3 else n
+        mix_w[i, :n_i, :n_i] = topology.group_mixing_matrix(n_i, strat)
+        for k in range(n_i, n):
+            mix_w[i, k, k] = 1.0
+    g = torch.Generator().manual_seed(7)
+    u = torch.randn((r, n, l), generator=g).to(cuda_device)
+    before = kernels.launch_counts()["fedavg"]
+    for k in range(n):
+        w = _t(np.ascontiguousarray(mix_w[:, k])).to(cuda_device)
+        got = fedavg_ops.fedavg_flat_batched(u, w)
+        torch.testing.assert_close(got, fedavg_batched_ref(u, w), **FEDAVG_TOL)
+        if k == n - 1:
+            assert torch.equal(got[3::4], u[3::4, k])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fedavg"] == before + n
+
+
 # ---------------------------------------------------------------------------
 # LSTM cell
 # ---------------------------------------------------------------------------

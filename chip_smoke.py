@@ -56,6 +56,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      round of cfl and of dfl on the card and on the CPU under the limit rule
      of the fleet round above (the nodes' inits perturbed); and
      ``examples/torch_quickstart.py`` as a process of its own, exit 0;
+   - the ``repro_torch.api`` facade in the quickstart world (3 rounds of 2
+     epochs): ``compare`` of enfed, dfl, cfl, cloud and dfl-ring on the
+     loop engine and on the fleet, and an enfed run with the int8 wire and
+     the clip defense in the Byzantine world on each, every run with its
+     kernels' launches counted and its event log and Chrome trace written
+     under ``build/4f`` and read back; enfed's loop and fleet event streams
+     equal (fp32 and int8 + clip), the baselines' loop and fleet rounds and
+     stops equal, and within the reference's cross-engine limits at its
+     test's depth (2 rounds of 1 epoch), an enfed fleet run with
+     ``use_pallas=False`` that launches no kernel and gives the same event
+     stream, and an untraced enfed fleet run bit-equal to the traced one;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -1593,6 +1604,272 @@ def run_baselines(device, world, mlp_world, lstm_enfed, cost):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the facade
+# ---------------------------------------------------------------------------
+
+# the quickstart world's method, its depth cut: 3 rounds of 2 epochs (the
+# quickstart runs 10 of 8)
+FACADE_KNOBS = dict(desired_accuracy=0.95, max_rounds=3, epochs=2, batch_size=32, n_max=5,
+                    encrypt=True)
+FACADE_DIR = ROOT / "build" / "4f"
+# the spans each engine's enfed run records (RunResult.timings)
+ENGINE_SPANS = {"loop": {"handshake", "transport", "fit", "refresh"},
+                "fleet": {"stage", "program", "unpack"}}
+# the kernels each [4f] run must launch, by method key and engine (the
+# kernel table's rows; the loop dfl mixes with a plain product)
+FACADE_NEED = {
+    ("enfed", "loop"): ("fedavg", "lstm_cell", "lstm_cell_bwd", "aes_ctr"),
+    ("enfed", "fleet"): ("fedavg", "lstm_cell", "lstm_cell_bwd"),
+    ("cfl", "loop"): ("fedavg", "lstm_cell", "lstm_cell_bwd"),
+    ("cfl", "fleet"): ("fedavg", "lstm_cell", "lstm_cell_bwd"),
+    ("dfl", "loop"): ("lstm_cell", "lstm_cell_bwd"),
+    ("dfl", "fleet"): ("fedavg", "lstm_cell", "lstm_cell_bwd"),
+    ("dfl-ring", "loop"): ("lstm_cell", "lstm_cell_bwd"),
+    ("dfl-ring", "fleet"): ("fedavg", "lstm_cell", "lstm_cell_bwd"),
+    ("cloud", "loop"): ("lstm_cell", "lstm_cell_bwd"),
+    ("cloud", "fleet"): ("lstm_cell", "lstm_cell_bwd"),
+    ("enfed-int8-clip", "loop"): ("quantize", "dequantize", "sqnorm", "fedavg", "aes_ctr",
+                                  "lstm_cell", "lstm_cell_bwd"),
+    ("enfed-int8-clip", "fleet"): ("fedavg_q8", "quantize", "sqnorm_q8", "lstm_cell",
+                                   "lstm_cell_bwd"),
+}
+
+
+class FacadeRuns:
+    """Counts each facade run's launches, through the public registry: every
+    registered runner is re-registered wrapped between a reset and a read of
+    the launch counts, so a ``compare`` gives one count per method.  A run
+    whose log and Chrome trace the next run overwrites (one ``TraceConfig``
+    for a whole ``compare``) has them checked when that next run starts."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.counts = {}
+        self.pending = None       # (result, trace config) whose exports are on disk
+
+    def __enter__(self):
+        from repro_torch.api import get_runner, method_names, register_method
+
+        self.originals = {n: get_runner(n) for n in method_names()}
+        for name, runner in self.originals.items():
+            register_method(name)(functools.partial(self._run, runner))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.api import register_method
+
+        for name, runner in self.originals.items():
+            register_method(name)(runner)
+        return False
+
+    def _run(self, runner, world, method, execution):
+        self.check_pending()
+        torch.cuda.synchronize()
+        reset_counts()
+        res = runner(world, method, execution)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        need = FACADE_NEED[(method.key, self.engine)]
+        if not all(counts[k] > 0 for k in need):
+            fail(f"[4f] {method.key} ({self.engine}): a kernel of its path was never "
+                 f"launched: {counts}")
+        self.counts[method.key] = counts
+        if execution.trace is not None:
+            self.pending = (res, execution.trace)
+        return res
+
+    def check_pending(self):
+        """The exports on disk are the pending run's: its event log reads
+        back equal to its trace, its Chrome trace loads and holds its spans."""
+        if self.pending is None:
+            return
+        from repro_torch.telemetry import read_events_jsonl
+
+        res, tr = self.pending
+        self.pending = None
+        if read_events_jsonl(tr.events_jsonl) != res.trace:
+            fail(f"[4f] {res.method} ({self.engine}): {tr.events_jsonl} does not read back "
+                 f"equal to the run's trace")
+        with open(tr.chrome_trace) as fh:
+            names = {e["name"] for e in json.load(fh)["traceEvents"]}
+        want = {sp.name for sp in res.timeline.spans}
+        if res.method.startswith("enfed"):
+            want |= ENGINE_SPANS[res.engine]
+        if not want <= names:
+            fail(f"[4f] {res.method} ({res.engine}): Chrome trace holds {sorted(names)}, "
+                 f"not {sorted(want)}")
+
+
+BASELINE_KEYS = ("dfl", "cfl", "dfl-ring")
+
+
+def baseline_methods(method):
+    """dfl (mesh), cfl and dfl-ring with ``method``'s knobs."""
+    return ["dfl", "cfl",
+            dataclasses.replace(method, name="dfl", topology="ring", label="dfl-ring")]
+
+
+def facade_trace(tag):
+    from repro_torch.telemetry import TraceConfig
+
+    FACADE_DIR.mkdir(parents=True, exist_ok=True)
+    return TraceConfig(events_jsonl=str(FACADE_DIR / f"{tag}.jsonl"),
+                       chrome_trace=str(FACADE_DIR / f"{tag}.json"))
+
+
+def check_timings(res, what):
+    want = ENGINE_SPANS[res.engine]
+    if not want <= set(res.timings):
+        fail(f"[4f] {what}: timings {sorted(res.timings)} lack {sorted(want)}")
+
+
+def outcome_bits_equal(a, b):
+    """Params bit for bit and every history buffer equal."""
+    from repro_torch.utils.tree import tree_leaves
+
+    if a.rounds != b.rounds or a.stop_reason != b.stop_reason:
+        return False
+    if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(tree_leaves(a.params), tree_leaves(b.params))):
+        return False
+    ha, hb = a.history_raw, b.history_raw
+    return set(ha) == set(hb) and all(
+        len(ha[k]) == len(hb[k]) and all(np.array_equal(np.asarray(x), np.asarray(y))
+                                         for x, y in zip(ha[k], hb[k])) for k in ha)
+
+
+def max_param_diff(a, b):
+    from repro_torch.utils.tree import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a.params),
+                                                         tree_leaves(b.params)))
+
+
+def baselines_engine_parity(loop, fleet, name, gate):
+    """Loop against fleet for a baseline: rounds and stop exact; with
+    ``gate``, also the reference's numeric rule (tests/test_api.py, at its
+    depth of 2 rounds of 1 epoch): accuracy within rtol 1e-5 / atol 1e-6,
+    params within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.utils.tree import tree_leaves
+
+    if (loop.rounds, loop.stop_reason) != (fleet.rounds, fleet.stop_reason):
+        fail(f"[4f] {name}: loop {loop.rounds} rounds ({loop.stop_reason}), fleet "
+             f"{fleet.rounds} ({fleet.stop_reason})")
+    acc_l = np.asarray(loop.history_raw["accuracy"])
+    acc_f = np.asarray(fleet.history_raw["accuracy"])
+    diff = max_param_diff(fleet, loop)
+    print(f"    {name} loop vs fleet ({loop.rounds} rounds{'' if gate else ', not gated'}): "
+          f"accuracy loop {acc_l.tolist()} fleet {acc_f.tolist()}; max abs param diff "
+          f"{diff:.3e}")
+    if not gate:
+        return
+    if not np.allclose(acc_f, acc_l, rtol=1e-5, atol=1e-6):
+        fail(f"[4f] {name}: accuracy loop {acc_l} fleet {acc_f}")
+    if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+               for a, b in zip(tree_leaves(fleet.params), tree_leaves(loop.params))):
+        fail(f"[4f] {name}: params loop vs fleet beyond rtol 1e-4 / atol 1e-5")
+
+
+def run_facade(device, world, pretrained, cost):
+    """Phase [4f]: the quickstart world through ``repro_torch.api`` on both
+    engines.  Returns the loop runs' and the fleet runs' launch counts."""
+    from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
+    from repro_torch import kernels
+    from repro_torch.core import AdversaryConfig
+    from repro_torch.telemetry import compare_event_streams
+
+    task, shards, own_train, own_test, fleet = world
+
+    def world_spec():
+        return WorldSpec.single(task, own_train, own_test, fleet,
+                                contributor_states(pretrained, shards, fleet, device),
+                                cost_model=cost, device=device)
+
+    method = MethodSpec(**FACADE_KNOBS)
+    methods = ["enfed", *baseline_methods(method)[:2], "cloud", baseline_methods(method)[2]]
+    byz = dataclasses.replace(method, compress="int8", robust="clip",
+                              adversary=AdversaryConfig(**ADVERSARY), label="enfed-int8-clip")
+    cmp, byz_runs, counts = {}, {}, {}
+    for engine in ("loop", "fleet"):
+        with FacadeRuns(engine) as runs:
+            exp = Experiment(world_spec(), method,
+                             ExecutionSpec(engine=engine, trace=facade_trace(engine)))
+            cmp[engine] = exp.compare(methods)
+            runs.check_pending()
+            byz_runs[engine] = Experiment(world_spec(), byz, ExecutionSpec(
+                engine=engine, trace=facade_trace(f"{engine}-int8-clip"))).run()
+            runs.check_pending()
+        counts[engine] = runs.counts
+        print(f"  [4f] engine={engine}")
+        for line in cmp[engine].table().splitlines():
+            print("    " + line)
+        for row in cmp[engine].reductions("enfed"):
+            print(f"    EnFed vs {row['baseline']:<9}: {row['time_reduction_pct']:+.2f}% time, "
+                  f"{row['energy_reduction_pct']:+.2f}% energy")
+        for name, res in list(cmp[engine].results.items()) + [("enfed-int8-clip",
+                                                                byz_runs[engine])]:
+            print(f"    {name:16s} wall {res.wall_s:.2f} s; timings (s) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in res.timings.items()))
+        check_timings(cmp[engine]["enfed"], f"enfed {engine}")
+        check_timings(byz_runs[engine], f"enfed-int8-clip {engine}")
+        summary = byz_runs[engine].corruption_summary
+        print(f"    corruption_summary ({engine}): {summary}")
+        if not summary or summary["corrupted_links"] == 0:
+            fail(f"[4f] {engine}: no link was corrupted in the Byzantine run")
+        for name, c in runs.counts.items():
+            print(f"    launches {name} ({engine}): {({k: v for k, v in c.items() if v})}")
+
+    # enfed loop against fleet on the card: the reference's cross-engine rule
+    for what, a, b in (("fp32", cmp["loop"]["enfed"], cmp["fleet"]["enfed"]),
+                       ("int8 + clip", byz_runs["loop"], byz_runs["fleet"])):
+        diffs = compare_event_streams(a.trace, b.trace)
+        if diffs:
+            fail(f"[4f] enfed {what} loop vs fleet event streams differ: {diffs[:5]}")
+        print(f"    enfed {what}: loop and fleet event streams equal "
+              f"({len(a.trace)} events)")
+    # the baselines train from random inits, where the engines' rounding
+    # (batched products at L = 1 in the loop, at L = 6 in the fleet) grows
+    # past the reference's limits by round 3 of 2 epochs on the card
+    # (PERF.md §6): gated at the reference test's depth, 2 rounds of 1
+    # epoch, and printed at [4f]'s
+    for name in BASELINE_KEYS:
+        baselines_engine_parity(cmp["loop"][name], cmp["fleet"][name], name, gate=False)
+    shallow = dataclasses.replace(method, max_rounds=2, epochs=1)
+    parity = {}
+    for engine in ("loop", "fleet"):
+        with FacadeRuns(engine) as runs:
+            parity[engine] = Experiment(world_spec(), shallow, ExecutionSpec(
+                engine=engine)).compare(baseline_methods(shallow))
+        for name, c in runs.counts.items():
+            counts[engine][f"{name} (2x1)"] = c
+    for name in BASELINE_KEYS:
+        baselines_engine_parity(parity["loop"][name], parity["fleet"][name], name, gate=True)
+
+    # the plain twins by the caller's choice: no kernel launched, same stream
+    traced = cmp["fleet"]["enfed"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain = Experiment(world_spec(), method, ExecutionSpec(engine="fleet",
+                                                           use_pallas=False)).run()
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    if any(launched.values()):
+        fail(f"[4f] use_pallas=False launched kernels: {launched}")
+    diffs = compare_event_streams(traced.trace, plain.trace)
+    if diffs:
+        fail(f"[4f] use_pallas=False event stream differs from the kernels': {diffs[:5]}")
+    print(f"    enfed fleet use_pallas=False: no kernel launched, wall {plain.wall_s:.2f} s "
+          f"(kernels {traced.wall_s:.2f} s), event stream equal")
+
+    # tracing changes nothing: the traced fleet run against an untraced one
+    untraced = Experiment(world_spec(), method, ExecutionSpec(engine="fleet")).run()
+    if not outcome_bits_equal(traced, untraced):
+        fail("[4f] the traced and untraced enfed fleet runs differ")
+    print("    enfed fleet traced vs untraced: params and history bit-equal")
+    return ([*counts["loop"].values()], [*counts["fleet"].values()])
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -2179,8 +2456,14 @@ def main() -> int:
     t_base = time.perf_counter()
     base_loop, base_fleet = run_baselines(dev, world, mlp_world, enfed_report, cost)
     print(f"  [4e] wall {time.perf_counter() - t_base:.1f} s")
-    loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop]
-    fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet]
+    print(" [4f] the repro_torch.api facade (both engines, every method), "
+          f"{FACADE_KNOBS['max_rounds']} rounds of {FACADE_KNOBS['epochs']} epochs")
+    t_facade = time.perf_counter()
+    facade_loop, facade_fleet = run_facade(dev, world, pretrained, cost)
+    print(f"  [4f] wall {time.perf_counter() - t_facade:.1f} s")
+    loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop]
+    fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
+                   *facade_fleet]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
     # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
     # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:

@@ -1,0 +1,200 @@
+"""Full HAR comparison scenario on the PyTorch/CUDA port: EnFed vs CFL vs
+DFL (mesh/ring) vs cloud-only, on both paper datasets (calories->MLP,
+HARSense->LSTM), expressed entirely through the ``repro_torch.api`` facade.
+
+The twin of ``examples/har_federated.py`` on ``repro_torch``: it runs on
+the GPU, or on the host with ``--device cpu``.  One ``WorldSpec`` is built
+once; ``Experiment.compare`` runs every method on that SAME world, seed and
+cost model, which is what makes the printed reduction percentages
+meaningful.
+
+  PYTHONPATH=src python examples/torch_har_federated.py [--dataset har|calories]
+                                                        [--engine loop|fleet]
+                                                        [--byzantine]
+                                                        [--compress int8]
+                                                        [--device cpu]
+                                                        [-v | -q]
+
+Output goes through stdlib ``logging`` ("repro_torch.example.har", stdout):
+``-q`` keeps errors only, ``-v`` adds the per-run span timings
+(``RunResult.timings``).
+
+``--engine fleet`` runs each session on the fleet engine (all requesters on
+one flat round state) instead of the session loop: same protocol, same
+result.
+
+``--byzantine`` turns on the adversarial world: 30% of contributor links
+deliver a corrupted wire image each round (a 25x scale attack), and the
+session defends with ``robust="clip"``.  The walkthrough prints each
+round's CORRUPTED and CLIPPED sets; both engines print the identical sets.
+
+``--compress int8`` adds an ``enfed-int8`` row to the compare table.
+
+``--churn``, ``--faults`` and ``--cadence`` (the reference's mobility,
+unreliable-link and asynchronous-cadence worlds) are ``ROADMAP.md`` slice E
+of the port: they exit non-zero saying so.
+"""
+
+import argparse
+import dataclasses
+import logging
+import sys
+
+
+from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
+from repro_torch.core import AdversaryConfig, SupervisedTask, make_fleet
+from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig, dirichlet_partition,
+                              make_calories_tabular, make_har_windows)
+from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig, MLPClassifier,
+                                MLPClassifierConfig)
+
+log = logging.getLogger("repro_torch.example.har")
+
+# the reference's world flags this slice does not run, with their slice
+UNPORTED_WORLDS = {"churn": "the mobility world", "faults": "the unreliable-link world",
+                   "cadence": "the asynchronous-cadence world"}
+
+
+def _setup_logging(verbosity: int) -> None:
+    level = (logging.ERROR if verbosity < 0
+             else logging.DEBUG if verbosity > 0 else logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    log.handlers[:] = [handler]
+    log.setLevel(level)
+    log.propagate = False
+
+
+def build(dataset: str, device):
+    if dataset == "har":
+        x, y, _ = make_har_windows(HARDatasetConfig(num_samples=3000, seq_len=32))
+        task = SupervisedTask(LSTMClassifier(LSTMClassifierConfig(6, 32, 64, 6),
+                                             device=device), lr=3e-3)
+    else:
+        x, y = make_calories_tabular(CaloriesDatasetConfig(num_samples=3000))
+        task = SupervisedTask(MLPClassifier(MLPClassifierConfig(8, (64, 32), 5),
+                                            device=device), lr=3e-3)
+    parts = dirichlet_partition(y, num_clients=6, alpha=1.0, seed=0)
+    shards = [(x[p], y[p]) for p in parts]
+    own_x, own_y = shards[0]
+    n = int(len(own_x) * 0.8)
+    return task, shards, (own_x[:n], own_y[:n]), (own_x[n:], own_y[n:]), (x, y)
+
+
+def make_world(task, shards, own_train, own_test, *, fit_epochs: int,
+               pooled=None) -> WorldSpec:
+    """One shared world on the task's device: a 5-device neighborhood whose
+    contributors hold pre-trained models over their own shards."""
+    fleet = make_fleet(5, seed=1, p_has_model=1.0)
+    states = {}
+    for i, dev in enumerate(fleet):
+        dev.reservation_price = 0.4
+        p = task.init(seed=10 + i)
+        p, _ = task.fit(p, shards[i + 1], epochs=fit_epochs, batch_size=32, seed=i)
+        states[dev.device_id] = {"params": p, "data": shards[i + 1]}
+    return WorldSpec.single(task, own_train, own_test, fleet, states,
+                            pooled_train=pooled, device=task.device)
+
+
+def byzantine_walkthrough(task, shards, own_train, own_test, args):
+    """One requester trains for the whole round budget while counter-based
+    draws pick each round's corrupted links and the clip defense throttles
+    outlier-norm contributions before the aggregate."""
+    world = make_world(task, shards, own_train, own_test, fit_epochs=1)
+    res = Experiment(
+        world,
+        method=MethodSpec(desired_accuracy=args.target, epochs=args.epochs,
+                          max_rounds=10, n_max=3, contributor_refresh_epochs=1,
+                          adversary=AdversaryConfig(p_byzantine=0.3, attack="scale",
+                                                    scale=25.0, seed=9),
+                          robust="clip", compress=args.compress),
+        execution=ExecutionSpec(engine=args.engine)).run()
+    log.info(f"\n=== byzantine walkthrough ({args.dataset}, engine={res.engine}) ===")
+    log.info(f"{'round':>5} {'corrupted':<12} {'clipped':<12} {'acc':>6} {'battery':>8}")
+    for ev in res.trace:
+        if ev.phase == "round":
+            log.info(f"{ev.round:>5} {str(list(ev.corrupted)):<12} "
+                     f"{str(list(ev.clipped)):<12} {ev.accuracy:6.3f} {ev.battery:8.3f}")
+    summary = res.corruption_summary
+    log.info(f"byzantine weather: {int(summary['corrupted_links'])} corrupted deliveries "
+             f"(counter-keyed 25x scale attack), {int(summary['clipped_links'])} clipped "
+             f"by the robust='clip' screen; both engines print the identical sets")
+    log.info(f"requester finished: {res.rounds} rounds, stop={res.stop_reason}, "
+             f"final acc {res.accuracy:.3f}")
+    log.debug(f"timings: { {k: round(v, 4) for k, v in res.timings.items()} }")
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", choices=("har", "calories"), default="har")
+    ap.add_argument("--target", type=float, default=0.95)
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--engine", choices=("loop", "fleet"), default="loop",
+                    help="EnFed execution engine (fleet = one flat round state)")
+    for flag, world in UNPORTED_WORLDS.items():
+        ap.add_argument(f"--{flag}", action="store_true",
+                        help=f"{world} (ROADMAP.md slice E: not ported yet)")
+    ap.add_argument("--byzantine", action="store_true",
+                    help="adversarial walkthrough: Byzantine links deliver 25x-scaled "
+                         "wire images and the robust='clip' screen throttles them")
+    ap.add_argument("--compress", choices=("int8",), default=None,
+                    help="add an enfed-int8 row: same world with the transported "
+                         "updates int8-compressed")
+    ap.add_argument("--device", default=None,
+                    help="torch device to run on (default: the GPU, which must exist)")
+    vq = ap.add_mutually_exclusive_group()
+    vq.add_argument("-v", "--verbose", action="store_true",
+                    help="debug logging (adds the per-run span timings)")
+    vq.add_argument("-q", "--quiet", action="store_true",
+                    help="errors only; suppress the table/walkthrough output")
+    args = ap.parse_args(argv)
+    _setup_logging(1 if args.verbose else -1 if args.quiet else 0)
+    for flag, world in UNPORTED_WORLDS.items():
+        if getattr(args, flag):
+            print(f"--{flag}: {world} is ROADMAP.md slice E of the port, not ported yet",
+                  file=sys.stderr)
+            return 2
+
+    task, shards, own_train, own_test, pooled = build(args.dataset, args.device)
+    if args.byzantine:
+        return byzantine_walkthrough(task, shards, own_train, own_test, args)
+
+    # one world, N methods: the facade guarantees every method sees the
+    # same requesters, contributor states, seed, and cost model
+    world = make_world(task, shards, own_train, own_test,
+                       fit_epochs=args.epochs, pooled=pooled)
+    exp = Experiment(
+        world,
+        method=MethodSpec(desired_accuracy=args.target, epochs=args.epochs,
+                          max_rounds=10, batch_size=32),
+        execution=ExecutionSpec(engine=args.engine))
+    methods = ["enfed", "cfl",
+               dataclasses.replace(exp.method, name="dfl", topology="mesh", label="dfl-mesh"),
+               dataclasses.replace(exp.method, name="dfl", topology="ring", label="dfl-ring"),
+               "cloud"]
+    if args.compress:
+        methods.insert(1, dataclasses.replace(exp.method, compress=args.compress,
+                                              label="enfed-int8"))
+    cmp = exp.compare(methods)
+
+    log.info(f"\n=== {args.dataset} on {task.device} ===")
+    log.info(cmp.table())
+    for row in cmp.reductions("enfed"):
+        log.info(f"EnFed vs {row['baseline']:<10}: "
+                 f"{row['time_reduction_pct']:+.1f}% time, "
+                 f"{row['energy_reduction_pct']:+.1f}% energy")
+    if args.compress:
+        fp32, q8 = cmp["enfed"].report, cmp["enfed-int8"].report
+        log.info(f"int8 wire: t_com {fp32.times.t_com:.4f}s -> "
+                 f"{q8.times.t_com:.4f}s, E_comm {fp32.e_comm:.3f}J -> "
+                 f"{q8.e_comm:.3f}J on the same world")
+    log.info("(cloud T_train is the §IV-G response time: upload + cloud "
+             "training + round trip)")
+    log.debug(f"enfed timings: "
+              f"{ {k: round(v, 4) for k, v in cmp['enfed'].timings.items()} }")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

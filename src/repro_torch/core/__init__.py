@@ -12,6 +12,19 @@ from repro_torch.core.protocol import Phase
 from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
 from repro_torch.core.topology import AggregationStrategy, group_mixing_matrix
 
+# repro_torch.api facade types re-exported lazily (see __getattr__ below).
+_API_EXPORTS = (
+    "Experiment",
+    "WorldSpec",
+    "MethodSpec",
+    "ExecutionSpec",
+    "RunResult",
+    "CompareResult",
+    "register_method",
+)
+
+# The single consolidated public-API list: engine-level core names plus
+# the repro_torch.api facade surface.
 __all__ = [
     # aggregation + battery + cost model
     "fedavg", "masked_fedavg", "masked_weighted_mean_stacked",
@@ -27,4 +40,21 @@ __all__ = [
     "cloud_only_baseline", "cloud_only_config",
     # topologies
     "AggregationStrategy", "group_mixing_matrix",
+    # repro_torch.api facade (lazy)
+    *_API_EXPORTS,
 ]
+
+
+def __getattr__(name: str):
+    """Lazy facade re-export: ``repro_torch.api`` imports these
+    submodules, so importing it eagerly here would be a cycle; resolving
+    on first access keeps both import orders working."""
+    if name in _API_EXPORTS:
+        import repro_torch.api as _api
+
+        return getattr(_api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -29,10 +29,14 @@ Design, as in the reference:
   scatters them to the lanes whose session goes on.  Under int8 the rows
   are trained from their dequantized image and requantized
   (``quantize_flat_batched``).
-* **Early exit.**  Round r runs iff ``r < max_rounds`` and some lane is
-  still active.  That flag is read on the host once per round, one small
-  sync beside thousands of launches, which reproduces the reference's
-  ``round_executed`` whatever its ``round_chunk``.
+* **Early exit.**  The round loop runs in chunks of ``round_chunk`` rounds,
+  as the reference's chunked ``while_loop``: the host reads "is any lane
+  still active?" once per chunk, one small sync beside thousands of
+  launches.  A round that runs inside a chunk after every lane has stopped
+  changes no state (every write is masked by the lanes' activity) and
+  records 0 in ``round_executed``, which the device keeps as ``any(active)``
+  and the host reads at unpack, so every output is the same bits whatever
+  the chunk.
 
 * **Byzantine world.**  Under ``adversary=`` lane ``i`` draws its
   corruption weather as requester ``requester_id + i`` over its
@@ -50,16 +54,25 @@ Design, as in the reference:
   AGGREGATE is one eq. 14 launch on the shard sizes (cfl) or one launch
   per row of the mixing matrix (dfl).  No refresh, no battery.
 
+* **Timeline.**  ``stage`` (with ``quantize_pack`` nested under int8),
+  ``program`` (the round loop), ``unpack`` (with ``dequant_unpack``
+  nested) are spans of the run's :class:`~repro_torch.telemetry.Timeline`,
+  each closed after one device sync, never inside the round loop.
+  ``use_pallas=False`` runs the whole run under
+  :func:`repro_torch.kernels.common.plain_twins`.
+
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
 transport.  Mobility, faults, cadence, staleness decay, checkpoints and
-tracing raise ``NotImplementedError`` naming their ``ROADMAP.md`` slice
-(under a baseline method, the enfed-only knobs raise ``ValueError`` as in
-the reference).
+the profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
+``hlo_stats``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
+slice (under a baseline method, the enfed-only knobs raise ``ValueError``
+as in the reference).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 from typing import Dict, List, Optional, Sequence
@@ -73,13 +86,14 @@ from repro_torch.core.battery import BatteryState, discharge_level, load_efficie
 from repro_torch.core.energy import CostModel, update_wire_bytes
 from repro_torch.core.incentive import NeighborDevice, sign_contracts_fleet
 from repro_torch.core.rounds import EnFedConfig, SessionResult, _unported
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import check_interpret, plain_twins, resolve_device
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
 from repro_torch.kernels.quantize.ops import (dequantize_flat_batched,
                                               quantize_flat_batched, resolve_compress)
 from repro_torch.kernels.robust.ops import robust_aggregate, robust_aggregate_q8
 from repro_torch.models.classifiers import masked_cross_entropy_loss
 from repro_torch.optim import lane_adam_init, lane_adam_step
+from repro_torch.telemetry.spans import Timeline
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_ravel,
                                     tree_size, tree_unravel)
 
@@ -110,6 +124,9 @@ class FleetResult:
     staged_param_bytes: int = 0       # contributor round state as staged
                                       # (fp32 (R, N, P), or int8 + scales)
     device_round_state_bytes: int = 0  # that state as carried on the device
+    timeline: Optional[Timeline] = None  # host-side wall-clock spans
+    hlo_stats: Optional[dict] = None     # program cost summary: None until
+                                         # the profiler hooks (slice F)
 
     @property
     def history_raw(self) -> Dict[str, np.ndarray]:
@@ -164,9 +181,39 @@ def _eval_lanes(model, spec, flat, x, y, mask):
         return torch.sum(correct * mask, dim=-1) / torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
 
 
-def _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
-                  resume_from, timeline, trace) -> None:
+def _chunked_rounds(max_rounds: int, chunk: int, any_active):
+    """The round indices of the early-exit loop, ``chunk`` rounds at a time
+    while ``any_active()`` holds.  It is called on the host once per chunk,
+    when the chunk before it has run (the loop's one sync a chunk)."""
+    for r0 in range(0, max_rounds, chunk):
+        if not any_active():
+            return
+        yield from range(r0, min(r0 + chunk, max_rounds))
+
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the device, so the host clock read next (a span's end)
+    covers its work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def _span(tl: Timeline, dev: torch.device, name: str, **attrs):
+    """One span of ``tl`` around device work, closed after a device sync."""
+    idx = tl.begin(name, **attrs)
+    yield
+    _sync(dev)
+    tl.finish(idx)
+
+
+def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
+                  checkpoint_every, resume_from, trace) -> None:
     protocol.method_phases(method)         # validate the method's name
+    if round_chunk < 1:
+        raise ValueError(f"round_chunk must be >= 1 (got {round_chunk})")
+    if checkpoint_every < 0:
+        raise ValueError(f"checkpoint_every must be >= 0 (got {checkpoint_every})")
     baseline = method != "enfed"
     # the reference's refusals of enfed-only knobs under a baseline method
     if baseline and (checkpoint_dir or resume_from):
@@ -186,9 +233,11 @@ def _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
     if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
         raise NotImplementedError(
             "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
-    if timeline is not None or trace is not None:
+    if trace is not None and (getattr(trace, "jax_profiler_dir", None)
+                              or getattr(trace, "hlo_stats", False)):
         raise NotImplementedError(
-            "timeline/trace exports are ROADMAP.md slice F (not ported yet)")
+            "TraceConfig.jax_profiler_dir/hlo_stats (the profiler hooks) are "
+            "ROADMAP.md slice F (not ported yet)")
     if baseline:
         # the baselines have no renegotiation, so mobility does not apply to
         # them (the reference drops it); their fault pricing is slice E's
@@ -203,13 +252,17 @@ def _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
 
 def run_fleet(task, requesters: Sequence[RequesterSpec],
               cfg: Optional[EnFedConfig] = None,
-              cost_model: Optional[CostModel] = None, *,
+              cost_model: Optional[CostModel] = None,
+              use_pallas: bool = True,
+              interpret: Optional[bool] = None,
+              round_chunk: int = 4,
               method: str = "enfed",
               dfl_topology: str = "mesh",
               checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0,
               resume_from: Optional[str] = None,
-              timeline=None, trace=None, device=None) -> FleetResult:
+              timeline: Optional[Timeline] = None,
+              trace=None, *, device=None) -> FleetResult:
     """Run ``len(requesters)`` concurrent EnFed sessions on one flat round
     state, on ``device`` (the GPU unless the caller names another; the
     task must run there).  Each requester's ``contributor_states`` end up
@@ -221,20 +274,40 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     (:func:`_run_fleet_baseline`; ``dfl_topology`` "mesh" or "ring"): each
     requester's lanes are the loop learners' client list, and its
     ``SessionResult`` carries ``battery=None`` and a
-    ``cfl_session``/``dfl_session`` report."""
+    ``cfl_session``/``dfl_session`` report.
+
+    ``use_pallas=False`` runs the plain PyTorch twins of every kernel (the
+    caller's choice, never a fallback); ``interpret`` accepts only None;
+    ``round_chunk`` is the early-exit granularity (the host reads the
+    fleet's activity once per chunk); ``timeline`` records the spans and
+    ``trace`` may select exports, which ``Experiment.run`` writes.
+
+    Note: prefer the :mod:`repro_torch.api` facade
+    (``ExecutionSpec(engine="fleet", ...)``)."""
     cfg = cfg if cfg is not None else EnFedConfig()
     cost = cost_model or CostModel()
     dev = resolve_device(device)
     if torch.device(task.device) != dev:
         raise ValueError(f"the task runs on {task.device}, the fleet on {dev}")
-    _check_ported(cfg, method, dfl_topology, checkpoint_dir, checkpoint_every,
-                  resume_from, timeline, trace)
-    R = len(requesters)
-    if R == 0:
+    check_interpret(interpret)
+    _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir, checkpoint_every,
+                  resume_from, trace)
+    if len(requesters) == 0:
         raise ValueError("empty fleet")
-    if method != "enfed":
-        return _run_fleet_baseline(task, requesters, cfg, cost, method, dfl_topology, dev)
+    tl = timeline if timeline is not None else Timeline()
+    with contextlib.nullcontext() if use_pallas else plain_twins():
+        if method != "enfed":
+            return _run_fleet_baseline(task, requesters, cfg, cost, method, dfl_topology,
+                                       dev, round_chunk, tl)
+        return _run_fleet_enfed(task, requesters, cfg, cost, dev, round_chunk, tl)
 
+
+def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
+                     cost: CostModel, dev: torch.device, round_chunk: int,
+                     tl: Timeline) -> FleetResult:
+    """Algorithm 1 for every requester on the flat round state."""
+    R = len(requesters)
+    stage = tl.begin("stage")
     # ---- Phase.HANDSHAKE (host, static) -------------------------------------
     contracts, contract_mask = sign_contracts_fleet(
         [spec.neighborhood for spec in requesters], cfg.offered_incentive, cfg.n_max)
@@ -293,7 +366,8 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     contrib = torch.from_numpy(contrib_np).to(dev)
     cscale = None
     if wire_compress == "int8":
-        q0, s0 = quantize_flat_batched(contrib.reshape(R * N, P))
+        with _span(tl, dev, "quantize_pack", what="round_state"):
+            q0, s0 = quantize_flat_batched(contrib.reshape(R * N, P))
         contrib = q0.reshape(R, N, -1)
         cscale = s0.reshape(R, N, -1)
         staged_param_bytes = (contrib.numel() * contrib.element_size()
@@ -395,12 +469,13 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     # (max_rounds, R, N) corrupted-delivery and clipped traces
     corrupt_h, clip_h = (torch.zeros((cfg.max_rounds, R, N), dtype=torch.float32, device=dev)
                          for _ in range(2))
-    body_h = np.zeros((cfg.max_rounds,), np.float32)
-    any_active = True
-    for r in range(cfg.max_rounds):
-        if not any_active:
-            break
-        body_h[r] = 1.0
+    body_h = torch.zeros((cfg.max_rounds,), dtype=torch.float32, device=dev)
+    _sync(dev)
+    tl.finish(stage)
+    program = tl.begin("program")
+    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
+        ran = active.any()
+        body_h[r] = ran.to(torch.float32)
         # Phase.COLLECT: the delivered buffer is the round state, or under
         # an adversary a corrupted copy of it, keyed on the delivering round
         src, src_s = contrib, cscale
@@ -452,11 +527,12 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
         rounds_done = rounds_done + active.to(torch.int32)
         last = torch.where(active[:, None], new_flat, last)
         next_active = active & ~reached & ~low
-        acc_h[r], loss_h[r], bat_h[r] = acc, last_loss, level
+        # a round no lane ran leaves its rows 0, as the reference's skipped body
+        acc_h[r], loss_h[r], bat_h[r] = (torch.where(ran, v, 0.0)
+                                         for v in (acc, last_loss, level))
         exec_h[r] = active.to(torch.float32)
-        any_active = bool(next_active.any())   # the round's one host sync
         # Phase.REFRESH: the V unique rows train, lanes that go on take them
-        if do_refresh and any_active:
+        if do_refresh:
             src = dequantize_flat_batched(live, live_s)[:, :P] if live_s is not None else live
             refreshed, _ = _fit_lanes(task, spec, src, refresh_batch, ref_idx, ref_w, ref_live)
             take = (next_active[:, None] & lane_valid)[..., None]
@@ -468,16 +544,22 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
                 live = refreshed
                 contrib = torch.where(take, refreshed[ref_uidx], contrib)
         active = next_active
+    _sync(dev)
+    tl.finish(program)
 
     # ---- unpack -------------------------------------------------------------
+    unpack = tl.begin("unpack")
     rounds_np = rounds_done.cpu().numpy()
     codes_np = stop_code.cpu().numpy()
     level_np = level.cpu().numpy()
-    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h = (
-        t.cpu().numpy() for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h))
+    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, body_h = (
+        t.cpu().numpy() for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, body_h))
     if do_refresh:
-        final = (dequantize_flat_batched(contrib, cscale)[..., :P]
-                 if cscale is not None else contrib)
+        if cscale is not None:
+            with _span(tl, dev, "dequant_unpack"):
+                final = dequantize_flat_batched(contrib, cscale)[..., :P]
+        else:
+            final = contrib
         for i, (rspec, cs) in enumerate(zip(requesters, contracts)):
             for j, c in enumerate(cs):
                 rspec.contributor_states[c.device_id]["params"] = tree_unravel(spec, final[i, j])
@@ -517,18 +599,20 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
         fleet_hist["corrupted"] = corrupt_h
     if robust != "none":
         fleet_hist["clipped"] = clip_h
+    _sync(dev)
+    tl.finish(unpack)
     return FleetResult(
         sessions=sessions, rounds=rounds_np, stop_codes=codes_np,
         accuracy=np.array([s.accuracy for s in sessions], np.float32),
         battery_level=level_np, total_energy_j=float(total_e),
         history=fleet_hist,
         staged_param_bytes=int(staged_param_bytes),
-        device_round_state_bytes=int(staged_param_bytes))
+        device_round_state_bytes=int(staged_param_bytes), timeline=tl)
 
 
 def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
                         cost: CostModel, method: str, dfl_topology: str,
-                        dev: torch.device) -> FleetResult:
+                        dev: torch.device, round_chunk: int, tl: Timeline) -> FleetResult:
     """The cfl/dfl protocol variants on the flat (R, N, P) round state.
 
     Requester i's roster is ``[own shard] + every neighbour with data``, in
@@ -542,9 +626,12 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
     global (cfl) or node 0 (dfl) is scored on the requester's test stack;
     a session stops on accuracy or the round budget.  Sessions are priced
     with ``cfl_session``/``dfl_session`` and the modelled fit time; wire
-    bytes follow ``cfg.compress``, though the state stays fp32.
+    bytes follow ``cfg.compress``, though the state stays fp32.  The round
+    loop reads the fleet's activity once per ``round_chunk`` rounds, and
+    ``tl`` gets the enfed fleet's ``stage``, ``program`` and ``unpack``.
     """
     R = len(requesters)
+    stage = tl.begin("stage")
     rosters = []
     for rspec in requesters:
         shards = [rspec.own_train]
@@ -626,12 +713,13 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
     rounds_done = torch.zeros(R, dtype=torch.int32, device=dev)
     acc_h, loss_h, exec_h = (
         torch.zeros((cfg.max_rounds, R), dtype=torch.float32, device=dev) for _ in range(3))
-    body_h = np.zeros((cfg.max_rounds,), np.float32)
-    any_active = True
-    for r in range(cfg.max_rounds):
-        if not any_active:
-            break
-        body_h[r] = 1.0
+    body_h = torch.zeros((cfg.max_rounds,), dtype=torch.float32, device=dev)
+    _sync(dev)
+    tl.finish(stage)
+    program = tl.begin("program")
+    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
+        ran = active.any()
+        body_h[r] = ran.to(torch.float32)
         # Phase.FIT at every client lane, client j seeded seed + stride*r + j;
         # padded lanes (n = 0) are zero-weight no-op steps
         scores = torch.stack([
@@ -660,16 +748,20 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
         rounds_done = rounds_done + active.to(torch.int32)
         last = torch.where(active[:, None], new_last, last)
         next_active = active & ~reached
-        acc_h[r] = acc
-        loss_h[r] = fit_loss.reshape(R, N)[:, 0]      # the requester lane's fit loss
+        # a round no lane ran leaves its rows 0; the loss is the requester
+        # lane's fit loss
+        acc_h[r], loss_h[r] = (torch.where(ran, v, 0.0)
+                               for v in (acc, fit_loss.reshape(R, N)[:, 0]))
         exec_h[r] = active.to(torch.float32)
-        any_active = bool(next_active.any())          # the round's one host sync
         active = next_active
+    _sync(dev)
+    tl.finish(program)
 
     # ---- per-session views, priced like the loop learners ------------------
+    unpack = tl.begin("unpack")
     rounds_np = rounds_done.cpu().numpy()
     codes_np = stop_code.cpu().numpy()
-    acc_h, loss_h, exec_h = (t.cpu().numpy() for t in (acc_h, loss_h, exec_h))
+    acc_h, loss_h, exec_h, body_h = (t.cpu().numpy() for t in (acc_h, loss_h, exec_h, body_h))
     model_bytes = update_wire_bytes(P, encrypt=False, compress=cfg.compress,
                                     raw_bytes=tree_bytes(template))
     sessions = []
@@ -696,6 +788,8 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
             stop_reason=protocol.stop_reason_name(codes_np[i]),
             params=tree_unravel(spec, last[i]), model_bytes=model_bytes))
     staged_param_bytes = R * N * P * 4
+    _sync(dev)
+    tl.finish(unpack)
     return FleetResult(
         sessions=sessions, rounds=rounds_np, stop_codes=codes_np,
         accuracy=np.array([s.accuracy for s in sessions], np.float32),
@@ -705,4 +799,4 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
                  "battery": np.repeat(body_h[:, None], R, axis=1),
                  "executed": exec_h, "round_executed": body_h},
         staged_param_bytes=staged_param_bytes,
-        device_round_state_bytes=staged_param_bytes)
+        device_round_state_bytes=staged_param_bytes, timeline=tl)

@@ -26,11 +26,16 @@ eq. 14, records which contributors it clipped, and the report prices one
 screening pass per executed round.
 
 ``run(engine="fleet")`` runs the session as a one-requester fleet
-(:func:`repro_torch.core.fleet.run_fleet`).  This slice covers the static,
-lockstep world: ``encrypt`` on or off, any ``strategy``, any ``compress``,
+(:func:`repro_torch.core.fleet.run_fleet`), forwarding the execution knobs
+(``use_pallas``, ``interpret``, ``round_chunk``, ``timeline``).  The loop
+engine records the reference's spans on ``timeline`` (``handshake``;
+``transport`` around one round's collect; ``fit``; ``refresh``), each
+closed after a device sync, and runs the plain PyTorch twins of every
+kernel under ``use_pallas=False``.  This slice covers the static, lockstep
+world: ``encrypt`` on or off, any ``strategy``, any ``compress``,
 Byzantine contributors and the robust AGGREGATE.  Every other knob of
-``EnFedConfig`` raises ``NotImplementedError`` naming the ``ROADMAP.md``
-slice that ports it.
+``EnFedConfig``, and checkpointing, raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` slice that ports it.
 """
 
 from __future__ import annotations
@@ -50,10 +55,11 @@ from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, EnergyReport
 from repro_torch.core.incentive import Contract, NeighborDevice, select_contributors
 from repro_torch.core.topology import AggregationStrategy
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import check_interpret, plain_twins, resolve_device
 from repro_torch.kernels.quantize.ops import (compress_update, decompress_update,
                                               resolve_compress)
 from repro_torch.kernels.robust.ops import ROBUST_METHODS, robust_aggregate
+from repro_torch.telemetry.spans import Timeline
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_size,
                                     unflatten_from_vector)
 
@@ -121,6 +127,19 @@ class SessionResult:
     # wall seconds per protocol phase, each timed between device syncs
     phase_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
+    @property
+    def trace(self):
+        """The session as a normalized RoundEvent list (requester 0): the
+        engine-independent view of ``history_raw``."""
+        from repro_torch.telemetry.events import session_events
+
+        return session_events(self)
+
+
+# the loop engine's protocol phases that the timeline records, by span name
+_PHASE_SPANS = {"handshake": "handshake", "collect": "transport", "fit": "fit",
+                "refresh": "refresh"}
+
 
 class EnFedSession:
     """One requesting device M building its model for application A.
@@ -160,14 +179,20 @@ class EnFedSession:
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def _clock(self, phase_s: Dict[str, float], phase: str):
+    def _clock(self, phase_s: Dict[str, float], phase: str, timeline: Timeline, **attrs):
         """Add the wall time of the block to ``phase_s[phase]``, with a
-        device sync before each clock read."""
+        device sync before each clock read; a phase the reference records
+        is also a span of ``timeline``, opened and closed beside the
+        clock reads."""
         self._sync()
+        span = _PHASE_SPANS.get(phase)
+        idx = timeline.begin(span, **attrs) if span is not None else None
         t0 = time.perf_counter()
         yield
         self._sync()
         phase_s[phase] = phase_s.get(phase, 0.0) + time.perf_counter() - t0
+        if idx is not None:
+            timeline.finish(idx)
 
     # -- protocol phases (protocol.Phase.HANDSHAKE) ---------------------------
     def handshake(self) -> List[Contract]:
@@ -273,10 +298,20 @@ class EnFedSession:
                             else fitted)
 
     # -- Algorithm 1 ----------------------------------------------------------
-    def run(self, engine: str = "loop", *, checkpoint_dir: Optional[str] = None,
-            resume_from: Optional[str] = None) -> SessionResult:
+    def run(self, engine: str = "loop", *, use_pallas: bool = True,
+            interpret: Optional[bool] = None, round_chunk: int = 4,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            resume_from: Optional[str] = None,
+            timeline: Optional[Timeline] = None) -> SessionResult:
         """Execute the session with the loop engine, or as a one-requester
-        fleet (``engine="fleet"``)."""
+        fleet (``engine="fleet"``), forwarding the execution knobs to
+        ``run_fleet``.  ``use_pallas=False`` runs the plain PyTorch twins of
+        the kernels; ``interpret`` accepts only None; ``round_chunk`` is the
+        fleet's early-exit granularity; ``timeline`` records the spans.
+
+        Note: prefer the :mod:`repro_torch.api` facade
+        (``Experiment(world, method, execution).run()``)."""
+        check_interpret(interpret)
         if engine == "fleet":
             from repro_torch.core import fleet as fleet_mod
 
@@ -287,23 +322,35 @@ class EnFedSession:
                 battery=self.battery)
             result = fleet_mod.run_fleet(self.task, [spec], self.cfg,
                                          cost_model=self.cost,
+                                         use_pallas=use_pallas,
+                                         interpret=interpret,
+                                         round_chunk=round_chunk,
                                          checkpoint_dir=checkpoint_dir,
+                                         checkpoint_every=checkpoint_every,
                                          resume_from=resume_from,
+                                         timeline=timeline,
                                          device=self.device)
             self.battery = result.sessions[0].battery
             return result.sessions[0]
         if engine != "loop":
             raise ValueError(f"unknown engine {engine!r} (loop|fleet)")
-        if checkpoint_dir is not None or resume_from is not None:
+        if checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+        if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
             raise NotImplementedError(
                 "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
         unported = _unported(self.cfg)
         if unported is not None:
             raise NotImplementedError(f"{unported} is not ported yet")
+        tl = timeline if timeline is not None else Timeline()
+        with contextlib.nullcontext() if use_pallas else plain_twins():
+            return self._run_loop(tl)
 
+    def _run_loop(self, tl: Timeline) -> SessionResult:
+        """Algorithm 1 on the loop engine, its phases timed into ``tl``."""
         cfg = self.cfg
         phase_s: Dict[str, float] = {}
-        with self._clock(phase_s, "handshake"):
+        with self._clock(phase_s, "handshake", tl):
             contracts = self.handshake()
         if not contracts:
             raise RuntimeError("no nearby device agreed to the incentive (N_d < 1)")
@@ -330,7 +377,7 @@ class EnFedSession:
                 ac, r, ac.requester_id, ids,
                 partitionable=self.task.threefry_partitionable).numpy()
                 if ac is not None else np.zeros((n_c,), bool))
-            with self._clock(phase_s, "collect"):
+            with self._clock(phase_s, "collect", tl, round=r):
                 updates = []
                 for j, c in enumerate(contracts):
                     upd, nbytes = self._collect_update(c.device_id, corrupt=bool(cmask[j]),
@@ -341,18 +388,18 @@ class EnFedSession:
                 history["corrupted_mask"].append(cmask.astype(np.float32))
             # Phase.AGGREGATE: eq. 14, or the robust statistic, in one
             # launch over the (1, N, P) buffer
-            with self._clock(phase_s, "aggregate"):
+            with self._clock(phase_s, "aggregate", tl):
                 if cfg.robust != "none":
                     global_params, clipped = self._robust_aggregate_full(updates, round_w)
                     history["clipped_mask"].append(clipped)
                 else:
                     global_params = aggregation.masked_fedavg(updates, round_w)
-            with self._clock(phase_s, "fit"):
+            with self._clock(phase_s, "fit", tl, round=r):
                 params, losses = self.task.fit(global_params, self.own_train,
                                                cfg.epochs, cfg.batch_size,
                                                seed=cfg.seed + r)
             # Phase.SCORE
-            with self._clock(phase_s, "score"):
+            with self._clock(phase_s, "score", tl):
                 acc = float(self.task.evaluate(params, self.own_test))
             rounds = r + 1
             history["accuracy"].append(acc)
@@ -375,7 +422,7 @@ class EnFedSession:
             if self.battery.below(cfg.battery_threshold):
                 stop = protocol.STOP_BATTERY
                 break
-            with self._clock(phase_s, "refresh"):
+            with self._clock(phase_s, "refresh", tl, round=r):
                 self._refresh_contributors(contracts)
 
         report = self.cost.session(

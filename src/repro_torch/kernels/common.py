@@ -3,14 +3,22 @@
 ``resolve_device`` is how every entry point picks its device: ``cuda``
 unless the caller names one, and an error when no GPU is present and the
 caller named none (the port never carries on quietly on the CPU).  The
-``ops`` modules dispatch on the device of the tensors they are given: a
-CPU tensor goes to the plain PyTorch twin, a CUDA tensor to the
-hand-written kernel, anything else raises.
+``ops`` modules dispatch through ``use_twin``: a CPU tensor goes to the
+plain PyTorch twin, a CUDA tensor to the hand-written kernel, anything
+else raises.  ``plain_twins`` is the caller's explicit choice of the twins
+on the card too (``ExecutionSpec(use_pallas=False)``); it is never entered
+on a failure, so a kernel that fails to build or launch still raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+
+# True inside ``plain_twins()``: the ops run their twins on CUDA tensors
+_PLAIN_TWINS = contextvars.ContextVar("repro_torch_plain_twins", default=False)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,6 +33,32 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def check_interpret(interpret) -> None:
+    """Pallas interpret mode has no counterpart in the port: the engines
+    take the reference's ``interpret`` argument and accept only None."""
+    if interpret is not None:
+        raise ValueError(
+            f"interpret={interpret!r}: Pallas interpret mode has no counterpart in "
+            "the port; pass interpret=None, and use_pallas=False to run the plain "
+            "PyTorch twins instead of the kernels")
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Inside the block every op runs its plain PyTorch twin, on the card
+    too: the selection ``use_pallas=False`` makes for a whole run."""
+    token = _PLAIN_TWINS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_TWINS.reset(token)
+
+
+def plain_twins_selected() -> bool:
+    """True inside :func:`plain_twins`."""
+    return _PLAIN_TWINS.get()
+
+
 def is_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain twin), False for a CUDA tensor
     (kernel); raises for any other device."""
@@ -33,6 +67,13 @@ def is_cpu(t: torch.Tensor) -> bool:
     if t.is_cpu:
         return True
     raise ValueError(f"unsupported device {t.device} (cpu or cuda)")
+
+
+def use_twin(t: torch.Tensor) -> bool:
+    """True where an op on ``t`` runs its plain twin: a CPU tensor, or a
+    CUDA tensor inside :func:`plain_twins`.  False where it launches its
+    kernel; raises for any other device."""
+    return is_cpu(t) or _PLAIN_TWINS.get()
 
 
 def check_args(*specs) -> int:

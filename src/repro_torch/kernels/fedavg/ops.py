@@ -1,14 +1,15 @@
 """Public op: eq. 14 over a flat (R, N, L) buffer, dense or int8.
 
 A CPU tensor runs the plain twin (``ref.py``); a CUDA tensor launches the
-hand-written kernel (``kernel.py``) or raises.
+hand-written kernel (``kernel.py``) or raises, unless the caller selected
+the twins (``kernels.common.plain_twins``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import is_cpu
+from repro_torch.kernels.common import use_twin
 from repro_torch.kernels.fedavg.kernel import (fedavg_batched_cuda,
                                                fedavg_batched_q8_cuda)
 from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref, fedavg_batched_ref
@@ -18,7 +19,7 @@ def fedavg_flat_batched(updates: torch.Tensor,
                         weights: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L), weights (R, N) -> (R, L) fp32.  An all-zero
     weight row gives a zero row."""
-    if is_cpu(updates):
+    if use_twin(updates):
         return fedavg_batched_ref(updates, weights)
     return fedavg_batched_cuda(updates, weights)
 
@@ -34,6 +35,6 @@ def fedavg_flat_batched_q8(q: torch.Tensor, scales: torch.Tensor,
     weights (R, N) -> (R, Lp) fp32: ``fedavg_flat_batched`` of the
     dequantized payload, without the fp32 (R, N, Lp) block on the card.
     Callers slice ``[:, :P]`` to drop the padding (which averages to 0)."""
-    if is_cpu(q):
+    if use_twin(q):
         return fedavg_batched_q8_ref(q, scales, weights)
     return fedavg_batched_q8_cuda(q, scales, weights)

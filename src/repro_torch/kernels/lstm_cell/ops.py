@@ -2,7 +2,8 @@
 
 ``lstm_cell`` and ``lstm_seq`` dispatch on the tensor's device: a CPU
 tensor runs the plain twin, a CUDA tensor launches the hand-written kernel
-or raises.  The TPU kernel has no VJP, so :class:`LSTMSeqFunction`
+or raises, unless the caller selected the twins
+(``kernels.common.plain_twins``).  The TPU kernel has no VJP, so :class:`LSTMSeqFunction`
 supplies one: its forward runs the sequence kernel and saves every step's
 states, its backward runs the backward kernel (``ref.lstm_seq_backward_ref``
 on the CPU) and forms the weight gradients from the gate cotangents.  The
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import is_cpu
+from repro_torch.kernels.common import use_twin
 from repro_torch.kernels.lstm_cell.kernel import (lstm_cell_cuda, lstm_seq_backward_cuda,
                                                   lstm_seq_cuda)
 from repro_torch.kernels.lstm_cell.ref import (lstm_cell_ref, lstm_seq_backward_ref,
@@ -26,7 +27,7 @@ from repro_torch.kernels.lstm_cell.ref import (lstm_cell_ref, lstm_seq_backward_
 def lstm_cell(x, h, c, wx, wh, b):
     """(h', c') of one timestep, with or without the lane axis; shapes as
     in ``ref.lstm_cell_ref``."""
-    if is_cpu(x):
+    if use_twin(x):
         return lstm_cell_ref(x, h, c, wx, wh, b)
     return lstm_cell_cuda(x, h, c, wx, wh, b)
 
@@ -39,7 +40,7 @@ def lstm_seq(x_seq, h0, c0, wx, wh, b, save: bool = False):
     """The final states (h_T, c_T), or with ``save`` the states before and
     after every step (h_seq, c_seq), (L, T+1, B, H); with or without the
     lane axis."""
-    if is_cpu(x_seq):
+    if use_twin(x_seq):
         h_seq, c_seq = lstm_seq_ref(x_seq, h0, c0, wx, wh, b)
         return (h_seq, c_seq) if save else (h_seq[..., -1, :, :], c_seq[..., -1, :, :])
     if x_seq.dim() == 3:
@@ -48,17 +49,19 @@ def lstm_seq(x_seq, h0, c0, wx, wh, b, save: bool = False):
     return lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save=save)
 
 
-def lstm_seq_backward(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx=True):
+def lstm_seq_backward(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx=True,
+                      twin=None):
     """The gradient of :func:`lstm_seq` from its saved states:
     (dgates, dh0, dc0, dx_seq, dwx, dwh, db) as ``ref.lstm_seq_backward_ref``
     returns them.  On the card the kernel gives dgates, dh0 and dc0, and
     the weight gradients are one batched product each over the T * B rows
-    of a lane; dx_seq is formed only with ``need_dx`` (else None)."""
-    if is_cpu(x_seq):
+    of a lane; dx_seq is formed only with ``need_dx`` (else None).
+    ``twin`` is the forward's selection (None: select here)."""
+    if use_twin(x_seq) if twin is None else twin:
         return lstm_seq_backward_ref(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last)
     if x_seq.dim() == 3:
         out = lstm_seq_backward(*_lanes(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last),
-                                need_dx=need_dx)
+                                need_dx=need_dx, twin=False)
         return tuple(None if t is None else t[0] for t in out)
     dgates, dh0, dc0 = lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b,
                                               dh_last.contiguous(), dc_last.contiguous())
@@ -80,6 +83,10 @@ class LSTMSeqFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_seq, h0, c0, wx, wh, b):
+        # the backward keeps the forward's kernel selection: autograd runs a
+        # CUDA backward on its own thread, where ``plain_twins()`` (a
+        # context variable of the caller's thread) is not set
+        ctx.twin = use_twin(x_seq)
         h_seq, c_seq = lstm_seq(x_seq, h0, c0, wx, wh, b, save=True)
         ctx.save_for_backward(x_seq, h_seq, c_seq, wx, wh, b)
         return h_seq[..., -1, :, :].clone(), c_seq[..., -1, :, :].clone()
@@ -87,7 +94,8 @@ class LSTMSeqFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh_last, dc_last):
         _, dh0, dc0, dx, dwx, dwh, db = lstm_seq_backward(
-            *ctx.saved_tensors, dh_last, dc_last, need_dx=ctx.needs_input_grad[0])
+            *ctx.saved_tensors, dh_last, dc_last, need_dx=ctx.needs_input_grad[0],
+            twin=ctx.twin)
         return dx, dh0, dc0, dwx, dwh, db
 
 

@@ -10,7 +10,8 @@ state in that format, requantizes refreshed rows with
 :func:`compressed_nbytes` is the byte count the cost model prices.
 
 A CPU tensor runs the plain twin (``ref.py``); a CUDA tensor launches the
-hand-written kernel (``kernel.py``) or raises.  ``dequantize_flat_batched``
+hand-written kernel (``kernel.py``) or raises, unless the caller selected
+the twins (``kernels.common.plain_twins``).  ``dequantize_flat_batched``
 is plain torch on every device, as the JAX package leaves it to XLA.
 """
 
@@ -20,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import is_cpu
+from repro_torch.kernels.common import use_twin
 from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
 from repro_torch.kernels.quantize.ref import (TILE, dequantize_batched_ref,
                                               dequantize_ref, quantize_batched_ref)
@@ -61,7 +62,7 @@ def quantize_flat_batched(x: torch.Tensor):
     without B for one row.  A
     row whose length is not a multiple of TILE quantizes as if padded with
     zeros, which is what the reference's callers pad it with."""
-    if is_cpu(x):
+    if use_twin(x):
         return quantize_batched_ref(x)
     return quantize_cuda(x.contiguous())
 
@@ -79,6 +80,6 @@ def compress_update(vec: torch.Tensor):
 
 def decompress_update(q: torch.Tensor, scales: torch.Tensor, orig_len: int) -> torch.Tensor:
     """The inverse of :func:`compress_update`: (orig_len,) fp32."""
-    if is_cpu(q):
+    if use_twin(q):
         return dequantize_ref(q, scales, orig_len)
     return dequantize_cuda(q.contiguous(), scales.contiguous(), orig_len)

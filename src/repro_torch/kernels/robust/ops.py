@@ -15,7 +15,8 @@ so every clip decision runs through the same code.
   correction.  It reports which active contributors were clipped.
 
 A CPU tensor runs the plain twins (``ref.py``); a CUDA tensor launches the
-hand-written kernels (``kernel.py``) or raises.  ``clip_factors`` and the
+hand-written kernels (``kernel.py``) or raises, unless the caller selected
+the twins (``kernels.common.plain_twins``).  ``clip_factors`` and the
 denominator correction are small (R, N) tensor ops on either device.
 """
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import is_cpu
+from repro_torch.kernels.common import use_twin
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
 from repro_torch.kernels.robust import kernel as _k
 from repro_torch.kernels.robust import ref as _ref
@@ -34,42 +35,42 @@ ROBUST_METHODS = ("none", "clip", "trimmed_mean", "median")
 
 def trimmed_mean_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L), weights (R, N) -> (R, L) fp32."""
-    if is_cpu(updates):
+    if use_twin(updates):
         return _ref.trimmed_mean_batched_ref(updates, weights)
     return _k.trimmed_mean_cuda(updates, weights)
 
 
 def trimmed_mean_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024), weights (R, N) -> (R, Lp)."""
-    if is_cpu(q):
+    if use_twin(q):
         return _ref.trimmed_mean_batched_q8_ref(q, scales, weights)
     return _k.trimmed_mean_q8_cuda(q, scales, weights)
 
 
 def median_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L), weights (R, N) -> (R, L) fp32."""
-    if is_cpu(updates):
+    if use_twin(updates):
         return _ref.median_batched_ref(updates, weights)
     return _k.median_cuda(updates, weights)
 
 
 def median_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024), weights (R, N) -> (R, Lp)."""
-    if is_cpu(q):
+    if use_twin(q):
         return _ref.median_batched_q8_ref(q, scales, weights)
     return _k.median_q8_cuda(q, scales, weights)
 
 
 def l2norm_flat_batched(updates: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L) -> (R, N) fp32 L2 norms (clip screening)."""
-    sq = (_ref.sqnorm_batched_ref(updates) if is_cpu(updates)
+    sq = (_ref.sqnorm_batched_ref(updates) if use_twin(updates)
           else _k.sqnorm_cuda(updates))
     return torch.sqrt(sq)
 
 
 def l2norm_flat_batched_q8(q, scales) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024) -> (R, N) fp32 norms."""
-    sq = (_ref.sqnorm_batched_q8_ref(q, scales) if is_cpu(q)
+    sq = (_ref.sqnorm_batched_q8_ref(q, scales) if use_twin(q)
           else _k.sqnorm_q8_cuda(q, scales))
     return torch.sqrt(sq)
 

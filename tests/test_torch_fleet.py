@@ -27,6 +27,7 @@ from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig,  # noqa: 
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E402
                                 MLPClassifier, MLPClassifierConfig)
 from repro_torch.utils.tree import from_jax_params, to_numpy, tree_leaves  # noqa: E402
+from repro_torch.telemetry import Timeline, TraceConfig  # noqa: E402
 
 CPU = torch.device("cpu")
 # rounds of lane-batched Adam fits and refreshes: fp32 rounding in another order
@@ -270,18 +271,48 @@ _AC = tcore.AdversaryConfig(p_byzantine=0.5)
     (dict(adversary=_AC, faults=object()), {}),
     (dict(adversary=_AC, robust="clip", cadence=object()), {}),
     (dict(adversary=_AC, mobility=object()), {}),
-    # under a baseline method: fault pricing and the exports
+    # under a baseline method: fault pricing and the profiler fields
     (dict(faults=object()), dict(method="dfl")),
     (dict(faults=object()), dict(method="cfl")),
-    ({}, dict(method="dfl", timeline=object())), ({}, dict(method="cfl", trace=object())),
+    ({}, dict(method="dfl", trace=TraceConfig(hlo_stats=True))),
+    ({}, dict(method="cfl", trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(checkpoint_dir="ckpt")), ({}, dict(resume_from="ckpt")),
-    ({}, dict(timeline=object())), ({}, dict(trace=object()))])
+    ({}, dict(trace=TraceConfig(jax_profiler_dir="prof"))),
+    ({}, dict(trace=TraceConfig(hlo_stats=True)))])
 def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):
     task, train, test, fleet, states, cfg = _one_lane_world(None)
     cfg = dataclasses.replace(cfg, **knob)
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
         tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
                         device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("method", ["enfed", "cfl", "dfl"])
+def test_fleet_accepts_a_timeline_and_records_its_spans(method):
+    """``timeline`` and a TraceConfig of exports are accepted (the exports
+    are written by ``Experiment.run``); the run records the stage, the round
+    loop and the unpack, and its outcome is the untimed run's bits."""
+    task, train, test, fleet, states, cfg = _one_lane_world(None)
+    tl = Timeline()
+    runs = [tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
+                            method=method, device="cpu", **kw)
+            for kw in ({}, dict(timeline=tl, trace=TraceConfig(events_jsonl="x.jsonl")))]
+    assert runs[1].timeline is tl and runs[1].hlo_stats is None
+    assert [sp.name for sp in tl.spans if sp.depth == 0] == ["stage", "program", "unpack"]
+    assert all(sp.dur >= 0 for sp in tl.spans)
+    for a, b in zip(tree_leaves(runs[0].sessions[0].params),
+                    tree_leaves(runs[1].sessions[0].params)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("knob,match", [
+    (dict(round_chunk=0), "round_chunk"), (dict(checkpoint_every=-1), "checkpoint_every"),
+    (dict(interpret=True), "use_pallas=False")])
+def test_fleet_validates_its_execution_knobs(knob, match):
+    task, train, test, fleet, states, cfg = _one_lane_world(None)
+    with pytest.raises(ValueError, match=match):
+        tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
+                        device="cpu", **knob)
 
 
 def test_fleet_without_device_raises_on_a_host_without_gpu(monkeypatch):

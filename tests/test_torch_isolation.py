@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
+    ROOT / "examples" / "torch_har_federated.py"]
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 _PROBE = """
@@ -58,6 +59,11 @@ def test_every_new_port_module_is_checked():
     assert {"src/repro_torch/core/fleet.py", "src/repro_torch/kernels/quantize/ops.py",
             "src/repro_torch/kernels/quantize/kernel.py",
             "src/repro_torch/kernels/quantize/ref.py"} <= names
+    assert {f"src/repro_torch/api/{m}.py"
+            for m in ("__init__", "specs", "result", "methods", "experiment")} <= names
+    assert {f"src/repro_torch/telemetry/{m}.py"
+            for m in ("__init__", "spans", "events", "config", "export")} <= names
+    assert "examples/torch_har_federated.py" in names
 
 
 def test_session_without_device_raises_on_a_host_without_gpu(monkeypatch):

@@ -901,3 +901,84 @@ def test_launchers_declare_pointer_args_as_void_p():
                      rk._COLUMN_Q8_ARGTYPES, rk._SQNORM_ARGTYPES, rk._SQNORM_Q8_ARGTYPES):
         assert argtypes[-1] is ctypes.c_void_p            # the stream
         assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}
+
+
+def test_plain_twin_selection_routes_cuda_tensors_only_inside_the_block():
+    from repro_torch.kernels import common
+
+    card = SimpleNamespace(is_cuda=True, is_cpu=False)
+    assert common.use_twin(torch.zeros(1)) and not common.use_twin(card)
+    with common.plain_twins():
+        assert common.plain_twins_selected() and common.use_twin(card)
+        with common.plain_twins():
+            assert common.use_twin(card)
+        assert common.use_twin(card)
+    assert not common.plain_twins_selected() and not common.use_twin(card)
+    with pytest.raises(ValueError, match="unsupported device"):
+        common.use_twin(torch.zeros(1, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_use_pallas_false_launches_no_kernel_on_the_card(cuda_device, engine):
+    """``ExecutionSpec(use_pallas=False)`` on the card runs the plain twins
+    (no kernel launched) and its event stream matches the kernels' run:
+    the LSTM world with the int8 wire, AES and the clip defense."""
+    from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
+    from repro_torch.core import AdversaryConfig, SupervisedTask, make_fleet
+    from repro_torch.data import HARDatasetConfig, dirichlet_partition, make_har_windows
+    from repro_torch.models import LSTMClassifier, LSTMClassifierConfig
+    from repro_torch.telemetry import compare_event_streams
+
+    x, y, _ = make_har_windows(HARDatasetConfig(num_samples=400, seq_len=8))
+    shards = [(x[p], y[p]) for p in dirichlet_partition(y, num_clients=4, alpha=1.0, seed=0)]
+    task = SupervisedTask(LSTMClassifier(LSTMClassifierConfig(input_dim=6, seq_len=8,
+                                                              hidden=16),
+                                         device=cuda_device), lr=3e-3)
+    fleet = make_fleet(3, seed=1, p_has_model=1.0)
+    states = {}
+    for i, d in enumerate(fleet):
+        d.reservation_price = 0.4
+        states[d.device_id] = {"params": task.init(10 + i), "data": shards[i + 1]}
+    n = int(len(shards[0][0]) * 0.8)
+    method = MethodSpec(desired_accuracy=1.01, max_rounds=2, epochs=1, batch_size=16,
+                        compress="int8", robust="clip",
+                        adversary=AdversaryConfig(p_byzantine=0.5, seed=7))
+    runs = {}
+    for use_pallas in (True, False):
+        world = WorldSpec.single(task, (shards[0][0][:n], shards[0][1][:n]),
+                                 (shards[0][0][n:], shards[0][1][n:]), fleet,
+                                 {k: dict(v) for k, v in states.items()}, device=cuda_device)
+        kernels.reset_launch_counts()
+        runs[use_pallas] = Experiment(world, method, ExecutionSpec(
+            engine=engine, use_pallas=use_pallas)).run()
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        assert (sum(launched.values()) > 0) == use_pallas, launched
+    assert compare_event_streams(runs[True].trace, runs[False].trace) == []
+
+
+def test_lstm_backward_keeps_the_forward_kernel_selection(monkeypatch):
+    """Autograd runs a CUDA backward on its own thread, where the caller's
+    ``plain_twins()`` is not set: the backward follows the forward's
+    selection, made where the forward ran.  Here every tensor stands for a
+    card tensor (``use_twin`` is the selection alone) and the kernels
+    raise."""
+    from repro_torch.kernels import common
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("a kernel was launched under plain_twins()")
+
+    monkeypatch.setattr(lstm_ops, "use_twin", lambda t: common.plain_twins_selected())
+    monkeypatch.setattr(lstm_ops, "lstm_seq_cuda", no_kernel)
+    monkeypatch.setattr(lstm_ops, "lstm_seq_backward_cuda", no_kernel)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 3, 5, generator=g)
+    h0, c0 = torch.zeros(2, 3, 8), torch.zeros(2, 3, 8)
+    wx = torch.randn(2, 5, 32, generator=g).requires_grad_(True)
+    wh = torch.randn(2, 8, 32, generator=g).requires_grad_(True)
+    b = torch.zeros(2, 32, requires_grad=True)
+    with common.plain_twins():
+        h, c = lstm_ops.lstm_seq_autograd(x, h0, c0, wx, wh, b)
+    (h.sum() + c.sum()).backward()          # outside the block
+    assert wx.grad is not None and torch.isfinite(wx.grad).all()

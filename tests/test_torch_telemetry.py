@@ -1,0 +1,333 @@
+"""``repro_torch.telemetry`` on the CPU, case by case the twin of
+``tests/test_telemetry.py`` wherever the world is ported: observation never
+changes the outcome (a traced run is bitwise the untraced one, on both
+engines, in the static and the Byzantine worlds), the two engines' event
+streams on one world are equal, the exporters round-trip schema-valid (a
+Byzantine log included), the Timeline span stack behaves, and each engine
+records its spans.
+"""
+
+import copy
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
+from repro_torch.core import AdversaryConfig, SupervisedTask, make_fleet
+from repro_torch.data import CaloriesDatasetConfig, dirichlet_partition, make_calories_tabular
+from repro_torch.models import MLPClassifier, MLPClassifierConfig
+from repro_torch.telemetry import (EVENT_PHASES, RoundEvent, Timeline, TraceConfig,
+                                   compare_event_streams, read_events_jsonl,
+                                   timeline_chrome_trace, validate_events, write_chrome_trace,
+                                   write_events_jsonl)
+from repro_torch.utils.tree import tree_leaves
+
+CPU = torch.device("cpu")
+BATCH = 16
+
+_METHOD = MethodSpec(desired_accuracy=0.99, max_rounds=2, epochs=1, batch_size=BATCH,
+                     encrypt=False, contributor_refresh_epochs=1)
+_ADVERSARY = AdversaryConfig(p_byzantine=0.5, attack="noise", scale=10.0, seed=7)
+
+# world name -> method: the weather regimes the house rule is enforced on
+_WORLDS = {
+    "static": _METHOD,
+    "byzantine": dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
+                                     adversary=_ADVERSARY, robust="clip"),
+    "byzantine-int8": dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
+                                          adversary=_ADVERSARY, robust="clip",
+                                          compress="int8", encrypt=True),
+}
+
+LOOP_SPANS = {"handshake", "transport", "fit", "refresh"}
+FLEET_SPANS = {"stage", "program", "unpack"}
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """The reference's test world (calories MLP, 600 samples, 3
+    contributors pretrained one epoch), in the port on the CPU."""
+    x, y = make_calories_tabular(CaloriesDatasetConfig(num_samples=600))
+    task = SupervisedTask(MLPClassifier(MLPClassifierConfig(8, (16,), 5), device=CPU),
+                          lr=3e-3)
+    parts = dirichlet_partition(y, num_clients=4, alpha=100.0, seed=0)
+    shards = [(x[p], y[p]) for p in parts]
+    own_x, own_y = shards[0]
+    n = int(len(own_x) * 0.8)
+    fleet = make_fleet(3, seed=1, p_has_model=1.0)
+    states = {}
+    for i, dev in enumerate(fleet):
+        dev.reservation_price = 0.4
+        p, _ = task.fit(task.init(seed=10 + i), shards[i + 1], epochs=1, batch_size=BATCH,
+                        seed=i)
+        states[dev.device_id] = {"params": p, "data": shards[i + 1]}
+    return task, (own_x[:n], own_y[:n]), (own_x[n:], own_y[n:]), fleet, states
+
+
+def _world(problem):
+    task, own_train, own_test, fleet, states = problem
+    return WorldSpec.single(task, own_train, own_test, fleet, copy.deepcopy(states),
+                            device="cpu")
+
+
+def _assert_outcome_bitwise(a, b):
+    """Two RunResults computed the identical simulation: params, every
+    history buffer (masks, battery), rounds, stop reason."""
+    assert a.rounds == b.rounds
+    assert a.stop_reason == b.stop_reason
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert set(a.history_raw) == set(b.history_raw)
+    for k in a.history_raw:
+        ha, hb = a.history_raw[k], b.history_raw[k]
+        assert len(ha) == len(hb), f"history[{k!r}] length"
+        for r, (ra, rb) in enumerate(zip(ha, hb)):
+            np.testing.assert_array_equal(np.asarray(ra), np.asarray(rb),
+                                          err_msg=f"history[{k!r}][{r}]")
+
+
+# ---------------------------------------------------------------------------
+# the house rule: tracing on == tracing off, bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world_name", ["static", "byzantine-int8"])
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name, tmp_path):
+    method = _WORLDS[world_name]
+    trace = TraceConfig(events_jsonl=str(tmp_path / "events.jsonl"),
+                        chrome_trace=str(tmp_path / "trace.json"))
+    off = Experiment(_world(problem), method, ExecutionSpec(engine=engine)).run()
+    on = Experiment(_world(problem), method, ExecutionSpec(engine=engine, trace=trace)).run()
+    _assert_outcome_bitwise(off, on)
+    assert (tmp_path / "events.jsonl").exists()
+    assert (tmp_path / "trace.json").exists()
+    assert on.timings
+    assert on.hlo_stats is None
+
+
+# ---------------------------------------------------------------------------
+# cross-engine event-stream equality
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world_name", list(_WORLDS))
+def test_event_streams_equal_across_engines(problem, world_name):
+    method = _WORLDS[world_name]
+    loop = Experiment(_world(problem), method, ExecutionSpec(engine="loop")).run()
+    fl = Experiment(_world(problem), method, ExecutionSpec(engine="fleet")).run()
+    assert compare_event_streams(validate_events(loop.trace), validate_events(fl.trace)) == []
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_byzantine_world_events_carry_the_sets(problem, engine):
+    """The corrupted and clipped sets surface in the normalized stream, not
+    just in raw history; the honest world leaves them None."""
+    res = Experiment(_world(problem), _WORLDS["byzantine"],
+                     ExecutionSpec(engine=engine)).run()
+    rounds = [e for e in res.trace if e.phase == "round"]
+    assert all(e.corrupted is not None and e.clipped is not None for e in rounds)
+    assert sum(len(e.corrupted) for e in rounds) > 0
+    assert [e.corrupted for e in rounds] == [
+        tuple(int(i) for i in np.nonzero(np.asarray(m) > 0.5)[0])
+        for m in res.history_raw["corrupted_mask"]]
+    mb = res.sessions[0].model_bytes
+    assert mb > 0 and all(e.wire_bytes == mb * res.sessions[0].n_contributors
+                          for e in rounds)
+    stops = [e for e in res.trace if e.phase == "stop"]
+    assert len(stops) == 1 and stops[0].stop_reason == res.stop_reason
+    assert res.corruption_summary["rounds"] == len(rounds)
+    honest = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
+    assert all(e.corrupted is None and e.clipped is None for e in honest.trace)
+    assert honest.corruption_summary is None
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_lockstep_world_events_leave_lane_clocks_none(problem, engine):
+    """The lockstep world has no cadence concept: clock/idle stay None
+    (absence, not zero), as the session's own trace view says too."""
+    res = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
+    assert all(e.clock is None and e.idle is None for e in res.trace)
+    assert res.sessions[0].trace == res.trace
+
+
+# ---------------------------------------------------------------------------
+# exporters: JSONL round-trip, schema validation, Chrome trace
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world_name", ["static", "byzantine"])
+def test_events_jsonl_round_trips(problem, world_name, tmp_path):
+    """A Byzantine log round-trips too: every field the schema types as a
+    tuple (corrupted and clipped included) comes back a tuple."""
+    res = Experiment(_world(problem), _WORLDS[world_name],
+                     ExecutionSpec(engine="loop")).run()
+    path = str(tmp_path / "events.jsonl")
+    n = write_events_jsonl(res.trace, path)
+    back = read_events_jsonl(path)
+    assert n == len(back) == len(res.trace)
+    assert back == res.trace          # frozen dataclasses: field equality
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == n
+    assert all(row["phase"] in EVENT_PHASES for row in rows)
+    if world_name == "byzantine":
+        assert any(isinstance(row["corrupted"], list) and row["corrupted"] for row in rows)
+        assert all(isinstance(e.corrupted, tuple) for e in back if e.phase == "round")
+
+
+def _event(**over):
+    base = dict(round=0, requester=0, phase="round", executed=True,
+                members=None, member_set=None, delivered=None,
+                drops=0.0, retries=0.0, stale=0.0, battery=None,
+                accuracy=0.5, loss=None, wire_bytes=0, energy_j=None,
+                stop_reason=None)
+    base.update(over)
+    return RoundEvent(**base)
+
+
+def test_byzantine_event_log_round_trips_every_tuple_field(tmp_path):
+    events = [_event(corrupted=(1,), clipped=(0, 2), member_set=(0, 1, 2), delivered=(1,)),
+              _event(round=1, phase="stop", stop_reason="max_rounds")]
+    path = str(tmp_path / "events.jsonl")
+    write_events_jsonl(events, path)
+    assert read_events_jsonl(path) == events
+
+
+def test_validate_events_rejects_schema_violations():
+    ok = [_event(), _event(round=1),
+          _event(round=2, phase="stop", stop_reason="accuracy_reached")]
+    assert validate_events(ok) == ok
+    with pytest.raises(ValueError, match="phase"):
+        validate_events([_event(phase="negotiate")])
+    with pytest.raises(ValueError, match="stop_reason"):
+        validate_events([_event(phase="stop")])          # stop w/o reason
+    with pytest.raises(ValueError, match="stop_reason"):
+        validate_events([_event(stop_reason="oops")])    # reason on round
+    with pytest.raises(ValueError, match="does not follow"):
+        validate_events([_event(), _event(round=2)])     # round gap
+    with pytest.raises(ValueError, match="already stopped"):
+        validate_events([_event(phase="stop", stop_reason="x"), _event(round=1)])
+    with pytest.raises(ValueError, match="bool"):
+        validate_events([_event(wire_bytes=True)])       # bool is not int
+    with pytest.raises(ValueError, match="accuracy"):
+        validate_events([_event(accuracy=None)])         # non-noneable
+    with pytest.raises(ValueError, match="corrupted has type list"):
+        validate_events([_event(corrupted=[1])])         # tuple fields stay tuples
+
+
+def test_compare_event_streams_reports_diffs():
+    a = [_event(accuracy=0.5)]
+    assert compare_event_streams(a, [_event(accuracy=0.5 + 1e-6)]) == []
+    assert compare_event_streams(a, [_event(accuracy=0.9)])
+    assert compare_event_streams(a, [_event(drops=1.0)])
+    assert compare_event_streams(a, [_event(corrupted=(1,))])
+    assert compare_event_streams(a, a + [_event(round=1)])
+
+
+def test_chrome_trace_structure(tmp_path):
+    tl = Timeline()
+    with tl.span("stage", what="x"):
+        with tl.span("quantize_pack"):
+            pass
+    with tl.span("program"):
+        pass
+    doc = timeline_chrome_trace(tl)
+    assert set(doc) == {"traceEvents", "displayTimeUnit"}
+    evs = doc["traceEvents"]
+    assert [e["name"] for e in evs] == ["stage", "quantize_pack", "program"]
+    for e in evs:
+        assert e["ph"] == "X" and e["ts"] >= 0 and e["dur"] >= 0
+        assert e["cat"] == "repro"
+    assert evs[0]["args"] == {"what": "x"}
+    # nested span lies inside its parent on the µs timeline
+    assert evs[1]["ts"] >= evs[0]["ts"]
+    assert evs[1]["ts"] + evs[1]["dur"] <= evs[0]["ts"] + evs[0]["dur"]
+    path = str(tmp_path / "trace.json")
+    assert write_chrome_trace(tl, path) == 3
+    with open(path) as f:
+        assert json.load(f) == doc
+
+
+# ---------------------------------------------------------------------------
+# Timeline spans, and the spans each engine records
+# ---------------------------------------------------------------------------
+
+
+def test_timeline_nesting_and_totals():
+    tl = Timeline()
+    with tl.span("outer"):
+        with tl.span("inner"):
+            pass
+        with tl.span("inner"):
+            pass
+    outer, i1, i2 = tl.spans
+    assert (outer.depth, i1.depth, i2.depth) == (0, 1, 1)
+    assert i1.parent == 0 and i2.parent == 0
+    totals = tl.totals()
+    assert totals["inner"] <= totals["outer"]
+    assert tl.total("inner") == totals["inner"]
+    assert tl.total("missing") == 0.0
+
+
+def test_timeline_finish_is_strictly_lifo():
+    tl = Timeline()
+    a = tl.begin("a")
+    tl.begin("b")
+    with pytest.raises(RuntimeError, match="innermost"):
+        tl.finish(a)
+
+
+def test_open_span_excluded_from_totals_and_trace():
+    tl = Timeline()
+    tl.begin("open")
+    assert tl.totals() == {}
+    assert timeline_chrome_trace(tl)["traceEvents"] == []
+
+
+@pytest.mark.parametrize("world_name", ["static", "byzantine-int8"])
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_engines_record_their_spans(problem, engine, world_name, tmp_path):
+    path = str(tmp_path / "trace.json")
+    res = Experiment(_world(problem), _WORLDS[world_name],
+                     ExecutionSpec(engine=engine, trace=TraceConfig(chrome_trace=path))).run()
+    want = set(LOOP_SPANS if engine == "loop" else FLEET_SPANS)
+    if engine == "fleet" and world_name == "byzantine-int8":
+        want |= {"quantize_pack", "dequant_unpack"}
+    assert want <= set(res.timings)
+    assert all(v >= 0.0 for v in res.timings.values())
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert want <= names
+    if engine == "loop":
+        rounds = [sp.attrs["round"] for sp in res.timeline.spans if sp.name == "transport"]
+        assert rounds == list(range(res.rounds))
+    else:
+        by_name = {sp.name: sp for sp in res.timeline.spans}
+        assert by_name["program"].depth == 0
+        if "quantize_pack" in want:
+            assert res.timeline.spans[by_name["quantize_pack"].parent].name == "stage"
+            assert res.timeline.spans[by_name["dequant_unpack"].parent].name == "unpack"
+
+
+# ---------------------------------------------------------------------------
+# the ExecutionSpec knob
+# ---------------------------------------------------------------------------
+
+
+def test_execution_spec_rejects_non_trace_config():
+    with pytest.raises(ValueError, match="TraceConfig"):
+        ExecutionSpec(trace={"events_jsonl": "x.jsonl"})
+
+
+@pytest.mark.parametrize("method", ["enfed", "cfl", "cloud"])
+@pytest.mark.parametrize("trace", [TraceConfig(hlo_stats=True),
+                                   TraceConfig(jax_profiler_dir="prof")])
+def test_loop_engine_warns_on_fleet_only_trace_knobs(problem, method, trace):
+    with pytest.warns(UserWarning, match="hlo_stats"):
+        res = Experiment(_world(problem), dataclasses.replace(_METHOD, max_rounds=1),
+                         ExecutionSpec(engine="loop", trace=trace)).run(method)
+    assert res.hlo_stats is None

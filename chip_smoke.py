@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    within 1e-6 of the largest output at every N from 1 to 16, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
    dense kernel on the dequantized buffer; dequantize also bit-equal to
-   one ``torch.mul``, its timing yardstick);
+   one ``torch.mul``, its timing yardstick); and at the shapes the
+   paper-table twins (``benchmarks/_torch_harness.py``) give them, taken
+   from the harness's four scenarios: the LSTM pair at each batch an LSTM
+   world fits and scores (the calories LSTM at F = 8, T = 8), eq. 14 at
+   (1, N, P) for N = 2 ... 6 and AES over one update at each world's P;
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -67,6 +71,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      test's depth (2 rounds of 1 epoch), an enfed fleet run with
      ``use_pallas=False`` that launches no kernel and gives the same event
      stream, and an untraced enfed fleet run bit-equal to the traced one;
+   - the paper-table twins at a cut depth (1 round of 1 epoch, contributors
+     pretrained 1 epoch): the harness's EnFed, CFL, DFL mesh and ring and
+     cloud runs in each of its four worlds (HAR and calories, LSTM and
+     MLP), and EnFed with 2 contributors on the HAR LSTM, each run's
+     outcome and launches checked (eq. 14 once a round at N = the
+     contributors or the 6 CFL clients, AES twice per contributor a round,
+     the LSTM pair in the LSTM worlds only);
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -87,6 +98,7 @@ It imports only ``repro_torch`` (no JAX) and needs one CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -124,14 +136,6 @@ ULP_REL, FAULT_REL = 1e-7, 1e-4
 # the Byzantine world of [4d]: 20 % of the links deliver noise of scale 10
 ADVERSARY = dict(p_byzantine=0.2, attack="noise", scale=10.0, seed=7)
 ADV_ROUNDS = 3
-# the 64-requester Byzantine fleet's accuracy (mean, min) under the column
-# statistics, as the one-column-a-thread kernels gave it on an H100 (NVIDIA
-# H100 80GB HBM3, 700 W); kernels that compute the same bits give the same
-# four digits
-# [4e]: the harness's baseline targets (benchmarks/_harness.py): DFL runs to
-# a generalized model, CFL to an optimized global one, both scored on a
-# holdout of the whole set
-TARGET_DFL, TARGET_CFL = 0.96, 0.98
 BASELINE_FLEET_ROUNDS = 3
 BASELINE_LANES = 6             # the requester's shard and its 5 neighbours
 # the MLP world's loop learners and EnFed session: no method reached its
@@ -146,9 +150,20 @@ MLP_ROUNDS = BASELINE_FLEET_ROUNDS
 # stays near 1e-5 and the fault near 1e-3 (LSTM), 1e-5 to 1e-4 and 6e-3 (MLP)
 BASELINE_ROUND_EPOCHS = 1
 BASELINE_ROUND_TOL = 3e-4
+# the 64-requester Byzantine fleet's accuracy (mean, min) under the column
+# statistics, as the one-column-a-thread kernels gave it on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W); kernels that compute the same bits give the same
+# four digits
 ROBUST_FLEET_ACCURACY = {
     "fp32 trimmed_mean": (0.6511, 0.1333), "int8 trimmed_mean": (0.6496, 0.0588),
     "fp32 median": (0.7676, 0.0556), "int8 median": (0.7658, 0.0556)}
+# [4g]: the paper-table twins' cut, chip_smoke's own: 1 round (the harness's
+# MAX_ROUNDS, 10, patched for the phase) of 1 epoch, contributors pretrained
+# 1 epoch (6 in the harness)
+TABLE_ROUNDS = 1
+TABLE_CUT = dict(epochs=1)
+# the harness's four worlds (dataset, model)
+TABLE_WORLDS = (("har", "lstm"), ("har", "mlp"), ("calories", "lstm"), ("calories", "mlp"))
 
 
 def fail(msg: str) -> None:
@@ -403,7 +418,10 @@ def check_lstm(dev, fit_b, score_b, f, h):
     return main_err
 
 
-def check_aes(dev, main_n, int8_n, mlp_n):
+def check_aes(dev, main_n, int8_n, mlp_n, table_ns=()):
+    """AES byte-exact with its twin, and decrypt(encrypt(x)) = x, at the
+    main paths' payloads, edge sizes and ``table_ns``: one fp32 update of
+    each paper-table world, ``{name: bytes}``."""
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
@@ -414,7 +432,8 @@ def check_aes(dev, main_n, int8_n, mlp_n):
     nonce = torch.from_numpy(rng.integers(0, 256, 8).astype(np.uint8)).to(dev)
     for name, n, offset in [("main", main_n, 0), ("int8 wire", int8_n, 0), ("MLP", mlp_n, 0),
                             ("n%16!=0", main_n + 5, 0), ("n<16", 7, 0), ("n=16", 16, 0),
-                            ("unaligned", 1000 + 3, 1)]:
+                            ("unaligned", 1000 + 3, 1),
+                            *((name, n, 0) for name, n in dict(table_ns).items())]:
         buf = torch.from_numpy(rng.integers(0, 256, n + offset).astype(np.uint8)).to(dev)
         pay = buf[offset:]
         got = aes_ctr_cuda(pay, rk, nonce, tables)
@@ -469,17 +488,9 @@ def check_lstm_seq(dev, spec, n_params, fit_b, score_b, fleet_score_b, seq_len):
     and (384, fleet score), T = ``seq_len``; past one lane the weights are
     ``tree_unravel`` views of a flat (L, P) buffer (fp32 fit), of an
     (L, Lp)[:, :P] slice (int8) or of an (L, 6P)[:, :P] slice (the dfl
-    fleet scores node 0 of its (R, 6, P) state in place).  The forward must
-    agree with its twin within 1e-5 on h_T, c_T and every saved state; the
-    backward (from the kernel's saved states) within 1e-4 of each twin
-    output's largest value on dgates, dh0, dc0 and on the weight gradients
-    the wrapper forms from dgates.  Returns the largest forward and backward
-    abs errors."""
-    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
-    from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward
-    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
-    from repro_torch.utils.tree import tree_unravel
-
+    fleet scores node 0 of its (R, 6, P) state in place), each held to its
+    twin by :func:`lstm_seq_case`.  Returns the largest forward and
+    backward abs errors."""
     g = torch.Generator().manual_seed(13)
     lp = n_params + (-n_params) % TILE
     fwd_worst = bwd_worst = 0.0
@@ -493,41 +504,104 @@ def check_lstm_seq(dev, spec, n_params, fit_b, score_b, fleet_score_b, seq_len):
                                   ("baseline score", base_lanes, fleet_score_b, n_params),
                                   ("dfl score", FLEET_R, fleet_score_b,
                                    BASELINE_LANES * n_params)]:
-        buf = torch.randn((lanes, width), generator=g).to(dev) * 0.3
-        p = tree_unravel(spec, buf[:, :n_params])
-        wx, wh, bias = p["wx"], p["wh"], p["b"]
-        f, h = wx.shape[1], wh.shape[1]
-        x = torch.randn((lanes, seq_len, b, f), generator=g).to(dev)
-        h0, c0, dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) * 0.5
-                          for _ in range(4))
-        hs, cs = lstm_seq_cuda(x, h0, c0, wx, wh, bias, save=True)
-        h_t, c_t = lstm_seq_cuda(x, h0, c0, wx, wh, bias)
-        torch.cuda.synchronize()
-        hr, cr = lstm_seq_ref(x, h0, c0, wx, wh, bias)
-        ferr = max(float((hs - hr).abs().max()), float((cs - cr).abs().max()))
-        if not ferr <= 1e-5:
-            fail(f"lstm_seq forward {name} L,B,T={lanes},{b},{seq_len}: max abs err {ferr}")
-        if not (torch.equal(h_t, hs[:, -1]) and torch.equal(c_t, cs[:, -1])
-                and torch.equal(hs[:, 0], h0) and torch.equal(cs[:, 0], c0)):
-            fail(f"lstm_seq forward {name}: final or initial states differ from the saved ones")
-        dgates, dh0, dc0 = lstm_seq_backward_cuda(x, hs, cs, wx, wh, bias, dh, dc)
-        full = lstm_seq_backward(x, hs, cs, wx, wh, bias, dh, dc, need_dx=False)
-        torch.cuda.synchronize()
-        want = lstm_seq_backward_ref(x, hs, cs, wx, wh, bias, dh, dc)
-        parts = []
-        for out, got, w in zip(("dgates", "dh0", "dc0", "dwx", "dwh", "db"),
-                               (dgates, dh0, dc0) + tuple(full[4:]), want[:3] + want[4:]):
-            err = float((got - w).abs().max())
-            scale = float(w.abs().max())
-            if not err <= 1e-4 * scale:
-                fail(f"lstm_seq backward {name} {out}: max abs err {err} (largest {scale})")
-            parts.append(f"{out} {err:.2e}/{scale:.2e}")
-            bwd_worst = max(bwd_worst, err)
-        fwd_worst = max(fwd_worst, ferr)
-        print(f"  lstm_seq {name:14s} L,B,F,H,T={lanes},{b},{f},{h},{seq_len}, lane stride "
-              f"{wx.stride(0)}: forward max abs err {ferr:.3e}; backward err/largest "
-              + ", ".join(parts))
+        ferr, berr = lstm_seq_case(dev, g, spec, n_params, name, lanes, b, width, seq_len)
+        fwd_worst, bwd_worst = max(fwd_worst, ferr), max(bwd_worst, berr)
     return fwd_worst, bwd_worst
+
+
+def lstm_seq_case(dev, g, spec, n_params, name, lanes, b, width, seq_len):
+    """One (L, B, T) case of the LSTM pair, its weights views of a flat
+    (L, ``width``)[:, :P] buffer: the forward within 1e-5 of its twin on
+    h_T, c_T and every saved state; the backward (from the kernel's saved
+    states) within 1e-4 of each twin output's largest value on dgates, dh0,
+    dc0 and on the weight gradients the wrapper forms from dgates.  Returns
+    the forward's and the backward's largest abs errors."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+    from repro_torch.utils.tree import tree_unravel
+
+    buf = torch.randn((lanes, width), generator=g).to(dev) * 0.3
+    p = tree_unravel(spec, buf[:, :n_params])
+    wx, wh, bias = p["wx"], p["wh"], p["b"]
+    f, h = wx.shape[1], wh.shape[1]
+    x = torch.randn((lanes, seq_len, b, f), generator=g).to(dev)
+    h0, c0, dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) * 0.5
+                      for _ in range(4))
+    hs, cs = lstm_seq_cuda(x, h0, c0, wx, wh, bias, save=True)
+    h_t, c_t = lstm_seq_cuda(x, h0, c0, wx, wh, bias)
+    torch.cuda.synchronize()
+    hr, cr = lstm_seq_ref(x, h0, c0, wx, wh, bias)
+    ferr = max(float((hs - hr).abs().max()), float((cs - cr).abs().max()))
+    if not ferr <= 1e-5:
+        fail(f"lstm_seq forward {name} L,B,T={lanes},{b},{seq_len}: max abs err {ferr}")
+    if not (torch.equal(h_t, hs[:, -1]) and torch.equal(c_t, cs[:, -1])
+            and torch.equal(hs[:, 0], h0) and torch.equal(cs[:, 0], c0)):
+        fail(f"lstm_seq forward {name}: final or initial states differ from the saved ones")
+    dgates, dh0, dc0 = lstm_seq_backward_cuda(x, hs, cs, wx, wh, bias, dh, dc)
+    full = lstm_seq_backward(x, hs, cs, wx, wh, bias, dh, dc, need_dx=False)
+    torch.cuda.synchronize()
+    want = lstm_seq_backward_ref(x, hs, cs, wx, wh, bias, dh, dc)
+    parts = []
+    berr = 0.0
+    for out, got, w in zip(("dgates", "dh0", "dc0", "dwx", "dwh", "db"),
+                           (dgates, dh0, dc0) + tuple(full[4:]), want[:3] + want[4:]):
+        err = float((got - w).abs().max())
+        scale = float(w.abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"lstm_seq backward {name} {out}: max abs err {err} (largest {scale})")
+        parts.append(f"{out} {err:.2e}/{scale:.2e}")
+        berr = max(berr, err)
+    print(f"  lstm_seq {name:14s} L,B,F,H,T={lanes},{b},{f},{h},{seq_len}, lane stride "
+          f"{wx.stride(0)}: forward max abs err {ferr:.3e}; backward err/largest "
+          + ", ".join(parts))
+    return ferr, berr
+
+
+def check_table_shapes(dev, scenarios):
+    """The shapes the paper-table twins give the kernels, each read off the
+    harness's scenarios (``{name: Scenario}``): the LSTM pair at one lane,
+    the world's F, T and H, at the fit batch and at every batch the world
+    scores (the requester's test split, the holdout); eq. 14 at (1, N, P)
+    for N = 2 ... 6 at each world's P, weighted as EnFed (uniform) and the
+    CFL server (shard sizes, N = 6) weigh it, within 1e-6 of the largest
+    output (AES over each world's update: :func:`check_aes`).  Returns the
+    largest errors of eq. 14 and of the LSTM pair."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_ravel
+
+    g = torch.Generator().manual_seed(21)
+    worst = {"fedavg": 0.0, "lstm_cell": 0.0, "lstm_cell_bwd": 0.0}
+    for name, sc in scenarios.items():
+        flat, spec = tree_ravel(sc.task.init(0))
+        p = int(flat.numel())
+        sizes = [float(len(s[0])) for s in sc.shards]
+        fed = 0.0
+        for n in range(2, harness().N_CLIENTS + 1):
+            u = torch.randn((1, n, p), generator=g).to(dev)
+            for how, w in (("uniform", [1.0] * n), ("shard sizes", sizes[:n])):
+                w_t = torch.tensor([w], device=dev)
+                got = fedavg_batched_cuda(u, w_t)
+                torch.cuda.synchronize()
+                want = fedavg_batched_ref(u, w_t)
+                err = float((got - want).abs().max())
+                if not err <= 1e-6 * max(float(want.abs().max()), 1.0):
+                    fail(f"fedavg {name} R,N,L=1,{n},{p} ({how}): max abs err {err}")
+                fed = max(fed, err)
+        print(f"  fedavg {name:13s} R=1, N=2..{harness().N_CLIENTS}, L={p} (uniform and "
+              f"shard-size weights): max abs err {fed:.3e}")
+        worst["fedavg"] = max(worst["fedavg"], fed)
+        if isinstance(sc.task.model, LSTMClassifier):
+            cfg = sc.task.model.cfg
+            for what, b in (("fit", harness().BATCH), ("score test", len(sc.own_test[0])),
+                            ("score holdout", len(sc.global_test[0]))):
+                ferr, berr = lstm_seq_case(dev, g, spec, p, f"{name} {what}", 1, b, p,
+                                           cfg.seq_len)
+                worst["lstm_cell"] = max(worst["lstm_cell"], ferr)
+                worst["lstm_cell_bwd"] = max(worst["lstm_cell_bwd"], berr)
+    return worst
 
 
 def near_tie_rows(seed, rows=16):
@@ -775,7 +849,7 @@ def check_robust(dev, n_params, n_contrib):
 
 
 class LSTMPasses:
-    """Counts the forward passes of the world's LSTM (calls of its
+    """Counts the forward passes of one LSTM on the card (calls of its
     ``lane_logits``, through which every path reaches the cell) and, of
     those, the ones made with grad mode on, each of which a backward
     follows."""
@@ -791,7 +865,16 @@ class LSTMPasses:
         return self.inner(params, x)
 
 
-PASSES = None   # the LSTMPasses of the world's model, set in main()
+PASSES = []     # the LSTMPasses of every LSTM the paths run on the card (watch)
+
+
+def watch(model) -> None:
+    """Counts ``model``'s passes, if it is an LSTM (an MLP launches no
+    kernel of the pair)."""
+    from repro_torch.models import LSTMClassifier
+
+    if isinstance(model, LSTMClassifier):
+        PASSES.append(LSTMPasses(model))
 
 
 def reset_counts() -> None:
@@ -799,22 +882,33 @@ def reset_counts() -> None:
     from repro_torch import kernels
 
     kernels.reset_launch_counts()
-    PASSES.total = PASSES.training = 0
+    for passes in PASSES:
+        passes.total = passes.training = 0
 
 
 def read_counts() -> dict:
     """The launch counts just after a path.  The sequence forward must have
-    been launched once per forward pass of the LSTM (not once per
-    timestep) and the backward once per training pass."""
+    been launched once per forward pass of an LSTM (not once per timestep)
+    and the backward once per training pass."""
     from repro_torch import kernels
 
     counts = kernels.launch_counts()
-    print(f"    LSTM passes {PASSES.total} ({PASSES.training} training): lstm_cell "
+    total = sum(p.total for p in PASSES)
+    training = sum(p.training for p in PASSES)
+    print(f"    LSTM passes {total} ({training} training): lstm_cell "
           f"{counts['lstm_cell']} launches, lstm_cell_bwd {counts['lstm_cell_bwd']}")
-    if counts["lstm_cell"] != PASSES.total or counts["lstm_cell_bwd"] != PASSES.training:
-        fail(f"the LSTM's kernels were not launched once per pass: {PASSES.total} forward "
-             f"and {PASSES.training} training passes, launches {counts}")
+    if counts["lstm_cell"] != total or counts["lstm_cell_bwd"] != training:
+        fail(f"the LSTM's kernels were not launched once per pass: {total} forward "
+             f"and {training} training passes, launches {counts}")
     return counts
+
+
+def harness():
+    """``benchmarks/_torch_harness.py``, the paper tables' harness: the one
+    definition of the worlds, targets and runs that [4e] and [4g] drive."""
+    from benchmarks import _torch_harness
+
+    return _torch_harness
 
 
 def quickstart_world(device):
@@ -1255,12 +1349,6 @@ class BaselineWorld:
     max_rounds: int
 
 
-def holdout(x, y, seed=0):
-    """The harness's global test set: a tenth of the set (at least 200)."""
-    hold = np.random.default_rng(seed + 7).permutation(len(x))[: max(len(x) // 10, 200)]
-    return x[hold], y[hold]
-
-
 def requester_split(x, y, r_count):
     """Each of ``r_count`` requesters' (train, test): one shard (80/20) of
     ``x, y`` split over r_count + 5 Dirichlet (alpha=1) clients."""
@@ -1274,40 +1362,35 @@ def requester_split(x, y, r_count):
     return out
 
 
-def har_baseline_world(world):
-    """The quickstart world (LSTM, H=64) with the baselines' holdout."""
-    from repro_torch.data import HARDatasetConfig, make_har_windows
-
+def har_baseline_world(world, sc):
+    """The quickstart world (LSTM, H=64) with the holdout and pooled set of
+    the harness's HAR/LSTM scenario ``sc``, whose shards and splits must be
+    the quickstart's bits."""
     task, shards, own_train, own_test, fleet = world
-    x, y, _ = make_har_windows(HARDatasetConfig(num_samples=3000, seq_len=32))
-    return BaselineWorld("LSTM (HAR)", task, shards, own_train, own_test, holdout(x, y),
-                         (x, y), fleet, fleet_split(), MAX_ROUNDS)
+    pairs = [*zip(shards, sc.shards), (own_train, sc.own_train), (own_test, sc.own_test)]
+    if len(shards) != len(sc.shards) or not all(
+            np.array_equal(a, b) for x, y in pairs for a, b in zip(x, y)):
+        fail("the harness's HAR/LSTM scenario is not the quickstart world")
+    return BaselineWorld("LSTM (HAR)", task, sc.shards, sc.own_train, sc.own_test,
+                         sc.global_test, sc.pooled, fleet, fleet_split(), MAX_ROUNDS)
 
 
-def calories_world(device):
-    """Table V's second configuration (benchmarks/_harness.py, calories):
-    9,000 tabular samples of 8 features and 5 classes over 6 Dirichlet
-    clients, the MLP with hidden=(64, 32); its fleet's requesters split a
-    calories set of 200 * (FLEET_R + 5) samples; its loop runs MLP_ROUNDS."""
-    from repro_torch.core import SupervisedTask, make_fleet
-    from repro_torch.data import CaloriesDatasetConfig, dirichlet_partition, make_calories_tabular
-    from repro_torch.models import MLPClassifier, MLPClassifierConfig
+def calories_world(sc):
+    """Table V's second configuration, the harness's calories/MLP scenario
+    ``sc`` (9,000 tabular samples of 8 features and 5 classes over 6
+    Dirichlet clients, the MLP with hidden=(64, 32)), with 5 neighbours;
+    its fleet's requesters split a calories set of 200 * (FLEET_R + 5)
+    samples; its loop runs MLP_ROUNDS."""
+    from repro_torch.core import make_fleet
+    from repro_torch.data import CaloriesDatasetConfig, make_calories_tabular
 
-    x, y = make_calories_tabular(CaloriesDatasetConfig(num_samples=9000))
-    parts = dirichlet_partition(y, num_clients=6, alpha=1.0, seed=0)
-    shards = [(x[p], y[p]) for p in parts]
-    n = int(len(shards[0][0]) * 0.8)
-    task = SupervisedTask(MLPClassifier(MLPClassifierConfig(
-        input_dim=x.shape[1], hidden=(64, 32), num_classes=int(y.max()) + 1), device=device),
-        lr=3e-3)
     fleet = make_fleet(5, seed=1, p_has_model=1.0)
     for dev in fleet:
         dev.reservation_price = 0.4
     fx, fy = make_calories_tabular(CaloriesDatasetConfig(num_samples=200 * (FLEET_R + 5)))
-    return BaselineWorld("MLP (calories)", task, shards,
-                         (shards[0][0][:n], shards[0][1][:n]),
-                         (shards[0][0][n:], shards[0][1][n:]), holdout(x, y), (x, y), fleet,
-                         requester_split(fx, fy, FLEET_R), MLP_ROUNDS)
+    return BaselineWorld("MLP (calories)", sc.task, sc.shards, sc.own_train, sc.own_test,
+                         sc.global_test, sc.pooled, fleet, requester_split(fx, fy, FLEET_R),
+                         MLP_ROUNDS)
 
 
 def counted(what, run, need=()):
@@ -1364,11 +1447,11 @@ def run_loop_baselines(device, bw, cost):
     base = dict(max_rounds=bw.max_rounds, epochs=FIT_EPOCHS, batch_size=32, seed=0)
     runs = {
         "CFL": (lambda: CFLLearner(bw.task, data, bw.global_test, cost).run_config(
-            EnFedConfig(desired_accuracy=TARGET_CFL, **base)), ("fedavg",)),
+            EnFedConfig(desired_accuracy=harness().TARGET_CFL, **base)), ("fedavg",)),
         "DFL mesh": (lambda: DFLLearner(bw.task, data, bw.global_test, "mesh", cost).run_config(
-            EnFedConfig(desired_accuracy=TARGET_DFL, **base)), ()),
+            EnFedConfig(desired_accuracy=harness().TARGET_DFL, **base)), ()),
         "DFL ring": (lambda: DFLLearner(bw.task, data, bw.global_test, "ring", cost).run_config(
-            EnFedConfig(desired_accuracy=TARGET_DFL, **base)), ()),
+            EnFedConfig(desired_accuracy=harness().TARGET_DFL, **base)), ()),
         "cloud": (lambda: cloud_only_config(bw.task, bw.pooled, bw.own_test,
                                             EnFedConfig(desired_accuracy=0.0, **base), cost), ()),
     }
@@ -1577,14 +1660,16 @@ def run_quickstart_twin():
     print(f"  examples/torch_quickstart.py: exit 0 in {wall:.2f} s (a process of its own)")
 
 
-def run_baselines(device, world, mlp_world, lstm_enfed, cost):
-    """Phase [4e] in the LSTM world and ``mlp_world``, EnFed's side of the
-    LSTM world being the [4a] session's report.  Returns the loop paths' and the fleet paths'
-    launch counts."""
+def run_baselines(device, world, scenarios, lstm_enfed, cost):
+    """Phase [4e] in the LSTM world and the MLP world, both from the
+    harness's ``scenarios``, EnFed's side of the LSTM world being the [4a]
+    session's report.  Returns the loop paths' and the fleet paths' launch
+    counts."""
     from repro_torch.utils.tree import tree_size
 
     loop_paths, fleet_paths = [], []
-    for bw in (har_baseline_world(world), mlp_world):
+    for bw in (har_baseline_world(world, scenarios["har/lstm"]),
+               calories_world(scenarios["calories/mlp"])):
         print(f"  {bw.name}: P = {tree_size(bw.task.init(0))}, clients "
               f"{[len(s[0]) for s in bw.shards]}, holdout {len(bw.global_test[0])}")
         if bw.task is world[0]:
@@ -1867,6 +1952,100 @@ def run_facade(device, world, pretrained, cost):
         fail("[4f] the traced and untraced enfed fleet runs differ")
     print("    enfed fleet traced vs untraced: params and history bit-equal")
     return ([*counts["loop"].values()], [*counts["fleet"].values()])
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the paper-table twins
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fedavg_shapes():
+    """The (R, N, L) of every eq. 14 launch inside the block."""
+    from repro_torch.kernels.fedavg import ops
+
+    seen, launch = [], ops.fedavg_batched_cuda
+
+    def logged(updates, weights):
+        seen.append(tuple(updates.shape))
+        return launch(updates, weights)
+
+    ops.fedavg_batched_cuda = logged
+    try:
+        yield seen
+    finally:
+        ops.fedavg_batched_cuda = launch
+
+
+def run_tables(device, scenarios):
+    """Phase [4g]: the harness's runs in each of its four worlds at
+    chip_smoke's cut (TABLE_ROUNDS rounds of TABLE_CUT, contributors
+    pretrained 1 epoch), and EnFed with 2 contributors on the HAR LSTM.
+    Each run's outcome must be finite (accuracy in [0, 1], a positive
+    report, EnFed's loss per round for Fig 7), and its launches those of
+    its path: eq. 14 once a round at (1, N, P), N the contributors (EnFed)
+    or the 6 clients (CFL), none for DFL and cloud; AES twice per
+    contributor a round (EnFed); the LSTM pair in the LSTM worlds only, once
+    per pass; no other kernel.  Returns each run's launch counts."""
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_size
+
+    h = harness()
+    runs = []   # (world, what, run, eq. 14's N or None)
+    for name, sc in scenarios.items():
+        runs += [
+            (name, "enfed", functools.partial(h.run_enfed, sc, pretrain_epochs=1, **TABLE_CUT),
+             5),
+            (name, "cfl", functools.partial(h.run_cfl, sc, **TABLE_CUT), h.N_CLIENTS),
+            (name, "dfl mesh", functools.partial(h.run_dfl, sc, "mesh", **TABLE_CUT), None),
+            (name, "dfl ring", functools.partial(h.run_dfl, sc, "ring", **TABLE_CUT), None),
+            (name, "cloud", functools.partial(h.run_cloud, sc, **TABLE_CUT), None)]
+    runs.append(("har/lstm", "enfed n_contrib=2", functools.partial(
+        h.run_enfed, scenarios["har/lstm"], n_contrib=2, pretrain_epochs=1, **TABLE_CUT), 2))
+    max_rounds, h.MAX_ROUNDS = h.MAX_ROUNDS, TABLE_ROUNDS
+    out = []
+    try:
+        for name, what, run, n_eq14 in runs:
+            sc = scenarios[name]
+            with fedavg_shapes() as shapes:
+                res, counts, wall = counted(f"[4g] {name} {what}", run)
+            if isinstance(res, tuple):      # run_cloud: (accuracy, response, params)
+                acc, rounds, t_train, e_tot = float(res[0]), 1, float(res[1]), None
+            else:
+                acc, rounds = float(res.accuracy), int(res.rounds)
+                t_train, e_tot = float(res.report.t_train), float(res.report.e_tot)
+            if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
+                fail(f"[4g] {name} {what}: accuracy {acc}")
+            if not all(math.isfinite(v) and v > 0.0 for v in (t_train, e_tot) if v is not None):
+                fail(f"[4g] {name} {what}: report T_train {t_train}, E_tot {e_tot}")
+            if not 1 <= rounds <= TABLE_ROUNDS:
+                fail(f"[4g] {name} {what}: {rounds} rounds, the cut is {TABLE_ROUNDS}")
+            if what.startswith("enfed"):
+                loss = res.history_raw.get("loss")
+                if loss is None or len(loss) != rounds or not all(map(math.isfinite, loss)):
+                    fail(f"[4g] {name} {what}: Fig 7's loss per round is {loss}")
+            p = tree_size(sc.task.init(0))
+            want = {k: 0 for k in counts}
+            if n_eq14 is not None:
+                want["fedavg"] = rounds
+            if what.startswith("enfed"):    # each update encrypted, then decrypted
+                want["aes_ctr"] = 2 * n_eq14 * rounds
+            lstm = isinstance(sc.task.model, LSTMClassifier)
+            if lstm and not (counts["lstm_cell"] and counts["lstm_cell_bwd"]):
+                fail(f"[4g] {name} {what}: the LSTM pair was not launched: {counts}")
+            for k in ("lstm_cell", "lstm_cell_bwd"):
+                want[k] = counts[k] if lstm else 0
+            if counts != want or shapes != [(1, n_eq14, p)] * want["fedavg"]:
+                fail(f"[4g] {name} {what}: launches {counts}, eq. 14 at {shapes}; expected "
+                     f"{want}, eq. 14 at (1, {n_eq14}, {p}) once a round"
+                     + (" and the LSTM pair" if lstm else ""))
+            print(f"  {name:13s} {what:17s} acc {acc:.4f}, rounds {rounds}, T_train "
+                  f"{t_train:.4f} s" + ("" if e_tot is None else f", E_tot {e_tot:.4f} J")
+                  + f", wall {wall:.2f} s; launches {({k: v for k, v in counts.items() if v})}")
+            out.append(counts)
+    finally:
+        h.MAX_ROUNDS = max_rounds
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2386,6 +2565,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))       # benchmarks/: the paper tables' harness
     import repro_torch  # noqa: F401  (sets the TF32 policy)
     from repro_torch.kernels import _build
     from repro_torch.utils.tree import tree_ravel, tree_size
@@ -2407,8 +2587,12 @@ def main() -> int:
     # the main path's shapes, from the quickstart world itself
     world = quickstart_world(dev)
     task, _, own_train, own_test, _ = world
-    global PASSES
-    PASSES = LSTMPasses(task.model)
+    watch(task.model)
+    # the harness's four worlds (benchmarks/_torch_harness.py), on the card
+    scenarios = {f"{ds}/{kind}": harness().build_scenario(ds, kind, device=dev)
+                 for ds, kind in TABLE_WORLDS}
+    for sc in scenarios.values():
+        watch(sc.task.model)
     cfg = task.model.cfg
     f, h, n_contrib = cfg.input_dim, cfg.hidden, 5
     n_params = tree_size(task.init(0))
@@ -2416,8 +2600,7 @@ def main() -> int:
     lp = n_params + (-n_params) % TILE
     print("[3] kernels against their plain versions on the card")
     # the calories/MLP world of [4e]: its eq. 14 and AES shapes are checked here
-    mlp_world = calories_world(dev)
-    mlp_params = tree_size(mlp_world.task.init(0))
+    mlp_params = tree_size(scenarios["calories/mlp"].task.init(0))
     errs = {}
     errs["fedavg"], errs["fedavg_batched"] = check_fedavg(
         dev, (1, n_contrib, n_params), (FLEET_R, n_contrib, n_params), mlp_params)
@@ -2425,7 +2608,9 @@ def main() -> int:
                 quantize=check_quantize(dev, n_params, FLEET_R * n_contrib),
                 dequantize=check_dequantize(dev, n_params),
                 lstm_cell=check_lstm(dev, fit_b, score_b, f, h),
-                aes_ctr=check_aes(dev, 4 * n_params, lp + 4 * (lp // TILE), 4 * mlp_params))
+                aes_ctr=check_aes(dev, 4 * n_params, lp + 4 * (lp // TILE), 4 * mlp_params,
+                                  {name: 4 * tree_size(sc.task.init(0))
+                                   for name, sc in scenarios.items()}))
     # the fleet's lanes: every requester's test set pads to the longest, and
     # REFRESH trains one row per contributor (all 64 requesters share the 5)
     fleet_score_b = max(len(test[0]) for _, test in fleet_split())
@@ -2436,6 +2621,10 @@ def main() -> int:
                                                     fleet_score_b, cfg.seq_len)
     errs["lstm_cell"] = max(errs["lstm_cell"], seq_fwd)
     errs.update(check_robust(dev, n_params, n_contrib))
+    print("  the paper-table twins' shapes (benchmarks/_torch_harness.py)")
+    table = check_table_shapes(dev, scenarios)
+    for k in ("lstm_cell", "lstm_cell_bwd"):
+        errs[k] = max(errs[k], table[k])
 
     from repro_torch.core import CostModel
 
@@ -2454,14 +2643,20 @@ def main() -> int:
     print(f"    {time.perf_counter() - t_start:.1f} s so far")
     print(" [4e] the paper's baselines (CFL, DFL mesh and ring, cloud-only), LSTM and MLP")
     t_base = time.perf_counter()
-    base_loop, base_fleet = run_baselines(dev, world, mlp_world, enfed_report, cost)
+    base_loop, base_fleet = run_baselines(dev, world, scenarios, enfed_report, cost)
     print(f"  [4e] wall {time.perf_counter() - t_base:.1f} s")
     print(" [4f] the repro_torch.api facade (both engines, every method), "
           f"{FACADE_KNOBS['max_rounds']} rounds of {FACADE_KNOBS['epochs']} epochs")
     t_facade = time.perf_counter()
     facade_loop, facade_fleet = run_facade(dev, world, pretrained, cost)
     print(f"  [4f] wall {time.perf_counter() - t_facade:.1f} s")
-    loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop]
+    print(" [4g] the paper-table twins (benchmarks/_torch_harness.py), "
+          f"{TABLE_ROUNDS} round of {TABLE_CUT['epochs']} epoch")
+    t_tables = time.perf_counter()
+    table_loop = run_tables(dev, scenarios)
+    print(f"  [4g] wall {time.perf_counter() - t_tables:.1f} s")
+    loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
+                  *table_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
                    *facade_fleet]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}

@@ -45,6 +45,8 @@ from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E
                                 MLPClassifier, MLPClassifierConfig)
 from repro_torch.utils.tree import from_jax_params, tree_leaves  # noqa: E402
 
+from _torch_ref import RefInitTask as _RefInitTask  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 BATCH = 16
@@ -59,19 +61,6 @@ _KNOBS = dict(desired_accuracy=0.99, max_rounds=2, epochs=1, batch_size=BATCH,
 _ADVERSARY = dict(p_byzantine=0.5, attack="noise", scale=10.0, seed=7)
 
 _WORLDS = {}
-
-
-class _RefInitTask(tcore.SupervisedTask):
-    """The port's task with the reference's init, converted (test-local)."""
-
-    def __init__(self, model, jtask):
-        super().__init__(model, lr=jtask.lr,
-                         threefry_partitionable=jax.config.jax_threefry_partitionable)
-        self._jtask = jtask
-
-    def init(self, seed=0):
-        jp = self._jtask.init(seed)
-        return from_jax_params(jax.tree_util.tree_map(np.asarray, jp), self.device)
 
 
 def _build(kind):

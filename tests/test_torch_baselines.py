@@ -11,7 +11,6 @@ Model init is the one draw the port does not reproduce (``ROADMAP.md``
 module (results cached by case).
 """
 
-import contextlib
 import dataclasses
 import os
 import subprocess
@@ -36,7 +35,9 @@ from repro_torch.kernels.fedavg.ops import fedavg_flat_batched  # noqa: E402
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E402
                                 MLPClassifier, MLPClassifierConfig)
 from repro_torch.kernels.quantize.ops import compressed_nbytes  # noqa: E402
-from repro_torch.utils.tree import from_jax_params, to_numpy, tree_leaves, tree_size  # noqa: E402
+from repro_torch.utils.tree import to_numpy, tree_leaves, tree_size  # noqa: E402
+
+from _torch_ref import RefInitTask as _RefInitTask, threefry as _threefry  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -49,16 +50,6 @@ REPORT_FIELDS = ("t_dev", "t_hand", "t_key", "t_init", "t_com", "t_enc", "t_dec"
 
 _WORLDS = {}
 _RUNS = {}
-
-
-@contextlib.contextmanager
-def _threefry(partitionable):
-    old = jax.config.jax_threefry_partitionable
-    jax.config.update("jax_threefry_partitionable", partitionable)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_threefry_partitionable", old)
 
 
 def _world(kind):
@@ -81,19 +72,6 @@ def _world(kind):
         half = (own_train[0][:n // 2], own_train[1][:n // 2])
         _WORLDS[kind] = (jtask, shards, own_train, own_test, half, (x, y))
     return _WORLDS[kind]
-
-
-class _RefInitTask(tcore.SupervisedTask):
-    """The port's task with the reference's init, converted (test-local)."""
-
-    def __init__(self, model, jtask, partitionable=True):
-        super().__init__(model, lr=jtask.lr, threefry_partitionable=partitionable)
-        self._jtask = jtask
-
-    def init(self, seed=0):
-        with _threefry(self.threefry_partitionable):
-            jp = self._jtask.init(seed)
-        return from_jax_params(jax.tree_util.tree_map(np.asarray, jp), self.device)
 
 
 def _port_task(kind, partitionable=True):

@@ -14,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
-    ROOT / "examples" / "torch_har_federated.py"]
+    ROOT / "examples" / "torch_har_federated.py",
+    ROOT / "benchmarks" / "_torch_harness.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 _PROBE = """
@@ -64,6 +65,9 @@ def test_every_new_port_module_is_checked():
     assert {f"src/repro_torch/telemetry/{m}.py"
             for m in ("__init__", "spans", "events", "config", "export")} <= names
     assert "examples/torch_har_federated.py" in names
+    assert {f"benchmarks/{m}.py" for m in ("_torch_harness", "torch_table4_lstm",
+                                           "torch_table5_mlp", "torch_table7_cloud",
+                                           "torch_figs_contributors", "torch_run")} <= names
 
 
 def test_session_without_device_raises_on_a_host_without_gpu(monkeypatch):

@@ -26,6 +26,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    from the harness's four scenarios: the LSTM pair at each batch an LSTM
    world fits and scores (the calories LSTM at F = 8, T = 8), eq. 14 at
    (1, N, P) for N = 2 ... 6 and AES over one update at each world's P;
+   and at the mobility world's: eq. 14 dense and int8 at (64, 5, .) with
+   0/1 member weights and member-less rows, dequantize over the fleet's
+   320 refresh rows in one launch, the LSTM pair at those 320 lanes;
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -78,6 +81,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      outcome and launches checked (eq. 14 once a round at N = the
      contributors or the 6 CFL clients, AES twice per contributor a round,
      the LSTM pair in the LSTM worlds only);
+   - the mobility world (``examples/har_federated.py``'s churn walkthrough:
+     a 200 m arena, 90 m radio range, 2-round legs, seed 5, 3 contract
+     slots, an accuracy no round reaches): the quickstart session fp32 with
+     AES and int8 over 10 rounds, eq. 14 launched once per round with a
+     member at (1, members, P) and AES twice per member a round; the
+     64-requester fleet fp32 and int8 (requester i walking as device
+     ``requester_id + i``), eq. 14 once a round at (64, 5, P), quantize and
+     dequantize of the 320 refresh rows once a round; the loop session and
+     the fleet's requester 0 with equal member masks, member counts, rounds
+     and stops; [4d]'s noise attack with ``robust="clip"`` under churn for
+     3 rounds on both engines, with equal corrupted masks; and one
+     churning fleet round of 4 requesters on the card and on the CPU, with
+     equal member masks and the params under the fleet round's limit rule;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -2049,6 +2065,266 @@ def run_tables(device, scenarios):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the mobility world
+# ---------------------------------------------------------------------------
+
+# the churn world of examples/har_federated.py's walkthrough: the devices walk
+# 2-round legs in a 200 m arena, a contract needs 90 m of radio range, 3
+# slots; an accuracy no round reaches, so every run renegotiates each round
+CHURN = dict(arena_m=200.0, radio_range_m=90.0, leg_rounds=2, seed=5)
+CHURN_N_MAX = 3
+
+
+def churn_cfg(compress=None, max_rounds=MAX_ROUNDS, **kw):
+    from repro_torch.core import MobilityConfig
+
+    return dataclasses.replace(session_cfg(max_rounds), desired_accuracy=1.01,
+                               n_max=CHURN_N_MAX, contributor_refresh_epochs=1,
+                               compress=compress, mobility=MobilityConfig(**CHURN), **kw)
+
+
+def churn_line(masks):
+    """Members per round and the joins and leaves of a (rounds, N) trace."""
+    from repro_torch.core.mobility import membership_events
+
+    masks = np.asarray(masks) > 0.5
+    joins, leaves = membership_events(masks)
+    return (f"members per round {masks.sum(axis=1).astype(int).tolist()}, "
+            f"{joins} joins, {leaves} leaves")
+
+
+def check_churn_shapes(dev, spec, n_params, fit_b, seq_len):
+    """The shapes the mobility world gives the kernels that phase [3] does
+    not already hold: eq. 14 dense and int8 at the fleet's (64, 5, P | Lp)
+    with 0/1 member weights and member-less rows (which must give zeros),
+    the batched dequantize over the fleet's 320 refresh rows (bit-equal to
+    the twin), and the LSTM pair at the 320 refresh lanes (one per
+    requester and candidate), fp32 and int8 lane strides.  Returns the
+    largest errors by kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda, fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref, fedavg_batched_ref
+    from repro_torch.kernels.quantize.ops import dequantize_flat_batched
+    from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
+
+    g = torch.Generator().manual_seed(22)
+    lp = n_params + (-n_params) % TILE
+    rows = FLEET_R * 5
+    member = (torch.rand((FLEET_R, 5), generator=g) < 0.5).to(torch.float32)
+    member[[3, 17, 40]] = 0.0                           # lanes with no member this round
+    member[5] = 1.0
+    w = member.to(dev)
+    u = torch.randn((FLEET_R, 5, n_params), generator=g).to(dev)
+    got = fedavg_batched_cuda(u, w)
+    torch.cuda.synchronize()
+    want = fedavg_batched_ref(u, w)
+    err = float((got - want).abs().max())
+    if not err <= 1e-6 * max(float(want.abs().max()), 1.0):
+        fail(f"fedavg at the churning fleet's (64, 5, {n_params}): max abs err {err}")
+    if bool(got[[3, 17, 40]].ne(0).any()):
+        fail("fedavg: a member-less lane must aggregate to zeros")
+    q, s = quantize_batched_ref(u.reshape(rows, n_params))
+    got8 = fedavg_batched_q8_cuda(q.reshape(FLEET_R, 5, lp), s.reshape(FLEET_R, 5, -1), w)
+    torch.cuda.synchronize()
+    want8 = fedavg_batched_q8_ref(q.reshape(FLEET_R, 5, lp), s.reshape(FLEET_R, 5, -1), w)
+    err8 = float((got8 - want8).abs().max())
+    if not err8 <= 1e-6 * max(float(want8.abs().max()), 1.0) or bool(got8[[3, 17]].ne(0).any()):
+        fail(f"fedavg_q8 at the churning fleet's (64, 5, {lp}): max abs err {err8}")
+    print(f"  fedavg R,N,L={FLEET_R},5,{n_params} with member weights, 3 member-less lanes: "
+          f"max abs err {err:.3e}; q8 at Lp={lp}: {err8:.3e}; member-less lanes give zeros")
+    before = kernels.launch_counts()["dequantize"]
+    dq = dequantize_flat_batched(q, s)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["dequantize"] != before + 1:
+        fail("dequantize_flat_batched on the card did not launch the dequantize kernel once")
+    if dq.shape != (rows, lp) or not torch.equal(dq, dequantize_batched_ref(q, s)):
+        fail(f"dequantize at the fleet's refresh rows ({rows}, {lp}): differs from the twin")
+    print(f"  dequantize ({rows}, {lp}), the churning fleet's refresh source: one launch, "
+          "bit-equal to the twin")
+    fwd = bwd = 0.0
+    for name, width in (("churn refresh fp32", n_params), ("churn refresh int8", lp)):
+        ferr, berr = lstm_seq_case(dev, g, spec, n_params, name, rows, fit_b, width, seq_len)
+        fwd, bwd = max(fwd, ferr), max(bwd, berr)
+    return {"fedavg_batched": err, "fedavg_q8": err8, "lstm_cell": fwd, "lstm_cell_bwd": bwd}
+
+
+def churn_loop(device, world, pretrained, cfg, tag):
+    """One loop session in the churn world, its launches counted and held to
+    its path: eq. 14 once per round with a member, at (1, members, P); AES
+    twice per member a round; the LSTM pair once per pass."""
+    from repro_torch.core import EnFedSession
+    from repro_torch.utils.tree import tree_size
+
+    task, shards, own_train, own_test, fleet = world
+    session = EnFedSession(task, own_train, own_test, fleet,
+                           contributor_states(pretrained, shards, fleet, device), cfg,
+                           device=device)
+    with fedavg_shapes() as shapes:
+        res, counts, wall = counted(f"[4h] {tag}", session.run,
+                                    ("fedavg", "aes_ctr", "lstm_cell", "lstm_cell_bwd"))
+    check_session(res, f"[4h] {tag}")
+    members = [int(m) for m in res.history_raw["members"]]
+    p = tree_size(res.params)
+    if cfg.robust == "none":
+        want_eq14 = [(1, m, p) for m in members if m]
+        if shapes != want_eq14:
+            fail(f"[4h] {tag}: eq. 14 at {shapes}, expected once per round with a member at "
+                 f"{want_eq14}")
+    if counts["aes_ctr"] != 2 * sum(members):
+        fail(f"[4h] {tag}: {counts['aes_ctr']} AES launches for {sum(members)} member-rounds")
+    if cfg.compress == "int8" and not (counts["quantize"] and counts["dequantize"]):
+        fail(f"[4h] {tag}: the int8 wire's kernels were not launched: {counts}")
+    print(f"  {tag}: wall {wall:.2f} s, rounds {res.rounds}, stop {res.stop_reason}, accuracy "
+          f"{res.accuracy:.4f}; {churn_line(res.history_raw['member_mask'])}")
+    print(f"    launches: {({k: v for k, v in counts.items() if v})}")
+    return res, counts
+
+
+def churn_fleet(device, world, pretrained, cfg, tag):
+    """The 64-requester fleet in the churn world (requester i walks as
+    ``requester_id + i``): eq. 14 once a round over (64, 5, .) whatever the
+    members; under int8 one quantize and one dequantize of the 320 refresh
+    rows a round (and one each at staging and unpack)."""
+    from repro_torch.core import run_fleet
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    task = world[0]
+    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    with fedavg_shapes() as shapes:
+        res, counts, wall = counted(f"[4h] {tag}", lambda: run_fleet(task, specs, cfg,
+                                                                     device=device),
+                                    ("lstm_cell", "lstm_cell_bwd"))
+    if not np.isfinite(res.accuracy).all() or not all(
+            bool(torch.isfinite(t).all()) for s in res.sessions for t in tree_leaves(s.params)):
+        fail(f"[4h] {tag}: non-finite accuracy or parameters")
+    ran = int(res.history["round_executed"].sum())
+    p = tree_size(res.sessions[0].params)
+    if cfg.robust == "none":
+        eq14 = "fedavg_q8" if cfg.compress == "int8" else "fedavg"
+        if counts[eq14] != ran or (eq14 == "fedavg" and shapes != [(FLEET_R, 5, p)] * ran):
+            fail(f"[4h] {tag}: {counts[eq14]} launches of {eq14} (at {shapes[:1]}) for {ran} "
+                 "rounds")
+    if cfg.compress == "int8" and (counts["quantize"], counts["dequantize"]) != (ran + 1,
+                                                                                 ran + 1):
+        fail(f"[4h] {tag}: quantize {counts['quantize']}, dequantize {counts['dequantize']}; "
+             f"expected one each a round and at staging and unpack ({ran + 1})")
+    member = res.history["member"]
+    zero = int((member.sum(axis=2) == 0)[res.history["executed"] > 0].sum())
+    lane_rounds = int(res.rounds.sum())
+    print(f"  {tag} R={FLEET_R}: wall {wall:.2f} s, {ran} rounds, {lane_rounds / wall:.2f} "
+          f"lane-rounds/s, accuracy mean {res.accuracy.mean():.4f} min "
+          f"{res.accuracy.min():.4f}; {int(member.sum())} member lane-rounds, {zero} "
+          f"member-less; requester 0: {churn_line(member[:, 0])}")
+    print(f"    launches: {({k: v for k, v in counts.items() if v})}")
+    return res, counts
+
+
+def churn_engines_agree(loop, fleet, tag, keys=("member_mask",)):
+    """The loop session and requester 0 of the fleet walk the same world:
+    equal masks, member counts, rounds and stops."""
+    s0 = fleet.sessions[0]
+    same = (loop.rounds == s0.rounds and loop.stop_reason == s0.stop_reason
+            and loop.history_raw["members"] == s0.history_raw["members"]
+            and all(np.array_equal(np.stack(loop.history_raw[k]), np.stack(s0.history_raw[k]))
+                    for k in keys))
+    print(f"  {tag}: loop vs fleet requester 0: {', '.join(keys)}, members, rounds "
+          f"({loop.rounds}) and stops {'equal' if same else 'DIFFER'}")
+    if not same:
+        fail(f"[4h] {tag}: the loop session and the fleet's requester 0 disagree")
+
+
+def churn_round_check(device, world, pretrained):
+    """One churning fleet round of 4 requesters (8 fit epochs, refresh of
+    the members) on the card and on the CPU: equal member masks, and the
+    params under [4c]'s rule (the CPU's spread under a one-ulp perturbation
+    of the contributors below the limit, a 1e-4 fault above it)."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_map, tree_ravel
+
+    task = world[0]
+    cpu = torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    cfg = churn_cfg(max_rounds=1)
+
+    def lanes(res):
+        return torch.stack([tree_ravel(s.params)[0].cpu() for s in res.sessions])
+
+    def run(d, tk, pre):
+        return run_fleet(tk, fleet_specs(d, world, pre, 4), cfg, device=d)
+
+    def perturbed(rel, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return [tree_map(lambda t: t * (1 + rel * torch.randn(t.shape, generator=gen)), p)
+                for p in host_pre]
+
+    card, host = run(device, task, pretrained), run(cpu, cpu_task, host_pre)
+    ref = lanes(host)
+    diff = float((lanes(card) - ref).abs().max())
+    noise = max(float((lanes(run(cpu, cpu_task, perturbed(ULP_REL, sd))) - ref).abs().max())
+                for sd in range(3))
+    fault = float((lanes(run(cpu, cpu_task, perturbed(FAULT_REL, 0))) - ref).abs().max())
+    same = np.array_equal(card.history["member"], host.history["member"])
+    print(f"  one churning fleet round R=4 card vs CPU: members "
+          f"{card.history['member'][0].sum(axis=1).astype(int).tolist()}, masks "
+          f"{'equal' if same else 'DIFFER'}; max abs param diff {diff:.3e} (limit "
+          f"{FLEET_ROUND_TOL:.3e}); CPU vs CPU: {ULP_REL:g} perturbation {noise:.3e}, "
+          f"{FAULT_REL:g} fault {fault:.3e}")
+    if not same:
+        fail("[4h] one churning fleet round: member masks differ between the card and the CPU")
+    if not noise < FLEET_ROUND_TOL:
+        fail(f"[4h] churning fleet round: the CPU's own spread {noise} reaches the limit")
+    if not fault > FLEET_ROUND_TOL:
+        fail(f"[4h] churning fleet round: a {FAULT_REL:g} fault ({fault}) stays within the limit")
+    if not diff <= FLEET_ROUND_TOL:
+        fail(f"[4h] one churning fleet round on the card and on the CPU differ by {diff}")
+
+
+def run_mobility(device, world, pretrained):
+    """Phase [4h]: the quickstart world under churn.  The loop session fp32
+    (AES) and int8, the 64-requester fleet fp32 and int8, one Byzantine run
+    under churn (noise + clip, 3 rounds) on each engine, and one churning
+    fleet round on the card and on the CPU.  Returns the loop runs' and the
+    fleet runs' launch counts."""
+    loop, loop_counts = churn_loop(device, world, pretrained, churn_cfg(), "loop fp32")
+    masks = np.stack(loop.history_raw["member_mask"])
+    if not (masks != masks[0]).any():
+        fail("[4h] the loop session's membership never changed: the world does not churn")
+    loop8, loop8_counts = churn_loop(device, world, pretrained, churn_cfg("int8"), "loop int8")
+    fleet, fleet_counts = churn_fleet(device, world, pretrained, churn_cfg(), "fleet fp32")
+    fleet8, fleet8_counts = churn_fleet(device, world, pretrained, churn_cfg("int8"),
+                                        "fleet int8")
+    churn_engines_agree(loop, fleet, "fp32")
+    churn_engines_agree(loop8, fleet8, "int8")
+    from repro_torch.core import AdversaryConfig
+
+    byz = dict(max_rounds=ADV_ROUNDS, adversary=AdversaryConfig(**ADVERSARY), robust="clip")
+    adv_loop, adv_loop_counts = churn_loop(device, world, pretrained, churn_cfg(**byz),
+                                           "loop fp32 noise + clip")
+    adv_fleet, adv_fleet_counts = churn_fleet(device, world, pretrained, churn_cfg(**byz),
+                                              "fleet fp32 noise + clip")
+    for what, counts in (("loop", adv_loop_counts), ("fleet", adv_fleet_counts)):
+        if not (counts["sqnorm"] and counts["fedavg"]):
+            fail(f"[4h] {what} noise + clip: the robust path was not launched: {counts}")
+    corrupted = np.stack(adv_loop.history_raw["corrupted_mask"])
+    clipped = np.stack(adv_loop.history_raw["clipped_mask"])
+    fclipped = np.stack(adv_fleet.sessions[0].history_raw["clipped_mask"])
+    print(f"  noise + clip under churn: loop {int(corrupted.sum())} corrupted, "
+          f"{int(clipped.sum())} clipped member links; fleet {int(adv_fleet.history['corrupted'].sum())} "
+          f"corrupted, {int(adv_fleet.history['clipped'].sum())} clipped over {FLEET_R} requesters; "
+          f"requester 0's clipped masks {'equal' if np.array_equal(clipped, fclipped) else 'differ'} "
+          "(they follow the params, not gated across engines)")
+    if corrupted.sum() == 0 or adv_fleet.history["corrupted"].sum() == 0:
+        fail("[4h] noise + clip under churn: no member link was corrupted")
+    churn_engines_agree(adv_loop, adv_fleet, "noise + clip", keys=("member_mask",
+                                                                  "corrupted_mask"))
+    churn_round_check(device, world, pretrained)
+    return ([loop_counts, loop8_counts, adv_loop_counts],
+            [fleet_counts, fleet8_counts, adv_fleet_counts])
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -2625,6 +2901,9 @@ def main() -> int:
     table = check_table_shapes(dev, scenarios)
     for k in ("lstm_cell", "lstm_cell_bwd"):
         errs[k] = max(errs[k], table[k])
+    print("  the mobility world's shapes (member weights, 320 refresh rows)")
+    for k, v in check_churn_shapes(dev, spec, n_params, fit_b, cfg.seq_len).items():
+        errs[k] = max(errs[k], v)
 
     from repro_torch.core import CostModel
 
@@ -2655,10 +2934,14 @@ def main() -> int:
     t_tables = time.perf_counter()
     table_loop = run_tables(dev, scenarios)
     print(f"  [4g] wall {time.perf_counter() - t_tables:.1f} s")
+    print(f" [4h] the mobility world ({CHURN}, n_max={CHURN_N_MAX}), both engines")
+    t_mob = time.perf_counter()
+    mob_loop, mob_fleet = run_mobility(dev, world, pretrained)
+    print(f"  [4h] wall {time.perf_counter() - t_mob:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
-                  *table_loop]
+                  *table_loop, *mob_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
-                   *facade_fleet]
+                   *facade_fleet, *mob_fleet]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
     # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
     # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:

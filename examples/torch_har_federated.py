@@ -10,7 +10,7 @@ meaningful.
 
   PYTHONPATH=src python examples/torch_har_federated.py [--dataset har|calories]
                                                         [--engine loop|fleet]
-                                                        [--byzantine]
+                                                        [--churn] [--byzantine]
                                                         [--compress int8]
                                                         [--device cpu]
                                                         [-v | -q]
@@ -23,16 +23,26 @@ Output goes through stdlib ``logging`` ("repro_torch.example.har", stdout):
 one flat round state) instead of the session loop: same protocol, same
 result.
 
+``--churn`` turns on the opportunistic world
+(``repro_torch.core.mobility``): the neighbours walk random-waypoint
+trajectories, contracts are renegotiated every round as devices enter or
+leave the 90 m radio range or reach their battery floor, and the
+walkthrough prints each round's contract set with its joins (+) and
+leaves (-).  A round with no member is survivable: the requester trains
+alone on its own shard.
+
 ``--byzantine`` turns on the adversarial world: 30% of contributor links
 deliver a corrupted wire image each round (a 25x scale attack), and the
 session defends with ``robust="clip"``.  The walkthrough prints each
-round's CORRUPTED and CLIPPED sets; both engines print the identical sets.
+round's CORRUPTED and CLIPPED sets.  It composes with ``--churn``.  Both
+worlds are counter-based, so both engines print the identical sets.
 
-``--compress int8`` adds an ``enfed-int8`` row to the compare table.
+``--compress int8`` adds an ``enfed-int8`` row to the compare table (in a
+walkthrough: the session runs on the int8 wire).
 
-``--churn``, ``--faults`` and ``--cadence`` (the reference's mobility,
-unreliable-link and asynchronous-cadence worlds) are ``ROADMAP.md`` slice E
-of the port: they exit non-zero saying so.
+``--faults`` and ``--cadence`` (the reference's unreliable-link and
+asynchronous-cadence worlds) are ``ROADMAP.md`` slices E.2 and E.3 of the
+port: they exit non-zero saying so.
 """
 
 import argparse
@@ -41,8 +51,11 @@ import logging
 import sys
 
 
+import numpy as np
+
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import AdversaryConfig, SupervisedTask, make_fleet
+from repro_torch.core import AdversaryConfig, MobilityConfig, SupervisedTask, make_fleet
+from repro_torch.core.mobility import membership_events
 from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig, dirichlet_partition,
                               make_calories_tabular, make_har_windows)
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig, MLPClassifier,
@@ -50,9 +63,9 @@ from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig, MLPClassif
 
 log = logging.getLogger("repro_torch.example.har")
 
-# the reference's world flags this slice does not run, with their slice
-UNPORTED_WORLDS = {"churn": "the mobility world", "faults": "the unreliable-link world",
-                   "cadence": "the asynchronous-cadence world"}
+# the reference's world flags the port does not run yet, with their slice
+UNPORTED_WORLDS = {"faults": ("the unreliable-link world", "E.2"),
+                   "cadence": ("the asynchronous-cadence world", "E.3")}
 
 
 def _setup_logging(verbosity: int) -> None:
@@ -82,7 +95,7 @@ def build(dataset: str, device):
 
 
 def make_world(task, shards, own_train, own_test, *, fit_epochs: int,
-               pooled=None) -> WorldSpec:
+               pooled=None, mobility=None) -> WorldSpec:
     """One shared world on the task's device: a 5-device neighborhood whose
     contributors hold pre-trained models over their own shards."""
     fleet = make_fleet(5, seed=1, p_has_model=1.0)
@@ -93,32 +106,65 @@ def make_world(task, shards, own_train, own_test, *, fit_epochs: int,
         p, _ = task.fit(p, shards[i + 1], epochs=fit_epochs, batch_size=32, seed=i)
         states[dev.device_id] = {"params": p, "data": shards[i + 1]}
     return WorldSpec.single(task, own_train, own_test, fleet, states,
-                            pooled_train=pooled, device=task.device)
+                            pooled_train=pooled, mobility=mobility, device=task.device)
 
 
-def byzantine_walkthrough(task, shards, own_train, own_test, args):
-    """One requester trains for the whole round budget while counter-based
-    draws pick each round's corrupted links and the clip defense throttles
-    outlier-norm contributions before the aggregate."""
-    world = make_world(task, shards, own_train, own_test, fit_epochs=1)
+def walkthrough(task, shards, own_train, own_test, args):
+    """One requester trains for the whole round budget while its world
+    misbehaves.  With ``--churn`` the session renegotiates every round:
+    contributors that wandered out of the 90 m range (or drained to the
+    battery floor) are released, devices that wandered in are signed, and
+    a higher-utility arrival displaces the weakest member.  With
+    ``--byzantine`` counter-based draws pick each round's corrupted links
+    and the clip defense throttles outlier-norm contributions before the
+    aggregate."""
+    mob = (MobilityConfig(arena_m=200.0, radio_range_m=90.0, leg_rounds=2, seed=5)
+           if args.churn else None)
+    adversary = (AdversaryConfig(p_byzantine=0.3, attack="scale", scale=25.0, seed=9)
+                 if args.byzantine else None)
+    world = make_world(task, shards, own_train, own_test, fit_epochs=1, mobility=mob)
     res = Experiment(
         world,
         method=MethodSpec(desired_accuracy=args.target, epochs=args.epochs,
                           max_rounds=10, n_max=3, contributor_refresh_epochs=1,
-                          adversary=AdversaryConfig(p_byzantine=0.3, attack="scale",
-                                                    scale=25.0, seed=9),
-                          robust="clip", compress=args.compress),
+                          adversary=adversary, robust="clip" if args.byzantine else "none",
+                          compress=args.compress),
         execution=ExecutionSpec(engine=args.engine)).run()
-    log.info(f"\n=== byzantine walkthrough ({args.dataset}, engine={res.engine}) ===")
-    log.info(f"{'round':>5} {'corrupted':<12} {'clipped':<12} {'acc':>6} {'battery':>8}")
+    label = "+".join(n for n, on in (("churn", args.churn), ("byzantine", args.byzantine))
+                     if on)
+    log.info(f"\n=== {label} walkthrough ({args.dataset}, engine={res.engine}) ===")
+    head = f"{'round':>5}"
+    if args.churn:
+        head += f" {'members':>8} {'contract set':<18}"
+    if args.byzantine:
+        head += f" {'corrupted':<12} {'clipped':<12}"
+    log.info(head + f" {'acc':>6} {'battery':>8}")
+    prev = None
     for ev in res.trace:
-        if ev.phase == "round":
-            log.info(f"{ev.round:>5} {str(list(ev.corrupted)):<12} "
-                     f"{str(list(ev.clipped)):<12} {ev.accuracy:6.3f} {ev.battery:8.3f}")
-    summary = res.corruption_summary
-    log.info(f"byzantine weather: {int(summary['corrupted_links'])} corrupted deliveries "
-             f"(counter-keyed 25x scale attack), {int(summary['clipped_links'])} clipped "
-             f"by the robust='clip' screen; both engines print the identical sets")
+        if ev.phase != "round":
+            continue
+        line = f"{ev.round:>5}"
+        if args.churn:
+            line += f" {ev.members:>8} {str(list(ev.member_set)):<18}"
+        if args.byzantine:
+            line += f" {str(list(ev.corrupted)):<12} {str(list(ev.clipped)):<12}"
+        note = ""
+        if prev is not None:
+            bits = ([f"+{j}" for j in sorted(set(ev.member_set) - set(prev))]
+                    + [f"-{j}" for j in sorted(set(prev) - set(ev.member_set))])
+            note = "  " + " ".join(bits) if bits else ""
+        log.info(line + f" {ev.accuracy:6.3f} {ev.battery:8.3f}{note}")
+        prev = ev.member_set if args.churn else None
+    if args.churn:
+        joins, leaves = membership_events(np.asarray(res.history_raw["member_mask"]))
+        log.info(f"churn: {joins} joins and {leaves} leaves over {res.rounds} rounds "
+                 f"(contracts renegotiated every round; both engines print the identical "
+                 f"sets)")
+    if args.byzantine:
+        summary = res.corruption_summary
+        log.info(f"byzantine weather: {int(summary['corrupted_links'])} corrupted deliveries "
+                 f"(counter-keyed 25x scale attack), {int(summary['clipped_links'])} clipped "
+                 f"by the robust='clip' screen; both engines print the identical sets")
     log.info(f"requester finished: {res.rounds} rounds, stop={res.stop_reason}, "
              f"final acc {res.accuracy:.3f}")
     log.debug(f"timings: { {k: round(v, 4) for k, v in res.timings.items()} }")
@@ -132,9 +178,12 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--engine", choices=("loop", "fleet"), default="loop",
                     help="EnFed execution engine (fleet = one flat round state)")
-    for flag, world in UNPORTED_WORLDS.items():
+    ap.add_argument("--churn", action="store_true",
+                    help="opportunistic-world walkthrough: neighbours enter and leave radio "
+                         "range mid-session (repro_torch.core.mobility)")
+    for flag, (world, sub) in UNPORTED_WORLDS.items():
         ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"{world} (ROADMAP.md slice E: not ported yet)")
+                        help=f"{world} (ROADMAP.md slice {sub}: not ported yet)")
     ap.add_argument("--byzantine", action="store_true",
                     help="adversarial walkthrough: Byzantine links deliver 25x-scaled "
                          "wire images and the robust='clip' screen throttles them")
@@ -150,15 +199,15 @@ def main(argv=None):
                     help="errors only; suppress the table/walkthrough output")
     args = ap.parse_args(argv)
     _setup_logging(1 if args.verbose else -1 if args.quiet else 0)
-    for flag, world in UNPORTED_WORLDS.items():
+    for flag, (world, sub) in UNPORTED_WORLDS.items():
         if getattr(args, flag):
-            print(f"--{flag}: {world} is ROADMAP.md slice E of the port, not ported yet",
+            print(f"--{flag}: {world} is ROADMAP.md slice {sub} of the port, not ported yet",
                   file=sys.stderr)
             return 2
 
     task, shards, own_train, own_test, pooled = build(args.dataset, args.device)
-    if args.byzantine:
-        return byzantine_walkthrough(task, shards, own_train, own_test, args)
+    if args.churn or args.byzantine:
+        return walkthrough(task, shards, own_train, own_test, args)
 
     # one world, N methods: the facade guarantees every method sees the
     # same requesters, contributor states, seed, and cost model

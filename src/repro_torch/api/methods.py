@@ -194,10 +194,16 @@ def run_enfed(world: WorldSpec, method: MethodSpec,
     _warn_if_trace_fleet_only(execution, "loop-engine enfed")
     sessions = []
     for i, r in enumerate(reqs):
-        # requester i draws its Byzantine weather as adversary.requester_id
-        # + i, the fleet's lane convention, so ExecutionSpec.engine never
-        # changes which world a requester experiences
+        # requester i walks as device mobility.requester_id + i and draws its
+        # Byzantine weather as adversary.requester_id + i, the fleet's lane
+        # conventions, so ExecutionSpec.engine never changes which world a
+        # requester experiences
         cfg_i = cfg
+        if cfg.mobility is not None and i > 0:
+            cfg_i = dataclasses.replace(
+                cfg_i, mobility=dataclasses.replace(
+                    cfg.mobility,
+                    requester_id=cfg.mobility.requester_id + i))
         if cfg.adversary is not None and i > 0:
             cfg_i = dataclasses.replace(
                 cfg_i, adversary=dataclasses.replace(

@@ -12,9 +12,12 @@
   changing it never changes the simulated outcome, only how it is computed
   (``tests/test_torch_api.py``).
 
-The world knobs of later slices (mobility, faults, cadence) keep their
-fields, typed ``Optional[object]`` as in ``EnFedConfig``; the engines
-refuse them with ``NotImplementedError`` naming their ``ROADMAP.md`` slice.
+``WorldSpec.mobility`` is the opportunistic world
+(:class:`~repro_torch.core.mobility.MobilityConfig`), which EnFed runs in
+both engines.  The method knobs of later slices (faults, cadence) keep
+their fields, typed ``Optional[object]`` as in ``EnFedConfig``; the
+engines refuse them with ``NotImplementedError`` naming their
+``ROADMAP.md`` slice.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel
 from repro_torch.core.fleet import RequesterSpec
+from repro_torch.core.mobility import MobilityConfig
 from repro_torch.core.rounds import EnFedConfig
 from repro_torch.core.topology import AggregationStrategy
 from repro_torch.kernels.common import check_interpret, resolve_device
@@ -53,7 +57,7 @@ class WorldSpec:
     task: object                          # SupervisedTask-like (init/fit/evaluate)
     requesters: List[RequesterSpec]
     cost_model: CostModel = dataclasses.field(default_factory=CostModel)
-    mobility: Optional[object] = None     # opportunistic world: slice E
+    mobility: Optional[MobilityConfig] = None   # opportunistic world (EnFed only)
     pooled_train: Optional[tuple] = None  # cloud baseline corpus (default: all shards)
     seed: int = 0
     device: Optional[object] = None
@@ -63,7 +67,7 @@ class WorldSpec:
                contributor_states: Dict[int, dict], *,
                battery: Optional[BatteryState] = None,
                cost_model: Optional[CostModel] = None,
-               mobility: Optional[object] = None,
+               mobility: Optional[MobilityConfig] = None,
                pooled_train: Optional[tuple] = None,
                seed: int = 0, device=None) -> "WorldSpec":
         """The common one-requester world, from ``EnFedSession``-style args."""
@@ -147,14 +151,14 @@ class MethodSpec:
     # knob (wire bytes, eq. (4)-(7) energy, quantized params), priced for
     # every method through the same update_wire_bytes helper
     compress: Optional[str] = None
-    faults: Optional[object] = None      # unreliable links: slice E
-    cadence: Optional[object] = None     # asynchronous cadence: slice E
+    faults: Optional[object] = None      # unreliable links: slice E.2
+    cadence: Optional[object] = None     # asynchronous cadence: slice E.3
     # Byzantine contributors and the robust AGGREGATE statistic ("none" |
     # "clip" | "trimmed_mean" | "median"): enfed-only protocol knobs; the
     # baselines warn and drop them
     adversary: Optional[AdversaryConfig] = None
     robust: str = "none"
-    staleness_gamma: float = 1.0         # decayed weights < 1: slice E
+    staleness_gamma: float = 1.0         # decayed weights < 1: slice E.2
     label: Optional[str] = None          # display/compare key (default: name)
 
     @property

@@ -8,6 +8,7 @@ from repro_torch.core.federated import (BaselineResult, CFLLearner, DFLLearner,
 from repro_torch.core.fleet import FleetResult, RequesterSpec, run_fleet
 from repro_torch.core.incentive import (Contract, NeighborDevice, make_fleet,
                                         select_contributors, sign_contracts_fleet)
+from repro_torch.core.mobility import MobilityConfig
 from repro_torch.core.protocol import Phase
 from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
 from repro_torch.core.topology import AggregationStrategy, group_mixing_matrix
@@ -31,7 +32,7 @@ __all__ = [
     "BatteryState", "CostModel", "DeviceProfile", "EnergyReport", "LinkProfile",
     # incentives / world
     "Contract", "NeighborDevice", "make_fleet", "select_contributors",
-    "sign_contracts_fleet", "AdversaryConfig",
+    "sign_contracts_fleet", "AdversaryConfig", "MobilityConfig",
     # EnFed engines + protocol vocabulary
     "EnFedConfig", "EnFedSession", "SessionResult",
     "FleetResult", "RequesterSpec", "run_fleet", "Phase",

@@ -192,6 +192,37 @@ class CostModel:
                             epochs=epochs, n_devices=n_devices,
                             encrypt=encrypt).e_tot
 
+    def contributor_round_energy(self, *, num_params: int, model_bytes: int,
+                                 num_samples: int, refresh_epochs: int,
+                                 encrypt: bool = True):
+        """One participating round's cost on the contributor's side, split
+        as ``(e_tx, e_refresh)``: ``e_tx`` transmits (and, on an encrypted
+        transport, encrypts) one update, paid every round under contract;
+        ``e_refresh`` is Phase.REFRESH's local training, paid only when the
+        session goes on.  The mobility world discharges contributor
+        batteries with these constants in both engines."""
+        d = self.device
+        e_tx = 8.0 * model_bytes / self.link.rate_bps * d.p_tx
+        if encrypt:
+            e_tx += self.t_crypto(model_bytes) * d.p_crypto
+        e_refresh = (self.t_local_fit(num_params, num_samples, refresh_epochs)
+                     * d.p_train if refresh_epochs > 0 else 0.0)
+        return e_tx, e_refresh
+
+    def round_energy_table(self, *, max_contrib: int, num_params: int,
+                           model_bytes: int, num_samples: int, epochs: int,
+                           n_devices: Optional[int] = None,
+                           encrypt: bool = True):
+        """``[round_energy(n_contrib=j) for j in 0 ... max_contrib]``: under
+        mobility the member count changes each round, so the battery
+        discharge is this lookup table, indexed by each round's count (the
+        loop engine) or gathered with it (the fleet).  Entry 0 is a
+        member-less round: the requester fits alone and receives nothing."""
+        return [self.round_energy(
+            n_contrib=j, num_params=num_params, model_bytes=model_bytes,
+            num_samples=num_samples, epochs=epochs, n_devices=n_devices,
+            encrypt=encrypt) for j in range(max_contrib + 1)]
+
     def screening_energy(self, *, n_contrib: int, num_params: int):
         """Cost of ONE round's Byzantine-robust screening pass, split as
         ``(e_screen, t_screen_s)``: one more pass over the ``n_contrib x

@@ -1,6 +1,6 @@
 """The EnFed fleet engine: R requester sessions advancing together on one
-flat round state (port of ``repro.core.fleet.run_fleet`` for
-``method="enfed"`` in a static, lockstep world).
+flat round state (port of ``repro.core.fleet.run_fleet`` in the lockstep
+worlds: static or mobile neighbourhoods, honest or Byzantine links).
 
 Design, as in the reference:
 
@@ -47,6 +47,21 @@ Design, as in the reference:
   robust statistic of :mod:`repro_torch.kernels.robust.ops` replaces
   eq. 14, on the fused int8 state or the fp32 one.
 
+* **Opportunistic world.**  Under ``mobility=`` the N lanes of requester
+  i hold its candidate pool and lane i walks as device
+  ``requester_id + i``.  Each round renegotiates membership on the device
+  (:func:`repro_torch.core.mobility.membership_step` on the round number,
+  the candidates' batteries carried as an (R, N) tensor), and the member
+  mask, through ``dynamic_round_weights``, is the weight row of the one
+  eq. 14 launch; a lane with no member keeps its own params, which start
+  as the requester's init.  The requester discharges by a per-count energy
+  table gathered at the member count, the members by their transmit and
+  refresh costs.  Membership gaps make lanes diverge, so REFRESH trains
+  every one of the R·N lanes (no dedup) and a lane takes its result only
+  where it is a member of a session that goes on; the lanes' plans depend
+  only on (device seed, shard) and are built once.  ``history["member"]``
+  traces the (max_rounds, R, N) membership.
+
 * **Baselines.**  ``method="cfl"|"dfl"`` runs the paper's baselines on
   the same scaffolding (:func:`_run_fleet_baseline`): lane (i, j) is
   client j of requester i's roster (its own shard, then every neighbour
@@ -63,8 +78,8 @@ Design, as in the reference:
 
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  Mobility, faults, cadence, staleness decay, checkpoints and
-the profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
+transport.  Faults, cadence, staleness decay, checkpoints and the
+profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
 ``hlo_stats``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
 slice (under a baseline method, the enfed-only knobs raise ``ValueError``
 as in the reference).
@@ -81,10 +96,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import adversary as adversary_mod
-from repro_torch.core import protocol, schedule, topology
+from repro_torch.core import mobility, protocol, schedule, topology
 from repro_torch.core.battery import BatteryState, discharge_level, load_efficiency
 from repro_torch.core.energy import CostModel, update_wire_bytes
-from repro_torch.core.incentive import NeighborDevice, sign_contracts_fleet
+from repro_torch.core.incentive import NeighborDevice, candidate_pool, sign_contracts_fleet
 from repro_torch.core.rounds import EnFedConfig, SessionResult, _unported
 from repro_torch.kernels.common import check_interpret, plain_twins, resolve_device
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
@@ -120,7 +135,9 @@ class FleetResult:
     battery_level: np.ndarray   # (R,) final battery fraction
     total_energy_j: float       # summed eq. (5) energy across the fleet
     history: Dict[str, np.ndarray]  # (max_rounds, R) traces; "round_executed"
-                                    # is (max_rounds,), 1 where a round ran
+                                    # is (max_rounds,), 1 where a round ran;
+                                    # "member" is (max_rounds, R, N) under
+                                    # mobility
     staged_param_bytes: int = 0       # contributor round state as staged
                                       # (fp32 (R, N, P), or int8 + scales)
     device_round_state_bytes: int = 0  # that state as carried on the device
@@ -232,7 +249,7 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
         raise ValueError(f"unknown dfl topology {dfl_topology!r} (mesh|ring)")
     if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
         raise NotImplementedError(
-            "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
+            "checkpoint/resume is ported with the fault world, ROADMAP.md slice E.2")
     if trace is not None and (getattr(trace, "jax_profiler_dir", None)
                               or getattr(trace, "hlo_stats", False)):
         raise NotImplementedError(
@@ -240,10 +257,10 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
             "ROADMAP.md slice F (not ported yet)")
     if baseline:
         # the baselines have no renegotiation, so mobility does not apply to
-        # them (the reference drops it); their fault pricing is slice E's
+        # them (the reference drops it); their fault pricing is slice E.2's
         if cfg.faults is not None:
             raise NotImplementedError(
-                "faults (world state, ROADMAP.md slice E) is not ported yet")
+                "faults (world state, ROADMAP.md slice E.2) is not ported yet")
         return
     unported = _unported(cfg)
     if unported is not None:
@@ -307,18 +324,43 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                      tl: Timeline) -> FleetResult:
     """Algorithm 1 for every requester on the flat round state."""
     R = len(requesters)
+    mob = cfg.mobility
     stage = tl.begin("stage")
-    # ---- Phase.HANDSHAKE (host, static) -------------------------------------
-    contracts, contract_mask = sign_contracts_fleet(
-        [spec.neighborhood for spec in requesters], cfg.offered_incentive, cfg.n_max)
-    for i, cs in enumerate(contracts):
+    # ---- Phase.HANDSHAKE (host) ---------------------------------------------
+    # a static world signs ranked contracts once; under mobility the lanes
+    # are each requester's candidate pool, in device order, and membership
+    # is renegotiated on the device every round
+    if mob is None:
+        lane_devs, contract_mask = sign_contracts_fleet(
+            [spec.neighborhood for spec in requesters], cfg.offered_incentive, cfg.n_max)
+    else:
+        lane_devs = [candidate_pool(spec.neighborhood, cfg.offered_incentive)
+                     for spec in requesters]
+    for i, cs in enumerate(lane_devs):
         if not cs:
             raise RuntimeError(
                 f"requester {i}: no nearby device agreed to the incentive (N_d < 1)")
-    N = contract_mask.shape[1]
-    round_w = np.zeros((R, N), np.float32)
-    for i, cs in enumerate(contracts):
-        round_w[i, :len(cs)] = protocol.round_weights(len(cs), cfg.strategy)
+    if mob is None:
+        N = contract_mask.shape[1]
+        round_w = np.zeros((R, N), np.float32)
+        for i, cs in enumerate(lane_devs):
+            round_w[i, :len(cs)] = protocol.round_weights(len(cs), cfg.strategy)
+    else:
+        N = max(len(cs) for cs in lane_devs)
+        req_ids = np.arange(R, dtype=np.int64) + mob.requester_id
+        cand_ids = np.zeros((R, N), np.int64)
+        cand_mask = np.zeros((R, N), bool)
+        base_util = np.zeros((R, N), np.float32)
+        clevel0 = np.zeros((R, N), np.float32)
+        for i, cs in enumerate(lane_devs):
+            n_i = len(cs)
+            cand_ids[i, :n_i] = [d.device_id for d in cs]
+            cand_mask[i, :n_i] = True
+            clevel0[i, :n_i] = [d.battery_level for d in cs]
+            base_util[i, :n_i] = mobility.static_utility_term(
+                np.array([d.model_staleness for d in cs], np.float32),
+                np.array([d.data_size for d in cs], np.float32),
+                np.float32(max(d.data_size for d in cs))).numpy()
     ac, robust = cfg.adversary, cfg.robust
     if ac is not None:
         # lane i rolls its corruption dice as requester requester_id + i, over
@@ -326,12 +368,12 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         areq_ids = np.arange(R, dtype=np.int64) + ac.requester_id
         acand_ids = np.zeros((R, N), np.int64)
         asigned = np.zeros((R, N), bool)
-        for i, cs in enumerate(contracts):
+        for i, cs in enumerate(lane_devs):
             acand_ids[i, :len(cs)] = [c.device_id for c in cs]
             asigned[i, :len(cs)] = True
 
     # ---- contributor round state and deduplicated shards --------------------
-    template = requesters[0].contributor_states[contracts[0][0].device_id]["params"]
+    template = requesters[0].contributor_states[lane_devs[0][0].device_id]["params"]
     _, spec = tree_ravel(template)
     P = tree_size(template)
     contrib_np = np.zeros((R, N, P), np.float32)
@@ -340,7 +382,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     shard_x, shard_y = [], []
     cidx = np.zeros((R, N), np.int64)
     shard_len = np.zeros((R, N), np.int64)
-    for i, (rspec, cs) in enumerate(zip(requesters, contracts)):
+    for i, (rspec, cs) in enumerate(zip(requesters, lane_devs)):
         for j, c in enumerate(cs):
             st = rspec.contributor_states[c.device_id]
             row = host_rows.get(id(st["params"]))
@@ -393,19 +435,46 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     partitionable = task.threefry_partitionable
     lanes_r = torch.arange(R, device=dev)[:, None]
 
-    # ---- Phase.REFRESH: unique rows, their shards and their one plan --------
+    # ---- Phase.REFRESH: the rows that train, their shards and plans ---------
     ref_epochs = max(cfg.contributor_refresh_epochs, 0)
     do_refresh = ref_epochs > 0
+    # a static world trains one row per unique (device, shard, params); under
+    # mobility the lanes diverge, so every lane trains its own row
+    refresh_dedup = do_refresh and mob is None
     if do_refresh:
         cx_tab, _ = _pad_stack(shard_x, max(len(x) for x in shard_x), np.float32)
         cy_tab, _ = _pad_stack(shard_y, cx_tab.shape[1], np.int64)
         cx_tab, cy_tab = torch.from_numpy(cx_tab).to(dev), torch.from_numpy(cy_tab).to(dev)
         ref_steps = max(schedule.fit_steps(int(n), batch) for n in shard_len[shard_len > 0])
+    if do_refresh and not refresh_dedup:
+        # a lane's plan is a function of (device seed, shard size): one plan
+        # per unique pair, gathered to the R·N lanes (padded lanes: n = 0,
+        # no step carries weight)
+        plan_of: dict = {}
+        lane_plan = np.zeros((R, N), np.int64)
+        for i, cs in enumerate(lane_devs):
+            for j in range(N):
+                key = ((cfg.seed + cs[j].device_id, int(shard_len[i, j])) if j < len(cs)
+                       else (cfg.seed, 0))
+                lane_plan[i, j] = plan_of.setdefault(key, len(plan_of))
+        p_seed, p_n = zip(*plan_of)
+        p_idx, p_w = schedule.lane_plans(torch.stack([
+            schedule.epoch_scores(sd, ref_epochs, cx_tab.shape[1], partitionable=partitionable)
+            for sd in p_seed]), p_n, batch, ref_steps)
+        flat_plan = torch.from_numpy(lane_plan.reshape(R * N))
+        ref_idx, ref_w = p_idx[flat_plan], p_w[flat_plan]
+        ref_live = (ref_w.sum(-1) > 0).numpy()
+        ref_idx, ref_w = ref_idx.to(dev), ref_w.to(dev)
+        lane_rows = torch.from_numpy(cidx.reshape(R * N)).to(dev)[:, None]
+
+        def refresh_batch(ib):
+            return cx_tab[lane_rows, ib], cy_tab[lane_rows, ib]
+    if refresh_dedup:
         ref_map: dict = {}
         ref_uidx = np.zeros((R, N), np.int64)
         lane_valid = np.zeros((R, N), bool)
         u_cidx, u_n, u_seed, rep = [], [], [], []
-        for i, cs in enumerate(contracts):
+        for i, cs in enumerate(lane_devs):
             for j, c in enumerate(cs):
                 key = (c.device_id, int(cidx[i, j]),
                        hashlib.blake2b(contrib_np[i, j].tobytes(), digest_size=16).digest())
@@ -438,37 +507,58 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     model_bytes = update_wire_bytes(P, encrypt=cfg.encrypt, compress=wire_compress,
                                     raw_bytes=tree_bytes(template))
     batteries = [s.battery or BatteryState() for s in requesters]
-    e_round = np.array([cost.round_energy(
-        n_contrib=len(cs), num_params=P, model_bytes=model_bytes,
-        num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
-        n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
-        for rspec, cs in zip(requesters, contracts)], np.float32)
 
     def f32(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-    e_round_t = f32(e_round)
+    if mob is None:
+        e_round_t = f32([cost.round_energy(
+            n_contrib=len(cs), num_params=P, model_bytes=model_bytes,
+            num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
+            n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
+            for rspec, cs in zip(requesters, lane_devs)])
+    else:
+        # the member count changes each round: a per-count table gathered at
+        # the count, and the members' own per-round costs (transmit, refresh)
+        e_tab = f32([cost.round_energy_table(
+            max_contrib=N, num_params=P, model_bytes=model_bytes,
+            num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
+            n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
+            for rspec in requesters])
+        e_tx, e_ref = np.zeros((R, N), np.float32), np.zeros((R, N), np.float32)
+        for i, cs in enumerate(lane_devs):
+            for j in range(len(cs)):
+                e_tx[i, j], e_ref[i, j] = cost.contributor_round_energy(
+                    num_params=P, model_bytes=model_bytes, num_samples=int(shard_len[i, j]),
+                    refresh_epochs=cfg.contributor_refresh_epochs, encrypt=cfg.encrypt)
+        e_tx, e_ref, base_util = f32(e_tx), f32(e_ref), f32(base_util)
+        req_ids, cand_ids, cand_mask = (torch.from_numpy(a).to(dev)
+                                        for a in (req_ids, cand_ids, cand_mask))
     capacity = f32([b.capacity_j for b in batteries])
     eff = f32([load_efficiency(cost.device.p_train, b.high_load_penalty,
                                b.high_load_threshold_w) for b in batteries])
     desired = f32(cfg.desired_accuracy)
     threshold = f32(cfg.battery_threshold)
-    round_w_t = f32(round_w)
+    round_w_t = f32(round_w) if mob is None else None
     if ac is not None:
         areq_ids, acand_ids, asigned = (torch.from_numpy(a).to(dev)
                                         for a in (areq_ids, acand_ids, asigned))
 
     # ---- the round loop -------------------------------------------------------
     level = f32([b.level for b in batteries])
-    last = torch.zeros((R, P), dtype=torch.float32, device=dev)
+    # under mobility a round may aggregate nothing: the fallback chain
+    # bottoms out at the requester's own init
+    last = (tree_ravel(task.init(seed=cfg.seed))[0].to(dev).expand(R, P).clone()
+            if mob is not None else torch.zeros((R, P), dtype=torch.float32, device=dev))
+    clevel = f32(clevel0) if mob is not None else None
     active = torch.ones(R, dtype=torch.bool, device=dev)
     stop_code = torch.full((R,), protocol.STOP_MAX_ROUNDS, dtype=torch.int32, device=dev)
     rounds_done = torch.zeros(R, dtype=torch.int32, device=dev)
     acc_h, loss_h, bat_h, exec_h = (
         torch.zeros((cfg.max_rounds, R), dtype=torch.float32, device=dev) for _ in range(4))
     # (max_rounds, R, N) corrupted-delivery and clipped traces
-    corrupt_h, clip_h = (torch.zeros((cfg.max_rounds, R, N), dtype=torch.float32, device=dev)
-                         for _ in range(2))
+    corrupt_h, clip_h, member_h = (
+        torch.zeros((cfg.max_rounds, R, N), dtype=torch.float32, device=dev) for _ in range(3))
     body_h = torch.zeros((cfg.max_rounds,), dtype=torch.float32, device=dev)
     _sync(dev)
     tl.finish(stage)
@@ -476,6 +566,14 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
         ran = active.any()
         body_h[r] = ran.to(torch.float32)
+        # Phase.RENEGOTIATE (mobility): release, sign and undercut on the
+        # device; the member mask is this round's weight row
+        if mob is not None:
+            member, rank, _ = mobility.membership_step(
+                mob, r, req_ids, cand_ids, cand_mask, base_util, clevel, cfg.n_max,
+                partitionable=partitionable)
+            round_w_t = topology.dynamic_round_weights(member, rank, cfg.strategy)
+            count = member.sum(dim=1)
         # Phase.COLLECT: the delivered buffer is the round state, or under
         # an adversary a corrupted copy of it, keyed on the delivering round
         src, src_s = contrib, cscale
@@ -494,7 +592,8 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             else:
                 src = adversary_mod.corrupt_dense_batched(
                     ac, src, cmask, r, areq_ids, acand_ids, partitionable=partitionable)
-            corrupt_h[r] = (cmask & asigned & active[:, None]).to(torch.float32)
+            counted = member if mob is not None else asigned
+            corrupt_h[r] = (cmask & counted & active[:, None]).to(torch.float32)
         # Phase.AGGREGATE: eq. 14, or the robust statistic, in one launch
         # over the whole buffer
         if robust != "none":
@@ -508,6 +607,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             glob = fedavg_flat_batched_q8(src, src_s, round_w_t)[:, :P]
         else:
             glob = fedavg_flat_batched(src, round_w_t)
+        if mob is not None:
+            # nothing fed eq. 14: the lane keeps training its own params
+            glob = torch.where((count > 0)[:, None], glob, last)
         # Phase.FIT + Phase.SCORE, every requester as a lane
         scores = schedule.epoch_scores(cfg.seed + r, cfg.epochs, n_pad,
                                        partitionable=partitionable)
@@ -517,6 +619,8 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             idx.to(dev), w.to(dev), (w.sum(-1) > 0).numpy())
         acc = _eval_lanes(task.model, spec, new_flat, test_x, test_y, test_mask)
         # Phase.ACCOUNT: fp32 battery discharge of the executing lanes
+        if mob is not None:
+            e_round_t = e_tab.gather(1, count[:, None])[:, 0]
         level_new = discharge_level(level, e_round_t, capacity, eff)
         reached = acc >= desired
         low = level_new < threshold
@@ -531,8 +635,31 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         acc_h[r], loss_h[r], bat_h[r] = (torch.where(ran, v, 0.0)
                                          for v in (acc, last_loss, level))
         exec_h[r] = active.to(torch.float32)
+        if mob is not None:
+            # members paid their transmission, and the refresh term where
+            # the session goes on
+            clevel = mobility.contributor_discharge(
+                clevel, member & active[:, None], e_tx, e_ref, next_active[:, None],
+                mob.contributor_capacity_j)
+            member_h[r] = (member & active[:, None]).to(torch.float32)
+        # Phase.REFRESH under mobility: every lane trains its own row, the
+        # members of sessions that go on take the result
+        if do_refresh and not refresh_dedup:
+            if cscale is not None:
+                src = dequantize_flat_batched(contrib.reshape(R * N, -1),
+                                              cscale.reshape(R * N, -1))[:, :P]
+            else:
+                src = contrib.reshape(R * N, P)
+            refreshed, _ = _fit_lanes(task, spec, src, refresh_batch, ref_idx, ref_w, ref_live)
+            take = (next_active[:, None] & member)[..., None]
+            if cscale is not None:
+                q2, s2 = quantize_flat_batched(refreshed)
+                contrib = torch.where(take, q2.reshape(R, N, -1), contrib)
+                cscale = torch.where(take, s2.reshape(R, N, -1), cscale)
+            else:
+                contrib = torch.where(take, refreshed.reshape(R, N, P), contrib)
         # Phase.REFRESH: the V unique rows train, lanes that go on take them
-        if do_refresh:
+        if refresh_dedup:
             src = dequantize_flat_batched(live, live_s)[:, :P] if live_s is not None else live
             refreshed, _ = _fit_lanes(task, spec, src, refresh_batch, ref_idx, ref_w, ref_live)
             take = (next_active[:, None] & lane_valid)[..., None]
@@ -552,24 +679,30 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     rounds_np = rounds_done.cpu().numpy()
     codes_np = stop_code.cpu().numpy()
     level_np = level.cpu().numpy()
-    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, body_h = (
-        t.cpu().numpy() for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, body_h))
+    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, member_h, body_h = (
+        t.cpu().numpy()
+        for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, member_h, body_h))
     if do_refresh:
         if cscale is not None:
             with _span(tl, dev, "dequant_unpack"):
                 final = dequantize_flat_batched(contrib, cscale)[..., :P]
         else:
             final = contrib
-        for i, (rspec, cs) in enumerate(zip(requesters, contracts)):
+        for i, (rspec, cs) in enumerate(zip(requesters, lane_devs)):
             for j, c in enumerate(cs):
                 rspec.contributor_states[c.device_id]["params"] = tree_unravel(spec, final[i, j])
 
     sessions = []
     total_e = 0.0
-    for i, (rspec, cs, b0) in enumerate(zip(requesters, contracts, batteries)):
+    for i, (rspec, cs, b0) in enumerate(zip(requesters, lane_devs, batteries)):
         r_i = int(rounds_np[i])
+        if mob is None:
+            n_contrib_i = float(len(cs))
+        else:
+            # priced over the mean membership, in fp32 as the reference's fleet
+            n_contrib_i = float(member_h[:r_i, i].sum(-1).mean()) if r_i else 0.0
         report = cost.session(
-            rounds=r_i, n_contrib=float(len(cs)), num_params=P,
+            rounds=r_i, n_contrib=n_contrib_i, num_params=P,
             model_bytes=model_bytes, num_samples=len(rspec.own_train[0]),
             epochs=cfg.epochs, n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
         if robust != "none" and r_i:
@@ -583,6 +716,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                    "loss": [float(v) for v in loss_h[:r_i, i]],
                    "battery": [float(v) for v in bat_h[:r_i, i]],
                    "round_executed": [float(v) for v in exec_h[:r_i, i]]}
+        if mob is not None:
+            history["member_mask"] = [member_h[t, i].copy() for t in range(r_i)]
+            history["members"] = [float(member_h[t, i].sum()) for t in range(r_i)]
         if ac is not None:
             history["corrupted_mask"] = [corrupt_h[t, i].copy() for t in range(r_i)]
         if robust != "none":
@@ -595,6 +731,8 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             params=tree_unravel(spec, last[i]), model_bytes=model_bytes))
     fleet_hist = {"accuracy": acc_h, "loss": loss_h, "battery": bat_h,
                   "executed": exec_h, "round_executed": body_h}
+    if mob is not None:
+        fleet_hist["member"] = member_h
     if ac is not None:
         fleet_hist["corrupted"] = corrupt_h
     if robust != "none":

@@ -1,6 +1,8 @@
-"""Contract-theory incentive mechanism (paper §III, [31]); copy of the
-static-neighbourhood part of ``repro.core.incentive``, for one requester
-(:func:`select_contributors`) and for a fleet (:func:`sign_contracts_fleet`).
+"""Contract-theory incentive mechanism (paper §III, [31]); copy of
+``repro.core.incentive``: the static handshake for one requester
+(:func:`select_contributors`) and for a fleet (:func:`sign_contracts_fleet`),
+and the dynamic contracts of the mobility world (:func:`candidate_pool`,
+:func:`contracts_from_membership`).
 
 The requesting device publishes an offered incentive; each nearby device
 has a private reservation price (its cost of participating: battery it
@@ -19,6 +21,7 @@ import dataclasses
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -80,6 +83,39 @@ def sign_contracts_fleet(neighborhoods: Sequence[Sequence[NeighborDevice]],
     for i, cs in enumerate(contracts):
         mask[i, :len(cs)] = 1.0
     return contracts, mask
+
+
+# ---------------------------------------------------------------------------
+# dynamic contracts (the mobility world, repro_torch.core.mobility)
+# ---------------------------------------------------------------------------
+
+
+def candidate_pool(devices: Sequence[NeighborDevice],
+                   offered_incentive: float) -> List[NeighborDevice]:
+    """The agreeing devices of a neighbourhood, in stable device order.
+
+    Under mobility the handshake fixes this pool instead of a contract set:
+    every device that holds a model and whose reservation price the offer
+    covers.  Battery and radio range are checked each round by
+    :func:`repro_torch.core.mobility.membership_step`; the pool's order is
+    the contributor lane order of both engines."""
+    return [d for d in devices
+            if d.has_model and offered_incentive >= d.reservation_price]
+
+
+def contracts_from_membership(candidates: Sequence[NeighborDevice], member, util,
+                              offered_incentive: float) -> List[Contract]:
+    """Host view of one round's renegotiated contract set: ``member`` and
+    ``util`` are one requester's (N,) outputs of ``membership_step``
+    (tensors or arrays); returns the signed contracts, best utility first
+    (equal utilities by lane index)."""
+    member = np.asarray(torch.as_tensor(member).cpu(), bool)
+    util = np.asarray(torch.as_tensor(util).cpu(), np.float32)
+    order = sorted((j for j in range(len(candidates)) if member[j]),
+                   key=lambda j: (-util[j], j))
+    return [Contract(device_id=candidates[j].device_id,
+                     incentive=offered_incentive, utility=float(util[j]))
+            for j in order]
 
 
 def make_fleet(num_devices: int, seed: int = 0, p_has_model: float = 0.9) -> List[NeighborDevice]:

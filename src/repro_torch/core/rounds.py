@@ -25,17 +25,27 @@ round.  Under ``robust != "none"`` AGGREGATE runs the robust statistic of
 eq. 14, records which contributors it clipped, and the report prices one
 screening pass per executed round.
 
+Under ``mobility=MobilityConfig(...)`` the contract set is renegotiated
+every round (:mod:`repro_torch.core.mobility`, ``_run_mobility``): the
+handshake fixes the candidate pool and exchanges keys with all of it, the
+requester owns its model from the start, and each round collects and
+aggregates the current members only (a member-less round trains alone),
+discharges the requester by the member count's entry of a per-count energy
+table and the members' batteries by their transmit and refresh costs, and
+refreshes the current members.
+
 ``run(engine="fleet")`` runs the session as a one-requester fleet
 (:func:`repro_torch.core.fleet.run_fleet`), forwarding the execution knobs
 (``use_pallas``, ``interpret``, ``round_chunk``, ``timeline``).  The loop
 engine records the reference's spans on ``timeline`` (``handshake``;
 ``transport`` around one round's collect; ``fit``; ``refresh``), each
 closed after a device sync, and runs the plain PyTorch twins of every
-kernel under ``use_pallas=False``.  This slice covers the static, lockstep
-world: ``encrypt`` on or off, any ``strategy``, any ``compress``,
-Byzantine contributors and the robust AGGREGATE.  Every other knob of
-``EnFedConfig``, and checkpointing, raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` slice that ports it.
+kernel under ``use_pallas=False``.  The port runs the lockstep worlds:
+``encrypt`` on or off, any ``strategy``, any ``compress``, Byzantine
+contributors and the robust AGGREGATE, in a static neighbourhood or under
+mobility.  Faults, cadence, ``staleness_gamma < 1`` and checkpointing
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice that ports
+them.
 """
 
 from __future__ import annotations
@@ -49,11 +59,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import adversary as adversary_mod
-from repro_torch.core import aggregation, crypto, protocol
+from repro_torch.core import aggregation, crypto, mobility, protocol, topology
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
-from repro_torch.core.energy import CostModel, EnergyReport
-from repro_torch.core.incentive import Contract, NeighborDevice, select_contributors
+from repro_torch.core.energy import CostModel, EnergyReport, update_wire_bytes
+from repro_torch.core.incentive import (Contract, NeighborDevice, candidate_pool,
+                                        contracts_from_membership, select_contributors)
+from repro_torch.core.mobility import MobilityConfig
 from repro_torch.core.topology import AggregationStrategy
 from repro_torch.kernels.common import check_interpret, plain_twins, resolve_device
 from repro_torch.kernels.quantize.ops import (compress_update, decompress_update,
@@ -79,15 +91,16 @@ class EnFedConfig:
     # which signed contributors feed eq. (14) each round (None = all)
     strategy: Optional[AggregationStrategy] = None
     compress: Optional[str] = None          # None | "int8" | "auto" wire format
-    # mobility, faults, cadence and staleness_gamma < 1 belong to later
-    # slices of the port; the engines raise NotImplementedError for them.
-    mobility: Optional[object] = None       # opportunistic world: slice E
-    faults: Optional[object] = None         # unreliable links: slice E
-    cadence: Optional[object] = None        # asynchronous cadence: slice E
+    # opportunistic world: the contract set is renegotiated every round
+    mobility: Optional[MobilityConfig] = None
+    # faults, cadence and staleness_gamma < 1 belong to later slices of
+    # the port; the engines raise NotImplementedError for them.
+    faults: Optional[object] = None         # unreliable links: slice E.2
+    cadence: Optional[object] = None        # asynchronous cadence: slice E.3
     adversary: Optional[AdversaryConfig] = None   # Byzantine contributors
     # robust AGGREGATE: "none" (eq. 14) | "clip" | "trimmed_mean" | "median"
     robust: str = "none"
-    staleness_gamma: float = 1.0            # decayed weights: slice E
+    staleness_gamma: float = 1.0            # decayed weights: slice E.2
 
     def __post_init__(self):
         if self.compress not in (None, "int8", "auto"):
@@ -102,13 +115,18 @@ class EnFedConfig:
                 f"(got {self.staleness_gamma})")
 
 
+# the world knobs the port does not run yet, with the slice of each
+_UNPORTED_WORLDS = (("faults", "E.2"), ("cadence", "E.3"))
+
+
 def _unported(cfg: EnFedConfig) -> Optional[str]:
-    """The first knob of ``cfg`` this slice does not run, with its slice."""
-    for name in ("mobility", "faults", "cadence"):
+    """The first knob of ``cfg`` the port does not run, with its slice."""
+    world = " under mobility" if cfg.mobility is not None else ""
+    for name, sub in _UNPORTED_WORLDS:
         if getattr(cfg, name) is not None:
-            return f"{name} (world state, ROADMAP.md slice E)"
+            return f"{name}{world} (world state, ROADMAP.md slice {sub})"
     if cfg.staleness_gamma < 1.0:
-        return "staleness_gamma < 1 (decayed weights, ROADMAP.md slice E)"
+        return f"staleness_gamma < 1{world} (decayed weights, ROADMAP.md slice E.2)"
     return None
 
 
@@ -268,34 +286,38 @@ class EnFedSession:
         plain = crypto.decrypt_update(cipher, self.keys[device_id], self.nonces[device_id])
         return unflatten_from_vector(plain, params), int(cipher.shape[0])
 
-    def _robust_aggregate_full(self, updates, weights):
-        """Phase.AGGREGATE under ``robust != "none"``: stack the delivered
-        updates into a (1, N, P) buffer on the session's device and run the
-        one :func:`repro_torch.kernels.robust.ops.robust_aggregate` the
-        fleet also calls.  Returns the aggregated tree and the clipped
-        mask (N,) as float32."""
-        stacked = torch.stack([flatten_to_vector(u)[0] for u in updates])
-        w = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(stacked.device)
-        agg, clipped = robust_aggregate(stacked[None], w[None], method=self.cfg.robust)
-        return (unflatten_from_vector(agg[0], updates[0]),
-                clipped[0].cpu().numpy().astype(np.float32))
+    def _robust_aggregate_full(self, updates, lanes, w_full, template):
+        """Phase.AGGREGATE under ``robust != "none"``: put the delivered
+        updates at their ``lanes`` of the full-lane (1, N, P) buffer on the
+        session's device (zero rows elsewhere, whose weight in ``w_full`` is
+        0) and run the one
+        :func:`repro_torch.kernels.robust.ops.robust_aggregate` the fleet
+        also calls.  Returns the aggregated tree (shaped as ``template``)
+        and the clipped mask over the full lane set as bool; an all-zero
+        weight row aggregates to zeros, and the caller keeps its own
+        params instead."""
+        w = torch.from_numpy(np.ascontiguousarray(w_full, np.float32)).to(self.device)
+        u = torch.zeros((1, w.shape[0], tree_size(template)), dtype=torch.float32,
+                        device=self.device)
+        for k, j in enumerate(lanes):
+            u[0, int(j)] = flatten_to_vector(updates[k])[0]
+        agg, clipped = robust_aggregate(u, w[None], method=self.cfg.robust)
+        return unflatten_from_vector(agg[0], template), clipped[0].cpu().numpy()
 
-    def _refresh_contributors(self, contracts: List[Contract]):
-        """Phase.REFRESH: contributors keep improving between rounds.
-        Under int8 a contributor trains from its wire image and its result
-        is packed back into wire format."""
+    def _refresh_contributors(self, device_ids):
+        """Phase.REFRESH: the contributors ``device_ids`` keep improving
+        between rounds.  Under int8 a contributor trains from its wire image
+        and its result is packed back into wire format."""
         if self.cfg.contributor_refresh_epochs <= 0:
             return
         compress = self._compress == "int8"
-        for c in contracts:
-            st = self.contributor_states[c.device_id]
-            base = (self._wire_image(c.device_id, st["params"]) if compress
-                    else st["params"])
+        for did in device_ids:
+            st = self.contributor_states[did]
+            base = self._wire_image(did, st["params"]) if compress else st["params"]
             fitted, _ = self.task.fit(
                 base, st["data"], self.cfg.contributor_refresh_epochs,
-                self.cfg.batch_size, seed=self.cfg.seed + c.device_id)
-            st["params"] = (self._wire_pack(c.device_id, fitted) if compress
-                            else fitted)
+                self.cfg.batch_size, seed=self.cfg.seed + did)
+            st["params"] = self._wire_pack(did, fitted) if compress else fitted
 
     # -- Algorithm 1 ----------------------------------------------------------
     def run(self, engine: str = "loop", *, use_pallas: bool = True,
@@ -338,12 +360,14 @@ class EnFedSession:
             raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
         if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
             raise NotImplementedError(
-                "checkpoint/resume is ported with the fault world, ROADMAP.md slice E")
+                "checkpoint/resume is ported with the fault world, ROADMAP.md slice E.2")
         unported = _unported(self.cfg)
         if unported is not None:
             raise NotImplementedError(f"{unported} is not ported yet")
         tl = timeline if timeline is not None else Timeline()
         with contextlib.nullcontext() if use_pallas else plain_twins():
+            if self.cfg.mobility is not None:
+                return self._run_mobility(tl)
             return self._run_loop(tl)
 
     def _run_loop(self, tl: Timeline) -> SessionResult:
@@ -390,8 +414,9 @@ class EnFedSession:
             # launch over the (1, N, P) buffer
             with self._clock(phase_s, "aggregate", tl):
                 if cfg.robust != "none":
-                    global_params, clipped = self._robust_aggregate_full(updates, round_w)
-                    history["clipped_mask"].append(clipped)
+                    global_params, clipped = self._robust_aggregate_full(
+                        updates, range(n_c), round_w, updates[0])
+                    history["clipped_mask"].append(clipped.astype(np.float32))
                 else:
                     global_params = aggregation.masked_fedavg(updates, round_w)
             with self._clock(phase_s, "fit", tl, round=r):
@@ -423,7 +448,7 @@ class EnFedSession:
                 stop = protocol.STOP_BATTERY
                 break
             with self._clock(phase_s, "refresh", tl, round=r):
-                self._refresh_contributors(contracts)
+                self._refresh_contributors([c.device_id for c in contracts])
 
         report = self.cost.session(
             rounds=rounds, n_contrib=n_c, num_params=tree_size(params),
@@ -439,6 +464,158 @@ class EnFedSession:
             report.e_comp += rounds * e_scr
         return SessionResult(
             accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_c,
+            report=report, battery=self.battery, history_raw=history,
+            stop_reason=protocol.stop_reason_name(stop), params=params,
+            model_bytes=model_bytes, phase_s=phase_s)
+
+    # -- Algorithm 1 in the opportunistic world (repro_torch.core.mobility) ---
+    def _run_mobility(self, tl: Timeline) -> SessionResult:
+        """Algorithm 1 with Phase.RENEGOTIATE every round: contributors that
+        walked out of radio range or reached the battery floor are released,
+        in-range arrivals are signed, a higher-utility arrival displaces the
+        weakest member.  The membership, weights and contributor batteries
+        go through the functions the fleet engine calls
+        (:mod:`repro_torch.core.mobility`,
+        ``topology.dynamic_round_weights``), here on the host."""
+        cfg = self.cfg
+        mob = cfg.mobility
+        part = self.task.threefry_partitionable
+        phase_s: Dict[str, float] = {}
+        # Phase.HANDSHAKE fixes the candidate pool and exchanges keys with
+        # all of it: any candidate may be signed in a later round
+        with self._clock(phase_s, "handshake", tl):
+            cands = candidate_pool(self.fleet, cfg.offered_incentive)
+            rng = np.random.default_rng(cfg.seed)
+            self.keys = {d.device_id: rng.integers(0, 256, 16).astype(np.uint8)
+                         for d in cands}
+            self.nonces = {d.device_id: rng.integers(0, 256, 8).astype(np.uint8)
+                           for d in cands}
+            self._wire = {}
+            if self._compress == "int8":
+                for d in cands:
+                    self._wire_pack(d.device_id, self.contributor_states[d.device_id]["params"])
+        if not cands:
+            raise RuntimeError("no nearby device agreed to the incentive (N_d < 1)")
+        n_cand = len(cands)
+        ids = torch.tensor([d.device_id for d in cands], dtype=torch.int64)
+        base_util = mobility.static_utility_term(
+            np.array([d.model_staleness for d in cands], np.float32),
+            np.array([d.data_size for d in cands], np.float32),
+            np.float32(max(d.data_size for d in cands)))
+        level = torch.from_numpy(np.array([d.battery_level for d in cands], np.float32))
+        cand_mask = torch.ones((n_cand,), dtype=torch.bool)
+
+        # the requester owns its model from the start: a round may have no
+        # member to take a first update from
+        params = self.task.init(seed=cfg.seed)
+        num_params = tree_size(params)
+        model_bytes = update_wire_bytes(num_params, encrypt=cfg.encrypt,
+                                        compress=self._compress,
+                                        raw_bytes=tree_bytes(params))
+        e_tab = np.array(self.cost.round_energy_table(
+            max_contrib=n_cand, num_params=num_params, model_bytes=model_bytes,
+            num_samples=len(self.own_train[0]), epochs=cfg.epochs,
+            n_devices=len(self.fleet), encrypt=cfg.encrypt), np.float32)
+        e_tx, e_ref = (torch.from_numpy(np.array(v, np.float32)) for v in zip(*(
+            self.cost.contributor_round_energy(
+                num_params=num_params, model_bytes=model_bytes,
+                num_samples=len(self.contributor_states[d.device_id]["data"][0]),
+                refresh_epochs=cfg.contributor_refresh_epochs, encrypt=cfg.encrypt)
+            for d in cands)))
+
+        ac = cfg.adversary
+        history = {"accuracy": [], "loss": [], "battery": [], "round_executed": [],
+                   "members": [], "member_mask": [], "contracts": []}
+        if ac is not None:
+            history["corrupted_mask"] = []
+        if cfg.robust != "none":
+            history["clipped_mask"] = []
+        rounds = 0
+        stop = protocol.STOP_MAX_ROUNDS
+        for r in range(cfg.max_rounds):
+            # Phase.RENEGOTIATE: release, sign, undercut
+            member_t, rank, util = mobility.membership_step(
+                mob, r, mob.requester_id, ids, cand_mask, base_util, level, cfg.n_max,
+                partitionable=part)
+            round_w = topology.dynamic_round_weights(member_t, rank, cfg.strategy).numpy()
+            member = member_t.numpy()
+            count = int(member.sum())
+            history["member_mask"].append(member.astype(np.float32))
+            history["members"].append(float(count))
+            history["contracts"].append(contracts_from_membership(
+                cands, member, util, cfg.offered_incentive))
+            # Byzantine weather of this round; a corrupted link counts only
+            # when it is a member
+            cmask = (adversary_mod.corruption_mask(ac, r, ac.requester_id, ids,
+                                                   partitionable=part).numpy()
+                     if ac is not None else np.zeros((n_cand,), bool))
+            if ac is not None:
+                history["corrupted_mask"].append((cmask & member).astype(np.float32))
+            # Phase.COLLECT + Phase.AGGREGATE over the current members, in
+            # lane order (the fleet's full-lane masked reduction, bit for bit)
+            lanes = np.nonzero(member)[0]
+            updates = []
+            if count > 0:
+                with self._clock(phase_s, "collect", tl, round=r):
+                    updates = [self._collect_update(int(ids[j]), corrupt=bool(cmask[j]),
+                                                    step=r)[0] for j in lanes]
+            with self._clock(phase_s, "aggregate", tl):
+                if cfg.robust != "none":
+                    global_params, clipped = self._robust_aggregate_full(
+                        updates, lanes, round_w * member.astype(np.float32), params)
+                    history["clipped_mask"].append(clipped.astype(np.float32))
+                    if count == 0:
+                        global_params = params      # alone this round
+                elif count > 0:
+                    global_params = aggregation.masked_fedavg(updates, round_w[lanes])
+                else:
+                    global_params = params          # alone this round
+            # Phase.FIT + Phase.SCORE
+            with self._clock(phase_s, "fit", tl, round=r):
+                params, losses = self.task.fit(global_params, self.own_train, cfg.epochs,
+                                               cfg.batch_size, seed=cfg.seed + r)
+            with self._clock(phase_s, "score", tl):
+                acc = float(self.task.evaluate(params, self.own_test))
+            rounds = r + 1
+            history["accuracy"].append(acc)
+            history["loss"].append(float(losses[-1]))
+            history["round_executed"].append(1.0)
+
+            # Phase.ACCOUNT: the requester pays the member count's entry
+            self.battery = self.battery.discharge(float(e_tab[count]),
+                                                  avg_power_w=self.cost.device.p_train)
+            history["battery"].append(self.battery.level)
+            if acc >= cfg.desired_accuracy:
+                stop = protocol.STOP_ACCURACY
+            elif self.battery.below(cfg.battery_threshold):
+                stop = protocol.STOP_BATTERY
+            # members paid their transmission; the refresh term only while
+            # the session goes on (the last budget round still refreshes)
+            continuing = stop == protocol.STOP_MAX_ROUNDS
+            level = mobility.contributor_discharge(level, member_t, e_tx, e_ref, continuing,
+                                                   mob.contributor_capacity_j)
+            if not continuing:
+                break
+            # Phase.REFRESH for the current members only
+            if cfg.contributor_refresh_epochs > 0:
+                with self._clock(phase_s, "refresh", tl, round=r):
+                    self._refresh_contributors([int(ids[j]) for j in lanes])
+
+        mean_members = float(np.mean(history["members"])) if rounds else 0.0
+        report = self.cost.session(
+            rounds=rounds, n_contrib=mean_members, num_params=num_params,
+            model_bytes=model_bytes, num_samples=len(self.own_train[0]),
+            epochs=cfg.epochs, n_devices=len(self.fleet),
+            measured_local_time=phase_s.get("fit", 0.0), encrypt=cfg.encrypt)
+        if cfg.robust != "none" and rounds:
+            # one screening pass over the full candidate-lane buffer per
+            # executed round, priced post hoc
+            e_scr, t_scr = self.cost.screening_energy(n_contrib=n_cand,
+                                                      num_params=num_params)
+            report.times.t_agg += rounds * t_scr
+            report.e_comp += rounds * e_scr
+        return SessionResult(
+            accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_cand,
             report=report, battery=self.battery, history_raw=history,
             stop_reason=protocol.stop_reason_name(stop), params=params,
             model_bytes=model_bytes, phase_s=phase_s)

@@ -12,7 +12,10 @@ state in that format, requantizes refreshed rows with
 A CPU tensor runs the plain twin (``ref.py``); a CUDA tensor launches the
 hand-written kernel (``kernel.py``) or raises, unless the caller selected
 the twins (``kernels.common.plain_twins``).  ``dequantize_flat_batched``
-is plain torch on every device, as the JAX package leaves it to XLA.
+(the fleet's refresh source and its unpack, plain ``jnp`` that XLA fuses
+in the JAX package) launches the same dequantize kernel over the rows as
+one flat buffer: its tiles are the rows' tiles, and its output is the
+twin's bits.
 """
 
 from __future__ import annotations
@@ -68,8 +71,12 @@ def quantize_flat_batched(x: torch.Tensor):
 
 
 def dequantize_flat_batched(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Elementwise ``q * scale`` over (..., Lp) wire-format rows."""
-    return dequantize_batched_ref(q, scales)
+    """Elementwise ``q * scale`` over (..., Lp) wire-format rows, in one
+    launch over the rows as one buffer (Lp is a multiple of the tile)."""
+    if use_twin(q):
+        return dequantize_batched_ref(q, scales)
+    return dequantize_cuda(q.contiguous().view(-1), scales.contiguous().view(-1),
+                           q.numel()).view(q.shape)
 
 
 def compress_update(vec: torch.Tensor):

@@ -62,7 +62,7 @@ class RoundEvent:
     energy_j: Optional[float]     # battery-derived joules spent this
                                   # round (None for round 0 / no battery)
     stop_reason: Optional[str]    # protocol stop reason (stop phase only)
-    # async-cadence observability (the cadence world, ROADMAP.md slice E;
+    # async-cadence observability (the cadence world, ROADMAP.md slice E.3;
     # None = lockstep world).  Mapped HERE from the engines' round_clock/idle_steps
     # history buffers — the house rule stands: engines write history,
     # only this adapter emits events.

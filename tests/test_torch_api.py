@@ -378,7 +378,8 @@ def test_engines_refuse_interpret(engine):
 @pytest.mark.parametrize("knob,engine,match", [
     (dict(method=dict(faults=object())), "loop", "slice E"),
     (dict(method=dict(cadence=object())), "fleet", "slice E"),
-    (dict(world=dict(mobility=object())), "loop", "slice E"),
+    (dict(world=dict(mobility=tcore.MobilityConfig(seed=3)), method=dict(faults=object())),
+     "loop", "slice E"),
     (dict(method=dict(staleness_gamma=0.5)), "fleet", "slice E"),
     (dict(execution=dict(checkpoint_dir="ckpt")), "loop", "slice E"),
     (dict(execution=dict(resume_from="ckpt")), "fleet", "slice E"),
@@ -547,7 +548,8 @@ def test_deprecated_history_view_warns():
 
 
 def _example(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one thread: the process runs beside the test workers' own
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, str(ROOT / "examples" / "torch_har_federated.py"), *args],
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
@@ -579,9 +581,23 @@ def test_har_federated_twin_wants_a_gpu_by_default(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--churn", "--faults", "--cadence"])
 def test_har_federated_twin_refuses_unported_worlds(flag, capsys):
-    """The world flags of later slices exit non-zero naming theirs."""
-    assert _example_main()(["--dataset", "calories", flag, "--device", "cpu"]) == 2
-    assert "slice E" in capsys.readouterr().err
+    """The world flags of later slices exit non-zero naming theirs; the
+    mobility world (``--churn``) runs its walkthrough, in process on the
+    calories MLP: each round's contract set with its joins and leaves."""
+    argv = ["--dataset", "calories", flag, "--device", "cpu"]
+    if flag != "--churn":
+        assert _example_main()(argv) == 2
+        assert "slice E" in capsys.readouterr().err
+        return
+    assert _example_main()(argv + ["--epochs", "1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    head = next(i for i, line in enumerate(lines) if line.startswith("round"))
+    assert "contract set" in lines[head]
+    rows = lines[head + 1: head + 11]
+    assert [int(r.split()[0]) for r in rows] == list(range(10))
+    notes = [r.split("]")[-1] for r in rows[1:]]       # after the set: acc, battery, +j -j
+    assert any("+" in n or "-" in n for n in notes)
+    assert any(line.startswith("churn:") and "joins" in line for line in lines)
 
 
 @pytest.mark.parametrize("method", ["cfl", "dfl", "dfl-ring"])

@@ -374,7 +374,8 @@ def test_fleet_baseline_runs_on_the_gpu_unless_told_otherwise(monkeypatch):
 
 
 def _quickstart(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one thread: the process runs beside the test workers' own
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
                            *args], capture_output=True, text=True, env=env, timeout=900,
                           cwd=ROOT)

@@ -263,14 +263,15 @@ def test_fleet_write_back_holds_refreshed_contributors():
 
 
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
+_MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
 
 
 @pytest.mark.parametrize("knob,kwargs", [
-    (dict(mobility=object()), {}), (dict(faults=object()), {}),
+    (dict(mobility=_MOB, cadence=object()), {}), (dict(faults=object()), {}),
     (dict(cadence=object()), {}), (dict(staleness_gamma=0.5), {}),
     (dict(adversary=_AC, faults=object()), {}),
     (dict(adversary=_AC, robust="clip", cadence=object()), {}),
-    (dict(adversary=_AC, mobility=object()), {}),
+    (dict(adversary=_AC, mobility=_MOB), dict(checkpoint_dir="ckpt")),
     # under a baseline method: fault pricing and the profiler fields
     (dict(faults=object()), dict(method="dfl")),
     (dict(faults=object()), dict(method="cfl")),

@@ -1,7 +1,9 @@
 """The port's shared launch path (``kernels/common.py``, ``kernels/_build.py``)
 and what every launcher checks before it passes a pointer on; on a card,
 the redesigned squared-norm and AES-128-CTR kernels at edge shapes, the
-1-D quantize path's outputs, and every launcher on a non-default stream.
+1-D quantize path's outputs, every launcher on a non-default stream, the
+batched dequantize of the fleet's refresh rows, and the mobility world's
+draws and arithmetic on the card against the CPU.
 
 The CPU cases run anywhere; the ``cuda``-marked ones skip without a card
 and run on it with ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -427,3 +429,51 @@ def test_launcher_runs_on_the_current_stream(name, cuda_device):
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         else:
             assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_batched_dequantize_launches_the_kernel_once(cuda_device):
+    """The fleet's refresh source, (rows, Lp) codes and scales: one launch
+    over the rows as one buffer, the twin's bits."""
+    from repro_torch.kernels.quantize.ops import dequantize_flat_batched
+
+    g = torch.Generator().manual_seed(3)
+    q, s = quantize_batched_ref(torch.randn((320, 18566), generator=g))
+    q, s = q.to(cuda_device), s.to(cuda_device)
+    before = qk.dequantize_launches
+    got = dequantize_flat_batched(q, s)
+    torch.cuda.synchronize()
+    assert qk.dequantize_launches == before + 1
+    assert got.shape == q.shape and torch.equal(got, dequantize_batched_ref(q, s))
+    three = dequantize_flat_batched(q.view(64, 5, -1), s.view(64, 5, -1))
+    assert three.shape == (64, 5, q.shape[1]) and torch.equal(three.view(320, -1), got)
+
+
+@pytest.mark.cuda
+def test_mobility_world_on_the_card_equals_the_world_on_the_cpu(cuda_device):
+    """The fleet renegotiates on its device, the loop engine on the host:
+    the draws, the integer distances and the fp32 utilities and batteries
+    must be the same bits on both, under both threefry modes."""
+    from repro_torch.core import mobility as tmob
+
+    mob = tmob.MobilityConfig(arena_m=200.0, radio_range_m=90.0, leg_rounds=2, seed=5)
+    rng = np.random.default_rng(2)
+    base = torch.from_numpy(rng.choice(np.float32([0.1, 0.3, 0.5]), (64, 5)).astype(np.float32))
+    level = torch.from_numpy(rng.choice(np.float32([0.05, 0.1, 0.5, 0.9]),
+                                        (64, 5)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((64, 5)) < 0.9)
+    ids = torch.from_numpy(rng.integers(0, 40, (64, 5)))
+    req = torch.arange(64) + mob.requester_id
+    for part in (True, False):
+        for r in range(12):
+            host = tmob.membership_step(mob, r, req, ids, mask, base, level, 3,
+                                        partitionable=part)
+            card = tmob.membership_step(mob, r, req.to(cuda_device), ids.to(cuda_device),
+                                        mask.to(cuda_device), base.to(cuda_device),
+                                        level.to(cuda_device), 3, partitionable=part)
+            for h, c in zip(host, card):
+                assert torch.equal(c.cpu(), h)
+            drained = tmob.contributor_discharge(level.to(cuda_device), card[0], 1.5, 30.0,
+                                                 True, mob.contributor_capacity_j)
+            assert torch.equal(drained.cpu(), tmob.contributor_discharge(
+                level, host[0], 1.5, 30.0, True, mob.contributor_capacity_j))

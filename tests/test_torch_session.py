@@ -231,13 +231,14 @@ def test_int8_session_matches_jax_loop_engine(kind, partitionable, encrypt, comp
 
 
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
+_MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mobility=object()), dict(faults=object()), dict(cadence=object()),
+    dict(mobility=_MOB, faults=object()), dict(faults=object()), dict(cadence=object()),
     dict(staleness_gamma=0.5), dict(adversary=_AC, faults=object()),
     dict(adversary=_AC, robust="clip", cadence=object()),
-    dict(adversary=_AC, robust="median", mobility=object()),
+    dict(adversary=_AC, robust="median", mobility=_MOB, staleness_gamma=0.5),
     dict(adversary=_AC, robust="trimmed_mean", staleness_gamma=0.5)])
 def test_unported_knobs_raise_naming_their_slice(knob):
     _, shards, own_train, own_test, _ = _world("mlp")

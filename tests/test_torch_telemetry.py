@@ -1,7 +1,7 @@
 """``repro_torch.telemetry`` on the CPU, case by case the twin of
 ``tests/test_telemetry.py`` wherever the world is ported: observation never
 changes the outcome (a traced run is bitwise the untraced one, on both
-engines, in the static and the Byzantine worlds), the two engines' event
+engines, in the static, mobility and Byzantine worlds), the two engines' event
 streams on one world are equal, the exporters round-trip schema-valid (a
 Byzantine log included), the Timeline span stack behaves, and each engine
 records its spans.
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import AdversaryConfig, SupervisedTask, make_fleet
+from repro_torch.core import AdversaryConfig, MobilityConfig, SupervisedTask, make_fleet
 from repro_torch.data import CaloriesDatasetConfig, dirichlet_partition, make_calories_tabular
 from repro_torch.models import MLPClassifier, MLPClassifierConfig
 from repro_torch.telemetry import (EVENT_PHASES, RoundEvent, Timeline, TraceConfig,
@@ -31,15 +31,19 @@ BATCH = 16
 _METHOD = MethodSpec(desired_accuracy=0.99, max_rounds=2, epochs=1, batch_size=BATCH,
                      encrypt=False, contributor_refresh_epochs=1)
 _ADVERSARY = AdversaryConfig(p_byzantine=0.5, attack="noise", scale=10.0, seed=7)
+_MOB = MobilityConfig(radio_range_m=95.0, leg_rounds=1, seed=5)
 
-# world name -> method: the weather regimes the house rule is enforced on
+# world name -> (mobility, method): the weather regimes the house rule is
+# enforced on
 _WORLDS = {
-    "static": _METHOD,
-    "byzantine": dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
-                                     adversary=_ADVERSARY, robust="clip"),
-    "byzantine-int8": dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
-                                          adversary=_ADVERSARY, robust="clip",
-                                          compress="int8", encrypt=True),
+    "static": (None, _METHOD),
+    "mobility": (_MOB, dataclasses.replace(_METHOD, desired_accuracy=0.999, max_rounds=4,
+                                           n_max=2)),
+    "byzantine": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
+                                            adversary=_ADVERSARY, robust="clip")),
+    "byzantine-int8": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
+                                                 adversary=_ADVERSARY, robust="clip",
+                                                 compress="int8", encrypt=True)),
 }
 
 LOOP_SPANS = {"handshake", "transport", "fit", "refresh"}
@@ -67,10 +71,10 @@ def problem():
     return task, (own_x[:n], own_y[:n]), (own_x[n:], own_y[n:]), fleet, states
 
 
-def _world(problem):
+def _world(problem, mobility=None):
     task, own_train, own_test, fleet, states = problem
     return WorldSpec.single(task, own_train, own_test, fleet, copy.deepcopy(states),
-                            device="cpu")
+                            mobility=mobility, device="cpu")
 
 
 def _assert_outcome_bitwise(a, b):
@@ -94,14 +98,15 @@ def _assert_outcome_bitwise(a, b):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("world_name", ["static", "byzantine-int8"])
+@pytest.mark.parametrize("world_name", ["static", "byzantine-int8", "mobility"])
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name, tmp_path):
-    method = _WORLDS[world_name]
+    mob, method = _WORLDS[world_name]
     trace = TraceConfig(events_jsonl=str(tmp_path / "events.jsonl"),
                         chrome_trace=str(tmp_path / "trace.json"))
-    off = Experiment(_world(problem), method, ExecutionSpec(engine=engine)).run()
-    on = Experiment(_world(problem), method, ExecutionSpec(engine=engine, trace=trace)).run()
+    off = Experiment(_world(problem, mob), method, ExecutionSpec(engine=engine)).run()
+    on = Experiment(_world(problem, mob), method,
+                    ExecutionSpec(engine=engine, trace=trace)).run()
     _assert_outcome_bitwise(off, on)
     assert (tmp_path / "events.jsonl").exists()
     assert (tmp_path / "trace.json").exists()
@@ -116,17 +121,36 @@ def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name,
 
 @pytest.mark.parametrize("world_name", list(_WORLDS))
 def test_event_streams_equal_across_engines(problem, world_name):
-    method = _WORLDS[world_name]
-    loop = Experiment(_world(problem), method, ExecutionSpec(engine="loop")).run()
-    fl = Experiment(_world(problem), method, ExecutionSpec(engine="fleet")).run()
+    mob, method = _WORLDS[world_name]
+    loop = Experiment(_world(problem, mob), method, ExecutionSpec(engine="loop")).run()
+    fl = Experiment(_world(problem, mob), method, ExecutionSpec(engine="fleet")).run()
     assert compare_event_streams(validate_events(loop.trace), validate_events(fl.trace)) == []
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_mobility_world_events_carry_the_member_sets(problem, engine):
+    """Each round's renegotiated contract set surfaces as ``members`` and
+    ``member_set`` (lane indices), and its wire bytes count the members;
+    the static world leaves both None."""
+    mob, method = _WORLDS["mobility"]
+    res = Experiment(_world(problem, mob), method, ExecutionSpec(engine=engine)).run()
+    rounds = [e for e in res.trace if e.phase == "round"]
+    masks = res.history_raw["member_mask"]
+    assert [e.member_set for e in rounds] == [
+        tuple(int(i) for i in np.nonzero(np.asarray(m) > 0.5)[0]) for m in masks]
+    assert [e.members for e in rounds] == [len(e.member_set) for e in rounds]
+    assert len({e.member_set for e in rounds}) > 1, "the world must renegotiate"
+    mb = res.sessions[0].model_bytes
+    assert all(e.wire_bytes == mb * e.members for e in rounds)
+    static = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
+    assert all(e.members is None and e.member_set is None for e in static.trace)
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 def test_byzantine_world_events_carry_the_sets(problem, engine):
     """The corrupted and clipped sets surface in the normalized stream, not
     just in raw history; the honest world leaves them None."""
-    res = Experiment(_world(problem), _WORLDS["byzantine"],
+    res = Experiment(_world(problem), _WORLDS["byzantine"][1],
                      ExecutionSpec(engine=engine)).run()
     rounds = [e for e in res.trace if e.phase == "round"]
     assert all(e.corrupted is not None and e.clipped is not None for e in rounds)
@@ -163,8 +187,8 @@ def test_lockstep_world_events_leave_lane_clocks_none(problem, engine):
 def test_events_jsonl_round_trips(problem, world_name, tmp_path):
     """A Byzantine log round-trips too: every field the schema types as a
     tuple (corrupted and clipped included) comes back a tuple."""
-    res = Experiment(_world(problem), _WORLDS[world_name],
-                     ExecutionSpec(engine="loop")).run()
+    mob, method = _WORLDS[world_name]
+    res = Experiment(_world(problem, mob), method, ExecutionSpec(engine="loop")).run()
     path = str(tmp_path / "events.jsonl")
     n = write_events_jsonl(res.trace, path)
     back = read_events_jsonl(path)
@@ -292,7 +316,8 @@ def test_open_span_excluded_from_totals_and_trace():
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 def test_engines_record_their_spans(problem, engine, world_name, tmp_path):
     path = str(tmp_path / "trace.json")
-    res = Experiment(_world(problem), _WORLDS[world_name],
+    mob, method = _WORLDS[world_name]
+    res = Experiment(_world(problem, mob), method,
                      ExecutionSpec(engine=engine, trace=TraceConfig(chrome_trace=path))).run()
     want = set(LOOP_SPANS if engine == "loop" else FLEET_SPANS)
     if engine == "fleet" and world_name == "byzantine-int8":

@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (1, N, P) for N = 2 ... 6 and AES over one update at each world's P;
    and at the mobility world's: eq. 14 dense and int8 at (64, 5, .) with
    0/1 member weights and member-less rows, dequantize over the fleet's
-   320 refresh rows in one launch, the LSTM pair at those 320 lanes;
+   320 refresh rows in one launch, the LSTM pair at those 320 lanes; and
+   at the fault world's: eq. 14 dense and int8 at (64, 5, .) with weights
+   in {0, gamma, 1} x 0/1 strategy weights and all-zero rows (zeros out),
+   ``fedavg_q8`` on rows mixing this round's and the previous round's
+   codes, and the loop's eq. 14 at (1, n, P) for n = 1 ... 5;
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -94,6 +98,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
      3 rounds on both engines, with equal corrupted masks; and one
      churning fleet round of 4 requesters on the card and on the CPU, with
      equal member masks and the params under the fleet round's limit rule;
+   - the unreliable-link world (``examples/har_federated.py``'s fault
+     walkthrough: drops at 0.4 an attempt, one retry, stale at 0.3, release
+     after 2 failed rounds, seed 7; an accuracy no round reaches, 10 rounds
+     of 8 epochs): the quickstart session fp32 with AES, int8, and fp32
+     with ``staleness_gamma=0.5``, eq. 14 once per round with a delivery at
+     (1, delivered, P) and AES twice per delivered update; the 64-requester
+     fleet fp32 and int8 (requester i rolling as ``requester_id + i``), eq.
+     14 once a round at (64, 5, .); faults with [4h]'s churn on the int8
+     wire on both engines; [4d]'s noise + clip under faults for 3 rounds on
+     both; the loop session and the fleet's requester 0 with equal deliver
+     masks, drop, retry and stale counts, rounds and stops (and member and
+     corrupted masks where they exist); both engines killed after round 4
+     (checkpoints every 2 rounds, ``build/4i``) and resumed, bit-equal to
+     the straight run; and one faulty fleet round of 4 requesters on the
+     card and on the CPU, equal deliver masks, params within [4c]'s limit;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -1839,6 +1858,19 @@ def outcome_bits_equal(a, b):
                                          for x, y in zip(ha[k], hb[k])) for k in ha)
 
 
+def fleet_bits_equal(a, b):
+    """Two fleet runs equal in every lane: each session's params and
+    history bit for bit, and the stacked battery, rounds, stops and
+    traces."""
+    return (np.array_equal(a.battery_level, b.battery_level)
+            and np.array_equal(a.rounds, b.rounds)
+            and np.array_equal(a.stop_codes, b.stop_codes)
+            and set(a.history) == set(b.history)
+            and all(np.array_equal(v, b.history[k]) for k, v in a.history.items())
+            and len(a.sessions) == len(b.sessions)
+            and all(outcome_bits_equal(x, y) for x, y in zip(a.sessions, b.sessions)))
+
+
 def max_param_diff(a, b):
     from repro_torch.utils.tree import tree_leaves
 
@@ -2322,6 +2354,297 @@ def run_mobility(device, world, pretrained):
     churn_round_check(device, world, pretrained)
     return ([loop_counts, loop8_counts, adv_loop_counts],
             [fleet_counts, fleet8_counts, adv_fleet_counts])
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the unreliable-link world
+# ---------------------------------------------------------------------------
+
+# examples/har_federated.py's fault walkthrough world
+FAULTS = dict(p_drop=0.4, p_stale=0.3, max_retries=1, release_after=2, seed=7)
+FAULT_GAMMA = 0.5            # the decay of [3]'s weights and of one loop session
+FAULT_DIR = ROOT / "build" / "4i"
+
+
+def check_fault_shapes(dev, n_params):
+    """The shapes the fault world gives eq. 14 that phase [3] does not
+    already hold: dense and int8 at the fleet's (64, 5, P | Lp) with weights
+    in {0, gamma, 1} x 0/1 strategy weights (delivered links, a stale one at
+    gamma**1) and all-zero rows (which must give zeros), ``fedavg_q8`` on a
+    buffer whose rows mix this round's codes and the previous round's (the
+    stale substitution), and the loop's (1, n, P) for n = 1 ... 5 with
+    fractional weights.  Returns the largest errors by kernel."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda, fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref, fedavg_batched_ref
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+
+    g = torch.Generator().manual_seed(23)
+    lp = n_params + (-n_params) % TILE
+    shape = (FLEET_R, 5)
+    delivered = torch.rand(shape, generator=g) < 0.6
+    stale = delivered & (torch.rand(shape, generator=g) < 0.3)
+    strategy = (torch.rand(shape, generator=g) < 0.8).to(torch.float32)
+    w = strategy * delivered * torch.where(stale, FAULT_GAMMA, 1.0)
+    w[[2, 30, 61]] = 0.0                                 # nothing delivered, or all weigh 0
+    w_d, stale_d = w.to(dev), stale.to(dev)[..., None]
+
+    def held(name, got, want, zero_rows=(2, 30, 61)):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= 1e-6 * max(float(want.abs().max()), 1.0):
+            fail(f"{name}: max abs err {err} against the twin")
+        if zero_rows and bool(got[list(zero_rows)].ne(0).any()):
+            fail(f"{name}: an all-zero weight row must aggregate to zeros")
+        return err
+
+    u, prev = (torch.randn((*shape, n_params), generator=g).to(dev) for _ in range(2))
+    src = torch.where(stale_d, prev, u)
+    err = held("fedavg at the fault fleet's weights", fedavg_batched_cuda(src, w_d),
+               fedavg_batched_ref(src, w_d))
+    q, s = (t.to(dev) for t in quantize_batched_ref(u.cpu().reshape(-1, n_params)))
+    pq, ps = (t.to(dev) for t in quantize_batched_ref(prev.cpu().reshape(-1, n_params)))
+    q, s, pq, ps = (t.reshape(*shape, -1) for t in (q, s, pq, ps))
+    src_q, src_s = torch.where(stale_d, pq, q), torch.where(stale_d, ps, s)
+    err8 = held("fedavg_q8 on current and previous codes", fedavg_batched_q8_cuda(src_q, src_s, w_d),
+                fedavg_batched_q8_ref(src_q, src_s, w_d))
+    loop_err = 0.0
+    for n in range(1, 6):
+        wn = torch.tensor([[1.0, FAULT_GAMMA, 1.0, FAULT_GAMMA, 1.0][:n]], device=dev)
+        loop_err = max(loop_err, held(f"fedavg at the loop's (1, {n}, {n_params})",
+                                      fedavg_batched_cuda(src[:1, :n].contiguous(), wn),
+                                      fedavg_batched_ref(src[:1, :n].contiguous(), wn), ()))
+    print(f"  fedavg R,N,L={FLEET_R},5,{n_params} with weights in {{0, {FAULT_GAMMA}, 1}} x "
+          f"strategy, stale rows from the previous buffer, 3 all-zero rows: max abs err "
+          f"{err:.3e}; fedavg_q8 at Lp={lp}, current and previous codes: {err8:.3e}; zero rows "
+          f"give zeros; the loop's (1, n, P), n = 1-5: {loop_err:.3e}")
+    return {"fedavg": loop_err, "fedavg_batched": err, "fedavg_q8": err8}
+
+
+def fault_cfg(compress=None, max_rounds=MAX_ROUNDS, churn=False, **kw):
+    """The walkthrough's fault world on the quickstart session, at an
+    accuracy no round reaches; ``churn`` adds [4h]'s mobility world."""
+    from repro_torch.core import FaultConfig
+
+    base = (churn_cfg(compress, max_rounds) if churn else dataclasses.replace(
+        session_cfg(max_rounds), desired_accuracy=1.01, contributor_refresh_epochs=1,
+        compress=compress))
+    return dataclasses.replace(base, faults=FaultConfig(**FAULTS), **kw)
+
+
+def fault_line(res):
+    """A session's fault weather: deliveries per round and the totals (and
+    its members per round, under churn)."""
+    h = res.history_raw
+    per_round = [int(np.asarray(m).sum()) for m in h["deliver_mask"]]
+    members = (f"members per round {[int(m) for m in h['members']]}, "
+               if "members" in h else "")
+    return (f"{members}delivered per round {per_round}, {int(sum(h['drops']))} drops, "
+            f"{int(sum(h['retries']))} retries, {int(sum(h['stale']))} stale")
+
+
+def fault_loop(device, world, pretrained, cfg, tag, from_round=0, **run_kw):
+    """One loop session in the fault world, its launches counted and held to
+    its path: eq. 14 once per round with a delivered update, at (1,
+    delivered, P); AES twice per delivered update (encrypted).  A resumed
+    session runs from round ``from_round``."""
+    from repro_torch.core import EnFedSession
+    from repro_torch.utils.tree import tree_size
+
+    task, shards, own_train, own_test, fleet = world
+    session = EnFedSession(task, own_train, own_test, fleet,
+                           contributor_states(pretrained, shards, fleet, device), cfg,
+                           device=device)
+    with fedavg_shapes() as shapes:
+        res, counts, wall = counted(f"[4i] {tag}", lambda: session.run(**run_kw),
+                                    ("lstm_cell", "lstm_cell_bwd"))
+    check_session(res, f"[4i] {tag}")
+    delivered = [int(np.asarray(m).sum()) for m in res.history_raw["deliver_mask"][from_round:]]
+    p = tree_size(res.params)
+    if cfg.robust == "none" and shapes != [(1, d, p) for d in delivered if d]:
+        fail(f"[4i] {tag}: eq. 14 at {shapes}, expected once per round with a delivered "
+             f"update at (1, delivered, {p}) for {delivered}")
+    if cfg.encrypt and counts["aes_ctr"] != 2 * sum(delivered):
+        fail(f"[4i] {tag}: {counts['aes_ctr']} AES launches for {sum(delivered)} deliveries")
+    if cfg.compress == "int8" and not (counts["quantize"] and counts["dequantize"]):
+        fail(f"[4i] {tag}: the int8 wire's kernels were not launched: {counts}")
+    print(f"  {tag}: wall {wall:.2f} s, rounds {res.rounds}, stop {res.stop_reason}, accuracy "
+          f"{res.accuracy:.4f}; {fault_line(res)}")
+    print(f"    launches: {({k: v for k, v in counts.items() if v})}")
+    return res, counts
+
+
+def fault_fleet(device, world, pretrained, cfg, tag, from_round=0, **run_kw):
+    """The 64-requester fleet in the fault world (requester i rolls its link
+    dice as ``requester_id + i``): eq. 14 (or ``fedavg_q8``) once a round
+    over (64, 5, .).  A resumed run runs from round ``from_round``."""
+    from repro_torch.core import run_fleet
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    task = world[0]
+    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    with fedavg_shapes() as shapes:
+        res, counts, wall = counted(f"[4i] {tag}", lambda: run_fleet(task, specs, cfg,
+                                                                     device=device, **run_kw),
+                                    ("lstm_cell", "lstm_cell_bwd"))
+    if not np.isfinite(res.accuracy).all() or not all(
+            bool(torch.isfinite(t).all()) for s in res.sessions for t in tree_leaves(s.params)):
+        fail(f"[4i] {tag}: non-finite accuracy or parameters")
+    ran = int(res.history["round_executed"][from_round:].sum())
+    p = tree_size(res.sessions[0].params)
+    if cfg.robust == "none":
+        eq14 = "fedavg_q8" if cfg.compress == "int8" else "fedavg"
+        if counts[eq14] != ran or (eq14 == "fedavg" and shapes != [(FLEET_R, 5, p)] * ran):
+            fail(f"[4i] {tag}: {counts[eq14]} launches of {eq14} (at {shapes[:1]}) for {ran} "
+                 "rounds")
+    h = res.history
+    deliver = h["deliver"]
+    members = f"{int(h['member'].sum())} member links, " if "member" in h else ""
+    print(f"  {tag} R={FLEET_R}: wall {wall:.2f} s, {ran} rounds, "
+          f"{int(h['executed'][from_round:].sum()) / wall:.2f} lane-rounds/s, accuracy mean "
+          f"{res.accuracy.mean():.4f} min {res.accuracy.min():.4f}; {members}"
+          f"{int(deliver.sum())} deliveries, {int(h['drops'].sum())} drops, "
+          f"{int(h['retries'].sum())} retries, {int(h['stale'].sum())} stale, "
+          f"{int((deliver.sum(axis=2) == 0)[h['executed'] > 0].sum())} lane-rounds with "
+          "nothing delivered")
+    print(f"    launches: {({k: v for k, v in counts.items() if v})}")
+    return res, counts
+
+
+def faults_engines_agree(loop, fleet, tag, keys=("deliver_mask",)):
+    """The loop session and requester 0 of the fleet roll the same dice:
+    equal masks, drop, retry and stale counts, rounds and stops."""
+    s0 = fleet.sessions[0]
+    same = (loop.rounds == s0.rounds and loop.stop_reason == s0.stop_reason
+            and all(loop.history_raw[k] == s0.history_raw[k]
+                    for k in ("drops", "retries", "stale"))
+            and all(np.array_equal(np.stack(loop.history_raw[k]), np.stack(s0.history_raw[k]))
+                    for k in keys))
+    print(f"  {tag}: loop vs fleet requester 0: {', '.join(keys)}, drops, retries, stale, "
+          f"rounds ({loop.rounds}) and stops {'equal' if same else 'DIFFER'}")
+    if not same:
+        fail(f"[4i] {tag}: the loop session and the fleet's requester 0 disagree")
+
+
+def kill_after(directory, keep_step):
+    """A run killed after ``keep_step``: every checkpoint past it removed."""
+    gone = [f for f in directory.glob("step_*.npz") if int(f.name[5:13]) > keep_step]
+    for f in gone:
+        f.unlink()
+    if not gone:
+        fail(f"[4i] nothing to kill in {directory}: checkpointing did not run")
+
+
+def fault_resume(device, world, pretrained, straight_loop, straight_fleet):
+    """Kill and resume on the card, in the churn + faults world on the int8
+    wire: each engine saves every 2 rounds (the fleet in chunks of 2), every
+    checkpoint past round 4 is deleted, and the resumed run must give the
+    straight run's bits (params and every history buffer: battery, deliver
+    and member masks, counts; rounds, stops), in every lane of the fleet;
+    the checkpointing runs themselves must too."""
+    import shutil
+
+    cfg = fault_cfg("int8", churn=True)
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    for engine, straight, run in (
+            ("loop", straight_loop, lambda start, **kw: fault_loop(
+                device, world, pretrained, cfg, f"loop int8 churn + faults, {list(kw)[0]}",
+                start, **kw)[0]),
+            ("fleet", straight_fleet, lambda start, **kw: fault_fleet(
+                device, world, pretrained, cfg, f"fleet int8 churn + faults, {list(kw)[0]}",
+                start, round_chunk=2, **kw)[0])):
+        d = FAULT_DIR / engine
+        t0 = time.perf_counter()
+        saved = run(0, checkpoint_dir=str(d), checkpoint_every=2)
+        files = sorted(f.name for f in d.glob("step_*.npz"))
+        kill_after(d, 4)
+        resumed = run(4, resume_from=str(d))
+        equal = fleet_bits_equal if engine == "fleet" else outcome_bits_equal
+        verdict = {"checkpointing": equal(straight, saved), "resumed": equal(straight, resumed)}
+        print(f"  kill and resume ({engine}): saved {files}, killed past step 4; the "
+              f"checkpointing run {'=' if verdict['checkpointing'] else '!='} the straight run, "
+              f"the resumed run {'=' if verdict['resumed'] else '!='} it, bit for bit "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not all(verdict.values()):
+            fail(f"[4i] kill and resume ({engine}) differs from the straight run: {verdict}")
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+
+
+def fault_round_check(device, world, pretrained, limits):
+    """One faulty round of 4 requesters on the card and on the CPU: equal
+    deliver masks and counts, the params within [4c]'s limit."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_map, tree_ravel
+
+    task = world[0]
+    cpu = torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    cfg = fault_cfg(max_rounds=1)
+    card = run_fleet(task, fleet_specs(device, world, pretrained, 4), cfg, device=device)
+    host = run_fleet(cpu_task, fleet_specs(cpu, world, host_pre, 4), cfg, device=cpu)
+    diff = max(float((tree_ravel(a.params)[0].cpu() - tree_ravel(b.params)[0]).abs().max())
+               for a, b in zip(card.sessions, host.sessions))
+    same = all(np.array_equal(card.history[k], host.history[k])
+               for k in ("deliver", "drops", "retries", "stale"))
+    print(f"  one faulty fleet round R=4 card vs CPU: deliveries "
+          f"{card.history['deliver'][0].sum(axis=1).astype(int).tolist()}, masks and counts "
+          f"{'equal' if same else 'DIFFER'}; max abs param diff {diff:.3e} (limit "
+          f"{limits['fp32']:.3e})")
+    if not same:
+        fail("[4i] one faulty fleet round: deliver masks differ between the card and the CPU")
+    if not diff <= limits["fp32"]:
+        fail(f"[4i] one faulty fleet round on the card and on the CPU differ by {diff}")
+
+
+def run_faults(device, world, pretrained, limits):
+    """Phase [4i]: the quickstart world with unreliable links.  The loop
+    session fp32 (AES), int8 and fp32 with staleness decay, the 64-requester
+    fleet fp32 and int8, faults with [4h]'s churn on both engines (int8),
+    [4d]'s noise + clip under faults for 3 rounds on both, kill and resume
+    of both engines, and one faulty fleet round on the card and on the CPU.
+    Returns the loop runs' and the fleet runs' launch counts."""
+    from repro_torch.core import AdversaryConfig
+
+    loop, loop_counts = fault_loop(device, world, pretrained, fault_cfg(), "loop fp32")
+    if not (sum(loop.history_raw["drops"]) and sum(loop.history_raw["retries"])
+            and sum(loop.history_raw["stale"])):
+        fail("[4i] the loop session saw no drop, retry or stale delivery")
+    loop8, loop8_counts = fault_loop(device, world, pretrained, fault_cfg("int8"), "loop int8")
+    decay, decay_counts = fault_loop(device, world, pretrained,
+                                     fault_cfg(staleness_gamma=FAULT_GAMMA),
+                                     f"loop fp32 staleness_gamma={FAULT_GAMMA}")
+    fleet, fleet_counts = fault_fleet(device, world, pretrained, fault_cfg(), "fleet fp32")
+    fleet8, fleet8_counts = fault_fleet(device, world, pretrained, fault_cfg("int8"),
+                                        "fleet int8")
+    faults_engines_agree(loop, fleet, "fp32")
+    faults_engines_agree(loop8, fleet8, "int8")
+    churn_loop8, churn_loop_counts = fault_loop(device, world, pretrained,
+                                                fault_cfg("int8", churn=True),
+                                                "loop int8 churn + faults")
+    churn_fleet8, churn_fleet_counts = fault_fleet(device, world, pretrained,
+                                                   fault_cfg("int8", churn=True),
+                                                   "fleet int8 churn + faults")
+    faults_engines_agree(churn_loop8, churn_fleet8, "churn + faults",
+                         keys=("deliver_mask", "member_mask"))
+    byz = dict(max_rounds=ADV_ROUNDS, adversary=AdversaryConfig(**ADVERSARY), robust="clip")
+    adv_loop, adv_loop_counts = fault_loop(device, world, pretrained, fault_cfg(**byz),
+                                           "loop fp32 noise + clip")
+    adv_fleet, adv_fleet_counts = fault_fleet(device, world, pretrained, fault_cfg(**byz),
+                                              "fleet fp32 noise + clip")
+    for what, counts in (("loop", adv_loop_counts), ("fleet", adv_fleet_counts)):
+        if not (counts["sqnorm"] and counts["fedavg"]):
+            fail(f"[4i] {what} noise + clip: the robust path was not launched: {counts}")
+    faults_engines_agree(adv_loop, adv_fleet, "noise + clip",
+                         keys=("deliver_mask", "corrupted_mask"))
+    corrupted = np.stack(adv_loop.history_raw["corrupted_mask"])
+    if corrupted.sum() == 0 or (corrupted > np.stack(adv_loop.history_raw["deliver_mask"])).any():
+        fail("[4i] noise + clip under faults: no delivered link was corrupted, or an "
+             "undelivered one was")
+    fault_resume(device, world, pretrained, churn_loop8, churn_fleet8)
+    fault_round_check(device, world, pretrained, limits)
+    return ([loop_counts, loop8_counts, decay_counts, churn_loop_counts, adv_loop_counts],
+            [fleet_counts, fleet8_counts, churn_fleet_counts, adv_fleet_counts])
 
 
 # ---------------------------------------------------------------------------
@@ -2904,6 +3227,9 @@ def main() -> int:
     print("  the mobility world's shapes (member weights, 320 refresh rows)")
     for k, v in check_churn_shapes(dev, spec, n_params, fit_b, cfg.seq_len).items():
         errs[k] = max(errs[k], v)
+    print("  the fault world's shapes (decayed and zero weights, stale rows)")
+    for k, v in check_fault_shapes(dev, n_params).items():
+        errs[k] = max(errs[k], v)
 
     from repro_torch.core import CostModel
 
@@ -2938,10 +3264,14 @@ def main() -> int:
     t_mob = time.perf_counter()
     mob_loop, mob_fleet = run_mobility(dev, world, pretrained)
     print(f"  [4h] wall {time.perf_counter() - t_mob:.1f} s")
+    print(f" [4i] the unreliable-link world ({FAULTS}), both engines")
+    t_flt = time.perf_counter()
+    flt_loop, flt_fleet = run_faults(dev, world, pretrained, limits)
+    print(f"  [4i] wall {time.perf_counter() - t_flt:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
-                  *table_loop, *mob_loop]
+                  *table_loop, *mob_loop, *flt_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
-                   *facade_fleet, *mob_fleet]
+                   *facade_fleet, *mob_fleet, *flt_fleet]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
     # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
     # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:

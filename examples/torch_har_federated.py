@@ -10,7 +10,8 @@ meaningful.
 
   PYTHONPATH=src python examples/torch_har_federated.py [--dataset har|calories]
                                                         [--engine loop|fleet]
-                                                        [--churn] [--byzantine]
+                                                        [--churn] [--faults]
+                                                        [--byzantine]
                                                         [--compress int8]
                                                         [--device cpu]
                                                         [-v | -q]
@@ -31,18 +32,27 @@ walkthrough prints each round's contract set with its joins (+) and
 leaves (-).  A round with no member is survivable: the requester trains
 alone on its own shard.
 
+``--faults`` turns on the unreliable-link world
+(``repro_torch.core.faults``): each link drops an attempt with
+probability 0.4, retries once, and a delivered update is the previous
+round's image with probability 0.3; a link that failed two rounds running
+is released.  Undelivered links drop out of the aggregate, every retry is
+priced through ``CostModel.retry_energy``, and the walkthrough prints each
+round's delivered set with its drop, retry and stale counts.  It composes
+with ``--churn`` and ``--byzantine``.
+
 ``--byzantine`` turns on the adversarial world: 30% of contributor links
 deliver a corrupted wire image each round (a 25x scale attack), and the
 session defends with ``robust="clip"``.  The walkthrough prints each
-round's CORRUPTED and CLIPPED sets.  It composes with ``--churn``.  Both
-worlds are counter-based, so both engines print the identical sets.
+round's CORRUPTED and CLIPPED sets.  It composes with ``--churn`` and
+``--faults``.  Every world is counter-based, so both engines print the
+identical sets.
 
 ``--compress int8`` adds an ``enfed-int8`` row to the compare table (in a
 walkthrough: the session runs on the int8 wire).
 
-``--faults`` and ``--cadence`` (the reference's unreliable-link and
-asynchronous-cadence worlds) are ``ROADMAP.md`` slices E.2 and E.3 of the
-port: they exit non-zero saying so.
+``--cadence`` (the reference's asynchronous-cadence world) is
+``ROADMAP.md`` slice E.3 of the port: it exits non-zero saying so.
 """
 
 import argparse
@@ -54,7 +64,8 @@ import sys
 import numpy as np
 
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import AdversaryConfig, MobilityConfig, SupervisedTask, make_fleet
+from repro_torch.core import (AdversaryConfig, FaultConfig, MobilityConfig, SupervisedTask,
+                              make_fleet)
 from repro_torch.core.mobility import membership_events
 from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig, dirichlet_partition,
                               make_calories_tabular, make_har_windows)
@@ -64,8 +75,7 @@ from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig, MLPClassif
 log = logging.getLogger("repro_torch.example.har")
 
 # the reference's world flags the port does not run yet, with their slice
-UNPORTED_WORLDS = {"faults": ("the unreliable-link world", "E.2"),
-                   "cadence": ("the asynchronous-cadence world", "E.3")}
+UNPORTED_WORLDS = {"cadence": ("the asynchronous-cadence world", "E.3")}
 
 
 def _setup_logging(verbosity: int) -> None:
@@ -115,11 +125,15 @@ def walkthrough(task, shards, own_train, own_test, args):
     contributors that wandered out of the 90 m range (or drained to the
     battery floor) are released, devices that wandered in are signed, and
     a higher-utility arrival displaces the weakest member.  With
+    ``--faults`` links drop, retry (each retry priced) and deliver the
+    previous round's image; only delivered updates are aggregated.  With
     ``--byzantine`` counter-based draws pick each round's corrupted links
     and the clip defense throttles outlier-norm contributions before the
     aggregate."""
     mob = (MobilityConfig(arena_m=200.0, radio_range_m=90.0, leg_rounds=2, seed=5)
            if args.churn else None)
+    faults = (FaultConfig(p_drop=0.4, p_stale=0.3, max_retries=1, release_after=2, seed=7)
+              if args.faults else None)
     adversary = (AdversaryConfig(p_byzantine=0.3, attack="scale", scale=25.0, seed=9)
                  if args.byzantine else None)
     world = make_world(task, shards, own_train, own_test, fit_epochs=1, mobility=mob)
@@ -127,15 +141,17 @@ def walkthrough(task, shards, own_train, own_test, args):
         world,
         method=MethodSpec(desired_accuracy=args.target, epochs=args.epochs,
                           max_rounds=10, n_max=3, contributor_refresh_epochs=1,
-                          adversary=adversary, robust="clip" if args.byzantine else "none",
+                          faults=faults, adversary=adversary, robust="clip" if args.byzantine else "none",
                           compress=args.compress),
         execution=ExecutionSpec(engine=args.engine)).run()
-    label = "+".join(n for n, on in (("churn", args.churn), ("byzantine", args.byzantine))
-                     if on)
+    label = "+".join(n for n, on in (("churn", args.churn), ("faults", args.faults),
+                                     ("byzantine", args.byzantine)) if on)
     log.info(f"\n=== {label} walkthrough ({args.dataset}, engine={res.engine}) ===")
     head = f"{'round':>5}"
     if args.churn:
         head += f" {'members':>8} {'contract set':<18}"
+    if args.faults:
+        head += f" {'delivered':<12} {'drop':>4} {'rtry':>4} {'stale':>5}"
     if args.byzantine:
         head += f" {'corrupted':<12} {'clipped':<12}"
     log.info(head + f" {'acc':>6} {'battery':>8}")
@@ -146,6 +162,9 @@ def walkthrough(task, shards, own_train, own_test, args):
         line = f"{ev.round:>5}"
         if args.churn:
             line += f" {ev.members:>8} {str(list(ev.member_set)):<18}"
+        if args.faults:
+            line += (f" {str(list(ev.delivered)):<12} {int(ev.drops):>4} {int(ev.retries):>4}"
+                     f" {int(ev.stale):>5}")
         if args.byzantine:
             line += f" {str(list(ev.corrupted)):<12} {str(list(ev.clipped)):<12}"
         note = ""
@@ -160,6 +179,11 @@ def walkthrough(task, shards, own_train, own_test, args):
         log.info(f"churn: {joins} joins and {leaves} leaves over {res.rounds} rounds "
                  f"(contracts renegotiated every round; both engines print the identical "
                  f"sets)")
+    if args.faults:
+        h = res.history_raw
+        log.info(f"fault weather: {int(np.sum(h['drops']))} drops, {int(np.sum(h['retries']))} "
+                 f"retries, {int(np.sum(h['stale']))} stale deliveries (retry windows priced "
+                 f"via CostModel.retry_energy; both engines print the identical sets)")
     if args.byzantine:
         summary = res.corruption_summary
         log.info(f"byzantine weather: {int(summary['corrupted_links'])} corrupted deliveries "
@@ -184,6 +208,10 @@ def main(argv=None):
     for flag, (world, sub) in UNPORTED_WORLDS.items():
         ap.add_argument(f"--{flag}", action="store_true",
                         help=f"{world} (ROADMAP.md slice {sub}: not ported yet)")
+    ap.add_argument("--faults", action="store_true",
+                    help="unreliable-link walkthrough: per-round delivered sets and drop, "
+                         "retry and stale counts (repro_torch.core.faults); composes with "
+                         "--churn and --byzantine")
     ap.add_argument("--byzantine", action="store_true",
                     help="adversarial walkthrough: Byzantine links deliver 25x-scaled "
                          "wire images and the robust='clip' screen throttles them")
@@ -206,7 +234,7 @@ def main(argv=None):
             return 2
 
     task, shards, own_train, own_test, pooled = build(args.dataset, args.device)
-    if args.churn or args.byzantine:
+    if args.churn or args.faults or args.byzantine:
         return walkthrough(task, shards, own_train, own_test, args)
 
     # one world, N methods: the facade guarantees every method sees the

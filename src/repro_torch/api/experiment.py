@@ -41,8 +41,10 @@ class Experiment:
         unified :class:`RunResult`.  The world's mutable state is copied
         per run, so repeated calls are independent and identical.
 
-        ``resume`` is shorthand for ``ExecutionSpec.resume_from``
-        (checkpoints are ``ROADMAP.md`` slice E.2: enfed refuses them)."""
+        ``resume`` restores enfed round state from a checkpoint directory
+        (shorthand for ``ExecutionSpec.resume_from``): a run killed
+        mid-session and resumed computes the outcome the uninterrupted run
+        would have."""
         spec = MethodSpec.coerce(method if method is not None else self.method,
                                  like=MethodSpec.coerce(self.method))
         runner = get_runner(spec.name)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import warnings
 from typing import Callable, Dict, Tuple
 
@@ -192,31 +193,36 @@ def run_enfed(world: WorldSpec, method: MethodSpec,
             total_energy_j=fr.total_energy_j, raw=fr,
             timeline=tl, hlo_stats=fr.hlo_stats)
     _warn_if_trace_fleet_only(execution, "loop-engine enfed")
+
+    def _sub(root, i):
+        # a multi-requester loop run checkpoints per session: requester i's
+        # state lives under <root>/req<i> (a 1-requester world keeps the bare
+        # directory, so loop and fleet runs can share paths)
+        if not root or len(reqs) == 1:
+            return root
+        return os.path.join(root, f"req{i}")
+
     sessions = []
     for i, r in enumerate(reqs):
-        # requester i walks as device mobility.requester_id + i and draws its
-        # Byzantine weather as adversary.requester_id + i, the fleet's lane
+        # requester i walks as device mobility.requester_id + i, rolls its
+        # link dice as faults.requester_id + i and draws its Byzantine
+        # weather as adversary.requester_id + i, the fleet's lane
         # conventions, so ExecutionSpec.engine never changes which world a
         # requester experiences
         cfg_i = cfg
-        if cfg.mobility is not None and i > 0:
-            cfg_i = dataclasses.replace(
-                cfg_i, mobility=dataclasses.replace(
-                    cfg.mobility,
-                    requester_id=cfg.mobility.requester_id + i))
-        if cfg.adversary is not None and i > 0:
-            cfg_i = dataclasses.replace(
-                cfg_i, adversary=dataclasses.replace(
-                    cfg.adversary,
-                    requester_id=cfg.adversary.requester_id + i))
+        for name in ("mobility", "faults", "adversary"):
+            world_cfg = getattr(cfg, name)
+            if world_cfg is not None and i > 0:
+                cfg_i = dataclasses.replace(cfg_i, **{name: dataclasses.replace(
+                    world_cfg, requester_id=world_cfg.requester_id + i)})
         sessions.append(EnFedSession(
             world.task, r.own_train, r.own_test,
             r.neighborhood, r.contributor_states,
             cfg_i, cost_model=cost, battery=r.battery, device=dev).run(
                 use_pallas=execution.use_pallas, interpret=execution.interpret,
-                checkpoint_dir=execution.checkpoint_dir,
+                checkpoint_dir=_sub(execution.checkpoint_dir, i),
                 checkpoint_every=execution.checkpoint_every,
-                resume_from=execution.resume_from, timeline=tl))
+                resume_from=_sub(execution.resume_from, i), timeline=tl))
     return RunResult.from_sessions("enfed", "loop", sessions, cost_model=cost,
                                    timeline=tl)
 

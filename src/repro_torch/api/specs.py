@@ -13,10 +13,12 @@
   (``tests/test_torch_api.py``).
 
 ``WorldSpec.mobility`` is the opportunistic world
-(:class:`~repro_torch.core.mobility.MobilityConfig`), which EnFed runs in
-both engines.  The method knobs of later slices (faults, cadence) keep
-their fields, typed ``Optional[object]`` as in ``EnFedConfig``; the
-engines refuse them with ``NotImplementedError`` naming their
+(:class:`~repro_torch.core.mobility.MobilityConfig`) and
+``MethodSpec.faults`` the unreliable-link world
+(:class:`~repro_torch.core.faults.FaultConfig`), which EnFed runs in both
+engines (the cfl/dfl fleets price the faults' retries).  The asynchronous
+cadence keeps its field, typed ``Optional[object]`` as in ``EnFedConfig``;
+the engines refuse it with ``NotImplementedError`` naming its
 ``ROADMAP.md`` slice.
 """
 
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel
+from repro_torch.core.faults import FaultConfig
 from repro_torch.core.fleet import RequesterSpec
 from repro_torch.core.mobility import MobilityConfig
 from repro_torch.core.rounds import EnFedConfig
@@ -151,14 +154,16 @@ class MethodSpec:
     # knob (wire bytes, eq. (4)-(7) energy, quantized params), priced for
     # every method through the same update_wire_bytes helper
     compress: Optional[str] = None
-    faults: Optional[object] = None      # unreliable links: slice E.2
+    # unreliable links (drops, retries, stale delivery): a protocol knob for
+    # enfed, priced post hoc for the cfl/dfl fleets
+    faults: Optional[FaultConfig] = None
     cadence: Optional[object] = None     # asynchronous cadence: slice E.3
     # Byzantine contributors and the robust AGGREGATE statistic ("none" |
     # "clip" | "trimmed_mean" | "median"): enfed-only protocol knobs; the
     # baselines warn and drop them
     adversary: Optional[AdversaryConfig] = None
     robust: str = "none"
-    staleness_gamma: float = 1.0         # decayed weights < 1: slice E.2
+    staleness_gamma: float = 1.0         # a stale delivery weighs gamma
     label: Optional[str] = None          # display/compare key (default: name)
 
     @property
@@ -215,8 +220,11 @@ class ExecutionSpec:
     ``dfl`` and ``cfl`` honor the engine choice; ``cloud`` has no round
     structure and always records ``engine="loop"``.  Checkpointing
     (``checkpoint_dir``/``checkpoint_every``/``resume_from``) is
-    ``ROADMAP.md`` slice E.2: enfed refuses it, the baselines warn and
-    ignore it.  ``trace`` is a :class:`TraceConfig`.
+    enfed's resumable round state (every ``checkpoint_every`` rounds, 0 =
+    the engine's default: every round on the loop, every ``round_chunk``
+    on the fleet; ``resume_from`` continues from a directory's newest
+    checkpoint with the bits of an uninterrupted run); the baselines warn
+    and ignore it.  ``trace`` is a :class:`TraceConfig`.
     """
 
     engine: str = "loop"                 # "loop" | "fleet"

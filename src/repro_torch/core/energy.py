@@ -110,6 +110,14 @@ class EnergyReport:
     def t_train(self) -> float:
         return self.times.total
 
+    def add_transfers(self, count: float, t_xfer: float, energy: float) -> None:
+        """Price ``count`` extra transfers post hoc: each adds ``t_xfer`` to
+        eq. 4's ``t_com`` and ``energy`` to ``e_comm`` (the fault world's
+        retry windows, from :meth:`CostModel.retry_energy`)."""
+        if count:
+            self.times.t_com += count * t_xfer
+            self.e_comm += count * energy
+
 
 class CostModel:
     """Accumulates eq. (4)-(7) terms for one device over an FL session."""
@@ -208,6 +216,28 @@ class CostModel:
         e_refresh = (self.t_local_fit(num_params, num_samples, refresh_epochs)
                      * d.p_train if refresh_epochs > 0 else 0.0)
         return e_tx, e_refresh
+
+    def retry_energy(self, *, model_bytes: int, encrypt: bool = True,
+                     rate_bps: Optional[float] = None):
+        """Cost of ONE retransmission of an update, split as ``(e_rx, e_tx,
+        t_xfer_s)``: the same wire bytes again, so ``model_bytes`` comes
+        from :func:`update_wire_bytes` and the int8 wire lowers a retry as
+        it lowers a first attempt.  The requester burns another receive
+        window at ``p_rx`` (plus a decrypt pass at ``p_crypto`` on an
+        encrypted transport), the contributor another transmit at ``p_tx``
+        (plus the re-encrypt); ``t_xfer_s`` is the extra eq. 4 ``t_com``.
+        The fault world charges these per extra attempt in both engines;
+        the cfl/dfl fleets price their retried transport with it too
+        (``rate_bps`` overrides the link rate for the CFL WAN uplink)."""
+        rate = rate_bps if rate_bps is not None else self.link.rate_bps
+        t_xfer = 8.0 * model_bytes / rate
+        e_rx = t_xfer * self.device.p_rx
+        e_tx = t_xfer * self.device.p_tx
+        if encrypt:
+            e_crypto = self.t_crypto(model_bytes) * self.device.p_crypto
+            e_rx += e_crypto
+            e_tx += e_crypto
+        return e_rx, e_tx, t_xfer
 
     def round_energy_table(self, *, max_contrib: int, num_params: int,
                            model_bytes: int, num_samples: int, epochs: int,

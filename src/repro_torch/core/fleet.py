@@ -62,6 +62,27 @@ Design, as in the reference:
   only on (device seed, shard) and are built once.  ``history["member"]``
   traces the (max_rounds, R, N) membership.
 
+* **Unreliable links.**  Under ``faults=`` lane ``i`` rolls its link
+  dice as requester ``requester_id + i`` over its lanes' device ids; every
+  round's (delivered, attempts, stale, blocked) outcomes are drawn on the
+  device at staging, by :func:`repro_torch.core.faults.link_outcomes` and
+  :func:`~repro_torch.core.faults.blocked_mask` over the rounds ``0 ... T-1``.  The delivered mask multiplies into eq. 14's weights
+  (times ``gamma`` for a stale delivery under ``staleness_gamma < 1``), a
+  stale link's row is taken from ``prev``, the previous round's state in
+  its wire format, before any corruption, a lane where nothing was
+  delivered keeps its own params (which start as the requester's init),
+  and the requester pays the delivered count's entry of the per-count
+  energy table plus one receive window per drop or retry.  Under mobility
+  a streak-blocked link is released at RENEGOTIATE and members pay their
+  transmit cost once per attempt.
+
+* **Checkpoint/resume.**  The round state is one :class:`FleetCarry`.
+  ``checkpoint_dir`` saves it as ``{"r0", "state"}`` after every
+  ``checkpoint_every`` rounds (default and rounding: the chunk), through
+  :mod:`repro_torch.checkpoint`; ``resume_from`` restores the newest one
+  and the loop goes on from its chunk boundary, with the bits of a run
+  that was never stopped.
+
 * **Baselines.**  ``method="cfl"|"dfl"`` runs the paper's baselines on
   the same scaffolding (:func:`_run_fleet_baseline`): lane (i, j) is
   client j of requester i's roster (its own shard, then every neighbour
@@ -78,11 +99,13 @@ Design, as in the reference:
 
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  Faults, cadence, staleness decay, checkpoints and the
-profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
-``hlo_stats``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-slice (under a baseline method, the enfed-only knobs raise ``ValueError``
-as in the reference).
+transport.  Cadence and the profiler fields of ``TraceConfig``
+(``jax_profiler_dir``, ``hlo_stats``) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` slice (under a baseline method, the
+enfed-only knobs raise ``ValueError`` as in the reference; faults there
+are priced post hoc: each extra transmission of the cfl uplink or the dfl
+gossip fan through ``CostModel.retry_energy``, counted in the session's
+``history["fault_extra_tx"]``).
 """
 
 from __future__ import annotations
@@ -90,12 +113,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import adversary as adversary_mod
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import mobility, protocol, schedule, topology
 from repro_torch.core.battery import BatteryState, discharge_level, load_efficiency
 from repro_torch.core.energy import CostModel, update_wire_bytes
@@ -150,6 +174,48 @@ class FleetResult:
         return self.history
 
 
+class FleetCarry(NamedTuple):
+    """The enfed fleet's round state, by name: what one round reads and
+    writes, and what a checkpoint saves (each field under its name, as the
+    reference's ``FleetCarry``).  A field the run's world does not use is
+    None (the reference carries a token buffer there); the cadence clocks
+    of the reference come with that world.  Traces are (max_rounds, R) or
+    (max_rounds, R, N)."""
+
+    contrib: torch.Tensor                 # (R, N, P | Lp) round state (int8 codes
+                                          # under the int8 wire)
+    cscale: Optional[torch.Tensor]        # (R, N, Lp / 1024) its scales
+    live: Optional[torch.Tensor]          # (V, P | Lp) deduplicated refresh rows
+    live_s: Optional[torch.Tensor]        # (V, Lp / 1024) their scales
+    last: torch.Tensor                    # (R, P) requester params
+    level: torch.Tensor                   # (R,) requester battery fraction
+    active: torch.Tensor                  # (R,) bool: the session goes on
+    stop_code: torch.Tensor               # (R,) protocol.STOP_* codes
+    rounds_done: torch.Tensor             # (R,) executed rounds per lane
+    clevel: Optional[torch.Tensor]        # (R, N) contributor batteries (mobility)
+    acc_h: torch.Tensor                   # accuracy trace
+    loss_h: torch.Tensor                  # loss trace
+    bat_h: torch.Tensor                   # battery trace
+    exec_h: torch.Tensor                  # executed-lane trace
+    body_h: torch.Tensor                  # (max_rounds,) a lane ran the round
+    member_h: Optional[torch.Tensor]      # membership trace (mobility)
+    prev: Optional[torch.Tensor]          # (R, N, P | Lp) the round-(r-1) wire
+                                          # image stale links deliver (faults)
+    prev_s: Optional[torch.Tensor]        # its scales
+    drop_h: Optional[torch.Tensor]        # fault drops per round
+    retry_h: Optional[torch.Tensor]       # fault retries per round
+    stale_h: Optional[torch.Tensor]       # stale deliveries per round
+    deliver_h: Optional[torch.Tensor]     # deliver mask per round
+    corrupt_h: Optional[torch.Tensor]     # corrupted-delivery mask (adversary)
+    clip_h: Optional[torch.Tensor]        # norm-clipped mask (robust != "none")
+
+
+def _put(buf: torch.Tensor, r: int, row) -> torch.Tensor:
+    """Row ``r`` of a trace set to ``row``, cast to the trace's dtype."""
+    buf[r] = row
+    return buf
+
+
 def _pad_stack(arrays, pad_len: int, dtype):
     """Ragged leading-axis arrays -> (R, pad_len, ...) zero-padded + mask."""
     out = np.zeros((len(arrays), pad_len) + arrays[0].shape[1:], dtype)
@@ -198,14 +264,18 @@ def _eval_lanes(model, spec, flat, x, y, mask):
         return torch.sum(correct * mask, dim=-1) / torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
 
 
-def _chunked_rounds(max_rounds: int, chunk: int, any_active):
-    """The round indices of the early-exit loop, ``chunk`` rounds at a time
-    while ``any_active()`` holds.  It is called on the host once per chunk,
-    when the chunk before it has run (the loop's one sync a chunk)."""
-    for r0 in range(0, max_rounds, chunk):
+def _chunked_rounds(max_rounds: int, chunk: int, any_active, r0: int = 0, on_chunk=None):
+    """The round indices of the early-exit loop from round ``r0`` (0, or a
+    restored chunk boundary), ``chunk`` rounds at a time while
+    ``any_active()`` holds.  It is called on the host once per chunk, when
+    the chunk before it has run (the loop's one sync a chunk);
+    ``on_chunk(next_r0)`` runs after each chunk (the checkpoint point)."""
+    for c0 in range(r0, max_rounds, chunk):
         if not any_active():
             return
-        yield from range(r0, min(r0 + chunk, max_rounds))
+        yield from range(c0, min(c0 + chunk, max_rounds))
+        if on_chunk is not None:
+            on_chunk(c0 + chunk)
 
 
 def _sync(dev: torch.device) -> None:
@@ -247,9 +317,6 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
             "their aggregation semantics without Phase.DELIVER")
     if baseline and dfl_topology not in ("mesh", "ring"):
         raise ValueError(f"unknown dfl topology {dfl_topology!r} (mesh|ring)")
-    if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
-        raise NotImplementedError(
-            "checkpoint/resume is ported with the fault world, ROADMAP.md slice E.2")
     if trace is not None and (getattr(trace, "jax_profiler_dir", None)
                               or getattr(trace, "hlo_stats", False)):
         raise NotImplementedError(
@@ -257,10 +324,7 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
             "ROADMAP.md slice F (not ported yet)")
     if baseline:
         # the baselines have no renegotiation, so mobility does not apply to
-        # them (the reference drops it); their fault pricing is slice E.2's
-        if cfg.faults is not None:
-            raise NotImplementedError(
-                "faults (world state, ROADMAP.md slice E.2) is not ported yet")
+        # them (the reference drops it); faults are priced post hoc
         return
     unported = _unported(cfg)
     if unported is not None:
@@ -296,8 +360,12 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     ``use_pallas=False`` runs the plain PyTorch twins of every kernel (the
     caller's choice, never a fallback); ``interpret`` accepts only None;
     ``round_chunk`` is the early-exit granularity (the host reads the
-    fleet's activity once per chunk); ``timeline`` records the spans and
-    ``trace`` may select exports, which ``Experiment.run`` writes.
+    fleet's activity once per chunk); ``checkpoint_dir`` saves the round
+    state every ``checkpoint_every`` rounds (default: every chunk; rounded
+    up to a multiple of it) and ``resume_from`` continues from a
+    directory's newest checkpoint (enfed only); ``timeline`` records the
+    spans and ``trace`` may select exports, which ``Experiment.run``
+    writes.
 
     Note: prefer the :mod:`repro_torch.api` facade
     (``ExecutionSpec(engine="fleet", ...)``)."""
@@ -316,15 +384,17 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
         if method != "enfed":
             return _run_fleet_baseline(task, requesters, cfg, cost, method, dfl_topology,
                                        dev, round_chunk, tl)
-        return _run_fleet_enfed(task, requesters, cfg, cost, dev, round_chunk, tl)
+        return _run_fleet_enfed(task, requesters, cfg, cost, dev, round_chunk, tl,
+                                checkpoint_dir, checkpoint_every, resume_from)
 
 
 def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
-                     cost: CostModel, dev: torch.device, round_chunk: int,
-                     tl: Timeline) -> FleetResult:
+                     cost: CostModel, dev: torch.device, round_chunk: int, tl: Timeline,
+                     checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+                     resume_from: Optional[str] = None) -> FleetResult:
     """Algorithm 1 for every requester on the flat round state."""
     R = len(requesters)
-    mob = cfg.mobility
+    mob, fc = cfg.mobility, cfg.faults
     stage = tl.begin("stage")
     # ---- Phase.HANDSHAKE (host) ---------------------------------------------
     # a static world signs ranked contracts once; under mobility the lanes
@@ -340,37 +410,30 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         if not cs:
             raise RuntimeError(
                 f"requester {i}: no nearby device agreed to the incentive (N_d < 1)")
+    N = contract_mask.shape[1] if mob is None else max(len(cs) for cs in lane_devs)
+    # every lane's real device id, and which lanes hold one (padding: False):
+    # the world draws of lane (i, j) key on that id, as requester i's do on
+    # ``requester_id + i`` of each world
+    lane_ids = np.zeros((R, N), np.int64)
+    lane_real = np.zeros((R, N), bool)
+    for i, cs in enumerate(lane_devs):
+        lane_ids[i, :len(cs)] = [d.device_id for d in cs]
+        lane_real[i, :len(cs)] = True
     if mob is None:
-        N = contract_mask.shape[1]
         round_w = np.zeros((R, N), np.float32)
         for i, cs in enumerate(lane_devs):
             round_w[i, :len(cs)] = protocol.round_weights(len(cs), cfg.strategy)
     else:
-        N = max(len(cs) for cs in lane_devs)
-        req_ids = np.arange(R, dtype=np.int64) + mob.requester_id
-        cand_ids = np.zeros((R, N), np.int64)
-        cand_mask = np.zeros((R, N), bool)
         base_util = np.zeros((R, N), np.float32)
         clevel0 = np.zeros((R, N), np.float32)
         for i, cs in enumerate(lane_devs):
             n_i = len(cs)
-            cand_ids[i, :n_i] = [d.device_id for d in cs]
-            cand_mask[i, :n_i] = True
             clevel0[i, :n_i] = [d.battery_level for d in cs]
             base_util[i, :n_i] = mobility.static_utility_term(
                 np.array([d.model_staleness for d in cs], np.float32),
                 np.array([d.data_size for d in cs], np.float32),
                 np.float32(max(d.data_size for d in cs))).numpy()
     ac, robust = cfg.adversary, cfg.robust
-    if ac is not None:
-        # lane i rolls its corruption dice as requester requester_id + i, over
-        # its contributors' real device ids; asigned masks the padded lanes
-        areq_ids = np.arange(R, dtype=np.int64) + ac.requester_id
-        acand_ids = np.zeros((R, N), np.int64)
-        asigned = np.zeros((R, N), bool)
-        for i, cs in enumerate(lane_devs):
-            acand_ids[i, :len(cs)] = [c.device_id for c in cs]
-            asigned[i, :len(cs)] = True
 
     # ---- contributor round state and deduplicated shards --------------------
     template = requesters[0].contributor_states[lane_devs[0][0].device_id]["params"]
@@ -441,6 +504,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     # a static world trains one row per unique (device, shard, params); under
     # mobility the lanes diverge, so every lane trains its own row
     refresh_dedup = do_refresh and mob is None
+    live = live_s = None
     if do_refresh:
         cx_tab, _ = _pad_stack(shard_x, max(len(x) for x in shard_x), np.float32)
         cy_tab, _ = _pad_stack(shard_y, cx_tab.shape[1], np.int64)
@@ -511,20 +575,22 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     def f32(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-    if mob is None:
+    if mob is None and fc is None:
         e_round_t = f32([cost.round_energy(
             n_contrib=len(cs), num_params=P, model_bytes=model_bytes,
             num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
             n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
             for rspec, cs in zip(requesters, lane_devs)])
     else:
-        # the member count changes each round: a per-count table gathered at
-        # the count, and the members' own per-round costs (transmit, refresh)
+        # the member (mobility) or delivered (faults) count changes each
+        # round: a per-count table gathered at the count
         e_tab = f32([cost.round_energy_table(
             max_contrib=N, num_params=P, model_bytes=model_bytes,
             num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
             n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
             for rspec in requesters])
+    if mob is not None:
+        # the members' own per-round costs (transmit, refresh)
         e_tx, e_ref = np.zeros((R, N), np.float32), np.zeros((R, N), np.float32)
         for i, cs in enumerate(lane_devs):
             for j in range(len(cs)):
@@ -532,57 +598,101 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                     num_params=P, model_bytes=model_bytes, num_samples=int(shard_len[i, j]),
                     refresh_epochs=cfg.contributor_refresh_epochs, encrypt=cfg.encrypt)
         e_tx, e_ref, base_util = f32(e_tx), f32(e_ref), f32(base_util)
-        req_ids, cand_ids, cand_mask = (torch.from_numpy(a).to(dev)
-                                        for a in (req_ids, cand_ids, cand_mask))
+    lane_ids, lane_real = torch.from_numpy(lane_ids).to(dev), torch.from_numpy(lane_real).to(dev)
+    lane_r = torch.arange(R, dtype=torch.int64, device=dev)
+    if fc is not None:
+        # Phase.DELIVER: every round's outcomes, from one batch of draws on
+        # the device
+        f_rounds, f_req = torch.arange(cfg.max_rounds, device=dev), lane_r + fc.requester_id
+        f_deliv, f_att, f_stale = faults_mod.link_outcomes(
+            fc, f_rounds, f_req, lane_ids, partitionable=partitionable)
+        f_blocked = faults_mod.blocked_mask(fc, f_rounds, f_req, lane_ids,
+                                            partitionable=partitionable)
+        e_rx_retry, _, t_retry = cost.retry_energy(model_bytes=model_bytes, encrypt=cfg.encrypt)
+        e_retry = f32(e_rx_retry)
     capacity = f32([b.capacity_j for b in batteries])
     eff = f32([load_efficiency(cost.device.p_train, b.high_load_penalty,
                                b.high_load_threshold_w) for b in batteries])
     desired = f32(cfg.desired_accuracy)
     threshold = f32(cfg.battery_threshold)
-    round_w_t = f32(round_w) if mob is None else None
-    if ac is not None:
-        areq_ids, acand_ids, asigned = (torch.from_numpy(a).to(dev)
-                                        for a in (areq_ids, acand_ids, asigned))
+    round_w_static = f32(round_w) if mob is None else None
+    gamma = float(cfg.staleness_gamma)
 
-    # ---- the round loop -------------------------------------------------------
-    level = f32([b.level for b in batteries])
-    # under mobility a round may aggregate nothing: the fallback chain
-    # bottoms out at the requester's own init
-    last = (tree_ravel(task.init(seed=cfg.seed))[0].to(dev).expand(R, P).clone()
-            if mob is not None else torch.zeros((R, P), dtype=torch.float32, device=dev))
-    clevel = f32(clevel0) if mob is not None else None
-    active = torch.ones(R, dtype=torch.bool, device=dev)
-    stop_code = torch.full((R,), protocol.STOP_MAX_ROUNDS, dtype=torch.int32, device=dev)
-    rounds_done = torch.zeros(R, dtype=torch.int32, device=dev)
-    acc_h, loss_h, bat_h, exec_h = (
-        torch.zeros((cfg.max_rounds, R), dtype=torch.float32, device=dev) for _ in range(4))
-    # (max_rounds, R, N) corrupted-delivery and clipped traces
-    corrupt_h, clip_h, member_h = (
-        torch.zeros((cfg.max_rounds, R, N), dtype=torch.float32, device=dev) for _ in range(3))
-    body_h = torch.zeros((cfg.max_rounds,), dtype=torch.float32, device=dev)
-    _sync(dev)
-    tl.finish(stage)
-    program = tl.begin("program")
-    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
+    # ---- the round state ------------------------------------------------------
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    T = cfg.max_rounds
+    carry = FleetCarry(
+        contrib=contrib, cscale=cscale, live=live, live_s=live_s,
+        # a mobility or fault world may aggregate nothing in a round: the
+        # fallback chain bottoms out at the requester's own init
+        last=(tree_ravel(task.init(seed=cfg.seed))[0].to(dev).expand(R, P).clone()
+              if mob is not None or fc is not None else zeros(R, P)),
+        level=f32([b.level for b in batteries]),
+        active=torch.ones(R, dtype=torch.bool, device=dev),
+        stop_code=torch.full((R,), protocol.STOP_MAX_ROUNDS, dtype=torch.int32, device=dev),
+        rounds_done=torch.zeros(R, dtype=torch.int32, device=dev),
+        clevel=f32(clevel0) if mob is not None else None,
+        acc_h=zeros(T, R), loss_h=zeros(T, R), bat_h=zeros(T, R), exec_h=zeros(T, R),
+        body_h=zeros(T),
+        member_h=zeros(T, R, N) if mob is not None else None,
+        # the stale-delivery snapshot starts as the handshake staging (a
+        # round-0 stale hit is a no-op)
+        prev=contrib if fc is not None else None,
+        prev_s=cscale if fc is not None else None,
+        drop_h=zeros(T, R) if fc is not None else None,
+        retry_h=zeros(T, R) if fc is not None else None,
+        stale_h=zeros(T, R) if fc is not None else None,
+        deliver_h=zeros(T, R, N) if fc is not None else None,
+        corrupt_h=zeros(T, R, N) if ac is not None else None,
+        clip_h=zeros(T, R, N) if robust != "none" else None)
+
+    def round_body(c: FleetCarry, r: int) -> FleetCarry:
+        """One round of every requester, on the device: the carry after
+        round ``r``.  A lane that is no longer active changes nothing."""
+        active, contrib, cscale = c.active, c.contrib, c.cscale
         ran = active.any()
-        body_h[r] = ran.to(torch.float32)
+        upd = {"body_h": _put(c.body_h, r, ran.to(torch.float32))}
+        blocked = f_blocked[r] if fc is not None else None
         # Phase.RENEGOTIATE (mobility): release, sign and undercut on the
-        # device; the member mask is this round's weight row
+        # device (a streak-blocked link is released too); the member mask
+        # is this round's weight row
         if mob is not None:
             member, rank, _ = mobility.membership_step(
-                mob, r, req_ids, cand_ids, cand_mask, base_util, clevel, cfg.n_max,
-                partitionable=partitionable)
+                mob, r, lane_r + mob.requester_id, lane_ids, lane_real, base_util, c.clevel,
+                cfg.n_max, blocked=blocked, partitionable=partitionable)
             round_w_t = topology.dynamic_round_weights(member, rank, cfg.strategy)
             count = member.sum(dim=1)
-        # Phase.COLLECT: the delivered buffer is the round state, or under
-        # an adversary a corrupted copy of it, keyed on the delivering round
+        else:
+            round_w_t = round_w_static
+        # Phase.DELIVER (faults): the attempting links that landed an update,
+        # the attempts each burned, and those that delivered the round-(r-1)
+        # image; the delivered mask multiplies into eq. 14's weights
         src, src_s = contrib, cscale
+        if fc is not None:
+            att_mask = member if mob is not None else lane_real & ~blocked
+            delivered = f_deliv[r] & att_mask
+            attempts = f_att[r]
+            stale_hit = delivered & f_stale[r]
+            count = delivered.sum(dim=1)
+            round_w_t = round_w_t * delivered.to(torch.float32)
+            drops_r = (att_mask & ~delivered).sum(dim=1).to(torch.float32)
+            retries_r = torch.where(att_mask, attempts - 1, 0).sum(dim=1).to(torch.float32)
+            stale_r = stale_hit.sum(dim=1).to(torch.float32)
+            # stale links send the snapshot, before any corruption
+            src = torch.where(stale_hit[..., None], c.prev, contrib)
+            if cscale is not None:
+                src_s = torch.where(stale_hit[..., None], c.prev_s, cscale)
+        # Phase.COLLECT under an adversary: a corrupted copy of the delivered
+        # buffer, keyed on the delivering round
         if ac is not None:
-            cmask = adversary_mod.corruption_mask(ac, r, areq_ids, acand_ids,
+            areq_ids = lane_r + ac.requester_id
+            cmask = adversary_mod.corruption_mask(ac, r, areq_ids, lane_ids,
                                                   partitionable=partitionable)
             if wire_compress == "int8":
                 src, src_s = adversary_mod.corrupt_wire_batched(
-                    ac, src, src_s, cmask, r, areq_ids, acand_ids,
+                    ac, src, src_s, cmask, r, areq_ids, lane_ids,
                     partitionable=partitionable)
                 # the padding tail is no part of the update: the loop engine
                 # slices to P before any statistic, so noise codes there must
@@ -591,9 +701,13 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                     src = src * (torch.arange(src.shape[-1], device=dev) < P).to(src.dtype)
             else:
                 src = adversary_mod.corrupt_dense_batched(
-                    ac, src, cmask, r, areq_ids, acand_ids, partitionable=partitionable)
-            counted = member if mob is not None else asigned
-            corrupt_h[r] = (cmask & counted & active[:, None]).to(torch.float32)
+                    ac, src, cmask, r, areq_ids, lane_ids, partitionable=partitionable)
+            counted = delivered if fc is not None else (member if mob is not None else lane_real)
+            upd["corrupt_h"] = _put(c.corrupt_h, r, (cmask & counted & active[:, None]))
+        if gamma < 1.0 and fc is not None:
+            # a stale delivery lags one round: gamma**lag on its weight (the
+            # 0/1 masks before it are exact, so the order is immaterial)
+            round_w_t = protocol.decayed_round_weights(round_w_t, stale_hit, gamma)
         # Phase.AGGREGATE: eq. 14, or the robust statistic, in one launch
         # over the whole buffer
         if robust != "none":
@@ -602,14 +716,14 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                 glob = glob[:, :P]
             else:
                 glob, clipped = robust_aggregate(src, round_w_t, method=robust)
-            clip_h[r] = (clipped & active[:, None]).to(torch.float32)
+            upd["clip_h"] = _put(c.clip_h, r, clipped & active[:, None])
         elif wire_compress == "int8":
             glob = fedavg_flat_batched_q8(src, src_s, round_w_t)[:, :P]
         else:
             glob = fedavg_flat_batched(src, round_w_t)
-        if mob is not None:
+        if mob is not None or fc is not None:
             # nothing fed eq. 14: the lane keeps training its own params
-            glob = torch.where((count > 0)[:, None], glob, last)
+            glob = torch.where((count > 0)[:, None], glob, c.last)
         # Phase.FIT + Phase.SCORE, every requester as a lane
         scores = schedule.epoch_scores(cfg.seed + r, cfg.epochs, n_pad,
                                        partitionable=partitionable)
@@ -618,76 +732,123 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             task, spec, glob, lambda ib: (own_x[lanes_r, ib], own_y[lanes_r, ib]),
             idx.to(dev), w.to(dev), (w.sum(-1) > 0).numpy())
         acc = _eval_lanes(task.model, spec, new_flat, test_x, test_y, test_mask)
-        # Phase.ACCOUNT: fp32 battery discharge of the executing lanes
-        if mob is not None:
-            e_round_t = e_tab.gather(1, count[:, None])[:, 0]
-        level_new = discharge_level(level, e_round_t, capacity, eff)
+        # Phase.ACCOUNT: fp32 battery discharge of the executing lanes; under
+        # faults one more receive window per drop or retry
+        e_round = (e_tab.gather(1, count[:, None])[:, 0]
+                   if mob is not None or fc is not None else e_round_t)
+        if fc is not None:
+            e_round = e_round + (drops_r + retries_r) * e_retry
+        level_new = discharge_level(c.level, e_round, capacity, eff)
         reached = acc >= desired
         low = level_new < threshold
         stop_code = torch.where(active & reached, protocol.STOP_ACCURACY,
                                 torch.where(active & ~reached & low,
-                                            protocol.STOP_BATTERY, stop_code))
-        level = torch.where(active, level_new, level)
-        rounds_done = rounds_done + active.to(torch.int32)
-        last = torch.where(active[:, None], new_flat, last)
+                                            protocol.STOP_BATTERY, c.stop_code))
+        level = torch.where(active, level_new, c.level)
         next_active = active & ~reached & ~low
         # a round no lane ran leaves its rows 0, as the reference's skipped body
-        acc_h[r], loss_h[r], bat_h[r] = (torch.where(ran, v, 0.0)
-                                         for v in (acc, last_loss, level))
-        exec_h[r] = active.to(torch.float32)
+        upd.update(
+            stop_code=stop_code, level=level, active=next_active,
+            rounds_done=c.rounds_done + active.to(torch.int32),
+            last=torch.where(active[:, None], new_flat, c.last),
+            acc_h=_put(c.acc_h, r, torch.where(ran, acc, 0.0)),
+            loss_h=_put(c.loss_h, r, torch.where(ran, last_loss, 0.0)),
+            bat_h=_put(c.bat_h, r, torch.where(ran, level, 0.0)),
+            exec_h=_put(c.exec_h, r, active))
+        if fc is not None:
+            upd.update(drop_h=_put(c.drop_h, r, drops_r * active),
+                       retry_h=_put(c.retry_h, r, retries_r * active),
+                       stale_h=_put(c.stale_h, r, stale_r * active),
+                       deliver_h=_put(c.deliver_h, r, delivered & active[:, None]),
+                       # the image next round's stale links deliver: this
+                       # round's, before refresh rebinds the state
+                       prev=contrib, prev_s=cscale)
         if mob is not None:
-            # members paid their transmission, and the refresh term where
-            # the session goes on
-            clevel = mobility.contributor_discharge(
-                clevel, member & active[:, None], e_tx, e_ref, next_active[:, None],
+            # members paid their transmission (once per attempt under
+            # faults), and the refresh term where the session goes on
+            e_tx_round = e_tx * attempts.to(torch.float32) if fc is not None else e_tx
+            upd["clevel"] = mobility.contributor_discharge(
+                c.clevel, member & active[:, None], e_tx_round, e_ref, next_active[:, None],
                 mob.contributor_capacity_j)
-            member_h[r] = (member & active[:, None]).to(torch.float32)
+            upd["member_h"] = _put(c.member_h, r, member & active[:, None])
         # Phase.REFRESH under mobility: every lane trains its own row, the
         # members of sessions that go on take the result
         if do_refresh and not refresh_dedup:
             if cscale is not None:
-                src = dequantize_flat_batched(contrib.reshape(R * N, -1),
-                                              cscale.reshape(R * N, -1))[:, :P]
+                ref_src = dequantize_flat_batched(contrib.reshape(R * N, -1),
+                                                  cscale.reshape(R * N, -1))[:, :P]
             else:
-                src = contrib.reshape(R * N, P)
-            refreshed, _ = _fit_lanes(task, spec, src, refresh_batch, ref_idx, ref_w, ref_live)
+                ref_src = contrib.reshape(R * N, P)
+            refreshed, _ = _fit_lanes(task, spec, ref_src, refresh_batch, ref_idx, ref_w,
+                                      ref_live)
             take = (next_active[:, None] & member)[..., None]
             if cscale is not None:
                 q2, s2 = quantize_flat_batched(refreshed)
-                contrib = torch.where(take, q2.reshape(R, N, -1), contrib)
-                cscale = torch.where(take, s2.reshape(R, N, -1), cscale)
+                upd["contrib"] = torch.where(take, q2.reshape(R, N, -1), contrib)
+                upd["cscale"] = torch.where(take, s2.reshape(R, N, -1), cscale)
             else:
-                contrib = torch.where(take, refreshed.reshape(R, N, P), contrib)
+                upd["contrib"] = torch.where(take, refreshed.reshape(R, N, P), contrib)
         # Phase.REFRESH: the V unique rows train, lanes that go on take them
         if refresh_dedup:
-            src = dequantize_flat_batched(live, live_s)[:, :P] if live_s is not None else live
-            refreshed, _ = _fit_lanes(task, spec, src, refresh_batch, ref_idx, ref_w, ref_live)
+            ref_src = (dequantize_flat_batched(c.live, c.live_s)[:, :P]
+                       if c.live_s is not None else c.live)
+            refreshed, _ = _fit_lanes(task, spec, ref_src, refresh_batch, ref_idx, ref_w,
+                                      ref_live)
             take = (next_active[:, None] & lane_valid)[..., None]
-            if live_s is not None:
+            if c.live_s is not None:
                 live, live_s = quantize_flat_batched(refreshed)
-                contrib = torch.where(take, live[ref_uidx], contrib)
-                cscale = torch.where(take, live_s[ref_uidx], cscale)
+                upd.update(live=live, live_s=live_s,
+                           contrib=torch.where(take, live[ref_uidx], contrib),
+                           cscale=torch.where(take, live_s[ref_uidx], cscale))
             else:
-                live = refreshed
-                contrib = torch.where(take, refreshed[ref_uidx], contrib)
-        active = next_active
+                upd.update(live=refreshed,
+                           contrib=torch.where(take, refreshed[ref_uidx], contrib))
+        return c._replace(**upd)
+
+    # ---- checkpoint/resume: the carry at chunk boundaries ---------------------
+    every = checkpoint_every if checkpoint_every > 0 else round_chunk
+    every = -(-every // round_chunk) * round_chunk        # a multiple of the chunk
+    r0 = 0
+    _sync(dev)
+    tl.finish(stage)
+    if resume_from:
+        from repro_torch.checkpoint import restore_checkpoint
+
+        with tl.span("checkpoint_restore"):
+            pay, _ = restore_checkpoint(resume_from, {"r0": np.int64(0), "state": carry})
+            r0 = int(pay["r0"])
+            carry = FleetCarry(*(None if v is None else torch.from_numpy(v).to(dev)
+                                 for v in pay["state"]))
+
+    def saved(r_next: int) -> None:
+        if checkpoint_dir and r_next % every == 0:
+            from repro_torch.checkpoint import save_checkpoint
+
+            with tl.span("checkpoint_save", r0=r_next):
+                save_checkpoint(checkpoint_dir, r_next, {"r0": np.int64(r_next), "state": carry})
+
+    # ---- the round loop -------------------------------------------------------
+    program = tl.begin("program")
+    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(carry.active.any()),
+                             r0=r0, on_chunk=saved):
+        carry = round_body(carry, r)
     _sync(dev)
     tl.finish(program)
 
     # ---- unpack -------------------------------------------------------------
     unpack = tl.begin("unpack")
-    rounds_np = rounds_done.cpu().numpy()
-    codes_np = stop_code.cpu().numpy()
-    level_np = level.cpu().numpy()
-    acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, member_h, body_h = (
-        t.cpu().numpy()
-        for t in (acc_h, loss_h, bat_h, exec_h, corrupt_h, clip_h, member_h, body_h))
+    rounds_np, codes_np, level_np = (t.cpu().numpy() for t in (carry.rounds_done,
+                                                                  carry.stop_code, carry.level))
+    hist = {k: (None if v is None else v.cpu().numpy())
+            for k, v in carry._asdict().items() if k.endswith("_h")}
+    acc_h, loss_h, bat_h, exec_h, body_h = (hist[k] for k in ("acc_h", "loss_h", "bat_h",
+                                                              "exec_h", "body_h"))
     if do_refresh:
-        if cscale is not None:
+        if carry.cscale is not None:
             with _span(tl, dev, "dequant_unpack"):
-                final = dequantize_flat_batched(contrib, cscale)[..., :P]
+                final = dequantize_flat_batched(carry.contrib, carry.cscale)[..., :P]
         else:
-            final = contrib
+            final = carry.contrib
         for i, (rspec, cs) in enumerate(zip(requesters, lane_devs)):
             for j, c in enumerate(cs):
                 rspec.contributor_states[c.device_id]["params"] = tree_unravel(spec, final[i, j])
@@ -700,11 +861,16 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             n_contrib_i = float(len(cs))
         else:
             # priced over the mean membership, in fp32 as the reference's fleet
-            n_contrib_i = float(member_h[:r_i, i].sum(-1).mean()) if r_i else 0.0
+            n_contrib_i = float(hist["member_h"][:r_i, i].sum(-1).mean()) if r_i else 0.0
         report = cost.session(
             rounds=r_i, n_contrib=n_contrib_i, num_params=P,
             model_bytes=model_bytes, num_samples=len(rspec.own_train[0]),
             epochs=cfg.epochs, n_devices=len(rspec.neighborhood), encrypt=cfg.encrypt)
+        if fc is not None:
+            # every drop or retry burned one more receive window, priced
+            # post hoc from the traces
+            extra_i = float(hist["drop_h"][:r_i, i].sum() + hist["retry_h"][:r_i, i].sum())
+            report.add_transfers(extra_i, t_retry, e_rx_retry)
         if robust != "none" and r_i:
             # one screening pass over the session's N x P buffer per executed
             # round, priced post hoc (never drains the simulated battery)
@@ -717,26 +883,29 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                    "battery": [float(v) for v in bat_h[:r_i, i]],
                    "round_executed": [float(v) for v in exec_h[:r_i, i]]}
         if mob is not None:
-            history["member_mask"] = [member_h[t, i].copy() for t in range(r_i)]
-            history["members"] = [float(member_h[t, i].sum()) for t in range(r_i)]
+            history["member_mask"] = [hist["member_h"][t, i].copy() for t in range(r_i)]
+            history["members"] = [float(hist["member_h"][t, i].sum()) for t in range(r_i)]
+        if fc is not None:
+            for name, key in (("drops", "drop_h"), ("retries", "retry_h"), ("stale", "stale_h")):
+                history[name] = [float(v) for v in hist[key][:r_i, i]]
+            history["deliver_mask"] = [hist["deliver_h"][t, i].copy() for t in range(r_i)]
         if ac is not None:
-            history["corrupted_mask"] = [corrupt_h[t, i].copy() for t in range(r_i)]
+            history["corrupted_mask"] = [hist["corrupt_h"][t, i].copy() for t in range(r_i)]
         if robust != "none":
-            history["clipped_mask"] = [clip_h[t, i].copy() for t in range(r_i)]
+            history["clipped_mask"] = [hist["clip_h"][t, i].copy() for t in range(r_i)]
         sessions.append(SessionResult(
             accuracy=history["accuracy"][-1] if history["accuracy"] else 0.0,
             rounds=r_i, n_contributors=len(cs), report=report,
             battery=dataclasses.replace(b0, level=float(level_np[i])),
             history_raw=history, stop_reason=protocol.stop_reason_name(codes_np[i]),
-            params=tree_unravel(spec, last[i]), model_bytes=model_bytes))
+            params=tree_unravel(spec, carry.last[i]), model_bytes=model_bytes))
     fleet_hist = {"accuracy": acc_h, "loss": loss_h, "battery": bat_h,
                   "executed": exec_h, "round_executed": body_h}
-    if mob is not None:
-        fleet_hist["member"] = member_h
-    if ac is not None:
-        fleet_hist["corrupted"] = corrupt_h
-    if robust != "none":
-        fleet_hist["clipped"] = clip_h
+    for name, key in (("member", "member_h"), ("drops", "drop_h"), ("retries", "retry_h"),
+                      ("stale", "stale_h"), ("deliver", "deliver_h"),
+                      ("corrupted", "corrupt_h"), ("clipped", "clip_h")):
+        if hist[key] is not None:
+            fleet_hist[name] = hist[key]
     _sync(dev)
     tl.finish(unpack)
     return FleetResult(
@@ -746,6 +915,22 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         history=fleet_hist,
         staged_param_bytes=int(staged_param_bytes),
         device_round_state_bytes=int(staged_param_bytes), timeline=tl)
+
+
+def _baseline_fault_tx(fc, rounds: int, i: int, method: str, dfl_topology: str,
+                       n_cli: int, partitionable: bool) -> float:
+    """The extra transmissions (attempts beyond the delivered ones) of
+    requester ``i``'s baseline links over ``rounds`` rounds: link 0, the
+    server uplink, under cfl; links 1 ... fan under dfl (mesh: every peer,
+    ring: two neighbours)."""
+    if method == "cfl":
+        link_ids = torch.zeros(1, dtype=torch.int64)
+    else:
+        fan = n_cli - 1 if dfl_topology == "mesh" else min(2, n_cli - 1)
+        link_ids = torch.arange(1, fan + 1, dtype=torch.int64)
+    delivered, attempts, _ = faults_mod.link_outcomes(
+        fc, torch.arange(rounds), fc.requester_id + i, link_ids, partitionable=partitionable)
+    return float(attempts.sum() - delivered.sum())
 
 
 def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
@@ -919,6 +1104,21 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
                 num_samples=len(rspec.own_train[0]), epochs=cfg.epochs,
                 topology=dfl_topology)
             history = {"accuracy": accs}
+        if cfg.faults is not None and r_i:
+            # the baselines' convergence is their loop learners', so link
+            # faults are priced in the cost domain only: the fault world of
+            # requester requester_id + i over this method's links (the one
+            # WAN uplink of cfl, the gossip fan of dfl), every extra
+            # transmission re-priced through the one CostModel
+            extra = _baseline_fault_tx(cfg.faults, r_i, i, method, dfl_topology, n_cli,
+                                       task.threefry_partitionable)
+            if method == "cfl":
+                _, e_tx_r, t_xfer = cost.retry_energy(model_bytes=model_bytes, encrypt=False,
+                                                      rate_bps=cost.link.wan_rate_bps)
+            else:
+                _, e_tx_r, t_xfer = cost.retry_energy(model_bytes=model_bytes, encrypt=True)
+            report.add_transfers(extra, t_xfer, e_tx_r)
+            history["fault_extra_tx"] = extra
         total_e += report.e_tot
         sessions.append(SessionResult(
             accuracy=accs[-1] if accs else 0.0, rounds=r_i, n_contributors=n_cli - 1,

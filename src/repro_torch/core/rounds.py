@@ -34,18 +34,36 @@ discharges the requester by the member count's entry of a per-count energy
 table and the members' batteries by their transmit and refresh costs, and
 refreshes the current members.
 
+Under ``faults=FaultConfig(...)`` the links are unreliable
+(:mod:`repro_torch.core.faults`): each round derives which attempting links
+delivered, after how many attempts, and which delivered the round-(r-1)
+image (``_snap_prev`` keeps it, in wire format under int8); only delivered
+updates feed eq. 14, a round where every link failed trains the
+requester's own params (which start as its init), the requester pays the
+delivered count's entry of a per-count energy table plus one re-priced
+receive window per drop or retry, and the retry windows are priced post
+hoc into the report.  A streak-blocked link sits out (static world) or is
+released at RENEGOTIATE (mobility), and under mobility each member pays
+its transmit cost once per attempt.  ``staleness_gamma < 1`` weighs a
+stale delivery ``gamma`` into eq. 14.
+
 ``run(engine="fleet")`` runs the session as a one-requester fleet
 (:func:`repro_torch.core.fleet.run_fleet`), forwarding the execution knobs
-(``use_pallas``, ``interpret``, ``round_chunk``, ``timeline``).  The loop
-engine records the reference's spans on ``timeline`` (``handshake``;
-``transport`` around one round's collect; ``fit``; ``refresh``), each
-closed after a device sync, and runs the plain PyTorch twins of every
-kernel under ``use_pallas=False``.  The port runs the lockstep worlds:
-``encrypt`` on or off, any ``strategy``, any ``compress``, Byzantine
-contributors and the robust AGGREGATE, in a static neighbourhood or under
-mobility.  Faults, cadence, ``staleness_gamma < 1`` and checkpointing
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice that ports
-them.
+(``use_pallas``, ``interpret``, ``round_chunk``, checkpointing,
+``timeline``).  The loop engine records the reference's spans on
+``timeline`` (``handshake``; ``transport`` around one round's collect;
+``fit``; ``refresh``; ``checkpoint_save`` and ``checkpoint_restore``),
+each closed after a device sync, and runs the plain PyTorch twins of every
+kernel under ``use_pallas=False``.  ``checkpoint_dir`` saves the resumable
+round state every ``checkpoint_every`` rounds (default: every round) in
+the reference's layout (:mod:`repro_torch.checkpoint`; the int8 wire as
+its codes and scales), and ``resume_from`` continues from the newest
+checkpoint of a directory with the same bits as a run that was never
+stopped.  The port runs every lockstep world: ``encrypt`` on or off, any
+``strategy``, any ``compress``, Byzantine contributors and the robust
+AGGREGATE, unreliable links and staleness decay, in a static
+neighbourhood or under mobility.  Cadence raises ``NotImplementedError``
+naming ``ROADMAP.md`` slice E.3.
 """
 
 from __future__ import annotations
@@ -60,9 +78,11 @@ import torch
 
 from repro_torch.core import adversary as adversary_mod
 from repro_torch.core import aggregation, crypto, mobility, protocol, topology
+from repro_torch.core import faults as faults_mod
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
 from repro_torch.core.energy import CostModel, EnergyReport, update_wire_bytes
+from repro_torch.core.faults import FaultConfig
 from repro_torch.core.incentive import (Contract, NeighborDevice, candidate_pool,
                                         contracts_from_membership, select_contributors)
 from repro_torch.core.mobility import MobilityConfig
@@ -72,8 +92,8 @@ from repro_torch.kernels.quantize.ops import (compress_update, decompress_update
                                               resolve_compress)
 from repro_torch.kernels.robust.ops import ROBUST_METHODS, robust_aggregate
 from repro_torch.telemetry.spans import Timeline
-from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_size,
-                                    unflatten_from_vector)
+from repro_torch.utils.tree import (flatten_to_vector, from_jax_params, tree_bytes,
+                                    tree_size, unflatten_from_vector)
 
 
 @dataclasses.dataclass
@@ -93,14 +113,16 @@ class EnFedConfig:
     compress: Optional[str] = None          # None | "int8" | "auto" wire format
     # opportunistic world: the contract set is renegotiated every round
     mobility: Optional[MobilityConfig] = None
-    # faults, cadence and staleness_gamma < 1 belong to later slices of
-    # the port; the engines raise NotImplementedError for them.
-    faults: Optional[object] = None         # unreliable links: slice E.2
+    # unreliable links: drops, bounded retries, stale delivery
+    faults: Optional[FaultConfig] = None
+    # asynchronous cadence belongs to a later slice of the port; the
+    # engines raise NotImplementedError for it
     cadence: Optional[object] = None        # asynchronous cadence: slice E.3
     adversary: Optional[AdversaryConfig] = None   # Byzantine contributors
     # robust AGGREGATE: "none" (eq. 14) | "clip" | "trimmed_mean" | "median"
     robust: str = "none"
-    staleness_gamma: float = 1.0            # decayed weights: slice E.2
+    # a stale delivery weighs gamma into eq. 14 (1.0: no decay)
+    staleness_gamma: float = 1.0
 
     def __post_init__(self):
         if self.compress not in (None, "int8", "auto"):
@@ -116,7 +138,7 @@ class EnFedConfig:
 
 
 # the world knobs the port does not run yet, with the slice of each
-_UNPORTED_WORLDS = (("faults", "E.2"), ("cadence", "E.3"))
+_UNPORTED_WORLDS = (("cadence", "E.3"),)
 
 
 def _unported(cfg: EnFedConfig) -> Optional[str]:
@@ -125,8 +147,6 @@ def _unported(cfg: EnFedConfig) -> Optional[str]:
     for name, sub in _UNPORTED_WORLDS:
         if getattr(cfg, name) is not None:
             return f"{name}{world} (world state, ROADMAP.md slice {sub})"
-    if cfg.staleness_gamma < 1.0:
-        return f"staleness_gamma < 1{world} (decayed weights, ROADMAP.md slice E.2)"
     return None
 
 
@@ -242,23 +262,42 @@ class EnFedSession:
         q, s, n = self._wire[device_id]
         return unflatten_from_vector(decompress_update(q, s, n), template)
 
-    def _collect_update(self, device_id: int, corrupt: bool = False, step: int = 0):
+    def _snap_prev(self, device_ids):
+        """Phase.DELIVER bookkeeping under faults: keep this round's
+        transported images, so a lagging link can deliver them next round.
+        Taken before Phase.REFRESH rebinds the state; a reference suffices,
+        since refresh and ``_wire_pack`` bind new tensors and never write
+        into a snapshotted one (the fleet carries the same snapshot as a
+        second wire-format buffer)."""
+        if self._compress == "int8":
+            self._prev_wire = {int(d): self._wire[int(d)] for d in device_ids}
+        else:
+            self._prev_params = {int(d): self.contributor_states[int(d)]["params"]
+                                 for d in device_ids}
+
+    def _collect_update(self, device_id: int, stale: bool = False, corrupt: bool = False,
+                        step: int = 0):
         """Phase.COLLECT: contributor -> (compress) -> (corrupt) ->
         (encrypt) -> wire -> (decrypt) -> (decompress).  Returns the
         received tree and its wire bytes.
 
-        ``corrupt`` applies the adversary's attack to the outgoing payload,
-        in wire format under int8 (codes and scales), keyed on the
-        delivering round ``step``; the cipher then runs over the corrupted
+        ``stale`` sends the round-(r-1) image :meth:`_snap_prev` kept (the
+        wire bytes, and so the pricing, are unchanged).  ``corrupt`` then
+        applies the adversary's attack to the outgoing payload, in wire
+        format under int8 (codes and scales), keyed on the delivering round
+        ``step``: the stale image is chosen first, the corruption draw keys
+        on the round that delivers it.  The cipher runs over the corrupted
         bytes.  The resident params and wire cache are never modified."""
         ac = self.cfg.adversary
         part = self.task.threefry_partitionable
         params = self.contributor_states[device_id]["params"]
+        if stale and self._compress != "int8":
+            params = self._prev_params[device_id]
         if self._compress == "int8":
             # the payload is the int8 codes followed by the little-endian
             # fp32 scales; CTR keeps the length, so the wire bytes are the
             # compressed count either way
-            q, s, n = self._wire[device_id]
+            q, s, n = (self._prev_wire if stale else self._wire)[device_id]
             if corrupt:
                 q, s = adversary_mod.corrupt_wire(ac, q, s, True, step, ac.requester_id,
                                                   device_id, partitionable=part)
@@ -319,6 +358,158 @@ class EnFedSession:
                 self.cfg.batch_size, seed=self.cfg.seed + did)
             st["params"] = self._wire_pack(did, fitted) if compress else fitted
 
+    def _link_weather(self, r, ids):
+        """Phase.DELIVER's world state at round ``r`` over the links
+        ``ids``: ``(delivered, attempts, stale, blocked)`` as numpy."""
+        fc, part = self.cfg.faults, self.task.threefry_partitionable
+        ids_t = torch.as_tensor(ids, dtype=torch.int64)
+        delivered, attempts, stale = faults_mod.link_outcomes(fc, r, fc.requester_id, ids_t,
+                                                             partitionable=part)
+        blocked = faults_mod.blocked_mask(fc, r, fc.requester_id, ids_t, partitionable=part)
+        return delivered.numpy(), attempts.numpy(), stale.numpy(), blocked.numpy()
+
+    def _faults_begin(self, history, ids, model_bytes):
+        """Open the fault traces, snapshot round 0's stale images, and
+        return one retry window's ``(e_rx, t_xfer)``."""
+        history.update(drops=[], retries=[], stale=[], deliver_mask=[])
+        self._snap_prev(ids)
+        e_rx, _, t_xfer = self.cost.retry_energy(model_bytes=model_bytes,
+                                                 encrypt=self.cfg.encrypt)
+        return e_rx, t_xfer
+
+    @staticmethod
+    def _deliver(history, attempted, delivered, attempts, stale):
+        """Phase.DELIVER's bookkeeping over the links ``attempted`` this
+        round: appends the round's drop, retry and stale counts and its
+        deliver mask to ``history``; returns the delivered mask (only an
+        attempted link delivers) and the extra receive windows (drops plus
+        retries)."""
+        delivered = delivered & attempted
+        drops = float(np.sum(attempted & ~delivered))
+        retries = float(np.sum(np.where(attempted, attempts - 1, 0)))
+        history["drops"].append(drops)
+        history["retries"].append(retries)
+        history["stale"].append(float(np.sum(delivered & stale)))
+        history["deliver_mask"].append(delivered.astype(np.float32))
+        return delivered, drops + retries
+
+    # -- checkpointing (repro_torch.checkpoint) -------------------------------
+    @staticmethod
+    def _hist_pad(vals, n, width=None):
+        """History lists as fixed-shape arrays, zero-padded to the round
+        budget, so a mid-run checkpoint and the restore template agree."""
+        if width is None:
+            out = np.zeros((n,), np.float64)
+            if vals:
+                out[:len(vals)] = np.asarray(vals, np.float64)
+        else:
+            out = np.zeros((n, width), np.float32)
+            if vals:
+                out[:len(vals)] = np.stack([np.asarray(v, np.float32) for v in vals])
+        return out
+
+    def _state_payload(self, r_next, device_ids, params, history, rounds, fit_s,
+                       retry_windows, model_bytes=0, util_rows=None, level=None):
+        """The loop engine's resumable round state as one tree, under the
+        reference's keys.  Wire-format state is saved as it is resident:
+        under int8 the (codes, scales) cache and its stale snapshot, never
+        a re-densified image."""
+        cfg = self.cfg
+        n_rounds = cfg.max_rounds
+        ids = [int(d) for d in device_ids]
+        pay = {
+            "r": np.int64(r_next),
+            "rounds": np.int64(rounds),
+            "level": np.float64(self.battery.level),
+            "fit_s": np.float64(fit_s),
+            "retry_windows": np.float64(retry_windows),
+            "model_bytes": np.int64(model_bytes),
+            "params": params,
+            "acc": self._hist_pad(history["accuracy"], n_rounds),
+            "loss": self._hist_pad(history["loss"], n_rounds),
+            "bat": self._hist_pad(history["battery"], n_rounds),
+            "contrib": {str(d): self.contributor_states[d]["params"] for d in ids},
+        }
+        if self._compress == "int8":
+            pay["wire"] = {str(d): {"q": self._wire[d][0], "s": self._wire[d][1]}
+                           for d in ids}
+        if cfg.faults is not None:
+            pay["drops"] = self._hist_pad(history["drops"], n_rounds)
+            pay["retries"] = self._hist_pad(history["retries"], n_rounds)
+            pay["stale"] = self._hist_pad(history["stale"], n_rounds)
+            pay["deliver"] = self._hist_pad(history["deliver_mask"], n_rounds, len(ids))
+            if self._compress == "int8":
+                pay["prev_wire"] = {str(d): {"q": self._prev_wire[d][0],
+                                             "s": self._prev_wire[d][1]} for d in ids}
+            else:
+                pay["prev"] = {str(d): self._prev_params[d] for d in ids}
+        if cfg.adversary is not None:   # the corruption trail
+            pay["corrupt_h"] = self._hist_pad(history["corrupted_mask"], n_rounds, len(ids))
+        if cfg.robust != "none":        # the clip trail
+            pay["clip_h"] = self._hist_pad(history["clipped_mask"], n_rounds, len(ids))
+        if util_rows is not None:       # the mobility world
+            pay["clevel"] = level
+            pay["members"] = self._hist_pad(history["members"], n_rounds)
+            pay["member_h"] = self._hist_pad(history["member_mask"], n_rounds, len(ids))
+            pay["util_h"] = self._hist_pad(util_rows, n_rounds, len(ids))
+        return pay
+
+    def _on_device(self, tree):
+        """A restored host tree (numpy leaves) as tensors on the session's
+        device."""
+        return from_jax_params(tree, self.device)
+
+    def _restore_state(self, resume_from, template):
+        """Restore a :meth:`_state_payload` checkpoint (dtype-strict) and
+        rebind the session-held pieces: battery, contributor params, wire
+        and stale caches.  Returns the payload (host numpy) for the caller
+        to unpack its loop state from."""
+        from repro_torch.checkpoint import restore_checkpoint
+
+        pay, _ = restore_checkpoint(resume_from, template)
+        self.battery = dataclasses.replace(self.battery, level=float(pay["level"]))
+        for key, st in pay["contrib"].items():
+            self.contributor_states[int(key)]["params"] = self._on_device(st)
+        for name, cache in (("wire", "_wire"), ("prev_wire", "_prev_wire")):
+            for key, w in pay.get(name, {}).items():
+                did = int(key)
+                n = tree_size(self.contributor_states[did]["params"])
+                getattr(self, cache)[did] = (self._on_device(w["q"]),
+                                             self._on_device(w["s"]), n)
+        for key, st in pay.get("prev", {}).items():
+            self._prev_params[int(key)] = self._on_device(st)
+        return pay
+
+    @staticmethod
+    def _refill_history(history, pay, rounds):
+        """The history lists of the ``rounds`` restored rounds."""
+        history["accuracy"] = [float(v) for v in pay["acc"][:rounds]]
+        history["loss"] = [float(v) for v in pay["loss"][:rounds]]
+        history["battery"] = [float(v) for v in pay["bat"][:rounds]]
+        # every round the loop engine recorded executed
+        history["round_executed"] = [1.0] * rounds
+        for key, name in (("corrupt_h", "corrupted_mask"), ("clip_h", "clipped_mask"),
+                          ("deliver", "deliver_mask")):
+            if key in pay:
+                history[name] = [row.copy() for row in pay[key][:rounds]]
+        for key in ("drops", "retries", "stale"):
+            if key in pay:
+                history[key] = [float(v) for v in pay[key][:rounds]]
+
+    @staticmethod
+    def _normalize_ckpt(checkpoint_dir, checkpoint_every):
+        if checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+        if checkpoint_dir is not None and checkpoint_every == 0:
+            checkpoint_every = 1   # the loop engine saves every round by default
+        return checkpoint_every
+
+    def _save(self, tl, checkpoint_dir, r, payload):
+        from repro_torch.checkpoint import save_checkpoint
+
+        with tl.span("checkpoint_save", round=r):
+            save_checkpoint(checkpoint_dir, r + 1, payload)
+
     # -- Algorithm 1 ----------------------------------------------------------
     def run(self, engine: str = "loop", *, use_pallas: bool = True,
             interpret: Optional[bool] = None, round_chunk: int = 4,
@@ -329,7 +520,11 @@ class EnFedSession:
         fleet (``engine="fleet"``), forwarding the execution knobs to
         ``run_fleet``.  ``use_pallas=False`` runs the plain PyTorch twins of
         the kernels; ``interpret`` accepts only None; ``round_chunk`` is the
-        fleet's early-exit granularity; ``timeline`` records the spans.
+        fleet's early-exit granularity; ``checkpoint_dir`` saves the
+        resumable round state every ``checkpoint_every`` rounds (loop
+        default: every round; fleet default: every ``round_chunk``), and
+        ``resume_from`` continues from a directory's newest checkpoint with
+        the bits of an uninterrupted run; ``timeline`` records the spans.
 
         Note: prefer the :mod:`repro_torch.api` facade
         (``Experiment(world, method, execution).run()``)."""
@@ -356,23 +551,22 @@ class EnFedSession:
             return result.sessions[0]
         if engine != "loop":
             raise ValueError(f"unknown engine {engine!r} (loop|fleet)")
-        if checkpoint_every < 0:
-            raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
-        if checkpoint_dir is not None or resume_from is not None or checkpoint_every:
-            raise NotImplementedError(
-                "checkpoint/resume is ported with the fault world, ROADMAP.md slice E.2")
+        every = self._normalize_ckpt(checkpoint_dir, checkpoint_every)
         unported = _unported(self.cfg)
         if unported is not None:
             raise NotImplementedError(f"{unported} is not ported yet")
         tl = timeline if timeline is not None else Timeline()
+        ckpt = (checkpoint_dir, every, resume_from)
         with contextlib.nullcontext() if use_pallas else plain_twins():
             if self.cfg.mobility is not None:
-                return self._run_mobility(tl)
-            return self._run_loop(tl)
+                return self._run_mobility(tl, *ckpt)
+            return self._run_loop(tl, *ckpt)
 
-    def _run_loop(self, tl: Timeline) -> SessionResult:
+    def _run_loop(self, tl: Timeline, checkpoint_dir=None, checkpoint_every=0,
+                  resume_from=None) -> SessionResult:
         """Algorithm 1 on the loop engine, its phases timed into ``tl``."""
         cfg = self.cfg
+        fc = cfg.faults
         phase_s: Dict[str, float] = {}
         with self._clock(phase_s, "handshake", tl):
             contracts = self.handshake()
@@ -382,6 +576,7 @@ class EnFedSession:
         round_w = protocol.round_weights(n_c, cfg.strategy)
         ids = np.array([c.device_id for c in contracts], np.int64)
         ac = cfg.adversary
+        gamma = float(cfg.staleness_gamma)
 
         history = {"accuracy": [], "loss": [], "battery": [],
                    "round_executed": []}
@@ -393,32 +588,79 @@ class EnFedSession:
         rounds = 0
         stop = protocol.STOP_MAX_ROUNDS
         model_bytes = 0
+        retry_windows = 0.0
+        e_rx_retry = t_retry = 0.0
+        if fc is not None:
+            # the requester owns its model from the start: a round where
+            # every link failed trains it alone
+            params = self.task.init(seed=cfg.seed)
+            num_params = tree_size(params)
+            model_bytes = update_wire_bytes(num_params, encrypt=cfg.encrypt,
+                                            compress=self._compress,
+                                            raw_bytes=tree_bytes(params))
+            e_tab = np.array(self.cost.round_energy_table(
+                max_contrib=n_c, num_params=num_params, model_bytes=model_bytes,
+                num_samples=len(self.own_train[0]), epochs=cfg.epochs,
+                n_devices=len(self.fleet), encrypt=cfg.encrypt), np.float64)
+            # every drop or retry is one more receive window
+            e_rx_retry, t_retry = self._faults_begin(history, ids, model_bytes)
 
-        for r in range(cfg.max_rounds):
+        r_start = 0
+        if resume_from is not None:
+            template = params if params is not None else self.task.init(seed=cfg.seed)
+            with tl.span("checkpoint_restore"):
+                pay = self._restore_state(resume_from, self._state_payload(
+                    0, ids, template, history, 0, 0.0, 0.0, model_bytes=model_bytes))
+            r_start, rounds = int(pay["r"]), int(pay["rounds"])
+            params = self._on_device(pay["params"])
+            phase_s["fit"] = float(pay["fit_s"])
+            retry_windows = float(pay["retry_windows"])
+            model_bytes = int(pay["model_bytes"])
+            self._refill_history(history, pay, rounds)
+
+        for r in range(r_start, cfg.max_rounds):
             # Byzantine weather of this round: pure world state, keyed on
             # the delivering round (lockstep: the event step is r)
             cmask = (adversary_mod.corruption_mask(
                 ac, r, ac.requester_id, ids,
                 partitionable=self.task.threefry_partitionable).numpy()
                 if ac is not None else np.zeros((n_c,), bool))
+            stale = np.zeros((n_c,), bool)
+            if fc is not None:
+                # Phase.DELIVER: streak-blocked links sit the round out
+                delivered, attempts, stale, blocked = self._link_weather(r, ids)
+                delivered, extra = self._deliver(history, ~blocked, delivered, attempts, stale)
+            else:
+                delivered = np.ones((n_c,), bool)
+            lanes = np.nonzero(delivered)[0]
             with self._clock(phase_s, "collect", tl, round=r):
                 updates = []
-                for j, c in enumerate(contracts):
-                    upd, nbytes = self._collect_update(c.device_id, corrupt=bool(cmask[j]),
-                                                       step=r)
+                for j in lanes:
+                    upd, nbytes = self._collect_update(int(ids[j]), stale=bool(stale[j]),
+                                                       corrupt=bool(cmask[j]), step=r)
                     model_bytes = max(model_bytes, nbytes)
                     updates.append(upd)
             if ac is not None:
-                history["corrupted_mask"].append(cmask.astype(np.float32))
-            # Phase.AGGREGATE: eq. 14, or the robust statistic, in one
-            # launch over the (1, N, P) buffer
+                history["corrupted_mask"].append((cmask & delivered).astype(np.float32))
+            # a stale delivery lags one round: it weighs gamma into eq. 14
+            w_eff = round_w
+            if gamma < 1.0:
+                w_eff = protocol.decayed_round_weights(
+                    round_w, (delivered & stale).astype(np.int64), gamma).numpy()
+            # Phase.AGGREGATE: eq. 14 over the delivered updates, or the
+            # robust statistic over the full lane buffer, in one launch
             with self._clock(phase_s, "aggregate", tl):
                 if cfg.robust != "none":
+                    template = params if params is not None else updates[0]
                     global_params, clipped = self._robust_aggregate_full(
-                        updates, range(n_c), round_w, updates[0])
+                        updates, lanes, w_eff * delivered.astype(np.float32), template)
                     history["clipped_mask"].append(clipped.astype(np.float32))
+                    if not updates:
+                        global_params = params     # every link failed this round
+                elif updates:
+                    global_params = aggregation.masked_fedavg(updates, w_eff[lanes])
                 else:
-                    global_params = aggregation.masked_fedavg(updates, round_w)
+                    global_params = params         # every link failed this round
             with self._clock(phase_s, "fit", tl, round=r):
                 params, losses = self.task.fit(global_params, self.own_train,
                                                cfg.epochs, cfg.batch_size,
@@ -431,12 +673,18 @@ class EnFedSession:
             history["loss"].append(float(losses[-1]))
             history["round_executed"].append(1.0)
 
-            # Phase.ACCOUNT: battery bookkeeping for this round
-            e_round = self.cost.round_energy(
-                n_contrib=n_c, num_params=tree_size(params),
-                model_bytes=model_bytes,
-                num_samples=len(self.own_train[0]), epochs=cfg.epochs,
-                n_devices=len(self.fleet), encrypt=cfg.encrypt)
+            # Phase.ACCOUNT: battery bookkeeping for this round; under faults
+            # the delivered count's table entry plus one receive window per
+            # drop or retry
+            if fc is not None:
+                retry_windows += extra
+                e_round = float(e_tab[len(updates)]) + extra * e_rx_retry
+            else:
+                e_round = self.cost.round_energy(
+                    n_contrib=n_c, num_params=tree_size(params),
+                    model_bytes=model_bytes,
+                    num_samples=len(self.own_train[0]), epochs=cfg.epochs,
+                    n_devices=len(self.fleet), encrypt=cfg.encrypt)
             self.battery = self.battery.discharge(e_round,
                                                   avg_power_w=self.cost.device.p_train)
             history["battery"].append(self.battery.level)
@@ -447,14 +695,21 @@ class EnFedSession:
             if self.battery.below(cfg.battery_threshold):
                 stop = protocol.STOP_BATTERY
                 break
+            if fc is not None:
+                self._snap_prev(ids)       # next round's stale images
             with self._clock(phase_s, "refresh", tl, round=r):
                 self._refresh_contributors([c.device_id for c in contracts])
+            if checkpoint_dir is not None and (r + 1) % checkpoint_every == 0:
+                self._save(tl, checkpoint_dir, r, self._state_payload(
+                    r + 1, ids, params, history, rounds, phase_s.get("fit", 0.0),
+                    retry_windows, model_bytes=model_bytes))
 
         report = self.cost.session(
             rounds=rounds, n_contrib=n_c, num_params=tree_size(params),
             model_bytes=model_bytes, num_samples=len(self.own_train[0]),
             epochs=cfg.epochs, n_devices=len(self.fleet),
             measured_local_time=phase_s.get("fit", 0.0), encrypt=cfg.encrypt)
+        report.add_transfers(retry_windows, t_retry, e_rx_retry)
         if cfg.robust != "none" and rounds:
             # one screening pass over the N x P buffer per executed round,
             # priced post hoc (never drains the simulated battery)
@@ -469,16 +724,19 @@ class EnFedSession:
             model_bytes=model_bytes, phase_s=phase_s)
 
     # -- Algorithm 1 in the opportunistic world (repro_torch.core.mobility) ---
-    def _run_mobility(self, tl: Timeline) -> SessionResult:
+    def _run_mobility(self, tl: Timeline, checkpoint_dir=None, checkpoint_every=0,
+                      resume_from=None) -> SessionResult:
         """Algorithm 1 with Phase.RENEGOTIATE every round: contributors that
         walked out of radio range or reached the battery floor are released,
         in-range arrivals are signed, a higher-utility arrival displaces the
         weakest member.  The membership, weights and contributor batteries
         go through the functions the fleet engine calls
         (:mod:`repro_torch.core.mobility`,
-        ``topology.dynamic_round_weights``), here on the host."""
+        ``topology.dynamic_round_weights``), here on the host.  Under faults
+        a streak-blocked link is released at RENEGOTIATE and only the
+        delivered members feed eq. 14."""
         cfg = self.cfg
-        mob = cfg.mobility
+        mob, fc = cfg.mobility, cfg.faults
         part = self.task.threefry_partitionable
         phase_s: Dict[str, float] = {}
         # Phase.HANDSHAKE fixes the candidate pool and exchanges keys with
@@ -524,50 +782,92 @@ class EnFedSession:
             for d in cands)))
 
         ac = cfg.adversary
+        gamma = float(cfg.staleness_gamma)
         history = {"accuracy": [], "loss": [], "battery": [], "round_executed": [],
                    "members": [], "member_mask": [], "contracts": []}
         if ac is not None:
             history["corrupted_mask"] = []
         if cfg.robust != "none":
             history["clipped_mask"] = []
+        util_rows: List[np.ndarray] = []
         rounds = 0
         stop = protocol.STOP_MAX_ROUNDS
-        for r in range(cfg.max_rounds):
-            # Phase.RENEGOTIATE: release, sign, undercut
+        retry_windows = 0.0
+        e_rx_retry = t_retry = 0.0
+        if fc is not None:
+            e_rx_retry, t_retry = self._faults_begin(history, ids.tolist(), model_bytes)
+
+        r_start = 0
+        if resume_from is not None:
+            with tl.span("checkpoint_restore"):
+                pay = self._restore_state(resume_from, self._state_payload(
+                    0, ids.tolist(), params, history, 0, 0.0, 0.0, util_rows=util_rows,
+                    level=level))
+            r_start, rounds = int(pay["r"]), int(pay["rounds"])
+            params = self._on_device(pay["params"])
+            phase_s["fit"] = float(pay["fit_s"])
+            retry_windows = float(pay["retry_windows"])
+            level = torch.from_numpy(np.array(pay["clevel"], np.float32))
+            self._refill_history(history, pay, rounds)
+            history["members"] = [float(v) for v in pay["members"][:rounds]]
+            history["member_mask"] = [row.copy() for row in pay["member_h"][:rounds]]
+            util_rows = [row.copy() for row in pay["util_h"][:rounds]]
+            # contracts are a function of (membership, utility)
+            history["contracts"] = [contracts_from_membership(
+                cands, pay["member_h"][rr] > 0, pay["util_h"][rr], cfg.offered_incentive)
+                for rr in range(rounds)]
+
+        for r in range(r_start, cfg.max_rounds):
+            # Phase.RENEGOTIATE: release, sign, undercut; under faults a
+            # streak-blocked link loses eligibility too
+            blocked = None
+            if fc is not None:
+                delivered, attempts, stale, blocked = self._link_weather(r, ids)
             member_t, rank, util = mobility.membership_step(
                 mob, r, mob.requester_id, ids, cand_mask, base_util, level, cfg.n_max,
-                partitionable=part)
+                blocked=blocked, partitionable=part)
             round_w = topology.dynamic_round_weights(member_t, rank, cfg.strategy).numpy()
             member = member_t.numpy()
             count = int(member.sum())
+            util_rows.append(util.numpy())
             history["member_mask"].append(member.astype(np.float32))
             history["members"].append(float(count))
             history["contracts"].append(contracts_from_membership(
                 cands, member, util, cfg.offered_incentive))
             # Byzantine weather of this round; a corrupted link counts only
-            # when it is a member
+            # when its update is aggregated
             cmask = (adversary_mod.corruption_mask(ac, r, ac.requester_id, ids,
                                                    partitionable=part).numpy()
                      if ac is not None else np.zeros((n_cand,), bool))
+            # Phase.DELIVER: which members' updates arrive
+            if fc is not None:
+                agg_mask, extra = self._deliver(history, member, delivered, attempts, stale)
+            else:
+                agg_mask, stale = member, np.zeros((n_cand,), bool)
             if ac is not None:
-                history["corrupted_mask"].append((cmask & member).astype(np.float32))
-            # Phase.COLLECT + Phase.AGGREGATE over the current members, in
+                history["corrupted_mask"].append((cmask & agg_mask).astype(np.float32))
+            w_eff = round_w
+            if gamma < 1.0:
+                w_eff = protocol.decayed_round_weights(
+                    round_w, (agg_mask & stale).astype(np.int64), gamma).numpy()
+            # Phase.COLLECT + Phase.AGGREGATE over the aggregated lanes, in
             # lane order (the fleet's full-lane masked reduction, bit for bit)
-            lanes = np.nonzero(member)[0]
+            lanes = np.nonzero(agg_mask)[0]
             updates = []
-            if count > 0:
+            if len(lanes):
                 with self._clock(phase_s, "collect", tl, round=r):
-                    updates = [self._collect_update(int(ids[j]), corrupt=bool(cmask[j]),
-                                                    step=r)[0] for j in lanes]
+                    updates = [self._collect_update(int(ids[j]), stale=bool(stale[j]),
+                                                    corrupt=bool(cmask[j]), step=r)[0]
+                               for j in lanes]
             with self._clock(phase_s, "aggregate", tl):
                 if cfg.robust != "none":
                     global_params, clipped = self._robust_aggregate_full(
-                        updates, lanes, round_w * member.astype(np.float32), params)
+                        updates, lanes, w_eff * agg_mask.astype(np.float32), params)
                     history["clipped_mask"].append(clipped.astype(np.float32))
-                    if count == 0:
+                    if not updates:
                         global_params = params      # alone this round
-                elif count > 0:
-                    global_params = aggregation.masked_fedavg(updates, round_w[lanes])
+                elif updates:
+                    global_params = aggregation.masked_fedavg(updates, w_eff[lanes])
                 else:
                     global_params = params          # alone this round
             # Phase.FIT + Phase.SCORE
@@ -581,25 +881,39 @@ class EnFedSession:
             history["loss"].append(float(losses[-1]))
             history["round_executed"].append(1.0)
 
-            # Phase.ACCOUNT: the requester pays the member count's entry
-            self.battery = self.battery.discharge(float(e_tab[count]),
-                                                  avg_power_w=self.cost.device.p_train)
+            # Phase.ACCOUNT: the requester pays the aggregated count's entry,
+            # under faults plus one receive window per drop or retry
+            e_r = float(e_tab[len(updates) if fc is not None else count])
+            if fc is not None:
+                retry_windows += extra
+                e_r += extra * float(e_rx_retry)
+            self.battery = self.battery.discharge(e_r, avg_power_w=self.cost.device.p_train)
             history["battery"].append(self.battery.level)
             if acc >= cfg.desired_accuracy:
                 stop = protocol.STOP_ACCURACY
             elif self.battery.below(cfg.battery_threshold):
                 stop = protocol.STOP_BATTERY
-            # members paid their transmission; the refresh term only while
-            # the session goes on (the last budget round still refreshes)
+            # members paid their transmission (once per attempt under
+            # faults); the refresh term only while the session goes on (the
+            # last budget round still refreshes)
             continuing = stop == protocol.STOP_MAX_ROUNDS
-            level = mobility.contributor_discharge(level, member_t, e_tx, e_ref, continuing,
-                                                   mob.contributor_capacity_j)
+            e_tx_round = (e_tx * torch.from_numpy(attempts).to(torch.float32)
+                          if fc is not None else e_tx)
+            level = mobility.contributor_discharge(level, member_t, e_tx_round, e_ref,
+                                                   continuing, mob.contributor_capacity_j)
             if not continuing:
                 break
+            if fc is not None:
+                self._snap_prev(ids.tolist())    # next round's stale images
             # Phase.REFRESH for the current members only
             if cfg.contributor_refresh_epochs > 0:
                 with self._clock(phase_s, "refresh", tl, round=r):
-                    self._refresh_contributors([int(ids[j]) for j in lanes])
+                    self._refresh_contributors([int(ids[j]) for j in np.nonzero(member)[0]])
+            if checkpoint_dir is not None and (r + 1) % checkpoint_every == 0:
+                self._save(tl, checkpoint_dir, r, self._state_payload(
+                    r + 1, ids.tolist(), params, history, rounds, phase_s.get("fit", 0.0),
+                    retry_windows, model_bytes=model_bytes, util_rows=util_rows,
+                    level=level))
 
         mean_members = float(np.mean(history["members"])) if rounds else 0.0
         report = self.cost.session(
@@ -607,6 +921,7 @@ class EnFedSession:
             model_bytes=model_bytes, num_samples=len(self.own_train[0]),
             epochs=cfg.epochs, n_devices=len(self.fleet),
             measured_local_time=phase_s.get("fit", 0.0), encrypt=cfg.encrypt)
+        report.add_transfers(retry_windows, t_retry, e_rx_retry)
         if cfg.robust != "none" and rounds:
             # one screening pass over the full candidate-lane buffer per
             # executed round, priced post hoc

@@ -41,6 +41,7 @@ from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig,  # noqa: 
                               dirichlet_partition, make_calories_tabular,
                               make_har_windows)
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.telemetry import compare_event_streams, validate_events  # noqa: E402
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E402
                                 MLPClassifier, MLPClassifierConfig)
 from repro_torch.utils.tree import from_jax_params, tree_leaves  # noqa: E402
@@ -376,13 +377,7 @@ def test_engines_refuse_interpret(engine):
 
 
 @pytest.mark.parametrize("knob,engine,match", [
-    (dict(method=dict(faults=object())), "loop", "slice E"),
     (dict(method=dict(cadence=object())), "fleet", "slice E"),
-    (dict(world=dict(mobility=tcore.MobilityConfig(seed=3)), method=dict(faults=object())),
-     "loop", "slice E"),
-    (dict(method=dict(staleness_gamma=0.5)), "fleet", "slice E"),
-    (dict(execution=dict(checkpoint_dir="ckpt")), "loop", "slice E"),
-    (dict(execution=dict(resume_from="ckpt")), "fleet", "slice E"),
     (dict(execution=dict(trace=TraceConfig(hlo_stats=True))), "fleet", "slice F"),
     (dict(execution=dict(trace=TraceConfig(jax_profiler_dir="prof"))), "fleet", "slice F")])
 def test_enfed_refuses_unported_knobs_naming_their_slice(knob, engine, match):
@@ -392,6 +387,40 @@ def test_enfed_refuses_unported_knobs_naming_their_slice(knob, engine, match):
     execution = ExecutionSpec(engine=engine, **knob.get("execution", {}))
     with pytest.raises(NotImplementedError, match=match):
         Experiment(world, method, execution).run()
+
+
+_FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
+
+
+@pytest.mark.parametrize("knob,engine", [
+    (dict(method=dict(faults=_FC)), "loop"),
+    (dict(world=dict(mobility=tcore.MobilityConfig(seed=3)), method=dict(faults=_FC)), "loop"),
+    (dict(method=dict(staleness_gamma=0.5)), "fleet"),
+    (dict(execution=dict(checkpoint_dir="ckpt")), "loop"),
+    (dict(execution=dict(resume_from="ckpt")), "fleet")])
+def test_enfed_runs_the_knobs_of_the_fault_slice(knob, engine, tmp_path):
+    """What the facade refused before the fault slice runs: faults (static
+    and under mobility), the decay, a checkpointing run and a resumed one
+    (through ``Experiment.run(resume=...)``, the straight run's events)."""
+    _, tw = _worlds()
+    world = dataclasses.replace(tw, **knob.get("world", {}))
+    method = dataclasses.replace(_methods()[1], **knob.get("method", {}))
+    ckpt = str(tmp_path / "ckpt")
+    ex = {k: ckpt for k in knob.get("execution", {})}
+    if "resume_from" in ex:
+        straight = Experiment(world, method, ExecutionSpec(
+            engine=engine, round_chunk=1, checkpoint_dir=ckpt)).run()
+        os.remove(os.path.join(ckpt, f"step_{straight.rounds:08d}.npz"))
+        res = Experiment(world, method, ExecutionSpec(engine=engine, round_chunk=1)).run(
+            resume=ckpt)
+        assert compare_event_streams(straight.trace, res.trace, atol=0, energy_atol=0) == []
+        return
+    res = Experiment(world, method, ExecutionSpec(engine=engine, **ex)).run()
+    assert validate_events(res.trace) and np.isfinite(res.accuracy)
+    if "checkpoint_dir" in ex:
+        assert len(os.listdir(ckpt)) == res.rounds
+    if "faults" in knob.get("method", {}):
+        assert "deliver_mask" in res.history_raw
 
 
 def test_experiment_without_device_raises_on_a_host_without_gpu(monkeypatch):
@@ -581,17 +610,25 @@ def test_har_federated_twin_wants_a_gpu_by_default(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--churn", "--faults", "--cadence"])
 def test_har_federated_twin_refuses_unported_worlds(flag, capsys):
-    """The world flags of later slices exit non-zero naming theirs; the
-    mobility world (``--churn``) runs its walkthrough, in process on the
-    calories MLP: each round's contract set with its joins and leaves."""
+    """The world flag of a later slice (``--cadence``) exits non-zero naming
+    it; the mobility and fault worlds run their walkthroughs, in process on
+    the calories MLP: each round's contract set with its joins and leaves,
+    or its delivered set with the drop, retry and stale counts."""
     argv = ["--dataset", "calories", flag, "--device", "cpu"]
-    if flag != "--churn":
+    if flag == "--cadence":
         assert _example_main()(argv) == 2
         assert "slice E" in capsys.readouterr().err
         return
     assert _example_main()(argv + ["--epochs", "1"]) == 0
     lines = capsys.readouterr().out.splitlines()
     head = next(i for i, line in enumerate(lines) if line.startswith("round"))
+    if flag == "--faults":
+        assert "delivered" in lines[head] and "stale" in lines[head]
+        rows = lines[head + 1: head + 11]
+        assert [int(r.split()[0]) for r in rows] == list(range(10))
+        weather = next(line for line in lines if line.startswith("fault weather:"))
+        assert int(weather.split()[2]) > 0          # drops happened
+        return
     assert "contract set" in lines[head]
     rows = lines[head + 1: head + 11]
     assert [int(r.split()[0]) for r in rows] == list(range(10))

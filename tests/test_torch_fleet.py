@@ -1,12 +1,15 @@
 """The port's fleet engine against the JAX fleet engine on the CPU
 (``run_fleet`` with Pallas in interpret mode), against the port's own loop
-engine, and its refusal of the knobs it does not run yet.
+engine, its refusal of the knobs it does not run yet, and the knobs of the
+fault slice running (held to the reference in
+``tests/test_torch_faults_engines.py``).
 
 Each JAX configuration compiles and runs once per module (the results are
 cached by case), so the file stays well inside the tier-1 wall.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig,  # noqa: 
                               make_har_windows)
 from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig,  # noqa: E402
                                 MLPClassifier, MLPClassifierConfig)
-from repro_torch.utils.tree import from_jax_params, to_numpy, tree_leaves  # noqa: E402
+from repro_torch.utils.tree import (from_jax_params, to_numpy, tree_leaves,  # noqa: E402
+                                    tree_ravel)
 from repro_torch.telemetry import Timeline, TraceConfig  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -264,20 +268,15 @@ def test_fleet_write_back_holds_refreshed_contributors():
 
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
 _MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
+_FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
 
 
 @pytest.mark.parametrize("knob,kwargs", [
-    (dict(mobility=_MOB, cadence=object()), {}), (dict(faults=object()), {}),
-    (dict(cadence=object()), {}), (dict(staleness_gamma=0.5), {}),
-    (dict(adversary=_AC, faults=object()), {}),
+    (dict(mobility=_MOB, cadence=object()), {}), (dict(cadence=object()), {}),
     (dict(adversary=_AC, robust="clip", cadence=object()), {}),
-    (dict(adversary=_AC, mobility=_MOB), dict(checkpoint_dir="ckpt")),
-    # under a baseline method: fault pricing and the profiler fields
-    (dict(faults=object()), dict(method="dfl")),
-    (dict(faults=object()), dict(method="cfl")),
+    # under a baseline method: the profiler fields
     ({}, dict(method="dfl", trace=TraceConfig(hlo_stats=True))),
     ({}, dict(method="cfl", trace=TraceConfig(jax_profiler_dir="prof"))),
-    ({}, dict(checkpoint_dir="ckpt")), ({}, dict(resume_from="ckpt")),
     ({}, dict(trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(trace=TraceConfig(hlo_stats=True)))])
 def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):
@@ -286,6 +285,48 @@ def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
         tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
                         device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("knob,kwargs", [
+    (dict(faults=_FC), {}), (dict(staleness_gamma=0.5), {}),
+    (dict(adversary=_AC, faults=_FC), {}),
+    (dict(adversary=_AC, mobility=_MOB), dict(checkpoint_dir="ckpt")),
+    # under a baseline method: the faults' retries are priced
+    (dict(faults=_FC), dict(method="dfl")), (dict(faults=_FC), dict(method="cfl")),
+    ({}, dict(checkpoint_dir="ckpt")), ({}, dict(resume_from="ckpt"))])
+def test_fleet_knobs_of_the_fault_slice_run(knob, kwargs, tmp_path):
+    """The knobs the fault slice ported run where the fleet refused them
+    before: faults alone or with the adversary, the decay, a checkpointing
+    run (one file per chunk), a resumed run (the bits of the straight
+    run), and the baselines' fault pricing (``fault_extra_tx``)."""
+    task, train, test, fleet, states, cfg = _one_lane_world(None)
+    cfg = dataclasses.replace(cfg, **knob)
+
+    def run(**kw):
+        return tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
+                               device="cpu", **kw)
+
+    ckpt = str(tmp_path / "ckpt")
+    if "resume_from" in kwargs:
+        straight = run(round_chunk=1, checkpoint_dir=ckpt)
+        for f in os.listdir(ckpt):
+            if int(f[5:13]) > 1:
+                os.remove(os.path.join(ckpt, f))
+        res = run(round_chunk=1, resume_from=ckpt)
+        assert torch.equal(tree_ravel(res.sessions[0].params)[0],
+                           tree_ravel(straight.sessions[0].params)[0])
+        assert res.battery_level.tolist() == straight.battery_level.tolist()
+    else:
+        res = run(**{k: ckpt if k == "checkpoint_dir" else v for k, v in kwargs.items()})
+    s0 = res.sessions[0]
+    assert s0.rounds == cfg.max_rounds and np.isfinite(res.accuracy).all()
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(s0.params))
+    if "checkpoint_dir" in kwargs:
+        assert os.listdir(ckpt) == ["step_00000004.npz"]     # one chunk of 4 rounds
+    if kwargs.get("method") in ("cfl", "dfl"):
+        assert s0.history_raw["fault_extra_tx"] > 0
+    elif "faults" in knob:
+        assert len(s0.history_raw["deliver_mask"]) == s0.rounds
 
 
 @pytest.mark.parametrize("method", ["enfed", "cfl", "dfl"])

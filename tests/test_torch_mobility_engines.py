@@ -17,6 +17,7 @@ tolerances of ``tests/test_torch_fleet.py``.
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -333,10 +334,7 @@ def test_two_requester_event_streams_match_across_engines_and_packages():
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
-@pytest.mark.parametrize("knob,kwargs,sub", [
-    (dict(faults=object()), {}, "E.2"), (dict(cadence=object()), {}, "E.3"),
-    (dict(staleness_gamma=0.5), {}, "E.2"), ({}, dict(checkpoint_dir="ckpt"), "E.2"),
-    ({}, dict(resume_from="ckpt"), "E.2")])
+@pytest.mark.parametrize("knob,kwargs,sub", [(dict(cadence=object()), {}, "E.3")])
 def test_unported_knobs_under_mobility_raise_naming_their_slice(engine, knob, kwargs, sub):
     mob_kw, over, _, part = WORLDS["waypoint-churn"]
     cfg = dataclasses.replace(_cfg(tcore, mob_kw, **over), **knob)
@@ -345,3 +343,37 @@ def test_unported_knobs_under_mobility_raise_naming_their_slice(engine, knob, kw
                                  device=CPU)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md slice {sub}"):
         session.run(engine=engine, **kwargs)
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+@pytest.mark.parametrize("knob,kwargs", [
+    (dict(faults=tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, seed=3)), {}),
+    (dict(staleness_gamma=0.5), {}), ({}, dict(checkpoint_dir="ckpt")),
+    ({}, dict(resume_from="ckpt"))])
+def test_fault_slice_knobs_run_under_mobility(engine, knob, kwargs, tmp_path):
+    """The knobs the fault slice ported run under churn on both engines; a
+    resumed session gives the bits of the straight one (the churn world's
+    own parity with the reference under faults: ``test_torch_faults_engines.py``)."""
+    mob_kw, over, _, part = WORLDS["waypoint-churn"]
+    cfg = dataclasses.replace(_cfg(tcore, mob_kw, **over), max_rounds=3, **knob)
+    ttask, own_train, own_test, tfleet, states_fn = _port_world(part)
+
+    def run(**kw):
+        return tcore.EnFedSession(ttask, own_train, own_test, tfleet, states_fn(), cfg,
+                                  device=CPU).run(engine=engine, round_chunk=1, **kw)
+
+    ckpt = str(tmp_path / "ckpt")
+    if "resume_from" in kwargs:
+        straight = run(checkpoint_dir=ckpt)
+        os.remove(os.path.join(ckpt, "step_00000003.npz"))
+        res = run(resume_from=ckpt)
+        assert torch.equal(flatten_to_vector(res.params)[0],
+                           flatten_to_vector(straight.params)[0])
+        assert np.array_equal(_masks(res, "member_mask"), _masks(straight, "member_mask"))
+        return
+    res = run(**{k: ckpt for k in kwargs})
+    assert res.rounds == 3 and np.isfinite(res.history_raw["accuracy"]).all()
+    if kwargs:
+        assert sorted(os.listdir(ckpt)) == [f"step_{r:08d}.npz" for r in (1, 2, 3)]
+    if "faults" in knob:
+        assert not (_masks(res, "deliver_mask") > _masks(res, "member_mask")).any()

@@ -3,6 +3,7 @@ copied protocol modules (incentive, energy, battery, topology) against
 their originals."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -232,35 +233,62 @@ def test_int8_session_matches_jax_loop_engine(kind, partitionable, encrypt, comp
 
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
 _MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
+_FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(mobility=_MOB, faults=object()), dict(faults=object()), dict(cadence=object()),
-    dict(staleness_gamma=0.5), dict(adversary=_AC, faults=object()),
-    dict(adversary=_AC, robust="clip", cadence=object()),
-    dict(adversary=_AC, robust="median", mobility=_MOB, staleness_gamma=0.5),
-    dict(adversary=_AC, robust="trimmed_mean", staleness_gamma=0.5)])
-def test_unported_knobs_raise_naming_their_slice(knob):
+def _mlp_session(cfg):
     _, shards, own_train, own_test, _ = _world("mlp")
     _, tfleet = _fleets()
     task = _port_task("mlp", True)
     states = {d.device_id: {"params": task.init(i), "data": shards[i + 1]}
               for i, d in enumerate(tfleet)}
-    s = tcore.EnFedSession(task, own_train, own_test, tfleet, states,
-                           tcore.EnFedConfig(**knob), device=CPU)
+    return tcore.EnFedSession(task, own_train, own_test, tfleet, states, cfg, device=CPU)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(cadence=object()), dict(adversary=_AC, robust="clip", cadence=object())])
+def test_unported_knobs_raise_naming_their_slice(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-        s.run()
+        _mlp_session(tcore.EnFedConfig(**knob)).run()
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mobility=_MOB, faults=_FC), dict(faults=_FC), dict(staleness_gamma=0.5),
+    dict(adversary=_AC, faults=_FC),
+    dict(adversary=_AC, robust="median", mobility=_MOB, staleness_gamma=0.5),
+    dict(adversary=_AC, robust="trimmed_mean", staleness_gamma=0.5),
+    dict(faults=_FC, compress="auto", staleness_gamma=0.5)])
+def test_knobs_of_the_fault_slice_run(knob):
+    """The knobs the session refused before the fault slice run (they are
+    held to the reference in ``tests/test_torch_faults_engines.py``)."""
+    cfg = tcore.EnFedConfig(max_rounds=2, epochs=1, desired_accuracy=1.01, **knob)
+    res = _mlp_session(cfg).run()
+    assert res.rounds == 2 and np.isfinite(res.history_raw["accuracy"]).all()
+    assert ("deliver_mask" in res.history_raw) == ("faults" in knob)
 
 
 @pytest.mark.parametrize("kwargs", [dict(engine="fleet", checkpoint_dir="ckpt"),
                                     dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt")])
-def test_fleet_engine_and_checkpoints_raise(kwargs):
-    _, shards, own_train, own_test, _ = _world("mlp")
-    _, tfleet = _fleets()
-    task = _port_task("mlp", True)
-    s = tcore.EnFedSession(task, own_train, own_test, tfleet, {}, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-        s.run(**kwargs)
+def test_fleet_engine_and_checkpoints_run(kwargs, tmp_path):
+    """Checkpointing on either engine writes the round state (every round
+    on the loop, every chunk on the fleet); a resumed loop session gives the
+    straight session's bits."""
+    cfg = tcore.EnFedConfig(max_rounds=2, epochs=1, desired_accuracy=1.01)
+    ckpt = str(tmp_path / "ckpt")
+    kw = {k: ckpt if k in ("checkpoint_dir", "resume_from") else v for k, v in kwargs.items()}
+    if "resume_from" in kw:
+        straight = _mlp_session(cfg).run(checkpoint_dir=ckpt)
+        os.remove(os.path.join(ckpt, "step_00000002.npz"))
+        res = _mlp_session(cfg).run(**kw)
+        assert torch.equal(flatten_to_vector(res.params)[0],
+                           flatten_to_vector(straight.params)[0])
+        assert res.history_raw["battery"] == straight.history_raw["battery"]
+        return
+    res = _mlp_session(cfg).run(**kw)
+    assert res.rounds == 2
+    want = ["step_00000004.npz"] if kw.get("engine") == "fleet" else [
+        "step_00000001.npz", "step_00000002.npz"]
+    assert sorted(os.listdir(ckpt)) == want
 
 
 def test_session_rejects_a_task_on_another_device():

@@ -1,7 +1,7 @@
 """``repro_torch.telemetry`` on the CPU, case by case the twin of
 ``tests/test_telemetry.py`` wherever the world is ported: observation never
 changes the outcome (a traced run is bitwise the untraced one, on both
-engines, in the static, mobility and Byzantine worlds), the two engines' event
+engines, in the static, mobility, fault and Byzantine worlds), the two engines' event
 streams on one world are equal, the exporters round-trip schema-valid (a
 Byzantine log included), the Timeline span stack behaves, and each engine
 records its spans.
@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import AdversaryConfig, MobilityConfig, SupervisedTask, make_fleet
+from repro_torch.core import (AdversaryConfig, FaultConfig, MobilityConfig, SupervisedTask,
+                              make_fleet)
 from repro_torch.data import CaloriesDatasetConfig, dirichlet_partition, make_calories_tabular
 from repro_torch.models import MLPClassifier, MLPClassifierConfig
 from repro_torch.telemetry import (EVENT_PHASES, RoundEvent, Timeline, TraceConfig,
@@ -32,6 +33,7 @@ _METHOD = MethodSpec(desired_accuracy=0.99, max_rounds=2, epochs=1, batch_size=B
                      encrypt=False, contributor_refresh_epochs=1)
 _ADVERSARY = AdversaryConfig(p_byzantine=0.5, attack="noise", scale=10.0, seed=7)
 _MOB = MobilityConfig(radio_range_m=95.0, leg_rounds=1, seed=5)
+_FAULTS = FaultConfig(p_drop=0.6, p_stale=0.4, max_retries=1, release_after=2, seed=3)
 
 # world name -> (mobility, method): the weather regimes the house rule is
 # enforced on
@@ -39,6 +41,8 @@ _WORLDS = {
     "static": (None, _METHOD),
     "mobility": (_MOB, dataclasses.replace(_METHOD, desired_accuracy=0.999, max_rounds=4,
                                            n_max=2)),
+    "faults": (None, dataclasses.replace(_METHOD, desired_accuracy=0.999, max_rounds=4,
+                                         faults=_FAULTS)),
     "byzantine": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
                                             adversary=_ADVERSARY, robust="clip")),
     "byzantine-int8": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
@@ -98,7 +102,7 @@ def _assert_outcome_bitwise(a, b):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("world_name", ["static", "byzantine-int8", "mobility"])
+@pytest.mark.parametrize("world_name", ["static", "byzantine-int8", "mobility", "faults"])
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name, tmp_path):
     mob, method = _WORLDS[world_name]
@@ -144,6 +148,28 @@ def test_mobility_world_events_carry_the_member_sets(problem, engine):
     assert all(e.wire_bytes == mb * e.members for e in rounds)
     static = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
     assert all(e.members is None and e.member_set is None for e in static.trace)
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_fault_world_events_carry_the_weather(problem, engine):
+    """The fault world's drops, retries, stale counts and delivered sets
+    surface in the normalized stream, not just in raw history, and the wire
+    bytes follow the delivered count; the perfect-link world leaves the
+    delivered set None."""
+    _, method = _WORLDS["faults"]
+    res = Experiment(_world(problem), method, ExecutionSpec(engine=engine)).run()
+    rounds = [e for e in res.trace if e.phase == "round"]
+    assert sum(e.drops for e in rounds) > 0 and sum(e.retries for e in rounds) > 0
+    assert [e.delivered for e in rounds] == [
+        tuple(int(i) for i in np.nonzero(np.asarray(m) > 0.5)[0])
+        for m in res.history_raw["deliver_mask"]]
+    assert [e.stale for e in rounds] == res.history_raw["stale"]
+    mb = res.sessions[0].model_bytes
+    assert mb > 0 and all(e.wire_bytes == mb * len(e.delivered) for e in rounds)
+    stops = [e for e in res.trace if e.phase == "stop"]
+    assert len(stops) == 1 and stops[0].stop_reason == res.stop_reason
+    perfect = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
+    assert all(e.delivered is None for e in perfect.trace)
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])

@@ -32,7 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at the fault world's: eq. 14 dense and int8 at (64, 5, .) with weights
    in {0, gamma, 1} x 0/1 strategy weights and all-zero rows (zeros out),
    ``fedavg_q8`` on rows mixing this round's and the previous round's
-   codes, and the loop's eq. 14 at (1, n, P) for n = 1 ... 5;
+   codes, and the loop's eq. 14 at (1, n, P) for n = 1 ... 5; and at the
+   cadence world's: eq. 14 dense and int8 at (64, 5, .) and the loop's at
+   (1, n, P) with weights 0/1 x gamma**lag for image lags 0-2;
 4. the main paths, each with every launch count set to 0 just before it
    and read just after; on each, the sequence forward is launched once per
    forward pass of the LSTM and the backward once per training pass:
@@ -113,6 +115,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (checkpoints every 2 rounds, ``build/4i``) and resumed, bit-equal to
      the straight run; and one faulty fleet round of 4 requesters on the
      card and on the CPU, equal deliver masks, params within [4c]'s limit;
+   - the asynchronous-cadence world (two speed classes, a radio awake 2
+     steps of 3, 15 % offline steps, the seed chosen on the host so that
+     requester 0 is on stride 2 and a contract can straggle, both checked
+     on the run; an accuracy no round reaches, 10 rounds of 8 epochs): the
+     quickstart session fp32 with AES, int8, and fp32 with
+     ``staleness_gamma=0.5``, eq. 14 once per executed round at (1, 5, P)
+     and AES twice per contract a round, stragglers included; the
+     64-requester fleet fp32 and int8 (requester i ticking as
+     ``requester_id + i``), eq. 14 once per event step where a lane ticks;
+     at a cut depth (6 rounds of 1 epoch) cadence with [4h]'s churn and
+     [4i]'s faults on the int8 wire, and battery pacing (stride x2 below a
+     threshold the battery crosses in round 3), on both engines; the loop
+     session and the fleet's requester 0 with equal round clocks, idle
+     steps, rounds, stops and masks and ``t_com`` within 1e-9; both engines
+     of the composed run killed after step 4 (``build/4j``) and resumed,
+     bit-equal to the straight run; one cadence fleet step of 4 requesters
+     on the card and on the CPU, equal tick, clock and idle traces, params
+     within [4c]'s limit;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -1165,7 +1185,9 @@ def fleet_round_check(device, world, pretrained):
     contributors' params (one ulp, 3 seeds), which must stay below it, and
     a 1e-4 relative fault of the same params, which must land above it.
     Under int8 the limit is the tile bound ``max(scale) / 2 + 1e-6``.
-    Returns the limit of each wire."""
+    Returns the limit of each wire, and under ``"fp32 lanes"`` the fp32
+    round's params of each lane on the card and on the CPU ([4j]'s one
+    cadence step must reproduce them)."""
     from repro_torch.core import SupervisedTask, run_fleet
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.models import LSTMClassifier
@@ -1219,6 +1241,8 @@ def fleet_round_check(device, world, pretrained):
             fail(f"one fleet round ({tag}) on the card and on the CPU differ by {diff}")
         if not np.array_equal(card.stop_codes, host.stop_codes):
             fail("one fleet round: stop codes differ between the card and the CPU")
+        if compress is None:
+            limits["fp32 lanes"] = {"card": lanes(card), "cpu": ref, "diff": per_lane}
     return limits
 
 
@@ -2431,81 +2455,113 @@ def fault_cfg(compress=None, max_rounds=MAX_ROUNDS, churn=False, **kw):
     return dataclasses.replace(base, faults=FaultConfig(**FAULTS), **kw)
 
 
-def fault_line(res):
-    """A session's fault weather: deliveries per round and the totals (and
-    its members per round, under churn)."""
+def world_line(res):
+    """A session's world weather: its clock and idle steps (cadence), members
+    per round (churn), deliveries per round and the totals (faults)."""
     h = res.history_raw
-    per_round = [int(np.asarray(m).sum()) for m in h["deliver_mask"]]
-    members = (f"members per round {[int(m) for m in h['members']]}, "
-               if "members" in h else "")
-    return (f"{members}delivered per round {per_round}, {int(sum(h['drops']))} drops, "
-            f"{int(sum(h['retries']))} retries, {int(sum(h['stale']))} stale")
+    parts = []
+    if "round_clock" in h:
+        parts.append(f"clock {h['round_clock']}, idle steps {h['idle_steps']}")
+    if "members" in h:
+        parts.append(f"members per round {[int(m) for m in h['members']]}")
+    if "deliver_mask" in h:
+        per_round = [int(np.asarray(m).sum()) for m in h["deliver_mask"]]
+        parts.append(f"delivered per round {per_round}, {int(sum(h['drops']))} drops, "
+                     f"{int(sum(h['retries']))} retries, {int(sum(h['stale']))} stale")
+    return ", ".join(parts)
 
 
-def fault_loop(device, world, pretrained, cfg, tag, from_round=0, **run_kw):
-    """One loop session in the fault world, its launches counted and held to
-    its path: eq. 14 once per round with a delivered update, at (1,
-    delivered, P); AES twice per delivered update (encrypted).  A resumed
-    session runs from round ``from_round``."""
+def aggregated_per_round(res, n_contrib=5):
+    """The updates each executed round collected: the delivered ones under
+    faults, the members under churn, else every contract."""
+    h = res.history_raw
+    for key in ("deliver_mask", "member_mask"):
+        if key in h:
+            return [int(np.asarray(m).sum()) for m in h[key]]
+    return [n_contrib] * res.rounds
+
+
+def world_loop(device, world, pretrained, cfg, tag, from_round=0, phase="[4i]", battery=None,
+               **run_kw):
+    """One loop session in a world of [4h]-[4j], its launches counted and held
+    to its path: eq. 14 once per round with a collected update, at (1,
+    collected, P); AES twice per collected update (encrypted), a straggler's
+    included.  A resumed session runs from round ``from_round``."""
     from repro_torch.core import EnFedSession
     from repro_torch.utils.tree import tree_size
 
     task, shards, own_train, own_test, fleet = world
     session = EnFedSession(task, own_train, own_test, fleet,
                            contributor_states(pretrained, shards, fleet, device), cfg,
-                           device=device)
+                           battery=battery, device=device)
     with fedavg_shapes() as shapes:
-        res, counts, wall = counted(f"[4i] {tag}", lambda: session.run(**run_kw),
+        res, counts, wall = counted(f"{phase} {tag}", lambda: session.run(**run_kw),
                                     ("lstm_cell", "lstm_cell_bwd"))
-    check_session(res, f"[4i] {tag}")
-    delivered = [int(np.asarray(m).sum()) for m in res.history_raw["deliver_mask"][from_round:]]
+    check_session(res, f"{phase} {tag}")
+    collected = aggregated_per_round(res)[from_round:]
     p = tree_size(res.params)
-    if cfg.robust == "none" and shapes != [(1, d, p) for d in delivered if d]:
-        fail(f"[4i] {tag}: eq. 14 at {shapes}, expected once per round with a delivered "
-             f"update at (1, delivered, {p}) for {delivered}")
-    if cfg.encrypt and counts["aes_ctr"] != 2 * sum(delivered):
-        fail(f"[4i] {tag}: {counts['aes_ctr']} AES launches for {sum(delivered)} deliveries")
+    if cfg.robust == "none" and shapes != [(1, d, p) for d in collected if d]:
+        fail(f"{phase} {tag}: eq. 14 at {shapes}, expected once per round with a collected "
+             f"update at (1, collected, {p}) for {collected}")
+    if cfg.encrypt and counts["aes_ctr"] != 2 * sum(collected):
+        fail(f"{phase} {tag}: {counts['aes_ctr']} AES launches for {sum(collected)} updates")
     if cfg.compress == "int8" and not (counts["quantize"] and counts["dequantize"]):
-        fail(f"[4i] {tag}: the int8 wire's kernels were not launched: {counts}")
+        fail(f"{phase} {tag}: the int8 wire's kernels were not launched: {counts}")
     print(f"  {tag}: wall {wall:.2f} s, rounds {res.rounds}, stop {res.stop_reason}, accuracy "
-          f"{res.accuracy:.4f}; {fault_line(res)}")
+          f"{res.accuracy:.4f}; {world_line(res)}")
     print(f"    launches: {({k: v for k, v in counts.items() if v})}")
     return res, counts
 
 
-def fault_fleet(device, world, pretrained, cfg, tag, from_round=0, **run_kw):
-    """The 64-requester fleet in the fault world (requester i rolls its link
+def world_fleet(device, world, pretrained, cfg, tag, from_round=0, phase="[4i]", specs=None,
+                **run_kw):
+    """The 64-requester fleet in a world of [4i]-[4j] (requester i rolls its
     dice as ``requester_id + i``): eq. 14 (or ``fedavg_q8``) once a round
-    over (64, 5, .).  A resumed run runs from round ``from_round``."""
-    from repro_torch.core import run_fleet
+    (under cadence, once per event step where a lane ticks) over (64, 5, .).
+    A resumed run runs from round (event step) ``from_round``."""
+    from repro_torch.core import protocol, run_fleet
     from repro_torch.utils.tree import tree_leaves, tree_size
 
     task = world[0]
-    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    specs = specs or fleet_specs(device, world, pretrained, FLEET_R)
     with fedavg_shapes() as shapes:
-        res, counts, wall = counted(f"[4i] {tag}", lambda: run_fleet(task, specs, cfg,
-                                                                     device=device, **run_kw),
+        res, counts, wall = counted(f"{phase} {tag}", lambda: run_fleet(task, specs, cfg,
+                                                                        device=device, **run_kw),
                                     ("lstm_cell", "lstm_cell_bwd"))
     if not np.isfinite(res.accuracy).all() or not all(
             bool(torch.isfinite(t).all()) for s in res.sessions for t in tree_leaves(s.params)):
-        fail(f"[4i] {tag}: non-finite accuracy or parameters")
+        fail(f"{phase} {tag}: non-finite accuracy or parameters")
     ran = int(res.history["round_executed"][from_round:].sum())
     p = tree_size(res.sessions[0].params)
     if cfg.robust == "none":
         eq14 = "fedavg_q8" if cfg.compress == "int8" else "fedavg"
         if counts[eq14] != ran or (eq14 == "fedavg" and shapes != [(FLEET_R, 5, p)] * ran):
-            fail(f"[4i] {tag}: {counts[eq14]} launches of {eq14} (at {shapes[:1]}) for {ran} "
-                 "rounds")
+            fail(f"{phase} {tag}: {counts[eq14]} launches of {eq14} (at {shapes[:1]}) for "
+                 f"{ran} bodies")
     h = res.history
-    deliver = h["deliver"]
-    members = f"{int(h['member'].sum())} member links, " if "member" in h else ""
-    print(f"  {tag} R={FLEET_R}: wall {wall:.2f} s, {ran} rounds, "
-          f"{int(h['executed'][from_round:].sum()) / wall:.2f} lane-rounds/s, accuracy mean "
-          f"{res.accuracy.mean():.4f} min {res.accuracy.min():.4f}; {members}"
-          f"{int(deliver.sum())} deliveries, {int(h['drops'].sum())} drops, "
-          f"{int(h['retries'].sum())} retries, {int(h['stale'].sum())} stale, "
-          f"{int((deliver.sum(axis=2) == 0)[h['executed'] > 0].sum())} lane-rounds with "
-          "nothing delivered")
+    lane_rounds = int(h["executed"].sum())
+    weather = []
+    if "idle_steps" in h:
+        short = int(((res.rounds < cfg.max_rounds)
+                     & (res.stop_codes == protocol.STOP_MAX_ROUNDS)).sum())
+        weather.append(f"{int(h['idle_steps'].sum())} idle steps before rounds, {short} lanes "
+                       "stopped short by the event budget")
+        if not from_round:
+            # every body trains all R lanes whichever tick: the share it keeps
+            fits = ran * len(specs)
+            weather.append(f"{lane_rounds} of the {fits} lane fits the bodies ran were kept "
+                           f"({100 * lane_rounds / max(fits, 1):.1f} %)")
+    if "member" in h:
+        weather.append(f"{int(h['member'].sum())} member links")
+    if "deliver" in h:
+        deliver = h["deliver"]
+        weather.append(f"{int(deliver.sum())} deliveries, {int(h['drops'].sum())} drops, "
+                       f"{int(h['retries'].sum())} retries, {int(h['stale'].sum())} stale, "
+                       f"{int((deliver.sum(axis=2) == 0)[h['executed'] > 0].sum())} lane-rounds "
+                       "with nothing delivered")
+    print(f"  {tag} R={len(specs)}: wall {wall:.2f} s, {ran} bodies, {lane_rounds} lane-rounds, "
+          f"{lane_rounds / wall:.2f} lane-rounds/s, accuracy mean {res.accuracy.mean():.4f} "
+          f"min {res.accuracy.min():.4f}; {'; '.join(weather)}")
     print(f"    launches: {({k: v for k, v in counts.items() if v})}")
     return res, counts
 
@@ -2531,28 +2587,35 @@ def kill_after(directory, keep_step):
     for f in gone:
         f.unlink()
     if not gone:
-        fail(f"[4i] nothing to kill in {directory}: checkpointing did not run")
+        fail(f"nothing to kill in {directory}: checkpointing did not run")
 
 
 def fault_resume(device, world, pretrained, straight_loop, straight_fleet):
     """Kill and resume on the card, in the churn + faults world on the int8
-    wire: each engine saves every 2 rounds (the fleet in chunks of 2), every
-    checkpoint past round 4 is deleted, and the resumed run must give the
-    straight run's bits (params and every history buffer: battery, deliver
-    and member masks, counts; rounds, stops), in every lane of the fleet;
-    the checkpointing runs themselves must too."""
+    wire (:func:`kill_and_resume`)."""
+    kill_and_resume(device, world, pretrained, fault_cfg("int8", churn=True), "int8 churn + faults",
+                    straight_loop, straight_fleet, FAULT_DIR, "[4i]")
+
+
+def kill_and_resume(device, world, pretrained, cfg, what, straight_loop, straight_fleet,
+                    directory, phase):
+    """Kill and resume on the card: each engine saves every 2 rounds (the
+    fleet in chunks of 2 rounds, event steps under cadence), every
+    checkpoint past step 4 is deleted, and the resumed run must give the
+    straight run's bits (params and every history buffer: battery, masks,
+    counts, clocks; rounds, stops), in every lane of the fleet; the
+    checkpointing runs themselves must too."""
     import shutil
 
-    cfg = fault_cfg("int8", churn=True)
-    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    shutil.rmtree(directory, ignore_errors=True)
     for engine, straight, run in (
-            ("loop", straight_loop, lambda start, **kw: fault_loop(
-                device, world, pretrained, cfg, f"loop int8 churn + faults, {list(kw)[0]}",
-                start, **kw)[0]),
-            ("fleet", straight_fleet, lambda start, **kw: fault_fleet(
-                device, world, pretrained, cfg, f"fleet int8 churn + faults, {list(kw)[0]}",
-                start, round_chunk=2, **kw)[0])):
-        d = FAULT_DIR / engine
+            ("loop", straight_loop, lambda start, **kw: world_loop(
+                device, world, pretrained, cfg, f"loop {what}, {list(kw)[0]}",
+                start, phase, **kw)[0]),
+            ("fleet", straight_fleet, lambda start, **kw: world_fleet(
+                device, world, pretrained, cfg, f"fleet {what}, {list(kw)[0]}",
+                start, phase, round_chunk=2, **kw)[0])):
+        d = directory / engine
         t0 = time.perf_counter()
         saved = run(0, checkpoint_dir=str(d), checkpoint_every=2)
         files = sorted(f.name for f in d.glob("step_*.npz"))
@@ -2565,8 +2628,8 @@ def fault_resume(device, world, pretrained, straight_loop, straight_fleet):
               f"the resumed run {'=' if verdict['resumed'] else '!='} it, bit for bit "
               f"({time.perf_counter() - t0:.2f} s)")
         if not all(verdict.values()):
-            fail(f"[4i] kill and resume ({engine}) differs from the straight run: {verdict}")
-    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+            fail(f"{phase} kill and resume ({engine}) differs from the straight run: {verdict}")
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 def fault_round_check(device, world, pretrained, limits):
@@ -2606,31 +2669,31 @@ def run_faults(device, world, pretrained, limits):
     Returns the loop runs' and the fleet runs' launch counts."""
     from repro_torch.core import AdversaryConfig
 
-    loop, loop_counts = fault_loop(device, world, pretrained, fault_cfg(), "loop fp32")
+    loop, loop_counts = world_loop(device, world, pretrained, fault_cfg(), "loop fp32")
     if not (sum(loop.history_raw["drops"]) and sum(loop.history_raw["retries"])
             and sum(loop.history_raw["stale"])):
         fail("[4i] the loop session saw no drop, retry or stale delivery")
-    loop8, loop8_counts = fault_loop(device, world, pretrained, fault_cfg("int8"), "loop int8")
-    decay, decay_counts = fault_loop(device, world, pretrained,
+    loop8, loop8_counts = world_loop(device, world, pretrained, fault_cfg("int8"), "loop int8")
+    decay, decay_counts = world_loop(device, world, pretrained,
                                      fault_cfg(staleness_gamma=FAULT_GAMMA),
                                      f"loop fp32 staleness_gamma={FAULT_GAMMA}")
-    fleet, fleet_counts = fault_fleet(device, world, pretrained, fault_cfg(), "fleet fp32")
-    fleet8, fleet8_counts = fault_fleet(device, world, pretrained, fault_cfg("int8"),
+    fleet, fleet_counts = world_fleet(device, world, pretrained, fault_cfg(), "fleet fp32")
+    fleet8, fleet8_counts = world_fleet(device, world, pretrained, fault_cfg("int8"),
                                         "fleet int8")
     faults_engines_agree(loop, fleet, "fp32")
     faults_engines_agree(loop8, fleet8, "int8")
-    churn_loop8, churn_loop_counts = fault_loop(device, world, pretrained,
+    churn_loop8, churn_loop_counts = world_loop(device, world, pretrained,
                                                 fault_cfg("int8", churn=True),
                                                 "loop int8 churn + faults")
-    churn_fleet8, churn_fleet_counts = fault_fleet(device, world, pretrained,
+    churn_fleet8, churn_fleet_counts = world_fleet(device, world, pretrained,
                                                    fault_cfg("int8", churn=True),
                                                    "fleet int8 churn + faults")
     faults_engines_agree(churn_loop8, churn_fleet8, "churn + faults",
                          keys=("deliver_mask", "member_mask"))
     byz = dict(max_rounds=ADV_ROUNDS, adversary=AdversaryConfig(**ADVERSARY), robust="clip")
-    adv_loop, adv_loop_counts = fault_loop(device, world, pretrained, fault_cfg(**byz),
+    adv_loop, adv_loop_counts = world_loop(device, world, pretrained, fault_cfg(**byz),
                                            "loop fp32 noise + clip")
-    adv_fleet, adv_fleet_counts = fault_fleet(device, world, pretrained, fault_cfg(**byz),
+    adv_fleet, adv_fleet_counts = world_fleet(device, world, pretrained, fault_cfg(**byz),
                                               "fleet fp32 noise + clip")
     for what, counts in (("loop", adv_loop_counts), ("fleet", adv_fleet_counts)):
         if not (counts["sqnorm"] and counts["fedavg"]):
@@ -2645,6 +2708,326 @@ def run_faults(device, world, pretrained, limits):
     fault_round_check(device, world, pretrained, limits)
     return ([loop_counts, loop8_counts, decay_counts, churn_loop_counts, adv_loop_counts],
             [fleet_counts, fleet8_counts, churn_fleet_counts, adv_fleet_counts])
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the asynchronous-cadence world
+# ---------------------------------------------------------------------------
+
+# two speed classes, a radio awake 2 steps of every 3, offline on 15 % of
+# the steps; the seed is chosen on the host (cadence_world)
+CADENCE = dict(n_speed_classes=2, duty_cycle=3, duty_on=2, p_offline=0.15)
+CADENCE_GAMMA = 0.5          # the decay of [3]'s weights and of one loop session
+CADENCE_DIR = ROOT / "build" / "4j"
+# the depth of [4j]'s composed runs (churn + faults, pacing) and of their
+# kill and resume, cut from the main runs' 10 rounds of 8 epochs (6 rounds:
+# the loop's checkpoints every 2 rounds must reach past round 4; 2 epochs
+# cost what 1 does, a body being refresh-bound)
+CADENCE_CUT = dict(max_rounds=6, epochs=2)
+PACE_FACTOR = 2
+PACE_DRAIN = 0.04            # the battery fraction one round of the pacing run drains
+PACE_CROSS = 3               # its requester crosses the threshold in this round
+
+def check_cadence_shapes(dev, n_params):
+    """The weights the cadence world gives eq. 14 that phase [3] does not
+    already hold: dense and int8 at the fleet's (64, 5, P | Lp) and the
+    loop's (1, n, P) for n = 1 ... 5, each weight a 0/1 strategy weight
+    times ``gamma**lag`` for image lags in {0, 1, 2} (a straggler's
+    resident image, one step more for a stale delivery), with a few rows of
+    lanes that do not execute (zeros).  Returns the largest errors by
+    kernel."""
+    from repro_torch.core.protocol import decayed_round_weights
+    from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda, fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref, fedavg_batched_ref
+    from repro_torch.kernels.quantize.ref import quantize_batched_ref
+
+    g = torch.Generator().manual_seed(29)
+    lp = n_params + (-n_params) % TILE
+    shape = (FLEET_R, 5)
+    strategy = (torch.rand(shape, generator=g) < 0.8).to(torch.float32)
+    lag = torch.randint(0, 3, shape, generator=g)
+    w = decayed_round_weights(strategy, lag, CADENCE_GAMMA)
+    w[[5, 40]] = 0.0                                    # lanes that did not tick
+    w_d = w.to(dev)
+
+    def held(name, got, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= 1e-6 * max(float(want.abs().max()), 1.0):
+            fail(f"{name}: max abs err {err} against the twin")
+        return err
+
+    u = torch.randn((*shape, n_params), generator=g).to(dev)
+    err = held("fedavg at the cadence fleet's decayed weights", fedavg_batched_cuda(u, w_d),
+               fedavg_batched_ref(u, w_d))
+    q, s = (t.to(dev).reshape(*shape, -1)
+            for t in quantize_batched_ref(u.cpu().reshape(-1, n_params)))
+    err8 = held("fedavg_q8 at the cadence fleet's decayed weights",
+                fedavg_batched_q8_cuda(q, s, w_d), fedavg_batched_q8_ref(q, s, w_d))
+    loop_err = 0.0
+    for n in range(1, 6):
+        wn = decayed_round_weights(torch.ones(1, n), torch.arange(n)[None] % 3,
+                                   CADENCE_GAMMA).to(dev)
+        un = u[:1, :n].contiguous()
+        loop_err = max(loop_err, held(f"fedavg at the loop's (1, {n}, {n_params})",
+                                      fedavg_batched_cuda(un, wn), fedavg_batched_ref(un, wn)))
+    print(f"  fedavg R,N,L={FLEET_R},5,{n_params} with weights strategy x gamma**lag, lag in "
+          f"0-2, gamma {CADENCE_GAMMA}, 2 silent rows: max abs err {err:.3e}; fedavg_q8 at "
+          f"Lp={lp}: {err8:.3e}; the loop's (1, n, P), n = 1-5: {loop_err:.3e}")
+    return {"fedavg": loop_err, "fedavg_batched": err, "fedavg_q8": err8}
+
+
+def cadence_world(task, fleet):
+    """[4j]'s cadence: the first seed under the task's threefry mode that
+    puts requester 0 on stride 2 (it idles between its rounds) and a
+    contract on stride 2 (it can straggle).  The runs check both again."""
+    from repro_torch.core import CadenceConfig
+    from repro_torch.core.cadence import speed_stride
+
+    part = task.threefry_partitionable
+    ids = [d.device_id for d in fleet]
+    for seed in range(256):
+        cc = CadenceConfig(**CADENCE, seed=seed)
+        if (int(speed_stride(cc, cc.requester_id, partitionable=part)) == 2
+                and bool((speed_stride(cc, ids, partitionable=part) == 2).any())):
+            strides = speed_stride(cc, ids, partitionable=part).tolist()
+            print(f"  seed {seed} (threefry partitionable={part}): requester 0 on stride 2, "
+                  f"the contracts on strides {strides}")
+            return cc
+    fail("[4j] no seed below 256 puts requester 0 and a contract on stride 2")
+
+
+def requester_ticks(cc, part, rounds):
+    """The steps requester 0 ticks on (unpaced) until its ``rounds``-th,
+    on the host: [4j]'s event budgets end at these steps."""
+    from repro_torch.core.cadence import events_budget, tick_mask
+
+    steps = [t for t in range(events_budget(cc, rounds))
+             if bool(tick_mask(cc, t, [cc.requester_id], partitionable=part)[0])][:rounds]
+    if len(steps) < rounds:
+        fail(f"[4j] requester 0 ticks {len(steps)} times in its budget, not {rounds}")
+    return steps
+
+
+def cadence_cfg(cc, compress=None, max_rounds=MAX_ROUNDS, churn=False, faults=False, **kw):
+    """The quickstart session in [4j]'s cadence at an accuracy no round
+    reaches; ``churn`` adds [4h]'s mobility world, ``faults`` [4i]'s links."""
+    base = (fault_cfg(compress, max_rounds, churn=churn) if faults
+            else churn_cfg(compress, max_rounds) if churn
+            else dataclasses.replace(session_cfg(max_rounds), desired_accuracy=1.01,
+                                     contributor_refresh_epochs=1, compress=compress))
+    return dataclasses.replace(base, cadence=cc, **kw)
+
+
+def stragglers(res, cc, fleet, part):
+    """(executed round, contract) pairs whose contract did not tick on the
+    round's step: its resident image was aggregated as it was."""
+    from repro_torch.core.cadence import tick_mask
+
+    ids = [d.device_id for d in fleet]
+    return sum(int((~tick_mask(cc, t, ids, partitionable=part)).sum())
+               for t in res.history_raw["round_clock"])
+
+
+def cadence_engines_agree(loop, fleet, tag):
+    """The loop session and requester 0 of the fleet keep one clock: equal
+    round clocks, idle steps, rounds and stops, masks and fault counts
+    where they exist, and the idle-priced ``t_com`` within 1e-9."""
+    s0 = fleet.sessions[0]
+    hl, hf = loop.history_raw, s0.history_raw
+    keys = [k for k in ("member_mask", "deliver_mask", "corrupted_mask") if k in hl]
+    same = (loop.rounds == s0.rounds and loop.stop_reason == s0.stop_reason
+            and hl["round_clock"] == hf["round_clock"] and hl["idle_steps"] == hf["idle_steps"]
+            and all(hl[k] == hf[k] for k in ("drops", "retries", "stale") if k in hl)
+            and all(np.array_equal(np.stack(hl[k]), np.stack(hf[k])) for k in keys))
+    dt = abs(loop.report.times.t_com - s0.report.times.t_com)
+    print(f"  {tag}: loop vs fleet requester 0: round clocks {hl['round_clock']}, idle steps, "
+          f"{', '.join(keys + ['rounds'])} ({loop.rounds}) and stops "
+          f"{'equal' if same else 'DIFFER'}; t_com {loop.report.times.t_com:.6f} s, "
+          f"difference {dt:.3e}")
+    if not same or not dt <= 1e-9:
+        fail(f"[4j] {tag}: the loop session and the fleet's requester 0 disagree")
+
+
+def paced_skips(res, cc_paced, part):
+    """Steps between two executed rounds where the unpaced clock would have
+    ticked and the battery-paced one did not (the level after the round
+    before, in fp32, as both engines compare it)."""
+    from repro_torch.core.cadence import tick_mask
+
+    base = dataclasses.replace(cc_paced, pace_factor=1)
+    h = res.history_raw
+    skips = 0
+    for k in range(1, res.rounds):
+        level = torch.tensor([h["battery"][k - 1]], dtype=torch.float32)
+        for t in range(h["round_clock"][k - 1] + 1, h["round_clock"][k]):
+            free = bool(tick_mask(base, t, [cc_paced.requester_id], partitionable=part)[0])
+            paced = bool(tick_mask(cc_paced, t, [cc_paced.requester_id], level,
+                                   partitionable=part)[0])
+            skips += free and not paced
+    return skips
+
+
+
+def cadence_pacing(device, world, pretrained, cc):
+    """Battery-aware pacing on both engines at [4j]'s cut depth: a battery
+    of the capacity that drains PACE_DRAIN a round, and a threshold midway
+    between the levels after rounds PACE_CROSS - 1 and PACE_CROSS (far from
+    any level a round lands on, in fp32 or in float64), so requester 0's
+    stride doubles mid-run.  The fleet's lane 0 is the loop's requester;
+    its other lanes are [4c]'s, on batteries of that capacity."""
+    from repro_torch.core import BatteryState, CostModel, RequesterSpec
+    from repro_torch.utils.tree import tree_size
+
+    task, shards, own_train, own_test, fleet = world
+    cost = CostModel()
+    p = tree_size(pretrained[0])
+    e = cost.round_energy(n_contrib=len(fleet), num_params=p, model_bytes=4 * p,
+                          num_samples=len(own_train[0]), epochs=CADENCE_CUT["epochs"],
+                          n_devices=len(fleet), encrypt=True)
+    probe = 1e6
+    drop = 0.9 - BatteryState(capacity_j=probe, level=0.9).discharge(
+        e, avg_power_w=cost.device.p_train).level
+    cap = probe * drop / PACE_DRAIN
+    levels = [0.9]
+    b = BatteryState(capacity_j=cap, level=0.9)
+    for _ in range(PACE_CROSS):
+        b = b.discharge(e, avg_power_w=cost.device.p_train)
+        levels.append(b.level)
+    thr = (levels[-2] + levels[-1]) / 2
+    pcc = dataclasses.replace(cc, pace_battery_threshold=thr, pace_factor=PACE_FACTOR)
+    cfg = cadence_cfg(pcc, **CADENCE_CUT)
+    print(f"  pacing: capacity {cap:.4f} J, {PACE_DRAIN} of it a round, threshold {thr:.6f} "
+          f"(levels {[round(v, 6) for v in levels]}), factor {PACE_FACTOR}")
+    loop, loop_counts = world_loop(device, world, pretrained, cfg, "loop fp32 pacing",
+                                   phase="[4j]", battery=BatteryState(capacity_j=cap, level=0.9))
+    states = contributor_states(pretrained, shards, fleet, device)
+    specs = [RequesterSpec(own_train, own_test, fleet, states, BatteryState(capacity_j=cap,
+                                                                            level=0.9))]
+    specs += [RequesterSpec(train, test, fleet, states, BatteryState(capacity_j=cap, level=0.9))
+              for train, test in fleet_split()[1:FLEET_R]]
+    fl, fleet_counts = world_fleet(device, world, pretrained, cfg, "fleet fp32 pacing",
+                                   phase="[4j]", specs=specs)
+    cadence_engines_agree(loop, fl, "pacing")
+    skips = paced_skips(loop, pcc, task.threefry_partitionable)
+    crossed = sum(v < np.float32(thr) for v in loop.history_raw["battery"])
+    print(f"  pacing: the battery under the threshold after {crossed} of {loop.rounds} rounds; "
+          f"{skips} steps the unpaced clock would have ticked on were skipped")
+    if not (crossed and skips):
+        fail("[4j] pacing: the battery never crossed the threshold, or the paced clock "
+             "skipped no tick")
+    return loop_counts, fleet_counts
+
+
+def cadence_step_check(device, world, pretrained, limits, cc):
+    """One cadence fleet step of 4 requesters on the card and on the CPU:
+    the first event step where a lane ticks (the budget ends there, so one
+    round body runs), equal tick, clock and idle traces, the params within
+    [4c]'s limit.  Each executing lane's params are, on each device, the
+    bits of [4c]'s lockstep fp32 round (the same glob, plan and fit; a
+    body trains every lane), so its card-vs-CPU difference is that
+    round's, lane for lane: what the cadence machinery adds is held
+    exactly, not within the limit."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.core.cadence import tick_mask
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.utils.tree import tree_map, tree_ravel
+
+    task = world[0]
+    part = task.threefry_partitionable
+    ids = [cc.requester_id + i for i in range(4)]
+    t0 = next(t for t in range(64) if bool(tick_mask(cc, t, ids, partitionable=part).any()))
+    cfg = cadence_cfg(dataclasses.replace(cc, max_events=t0 + 1), max_rounds=1)
+    cpu = torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    card = run_fleet(task, fleet_specs(device, world, pretrained, 4), cfg, device=device)
+    host = run_fleet(cpu_task, fleet_specs(cpu, world, host_pre, 4), cfg, device=cpu)
+    card_l, host_l = (torch.stack([tree_ravel(s.params)[0].cpu() for s in res.sessions])
+                      for res in (card, host))
+    per_lane = (card_l - host_l).abs().max(dim=1).values
+    diff = float(per_lane.max())
+    same = (np.array_equal(card.rounds, host.rounds) and all(
+        np.array_equal(card.history[k], host.history[k])
+        for k in ("round_executed", "executed", "round_clock", "idle_steps")))
+    lock = limits["fp32 lanes"]
+    ran = np.flatnonzero(card.rounds).tolist()
+    lockstep = all(torch.equal(card_l[i], lock["card"][i]) and torch.equal(host_l[i], lock["cpu"][i])
+                   for i in ran)
+    print(f"  one cadence fleet step R=4 card vs CPU: step {t0}, lanes executing "
+          f"{card.rounds.tolist()}, tick, clock and idle traces {'equal' if same else 'DIFFER'}; "
+          f"max abs param diff {diff:.3e} (per lane "
+          f"{', '.join(f'{v:.3e}' for v in per_lane.tolist())}; limit {limits['fp32']:.3e}); "
+          f"lanes {ran} {'are' if lockstep else 'are NOT'} [4c]'s lockstep round bit for bit on "
+          f"each device (its per-lane diffs {', '.join(f'{v:.3e}' for v in lock['diff'].tolist())})")
+    if not same or not ran:
+        fail("[4j] one cadence fleet step: no lane ticked, or the traces differ between the "
+             "card and the CPU")
+    if not lockstep:
+        fail("[4j] one cadence fleet step: an executing lane's params are not the bits of "
+             "[4c]'s lockstep round on the same device")
+    if not diff <= limits["fp32"]:
+        fail(f"[4j] one cadence fleet step on the card and on the CPU differ by {diff}")
+
+
+def run_cadence(device, world, pretrained, limits):
+    """Phase [4j]: the quickstart world on [4j]'s cadence.  The loop session
+    fp32 (AES), int8 and fp32 with image-lag decay, the 64-requester fleet
+    fp32 and int8, the loop and the fleet's requester 0 on one clock; at
+    the cut depth cadence + churn + faults on the int8 wire and battery
+    pacing on both engines, and kill and resume of both; one step of 4
+    requesters on the card and on the CPU.  Returns the loop runs' and the
+    fleet runs' launch counts."""
+    from repro_torch.core.cadence import events_budget
+
+    task, _, _, _, fleet = world
+    part = task.threefry_partitionable
+    cc = cadence_world(task, fleet)
+    # the main runs' budget ends on requester 0's last round (a fleet lane
+    # on a slower clock stops short of it); the composed runs' (a budget of
+    # one round more) one step past requester 0's CADENCE_CUT-th round, so
+    # the budget ends the session on one trailing idle step to price
+    cut = CADENCE_CUT["max_rounds"]
+    ticks = requester_ticks(cc, part, max(MAX_ROUNDS, cut))
+    full = dataclasses.replace(cc, max_events=ticks[MAX_ROUNDS - 1] + 1)
+    short = dataclasses.replace(cc, max_events=ticks[cut - 1] + 2)
+    print(f"  requester 0 ticks at steps {ticks}: event budget {full.max_events} (default "
+          f"{events_budget(cc, MAX_ROUNDS)}), the composed runs' {short.max_events}")
+    loop, loop_counts = world_loop(device, world, pretrained, cadence_cfg(full), "loop fp32",
+                                   phase="[4j]")
+    idle, straggled = sum(loop.history_raw["idle_steps"]), stragglers(loop, cc, fleet, part)
+    print(f"  requester 0 idled {idle} steps before its rounds; {straggled} straggling "
+          "(round, contract) pairs")
+    if not (idle and straggled):
+        fail("[4j] requester 0 never idled, or no contract straggled on an executed step")
+    loop8, loop8_counts = world_loop(device, world, pretrained, cadence_cfg(full, "int8"),
+                                     "loop int8", phase="[4j]")
+    decay, decay_counts = world_loop(device, world, pretrained,
+                                     cadence_cfg(full, staleness_gamma=CADENCE_GAMMA),
+                                     f"loop fp32 staleness_gamma={CADENCE_GAMMA}", phase="[4j]")
+    fleet_r, fleet_counts = world_fleet(device, world, pretrained, cadence_cfg(full),
+                                        "fleet fp32", phase="[4j]")
+    fleet8, fleet8_counts = world_fleet(device, world, pretrained, cadence_cfg(full, "int8"),
+                                        "fleet int8", phase="[4j]")
+    cadence_engines_agree(loop, fleet_r, "fp32")
+    cadence_engines_agree(loop8, fleet8, "int8")
+    composed = cadence_cfg(short, "int8", churn=True, faults=True,
+                           **dict(CADENCE_CUT, max_rounds=cut + 1))
+    what = "int8 churn + faults"
+    c_loop, c_loop_counts = world_loop(device, world, pretrained, composed, f"loop {what}",
+                                       phase="[4j]")
+    c_fleet, c_fleet_counts = world_fleet(device, world, pretrained, composed, f"fleet {what}",
+                                          phase="[4j]")
+    cadence_engines_agree(c_loop, c_fleet, what)
+    if c_loop.rounds != cut:
+        fail(f"[4j] {what}: the event budget left requester 0 {c_loop.rounds} rounds, not "
+             f"{cut} and a trailing idle step")
+    pace_loop_counts, pace_fleet_counts = cadence_pacing(device, world, pretrained, cc)
+    kill_and_resume(device, world, pretrained, composed, what, c_loop, c_fleet, CADENCE_DIR,
+                    "[4j]")
+    cadence_step_check(device, world, pretrained, limits, cc)
+    return ([loop_counts, loop8_counts, decay_counts, c_loop_counts, pace_loop_counts],
+            [fleet_counts, fleet8_counts, c_fleet_counts, pace_fleet_counts])
 
 
 # ---------------------------------------------------------------------------
@@ -3230,6 +3613,9 @@ def main() -> int:
     print("  the fault world's shapes (decayed and zero weights, stale rows)")
     for k, v in check_fault_shapes(dev, n_params).items():
         errs[k] = max(errs[k], v)
+    print("  the cadence world's shapes (weights decayed by image lag)")
+    for k, v in check_cadence_shapes(dev, n_params).items():
+        errs[k] = max(errs[k], v)
 
     from repro_torch.core import CostModel
 
@@ -3268,10 +3654,14 @@ def main() -> int:
     t_flt = time.perf_counter()
     flt_loop, flt_fleet = run_faults(dev, world, pretrained, limits)
     print(f"  [4i] wall {time.perf_counter() - t_flt:.1f} s")
+    print(f" [4j] the asynchronous-cadence world ({CADENCE}), both engines")
+    t_cad = time.perf_counter()
+    cad_loop, cad_fleet = run_cadence(dev, world, pretrained, limits)
+    print(f"  [4j] wall {time.perf_counter() - t_cad:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
-                  *table_loop, *mob_loop, *flt_loop]
+                  *table_loop, *mob_loop, *flt_loop, *cad_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
-                   *facade_fleet, *mob_fleet, *flt_fleet]
+                   *facade_fleet, *mob_fleet, *flt_fleet, *cad_fleet]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
     # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
     # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:

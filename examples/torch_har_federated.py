@@ -11,7 +11,7 @@ meaningful.
   PYTHONPATH=src python examples/torch_har_federated.py [--dataset har|calories]
                                                         [--engine loop|fleet]
                                                         [--churn] [--faults]
-                                                        [--byzantine]
+                                                        [--cadence] [--byzantine]
                                                         [--compress int8]
                                                         [--device cpu]
                                                         [-v | -q]
@@ -41,6 +41,15 @@ priced through ``CostModel.retry_energy``, and the walkthrough prints each
 round's delivered set with its drop, retry and stale counts.  It composes
 with ``--churn`` and ``--byzantine``.
 
+``--cadence`` turns on the asynchronous-cadence world
+(``repro_torch.core.cadence``, two speed classes, seed 3): the lockstep
+round barrier is gone, each device ticks on its own stride, and the
+walkthrough prints each round's event step (clock), the idle steps before
+it (priced through ``CostModel.idle_energy``) and its stragglers, the
+contributors that do not tick on that step and whose resident wire images
+are aggregated as they are.  It composes with ``--churn``, ``--faults`` and
+``--byzantine``.
+
 ``--byzantine`` turns on the adversarial world: 30% of contributor links
 deliver a corrupted wire image each round (a 25x scale attack), and the
 session defends with ``robust="clip"``.  The walkthrough prints each
@@ -50,9 +59,6 @@ identical sets.
 
 ``--compress int8`` adds an ``enfed-int8`` row to the compare table (in a
 walkthrough: the session runs on the int8 wire).
-
-``--cadence`` (the reference's asynchronous-cadence world) is
-``ROADMAP.md`` slice E.3 of the port: it exits non-zero saying so.
 """
 
 import argparse
@@ -64,8 +70,9 @@ import sys
 import numpy as np
 
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import (AdversaryConfig, FaultConfig, MobilityConfig, SupervisedTask,
-                              make_fleet)
+from repro_torch.core import (AdversaryConfig, CadenceConfig, FaultConfig, MobilityConfig,
+                              SupervisedTask, make_fleet)
+from repro_torch.core.cadence import tick_mask
 from repro_torch.core.mobility import membership_events
 from repro_torch.data import (CaloriesDatasetConfig, HARDatasetConfig, dirichlet_partition,
                               make_calories_tabular, make_har_windows)
@@ -73,9 +80,6 @@ from repro_torch.models import (LSTMClassifier, LSTMClassifierConfig, MLPClassif
                                 MLPClassifierConfig)
 
 log = logging.getLogger("repro_torch.example.har")
-
-# the reference's world flags the port does not run yet, with their slice
-UNPORTED_WORLDS = {"cadence": ("the asynchronous-cadence world", "E.3")}
 
 
 def _setup_logging(verbosity: int) -> None:
@@ -127,6 +131,9 @@ def walkthrough(task, shards, own_train, own_test, args):
     a higher-utility arrival displaces the weakest member.  With
     ``--faults`` links drop, retry (each retry priced) and deliver the
     previous round's image; only delivered updates are aggregated.  With
+    ``--cadence`` the round barrier is gone: the requester's round clock
+    advances on its own ticks, and contributors that do not tick on its
+    step are stragglers, aggregated from their resident images.  With
     ``--byzantine`` counter-based draws pick each round's corrupted links
     and the clip defense throttles outlier-norm contributions before the
     aggregate."""
@@ -134,6 +141,11 @@ def walkthrough(task, shards, own_train, own_test, args):
            if args.churn else None)
     faults = (FaultConfig(p_drop=0.4, p_stale=0.3, max_retries=1, release_after=2, seed=7)
               if args.faults else None)
+    # two speed classes: the requester and some neighbours tick on every
+    # other step only.  Which seed does that depends on the threefry mode:
+    # under the tasks' partitionable mode seed 3 puts the requester on
+    # stride 2 (the reference's seed 0 does so only under the other mode)
+    cadence = CadenceConfig(n_speed_classes=2, seed=3) if args.cadence else None
     adversary = (AdversaryConfig(p_byzantine=0.3, attack="scale", scale=25.0, seed=9)
                  if args.byzantine else None)
     world = make_world(task, shards, own_train, own_test, fit_epochs=1, mobility=mob)
@@ -141,17 +153,23 @@ def walkthrough(task, shards, own_train, own_test, args):
         world,
         method=MethodSpec(desired_accuracy=args.target, epochs=args.epochs,
                           max_rounds=10, n_max=3, contributor_refresh_epochs=1,
-                          faults=faults, adversary=adversary, robust="clip" if args.byzantine else "none",
-                          compress=args.compress),
+                          faults=faults, cadence=cadence, adversary=adversary,
+                          robust="clip" if args.byzantine else "none", compress=args.compress),
         execution=ExecutionSpec(engine=args.engine)).run()
     label = "+".join(n for n, on in (("churn", args.churn), ("faults", args.faults),
+                                     ("cadence", args.cadence),
                                      ("byzantine", args.byzantine)) if on)
     log.info(f"\n=== {label} walkthrough ({args.dataset}, engine={res.engine}) ===")
+    device_ids = [d.device_id for d in world.requesters[0].neighborhood]
     head = f"{'round':>5}"
+    if args.cadence:
+        head += f" {'clock':>5} {'idle':>4}"
     if args.churn:
         head += f" {'members':>8} {'contract set':<18}"
     if args.faults:
         head += f" {'delivered':<12} {'drop':>4} {'rtry':>4} {'stale':>5}"
+    if args.cadence:
+        head += f" {'stragglers':<12}"
     if args.byzantine:
         head += f" {'corrupted':<12} {'clipped':<12}"
     log.info(head + f" {'acc':>6} {'battery':>8}")
@@ -160,11 +178,18 @@ def walkthrough(task, shards, own_train, own_test, args):
         if ev.phase != "round":
             continue
         line = f"{ev.round:>5}"
+        if args.cadence:
+            line += f" {ev.clock:>5} {int(ev.idle):>4}"
         if args.churn:
             line += f" {ev.members:>8} {str(list(ev.member_set)):<18}"
         if args.faults:
             line += (f" {str(list(ev.delivered)):<12} {int(ev.drops):>4} {int(ev.retries):>4}"
                      f" {int(ev.stale):>5}")
+        if args.cadence:
+            awake = tick_mask(cadence, ev.clock, device_ids,
+                              partitionable=task.threefry_partitionable)
+            lagging = [j for j, on in enumerate(awake.tolist()) if not on]
+            line += f" {str(lagging):<12}"
         if args.byzantine:
             line += f" {str(list(ev.corrupted)):<12} {str(list(ev.clipped)):<12}"
         note = ""
@@ -184,6 +209,12 @@ def walkthrough(task, shards, own_train, own_test, args):
         log.info(f"fault weather: {int(np.sum(h['drops']))} drops, {int(np.sum(h['retries']))} "
                  f"retries, {int(np.sum(h['stale']))} stale deliveries (retry windows priced "
                  f"via CostModel.retry_energy; both engines print the identical sets)")
+    if args.cadence:
+        clocks = res.history_raw["round_clock"]
+        idle = int(np.sum(res.history_raw["idle_steps"]))
+        log.info(f"cadence: {res.rounds} rounds over {clocks[-1] + 1} global event steps, "
+                 f"{idle} idle steps priced via CostModel.idle_energy; stragglers' resident "
+                 f"wire images aggregated as-is (both engines print this identically)")
     if args.byzantine:
         summary = res.corruption_summary
         log.info(f"byzantine weather: {int(summary['corrupted_links'])} corrupted deliveries "
@@ -205,9 +236,10 @@ def main(argv=None):
     ap.add_argument("--churn", action="store_true",
                     help="opportunistic-world walkthrough: neighbours enter and leave radio "
                          "range mid-session (repro_torch.core.mobility)")
-    for flag, (world, sub) in UNPORTED_WORLDS.items():
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"{world} (ROADMAP.md slice {sub}: not ported yet)")
+    ap.add_argument("--cadence", action="store_true",
+                    help="asynchronous-cadence walkthrough: per-round event step, idle "
+                         "steps and stragglers (repro_torch.core.cadence); composes with "
+                         "--churn, --faults and --byzantine")
     ap.add_argument("--faults", action="store_true",
                     help="unreliable-link walkthrough: per-round delivered sets and drop, "
                          "retry and stale counts (repro_torch.core.faults); composes with "
@@ -227,14 +259,9 @@ def main(argv=None):
                     help="errors only; suppress the table/walkthrough output")
     args = ap.parse_args(argv)
     _setup_logging(1 if args.verbose else -1 if args.quiet else 0)
-    for flag, (world, sub) in UNPORTED_WORLDS.items():
-        if getattr(args, flag):
-            print(f"--{flag}: {world} is ROADMAP.md slice {sub} of the port, not ported yet",
-                  file=sys.stderr)
-            return 2
 
     task, shards, own_train, own_test, pooled = build(args.dataset, args.device)
-    if args.churn or args.faults or args.byzantine:
+    if args.churn or args.faults or args.cadence or args.byzantine:
         return walkthrough(task, shards, own_train, own_test, args)
 
     # one world, N methods: the facade guarantees every method sees the

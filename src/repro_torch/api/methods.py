@@ -205,12 +205,13 @@ def run_enfed(world: WorldSpec, method: MethodSpec,
     sessions = []
     for i, r in enumerate(reqs):
         # requester i walks as device mobility.requester_id + i, rolls its
-        # link dice as faults.requester_id + i and draws its Byzantine
-        # weather as adversary.requester_id + i, the fleet's lane
-        # conventions, so ExecutionSpec.engine never changes which world a
-        # requester experiences
+        # link dice as faults.requester_id + i, ticks as
+        # cadence.requester_id + i and draws its Byzantine weather as
+        # adversary.requester_id + i, the fleet's lane conventions, so
+        # ExecutionSpec.engine never changes which world a requester
+        # experiences
         cfg_i = cfg
-        for name in ("mobility", "faults", "adversary"):
+        for name in ("mobility", "faults", "cadence", "adversary"):
             world_cfg = getattr(cfg, name)
             if world_cfg is not None and i > 0:
                 cfg_i = dataclasses.replace(cfg_i, **{name: dataclasses.replace(

@@ -16,10 +16,10 @@
 (:class:`~repro_torch.core.mobility.MobilityConfig`) and
 ``MethodSpec.faults`` the unreliable-link world
 (:class:`~repro_torch.core.faults.FaultConfig`), which EnFed runs in both
-engines (the cfl/dfl fleets price the faults' retries).  The asynchronous
-cadence keeps its field, typed ``Optional[object]`` as in ``EnFedConfig``;
-the engines refuse it with ``NotImplementedError`` naming its
-``ROADMAP.md`` slice.
+engines (the cfl/dfl fleets price the faults' retries), as it runs
+``MethodSpec.cadence``, the asynchronous-cadence world
+(:class:`~repro_torch.core.cadence.CadenceConfig`; the baselines warn and
+drop it).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
+from repro_torch.core.cadence import CadenceConfig
 from repro_torch.core.energy import CostModel
 from repro_torch.core.faults import FaultConfig
 from repro_torch.core.fleet import RequesterSpec
@@ -157,7 +158,9 @@ class MethodSpec:
     # unreliable links (drops, retries, stale delivery): a protocol knob for
     # enfed, priced post hoc for the cfl/dfl fleets
     faults: Optional[FaultConfig] = None
-    cadence: Optional[object] = None     # asynchronous cadence: slice E.3
+    # asynchronous cadence (per-device round clocks): enfed-only, the
+    # baselines warn and drop it
+    cadence: Optional[CadenceConfig] = None
     # Byzantine contributors and the robust AGGREGATE statistic ("none" |
     # "clip" | "trimmed_mean" | "median"): enfed-only protocol knobs; the
     # baselines warn and drop them

@@ -1,6 +1,7 @@
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.aggregation import fedavg, masked_fedavg, masked_weighted_mean_stacked
 from repro_torch.core.battery import BatteryState
+from repro_torch.core.cadence import CadenceConfig
 from repro_torch.core.energy import CostModel, DeviceProfile, EnergyReport, LinkProfile
 from repro_torch.core.faults import FaultConfig
 from repro_torch.core.federated import (BaselineResult, CFLLearner, DFLLearner,
@@ -33,7 +34,8 @@ __all__ = [
     "BatteryState", "CostModel", "DeviceProfile", "EnergyReport", "LinkProfile",
     # incentives / world
     "Contract", "NeighborDevice", "make_fleet", "select_contributors",
-    "sign_contracts_fleet", "AdversaryConfig", "FaultConfig", "MobilityConfig",
+    "sign_contracts_fleet", "AdversaryConfig", "CadenceConfig", "FaultConfig",
+    "MobilityConfig",
     # EnFed engines + protocol vocabulary
     "EnFedConfig", "EnFedSession", "SessionResult",
     "FleetResult", "RequesterSpec", "run_fleet", "Phase",

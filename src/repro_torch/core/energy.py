@@ -118,6 +118,15 @@ class EnergyReport:
             self.times.t_com += count * t_xfer
             self.e_comm += count * energy
 
+    def add_idle(self, cost: "CostModel", idle_steps: int, idle_step_s: float) -> None:
+        """Price ``idle_steps`` cadence idle steps post hoc into ``t_com``
+        and ``e_comm`` (:meth:`CostModel.idle_energy`), as both engines do
+        at the end of a session."""
+        if idle_steps:
+            e_idle, t_idle = cost.idle_energy(idle_steps=idle_steps, idle_step_s=idle_step_s)
+            self.times.t_com += t_idle
+            self.e_comm += e_idle
+
 
 class CostModel:
     """Accumulates eq. (4)-(7) terms for one device over an FL session."""
@@ -238,6 +247,18 @@ class CostModel:
             e_rx += e_crypto
             e_tx += e_crypto
         return e_rx, e_tx, t_xfer
+
+    def idle_energy(self, *, idle_steps: int, idle_step_s: float):
+        """Cost of sitting out ``idle_steps`` cadence event steps, split as
+        ``(e_idle, t_idle_s)``: under an asynchronous cadence
+        (:mod:`repro_torch.core.cadence`) a requester spends event steps not
+        executing a round (its stride skipped the step, its duty window
+        slept, or it was offline), priced at the low-power listen draw
+        ``p_idle``.  Both engines add it post hoc to the report's ``t_com``
+        and ``e_comm``; idle never drains the simulated battery, so the
+        discharge stays a function of executed rounds only."""
+        t_idle = float(idle_steps) * float(idle_step_s)
+        return t_idle * self.device.p_idle, t_idle
 
     def round_energy_table(self, *, max_contrib: int, num_params: int,
                            model_bytes: int, num_samples: int, epochs: int,

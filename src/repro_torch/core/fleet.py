@@ -1,6 +1,7 @@
 """The EnFed fleet engine: R requester sessions advancing together on one
-flat round state (port of ``repro.core.fleet.run_fleet`` in the lockstep
-worlds: static or mobile neighbourhoods, honest or Byzantine links).
+flat round state (port of ``repro.core.fleet.run_fleet`` in every world:
+static or mobile neighbourhoods, honest, Byzantine or unreliable links, in
+lockstep or on an asynchronous cadence).
 
 Design, as in the reference:
 
@@ -76,9 +77,28 @@ Design, as in the reference:
   a streak-blocked link is released at RENEGOTIATE and members pay their
   transmit cost once per attempt.
 
+* **Asynchronous cadence.**  Under ``cadence=`` the loop runs over global
+  event steps (:func:`repro_torch.core.cadence.events_budget` of them):
+  lane i ticks as requester ``requester_id + i`` (paced on its carried
+  battery), contributors by their real device ids.  The host reads each
+  step's (R,) tick mask once (one sync a step): a step where no lane
+  ticks only counts the active lanes' idle steps on the device; otherwise
+  the round body runs with the ticking lanes executing, each fitting from
+  the plan of its own round clock (``seed + clock``, one plan per distinct
+  clock, from a host mirror of the clocks) and writing its traces at the
+  row of that clock.  Only executing lanes discharge, stop, re-snapshot
+  ``prev`` and advance their clocks.  World state (fault weather, the
+  adversary, mobility) keys on the step; fault weather, contributor ticks
+  and image lags are staged over every step at once.  REFRESH takes the
+  per-lane path, and a contributor refreshes only where it ticks, so a
+  straggler's resident image is aggregated as-is (decayed by ``image_lag``
+  under ``staleness_gamma < 1``).  Idle steps are priced post hoc through
+  ``CostModel.idle_energy``.
+
 * **Checkpoint/resume.**  The round state is one :class:`FleetCarry`.
   ``checkpoint_dir`` saves it as ``{"r0", "state"}`` after every
-  ``checkpoint_every`` rounds (default and rounding: the chunk), through
+  ``checkpoint_every`` rounds (event steps under cadence; default and
+  rounding: the chunk), through
   :mod:`repro_torch.checkpoint`; ``resume_from`` restores the newest one
   and the loop goes on from its chunk boundary, with the bits of a run
   that was never stopped.
@@ -99,10 +119,10 @@ Design, as in the reference:
 
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  Cadence and the profiler fields of ``TraceConfig``
-(``jax_profiler_dir``, ``hlo_stats``) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` slice (under a baseline method, the
-enfed-only knobs raise ``ValueError`` as in the reference; faults there
+transport.  The profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
+``hlo_stats``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
+slice (under a baseline method, the enfed-only knobs raise
+``ValueError`` as in the reference; faults there
 are priced post hoc: each extra transmission of the cfl uplink or the dfl
 gossip fan through ``CostModel.retry_energy``, counted in the session's
 ``history["fault_extra_tx"]``).
@@ -119,12 +139,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import adversary as adversary_mod
+from repro_torch.core import cadence as cadence_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import mobility, protocol, schedule, topology
 from repro_torch.core.battery import BatteryState, discharge_level, load_efficiency
 from repro_torch.core.energy import CostModel, update_wire_bytes
 from repro_torch.core.incentive import NeighborDevice, candidate_pool, sign_contracts_fleet
-from repro_torch.core.rounds import EnFedConfig, SessionResult, _unported
+from repro_torch.core.rounds import EnFedConfig, SessionResult
 from repro_torch.kernels.common import check_interpret, plain_twins, resolve_device
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
 from repro_torch.kernels.quantize.ops import (dequantize_flat_batched,
@@ -159,9 +180,10 @@ class FleetResult:
     battery_level: np.ndarray   # (R,) final battery fraction
     total_energy_j: float       # summed eq. (5) energy across the fleet
     history: Dict[str, np.ndarray]  # (max_rounds, R) traces; "round_executed"
-                                    # is (max_rounds,), 1 where a round ran;
-                                    # "member" is (max_rounds, R, N) under
-                                    # mobility
+                                    # is (max_rounds,), 1 where a round ran
+                                    # (under cadence (max_events,), 1 where
+                                    # a lane ticked); "member" is
+                                    # (max_rounds, R, N) under mobility
     staged_param_bytes: int = 0       # contributor round state as staged
                                       # (fp32 (R, N, P), or int8 + scales)
     device_round_state_bytes: int = 0  # that state as carried on the device
@@ -178,9 +200,9 @@ class FleetCarry(NamedTuple):
     """The enfed fleet's round state, by name: what one round reads and
     writes, and what a checkpoint saves (each field under its name, as the
     reference's ``FleetCarry``).  A field the run's world does not use is
-    None (the reference carries a token buffer there); the cadence clocks
-    of the reference come with that world.  Traces are (max_rounds, R) or
-    (max_rounds, R, N)."""
+    None (the reference carries a token buffer there).  Traces are
+    (max_rounds, R) or (max_rounds, R, N); under cadence a lane's round r
+    lands at row r, whatever the event step."""
 
     contrib: torch.Tensor                 # (R, N, P | Lp) round state (int8 codes
                                           # under the int8 wire)
@@ -198,6 +220,7 @@ class FleetCarry(NamedTuple):
     bat_h: torch.Tensor                   # battery trace
     exec_h: torch.Tensor                  # executed-lane trace
     body_h: torch.Tensor                  # (max_rounds,) a lane ran the round
+                                          # ((max_events,) under cadence)
     member_h: Optional[torch.Tensor]      # membership trace (mobility)
     prev: Optional[torch.Tensor]          # (R, N, P | Lp) the round-(r-1) wire
                                           # image stale links deliver (faults)
@@ -206,6 +229,10 @@ class FleetCarry(NamedTuple):
     retry_h: Optional[torch.Tensor]       # fault retries per round
     stale_h: Optional[torch.Tensor]       # stale deliveries per round
     deliver_h: Optional[torch.Tensor]     # deliver mask per round
+    clock: Optional[torch.Tensor]         # (R,) int32 each lane's round clock (cadence)
+    idle: Optional[torch.Tensor]          # (R,) int32 idle steps since its last round
+    clock_h: Optional[torch.Tensor]       # int32 event step each round ran at
+    idle_h: Optional[torch.Tensor]        # int32 idle steps before each round
     corrupt_h: Optional[torch.Tensor]     # corrupted-delivery mask (adversary)
     clip_h: Optional[torch.Tensor]        # norm-clipped mask (robust != "none")
 
@@ -322,13 +349,6 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
         raise NotImplementedError(
             "TraceConfig.jax_profiler_dir/hlo_stats (the profiler hooks) are "
             "ROADMAP.md slice F (not ported yet)")
-    if baseline:
-        # the baselines have no renegotiation, so mobility does not apply to
-        # them (the reference drops it); faults are priced post hoc
-        return
-    unported = _unported(cfg)
-    if unported is not None:
-        raise NotImplementedError(f"{unported} is not ported yet")
 
 
 def run_fleet(task, requesters: Sequence[RequesterSpec],
@@ -394,7 +414,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                      resume_from: Optional[str] = None) -> FleetResult:
     """Algorithm 1 for every requester on the flat round state."""
     R = len(requesters)
-    mob, fc = cfg.mobility, cfg.faults
+    mob, fc, cc = cfg.mobility, cfg.faults, cfg.cadence
+    # the global event steps the loop runs over: one per round in lockstep
+    T_ev = cadence_mod.events_budget(cc, cfg.max_rounds) if cc is not None else cfg.max_rounds
     stage = tl.begin("stage")
     # ---- Phase.HANDSHAKE (host) ---------------------------------------------
     # a static world signs ranked contracts once; under mobility the lanes
@@ -502,8 +524,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     ref_epochs = max(cfg.contributor_refresh_epochs, 0)
     do_refresh = ref_epochs > 0
     # a static world trains one row per unique (device, shard, params); under
-    # mobility the lanes diverge, so every lane trains its own row
-    refresh_dedup = do_refresh and mob is None
+    # mobility or cadence the lanes diverge (membership gaps, contributor
+    # ticks), so every lane trains its own row
+    refresh_dedup = do_refresh and mob is None and cc is None
     live = live_s = None
     if do_refresh:
         cx_tab, _ = _pad_stack(shard_x, max(len(x) for x in shard_x), np.float32)
@@ -601,15 +624,23 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     lane_ids, lane_real = torch.from_numpy(lane_ids).to(dev), torch.from_numpy(lane_real).to(dev)
     lane_r = torch.arange(R, dtype=torch.int64, device=dev)
     if fc is not None:
-        # Phase.DELIVER: every round's outcomes, from one batch of draws on
+        # Phase.DELIVER: every step's outcomes, from one batch of draws on
         # the device
-        f_rounds, f_req = torch.arange(cfg.max_rounds, device=dev), lane_r + fc.requester_id
+        f_rounds, f_req = torch.arange(T_ev, device=dev), lane_r + fc.requester_id
         f_deliv, f_att, f_stale = faults_mod.link_outcomes(
             fc, f_rounds, f_req, lane_ids, partitionable=partitionable)
         f_blocked = faults_mod.blocked_mask(fc, f_rounds, f_req, lane_ids,
                                             partitionable=partitionable)
         e_rx_retry, _, t_retry = cost.retry_energy(model_bytes=model_bytes, encrypt=cfg.encrypt)
         e_retry = f32(e_rx_retry)
+    if cc is not None:
+        # lane i ticks as requester requester_id + i (paced on its battery,
+        # so per step); the contributors' ticks and image lags are closed
+        # forms of (step, device), staged over every step at once
+        c_steps, c_req = torch.arange(T_ev, device=dev), lane_r + cc.requester_id
+        c_tick = cadence_mod.tick_mask(cc, c_steps, lane_ids, partitionable=partitionable)
+        if gamma_on := float(cfg.staleness_gamma) < 1.0:
+            c_lag = cadence_mod.image_lag(cc, c_steps, lane_ids, partitionable=partitionable)
     capacity = f32([b.capacity_j for b in batteries])
     eff = f32([load_efficiency(cost.device.p_train, b.high_load_penalty,
                                b.high_load_threshold_w) for b in batteries])
@@ -621,6 +652,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     # ---- the round state ------------------------------------------------------
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def izeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
 
     T = cfg.max_rounds
     carry = FleetCarry(
@@ -635,7 +669,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         rounds_done=torch.zeros(R, dtype=torch.int32, device=dev),
         clevel=f32(clevel0) if mob is not None else None,
         acc_h=zeros(T, R), loss_h=zeros(T, R), bat_h=zeros(T, R), exec_h=zeros(T, R),
-        body_h=zeros(T),
+        body_h=zeros(T_ev),
         member_h=zeros(T, R, N) if mob is not None else None,
         # the stale-delivery snapshot starts as the handshake staging (a
         # round-0 stale hit is a no-op)
@@ -645,16 +679,48 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         retry_h=zeros(T, R) if fc is not None else None,
         stale_h=zeros(T, R) if fc is not None else None,
         deliver_h=zeros(T, R, N) if fc is not None else None,
+        clock=izeros(R) if cc is not None else None,
+        idle=izeros(R) if cc is not None else None,
+        clock_h=izeros(T, R) if cc is not None else None,
+        idle_h=izeros(T, R) if cc is not None else None,
         corrupt_h=zeros(T, R, N) if ac is not None else None,
         clip_h=zeros(T, R, N) if robust != "none" else None)
 
-    def round_body(c: FleetCarry, r: int) -> FleetCarry:
-        """One round of every requester, on the device: the carry after
-        round ``r``.  A lane that is no longer active changes nothing."""
+    def fit_plan(clocks: np.ndarray):
+        """The requesters' fit plan: each lane's scores on ``seed`` plus its
+        round clock, one table per distinct clock, gathered to the lanes."""
+        uniq, inv = np.unique(clocks, return_inverse=True)
+        scores = torch.stack([schedule.epoch_scores(cfg.seed + int(k), cfg.epochs, n_pad,
+                                                    partitionable=partitionable)
+                              for k in uniq])[torch.from_numpy(inv.reshape(-1))]
+        return schedule.lane_plans(scores, n_own, batch, steps_max)
+
+    def round_body(c: FleetCarry, r: int, tick=None, clocks=None) -> FleetCarry:
+        """One round of every requester at event step ``r``, on the device:
+        the carry after it.  In lockstep the active lanes execute; under
+        cadence the ticking ones (``tick``, already masked by activity),
+        each at its own round clock (``clocks``, the host's mirror).  A
+        lane that does not execute changes nothing but its idle count."""
         active, contrib, cscale = c.active, c.contrib, c.cscale
-        ran = active.any()
+        ex = active if tick is None else tick
+        ran = ex.any()
+        if cc is None:
+            def put(buf, row):
+                return _put(buf, r, row)
+        else:
+            # each executing lane lands at its own round row (a stopped
+            # lane's clock may sit at the budget: clamped, and masked out)
+            rows = c.clock.clamp(max=T - 1).long()
+
+            def put(buf, row):
+                row = torch.as_tensor(row, device=dev).to(buf.dtype).expand(buf.shape[1:])
+                keep = ex.reshape((R,) + (1,) * (buf.dim() - 2))
+                buf[rows, lane_r] = torch.where(keep, row, buf[rows, lane_r])
+                return buf
+
         upd = {"body_h": _put(c.body_h, r, ran.to(torch.float32))}
         blocked = f_blocked[r] if fc is not None else None
+        ctick = c_tick[r] if cc is not None else None
         # Phase.RENEGOTIATE (mobility): release, sign and undercut on the
         # device (a streak-blocked link is released too); the member mask
         # is this round's weight row
@@ -685,7 +751,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             if cscale is not None:
                 src_s = torch.where(stale_hit[..., None], c.prev_s, cscale)
         # Phase.COLLECT under an adversary: a corrupted copy of the delivered
-        # buffer, keyed on the delivering round
+        # buffer, keyed on the delivering step
         if ac is not None:
             areq_ids = lane_r + ac.requester_id
             cmask = adversary_mod.corruption_mask(ac, r, areq_ids, lane_ids,
@@ -703,11 +769,15 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                 src = adversary_mod.corrupt_dense_batched(
                     ac, src, cmask, r, areq_ids, lane_ids, partitionable=partitionable)
             counted = delivered if fc is not None else (member if mob is not None else lane_real)
-            upd["corrupt_h"] = _put(c.corrupt_h, r, (cmask & counted & active[:, None]))
-        if gamma < 1.0 and fc is not None:
-            # a stale delivery lags one round: gamma**lag on its weight (the
-            # 0/1 masks before it are exact, so the order is immaterial)
-            round_w_t = protocol.decayed_round_weights(round_w_t, stale_hit, gamma)
+            upd["corrupt_h"] = put(c.corrupt_h, cmask & counted & ex[:, None])
+        if gamma < 1.0 and (fc is not None or cc is not None):
+            # gamma**lag on each weight: the image's age in event steps
+            # (cadence), one more for a stale delivery (the 0/1 masks before
+            # it are exact, so the order is immaterial)
+            lag = c_lag[r] if cc is not None else 0
+            if fc is not None:
+                lag = lag + stale_hit
+            round_w_t = protocol.decayed_round_weights(round_w_t, lag, gamma)
         # Phase.AGGREGATE: eq. 14, or the robust statistic, in one launch
         # over the whole buffer
         if robust != "none":
@@ -716,7 +786,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                 glob = glob[:, :P]
             else:
                 glob, clipped = robust_aggregate(src, round_w_t, method=robust)
-            upd["clip_h"] = _put(c.clip_h, r, clipped & active[:, None])
+            upd["clip_h"] = put(c.clip_h, clipped & ex[:, None])
         elif wire_compress == "int8":
             glob = fedavg_flat_batched_q8(src, src_s, round_w_t)[:, :P]
         else:
@@ -725,9 +795,8 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             # nothing fed eq. 14: the lane keeps training its own params
             glob = torch.where((count > 0)[:, None], glob, c.last)
         # Phase.FIT + Phase.SCORE, every requester as a lane
-        scores = schedule.epoch_scores(cfg.seed + r, cfg.epochs, n_pad,
-                                       partitionable=partitionable)
-        idx, w = schedule.lane_plans(scores, n_own, batch, steps_max)
+        # in lockstep every lane's clock is the round
+        idx, w = fit_plan(np.full(R, r) if clocks is None else clocks)
         new_flat, last_loss = _fit_lanes(
             task, spec, glob, lambda ib: (own_x[lanes_r, ib], own_y[lanes_r, ib]),
             idx.to(dev), w.to(dev), (w.sum(-1) > 0).numpy())
@@ -741,38 +810,55 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         level_new = discharge_level(c.level, e_round, capacity, eff)
         reached = acc >= desired
         low = level_new < threshold
-        stop_code = torch.where(active & reached, protocol.STOP_ACCURACY,
-                                torch.where(active & ~reached & low,
+        stop_code = torch.where(ex & reached, protocol.STOP_ACCURACY,
+                                torch.where(ex & ~reached & low,
                                             protocol.STOP_BATTERY, c.stop_code))
-        level = torch.where(active, level_new, c.level)
-        next_active = active & ~reached & ~low
+        level = torch.where(ex, level_new, c.level)
+        # the session survives the round; under cadence it goes on while its
+        # clock is inside the budget (the last budget round still refreshes)
+        cont = active & ~(ex & (reached | low))
+        next_active = cont
+        if cc is not None:
+            clock = c.clock + ex.to(torch.int32)
+            next_active = cont & (clock < T)
+            upd.update(clock=clock, clock_h=put(c.clock_h, r), idle_h=put(c.idle_h, c.idle),
+                       idle=torch.where(ex, 0, c.idle + (active & ~ex).to(torch.int32)))
         # a round no lane ran leaves its rows 0, as the reference's skipped body
         upd.update(
             stop_code=stop_code, level=level, active=next_active,
-            rounds_done=c.rounds_done + active.to(torch.int32),
-            last=torch.where(active[:, None], new_flat, c.last),
-            acc_h=_put(c.acc_h, r, torch.where(ran, acc, 0.0)),
-            loss_h=_put(c.loss_h, r, torch.where(ran, last_loss, 0.0)),
-            bat_h=_put(c.bat_h, r, torch.where(ran, level, 0.0)),
-            exec_h=_put(c.exec_h, r, active))
+            rounds_done=c.rounds_done + ex.to(torch.int32),
+            last=torch.where(ex[:, None], new_flat, c.last),
+            acc_h=put(c.acc_h, torch.where(ran, acc, 0.0)),
+            loss_h=put(c.loss_h, torch.where(ran, last_loss, 0.0)),
+            bat_h=put(c.bat_h, torch.where(ran, level, 0.0)),
+            exec_h=put(c.exec_h, ex))
         if fc is not None:
-            upd.update(drop_h=_put(c.drop_h, r, drops_r * active),
-                       retry_h=_put(c.retry_h, r, retries_r * active),
-                       stale_h=_put(c.stale_h, r, stale_r * active),
-                       deliver_h=_put(c.deliver_h, r, delivered & active[:, None]),
+            upd.update(drop_h=put(c.drop_h, drops_r * ex),
+                       retry_h=put(c.retry_h, retries_r * ex),
+                       stale_h=put(c.stale_h, stale_r * ex),
+                       deliver_h=put(c.deliver_h, delivered & ex[:, None]),
                        # the image next round's stale links deliver: this
-                       # round's, before refresh rebinds the state
-                       prev=contrib, prev_s=cscale)
+                       # round's, before refresh rebinds the state (under
+                       # cadence only where the lane executed)
+                       prev=contrib if cc is None else torch.where(
+                           ex[:, None, None], contrib, c.prev),
+                       prev_s=cscale if cc is None or cscale is None else torch.where(
+                           ex[:, None, None], cscale, c.prev_s))
+        # members of executing lanes paid their transmission (once per
+        # attempt under faults), and the refresh term where the session
+        # goes on (under cadence: where the member ticks too)
+        refresh_on = (cont & ex)[:, None]
+        if cc is not None:
+            refresh_on = refresh_on & ctick
         if mob is not None:
-            # members paid their transmission (once per attempt under
-            # faults), and the refresh term where the session goes on
             e_tx_round = e_tx * attempts.to(torch.float32) if fc is not None else e_tx
             upd["clevel"] = mobility.contributor_discharge(
-                c.clevel, member & active[:, None], e_tx_round, e_ref, next_active[:, None],
+                c.clevel, member & ex[:, None], e_tx_round, e_ref, refresh_on,
                 mob.contributor_capacity_j)
-            upd["member_h"] = _put(c.member_h, r, member & active[:, None])
-        # Phase.REFRESH under mobility: every lane trains its own row, the
-        # members of sessions that go on take the result
+            upd["member_h"] = put(c.member_h, member & ex[:, None])
+        # Phase.REFRESH per lane (mobility, cadence): every lane trains its
+        # own row, the members (signed lanes) of sessions that go on take
+        # the result, under cadence where they tick
         if do_refresh and not refresh_dedup:
             if cscale is not None:
                 ref_src = dequantize_flat_batched(contrib.reshape(R * N, -1),
@@ -781,7 +867,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                 ref_src = contrib.reshape(R * N, P)
             refreshed, _ = _fit_lanes(task, spec, ref_src, refresh_batch, ref_idx, ref_w,
                                       ref_live)
-            take = (next_active[:, None] & member)[..., None]
+            take = (refresh_on & (member if mob is not None else lane_real))[..., None]
             if cscale is not None:
                 q2, s2 = quantize_flat_batched(refreshed)
                 upd["contrib"] = torch.where(take, q2.reshape(R, N, -1), contrib)
@@ -805,6 +891,22 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                            contrib=torch.where(take, refreshed[ref_uidx], contrib))
         return c._replace(**upd)
 
+    # host mirror of the lanes' round clocks (cadence): the fit plans
+    clocks = np.zeros(R, np.int64)
+
+    def event_step(c: FleetCarry, t: int) -> FleetCarry:
+        """Global event step ``t`` under cadence: which lanes tick (the
+        step's one host read); with none, only the active lanes' idle
+        counts move, else the round body runs for the ticking lanes."""
+        tick = cadence_mod.tick_mask(cc, t, c_req, level=c.level,
+                                     partitionable=partitionable) & c.active
+        tick_host = tick.cpu().numpy()
+        if not tick_host.any():
+            return c._replace(idle=c.idle + c.active.to(torch.int32))
+        c = round_body(c, t, tick, clocks)
+        clocks[:] += tick_host
+        return c
+
     # ---- checkpoint/resume: the carry at chunk boundaries ---------------------
     every = checkpoint_every if checkpoint_every > 0 else round_chunk
     every = -(-every // round_chunk) * round_chunk        # a multiple of the chunk
@@ -819,6 +921,8 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             r0 = int(pay["r0"])
             carry = FleetCarry(*(None if v is None else torch.from_numpy(v).to(dev)
                                  for v in pay["state"]))
+        if cc is not None:
+            clocks[:] = carry.clock.cpu().numpy()
 
     def saved(r_next: int) -> None:
         if checkpoint_dir and r_next % every == 0:
@@ -827,11 +931,11 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             with tl.span("checkpoint_save", r0=r_next):
                 save_checkpoint(checkpoint_dir, r_next, {"r0": np.int64(r_next), "state": carry})
 
-    # ---- the round loop -------------------------------------------------------
+    # ---- the round loop (event steps under cadence) ---------------------------
     program = tl.begin("program")
-    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(carry.active.any()),
+    for r in _chunked_rounds(T_ev, round_chunk, lambda: bool(carry.active.any()),
                              r0=r0, on_chunk=saved):
-        carry = round_body(carry, r)
+        carry = round_body(carry, r) if cc is None else event_step(carry, r)
     _sync(dev)
     tl.finish(program)
 
@@ -839,6 +943,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
     unpack = tl.begin("unpack")
     rounds_np, codes_np, level_np = (t.cpu().numpy() for t in (carry.rounds_done,
                                                                   carry.stop_code, carry.level))
+    idle_np = carry.idle.cpu().numpy() if cc is not None else None
     hist = {k: (None if v is None else v.cpu().numpy())
             for k, v in carry._asdict().items() if k.endswith("_h")}
     acc_h, loss_h, bat_h, exec_h, body_h = (hist[k] for k in ("acc_h", "loss_h", "bat_h",
@@ -871,6 +976,11 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             # post hoc from the traces
             extra_i = float(hist["drop_h"][:r_i, i].sum() + hist["retry_h"][:r_i, i].sum())
             report.add_transfers(extra_i, t_retry, e_rx_retry)
+        if cc is not None:
+            # the idle steps before each round and the trailing ones of a
+            # lane that never finished, priced post hoc
+            report.add_idle(cost, int(hist["idle_h"][:r_i, i].sum()) + int(idle_np[i]),
+                            cc.idle_step_s)
         if robust != "none" and r_i:
             # one screening pass over the session's N x P buffer per executed
             # round, priced post hoc (never drains the simulated battery)
@@ -889,6 +999,9 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
             for name, key in (("drops", "drop_h"), ("retries", "retry_h"), ("stale", "stale_h")):
                 history[name] = [float(v) for v in hist[key][:r_i, i]]
             history["deliver_mask"] = [hist["deliver_h"][t, i].copy() for t in range(r_i)]
+        if cc is not None:
+            history["round_clock"] = [int(v) for v in hist["clock_h"][:r_i, i]]
+            history["idle_steps"] = [int(v) for v in hist["idle_h"][:r_i, i]]
         if ac is not None:
             history["corrupted_mask"] = [hist["corrupt_h"][t, i].copy() for t in range(r_i)]
         if robust != "none":
@@ -903,6 +1016,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                   "executed": exec_h, "round_executed": body_h}
     for name, key in (("member", "member_h"), ("drops", "drop_h"), ("retries", "retry_h"),
                       ("stale", "stale_h"), ("deliver", "deliver_h"),
+                      ("round_clock", "clock_h"), ("idle_steps", "idle_h"),
                       ("corrupted", "corrupt_h"), ("clipped", "clip_h")):
         if hist[key] is not None:
             fleet_hist[name] = hist[key]

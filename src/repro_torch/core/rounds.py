@@ -59,11 +59,22 @@ round state every ``checkpoint_every`` rounds (default: every round) in
 the reference's layout (:mod:`repro_torch.checkpoint`; the int8 wire as
 its codes and scales), and ``resume_from`` continues from the newest
 checkpoint of a directory with the same bits as a run that was never
-stopped.  The port runs every lockstep world: ``encrypt`` on or off, any
-``strategy``, any ``compress``, Byzantine contributors and the robust
-AGGREGATE, unreliable links and staleness decay, in a static
-neighbourhood or under mobility.  Cadence raises ``NotImplementedError``
-naming ``ROADMAP.md`` slice E.3.
+stopped.  The port runs every world of the reference: ``encrypt`` on or
+off, any ``strategy``, any ``compress``, Byzantine contributors and the
+robust AGGREGATE, unreliable links and staleness decay, in a static
+neighbourhood or under mobility, in lockstep or on an asynchronous
+cadence.
+
+Under ``cadence=CadenceConfig(...)`` the session loops over global event
+steps (:mod:`repro_torch.core.cadence`, ``_EventClock``): world state
+(fault weather, streak blocks, the adversary, mobility) keys on the step
+``t``, the requester's round clock ``r`` (its fit seed, its round budget)
+advances only on its ticks, an idle step is counted and priced post hoc
+through ``CostModel.idle_energy``, and a contributor refreshes only on its
+own ticks, so a straggler's resident image is aggregated as-is (decayed by
+``image_lag`` under ``staleness_gamma < 1``).  ``history_raw`` gains
+``round_clock`` and ``idle_steps``.  ``cadence=None`` is one step per
+round, ``t == r``.
 """
 
 from __future__ import annotations
@@ -78,9 +89,11 @@ import torch
 
 from repro_torch.core import adversary as adversary_mod
 from repro_torch.core import aggregation, crypto, mobility, protocol, topology
+from repro_torch.core import cadence as cadence_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.adversary import AdversaryConfig
 from repro_torch.core.battery import BatteryState
+from repro_torch.core.cadence import CadenceConfig
 from repro_torch.core.energy import CostModel, EnergyReport, update_wire_bytes
 from repro_torch.core.faults import FaultConfig
 from repro_torch.core.incentive import (Contract, NeighborDevice, candidate_pool,
@@ -115,9 +128,8 @@ class EnFedConfig:
     mobility: Optional[MobilityConfig] = None
     # unreliable links: drops, bounded retries, stale delivery
     faults: Optional[FaultConfig] = None
-    # asynchronous cadence belongs to a later slice of the port; the
-    # engines raise NotImplementedError for it
-    cadence: Optional[object] = None        # asynchronous cadence: slice E.3
+    # asynchronous cadence: per-device round clocks on global event steps
+    cadence: Optional[CadenceConfig] = None
     adversary: Optional[AdversaryConfig] = None   # Byzantine contributors
     # robust AGGREGATE: "none" (eq. 14) | "clip" | "trimmed_mean" | "median"
     robust: str = "none"
@@ -135,19 +147,6 @@ class EnFedConfig:
             raise ValueError(
                 f"staleness_gamma must be within [0, 1] "
                 f"(got {self.staleness_gamma})")
-
-
-# the world knobs the port does not run yet, with the slice of each
-_UNPORTED_WORLDS = (("cadence", "E.3"),)
-
-
-def _unported(cfg: EnFedConfig) -> Optional[str]:
-    """The first knob of ``cfg`` the port does not run, with its slice."""
-    world = " under mobility" if cfg.mobility is not None else ""
-    for name, sub in _UNPORTED_WORLDS:
-        if getattr(cfg, name) is not None:
-            return f"{name}{world} (world state, ROADMAP.md slice {sub})"
-    return None
 
 
 @dataclasses.dataclass
@@ -177,6 +176,76 @@ class SessionResult:
 # the loop engine's protocol phases that the timeline records, by span name
 _PHASE_SPANS = {"handshake": "handshake", "collect": "transport", "fit": "fit",
                 "refresh": "refresh"}
+
+
+class _EventClock:
+    """The loop engine's two clocks, the one gate of both its worlds: the
+    global event step ``t`` the world keys on and the requester's round
+    clock ``r`` that advances only on its ticks.  ``idle_run`` counts the
+    idle steps since the last executed round.  Lockstep
+    (``cadence=None``): one step per round, ``t == r``."""
+
+    def __init__(self, cfg: EnFedConfig, partitionable: bool):
+        self.cc = cfg.cadence
+        self.max_rounds = cfg.max_rounds
+        self.part = partitionable
+        self.total = (cadence_mod.events_budget(self.cc, cfg.max_rounds)
+                      if self.cc is not None else cfg.max_rounds)
+        self.idle_run = 0
+
+    def begin(self, history) -> None:
+        if self.cc is not None:
+            history.update(round_clock=[], idle_steps=[])
+
+    def steps(self, t_start: int, r_start: int, level):
+        """``(t, r)`` of every executed round from the restored clocks; a
+        step where the requester (paced on ``level()``, its battery
+        fraction, compared in fp32) does not tick is one idle step, and the
+        steps end when the round budget is spent."""
+        r = r_start
+        for t in range(t_start, self.total):
+            if self.cc is None:
+                yield t, t
+                continue
+            if r >= self.max_rounds:
+                return
+            if not bool(cadence_mod.tick_mask(self.cc, t, self.cc.requester_id,
+                                              level=np.float32(level()),
+                                              partitionable=self.part)):
+                self.idle_run += 1
+                continue
+            yield t, r
+            r += 1
+
+    def executed(self, history, t: int) -> None:
+        """Record the executed round's step and the idle steps before it."""
+        if self.cc is not None:
+            history["round_clock"].append(t)
+            history["idle_steps"].append(self.idle_run)
+            self.idle_run = 0
+
+    def contributor_ticks(self, t: int, ids) -> Optional[np.ndarray]:
+        """Which contributors tick at ``t`` (and so refresh); None in
+        lockstep, where every one does."""
+        if self.cc is None:
+            return None
+        return cadence_mod.tick_mask(self.cc, t, np.asarray(ids, np.int64),
+                                     partitionable=self.part).numpy()
+
+    def lag(self, t: int, ids) -> np.ndarray:
+        """Each contributor image's age at ``t`` in event steps (0 in
+        lockstep), before a stale delivery's one more."""
+        if self.cc is None:
+            return np.zeros((len(ids),), np.int64)
+        return cadence_mod.image_lag(self.cc, t, np.asarray(ids, np.int64),
+                                     partitionable=self.part).numpy()
+
+    def price(self, report: EnergyReport, cost: CostModel, history) -> None:
+        """The session's idle steps, the trailing ones included, priced post
+        hoc into ``t_com`` and ``e_comm``."""
+        if self.cc is not None:
+            report.add_idle(cost, int(sum(history["idle_steps"])) + self.idle_run,
+                            self.cc.idle_step_s)
 
 
 class EnFedSession:
@@ -409,7 +478,8 @@ class EnFedSession:
         return out
 
     def _state_payload(self, r_next, device_ids, params, history, rounds, fit_s,
-                       retry_windows, model_bytes=0, util_rows=None, level=None):
+                       retry_windows, model_bytes=0, util_rows=None, level=None,
+                       t_next=0, idle_run=0):
         """The loop engine's resumable round state as one tree, under the
         reference's keys.  Wire-format state is saved as it is resident:
         under int8 the (codes, scales) cache and its stale snapshot, never
@@ -452,6 +522,11 @@ class EnFedSession:
             pay["members"] = self._hist_pad(history["members"], n_rounds)
             pay["member_h"] = self._hist_pad(history["member_mask"], n_rounds, len(ids))
             pay["util_h"] = self._hist_pad(util_rows, n_rounds, len(ids))
+        if cfg.cadence is not None:     # the event clock
+            pay["t"] = np.int64(t_next)
+            pay["idle_run"] = np.int64(idle_run)
+            pay["clock_h"] = self._hist_pad(history["round_clock"], n_rounds)
+            pay["idle_h"] = self._hist_pad(history["idle_steps"], n_rounds)
         return pay
 
     def _on_device(self, tree):
@@ -495,6 +570,9 @@ class EnFedSession:
         for key in ("drops", "retries", "stale"):
             if key in pay:
                 history[key] = [float(v) for v in pay[key][:rounds]]
+        for key, name in (("clock_h", "round_clock"), ("idle_h", "idle_steps")):
+            if key in pay:
+                history[name] = [int(v) for v in pay[key][:rounds]]
 
     @staticmethod
     def _normalize_ckpt(checkpoint_dir, checkpoint_every):
@@ -503,6 +581,21 @@ class EnFedSession:
         if checkpoint_dir is not None and checkpoint_every == 0:
             checkpoint_every = 1   # the loop engine saves every round by default
         return checkpoint_every
+
+    def _resume(self, tl, resume_from, template, history, clock):
+        """Restore a checkpoint against ``template`` (a :meth:`_state_payload`
+        of the empty session): rebinds the session-held pieces, refills the
+        history and the event clock.  Returns ``(pay, t_start, r_start,
+        rounds, params, fit_s)``."""
+        with tl.span("checkpoint_restore"):
+            pay = self._restore_state(resume_from, template)
+        r_start, rounds = int(pay["r"]), int(pay["rounds"])
+        self._refill_history(history, pay, rounds)
+        t_start = r_start
+        if "t" in pay:
+            t_start, clock.idle_run = int(pay["t"]), int(pay["idle_run"])
+        return (pay, t_start, r_start, rounds, self._on_device(pay["params"]),
+                float(pay["fit_s"]))
 
     def _save(self, tl, checkpoint_dir, r, payload):
         from repro_torch.checkpoint import save_checkpoint
@@ -552,9 +645,6 @@ class EnFedSession:
         if engine != "loop":
             raise ValueError(f"unknown engine {engine!r} (loop|fleet)")
         every = self._normalize_ckpt(checkpoint_dir, checkpoint_every)
-        unported = _unported(self.cfg)
-        if unported is not None:
-            raise NotImplementedError(f"{unported} is not ported yet")
         tl = timeline if timeline is not None else Timeline()
         ckpt = (checkpoint_dir, every, resume_from)
         with contextlib.nullcontext() if use_pallas else plain_twins():
@@ -604,31 +694,31 @@ class EnFedSession:
                 n_devices=len(self.fleet), encrypt=cfg.encrypt), np.float64)
             # every drop or retry is one more receive window
             e_rx_retry, t_retry = self._faults_begin(history, ids, model_bytes)
+        clock = _EventClock(cfg, self.task.threefry_partitionable)
+        clock.begin(history)
 
-        r_start = 0
+        t_start = r_start = 0
         if resume_from is not None:
             template = params if params is not None else self.task.init(seed=cfg.seed)
-            with tl.span("checkpoint_restore"):
-                pay = self._restore_state(resume_from, self._state_payload(
-                    0, ids, template, history, 0, 0.0, 0.0, model_bytes=model_bytes))
-            r_start, rounds = int(pay["r"]), int(pay["rounds"])
-            params = self._on_device(pay["params"])
-            phase_s["fit"] = float(pay["fit_s"])
+            pay, t_start, r_start, rounds, params, phase_s["fit"] = self._resume(
+                tl, resume_from, self._state_payload(0, ids, template, history, 0, 0.0, 0.0,
+                                                     model_bytes=model_bytes),
+                history, clock)
             retry_windows = float(pay["retry_windows"])
             model_bytes = int(pay["model_bytes"])
-            self._refill_history(history, pay, rounds)
 
-        for r in range(r_start, cfg.max_rounds):
-            # Byzantine weather of this round: pure world state, keyed on
-            # the delivering round (lockstep: the event step is r)
+        for t, r in clock.steps(t_start, r_start, lambda: self.battery.level):
+            ctick = clock.contributor_ticks(t, ids)
+            # Byzantine weather of this step: pure world state, keyed on the
+            # delivering event step
             cmask = (adversary_mod.corruption_mask(
-                ac, r, ac.requester_id, ids,
+                ac, t, ac.requester_id, ids,
                 partitionable=self.task.threefry_partitionable).numpy()
                 if ac is not None else np.zeros((n_c,), bool))
             stale = np.zeros((n_c,), bool)
             if fc is not None:
                 # Phase.DELIVER: streak-blocked links sit the round out
-                delivered, attempts, stale, blocked = self._link_weather(r, ids)
+                delivered, attempts, stale, blocked = self._link_weather(t, ids)
                 delivered, extra = self._deliver(history, ~blocked, delivered, attempts, stale)
             else:
                 delivered = np.ones((n_c,), bool)
@@ -637,16 +727,17 @@ class EnFedSession:
                 updates = []
                 for j in lanes:
                     upd, nbytes = self._collect_update(int(ids[j]), stale=bool(stale[j]),
-                                                       corrupt=bool(cmask[j]), step=r)
+                                                       corrupt=bool(cmask[j]), step=t)
                     model_bytes = max(model_bytes, nbytes)
                     updates.append(upd)
             if ac is not None:
                 history["corrupted_mask"].append((cmask & delivered).astype(np.float32))
-            # a stale delivery lags one round: it weighs gamma into eq. 14
+            # an image's age in event steps, one more for a stale delivery:
+            # it weighs gamma**lag into eq. 14
             w_eff = round_w
             if gamma < 1.0:
                 w_eff = protocol.decayed_round_weights(
-                    round_w, (delivered & stale).astype(np.int64), gamma).numpy()
+                    round_w, clock.lag(t, ids) + (delivered & stale), gamma).numpy()
             # Phase.AGGREGATE: eq. 14 over the delivered updates, or the
             # robust statistic over the full lane buffer, in one launch
             with self._clock(phase_s, "aggregate", tl):
@@ -672,6 +763,7 @@ class EnFedSession:
             history["accuracy"].append(acc)
             history["loss"].append(float(losses[-1]))
             history["round_executed"].append(1.0)
+            clock.executed(history, t)
 
             # Phase.ACCOUNT: battery bookkeeping for this round; under faults
             # the delivered count's table entry plus one receive window per
@@ -697,12 +789,16 @@ class EnFedSession:
                 break
             if fc is not None:
                 self._snap_prev(ids)       # next round's stale images
+            # Phase.REFRESH: under cadence only the contributors that tick
+            # this step (a straggler's resident image stays as it is)
             with self._clock(phase_s, "refresh", tl, round=r):
-                self._refresh_contributors([c.device_id for c in contracts])
+                self._refresh_contributors([int(d) for j, d in enumerate(ids)
+                                            if ctick is None or ctick[j]])
             if checkpoint_dir is not None and (r + 1) % checkpoint_every == 0:
                 self._save(tl, checkpoint_dir, r, self._state_payload(
                     r + 1, ids, params, history, rounds, phase_s.get("fit", 0.0),
-                    retry_windows, model_bytes=model_bytes))
+                    retry_windows, model_bytes=model_bytes, t_next=t + 1,
+                    idle_run=clock.idle_run))
 
         report = self.cost.session(
             rounds=rounds, n_contrib=n_c, num_params=tree_size(params),
@@ -717,6 +813,7 @@ class EnFedSession:
                                                       num_params=tree_size(params))
             report.times.t_agg += rounds * t_scr
             report.e_comp += rounds * e_scr
+        clock.price(report, self.cost, history)
         return SessionResult(
             accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_c,
             report=report, battery=self.battery, history_raw=history,
@@ -796,19 +893,17 @@ class EnFedSession:
         e_rx_retry = t_retry = 0.0
         if fc is not None:
             e_rx_retry, t_retry = self._faults_begin(history, ids.tolist(), model_bytes)
+        clock = _EventClock(cfg, part)
+        clock.begin(history)
 
-        r_start = 0
+        t_start = r_start = 0
         if resume_from is not None:
-            with tl.span("checkpoint_restore"):
-                pay = self._restore_state(resume_from, self._state_payload(
-                    0, ids.tolist(), params, history, 0, 0.0, 0.0, util_rows=util_rows,
-                    level=level))
-            r_start, rounds = int(pay["r"]), int(pay["rounds"])
-            params = self._on_device(pay["params"])
-            phase_s["fit"] = float(pay["fit_s"])
+            pay, t_start, r_start, rounds, params, phase_s["fit"] = self._resume(
+                tl, resume_from, self._state_payload(0, ids.tolist(), params, history, 0, 0.0,
+                                                     0.0, util_rows=util_rows, level=level),
+                history, clock)
             retry_windows = float(pay["retry_windows"])
             level = torch.from_numpy(np.array(pay["clevel"], np.float32))
-            self._refill_history(history, pay, rounds)
             history["members"] = [float(v) for v in pay["members"][:rounds]]
             history["member_mask"] = [row.copy() for row in pay["member_h"][:rounds]]
             util_rows = [row.copy() for row in pay["util_h"][:rounds]]
@@ -817,14 +912,15 @@ class EnFedSession:
                 cands, pay["member_h"][rr] > 0, pay["util_h"][rr], cfg.offered_incentive)
                 for rr in range(rounds)]
 
-        for r in range(r_start, cfg.max_rounds):
-            # Phase.RENEGOTIATE: release, sign, undercut; under faults a
-            # streak-blocked link loses eligibility too
+        for t, r in clock.steps(t_start, r_start, lambda: self.battery.level):
+            ctick = clock.contributor_ticks(t, ids)
+            # Phase.RENEGOTIATE on this event step: release, sign, undercut;
+            # under faults a streak-blocked link loses eligibility too
             blocked = None
             if fc is not None:
-                delivered, attempts, stale, blocked = self._link_weather(r, ids)
+                delivered, attempts, stale, blocked = self._link_weather(t, ids)
             member_t, rank, util = mobility.membership_step(
-                mob, r, mob.requester_id, ids, cand_mask, base_util, level, cfg.n_max,
+                mob, t, mob.requester_id, ids, cand_mask, base_util, level, cfg.n_max,
                 blocked=blocked, partitionable=part)
             round_w = topology.dynamic_round_weights(member_t, rank, cfg.strategy).numpy()
             member = member_t.numpy()
@@ -836,7 +932,7 @@ class EnFedSession:
                 cands, member, util, cfg.offered_incentive))
             # Byzantine weather of this round; a corrupted link counts only
             # when its update is aggregated
-            cmask = (adversary_mod.corruption_mask(ac, r, ac.requester_id, ids,
+            cmask = (adversary_mod.corruption_mask(ac, t, ac.requester_id, ids,
                                                    partitionable=part).numpy()
                      if ac is not None else np.zeros((n_cand,), bool))
             # Phase.DELIVER: which members' updates arrive
@@ -849,7 +945,7 @@ class EnFedSession:
             w_eff = round_w
             if gamma < 1.0:
                 w_eff = protocol.decayed_round_weights(
-                    round_w, (agg_mask & stale).astype(np.int64), gamma).numpy()
+                    round_w, clock.lag(t, ids) + (agg_mask & stale), gamma).numpy()
             # Phase.COLLECT + Phase.AGGREGATE over the aggregated lanes, in
             # lane order (the fleet's full-lane masked reduction, bit for bit)
             lanes = np.nonzero(agg_mask)[0]
@@ -857,7 +953,7 @@ class EnFedSession:
             if len(lanes):
                 with self._clock(phase_s, "collect", tl, round=r):
                     updates = [self._collect_update(int(ids[j]), stale=bool(stale[j]),
-                                                    corrupt=bool(cmask[j]), step=r)[0]
+                                                    corrupt=bool(cmask[j]), step=t)[0]
                                for j in lanes]
             with self._clock(phase_s, "aggregate", tl):
                 if cfg.robust != "none":
@@ -880,6 +976,7 @@ class EnFedSession:
             history["accuracy"].append(acc)
             history["loss"].append(float(losses[-1]))
             history["round_executed"].append(1.0)
+            clock.executed(history, t)
 
             # Phase.ACCOUNT: the requester pays the aggregated count's entry,
             # under faults plus one receive window per drop or retry
@@ -895,25 +992,30 @@ class EnFedSession:
                 stop = protocol.STOP_BATTERY
             # members paid their transmission (once per attempt under
             # faults); the refresh term only while the session goes on (the
-            # last budget round still refreshes)
+            # last budget round still refreshes) and, under cadence, only
+            # where the member ticks this step
             continuing = stop == protocol.STOP_MAX_ROUNDS
+            refresh = member if ctick is None else member & ctick
             e_tx_round = (e_tx * torch.from_numpy(attempts).to(torch.float32)
                           if fc is not None else e_tx)
-            level = mobility.contributor_discharge(level, member_t, e_tx_round, e_ref,
-                                                   continuing, mob.contributor_capacity_j)
+            level = mobility.contributor_discharge(
+                level, member_t, e_tx_round, e_ref,
+                continuing if ctick is None else continuing & torch.from_numpy(ctick),
+                mob.contributor_capacity_j)
             if not continuing:
                 break
             if fc is not None:
                 self._snap_prev(ids.tolist())    # next round's stale images
-            # Phase.REFRESH for the current members only
+            # Phase.REFRESH for the current members only (under cadence the
+            # ticking ones)
             if cfg.contributor_refresh_epochs > 0:
                 with self._clock(phase_s, "refresh", tl, round=r):
-                    self._refresh_contributors([int(ids[j]) for j in np.nonzero(member)[0]])
+                    self._refresh_contributors([int(ids[j]) for j in np.nonzero(refresh)[0]])
             if checkpoint_dir is not None and (r + 1) % checkpoint_every == 0:
                 self._save(tl, checkpoint_dir, r, self._state_payload(
                     r + 1, ids.tolist(), params, history, rounds, phase_s.get("fit", 0.0),
                     retry_windows, model_bytes=model_bytes, util_rows=util_rows,
-                    level=level))
+                    level=level, t_next=t + 1, idle_run=clock.idle_run))
 
         mean_members = float(np.mean(history["members"])) if rounds else 0.0
         report = self.cost.session(
@@ -929,6 +1031,7 @@ class EnFedSession:
                                                       num_params=num_params)
             report.times.t_agg += rounds * t_scr
             report.e_comp += rounds * e_scr
+        clock.price(report, self.cost, history)
         return SessionResult(
             accuracy=history["accuracy"][-1], rounds=rounds, n_contributors=n_cand,
             report=report, battery=self.battery, history_raw=history,

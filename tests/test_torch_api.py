@@ -309,7 +309,8 @@ def test_dfl_topologies_coexist_via_labels():
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 @pytest.mark.parametrize("knob,match", [
     (dict(world=dict(mobility=object())), "ignores world.mobility"),
-    (dict(method=dict(cadence=object())), "ignores MethodSpec.cadence"),
+    (dict(method=dict(cadence=tcore.CadenceConfig(n_speed_classes=2))),
+     "ignores MethodSpec.cadence"),
     (dict(method=dict(adversary=tcore.AdversaryConfig(p_byzantine=0.5), robust="clip")),
      "ignores MethodSpec.adversary"),
     (dict(execution=dict(checkpoint_dir="ckpt")), "ignores ExecutionSpec checkpointing")])
@@ -377,14 +378,24 @@ def test_engines_refuse_interpret(engine):
 
 
 @pytest.mark.parametrize("knob,engine,match", [
-    (dict(method=dict(cadence=object())), "fleet", "slice E"),
+    (dict(method=dict(cadence=tcore.CadenceConfig(n_speed_classes=2, duty_cycle=3, duty_on=2,
+                                                  seed=3))), "fleet", "slice E"),
     (dict(execution=dict(trace=TraceConfig(hlo_stats=True))), "fleet", "slice F"),
     (dict(execution=dict(trace=TraceConfig(jax_profiler_dir="prof"))), "fleet", "slice F")])
 def test_enfed_refuses_unported_knobs_naming_their_slice(knob, engine, match):
+    """The profiler fields still raise naming slice F; the cadence, which
+    raised naming slice E before its slice, runs now, its events carrying
+    the lane's clock and idle steps."""
     _, tw = _worlds()
     world = dataclasses.replace(tw, **knob.get("world", {}))
     method = dataclasses.replace(_methods()[1], **knob.get("method", {}))
     execution = ExecutionSpec(engine=engine, **knob.get("execution", {}))
+    if match == "slice E":
+        res = Experiment(world, method, execution).run()
+        rounds = [e for e in validate_events(res.trace) if e.phase == "round"]
+        assert [e.clock for e in rounds] == res.history_raw["round_clock"]
+        assert all(e.idle is not None for e in rounds) and np.isfinite(res.accuracy)
+        return
     with pytest.raises(NotImplementedError, match=match):
         Experiment(world, method, execution).run()
 
@@ -610,18 +621,26 @@ def test_har_federated_twin_wants_a_gpu_by_default(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--churn", "--faults", "--cadence"])
 def test_har_federated_twin_refuses_unported_worlds(flag, capsys):
-    """The world flag of a later slice (``--cadence``) exits non-zero naming
-    it; the mobility and fault worlds run their walkthroughs, in process on
-    the calories MLP: each round's contract set with its joins and leaves,
-    or its delivered set with the drop, retry and stale counts."""
+    """Every world flag runs its walkthrough (``--cadence`` exited non-zero
+    before its slice), in process on the calories MLP: each round's
+    contract set with its joins and leaves, its delivered set with the
+    drop, retry and stale counts, or its clock, idle steps and
+    stragglers."""
     argv = ["--dataset", "calories", flag, "--device", "cpu"]
-    if flag == "--cadence":
-        assert _example_main()(argv) == 2
-        assert "slice E" in capsys.readouterr().err
-        return
     assert _example_main()(argv + ["--epochs", "1"]) == 0
     lines = capsys.readouterr().out.splitlines()
     head = next(i for i, line in enumerate(lines) if line.startswith("round"))
+    if flag == "--cadence":
+        assert "clock" in lines[head] and "idle" in lines[head] and "stragglers" in lines[head]
+        rows = lines[head + 1: head + 11]
+        assert [int(r.split()[0]) for r in rows] == list(range(10))
+        clocks = [int(r.split()[1]) for r in rows]
+        assert clocks == sorted(set(clocks))
+        assert any(int(r.split()[2]) > 0 for r in rows)   # the requester idled
+        assert any("[]" not in r for r in rows)      # a straggler on some step
+        summary = next(line for line in lines if line.startswith("cadence:"))
+        assert summary.split()[1:5] == ["10", "rounds", "over", str(clocks[-1] + 1)]
+        return
     if flag == "--faults":
         assert "delivered" in lines[head] and "stale" in lines[head]
         rows = lines[head + 1: head + 11]

@@ -347,7 +347,7 @@ def _knob(mod, value):
     if value == "adv":
         return mod.AdversaryConfig(p_byzantine=0.5)
     if value == "cadence":
-        return mod.CadenceConfig() if mod is jcore else object()
+        return mod.CadenceConfig()
     return value
 
 

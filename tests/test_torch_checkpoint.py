@@ -156,3 +156,24 @@ def test_a_reference_checkpoint_restores_in_the_port(tmp_path):
     save_checkpoint(str(tmp_path / "port"), 2, _state(seed=5))
     back, _ = jck.restore_checkpoint(str(tmp_path / "port"), _state())
     np.testing.assert_array_equal(np.asarray(back["wire"]["q"]), _state(seed=5)["wire"]["q"])
+    # the cadence world's event clock, as the loop payload holds it (int64
+    # step and idle run, float64 clock and idle traces) and as the fleet's
+    # carry does (int32 lane clocks), reads both ways too
+    for seed, (save, restore) in enumerate(((jck.save_checkpoint, restore_checkpoint),
+                                            (save_checkpoint, jck.restore_checkpoint)), start=6):
+        state = dict(_state(seed), **_cadence_fields(seed))
+        save(str(tmp_path / f"cad{seed}"), 4, state)
+        out, step = restore(str(tmp_path / f"cad{seed}"), dict(_state(), **_cadence_fields(0)))
+        assert step == 4
+        for key in ("t", "idle_run", "clock_h", "idle_h", "clock", "idle"):
+            np.testing.assert_array_equal(np.asarray(out[key]), state[key])
+            assert np.asarray(out[key]).dtype == state[key].dtype
+
+
+def _cadence_fields(seed):
+    rng = np.random.default_rng(seed)
+    return {"t": np.int64(rng.integers(0, 80)), "idle_run": np.int64(rng.integers(0, 5)),
+            "clock_h": rng.integers(0, 80, 10).astype(np.float64),
+            "idle_h": rng.integers(0, 5, 10).astype(np.float64),
+            "clock": rng.integers(0, 10, 4).astype(np.int32),
+            "idle": rng.integers(0, 5, 4).astype(np.int32)}

@@ -269,22 +269,41 @@ def test_fleet_write_back_holds_refreshed_contributors():
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
 _MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
 _FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
+_CC = tcore.CadenceConfig(n_speed_classes=2, duty_cycle=3, duty_on=2, p_offline=0.15, seed=3)
 
 
 @pytest.mark.parametrize("knob,kwargs", [
-    (dict(mobility=_MOB, cadence=object()), {}), (dict(cadence=object()), {}),
-    (dict(adversary=_AC, robust="clip", cadence=object()), {}),
+    (dict(mobility=_MOB, cadence=_CC), {}), (dict(cadence=_CC), {}),
+    (dict(adversary=_AC, robust="clip", cadence=_CC), {}),
     # under a baseline method: the profiler fields
     ({}, dict(method="dfl", trace=TraceConfig(hlo_stats=True))),
     ({}, dict(method="cfl", trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(trace=TraceConfig(hlo_stats=True)))])
 def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):
+    """The profiler fields still raise naming slice F; the cadence cases,
+    refused before the cadence slice, run now, alone, under mobility and
+    with the adversary (held to the reference in
+    ``tests/test_torch_cadence_engines.py``)."""
     task, train, test, fleet, states, cfg = _one_lane_world(None)
     cfg = dataclasses.replace(cfg, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-        tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
-                        device="cpu", **kwargs)
+
+    def run():
+        return tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
+                               device="cpu", **kwargs)
+
+    if "cadence" not in knob:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md slice F"):
+            run()
+        return
+    res = run()
+    s0 = res.sessions[0]
+    assert s0.rounds == cfg.max_rounds and np.isfinite(res.accuracy).all()
+    assert res.history["round_clock"].shape == (cfg.max_rounds, 1)
+    assert res.history["round_executed"].shape == (
+        tcore.cadence.events_budget(_CC, cfg.max_rounds),)
+    assert s0.history_raw["round_clock"] == sorted(set(s0.history_raw["round_clock"]))
+    assert ("member_mask" in s0.history_raw) == ("mobility" in knob)
 
 
 @pytest.mark.parametrize("knob,kwargs", [

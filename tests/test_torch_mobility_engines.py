@@ -334,15 +334,22 @@ def test_two_requester_event_streams_match_across_engines_and_packages():
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
-@pytest.mark.parametrize("knob,kwargs,sub", [(dict(cadence=object()), {}, "E.3")])
+@pytest.mark.parametrize("knob,kwargs,sub", [(dict(cadence=tcore.CadenceConfig(
+    n_speed_classes=2, duty_cycle=3, duty_on=2, seed=3)), {}, "E.3")])
 def test_unported_knobs_under_mobility_raise_naming_their_slice(engine, knob, kwargs, sub):
+    """The knob the session refused under churn before slice ``sub`` runs
+    now on both engines: membership renegotiated on the event steps the
+    requester ticks on (held to the reference in
+    ``tests/test_torch_cadence_worlds.py``)."""
     mob_kw, over, _, part = WORLDS["waypoint-churn"]
-    cfg = dataclasses.replace(_cfg(tcore, mob_kw, **over), **knob)
+    cfg = dataclasses.replace(_cfg(tcore, mob_kw, **over), max_rounds=3, **knob)
     ttask, own_train, own_test, tfleet, states_fn = _port_world(part)
     session = tcore.EnFedSession(ttask, own_train, own_test, tfleet, states_fn(), cfg,
                                  device=CPU)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md slice {sub}"):
-        session.run(engine=engine, **kwargs)
+    res = session.run(engine=engine, **kwargs)
+    assert res.rounds == 3, f"slice {sub}"
+    clock = res.history_raw["round_clock"]
+    assert len(_masks(res, "member_mask")) == len(clock) == 3 and clock[-1] > 2
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])

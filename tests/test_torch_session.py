@@ -234,6 +234,7 @@ def test_int8_session_matches_jax_loop_engine(kind, partitionable, encrypt, comp
 _AC = tcore.AdversaryConfig(p_byzantine=0.5)
 _MOB = tcore.MobilityConfig(radio_range_m=110.0, leg_rounds=2, seed=3)
 _FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
+_CC = tcore.CadenceConfig(n_speed_classes=2, duty_cycle=3, duty_on=2, p_offline=0.15, seed=3)
 
 
 def _mlp_session(cfg):
@@ -246,10 +247,18 @@ def _mlp_session(cfg):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(cadence=object()), dict(adversary=_AC, robust="clip", cadence=object())])
+    dict(cadence=_CC), dict(adversary=_AC, robust="clip", cadence=_CC)])
 def test_unported_knobs_raise_naming_their_slice(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice"):
-        _mlp_session(tcore.EnFedConfig(**knob)).run()
+    """The knobs the session refused before the cadence slice, naming it,
+    run now (held to the reference in ``tests/test_torch_cadence_engines.py``):
+    the requester's round clock runs on event steps, idle steps priced."""
+    cfg = tcore.EnFedConfig(max_rounds=2, epochs=1, desired_accuracy=1.01, **knob)
+    res = _mlp_session(cfg).run()
+    assert res.rounds == 2 and np.isfinite(res.history_raw["accuracy"]).all()
+    clock = res.history_raw["round_clock"]
+    assert len(clock) == 2 and clock[0] < clock[1]
+    assert sum(res.history_raw["idle_steps"]) == clock[1] - 1
+    assert ("clipped_mask" in res.history_raw) == ("robust" in knob)
 
 
 @pytest.mark.parametrize("knob", [

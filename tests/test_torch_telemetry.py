@@ -1,10 +1,11 @@
 """``repro_torch.telemetry`` on the CPU, case by case the twin of
 ``tests/test_telemetry.py`` wherever the world is ported: observation never
 changes the outcome (a traced run is bitwise the untraced one, on both
-engines, in the static, mobility, fault and Byzantine worlds), the two engines' event
+engines, in the static, mobility, fault, cadence and Byzantine worlds), the two engines' event
 streams on one world are equal, the exporters round-trip schema-valid (a
 Byzantine log included), the Timeline span stack behaves, and each engine
-records its spans.
+records its spans.  The cadence world's events carry the lanes' clocks
+and idle steps, and the lockstep worlds leave them None.
 """
 
 import copy
@@ -16,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.api import ExecutionSpec, Experiment, MethodSpec, WorldSpec
-from repro_torch.core import (AdversaryConfig, FaultConfig, MobilityConfig, SupervisedTask,
-                              make_fleet)
+from repro_torch.core import (AdversaryConfig, CadenceConfig, FaultConfig, MobilityConfig,
+                              SupervisedTask, make_fleet)
 from repro_torch.data import CaloriesDatasetConfig, dirichlet_partition, make_calories_tabular
 from repro_torch.models import MLPClassifier, MLPClassifierConfig
 from repro_torch.telemetry import (EVENT_PHASES, RoundEvent, Timeline, TraceConfig,
@@ -34,6 +35,10 @@ _METHOD = MethodSpec(desired_accuracy=0.99, max_rounds=2, epochs=1, batch_size=B
 _ADVERSARY = AdversaryConfig(p_byzantine=0.5, attack="noise", scale=10.0, seed=7)
 _MOB = MobilityConfig(radio_range_m=95.0, leg_rounds=1, seed=5)
 _FAULTS = FaultConfig(p_drop=0.6, p_stale=0.4, max_retries=1, release_after=2, seed=3)
+# the problem's task pins the threefry mode (partitionable=True), under
+# which seed 3 puts the requester on stride 2 of 2 (the reference's seed 0
+# does so under False): real idle steps between rounds
+_CADENCE = CadenceConfig(n_speed_classes=2, seed=3)
 
 # world name -> (mobility, method): the weather regimes the house rule is
 # enforced on
@@ -43,6 +48,8 @@ _WORLDS = {
                                            n_max=2)),
     "faults": (None, dataclasses.replace(_METHOD, desired_accuracy=0.999, max_rounds=4,
                                          faults=_FAULTS)),
+    "cadence": (None, dataclasses.replace(_METHOD, desired_accuracy=0.999, max_rounds=3,
+                                          cadence=_CADENCE)),
     "byzantine": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
                                             adversary=_ADVERSARY, robust="clip")),
     "byzantine-int8": (None, dataclasses.replace(_METHOD, desired_accuracy=1.01, max_rounds=3,
@@ -60,7 +67,7 @@ def problem():
     contributors pretrained one epoch), in the port on the CPU."""
     x, y = make_calories_tabular(CaloriesDatasetConfig(num_samples=600))
     task = SupervisedTask(MLPClassifier(MLPClassifierConfig(8, (16,), 5), device=CPU),
-                          lr=3e-3)
+                          lr=3e-3, threefry_partitionable=True)
     parts = dirichlet_partition(y, num_clients=4, alpha=100.0, seed=0)
     shards = [(x[p], y[p]) for p in parts]
     own_x, own_y = shards[0]
@@ -102,7 +109,8 @@ def _assert_outcome_bitwise(a, b):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("world_name", ["static", "byzantine-int8", "mobility", "faults"])
+@pytest.mark.parametrize("world_name", ["static", "byzantine-int8", "mobility", "faults",
+                                        "cadence"])
 @pytest.mark.parametrize("engine", ["loop", "fleet"])
 def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name, tmp_path):
     mob, method = _WORLDS[world_name]
@@ -193,6 +201,33 @@ def test_byzantine_world_events_carry_the_sets(problem, engine):
     honest = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
     assert all(e.corrupted is None and e.clipped is None for e in honest.trace)
     assert honest.corruption_summary is None
+
+
+@pytest.mark.parametrize("engine", ["loop", "fleet"])
+def test_cadence_world_events_carry_lane_clocks(problem, engine):
+    """The cadence world's observability rides the one adapter: each
+    event's clock and idle fields are mapped from the engines'
+    round_clock/idle_steps history, and a lockstep world leaves them None
+    (absence, not zero)."""
+    _, method = _WORLDS["cadence"]
+    res = Experiment(_world(problem), method, ExecutionSpec(engine=engine)).run()
+    rounds = [e for e in res.trace if e.phase == "round"]
+    clock_h = res.sessions[0].history_raw["round_clock"]
+    idle_h = res.sessions[0].history_raw["idle_steps"]
+    assert [e.clock for e in rounds] == [int(c) for c in clock_h]
+    assert [e.idle for e in rounds] == [float(i) for i in idle_h]
+    assert all(isinstance(e.clock, int) for e in rounds)
+    assert all(isinstance(e.idle, float) for e in rounds)
+    # the requester on stride 2 of 2: its clock advances on the global
+    # event counter, faster than the round index, with real idle gaps
+    clocks = [e.clock for e in rounds]
+    assert all(b > a for a, b in zip(clocks, clocks[1:]))
+    assert rounds[-1].clock > rounds[-1].round
+    assert sum(e.idle for e in rounds) > 0
+    stop = [e for e in res.trace if e.phase == "stop"]
+    assert len(stop) == 1 and stop[0].clock is None and stop[0].idle is None
+    lock = Experiment(_world(problem), _METHOD, ExecutionSpec(engine=engine)).run()
+    assert all(e.clock is None and e.idle is None for e in lock.trace)
 
 
 @pytest.mark.parametrize("engine", ["loop", "fleet"])

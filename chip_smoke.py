@@ -133,6 +133,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bit-equal to the straight run; one cadence fleet step of 4 requesters
      on the card and on the CPU, equal tick, clock and idle traces, params
      within [4c]'s limit;
+   - the profiler hooks: [4c]'s 64-requester fp32 fleet again under
+     ``TraceConfig(jax_profiler_dir="build/4k", hlo_stats=True)``, bit-equal
+     to [4c]'s untraced run, its ``hlo_stats`` launches per kernel equal to
+     the launch counters, the ``torch.profiler`` trace naming every kernel
+     launched; the host time per Adam step of one round under the profiler
+     alone, split by what the host was doing (the hand-written kernels'
+     wrappers, launches, allocation, copies, syncs, other ops, Python); and
+     one fp32 round of 4 requesters whose ``hlo_stats`` work counts must be
+     the same integers on the card and on the CPU;
+   - the LM zoo's serving path: ``repro_torch.launch.serve`` for the
+     ``debug-dense`` and ``debug-moe`` presets at their registered widths
+     (batch 4, prompt 32, gen 16), with prefill and decode tokens/s; every
+     variant of the CPU parity tests (each mixer, the special heads, the
+     presets) forward and decode (a ``decode_step`` a token, the serving
+     path) on the card against the CPU from the same weights within 1e-4,
+     MoE routes equal at the forward and at every decode step, and decode
+     against forward on the card within 2e-3 wherever the CPU tests hold
+     that rule;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -174,9 +192,6 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # shared memory serves 32 banks of one 32-bit word each per clock on every
 # SM (CUDA C++ Programming Guide, "Shared Memory"): the rate of table lookups
 SMEM_LOOKUPS_PER_CLOCK = 32
-# the least lookups of AES-128 per 16-byte block, by 32-bit T-tables: 16
-# words in each of the 9 full rounds, 16 S-box bytes in the last one
-AES_LOOKUPS_PER_BLOCK = 9 * 16 + 16
 L2_FLUSH_BYTES = 128 * 2 ** 20   # written and read between launches of a cold timing (L2: 50 MB)
 HOST_CALLS, HOST_BURST = 10_000, 200
 FIT_EPOCHS, MAX_ROUNDS, PRETRAIN_EPOCHS = 8, 10, 6
@@ -331,6 +346,12 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     of its operations), whichever is larger, and which."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cost_bound(cost: dict, ops_per_s: float = FP32_OPS_PER_S):
+    """:func:`bound_ms` of one op's cost (its ``ops.py`` cost function, the
+    one ``hlo_stats`` sums): its bytes and its operations (``flops``)."""
+    return bound_ms(cost["bytes_accessed"], cost["flops"], ops_per_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1171,9 +1192,11 @@ def run_fleet_path(device, world, pretrained):
               f"{res.device_round_state_bytes} B")
         print(f"  launches in the {tag} run: {counts}")
         all_counts[compress or "fp32"] = counts
+        if compress is None:
+            fp32 = {"result": res, "wall": wall}
 
     limits = fleet_round_check(device, world, pretrained)
-    return all_counts, limits
+    return all_counts, limits, fp32
 
 
 def fleet_round_check(device, world, pretrained):
@@ -3031,6 +3054,370 @@ def run_cadence(device, world, pretrained, limits):
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the profiler hooks
+# ---------------------------------------------------------------------------
+
+PROFILE_DIR = ROOT / "build" / "4k"
+# each launch counter's CUDA kernel, as the profiler names it
+KERNEL_OF = {"fedavg": "fedavg_kernel", "fedavg_q8": "fedavg_kernel",
+             "lstm_cell": "lstm_seq_fwd_kernel", "lstm_cell_bwd": "lstm_seq_bwd_kernel",
+             "aes_ctr": "aes_ctr_kernel", "quantize": "quantize_kernel",
+             "dequantize": "dequantize_kernel", "trimmed_mean": "trimmed_mean_kernel",
+             "trimmed_mean_q8": "trimmed_mean_kernel", "median": "median_kernel",
+             "median_q8": "median_kernel", "sqnorm": "sqnorm_kernel",
+             "sqnorm_q8": "sqnorm_kernel"}
+ALLOC_OPS = {"aten::empty", "aten::empty_strided", "aten::empty_like", "aten::new_empty",
+             "aten::new_empty_strided", "aten::resize_"}
+COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to"}
+SYNC_CALLS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"}
+SYNC_OPS = {"aten::item", "aten::_local_scalar_dense"}
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"}
+
+
+def self_times(events):
+    """Each host event of the trace with its self time (its duration less
+    its children's, on its thread) and whether it runs inside a
+    ``repro_torch::`` range; each thread's covered time (the union of its
+    top-level events); and the span from the first host event to the end of
+    the last, in µs."""
+    by_tid = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime",
+                                                   "cuda_driver"):
+            by_tid.setdefault(e["tid"], []).append(e)
+    rows, covered = [], {}
+    for tid, evs in by_tid.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack, cover = [], 0.0
+        for e in evs:
+            end = e["ts"] + e["dur"]
+            while stack and stack[-1][1] <= e["ts"]:
+                stack.pop()
+            if stack:
+                stack[-1][2]["self"] -= e["dur"]
+            else:
+                cover += e["dur"]
+            inside = any(s[2]["name"].startswith("repro_torch::") for s in stack)
+            row = {"name": e["name"], "cat": e["cat"], "self": float(e["dur"]),
+                   "inside": inside, "tid": tid}
+            rows.append(row)
+            stack.append((e["ts"], end, row))
+        covered[tid] = cover
+    host = [e for evs in by_tid.values() for e in evs]
+    span = max(e["ts"] + e["dur"] for e in host) - min(e["ts"] for e in host)
+    return rows, covered, span
+
+
+def host_breakdown(events, steps):
+    """Host µs per Adam step of the traced program, by what the host was
+    doing (self times, every host thread; the autograd engine runs the
+    card's backward on a thread of its own while the main thread waits),
+    over the span of the trace's host events (the profiler's own start and
+    stop outside it)."""
+    rows, covered, wall_us = self_times(events)
+    cats = dict.fromkeys(("hand-written kernel wrappers (checks, outputs, ctypes)",
+                          "kernel launches, hand-written (runtime)",
+                          "kernel launches, torch (runtime)", "allocation",
+                          "host-device copies", "syncs", "other aten ops (dispatch)",
+                          "autograd engine and other ranges"), 0.0)
+    top = {}
+    for r in rows:
+        name, cat = r["name"], r["cat"]
+        if cat == "user_annotation" and name.startswith("repro_torch::"):
+            k = "hand-written kernel wrappers (checks, outputs, ctypes)"
+        elif name in LAUNCH_CALLS:
+            k = ("kernel launches, hand-written (runtime)" if r["inside"]
+                 else "kernel launches, torch (runtime)")
+        elif name in SYNC_CALLS or name in SYNC_OPS:
+            k = "syncs"
+        elif name.startswith("cudaMemcpy") or name in COPY_OPS:
+            k = "host-device copies"
+        elif name in ALLOC_OPS or name.startswith("cudaMalloc") or name.startswith("cudaFree"):
+            k = "allocation"
+        elif cat == "cpu_op" and name.startswith("aten::"):
+            k = "other aten ops (dispatch)"
+        else:
+            k = "autograd engine and other ranges"
+        cats[k] += max(r["self"], 0.0)
+        if k in ("other aten ops (dispatch)", "autograd engine and other ranges"):
+            top[name] = top.get(name, 0.0) + max(r["self"], 0.0)
+    main_tid = max(covered, key=covered.get)
+    others = sum(v for t, v in covered.items() if t != main_tid)
+    cats["Python and waits (main thread in no recorded op, less the other threads')"] = max(
+        wall_us - covered[main_tid] - others, 0.0)
+    print(f"  host time per Adam step of the traced program ({steps} steps, traced wall "
+          f"{wall_us / steps / 1e3:.3f} ms a step; self times, all host threads):")
+    for k, v in cats.items():
+        print(f"    {v / steps / 1e3:8.3f} ms  {k}")
+    print("    the largest of the last two, by name: " + ", ".join(
+        f"{n} {v / steps / 1e3:.3f}" for n, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]))
+    return cats
+
+
+def trace_kernels(events):
+    """Launches of each CUDA kernel in the trace, by its own name."""
+    seen = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = kernel_name_of(e["name"])
+            seen[name] = seen.get(name, 0) + 1
+    return seen
+
+
+def hlo_round_check(device, world, pretrained):
+    """``hlo_stats`` of one fp32 round of 4 requesters on the card and on
+    the CPU: the work counts must be the same integers (the cost is charged
+    at each op's dispatch, from shapes); ``memory`` differs by device."""
+    from repro_torch.core import SupervisedTask, run_fleet
+    from repro_torch.models import LSTMClassifier
+    from repro_torch.telemetry import TraceConfig
+    from repro_torch.utils.tree import tree_map
+
+    task, cpu = world[0], torch.device("cpu")
+    cpu_task = SupervisedTask(LSTMClassifier(task.model.cfg, device=cpu), lr=task.lr)
+    host_pre = [tree_map(lambda t: t.cpu(), p) for p in pretrained]
+    cfg, trace = session_cfg(1), TraceConfig(hlo_stats=True)
+    card = run_fleet(task, fleet_specs(device, world, pretrained, 4), cfg, device=device,
+                     trace=trace).hlo_stats
+    host = run_fleet(cpu_task, fleet_specs(cpu, world, host_pre, 4), cfg, device=cpu,
+                     trace=trace).hlo_stats
+    keys = ("flops", "bytes_accessed", "transcendentals", "torch_matmul_flops", "per_kernel")
+    print(f"  one fp32 round R=4, hlo_stats on the card: "
+          f"{json.dumps({k: card[k] for k in keys})}; memory {card['memory']}")
+    for k in keys:
+        if card[k] != host[k]:
+            fail(f"[4k] hlo_stats[{k!r}] of one R = 4 round: card {card[k]} != CPU {host[k]}")
+    print("  the same integers on the CPU (memory left out: "
+          f"{host['memory']} there)")
+
+
+def run_profiler_hooks(device, world, pretrained, untraced):
+    """[4c]'s R = 64 fp32 fleet again under ``TraceConfig(jax_profiler_dir=
+    "build/4k", hlo_stats=True)``: bit-equal to [4c]'s untraced run, its
+    per-kernel launches equal to the launch counters, the trace naming
+    every kernel launched; then the host time per Adam step of one round
+    under the profiler alone, split by what the host did
+    (:func:`host_breakdown`), and :func:`hlo_round_check`.  The traces are
+    removed after they are read."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.core import run_fleet
+    from repro_torch.telemetry import TraceConfig
+
+    task = world[0]
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    trace = TraceConfig(jax_profiler_dir=str(PROFILE_DIR), hlo_stats=True)
+    specs = fleet_specs(device, world, pretrained, FLEET_R)
+    cfg = session_cfg(MAX_ROUNDS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_fleet(task, specs, cfg, device=device, trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if not fleet_bits_equal(res, untraced["result"]):
+        fail("[4k] the traced fleet run differs from [4c]'s untraced run")
+    stats = res.hlo_stats
+    launched = {k: v for k, v in counts.items() if v}
+    per = {k: v["launches"] for k, v in stats["per_kernel"].items()}
+    if per != launched:
+        fail(f"[4k] hlo_stats launches {per} != the launch counters {launched}")
+    program = res.timeline.totals()["program"]
+    print(f"  traced fleet fp32 R={FLEET_R}: wall {wall:.2f} s (program {program:.2f} s; "
+          f"[4c] untraced {untraced['wall']:.2f} s), bit-equal to [4c]'s run; launches "
+          f"{launched} equal hlo_stats'")
+    print(f"  hlo_stats: flops {stats['flops']}, bytes_accessed {stats['bytes_accessed']}, "
+          f"transcendentals {stats['transcendentals']}, torch_matmul_flops "
+          f"{stats['torch_matmul_flops']}, memory {stats['memory']}")
+    for name, c in stats["per_kernel"].items():
+        print(f"    {name:14s} {c}")
+    files = list(PROFILE_DIR.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"[4k] expected one profiler trace under {PROFILE_DIR}, found {files}")
+    size = files[0].stat().st_size
+    t0 = time.perf_counter()
+    events = json.loads(files[0].read_text())["traceEvents"]
+    seen = trace_kernels(events)
+    need = {}
+    for k, v in launched.items():
+        need[KERNEL_OF[k]] = need.get(KERNEL_OF[k], 0) + v
+    print(f"  trace {files[0].name}: {size / 2 ** 20:.1f} MiB, {len(events)} events, read in "
+          f"{time.perf_counter() - t0:.1f} s; hand-written kernels in it (trace / launches): "
+          + ", ".join(f"{k} {seen.get(k, 0)} / {v}" for k, v in sorted(need.items())))
+    missing = sorted(k for k in {"fedavg_kernel", "lstm_seq_fwd_kernel",
+                                 "lstm_seq_bwd_kernel", *need} if not seen.get(k))
+    if missing:
+        fail(f"[4k] the profiler trace names no launch of {missing}")
+    del events
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    # the host's time per Adam step, from one round of the same fleet under
+    # the profiler alone (the cost recorder's flop counter would add its own
+    # Python to every op)
+    one = session_cfg(1)
+    run_fleet(task, fleet_specs(device, world, pretrained, FLEET_R), one, device=device)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["lstm_cell_bwd"]
+    run_fleet(task, fleet_specs(device, world, pretrained, FLEET_R), one, device=device,
+              trace=TraceConfig(jax_profiler_dir=str(PROFILE_DIR)))
+    kernels_bwd = kernels.launch_counts()["lstm_cell_bwd"] - before
+    events = json.loads(next(PROFILE_DIR.glob("*.pt.trace.json")).read_text())["traceEvents"]
+    print(f"  one fp32 round R={FLEET_R} under the profiler alone:")
+    host_breakdown(events, kernels_bwd)
+    del events
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    hlo_round_check(device, world, pretrained)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the LM zoo's serving path on the card
+# ---------------------------------------------------------------------------
+
+# card vs CPU, the same forward on the same weights in fp32 with TF32 off:
+# products summed in another order (the CPU parity tests hold the port to
+# the reference at 2e-5)
+LM_CARD_TOL = 1e-4
+LM_DECODE_TOL = 2e-3          # decode against forward, the reference's own rule
+LM_B, LM_S = 2, 12
+
+
+def lm_variants():
+    """The configurations of the CPU parity tests (``tests/test_models.py``'s
+    variants, the special heads, the registered presets)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import MLAConfig, ModelConfig
+
+    base = ModelConfig(name="t", family="dense", num_layers=3, d_model=64, num_heads=4,
+                       num_kv_heads=2, d_ff=128, vocab_size=128)
+    out = {
+        "dense": base,
+        "swa": base.replace(block_pattern=("swa",), sliding_window=8),
+        "local": base.replace(block_pattern=("local",), local_window=4),
+        "mla": base.replace(block_pattern=("mla",), mla=MLAConfig(64, 32, 16, 8, 16)),
+        "rg_hybrid": base.replace(num_layers=5, block_pattern=("rglru", "rglru", "local"),
+                                  local_window=8, rnn_width=64),
+        "xlstm": base.replace(block_pattern=("mlstm", "mlstm", "slstm"), d_ff=0),
+        "encoder": base.replace(family="audio", encoder_layers=2, frontend="audio"),
+        "vision": base.replace(family="vlm", frontend="vision", num_prefix_tokens=3),
+        "mtp": base.replace(mtp_depth=1),
+        "tied": base.replace(tie_embeddings=True),
+        "softcap": base.replace(logit_softcap=5.0),
+    }
+    out.update(ARCHS)
+    return out
+
+
+# the variants whose decode the CPU tests hold to their forward; every
+# variant's decode is held to the CPU's decode from the same weights
+LM_DECODE = ("dense", "swa", "local", "mla", "rg_hybrid", "xlstm", "encoder", "tied",
+             "softcap", "debug-dense")
+
+
+def lm_forward_and_decode(name, cfg, device):
+    """One variant's forward and its decode loop (the serving path: a
+    ``decode_step`` a token into the cache) on the card and on the CPU from
+    the same weights and inputs, with the MoE routes of every forward and
+    decode step on each: (forward card-vs-CPU diff, decode card-vs-CPU
+    diff, decode-vs-forward diff on the card or None, route margin or
+    None)."""
+    from repro_torch.models import Transformer, moe
+    from repro_torch.utils.tree import tree_map
+
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(0)
+    host_model, card_model = Transformer(cfg, device=cpu), Transformer(cfg, device=device)
+    host_p = host_model.init(g)
+    card_p = tree_map(lambda t: t.to(device), host_p)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=g)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((LM_B, 5, cfg.d_model), generator=g)
+    if cfg.num_prefix_tokens:
+        batch["prefix_embeds"] = torch.randn((LM_B, cfg.num_prefix_tokens, cfg.d_model),
+                                             generator=g)
+    routes = {"cpu": [], "cuda": []}
+    topk = moe._topk
+
+    def recording(gates, k):
+        out = topk(gates, k)
+        routes[gates.device.type].append((gates.cpu(), out[1].cpu()))
+        return out
+
+    def forward_and_decode(model, params, b):
+        logits = model.forward(params, b)["logits"]
+        memory = model.encode(params, b["frames"]) if cfg.is_encoder_decoder else None
+        cache, steps = model.init_cache(LM_B, LM_S), []
+        for t in range(LM_S):
+            lg, cache = model.decode_step(params, b["tokens"][:, t:t + 1], cache, t,
+                                          memory=memory)
+            steps.append(lg[:, 0])
+        return logits, torch.stack(steps, 1)
+
+    moe._topk = recording
+    try:
+        with torch.no_grad():
+            host, host_dec = forward_and_decode(host_model, host_p, batch)
+            logits, dec = forward_and_decode(card_model, card_p,
+                                             {k: v.to(device) for k, v in batch.items()})
+    finally:
+        moe._topk = topk
+    for what, got, want in (("logits", logits, host), ("decode logits", dec, host_dec)):
+        if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+            fail(f"[4l] {name}: {what} of shape {tuple(got.shape)} not finite or not the CPU's")
+    if len(routes["cpu"]) != len(routes["cuda"]):
+        fail(f"[4l] {name}: the MoE layers ran {len(routes['cuda'])} times on the card, "
+             f"{len(routes['cpu'])} on the CPU")
+    margin = None
+    for (hg, hi), (_, ci) in zip(routes["cpu"], routes["cuda"]):
+        if not torch.equal(hi, ci):
+            fail(f"[4l] {name}: the card routes tokens to other experts than the CPU "
+                 f"(forward or a decode step)")
+        top = torch.sort(hg, dim=-1, descending=True).values
+        k = cfg.moe.num_experts_per_tok
+        gap = float((top[:, k - 1] - top[:, k]).min())
+        margin = gap if margin is None else min(margin, gap)
+    dec_diff = float((dec - logits).abs().max()) if name in LM_DECODE else None
+    return (float((logits.cpu() - host).abs().max()), float((dec.cpu() - host_dec).abs().max()),
+            dec_diff, margin)
+
+
+def run_lm_zoo(device):
+    """The LM zoo on the card: ``serve.main`` at the presets' registered
+    widths (batch 4, prompt 32, gen 16; a first call warms up), then every
+    CPU-test variant's forward and decode card vs CPU and decode vs forward."""
+    import io
+
+    from repro_torch.launch import serve
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("[4l] TF32 products are on: the card would drift ~1e-3 from the CPU")
+    for arch in ("debug-dense", "debug-moe"):
+        argv = ["--arch", arch, "--preset", "full", "--batch", "4", "--prompt-len", "32",
+                "--gen", "16"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(argv)                      # warm-up: cuBLAS handles, the allocator
+        if serve.main(argv) != 0:
+            fail(f"[4l] serve.main({argv}) failed")
+    for name, cfg in lm_variants().items():
+        diff, dec_cpu, dec, margin = lm_forward_and_decode(name, cfg, device)
+        line = (f"  {name:12s} card vs CPU: forward {diff:.3e}, decode {dec_cpu:.3e} "
+                f"(limit {LM_CARD_TOL:g})")
+        if dec is not None:
+            line += f"; decode vs forward on the card {dec:.3e} (limit {LM_DECODE_TOL:g})"
+        if margin is not None:
+            line += (f"; routes equal at the forward and every decode step, k-th gate above "
+                     f"the next by >= {margin:.3e}")
+        print(line)
+        if not diff <= LM_CARD_TOL:
+            fail(f"[4l] {name}: forward logits differ by {diff} between the card and the CPU")
+        if not dec_cpu <= LM_CARD_TOL:
+            fail(f"[4l] {name}: decode logits differ by {dec_cpu} between the card and the CPU")
+        if dec is not None and not dec <= LM_DECODE_TOL:
+            fail(f"[4l] {name}: decode differs from forward by {dec} on the card")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -3121,8 +3508,10 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     phase 3); no single PyTorch call computes the other three, whose
     ``library_ms`` is null."""
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_q8_cuda
+    from repro_torch.kernels.fedavg.ops import fedavg_q8_cost
     from repro_torch.kernels.fedavg.ref import fedavg_batched_q8_ref
     from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
+    from repro_torch.kernels.quantize.ops import dequantize_cost, quantize_cost
     from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_batched_ref
 
     g = torch.Generator().manual_seed(9)
@@ -3140,8 +3529,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     names = ("fedavg_kernel", "fedavg_q8_kernel")
     ms = cuda_ms(lambda: fedavg_batched_q8_cuda(q, s, w))
     plain = cuda_ms(lambda: fedavg_batched_q8_ref(q, s, w), iters=50, warmup=5)
-    b_ms, b_by = bound_ms(r * n * lp + 4 * (r * n * tiles + r * n + r * lp),
-                          3 * r * n * lp + r * lp)
+    b_ms, b_by = cost_bound(fedavg_q8_cost(r, n, lp))
     rows.append(dict(name="fedavg_q8", route="cuda", source="src/repro_torch/csrc/fedavg.cu",
                      replaces="src/repro/kernels/fedavg/kernel.py:83",
                      device_us=device_us(lambda: fedavg_batched_q8_cuda(q, s, w), names),
@@ -3156,8 +3544,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     x = torch.randn((r * n, n_params), generator=g).to(dev) * 0.3
     ms = cuda_ms(lambda: quantize_cuda(x))
     plain = cuda_ms(lambda: quantize_batched_ref(x), iters=50, warmup=5)
-    b_ms, b_by = bound_ms(4 * r * n * n_params + r * n * lp + 4 * r * n * tiles,
-                          6 * r * n * n_params)
+    b_ms, b_by = cost_bound(quantize_cost(r * n, n_params))
     rows.append(dict(name="quantize_batched", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:89",
@@ -3172,7 +3559,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     v = x[0].contiguous()
     ms1 = cuda_ms(lambda: quantize_cuda(v))
     plain1 = cuda_ms(lambda: quantize_batched_ref(v), iters=50, warmup=5)
-    b1, b1_by = bound_ms(4 * n_params + lp + 4 * tiles, 6 * n_params)
+    b1, b1_by = cost_bound(quantize_cost(1, n_params))
     rows.append(dict(name="quantize", route="cuda", source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/kernel.py:41",
                      device_us=device_us(lambda: quantize_cuda(v), "quantize_kernel"),
@@ -3185,7 +3572,7 @@ def time_int8_kernels(dev, counts, errs, n_params, n_contrib, flush):
     q1, s1 = quantize_batched_ref(v)
     ms = cuda_ms(lambda: dequantize_cuda(q1, s1, n_params))
     plain = cuda_ms(lambda: dequantize_ref(q1, s1, n_params), iters=50, warmup=5)
-    b_ms, b_by = bound_ms(n_params + 4 * tiles + 4 * n_params, n_params)
+    b_ms, b_by = cost_bound(dequantize_cost(n_params, tiles))
     # the launch floor: dequantize at n = 1, one block of one live thread,
     # through the same ctypes path
     q0, s0 = q1[:TILE].contiguous(), s1[:1].contiguous()
@@ -3217,6 +3604,7 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
     loop engine's (1, N, P), warm and cold (``r1_us``, ``r1_us_cold``)."""
     from repro_torch.kernels.quantize.ref import quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
+    from repro_torch.kernels.robust import ops as ro
     from repro_torch.kernels.robust import ref as rr
 
     g = torch.Generator().manual_seed(12)
@@ -3228,40 +3616,37 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
     q, s = quantize_batched_ref(x.reshape(r * n, l))
     q, s = q.reshape(r, n, lp), s.reshape(r, n, tiles)
     src = "src/repro_torch/csrc/robust.cu"
-    dense_bytes = 4 * (r * n * l + r * n + r * l)
-    q8_bytes = r * n * lp + 4 * (r * n * tiles + r * n + r * lp)
+
     def median_library():
         """The midpoint median over the active contributors, inactive
         entries set to NaN by one ``torch.where`` (timed with it)."""
         u = torch.where(w[:, :, None] > 0, x, float("nan"))
         return torch.nanquantile(u, 0.5, dim=1, interpolation="midpoint")
 
-    # compares and selects per column: the trimmed mean's two scans and
-    # weighted sum, the median's n-phase network (n * n min/max) and the
-    # dequantize multiply of the q8 forms
+    # the bounds read the ops' cost functions (kernels/robust/ops.py)
     specs = [
         ("trimmed_mean", "kernel.py:254", lambda: rk.trimmed_mean_cuda(x, w),
          lambda: rr.trimmed_mean_batched_ref(x, w), None, "trimmed_mean_kernel",
-         dense_bytes, r * l * (5 * n + 1), f"R,N,L={r},{n},{l}"),
+         ro.trimmed_mean_cost(r, n, l), f"R,N,L={r},{n},{l}"),
         ("trimmed_mean_q8", "kernel.py:261", lambda: rk.trimmed_mean_q8_cuda(q, s, w),
          lambda: rr.trimmed_mean_batched_q8_ref(q, s, w), None, "trimmed_mean_kernel",
-         q8_bytes, r * lp * (6 * n + 1), f"R,N,Lp={r},{n},{lp}"),
+         ro.trimmed_mean_q8_cost(r, n, lp), f"R,N,Lp={r},{n},{lp}"),
         ("median", "kernel.py:269", lambda: rk.median_cuda(x, w),
          lambda: rr.median_batched_ref(x, w), median_library, "median_kernel",
-         dense_bytes, r * l * (n * n + n + 2), f"R,N,L={r},{n},{l}"),
+         ro.median_cost(r, n, l), f"R,N,L={r},{n},{l}"),
         ("median_q8", "kernel.py:276", lambda: rk.median_q8_cuda(q, s, w),
          lambda: rr.median_batched_q8_ref(q, s, w), None, "median_kernel",
-         q8_bytes, r * lp * (n * n + 2 * n + 2), f"R,N,Lp={r},{n},{lp}"),
+         ro.median_q8_cost(r, n, lp), f"R,N,Lp={r},{n},{lp}"),
         ("sqnorm", "kernel.py:284", lambda: rk.sqnorm_cuda(x),
          lambda: rr.sqnorm_batched_ref(x), lambda: torch.linalg.vecdot(x, x, dim=-1),
-         "sqnorm_kernel", 4 * (r * n * l + r * n), 2 * r * n * l, f"R,N,L={r},{n},{l}"),
+         "sqnorm_kernel", ro.sqnorm_cost(r, n, l), f"R,N,L={r},{n},{l}"),
         ("sqnorm_q8", "kernel.py:310", lambda: rk.sqnorm_q8_cuda(q, s),
          lambda: rr.sqnorm_batched_q8_ref(q, s), None, "sqnorm_kernel",
-         r * n * lp + 4 * (r * n * tiles + r * n), 3 * r * n * lp, f"R,N,Lp={r},{n},{lp}"),
+         ro.sqnorm_q8_cost(r, n, lp), f"R,N,Lp={r},{n},{lp}"),
     ]
     rows = []
-    for name, line, kern, plain_fn, lib_fn, kname, nbytes, ops, shape in specs:
-        b_ms, b_by = bound_ms(nbytes, ops)
+    for name, line, kern, plain_fn, lib_fn, kname, cost, shape in specs:
+        b_ms, b_by = cost_bound(cost)
         row = dict(name=name, route="cuda", source=src,
                    replaces=f"src/repro/kernels/robust/{line}",
                    device_us=device_us(kern, kname), host_us=host_us(kern),
@@ -3282,24 +3667,6 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
                                    f"{cuda_ms(lambda: torch.linalg.vector_norm(x, dim=-1)):.5f})")
         rows.append(row)
     return rows
-
-
-def lstm_bounds(lanes, b, f, h, t):
-    """((bytes, ops) of the forward, (bytes, ops) of the backward) for one
-    sequence of T steps: each input read once, each output written once.
-    The forward writes the T + 1 saved states (a training pass); the
-    backward reads them and the final states' cotangents and writes dgates,
-    dh0 and dc0.  Ops: the gate products (recomputed in the backward), the
-    bias, the backward's dgates wh^T, and the elementwise cell."""
-    g4 = 4 * h
-    weights = f * g4 + h * g4 + g4
-    states = 2 * (t + 1) * b * h
-    gates = 2 * b * (f + h) * g4 + 2 * b * g4
-    fwd = (4 * lanes * (t * b * f + 2 * b * h + weights + states),
-           lanes * t * (gates + 10 * b * h))
-    bwd = (4 * lanes * (t * b * f + states + weights + 2 * b * h + t * b * g4 + 2 * b * h),
-           lanes * t * (gates + 2 * b * g4 * h + 40 * b * h))
-    return fwd, bwd
 
 
 def time_cudnn_lstm(x, h0, c0, wx, wh, b, dh, dc, h_last):
@@ -3332,7 +3699,8 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
     measure of this row before the sequence kernels."""
     from repro_torch.kernels.lstm_cell.kernel import (lstm_cell_cuda, lstm_seq_backward_cuda,
                                                       lstm_seq_cuda)
-    from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward
+    from repro_torch.kernels.lstm_cell.ops import (lstm_seq_backward, lstm_seq_backward_cost,
+                                                   lstm_seq_cost)
     from repro_torch.kernels.lstm_cell.ref import (lstm_cell_ref, lstm_seq_backward_ref,
                                                    lstm_seq_ref)
 
@@ -3354,9 +3722,8 @@ def time_lstm(dev, counts, errs, fit_b, f, h, seq_len):
         def bwd():
             return lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc)
 
-        (fb, fo), (bb, bo) = lstm_bounds(lanes, b, f, h, t)
-        f_bound, f_by = bound_ms(fb, fo)
-        b_bound, b_by = bound_ms(bb, bo)
+        f_bound, f_by = cost_bound(lstm_seq_cost(lanes, b, f, h, t, save=True))
+        b_bound, b_by = cost_bound(lstm_seq_backward_cost(lanes, b, f, h, t))
         fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)
         score_ms = cuda_ms(lambda: lstm_seq_cuda(x, h0, c0, *w))
         grads_ms = cuda_ms(lambda: lstm_seq_backward(x, hs, cs, *w, dh, dc, need_dx=False))
@@ -3416,8 +3783,10 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
     shared-memory rate."""
     from repro_torch.core import crypto
     from repro_torch.kernels.aes_ctr.kernel import aes_ctr_cuda
+    from repro_torch.kernels.aes_ctr.ops import AES_LOOKUPS_PER_BLOCK, aes_ctr_cost
     from repro_torch.kernels.aes_ctr.ref import aes_ctr_ref
     from repro_torch.kernels.fedavg.kernel import fedavg_batched_cuda
+    from repro_torch.kernels.fedavg.ops import fedavg_cost
     from repro_torch.kernels.fedavg.ref import fedavg_batched_ref
 
     g = torch.Generator().manual_seed(3)
@@ -3433,7 +3802,7 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
         ms = cuda_ms(lambda: fedavg_batched_cuda(u, w))
         plain = cuda_ms(lambda: fedavg_batched_ref(u, w))
         lib = cuda_ms(lambda: torch.einsum("rn,rnl->rl", w, u) / w.sum(dim=1, keepdim=True))
-        b_ms, b_by = bound_ms(4 * (r * n * l + r * n + r * l), 2 * r * n * l + r * l)
+        b_ms, b_by = cost_bound(fedavg_cost(r, n, l))
         dev_us = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel")
         cold = device_us(lambda: fedavg_batched_cuda(u, w), "fedavg_kernel", flush=flush)
         rows.append(dict(name=name, route="cuda", device_us=dev_us, device_us_cold=cold,
@@ -3459,8 +3828,7 @@ def time_loop_kernels(dev, counts, errs, n_params, n_contrib, flush):
     blocks = (nb + 15) // 16
     clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    b_ms, b_by = bound_ms(2 * nb + 768 + 176 + 8, blocks * AES_LOOKUPS_PER_BLOCK,
-                          SMEM_LOOKUPS_PER_CLOCK * sms * clock)
+    b_ms, b_by = cost_bound(aes_ctr_cost(nb), SMEM_LOOKUPS_PER_CLOCK * sms * clock)
     rows.append(dict(name="aes_ctr", route="cuda", device_us=device_us(aes, "aes_ctr_kernel"),
                      device_us_cold=device_us(aes, "aes_ctr_kernel", flush=flush),
                      host_us=host_us(aes), source="src/repro_torch/csrc/aes_ctr.cu",
@@ -3626,7 +3994,7 @@ def main() -> int:
     print(" [4b] the quickstart session with the int8 wire")
     int8_counts = run_loop_int8(dev, world, pretrained)
     print(f" [4c] the fleet engine, {FLEET_R} requesters")
-    fleet_counts, limits = run_fleet_path(dev, world, pretrained)
+    fleet_counts, limits, fleet_fp32 = run_fleet_path(dev, world, pretrained)
     print(f" [4d] the Byzantine world ({ADVERSARY}), {ADV_ROUNDS} rounds")
     adv_loop = run_loop_adversary(dev, world, pretrained)
     adv_fleet = run_fleet_adversary(dev, world, pretrained)
@@ -3658,10 +4026,19 @@ def main() -> int:
     t_cad = time.perf_counter()
     cad_loop, cad_fleet = run_cadence(dev, world, pretrained, limits)
     print(f"  [4j] wall {time.perf_counter() - t_cad:.1f} s")
+    print(f" [4k] the profiler hooks: [4c]'s fp32 fleet under TraceConfig(jax_profiler_dir="
+          f"{PROFILE_DIR.relative_to(ROOT)}, hlo_stats=True)")
+    t_prof = time.perf_counter()
+    prof_counts = run_profiler_hooks(dev, world, pretrained, fleet_fp32)
+    print(f"  [4k] wall {time.perf_counter() - t_prof:.1f} s")
+    print(" [4l] the LM zoo's serving path (repro_torch.launch.serve, every CPU-test variant)")
+    t_lm = time.perf_counter()
+    run_lm_zoo(dev)
+    print(f"  [4l] wall {time.perf_counter() - t_lm:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
                   *table_loop, *mob_loop, *flt_loop, *cad_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
-                   *facade_fleet, *mob_fleet, *flt_fleet, *cad_fleet]
+                   *facade_fleet, *mob_fleet, *flt_fleet, *cad_fleet, prof_counts]
     counts = {k: sum(c[k] for c in loop_paths + fleet_paths) for k in loop_counts}
     # eq. 14 at R = 1 (row 1 of the kernel table) and quantize of one update
     # (row 6) run in the loop engine, at R = 64 (rows 2 and 7) in the fleet:

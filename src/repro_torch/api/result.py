@@ -55,8 +55,8 @@ class RunResult:
     wall_s: float = 0.0
     raw: object = None                 # underlying engine result, if any
     timeline: Optional[Timeline] = None  # host-side wall-clock spans
-    hlo_stats: Optional[dict] = None     # program cost summary: None until
-                                         # the profiler hooks (slice F)
+    hlo_stats: Optional[dict] = None     # fleet program work and memory
+                                         # (TraceConfig.hlo_stats)
 
     @property
     def history_raw(self) -> Dict[str, list]:

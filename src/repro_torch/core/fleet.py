@@ -119,10 +119,14 @@ Design, as in the reference:
 
 Encryption is priced in the cost domain only (the reference's fleet does
 not run the cipher per round either); the loop engine holds the AES
-transport.  The profiler fields of ``TraceConfig`` (``jax_profiler_dir``,
-``hlo_stats``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-slice (under a baseline method, the enfed-only knobs raise
-``ValueError`` as in the reference; faults there
+transport.  The profiler fields of ``TraceConfig`` instrument the
+``program`` span of every method: ``jax_profiler_dir`` runs
+``torch.profiler`` around it (the checkpointed chunk loop included) and
+writes its trace there once the span has closed, ``hlo_stats`` records
+the kernels' work over it (``repro_torch.telemetry.profile``) into
+``FleetResult.hlo_stats``, its flop counter slowing the span many times
+over; both stay on the host and change no bit of the outcome (under a baseline
+method, the enfed-only knobs raise ``ValueError`` as in the reference; faults there
 are priced post hoc: each extra transmission of the cfl uplink or the dfl
 gossip fan through ``CostModel.retry_energy``, counted in the session's
 ``history["fault_extra_tx"]``).
@@ -153,6 +157,8 @@ from repro_torch.kernels.quantize.ops import (dequantize_flat_batched,
 from repro_torch.kernels.robust.ops import robust_aggregate, robust_aggregate_q8
 from repro_torch.models.classifiers import masked_cross_entropy_loss
 from repro_torch.optim import lane_adam_init, lane_adam_step
+from repro_torch.telemetry.profile import (maybe_torch_profiler, program_cost_stats,
+                                           record_program_cost)
 from repro_torch.telemetry.spans import Timeline
 from repro_torch.utils.tree import (flatten_to_vector, tree_bytes, tree_ravel,
                                     tree_size, tree_unravel)
@@ -188,8 +194,8 @@ class FleetResult:
                                       # (fp32 (R, N, P), or int8 + scales)
     device_round_state_bytes: int = 0  # that state as carried on the device
     timeline: Optional[Timeline] = None  # host-side wall-clock spans
-    hlo_stats: Optional[dict] = None     # program cost summary: None until
-                                         # the profiler hooks (slice F)
+    hlo_stats: Optional[dict] = None     # the program span's work and memory
+                                         # (TraceConfig.hlo_stats only)
 
     @property
     def history_raw(self) -> Dict[str, np.ndarray]:
@@ -312,6 +318,55 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class _ProgramHooks:
+    """The ``program`` span of ``tl`` around a fleet's round loop, with the
+    ``TraceConfig`` profiler fields: ``torch.profiler``
+    (``jax_profiler_dir``) and the program-cost recorder (``hlo_stats``),
+    with the peak allocation over the span on the card.  Both stay on the
+    host; :meth:`stats` is None unless ``hlo_stats`` is on.  The span
+    closes after a device sync, before the profiler writes its trace; the
+    recorder's flop counter runs Python on every torch op inside it, so
+    with ``hlo_stats`` on the span times the counted program, not the
+    program."""
+
+    def __init__(self, trace, dev: torch.device, tl: Timeline):
+        self.dev, self.tl = dev, tl
+        self.profile_dir = getattr(trace, "jax_profiler_dir", None) if trace else None
+        self.want_cost = bool(trace is not None and getattr(trace, "hlo_stats", False))
+        self._stack = contextlib.ExitStack()
+        self._span = None
+        self.rec = None
+        self.peak = None
+
+    def __enter__(self) -> "_ProgramHooks":
+        if self.want_cost and self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        self._span = self.tl.begin("program")
+        self._stack.enter_context(maybe_torch_profiler(self.profile_dir, self.dev))
+        if self.want_cost:
+            self.rec = self._stack.enter_context(record_program_cost())
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if exc[0] is None:
+            _sync(self.dev)
+            self.tl.finish(self._span)
+        try:
+            return self._stack.__exit__(*exc)
+        finally:
+            if self.want_cost and self.dev.type == "cuda":
+                self.peak = torch.cuda.max_memory_allocated(self.dev)
+
+    def stats(self, staged_bytes: int, carry: Dict[str, torch.Tensor]) -> Optional[dict]:
+        """``hlo_stats`` of the span, ``carry`` the round state the loop
+        passes on."""
+        if self.rec is None:
+            return None
+        return program_cost_stats(self.rec, staged_bytes=staged_bytes,
+                                  carry_bytes=tree_bytes(carry), device=self.dev,
+                                  peak_bytes=self.peak)
+
+
 @contextlib.contextmanager
 def _span(tl: Timeline, dev: torch.device, name: str, **attrs):
     """One span of ``tl`` around device work, closed after a device sync."""
@@ -321,8 +376,8 @@ def _span(tl: Timeline, dev: torch.device, name: str, **attrs):
     tl.finish(idx)
 
 
-def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
-                  checkpoint_every, resume_from, trace) -> None:
+def _check_knobs(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
+                 checkpoint_every, resume_from) -> None:
     protocol.method_phases(method)         # validate the method's name
     if round_chunk < 1:
         raise ValueError(f"round_chunk must be >= 1 (got {round_chunk})")
@@ -344,11 +399,6 @@ def _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir,
             "their aggregation semantics without Phase.DELIVER")
     if baseline and dfl_topology not in ("mesh", "ring"):
         raise ValueError(f"unknown dfl topology {dfl_topology!r} (mesh|ring)")
-    if trace is not None and (getattr(trace, "jax_profiler_dir", None)
-                              or getattr(trace, "hlo_stats", False)):
-        raise NotImplementedError(
-            "TraceConfig.jax_profiler_dir/hlo_stats (the profiler hooks) are "
-            "ROADMAP.md slice F (not ported yet)")
 
 
 def run_fleet(task, requesters: Sequence[RequesterSpec],
@@ -395,23 +445,23 @@ def run_fleet(task, requesters: Sequence[RequesterSpec],
     if torch.device(task.device) != dev:
         raise ValueError(f"the task runs on {task.device}, the fleet on {dev}")
     check_interpret(interpret)
-    _check_ported(cfg, method, dfl_topology, round_chunk, checkpoint_dir, checkpoint_every,
-                  resume_from, trace)
+    _check_knobs(cfg, method, dfl_topology, round_chunk, checkpoint_dir, checkpoint_every,
+                 resume_from)
     if len(requesters) == 0:
         raise ValueError("empty fleet")
     tl = timeline if timeline is not None else Timeline()
     with contextlib.nullcontext() if use_pallas else plain_twins():
         if method != "enfed":
             return _run_fleet_baseline(task, requesters, cfg, cost, method, dfl_topology,
-                                       dev, round_chunk, tl)
+                                       dev, round_chunk, tl, trace)
         return _run_fleet_enfed(task, requesters, cfg, cost, dev, round_chunk, tl,
-                                checkpoint_dir, checkpoint_every, resume_from)
+                                checkpoint_dir, checkpoint_every, resume_from, trace)
 
 
 def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
                      cost: CostModel, dev: torch.device, round_chunk: int, tl: Timeline,
                      checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-                     resume_from: Optional[str] = None) -> FleetResult:
+                     resume_from: Optional[str] = None, trace=None) -> FleetResult:
     """Algorithm 1 for every requester on the flat round state."""
     R = len(requesters)
     mob, fc, cc = cfg.mobility, cfg.faults, cfg.cadence
@@ -932,12 +982,12 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
                 save_checkpoint(checkpoint_dir, r_next, {"r0": np.int64(r_next), "state": carry})
 
     # ---- the round loop (event steps under cadence) ---------------------------
-    program = tl.begin("program")
-    for r in _chunked_rounds(T_ev, round_chunk, lambda: bool(carry.active.any()),
-                             r0=r0, on_chunk=saved):
-        carry = round_body(carry, r) if cc is None else event_step(carry, r)
-    _sync(dev)
-    tl.finish(program)
+    with _ProgramHooks(trace, dev, tl) as hooks:
+        for r in _chunked_rounds(T_ev, round_chunk, lambda: bool(carry.active.any()),
+                                 r0=r0, on_chunk=saved):
+            carry = round_body(carry, r) if cc is None else event_step(carry, r)
+    hlo = hooks.stats(staged_param_bytes,
+                      {k: v for k, v in carry._asdict().items() if v is not None})
 
     # ---- unpack -------------------------------------------------------------
     unpack = tl.begin("unpack")
@@ -1028,7 +1078,7 @@ def _run_fleet_enfed(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig
         battery_level=level_np, total_energy_j=float(total_e),
         history=fleet_hist,
         staged_param_bytes=int(staged_param_bytes),
-        device_round_state_bytes=int(staged_param_bytes), timeline=tl)
+        device_round_state_bytes=int(staged_param_bytes), timeline=tl, hlo_stats=hlo)
 
 
 def _baseline_fault_tx(fc, rounds: int, i: int, method: str, dfl_topology: str,
@@ -1049,7 +1099,8 @@ def _baseline_fault_tx(fc, rounds: int, i: int, method: str, dfl_topology: str,
 
 def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedConfig,
                         cost: CostModel, method: str, dfl_topology: str,
-                        dev: torch.device, round_chunk: int, tl: Timeline) -> FleetResult:
+                        dev: torch.device, round_chunk: int, tl: Timeline,
+                        trace=None) -> FleetResult:
     """The cfl/dfl protocol variants on the flat (R, N, P) round state.
 
     Requester i's roster is ``[own shard] + every neighbour with data``, in
@@ -1153,46 +1204,49 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
     body_h = torch.zeros((cfg.max_rounds,), dtype=torch.float32, device=dev)
     _sync(dev)
     tl.finish(stage)
-    program = tl.begin("program")
-    for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
-        ran = active.any()
-        body_h[r] = ran.to(torch.float32)
-        # Phase.FIT at every client lane, client j seeded seed + stride*r + j;
-        # padded lanes (n = 0) are zero-weight no-op steps
-        scores = torch.stack([
-            schedule.epoch_scores(cfg.seed + stride * r + j, cfg.epochs, nc_pad,
-                                  partitionable=task.threefry_partitionable)
-            for j in range(N)])
-        idx, w = schedule.lane_plans(scores[lane_j], cli_n.reshape(R * N), batch, steps_max)
-        src = (last[:, None].expand(R, N, P) if method == "cfl" else contrib).reshape(R * N, P)
-        fitted, fit_loss = _fit_lanes(task, spec, src, client_batch, idx.to(dev), w.to(dev),
-                                      (w.sum(-1) > 0).numpy())
-        fitted = fitted.reshape(R, N, P)
-        # Phase.COLLECT + Phase.AGGREGATE: the server's data-size-weighted
-        # eq. 14 (one launch), or each node's mixing row (N launches; rows
-        # sum to 1, so the normalized mean is the gossip mix)
-        if method == "cfl":
-            new_last = fedavg_flat_batched(fitted, cli_w)
-        else:
-            mixed = torch.stack([fedavg_flat_batched(fitted, row) for row in mix_rows], dim=1)
-            contrib = torch.where(active[:, None, None], mixed, contrib)
-            new_last = mixed[:, 0]
-        # Phase.SCORE: the global (cfl) / node 0 (dfl) on the requester's test
-        acc = _eval_lanes(task.model, spec, new_last, test_x, test_y, test_mask)
-        # Phase.ACCOUNT without a battery: stop on accuracy or the budget
-        reached = acc >= desired
-        stop_code = torch.where(active & reached, protocol.STOP_ACCURACY, stop_code)
-        rounds_done = rounds_done + active.to(torch.int32)
-        last = torch.where(active[:, None], new_last, last)
-        next_active = active & ~reached
-        # a round no lane ran leaves its rows 0; the loss is the requester
-        # lane's fit loss
-        acc_h[r], loss_h[r] = (torch.where(ran, v, 0.0)
-                               for v in (acc, fit_loss.reshape(R, N)[:, 0]))
-        exec_h[r] = active.to(torch.float32)
-        active = next_active
-    _sync(dev)
-    tl.finish(program)
+    with _ProgramHooks(trace, dev, tl) as hooks:
+        for r in _chunked_rounds(cfg.max_rounds, round_chunk, lambda: bool(active.any())):
+            ran = active.any()
+            body_h[r] = ran.to(torch.float32)
+            # Phase.FIT at every client lane, client j seeded seed + stride*r + j;
+            # padded lanes (n = 0) are zero-weight no-op steps
+            scores = torch.stack([
+                schedule.epoch_scores(cfg.seed + stride * r + j, cfg.epochs, nc_pad,
+                                      partitionable=task.threefry_partitionable)
+                for j in range(N)])
+            idx, w = schedule.lane_plans(scores[lane_j], cli_n.reshape(R * N), batch, steps_max)
+            src = (last[:, None].expand(R, N, P) if method == "cfl" else contrib).reshape(R * N, P)
+            fitted, fit_loss = _fit_lanes(task, spec, src, client_batch, idx.to(dev), w.to(dev),
+                                          (w.sum(-1) > 0).numpy())
+            fitted = fitted.reshape(R, N, P)
+            # Phase.COLLECT + Phase.AGGREGATE: the server's data-size-weighted
+            # eq. 14 (one launch), or each node's mixing row (N launches; rows
+            # sum to 1, so the normalized mean is the gossip mix)
+            if method == "cfl":
+                new_last = fedavg_flat_batched(fitted, cli_w)
+            else:
+                mixed = torch.stack([fedavg_flat_batched(fitted, row) for row in mix_rows], dim=1)
+                contrib = torch.where(active[:, None, None], mixed, contrib)
+                new_last = mixed[:, 0]
+            # Phase.SCORE: the global (cfl) / node 0 (dfl) on the requester's test
+            acc = _eval_lanes(task.model, spec, new_last, test_x, test_y, test_mask)
+            # Phase.ACCOUNT without a battery: stop on accuracy or the budget
+            reached = acc >= desired
+            stop_code = torch.where(active & reached, protocol.STOP_ACCURACY, stop_code)
+            rounds_done = rounds_done + active.to(torch.int32)
+            last = torch.where(active[:, None], new_last, last)
+            next_active = active & ~reached
+            # a round no lane ran leaves its rows 0; the loss is the requester
+            # lane's fit loss
+            acc_h[r], loss_h[r] = (torch.where(ran, v, 0.0)
+                                   for v in (acc, fit_loss.reshape(R, N)[:, 0]))
+            exec_h[r] = active.to(torch.float32)
+            active = next_active
+    state = dict(last=last, active=active, stop_code=stop_code, rounds_done=rounds_done,
+                 acc_h=acc_h, loss_h=loss_h, exec_h=exec_h, body_h=body_h)
+    if method == "dfl":
+        state["contrib"] = contrib
+    hlo = hooks.stats(R * N * P * 4, state)
 
     # ---- per-session views, priced like the loop learners ------------------
     unpack = tl.begin("unpack")
@@ -1251,4 +1305,4 @@ def _run_fleet_baseline(task, requesters: Sequence[RequesterSpec], cfg: EnFedCon
                  "battery": np.repeat(body_h[:, None], R, axis=1),
                  "executed": exec_h, "round_executed": body_h},
         staged_param_bytes=staged_param_bytes,
-        device_round_state_bytes=staged_param_bytes, timeline=tl)
+        device_round_state_bytes=staged_param_bytes, timeline=tl, hlo_stats=hlo)

@@ -8,12 +8,24 @@ plain PyTorch twin, a CUDA tensor to the hand-written kernel, anything
 else raises.  ``plain_twins`` is the caller's explicit choice of the twins
 on the card too (``ExecutionSpec(use_pallas=False)``); it is never entered
 on a failure, so a kernel that fails to build or launch still raises.
+
+``costed`` marks each public op of the ``ops`` modules with the work of one
+call, a function of its arguments' shapes (flops, bytes accessed,
+transcendentals, and whether it launches; an op that also forms products
+in plain torch beside its kernel gives their flops as
+``torch_matmul_flops``, which count with the plain-torch products, not
+with the kernel's work).  The cost is charged at the
+dispatch, before the choice between twin and kernel, so the CPU's twins and
+the card's kernels report the same numbers for the same world.  Nothing is
+charged unless a recorder is installed (``install_cost_sink``: the
+program-cost recorder of ``repro_torch.telemetry.profile``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
 import torch
 
@@ -119,3 +131,48 @@ def _stream_handle(index: int) -> int:
 # every call (Triton's launcher reads it the same way); a build without it
 # (the CPU-only one) gets the public call.
 current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or _stream_handle
+
+
+# the installed cost recorder (None: nothing is charged).  A module global,
+# not a context variable: autograd runs a CUDA backward on a thread of its
+# own, whose ops must charge the same recorder.
+_COST_SINK = None
+
+
+def install_cost_sink(sink):
+    """Install ``sink`` (an object with ``run(name, cost, fn, args,
+    kwargs)``) as the recorder every costed op charges; returns the one
+    it replaces.  None uninstalls."""
+    global _COST_SINK
+    prev, _COST_SINK = _COST_SINK, sink
+    return prev
+
+
+def current_cost_sink():
+    """The installed recorder, or None."""
+    return _COST_SINK
+
+
+def op_cost(flops: int = 0, bytes_accessed: int = 0, transcendentals: int = 0,
+            launches: int = 1) -> dict:
+    """The work of one op call: integers, and ``launches`` 0 where the
+    kernel has nothing to do and launches nothing."""
+    return {"launches": int(launches), "flops": int(flops),
+            "bytes_accessed": int(bytes_accessed), "transcendentals": int(transcendentals)}
+
+
+def costed(name: str, cost_of):
+    """Decorate an op as the entry of kernel ``name`` (a key of
+    ``repro_torch.kernels.launch_counts``): with a recorder installed, each
+    call charges ``cost_of(*args, **kwargs)`` to it and runs inside the
+    recorder (which keeps the twin's own products out of its count of the
+    plain-torch ones)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            sink = _COST_SINK
+            if sink is None:
+                return fn(*args, **kwargs)
+            return sink.run(name, cost_of(*args, **kwargs), fn, args, kwargs)
+        return op
+    return wrap

@@ -17,13 +17,79 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import use_twin
+from repro_torch.kernels.common import costed, op_cost, use_twin
 from repro_torch.kernels.lstm_cell.kernel import (lstm_cell_cuda, lstm_seq_backward_cuda,
                                                   lstm_seq_cuda)
 from repro_torch.kernels.lstm_cell.ref import (lstm_cell_ref, lstm_seq_backward_ref,
                                                lstm_seq_ref)
 
 
+def _seq_bytes_ops(lanes, b, f, h, t, save):
+    g4 = 4 * h
+    weights = f * g4 + h * g4 + g4
+    states = 2 * (t + 1) * b * h if save else 2 * b * h
+    gates = 2 * b * (f + h) * g4 + 2 * b * g4
+    return g4, weights, states, gates
+
+
+def lstm_seq_cost(lanes: int, b: int, f: int, h: int, t: int, save: bool = False) -> dict:
+    """The forward over T steps of L lanes: x, the initial states and the
+    weights read once, the final states (or, with ``save``, the T + 1
+    saved states) written once; the gate products, the bias and the
+    elementwise cell, whose 3 sigmoids and 2 tanh a unit and step are its
+    transcendentals."""
+    _, weights, states, gates = _seq_bytes_ops(lanes, b, f, h, t, save)
+    return op_cost(flops=lanes * t * (gates + 10 * b * h),
+                   bytes_accessed=4 * lanes * (t * b * f + 2 * b * h + weights + states),
+                   transcendentals=lanes * t * 5 * b * h, launches=int(lanes * b * h > 0))
+
+
+def lstm_seq_backward_cost(lanes: int, b: int, f: int, h: int, t: int) -> dict:
+    """The backward kernel over the saved states: it reads x, the T + 1
+    states, the weights and the final cotangents and writes dgates, dh0 and
+    dc0; it recomputes the gate products (and their transcendentals) and
+    forms dgates wh^T."""
+    g4, weights, states, gates = _seq_bytes_ops(lanes, b, f, h, t, True)
+    return op_cost(flops=lanes * t * (gates + 2 * b * g4 * h + 40 * b * h),
+                   bytes_accessed=4 * lanes * (t * b * f + states + weights + 2 * b * h
+                                               + t * b * g4 + 2 * b * h),
+                   transcendentals=lanes * t * 5 * b * h, launches=int(lanes * b * h > 0))
+
+
+def lstm_weight_grad_flops(lanes: int, b: int, f: int, h: int, t: int,
+                           need_dx: bool = True) -> int:
+    """The products :func:`lstm_seq_backward` forms from dgates beside the
+    kernel, one batched product each over a lane's T * B rows: dwx, dwh
+    and, with ``need_dx``, dx (2 flops a multiply-add, as
+    ``torch.utils.flop_counter`` counts ``bmm``)."""
+    rows, g4 = t * b, 4 * h
+    return 2 * lanes * rows * g4 * (f + h + (f if need_dx else 0))
+
+
+def _seq_cost(x_seq, h0, *_, save=False):
+    lanes = x_seq.shape[0] if x_seq.dim() == 4 else 1
+    t, b, f = x_seq.shape[-3:]
+    return lstm_seq_cost(lanes, b, f, h0.shape[-1], t, save)
+
+
+def _cell_cost(x, h, *_):
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    b, f = x.shape[-2:]
+    return lstm_seq_cost(lanes, b, f, h.shape[-1], 1)
+
+
+def _backward_cost(x_seq, h_seq, *_, need_dx=True, twin=None):
+    lanes = x_seq.shape[0] if x_seq.dim() == 4 else 1
+    t, b, f = x_seq.shape[-3:]
+    h = h_seq.shape[-1]
+    cost = lstm_seq_backward_cost(lanes, b, f, h, t)
+    # the weight-gradient products run in plain torch beside the kernel on
+    # the card (inside the twin on the CPU): counted with the torch products
+    cost["torch_matmul_flops"] = lstm_weight_grad_flops(lanes, b, f, h, t, need_dx)
+    return cost
+
+
+@costed("lstm_cell", _cell_cost)
 def lstm_cell(x, h, c, wx, wh, b):
     """(h', c') of one timestep, with or without the lane axis; shapes as
     in ``ref.lstm_cell_ref``."""
@@ -36,6 +102,7 @@ def _lanes(*ts):
     return [t[None] for t in ts]
 
 
+@costed("lstm_cell", _seq_cost)
 def lstm_seq(x_seq, h0, c0, wx, wh, b, save: bool = False):
     """The final states (h_T, c_T), or with ``save`` the states before and
     after every step (h_seq, c_seq), (L, T+1, B, H); with or without the
@@ -49,6 +116,7 @@ def lstm_seq(x_seq, h0, c0, wx, wh, b, save: bool = False):
     return lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save=save)
 
 
+@costed("lstm_cell_bwd", _backward_cost)
 def lstm_seq_backward(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx=True,
                       twin=None):
     """The gradient of :func:`lstm_seq` from its saved states:
@@ -60,9 +128,15 @@ def lstm_seq_backward(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx=
     if use_twin(x_seq) if twin is None else twin:
         return lstm_seq_backward_ref(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last)
     if x_seq.dim() == 3:
-        out = lstm_seq_backward(*_lanes(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last),
-                                need_dx=need_dx, twin=False)
+        out = _backward_lanes(*_lanes(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last),
+                              need_dx=need_dx)
         return tuple(None if t is None else t[0] for t in out)
+    return _backward_lanes(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx)
+
+
+def _backward_lanes(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, need_dx):
+    """The card's backward with the lane axis: the kernel, then the weight
+    gradients as batched products."""
     dgates, dh0, dc0 = lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b,
                                               dh_last.contiguous(), dc_last.contiguous())
     lanes, steps, batch, f = x_seq.shape

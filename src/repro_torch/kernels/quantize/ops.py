@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import use_twin
+from repro_torch.kernels.common import costed, op_cost, use_twin
 from repro_torch.kernels.quantize.kernel import dequantize_cuda, quantize_cuda
 from repro_torch.kernels.quantize.ref import (TILE, dequantize_batched_ref,
                                               dequantize_ref, quantize_batched_ref)
@@ -60,6 +60,26 @@ def resolve_compress(mode, num_params: int) -> Optional[str]:
     raise ValueError(f"unknown compress mode {mode!r}; one of None, 'int8', 'auto'")
 
 
+def quantize_cost(b: int, l: int) -> dict:
+    """Quantize of B rows of L fp32 into (B, Lp) codes and their tile
+    scales: each input read once, each output written once; an absolute
+    value, a max, a multiply, a round, a clip and a convert per element."""
+    lp = padded_len(l)
+    return op_cost(flops=6 * b * l, bytes_accessed=4 * b * l + b * lp + 4 * b * (lp // TILE),
+                   launches=int(b * lp > 0))
+
+
+def dequantize_cost(n: int, tiles: int) -> dict:
+    """Dequantize of ``n`` codes over ``tiles`` tile scales into ``n``
+    fp32: one multiply per element."""
+    return op_cost(flops=n, bytes_accessed=n + 4 * tiles + 4 * n, launches=int(n > 0))
+
+
+def _rows(x: torch.Tensor):
+    return (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
+
+
+@costed("quantize", lambda x: quantize_cost(*_rows(x)))
 def quantize_flat_batched(x: torch.Tensor):
     """x (B, L) or (L,) fp32 -> (q int8 (B, Lp), scales fp32 (B, Lp / TILE)),
     without B for one row.  A
@@ -70,6 +90,7 @@ def quantize_flat_batched(x: torch.Tensor):
     return quantize_cuda(x.contiguous())
 
 
+@costed("dequantize", lambda q, scales: dequantize_cost(q.numel(), scales.numel()))
 def dequantize_flat_batched(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Elementwise ``q * scale`` over (..., Lp) wire-format rows, in one
     launch over the rows as one buffer (Lp is a multiple of the tile)."""
@@ -85,6 +106,7 @@ def compress_update(vec: torch.Tensor):
     return q, s, int(vec.shape[0])
 
 
+@costed("dequantize", lambda q, scales, orig_len: dequantize_cost(orig_len, scales.numel()))
 def decompress_update(q: torch.Tensor, scales: torch.Tensor, orig_len: int) -> torch.Tensor:
     """The inverse of :func:`compress_update`: (orig_len,) fp32."""
     if use_twin(q):

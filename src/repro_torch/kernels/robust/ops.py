@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import use_twin
+from repro_torch.kernels.common import costed, op_cost, use_twin
 from repro_torch.kernels.fedavg.ops import fedavg_flat_batched, fedavg_flat_batched_q8
+from repro_torch.kernels.quantize.ref import TILE
 from repro_torch.kernels.robust import kernel as _k
 from repro_torch.kernels.robust import ref as _ref
 
@@ -33,6 +34,49 @@ from repro_torch.kernels.robust import ref as _ref
 ROBUST_METHODS = ("none", "clip", "trimmed_mean", "median")
 
 
+def _dense_bytes(r: int, n: int, l: int) -> int:
+    return 4 * (r * n * l + r * n + r * l)
+
+
+def _q8_bytes(r: int, n: int, lp: int) -> int:
+    return r * n * lp + 4 * (r * n * (lp // TILE) + r * n + r * lp)
+
+
+# compares and selects per column: the trimmed mean's two scans and weighted
+# sum, the median's n-phase network (n * n min/max), the dequantize multiply
+# of the q8 forms; each input read once, each output written once
+def trimmed_mean_cost(r: int, n: int, l: int) -> dict:
+    return op_cost(flops=r * l * (5 * n + 1), bytes_accessed=_dense_bytes(r, n, l),
+                   launches=int(r * l > 0))
+
+
+def trimmed_mean_q8_cost(r: int, n: int, lp: int) -> dict:
+    return op_cost(flops=r * lp * (6 * n + 1), bytes_accessed=_q8_bytes(r, n, lp),
+                   launches=int(r * lp > 0))
+
+
+def median_cost(r: int, n: int, l: int) -> dict:
+    return op_cost(flops=r * l * (n * n + n + 2), bytes_accessed=_dense_bytes(r, n, l),
+                   launches=int(r * l > 0))
+
+
+def median_q8_cost(r: int, n: int, lp: int) -> dict:
+    return op_cost(flops=r * lp * (n * n + 2 * n + 2), bytes_accessed=_q8_bytes(r, n, lp),
+                   launches=int(r * lp > 0))
+
+
+def sqnorm_cost(r: int, n: int, l: int) -> dict:
+    return op_cost(flops=2 * r * n * l, bytes_accessed=4 * (r * n * l + r * n),
+                   launches=int(r * n > 0))
+
+
+def sqnorm_q8_cost(r: int, n: int, lp: int) -> dict:
+    return op_cost(flops=3 * r * n * lp,
+                   bytes_accessed=r * n * lp + 4 * (r * n * (lp // TILE) + r * n),
+                   launches=int(r * n > 0))
+
+
+@costed("trimmed_mean", lambda updates, weights: trimmed_mean_cost(*updates.shape))
 def trimmed_mean_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L), weights (R, N) -> (R, L) fp32."""
     if use_twin(updates):
@@ -40,6 +84,7 @@ def trimmed_mean_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> t
     return _k.trimmed_mean_cuda(updates, weights)
 
 
+@costed("trimmed_mean_q8", lambda q, scales, weights: trimmed_mean_q8_cost(*q.shape))
 def trimmed_mean_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024), weights (R, N) -> (R, Lp)."""
     if use_twin(q):
@@ -47,6 +92,7 @@ def trimmed_mean_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     return _k.trimmed_mean_q8_cuda(q, scales, weights)
 
 
+@costed("median", lambda updates, weights: median_cost(*updates.shape))
 def median_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L), weights (R, N) -> (R, L) fp32."""
     if use_twin(updates):
@@ -54,6 +100,7 @@ def median_flat_batched(updates: torch.Tensor, weights: torch.Tensor) -> torch.T
     return _k.median_cuda(updates, weights)
 
 
+@costed("median_q8", lambda q, scales, weights: median_q8_cost(*q.shape))
 def median_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024), weights (R, N) -> (R, Lp)."""
     if use_twin(q):
@@ -61,18 +108,31 @@ def median_flat_batched_q8(q, scales, weights) -> torch.Tensor:
     return _k.median_q8_cuda(q, scales, weights)
 
 
+@costed("sqnorm", lambda updates: sqnorm_cost(*updates.shape))
+def sqnorm_flat_batched(updates: torch.Tensor) -> torch.Tensor:
+    """updates (R, N, L) -> (R, N) fp32 squared L2 norms."""
+    if use_twin(updates):
+        return _ref.sqnorm_batched_ref(updates)
+    return _k.sqnorm_cuda(updates)
+
+
+@costed("sqnorm_q8", lambda q, scales: sqnorm_q8_cost(*q.shape))
+def sqnorm_flat_batched_q8(q, scales) -> torch.Tensor:
+    """q (R, N, Lp) int8, scales (R, N, Lp / 1024) -> (R, N) fp32 squared
+    norms."""
+    if use_twin(q):
+        return _ref.sqnorm_batched_q8_ref(q, scales)
+    return _k.sqnorm_q8_cuda(q, scales)
+
+
 def l2norm_flat_batched(updates: torch.Tensor) -> torch.Tensor:
     """updates (R, N, L) -> (R, N) fp32 L2 norms (clip screening)."""
-    sq = (_ref.sqnorm_batched_ref(updates) if use_twin(updates)
-          else _k.sqnorm_cuda(updates))
-    return torch.sqrt(sq)
+    return torch.sqrt(sqnorm_flat_batched(updates))
 
 
 def l2norm_flat_batched_q8(q, scales) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024) -> (R, N) fp32 norms."""
-    sq = (_ref.sqnorm_batched_q8_ref(q, scales) if use_twin(q)
-          else _k.sqnorm_q8_cuda(q, scales))
-    return torch.sqrt(sq)
+    return torch.sqrt(sqnorm_flat_batched_q8(q, scales))
 
 
 def _masked_median_1d(values: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

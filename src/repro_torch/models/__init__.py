@@ -1,3 +1,5 @@
+from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.models.transformer import Transformer
 from repro_torch.models.classifiers import (
     LSTMClassifier,
     LSTMClassifierConfig,
@@ -8,6 +10,10 @@ from repro_torch.models.classifiers import (
 )
 
 __all__ = [
+    "ModelConfig",
+    "MoEConfig",
+    "MLAConfig",
+    "Transformer",
     "LSTMClassifier",
     "LSTMClassifierConfig",
     "MLPClassifier",

@@ -1,5 +1,5 @@
 """repro_torch.telemetry — structured observability for both EnFed engines
-(port of ``repro.telemetry``, less its profiler hooks).
+(port of ``repro.telemetry``).
 
 * **Round events** (:mod:`repro_torch.telemetry.events`): one
   :class:`RoundEvent` schema materialized from EITHER engine's
@@ -14,9 +14,13 @@
   as JSONL and the Timeline as a Chrome-trace/Perfetto ``trace.json``.
 * **The knob** (:class:`TraceConfig` on ``ExecutionSpec.trace``).
 
-The reference's profiling hooks (``maybe_jax_profiler``,
-``jit_hlo_stats``) are ``ROADMAP.md`` slice F, where ``torch.profiler``
-takes the place of ``jax.profiler``.
+* **Profiling hooks** (:mod:`repro_torch.telemetry.profile`):
+  ``torch.profiler`` around the fleet program (:func:`maybe_torch_profiler`,
+  the reference's ``maybe_jax_profiler``) and the program-cost recorder
+  (:func:`record_program_cost`, :func:`program_cost_stats`; the reference
+  compiled its program for XLA's cost analysis in ``jit_hlo_stats``): the
+  kernels' flops, bytes and launches over the run, charged at each op's
+  dispatch (:mod:`repro_torch.launch.hlo_stats`).
 
 House rule: **observation can never change the simulated outcome**.
 Every instrument here is host-side (wall clocks, post-hoc history
@@ -30,6 +34,8 @@ from repro_torch.telemetry.events import (EVENT_PHASES, ROUND_EVENT_FIELDS, Roun
                                           validate_events)
 from repro_torch.telemetry.export import (read_events_jsonl, timeline_chrome_trace,
                                           write_chrome_trace, write_events_jsonl)
+from repro_torch.telemetry.profile import (ProgramCost, maybe_torch_profiler,
+                                           program_cost_stats, record_program_cost)
 from repro_torch.telemetry.spans import Span, Timeline
 
 __all__ = [
@@ -46,4 +52,8 @@ __all__ = [
     "read_events_jsonl",
     "timeline_chrome_trace",
     "write_chrome_trace",
+    "maybe_torch_profiler",
+    "record_program_cost",
+    "program_cost_stats",
+    "ProgramCost",
 ]

@@ -23,13 +23,19 @@ class TraceConfig:
     ``events_jsonl`` / ``chrome_trace`` are written by ``Experiment.run``
     after the run completes (host-side file I/O, outcome-neutral), on
     either engine.  ``jax_profiler_dir`` and ``hlo_stats`` keep the
-    reference's names: the loop engine and the host-side baselines warn and
-    ignore them, as in the reference, and the fleet engine refuses them
-    until the profiler hooks are ported (``ROADMAP.md`` slice F, where
-    ``torch.profiler`` takes the place of ``jax.profiler``).
+    reference's names and instrument the fleet program: the first runs
+    ``torch.profiler`` around it and writes its trace into the directory,
+    the second records the kernels' work over it into
+    ``FleetResult.hlo_stats`` (``repro_torch.telemetry.profile``).  The loop
+    engine and the host-side baselines warn and ignore them, as in the
+    reference.  With ``hlo_stats`` on, the flop counter runs Python on
+    every torch op of the program, so the run's ``program`` span and
+    ``RunResult.timings`` time the counted program, many times slower than
+    the program: read the work counts from one run and the times from an
+    untraced one.  The profiler writes its trace after the span closes.
     """
 
     events_jsonl: Optional[str] = None   # write the RoundEvent stream here
     chrome_trace: Optional[str] = None   # write the Timeline as trace.json
-    jax_profiler_dir: Optional[str] = None  # profiler dump (slice F)
-    hlo_stats: bool = False              # program cost summary (slice F)
+    jax_profiler_dir: Optional[str] = None  # torch.profiler trace of the program
+    hlo_stats: bool = False              # the program's work and memory

@@ -41,3 +41,23 @@ class RefInitTask(tcore.SupervisedTask):
         with threefry(self.threefry_partitionable):
             jp = self._jtask.init(seed)
         return from_jax_params(jax.tree_util.tree_map(np.asarray, jp), self.device)
+
+
+def torch_model_config(cfg):
+    """The port's ``ModelConfig`` with every field of the reference's
+    ``cfg`` (its MoE and MLA sub-configs converted too)."""
+    import dataclasses
+
+    from repro_torch.models import config as tconf
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    if cfg.moe is not None:
+        fields["moe"] = tconf.MoEConfig(**dataclasses.asdict(cfg.moe))
+    if cfg.mla is not None:
+        fields["mla"] = tconf.MLAConfig(**dataclasses.asdict(cfg.mla))
+    return tconf.ModelConfig(**fields)
+
+
+def np_tree(tree):
+    """A reference pytree as a nested dict of numpy arrays."""
+    return jax.tree_util.tree_map(np.asarray, tree)

@@ -382,22 +382,35 @@ def test_engines_refuse_interpret(engine):
                                                   seed=3))), "fleet", "slice E"),
     (dict(execution=dict(trace=TraceConfig(hlo_stats=True))), "fleet", "slice F"),
     (dict(execution=dict(trace=TraceConfig(jax_profiler_dir="prof"))), "fleet", "slice F")])
-def test_enfed_refuses_unported_knobs_naming_their_slice(knob, engine, match):
-    """The profiler fields still raise naming slice F; the cadence, which
-    raised naming slice E before its slice, runs now, its events carrying
-    the lane's clock and idle steps."""
+def test_enfed_refuses_unported_knobs_naming_their_slice(knob, engine, match, tmp_path):
+    """No knob is refused any more.  The profiler fields, which raised
+    naming slice F before it, run: the traced run is the untraced one bit
+    for bit, ``RunResult.hlo_stats`` carries the fleet's program cost, and
+    the profiler writes its trace.  The cadence, which raised naming slice
+    E before its slice, runs, its events carrying the lane's clock and idle
+    steps."""
     _, tw = _worlds()
     world = dataclasses.replace(tw, **knob.get("world", {}))
     method = dataclasses.replace(_methods()[1], **knob.get("method", {}))
-    execution = ExecutionSpec(engine=engine, **knob.get("execution", {}))
+    exec_kw = dict(knob.get("execution", {}))
+    if "trace" in exec_kw and exec_kw["trace"].jax_profiler_dir:
+        exec_kw["trace"] = TraceConfig(jax_profiler_dir=str(tmp_path / "prof"))
+    execution = ExecutionSpec(engine=engine, **exec_kw)
     if match == "slice E":
         res = Experiment(world, method, execution).run()
         rounds = [e for e in validate_events(res.trace) if e.phase == "round"]
         assert [e.clock for e in rounds] == res.history_raw["round_clock"]
         assert all(e.idle is not None for e in rounds) and np.isfinite(res.accuracy)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        Experiment(world, method, execution).run()
+    res = Experiment(world, method, execution).run()
+    plain = Experiment(_worlds()[1], method, ExecutionSpec(engine=engine)).run()
+    _assert_bitwise(res, plain)
+    if execution.trace.hlo_stats:
+        assert res.hlo_stats["per_kernel"]["fedavg"]["launches"] == res.rounds
+        assert res.hlo_stats["flops"] > 0 and res.hlo_stats["bytes_accessed"] > 0
+    else:
+        assert res.hlo_stats is None
+        assert list((tmp_path / "prof").glob("*.pt.trace.json"))
 
 
 _FC = tcore.FaultConfig(p_drop=0.5, p_stale=0.4, max_retries=1, release_after=2, seed=3)
@@ -572,7 +585,13 @@ def test_core_reexports_facade_and_all():
     assert set(api.__all__) == set(japi.__all__)
     import repro_torch.telemetry as tel
 
-    assert set(tel.__all__) == set(jtel.__all__) - {"maybe_jax_profiler", "jit_hlo_stats"}
+    # the profiler hooks under PyTorch names: the reference's jax.profiler
+    # wrapper and its compile-for-cost-analysis hook
+    renamed = {"maybe_jax_profiler": "maybe_torch_profiler",
+               "jit_hlo_stats": "record_program_cost"}
+    assert {renamed.get(n, n) for n in jtel.__all__} <= set(tel.__all__)
+    assert set(tel.__all__) - {renamed.get(n, n) for n in jtel.__all__} == {
+        "program_cost_stats", "ProgramCost"}
 
 
 def test_deprecated_history_view_warns():

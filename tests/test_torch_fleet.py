@@ -280,21 +280,41 @@ _CC = tcore.CadenceConfig(n_speed_classes=2, duty_cycle=3, duty_on=2, p_offline=
     ({}, dict(method="cfl", trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(trace=TraceConfig(jax_profiler_dir="prof"))),
     ({}, dict(trace=TraceConfig(hlo_stats=True)))])
-def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs):
-    """The profiler fields still raise naming slice F; the cadence cases,
-    refused before the cadence slice, run now, alone, under mobility and
-    with the adversary (held to the reference in
-    ``tests/test_torch_cadence_engines.py``)."""
+def test_unported_fleet_knobs_raise_naming_their_slice(knob, kwargs, tmp_path):
+    """No knob is refused any more.  The profiler fields, which raised
+    naming slice F before it, run: the traced run equals the untraced one
+    bit for bit (params, traces, battery), ``hlo_stats`` holds the
+    program's work and memory, and the profiler writes its trace.  The
+    cadence cases run alone, under mobility and with the adversary (held to
+    the reference in ``tests/test_torch_cadence_engines.py``)."""
     task, train, test, fleet, states, cfg = _one_lane_world(None)
     cfg = dataclasses.replace(cfg, **knob)
+    trace = kwargs.get("trace")
+    if trace is not None and trace.jax_profiler_dir:
+        kwargs = dict(kwargs, trace=dataclasses.replace(
+            trace, jax_profiler_dir=str(tmp_path / trace.jax_profiler_dir)))
 
-    def run():
+    def run(**over):
         return tcore.run_fleet(task, [tcore.RequesterSpec(train, test, fleet, states())], cfg,
-                               device="cpu", **kwargs)
+                               device="cpu", **dict(kwargs, **over))
 
     if "cadence" not in knob:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md slice F"):
-            run()
+        res, plain = run(), run(trace=None)
+        for a, b in zip(tree_leaves(res.sessions[0].params), tree_leaves(plain.sessions[0].params)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert set(res.history) == set(plain.history)
+        for k in res.history:
+            np.testing.assert_array_equal(res.history[k], plain.history[k])
+        np.testing.assert_array_equal(res.battery_level, plain.battery_level)
+        assert plain.hlo_stats is None
+        if trace.hlo_stats:
+            assert {"flops", "bytes_accessed", "transcendentals", "torch_matmul_flops",
+                    "per_kernel", "memory"} <= set(res.hlo_stats)
+            assert res.hlo_stats["per_kernel"]["fedavg"]["launches"] > 0
+            assert res.hlo_stats["memory"]["staged_bytes"] == res.staged_param_bytes
+        else:
+            assert res.hlo_stats is None
+            assert list((tmp_path / "prof").glob("*.pt.trace.json"))
         return
     res = run()
     s0 = res.sessions[0]

@@ -220,6 +220,36 @@ def test_cpu_dispatch_runs_the_twins_without_launching():
     assert counts["lstm_cell"] == 0 and counts["lstm_cell_bwd"] == 0
 
 
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_backward_charges_its_kernel_and_counts_the_weight_products_apart(monkeypatch,
+                                                                           need_dx):
+    """Under the program-cost recorder the backward charges the kernel's own
+    work (dgates, dh0, dc0) to ``lstm_cell_bwd``; the weight-gradient
+    products it forms in plain torch beside the kernel go to
+    ``torch_matmul_flops``, at the count ``FlopCounterMode`` gives the
+    card's batched products (run here on CPU tensors, the kernel's three
+    outputs taken from the twin)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.telemetry import record_program_cost
+
+    lanes, t, b, f, h = 3, 8, 5, 6, 16
+    args = [_t(a) for a in _inputs(lanes, t, b, f, h, 5)]
+    cot = [torch.randn((lanes, b, h), generator=torch.Generator().manual_seed(s))
+           for s in (1, 2)]
+    h_seq, c_seq = ops.lstm_seq(*args, save=True)
+    with record_program_cost() as rec:
+        ops.lstm_seq_backward(args[0], h_seq, c_seq, *args[3:], *cot, need_dx=need_dx)
+    assert rec.per_kernel == {"lstm_cell_bwd": ops.lstm_seq_backward_cost(lanes, b, f, h, t)}
+    want = ops.lstm_weight_grad_flops(lanes, b, f, h, t, need_dx)
+    assert rec.torch_matmul_flops == want
+    kernel_out = lstm_seq_backward_ref(args[0], h_seq, c_seq, *args[3:], *cot)[:3]
+    monkeypatch.setattr(ops, "lstm_seq_backward_cuda", lambda *a: kernel_out)
+    with FlopCounterMode(display=False) as mode:
+        ops._backward_lanes(args[0], h_seq, c_seq, *args[3:], *cot, need_dx)
+    assert mode.get_total_flops() == want
+
+
 @pytest.mark.parametrize("backward", [False, True])
 def test_launcher_refuses_weights_over_shared_memory(backward):
     """H = 128 at F = 6 does not fit a block's 227 KB: refused by the plan,

@@ -116,6 +116,11 @@ def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name,
     mob, method = _WORLDS[world_name]
     trace = TraceConfig(events_jsonl=str(tmp_path / "events.jsonl"),
                         chrome_trace=str(tmp_path / "trace.json"))
+    if engine == "fleet":
+        # the fleet also runs its profiler hooks: torch.profiler and the
+        # program-cost recorder around the program span
+        trace = dataclasses.replace(trace, jax_profiler_dir=str(tmp_path / "prof"),
+                                    hlo_stats=True)
     off = Experiment(_world(problem, mob), method, ExecutionSpec(engine=engine)).run()
     on = Experiment(_world(problem, mob), method,
                     ExecutionSpec(engine=engine, trace=trace)).run()
@@ -123,7 +128,14 @@ def test_trace_on_is_bitwise_identical_to_trace_off(problem, engine, world_name,
     assert (tmp_path / "events.jsonl").exists()
     assert (tmp_path / "trace.json").exists()
     assert on.timings
-    assert on.hlo_stats is None
+    assert off.hlo_stats is None
+    if engine == "loop":
+        assert on.hlo_stats is None
+    else:
+        assert list((tmp_path / "prof").glob("*.pt.trace.json"))
+        assert on.hlo_stats["per_kernel"]
+        assert on.hlo_stats["flops"] == sum(
+            k["flops"] for k in on.hlo_stats["per_kernel"].values())
 
 
 # ---------------------------------------------------------------------------
@@ -417,3 +429,126 @@ def test_loop_engine_warns_on_fleet_only_trace_knobs(problem, method, trace):
         res = Experiment(_world(problem), dataclasses.replace(_METHOD, max_rounds=1),
                          ExecutionSpec(engine="loop", trace=trace)).run(method)
     assert res.hlo_stats is None
+
+
+# ---------------------------------------------------------------------------
+# the profiler hooks: hlo_stats against the launch counters and a closed form
+# ---------------------------------------------------------------------------
+
+# the twin each op calls on the CPU, by module, and the kernel counter it
+# stands for: on the CPU a twin call sits where the card launches the kernel
+_TWIN_COUNTERS = [
+    ("fedavg.ops", "fedavg_batched_ref", "fedavg.kernel", "launches"),
+    ("fedavg.ops", "fedavg_batched_q8_ref", "fedavg.kernel", "q8_launches"),
+    ("quantize.ops", "quantize_batched_ref", "quantize.kernel", "launches"),
+    ("quantize.ops", "dequantize_batched_ref", "quantize.kernel", "dequantize_launches"),
+    ("quantize.ops", "dequantize_ref", "quantize.kernel", "dequantize_launches"),
+    ("aes_ctr.ops", "aes_ctr_ref", "aes_ctr.kernel", "launches"),
+    ("lstm_cell.ops", "lstm_seq_ref", "lstm_cell.kernel", "launches"),
+    ("lstm_cell.ops", "lstm_cell_ref", "lstm_cell.kernel", "launches"),
+    ("lstm_cell.ops", "lstm_seq_backward_ref", "lstm_cell.kernel", "bwd_launches"),
+]
+
+
+@pytest.fixture
+def counted_twins(monkeypatch):
+    """Each twin call adds one to its kernel's ``launches`` counter, as the
+    card's launch would."""
+    import importlib
+
+    import repro_torch.kernels as kernels
+
+    def wrap(fn, mod, attr):
+        def counted(*args, **kwargs):
+            setattr(mod, attr, getattr(mod, attr) + 1)
+            return fn(*args, **kwargs)
+        return counted
+
+    for ops_name, twin, kmod_name, attr in _TWIN_COUNTERS:
+        ops = importlib.import_module(f"repro_torch.kernels.{ops_name}")
+        kmod = importlib.import_module(f"repro_torch.kernels.{kmod_name}")
+        monkeypatch.setattr(ops, twin, wrap(getattr(ops, twin), kmod, attr))
+    kernels.reset_launch_counts()
+    yield kernels
+    kernels.reset_launch_counts()
+
+
+def _fedavg(r, n, l):
+    """Eq. 14 at (R, N, L): 2 R N L + R L flops; the updates, weights and
+    means moved once, fp32."""
+    return 2 * r * n * l + r * l, 4 * (r * n * l + r * n + r * l)
+
+
+def _fedavg_q8(r, n, lp):
+    """Eq. 14 over int8 codes: a dequantize multiply and a multiply-add per
+    code, a division per mean; one byte a code, a scale a 1024-code tile."""
+    return 3 * r * n * lp + r * lp, r * n * lp + 4 * (r * n * lp // 1024 + r * n + r * lp)
+
+
+def _quantize(b, l, lp):
+    """Six operations an element; the rows read, codes and scales written."""
+    return 6 * b * l, 4 * b * l + b * lp + 4 * b * lp // 1024
+
+
+def _dequantize(n):
+    """One multiply a code; codes and scales read, fp32 written."""
+    return n, n + 4 * n // 1024 + 4 * n
+
+
+@pytest.mark.parametrize("method_name,compress", [("enfed", None), ("enfed", "int8"),
+                                                  ("dfl", None), ("cfl", None)])
+def test_hlo_stats_count_the_launches_and_a_closed_form(problem, counted_twins, method_name,
+                                                        compress):
+    """The program's per-kernel launches equal the kernels' launch counters
+    over the run (on the CPU each twin call counts as its launch), and its
+    flops and bytes equal the closed form of this world: the MLP of P = 8 *
+    16 + 16 + 16 * 5 + 5 = 229 params, one requester with 3 contributors:
+    under enfed eq. 14 over N = n_max = 5 lanes (2 of them zero-weight
+    padding) once a round, and under int8 a round's refresh before it
+    (dequantize of the 3 contributors' 1024-code rows, quantize of the 3
+    refreshed rows); under the baselines the requester's lane and 3 client
+    lanes, N = 4, one eq. 14 a round (cfl) or one per mixing row (dfl, 4 a
+    round)."""
+    P, LP = 229, 1024
+    method = dataclasses.replace(_METHOD, compress=compress)
+    trace = TraceConfig(hlo_stats=True)
+    before = counted_twins.launch_counts()
+    res = Experiment(_world(problem), method,
+                     ExecutionSpec(engine="fleet", trace=trace)).run(method_name)
+    moved = {k: v - before[k] for k, v in counted_twins.launch_counts().items()}
+    stats, rounds = res.hlo_stats, res.rounds
+    assert rounds >= 1
+    # the program span holds every launch of this world but the int8
+    # staging (one quantize of the 3 contributors) and its unpack (one
+    # dequantize of their final rows), which lie outside it
+    outside = {"quantize": 1, "dequantize": 1} if compress else {}
+    assert {k: v["launches"] for k, v in stats["per_kernel"].items()} == {
+        k: v - outside.get(k, 0) for k, v in moved.items() if v}
+    assert method.n_max == 5
+    if method_name == "enfed" and compress is None:
+        terms = [_fedavg(1, 5, P)] * rounds
+    elif method_name == "enfed":
+        terms = [_dequantize(3 * LP), _quantize(3, P, LP), _fedavg_q8(1, 5, LP)] * rounds
+    elif method_name == "cfl":
+        terms = [_fedavg(1, 4, P)] * rounds
+    else:
+        terms = [_fedavg(1, 4, P)] * (4 * rounds)
+    assert stats["flops"] == sum(f for f, _ in terms)
+    assert stats["bytes_accessed"] == sum(b for _, b in terms)
+    assert stats["transcendentals"] == 0
+    assert stats["torch_matmul_flops"] > 0
+    assert stats["memory"]["staged_bytes"] == res.raw.staged_param_bytes
+    assert "peak_bytes" not in stats["memory"]
+
+
+def test_profiler_writes_a_trace_of_the_program_on_the_cpu(problem, tmp_path):
+    """``jax_profiler_dir`` writes a Chrome/TensorBoard trace of the fleet
+    program, each kernel op in a ``repro_torch::<kernel>`` range."""
+    trace = TraceConfig(jax_profiler_dir=str(tmp_path / "prof"))
+    res = Experiment(_world(problem), _METHOD, ExecutionSpec(engine="fleet", trace=trace)).run()
+    files = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(files) == 1 and res.hlo_stats is None
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "repro_torch::fedavg" in names
+    assert sum(e.get("name") == "repro_torch::fedavg" for e in events) == res.rounds

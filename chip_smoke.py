@@ -151,6 +151,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      MoE routes equal at the forward and at every decode step, and decode
      against forward on the card within 2e-3 wherever the CPU tests hold
      that rule;
+   - the LM zoo's training: ``repro_torch.launch.train.main`` for the
+     ``debug-dense`` and ``debug-moe`` presets at their registered widths
+     with the reference driver's defaults (4 clients, global batch 8, seq
+     64, 1 local step, lr 3e-4, ``enfed`` over neighbourhoods of 2), 30
+     steps with a checkpoint under ``build/4m``, which must exit 0 (the
+     loss improved), with its training tokens/s; the same command again,
+     which must restore that checkpoint bit for bit and go on from step 30;
+     one ``FederatedTrainer`` round of every strategy (``enfed`` with a
+     client left out) on the card and on the CPU from the same weights,
+     losses within 1e-4, the MoE routes of the first forward equal, and the
+     params' mean absolute gap under [4c]'s rule (``LM_ROUND_MEAN_TOL``); one step's
+     loss and gradient with per-block remat on and off on the card, equal
+     within 1e-6 (``LM_REMAT_TOL``), for both presets and ``debug-moe``
+     through the sort dispatch; this path launches no hand-written kernel;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -162,7 +176,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
    fleet: device-busy share, launches per Adam step and the kernels that
-   take the device time;
+   take the device time; and one LM training round of [4m] for each preset
+   with remat on and off: its wall, device-busy share, device operations
+   and aten op events;
 7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -203,6 +219,18 @@ TILE = 1024                    # int8 wire tile
 # 1e-4 relative fault lands above it (both measured in every run)
 FLEET_ROUND_TOL = 2e-3
 ULP_REL, FAULT_REL = 1e-7, 1e-4
+# [4m], one FederatedTrainer round of the LM zoo card vs CPU from the same
+# weights: losses within [4l]'s LM_CARD_TOL; params by the mean absolute
+# difference over every element, under [4c]'s rule (the CPU's spread under a
+# ULP_REL perturbation of the weights below the limit, a FAULT_REL fault
+# above it, both measured in every run).  Adam's first step moves a weight
+# whose gradient is near zero by up to lr either way, so a 1e-7
+# perturbation's max gap comes near a fault's and those few weights carry
+# the RMS; the mean gap grows with the perturbation (the run prints each)
+LM_ROUND_MEAN_TOL = 2e-7
+# [4m], remat on vs off on the card: one step's loss and gradient leaves
+LM_REMAT_TOL = 1e-6
+LM_TRAIN_STEPS = 30
 # the Byzantine world of [4d]: 20 % of the links deliver noise of scale 10
 ADVERSARY = dict(p_byzantine=0.2, attack="noise", scale=10.0, seed=7)
 ADV_ROUNDS = 3
@@ -3418,6 +3446,233 @@ def run_lm_zoo(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: the LM zoo's training on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_DIR = ROOT / "build" / "4m"
+LM_CLIENTS, LM_BATCH, LM_SEQ, LM_LR = 4, 8, 64, 3e-4   # the reference driver's defaults
+LM_TRAIN_ARGV = ["--preset", "full", "--steps", str(LM_TRAIN_STEPS), "--clients",
+                 str(LM_CLIENTS), "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+                 "--local-steps", "1", "--lr", str(LM_LR), "--strategy", "enfed",
+                 "--neighborhood", "2", "--log-every", "10"]
+LM_ENFED_MASK = np.array([1.0, 1.0, 0.0, 1.0], np.float32)   # client 2 left out
+
+
+def lm_train_presets():
+    from repro_torch.configs import get_config
+
+    return {name: get_config(name) for name in ("debug-dense", "debug-moe")}
+
+
+def state_bits(tree) -> dict:
+    """``{path: bytes}`` of every leaf of a training state (tensors or the
+    host numpy a checkpoint restores), keyed as the checkpointer keys it."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+
+    return {k: (v.dtype, v.shape, v.tobytes()) for k, v in _flatten_with_paths(tree).items()}
+
+
+def lm_train_runs(arch):
+    """``train.main`` for ``arch`` at its registered widths: a 2-step
+    warm-up (no checkpoint), the 30-step run with its checkpoint under
+    ``build/4m``, which must exit 0 (the loss improved), then the same
+    command again, which must restore that checkpoint bit for bit and go
+    on from its step.  Returns the 30-step run's tokens/s."""
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as train_mod
+
+    ckpt = LM_TRAIN_DIR / arch
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", arch] + LM_TRAIN_ARGV + ["--ckpt-dir", str(ckpt)]
+    runs, restored = [], []
+    real_train, real_restore = train_mod.train, train_mod.restore_checkpoint
+
+    def spy_train(argv=None, params_one=None):
+        runs.append(real_train(argv, params_one))
+        return runs[-1]
+
+    def spy_restore(*args, **kw):
+        restored.append(real_restore(*args, **kw))
+        return restored[-1]
+
+    train_mod.train, train_mod.restore_checkpoint = spy_train, spy_restore
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):     # cuBLAS handles, the allocator
+            train_mod.main(["--arch", arch] + LM_TRAIN_ARGV + ["--steps", "2"])
+        rc = train_mod.main(argv)
+        saved = state_bits((runs[-1].params, runs[-1].opt_state))
+        rc_resumed = train_mod.main(argv)
+    finally:
+        train_mod.train, train_mod.restore_checkpoint = real_train, real_restore
+    first, resumed = runs[1], runs[2]
+    print(f"  {arch}: {LM_TRAIN_STEPS} steps exit {rc}, loss {first.losses[0]:.4f} -> "
+          f"{first.losses[-1]:.4f}, {first.tokens_per_s:.1f} training tokens/s; battery "
+          f"{100 * first.battery[-1]:.3f} %; resumed from step {resumed.start}: exit "
+          f"{rc_resumed}, loss {resumed.losses[0]:.4f} -> {resumed.losses[-1]:.4f}, "
+          f"{resumed.tokens_per_s:.1f} tokens/s")
+    if rc != 0 or not first.losses[-1] < first.losses[0]:
+        fail(f"[4m] {arch}: train.main exited {rc}: the loss did not improve in "
+             f"{LM_TRAIN_STEPS} steps")
+    if first.start != 0 or resumed.start != LM_TRAIN_STEPS or len(restored) != 1:
+        fail(f"[4m] {arch}: the rerun did not restore step {LM_TRAIN_STEPS} "
+             f"(starts {first.start}, {resumed.start}; {len(restored)} restores)")
+    state, step = restored[0]
+    if step != LM_TRAIN_STEPS or state_bits(state) != saved:
+        fail(f"[4m] {arch}: the restored state is not the saved one bit for bit")
+    if latest_step(str(ckpt)) != 2 * LM_TRAIN_STEPS:
+        fail(f"[4m] {arch}: the resumed run wrote no checkpoint at step {2 * LM_TRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in first.losses + resumed.losses):
+        fail(f"[4m] {arch}: a loss is not finite")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return first.tokens_per_s
+
+
+def lm_round_check(device, name, cfg):
+    """One ``FederatedTrainer`` round of every strategy (enfed with client
+    2 left out) on the card and on the CPU from the same weights and the
+    driver's first batch: losses within ``LM_CARD_TOL``, the MoE routes of
+    the first forward equal, the params' mean absolute gap under [4c]'s
+    rule (the CPU's spread under a ``ULP_REL`` perturbation of the weights
+    below ``LM_ROUND_MEAN_TOL``, a ``FAULT_REL`` fault above it)."""
+    from repro_torch.core import AggregationStrategy, FederatedTrainer
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models import Transformer, moe
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    models = {"cpu": Transformer(cfg, device=cpu), "cuda": Transformer(cfg, device=device)}
+    host_p = models["cpu"].init(torch.Generator().manual_seed(0))
+    card_p = tree_map(lambda t: t.to(device), host_p)
+    flat = next(synthetic_token_batches(cfg.vocab_size, LM_BATCH, LM_SEQ, 1, seed=2))
+    batches = {k: torch.from_numpy(v.reshape(LM_CLIENTS, 1, LM_BATCH // LM_CLIENTS, LM_SEQ))
+               .long() for k, v in flat.items()}
+    routes = {"cpu": [], "cuda": []}
+    topk = moe._topk
+
+    def recording(gates, k):
+        out = topk(gates, k)
+        routes[gates.device.type].append(out[1].cpu())
+        return out
+
+    def one_round(params, strategy, mask):
+        dev = tree_leaves(params)[0].device
+        model = models[dev.type]
+        tr = FederatedTrainer(lambda p, b: lm_loss(model, p, b), LM_CLIENTS, strategy,
+                              lr=LM_LR)
+        mixed, _, losses = tr.round(*tr.init(params), {k: v.to(dev) for k, v in batches.items()},
+                                    mask)
+        return torch.cat([x.reshape(-1) for x in tree_leaves(mixed)]).cpu(), losses.cpu()
+
+    def perturbed(rel, seed):
+        g = torch.Generator().manual_seed(seed)
+        return tree_map(lambda t: t * (1 + rel * torch.randn(t.shape, generator=g)), host_p)
+
+    def gap_of(a, b):
+        return float((a - b).abs().mean())
+
+    for kind in ("cfl", "enfed", "dfl_ring", "dfl_mesh", "none"):
+        strategy = AggregationStrategy(kind, neighborhood_size=2 if kind == "enfed" else 0)
+        mask = LM_ENFED_MASK if kind == "enfed" else None
+        routes["cpu"].clear()
+        routes["cuda"].clear()
+        moe._topk = recording
+        try:
+            card, card_loss = one_round(card_p, strategy, mask)
+            host, host_loss = one_round(host_p, strategy, mask)
+        finally:
+            moe._topk = topk
+        diff = gap_of(card, host)
+        loss_gap = float((card_loss - host_loss).abs().max())
+        noise = max(gap_of(one_round(perturbed(ULP_REL, sd), strategy, mask)[0], host)
+                    for sd in range(3))
+        fault = gap_of(one_round(perturbed(FAULT_REL, 0), strategy, mask)[0], host)
+        gap = (card - host).abs()
+        first = cfg.num_layers if cfg.moe is not None else 0
+        line = (f"  {name} {kind:8s} card vs CPU: losses {loss_gap:.3e} (limit "
+                f"{LM_CARD_TOL:g}); params mean gap {diff:.3e} (limit {LM_ROUND_MEAN_TOL:g}; "
+                f"RMS {float(gap.pow(2).mean().sqrt()):.3e}, max {float(gap.max()):.3e}, "
+                f"{int((gap > 1e-5).sum())} of {gap.numel()} beyond 1e-5); CPU vs CPU mean "
+                f"gap: {ULP_REL:g} perturbation {noise:.3e}, {FAULT_REL:g} fault {fault:.3e}")
+        if first:
+            same = sum(torch.equal(a, b) for a, b in zip(routes["cpu"], routes["cuda"]))
+            line += (f"; MoE routes equal in {same} of {len(routes['cpu'])} calls of the "
+                     f"round (the first forward's {first} must be)")
+        print(line)
+        if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(card_loss).all())):
+            fail(f"[4m] {name} {kind}: the card's round is not finite")
+        if len(routes["cpu"]) != len(routes["cuda"]) or not all(
+                torch.equal(a, b) for a, b in zip(routes["cpu"][:first], routes["cuda"][:first])):
+            fail(f"[4m] {name} {kind}: the card routes the first forward's tokens to other "
+                 f"experts than the CPU")
+        if not loss_gap <= LM_CARD_TOL:
+            fail(f"[4m] {name} {kind}: the losses differ by {loss_gap} between the card and "
+                 f"the CPU")
+        if not noise < LM_ROUND_MEAN_TOL:
+            fail(f"[4m] {name} {kind}: the CPU's own spread {noise} reaches the limit "
+                 f"{LM_ROUND_MEAN_TOL}")
+        if not fault > LM_ROUND_MEAN_TOL:
+            fail(f"[4m] {name} {kind}: a {FAULT_REL:g} fault ({fault}) stays within the "
+                 f"limit {LM_ROUND_MEAN_TOL}, which therefore checks nothing")
+        if not diff <= LM_ROUND_MEAN_TOL:
+            fail(f"[4m] {name} {kind}: the round's params differ by {diff} on average "
+                 f"between the card and the CPU")
+
+
+def lm_remat_check(device, name, cfg):
+    """One client's loss and gradient on the card with per-block remat on
+    and off, from the same weights and batch: bit-equal, or within
+    ``LM_REMAT_TOL``."""
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models import Transformer
+    from repro_torch.utils.tree import tree_leaves, value_and_grad
+
+    on, off = Transformer(cfg, device=device), Transformer(cfg.replace(remat=False),
+                                                           device=device)
+    params = on.init(torch.Generator().manual_seed(0))
+    flat = next(synthetic_token_batches(cfg.vocab_size, LM_BATCH // LM_CLIENTS, LM_SEQ, 1,
+                                        seed=2))
+    batch = {k: torch.from_numpy(v).long().to(device) for k, v in flat.items()}
+    lo, go = value_and_grad(lambda p: lm_loss(on, p, batch), params)
+    lf, gf = value_and_grad(lambda p: lm_loss(off, p, batch), params)
+    pairs = [(lo, lf)] + list(zip(tree_leaves(go), tree_leaves(gf)))
+    bits = all(torch.equal(a, b) for a, b in pairs)
+    gap = max(float((a - b).abs().max()) for a, b in pairs)
+    print(f"  {name} remat on vs off on the card: "
+          + ("bit-equal" if bits else f"largest gap {gap:.3e} (limit {LM_REMAT_TOL:g})")
+          + f" over the loss and {len(pairs) - 1} gradient leaves")
+    if not gap <= LM_REMAT_TOL:
+        fail(f"[4m] {name}: remat on and off differ by {gap} on the card")
+
+
+def run_lm_training(device):
+    """The LM zoo's training on the card: ``train.main`` and its resume at
+    both presets' registered widths, one round of every strategy card vs
+    CPU, and remat on vs off (the presets, and ``debug-moe`` through the
+    sort dispatch).  The path is plain torch: it launches no hand-written
+    kernel."""
+    import dataclasses as dc
+
+    from repro_torch.kernels import launch_counts
+
+    reset_counts()
+    rates = {arch: lm_train_runs(arch) for arch in lm_train_presets()}
+    launched = {k: v for k, v in launch_counts().items() if v}
+    print(f"  training tokens/s: {rates}; hand-written kernel launches: {launched or 'none'}")
+    for name, cfg in lm_train_presets().items():
+        lm_round_check(device, name, cfg)
+    variants = dict(lm_train_presets())
+    variants["debug-moe/sort"] = variants["debug-moe"].replace(
+        moe=dc.replace(variants["debug-moe"].moe, dispatch="sort"))
+    for name, cfg in variants.items():
+        lm_remat_check(device, name, cfg)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -3910,6 +4165,51 @@ def fleet_device_view(device, world, pretrained):
                 lambda: run_fleet(task, specs, cfg, device=device), wall, 10)
 
 
+def lm_round_view(device, rounds=5):
+    """One ``FederatedTrainer`` round of [4m] (4 clients, the driver's
+    first batch, enfed with client 2 left out) for each preset with remat on
+    and off: its untraced wall (the mean of ``rounds``, after 2 warm-up
+    rounds), and under ``torch.profiler`` the device-busy time, the device
+    operations (kernels and copies) and the aten op events of one round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import AggregationStrategy, FederatedTrainer
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch.steps import lm_loss
+    from repro_torch.models import Transformer
+
+    for name, base in lm_train_presets().items():
+        flat = next(synthetic_token_batches(base.vocab_size, LM_BATCH, LM_SEQ, 1, seed=2))
+        batches = {k: torch.from_numpy(v.reshape(LM_CLIENTS, 1, LM_BATCH // LM_CLIENTS, LM_SEQ))
+                   .long().to(device) for k, v in flat.items()}
+        for remat in (True, False):
+            model = Transformer(base.replace(remat=remat), device=device)
+            tr = FederatedTrainer(lambda p, b: lm_loss(model, p, b), LM_CLIENTS,
+                                  AggregationStrategy("enfed", neighborhood_size=2), lr=LM_LR)
+            state = tr.init(model.init(torch.Generator().manual_seed(0)))
+            for _ in range(2):
+                state = tr.round(*state, batches, LM_ENFED_MASK)[:2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                state = tr.round(*state, batches, LM_ENFED_MASK)[:2]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / rounds
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tr.round(*state, batches, LM_ENFED_MASK)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            busy = sum(e.self_device_time_total for e in kern) * 1e-3
+            aten = sum(e.count for e in events if e.key.startswith("aten::"))
+            print(f"  one LM training round, {name}, remat {'on' if remat else 'off'}: "
+                  f"wall {wall * 1e3:.2f} ms untraced ({LM_BATCH * LM_SEQ / wall:.1f} "
+                  f"tokens/s); device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} % "
+                  f"of the untraced wall); {sum(e.count for e in kern)} device operations, "
+                  f"{aten} aten op events")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4035,6 +4335,11 @@ def main() -> int:
     t_lm = time.perf_counter()
     run_lm_zoo(dev)
     print(f"  [4l] wall {time.perf_counter() - t_lm:.1f} s")
+    print(f" [4m] the LM zoo's training (repro_torch.launch.train, {LM_TRAIN_STEPS} steps and "
+          "a resume; one round of every strategy card vs CPU; remat on vs off)")
+    t_train = time.perf_counter()
+    run_lm_training(dev)
+    print(f"  [4m] wall {time.perf_counter() - t_train:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
                   *table_loop, *mob_loop, *flt_loop, *cad_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,
@@ -4057,6 +4362,7 @@ def main() -> int:
     print("[6] where the time goes (torch.profiler)")
     fit_device_view(task, own_train)
     fleet_device_view(dev, world, pretrained)
+    lm_round_view(dev)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{k: row[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -5,11 +5,12 @@ from repro_torch.core.cadence import CadenceConfig
 from repro_torch.core.energy import CostModel, DeviceProfile, EnergyReport, LinkProfile
 from repro_torch.core.faults import FaultConfig
 from repro_torch.core.federated import (BaselineResult, CFLLearner, DFLLearner,
-                                        SupervisedTask, cloud_only_baseline,
-                                        cloud_only_config)
+                                        FederatedTrainer, SupervisedTask,
+                                        cloud_only_baseline, cloud_only_config)
 from repro_torch.core.fleet import FleetResult, RequesterSpec, run_fleet
 from repro_torch.core.incentive import (Contract, NeighborDevice, make_fleet,
-                                        select_contributors, sign_contracts_fleet)
+                                        participation_mask, select_contributors,
+                                        sign_contracts_fleet)
 from repro_torch.core.mobility import MobilityConfig
 from repro_torch.core.protocol import Phase
 from repro_torch.core.rounds import EnFedConfig, EnFedSession, SessionResult
@@ -34,14 +35,14 @@ __all__ = [
     "BatteryState", "CostModel", "DeviceProfile", "EnergyReport", "LinkProfile",
     # incentives / world
     "Contract", "NeighborDevice", "make_fleet", "select_contributors",
-    "sign_contracts_fleet", "AdversaryConfig", "CadenceConfig", "FaultConfig",
-    "MobilityConfig",
+    "participation_mask", "sign_contracts_fleet", "AdversaryConfig", "CadenceConfig",
+    "FaultConfig", "MobilityConfig",
     # EnFed engines + protocol vocabulary
     "EnFedConfig", "EnFedSession", "SessionResult",
     "FleetResult", "RequesterSpec", "run_fleet", "Phase",
     # baselines
     "SupervisedTask", "BaselineResult", "CFLLearner", "DFLLearner",
-    "cloud_only_baseline", "cloud_only_config",
+    "FederatedTrainer", "cloud_only_baseline", "cloud_only_config",
     # topologies
     "AggregationStrategy", "group_mixing_matrix",
     # repro_torch.api facade (lazy)

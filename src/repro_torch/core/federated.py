@@ -7,6 +7,9 @@
   cost reports for the *requesting* device (client 0).  They are the
   loop oracles of ``run_fleet(method="cfl"|"dfl")``.
 * :func:`cloud_only_config` — the no-FL system of §IV-G.
+* :class:`FederatedTrainer` — client-stacked FL for the LM zoo: each round
+  every client takes its local Adam steps, then the strategy's mixing
+  matrix mixes the clients' params.
 
 Data arrive as numpy ``(x, y)`` pairs, as in the JAX package, and are
 moved to the model's device once per call.  The schedule is computed on
@@ -21,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,9 +33,9 @@ from repro_torch.core import aggregation, schedule, topology
 from repro_torch.core.energy import CostModel, EnergyReport, update_wire_bytes
 from repro_torch.models.classifiers import accuracy as _accuracy
 from repro_torch.models.classifiers import masked_cross_entropy_loss
-from repro_torch.optim import adam, apply_updates
-from repro_torch.utils.tree import (tree_bytes, tree_from_leaves, tree_leaves, tree_map,
-                                    tree_size)
+from repro_torch.optim import AdamState, adam, apply_updates
+from repro_torch.utils.tree import (tree_bytes, tree_leaves, tree_map, tree_size,
+                                    value_and_grad)
 
 
 class SupervisedTask:
@@ -64,14 +67,12 @@ class SupervisedTask:
 
     def _step(self, params, opt_state, xb, yb, wb):
         """One masked Adam step; returns (params, opt_state, loss)."""
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = masked_cross_entropy_loss(self.model.logits(live, xb), yb, wb)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-        grad_tree = tree_from_leaves(params, grads)
+        loss, grads = value_and_grad(
+            lambda p: masked_cross_entropy_loss(self.model.logits(p, xb), yb, wb), params)
         with torch.no_grad():
-            updates, new_opt = self._opt.update(grad_tree, opt_state, params)
+            updates, new_opt = self._opt.update(grads, opt_state, params)
             new_params = apply_updates(params, updates)
-        return new_params, new_opt, loss.detach()
+        return new_params, new_opt, loss
 
     def fit(self, params, data, epochs: int, batch_size: int, seed: int = 0):
         """Epochs of Adam over the derived minibatches.  Returns
@@ -306,3 +307,74 @@ def cloud_only_baseline(task: SupervisedTask, pooled_train, requester_test, *,
         _as_enfed_config(0.0, 1, epochs, batch_size, seed),
         cost_model=cost_model)
     return res.accuracy, res.report.t_train, res.params
+
+
+# ---------------------------------------------------------------------------
+# client-stacked federated trainer for the architecture zoo
+# ---------------------------------------------------------------------------
+
+
+class FederatedTrainer:
+    """FL over a stacked client axis.
+
+    ``params`` leaves have shape (C, ...); each round every client runs
+    ``local_steps`` of Adam on its own batches, then the topology mixing
+    matrix is applied (CFL / DFL / EnFed neighborhoods with participation
+    masks).  The reference vmaps the clients inside one jit program; here
+    they run one after another, each with the reference's arithmetic, so
+    the per-client semantics are the same.
+    """
+
+    def __init__(self, loss_fn: Callable, num_clients: int,
+                 strategy: topology.AggregationStrategy, lr: float = 1e-3,
+                 local_steps: int = 1):
+        self.loss_fn = loss_fn            # (params, batch) -> scalar loss
+        self.num_clients = num_clients
+        self.strategy = strategy
+        self.opt = adam(lr)
+        self.local_steps = local_steps
+
+    def init(self, params_one, opt_state_one=None):
+        """``(stacked params, stacked AdamState)``: every leaf repeated over
+        C clients.  The stacked Adam step is a (C,) int32 tensor, as the
+        reference's stacked 0-d int32 step, so a checkpoint restores
+        strictly in either package."""
+        C = self.num_clients
+        opt_one = opt_state_one if opt_state_one is not None else self.opt.init(params_one)
+        stack = lambda t: tree_map(lambda x: x.expand((C,) + tuple(x.shape)).clone(), t)
+        step = torch.full((C,), int(opt_one.step), dtype=torch.int32,
+                          device=tree_leaves(params_one)[0].device)
+        return stack(params_one), AdamState(step=step, mu=stack(opt_one.mu),
+                                            nu=stack(opt_one.nu))
+
+    def round(self, stacked_params, stacked_opt, batches, mask=None):
+        """batches: dict of tensors with leading (C, local_steps) axes.
+        Returns ``(mixed params, opt state, losses)``; ``losses`` (C,) is
+        each client's mean loss over its local steps."""
+        C = self.num_clients
+        steps = stacked_opt.step.tolist()
+        params_out, mu_out, nu_out, losses = [], [], [], []
+        for c in range(C):
+            p = tree_map(lambda x: x[c], stacked_params)
+            s = AdamState(step=steps[c], mu=tree_map(lambda x: x[c], stacked_opt.mu),
+                          nu=tree_map(lambda x: x[c], stacked_opt.nu))
+            client_losses = []
+            for t in range(self.local_steps):
+                batch = {k: v[c, t] for k, v in batches.items()}
+                loss, grads = value_and_grad(lambda q: self.loss_fn(q, batch), p)
+                with torch.no_grad():
+                    upd, s = self.opt.update(grads, s, p)
+                    p = apply_updates(p, upd)
+                client_losses.append(loss)
+            steps[c] = s.step
+            params_out.append(p)
+            mu_out.append(s.mu)
+            nu_out.append(s.nu)
+            losses.append(torch.mean(torch.stack(client_losses)))
+        stack = lambda trees: tree_map(lambda *xs: torch.stack(xs), *trees)
+        dev = stacked_opt.step.device
+        new_opt = AdamState(step=torch.tensor(steps, dtype=torch.int32, device=dev),
+                            mu=stack(mu_out), nu=stack(nu_out))
+        M = topology.mixing_matrix_torch(C, self.strategy, mask, device=dev)
+        mixed = topology.apply_mixing(stack(params_out), M)
+        return mixed, new_opt, torch.stack(losses)

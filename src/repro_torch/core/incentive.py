@@ -1,7 +1,8 @@
 """Contract-theory incentive mechanism (paper §III, [31]); copy of
 ``repro.core.incentive``: the static handshake for one requester
-(:func:`select_contributors`) and for a fleet (:func:`sign_contracts_fleet`),
-and the dynamic contracts of the mobility world (:func:`candidate_pool`,
+(:func:`select_contributors`, and its :func:`participation_mask` for the
+LM trainer's clients) and for a fleet (:func:`sign_contracts_fleet`), and the
+dynamic contracts of the mobility world (:func:`candidate_pool`,
 :func:`contracts_from_membership`).
 
 The requesting device publishes an offered incentive; each nearby device
@@ -64,6 +65,14 @@ def select_contributors(devices: Sequence[NeighborDevice], offered_incentive: fl
     return [Contract(device_id=d.device_id, incentive=offered_incentive,
                      utility=contract_utility(d, max_data))
             for d in ranked[:n_max]]
+
+
+def participation_mask(num_devices: int, contracts: Sequence[Contract]) -> np.ndarray:
+    """(num_devices,) fp32: 1.0 at each contracted device id."""
+    mask = np.zeros((num_devices,), np.float32)
+    for c in contracts:
+        mask[c.device_id] = 1.0
+    return mask
 
 
 def sign_contracts_fleet(neighborhoods: Sequence[Sequence[NeighborDevice]],

@@ -5,6 +5,7 @@ from repro_torch.data.har import (
     make_har_windows,
 )
 from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.tokens import synthetic_token_batches
 
 __all__ = [
     "make_har_windows",
@@ -12,4 +13,5 @@ __all__ = [
     "HARDatasetConfig",
     "CaloriesDatasetConfig",
     "dirichlet_partition",
+    "synthetic_token_batches",
 ]

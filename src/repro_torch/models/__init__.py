@@ -6,6 +6,7 @@ from repro_torch.models.classifiers import (
     MLPClassifier,
     MLPClassifierConfig,
     accuracy,
+    cross_entropy_loss,
     masked_cross_entropy_loss,
 )
 
@@ -19,5 +20,6 @@ __all__ = [
     "MLPClassifier",
     "MLPClassifierConfig",
     "accuracy",
+    "cross_entropy_loss",
     "masked_cross_entropy_loss",
 ]

@@ -163,6 +163,14 @@ class MLPClassifier(_Classifier):
 # ---------------------------------------------------------------------------
 
 
+def cross_entropy_loss(logits, labels):
+    """Categorical cross-entropy (labels are int class ids): ``log_softmax``
+    in fp32, each label's log-probability, then the mean."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+    return torch.mean(nll)
+
+
 def masked_cross_entropy_loss(logits, labels, weights):
     """Per-sample-weighted categorical cross-entropy; ``weights`` is the
     minibatch's 0/1 sample mask from the schedule.  Denominator

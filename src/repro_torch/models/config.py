@@ -100,10 +100,9 @@ class ModelConfig:
     # --- numerics ---
     dtype: str = "float32"           # activation/param dtype for lowering
 
-    # per-layer activation rematerialization in the reference (jax.checkpoint
-    # around each block in the scan).  Kept for the config's identity; the
-    # port's serving path stores no activations for a backward, so it
-    # changes nothing there (training comes with ROADMAP slice G.2).
+    # per-layer activation rematerialization: each block of the stack runs
+    # under torch.utils.checkpoint while autograd records (the reference's
+    # jax.checkpoint around each block in the scan); no effect under no_grad
     remat: bool = True
 
     # --- distribution ---

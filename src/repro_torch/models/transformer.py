@@ -8,9 +8,12 @@ under ``params["scan"]["p{i}_{bt}"]``) plus an unstacked tail
 layers.  The tree is the reference's, leaf for leaf, so the reference's
 params carry across through ``repro_torch.utils.tree.from_jax_params``.  The
 reference's ``lax.scan`` over the repeats is a Python loop over the stacked
-leaves here.  Its ``remat``, ``shard_activation`` and ``pvary_manual`` do
-nothing without a mesh and a backward; they come back with training and
-the mesh tooling.
+leaves here.  Its per-block ``jax.checkpoint`` (``cfg.remat``) is
+``torch.utils.checkpoint`` around each block of the stack while autograd
+records (the encoder's blocks and the MTP head's block stay unwrapped, as
+there); under ``torch.no_grad()`` (prefill, serve) each block is called
+directly.  Its ``shard_activation`` and ``pvary_manual`` do nothing without
+a mesh; they come back with the mesh tooling.
 
 Entry points:
   * ``init(generator)``                    -> params
@@ -25,6 +28,7 @@ Batch dict keys: ``tokens`` (B,S) int64; optional ``prefix_embeds``
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers, moe, recurrent
@@ -261,8 +265,13 @@ class Transformer:
         memory = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk, bt, _ in self._blocks(params):
-            x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions)
+            if remat:
+                x, a = checkpoint(block_apply, blk, x, cfg, bt, memory=memory,
+                                  positions=positions, use_reentrant=False)
+            else:
+                x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions)
             aux = aux + a
         logits = self._unembed(params, x[:, -1:] if last_logit_only else x)
         out = {"logits": logits, "aux_loss": aux}

@@ -146,3 +146,16 @@ def from_jax_params(np_tree, device) -> dict:
 def to_numpy(tree):
     """A tree of tensors as a tree of numpy arrays (on the host)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def value_and_grad(fn: Callable, params):
+    """``jax.value_and_grad(fn)(params)`` for a tree of tensors: the scalar
+    ``fn(params)`` (detached) and its gradient with respect to every leaf,
+    as a tree shaped like ``params``.  A leaf the value does not reach gets
+    zeros, as jax gives it."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        value = fn(live)
+    grads = torch.autograd.grad(value, tree_leaves(live), allow_unused=True,
+                                materialize_grads=True)
+    return value.detach(), tree_from_leaves(params, list(grads))

@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
     ROOT / "examples" / "torch_har_federated.py", ROOT / "examples" / "torch_serve_batched.py",
-    ROOT / "benchmarks" / "_torch_harness.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    ROOT / "examples" / "torch_federated_lm.py", ROOT / "benchmarks" / "_torch_harness.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")
 
 _PROBE = """
@@ -69,7 +69,8 @@ def test_every_new_port_module_is_checked():
     assert {f"src/repro_torch/{m}.py" for m in (
         "telemetry/profile", "launch/hlo_stats", "launch/steps", "launch/serve",
         "configs/__init__", "models/config", "models/layers", "models/moe",
-        "models/recurrent", "models/transformer")} <= names
+        "models/recurrent", "models/transformer", "launch/train", "data/tokens")} <= names
+    assert "examples/torch_federated_lm.py" in names
     assert {f"benchmarks/{m}.py" for m in ("_torch_harness", "torch_table4_lstm",
                                            "torch_table5_mlp", "torch_table7_cloud",
                                            "torch_figs_contributors", "torch_run")} <= names

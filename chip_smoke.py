@@ -165,6 +165,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      loss and gradient with per-block remat on and off on the card, equal
      within 1e-6 (``LM_REMAT_TOL``), for both presets and ``debug-moe``
      through the sort dispatch; this path launches no hand-written kernel;
+   - the mesh runtime: 8 ranks on the card (``repro_torch.launch.mesh.
+     spawn``, gloo, every payload staged through host memory) as the
+     reference's debug meshes, against the same 8 ranks on the CPU: the FL
+     aggregation of every strategy (distinct updates per client, a mask
+     with one zero, fp32 and int8 rings, ``pod_local``) within 1e-6 and its
+     collective bytes equal to their closed form; one federated train step
+     of every strategy and of ``none`` for ``debug-dense`` and ``debug-moe``
+     on (2, 2, 2) (batch 8 x 16), losses within 1e-4 and params by [4m]'s
+     mean-gap rule, the four strategies' losses within 1e-4 of each other;
+     ``debug-moe``'s ``ep`` schedule against the token-local sort on every
+     rank within 2e-5; each step's wall and one all-reduce of the
+     ``debug-dense`` gradient on the card; one dry-run record
+     (``repro_torch.launch.dryrun``) built with no jax; this path launches
+     no hand-written kernel;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -3575,7 +3589,7 @@ def lm_round_check(device, name, cfg):
         return float((a - b).abs().mean())
 
     for kind in ("cfl", "enfed", "dfl_ring", "dfl_mesh", "none"):
-        strategy = AggregationStrategy(kind, neighborhood_size=2 if kind == "enfed" else 0)
+        strategy = AggregationStrategy(kind=kind, neighborhood_size=2 if kind == "enfed" else 0)
         mask = LM_ENFED_MASK if kind == "enfed" else None
         routes["cpu"].clear()
         routes["cuda"].clear()
@@ -3670,6 +3684,261 @@ def run_lm_training(device):
         moe=dc.replace(variants["debug-moe"].moe, dispatch="sort"))
     for name, cfg in variants.items():
         lm_remat_check(device, name, cfg)
+
+
+# ---------------------------------------------------------------------------
+# [4n]: the mesh runtime, 8 ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 8
+# card vs CPU, the same 8 ranks: aggregation sums (one int8 code apart would
+# move a sum by a whole scale step, absmax / 127 of a hop's payload, above
+# 1e-2 here, so sums this close have equal codes) and the ep schedule
+# against the token-local sort on the same ranks
+MESH_AGG_TOL = 1e-6
+MESH_EP_TOL = 2e-5
+MESH_BATCH, MESH_SEQ = 8, 16          # the reference test's batch
+MESH_STEP_REPS = 5
+MESH_KINDS = ("cfl", "enfed", "dfl_ring", "dfl_mesh")
+MESH_MASK = np.array([1.0, 0.0, 1.0, 1.0], np.float32)   # client 1 left out
+
+
+def mesh_agg_cases():
+    """Every aggregation case of [4n]: (name, multi-pod, strategy kwargs)."""
+    cases = []
+    for multi in (False, True):
+        combos = [("cfl", 0, None), ("dfl_mesh", 0, None), ("dfl_ring", 0, None),
+                  ("dfl_ring", 0, "int8"), ("enfed", 0, None)]
+        if not multi:  # the data axis of 4 holds neighbourhoods of 2
+            combos += [("enfed", 2, None), ("enfed", 2, "int8")]
+        for kind, k, compress in combos:
+            for pod_local in ((False, True) if multi and kind == "enfed" else (False,)):
+                name = (f"{'pod2' if multi else 'pod1'} {kind} k={k} {compress or 'fp32'}"
+                        f"{' pod_local' if pod_local else ''}")
+                cases.append((name, multi, dict(kind=kind, neighborhood_size=k,
+                                                compress=compress, pod_local=pod_local)))
+    return cases
+
+
+def mesh_closed_form(kind, k, compress, pod_local, multi, leaves):
+    """The collective bytes per device of one aggregation: all-reduce of
+    each leaf and the mask total, all-gathers of n x the leaf, one permute
+    of each leaf (int8: codes and a scale) and of the total per ring hop."""
+    W = sum(x.nbytes for x in leaves)
+    n_data, C = (2, 4) if multi else (4, 4)
+    ar = 4 + W
+    if kind == "cfl":
+        return ar
+    if kind == "dfl_mesh":
+        return n_data * W + (C * W if multi else 0) + 4
+    hop = sum(x.size + 4 for x in leaves) if compress == "int8" else W
+    if kind == "dfl_ring":
+        return (n_data - 1) * (hop + 4) + (ar if multi else 0)
+    kk = k or n_data
+    ring = ar if kk >= n_data else (kk - 1) * (hop + 4)
+    return ring + (ar if multi and not pod_local else 0)
+
+
+def mesh_rank(rank, world, device, data):
+    """One rank of [4n]: :func:`mesh_work` on ``device`` (timed), then on
+    the CPU with the same groups; the seconds each took."""
+    entered = time.time()
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    meshes = {m: tmesh.make_debug_mesh(multi_pod=m) for m in (False, True)}
+    t1 = time.perf_counter()
+    card = mesh_work(rank, meshes, device, data, True)
+    t2 = time.perf_counter()
+    host = mesh_work(rank, meshes, "cpu", data, False)
+    return dict(card=card, host=host,
+                secs=dict(meshes=t1 - t0, card=t2 - t1, host=time.perf_counter() - t2),
+                entered=entered, left=time.time())
+
+
+def mesh_work(rank, meshes, device, data, timed):
+    """Aggregation, one federated train step of every strategy for both
+    presets, the MoE's ep schedule against the token-local sort, and
+    (``timed``) step and all-reduce walls, on ``device``."""
+    import dataclasses as dc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import (AggregationStrategy, aggregate_updates,
+                                           gather_clients)
+    from repro_torch.launch import mesh as tmesh, steps
+    from repro_torch.launch.hlo_stats import collective_bytes
+    from repro_torch.models import Transformer, moe
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.utils.tree import from_jax_params, tree_leaves
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    kernels.reset_launch_counts()
+    out = {"agg": {}, "train": {}, "walls": {}}
+    for name, multi, kw in mesh_agg_cases():
+        mesh = meshes[multi]
+        caxes = ("pod", "data") if multi else ("data",)
+        c = coll.axis_index(mesh, caxes)
+        u = {k: torch.from_numpy(v[c]).to(dev) for k, v in data["updates"].items()}
+        with coll.record_collectives() as rec:
+            blk = aggregate_updates(u, mesh, AggregationStrategy(client_axes=caxes, **kw),
+                                    torch.from_numpy(MESH_MASK).to(dev))
+        full = gather_clients(blk, mesh, caxes)
+        out["agg"][name] = ({k: v.cpu().numpy() for k, v in full.items()},
+                            collective_bytes(rec)["total_collective_bytes"])
+
+    mesh = meshes[True]
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in data["batch"].items()}
+    mask = torch.ones(4, dtype=torch.float32, device=dev)
+    for arch, host_params in data["params"].items():
+        cfg = get_config(arch)
+        model = Transformer(cfg, device=dev)
+        params = from_jax_params(host_params, dev)
+        caxes = tmesh.client_axes_for(cfg, mesh)
+        C = steps.num_clients(mesh, caxes)
+        for kind in MESH_KINDS + ("none",):
+            strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
+            step, opt = steps.make_federated_train_step(model, mesh, strat, lr=LM_LR)
+            if kind == "none":
+                args = (params, opt.init(params), batch, mask)
+            else:
+                args = (steps.client_block(steps.stack_for_clients(params, C), mesh, caxes),
+                        steps.client_block(steps.stack_for_clients(opt.init(params), C),
+                                           mesh, caxes), batch, mask)
+            p2, _, loss = step(*args)
+            if kind != "none":
+                p2 = gather_clients(p2, mesh, caxes)
+            flat = torch.cat([x.reshape(-1) for x in tree_leaves(p2)]).cpu()
+            out["train"][(arch, kind)] = (float(loss), flat.numpy() if rank == 0 else None)
+            if timed:
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(MESH_STEP_REPS):
+                    step(*args)
+                sync()
+                out["walls"][(arch, kind)] = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
+        if timed and arch == "debug-dense":
+            grad = torch.randn(sum(x.numel() for x in tree_leaves(params)),
+                               generator=torch.Generator().manual_seed(rank)).to(dev)
+            coll.all_reduce(grad, mesh, caxes)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(MESH_STEP_REPS):
+                coll.all_reduce(grad, mesh, caxes)
+            sync()
+            out["walls"][("debug-dense", "all-reduce of the gradient")] = (
+                (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3)
+
+    cfg = get_config("debug-moe")
+    x = torch.from_numpy(data["x"]).to(dev)
+    with use_mesh(mesh), torch.no_grad():
+        ys = {}
+        for dispatch in ("ep", "sort"):
+            c = cfg.replace(moe=dc.replace(cfg.moe, dispatch=dispatch))
+            moe_params = from_jax_params(data["params"]["debug-moe"]["scan"]["p0_attn"]["ffn"],
+                                         dev)
+            moe_params = {k: v[0] for k, v in moe_params.items()}
+            ys[dispatch] = moe.moe_apply(moe_params, x, c)
+    out["ep_gap"] = float((ys["ep"][0] - ys["sort"][0]).abs().max())
+    out["ep_aux_gap"] = float((ys["ep"][1] - ys["sort"][1]).abs())
+    out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+    return out
+
+
+def run_mesh(device):
+    """[4n]: 8 ranks on ``device`` as ``make_debug_mesh(multi_pod=True)``
+    (and the (4, 2) mesh for the aggregation), over gloo, against the same
+    8 ranks on the CPU; then one dry-run record built here."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import Transformer
+    from repro_torch.utils.tree import to_numpy
+
+    rng = np.random.default_rng(27)
+    data = dict(
+        updates={"w": (rng.standard_normal((4, 6, 5)) * rng.uniform(0.1, 10, (4, 1, 1)))
+                 .astype(np.float32), "b": rng.standard_normal((4, 7)).astype(np.float32)},
+        params={arch: to_numpy(Transformer(get_config(arch), device="cpu")
+                               .init(torch.Generator().manual_seed(0)))
+                for arch in ("debug-dense", "debug-moe")},
+        x=rng.standard_normal((MESH_BATCH, MESH_SEQ, 128)).astype(np.float32))
+    toks = rng.integers(0, 512, (MESH_BATCH, MESH_SEQ + 1))
+    data["batch"] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    t0, t_abs = time.perf_counter(), time.time()
+    ranks = spawn(mesh_rank, MESH_RANKS, str(device), data)
+    card, host = [r["card"] for r in ranks], [r["host"] for r in ranks]
+    secs = ranks[0]["secs"]
+    print(f"  8 ranks in {time.perf_counter() - t0:.1f} s: the last started work "
+          f"{max(r['entered'] for r in ranks) - t_abs:.1f} s in; rank 0 built its meshes in "
+          f"{secs['meshes']:.1f} s, ran on {device} in {secs['card']:.1f} s and on the CPU "
+          f"in {secs['host']:.1f} s; the last rank returned "
+          f"{max(r['left'] for r in ranks) - t_abs:.1f} s in (gloo; each payload staged "
+          f"through host memory)")
+    launched = {k: v for r in card for k, v in r["launches"].items()}
+    print(f"  hand-written kernel launches on the ranks: {launched or 'none'}")
+
+    leaves = [v[0] for v in data["updates"].values()]
+    print("  aggregation, card vs CPU (mask [1, 0, 1, 1], distinct updates per client):")
+    for name, multi, kw in mesh_agg_cases():
+        got, nbytes = card[0]["agg"][name]
+        want, _ = host[0]["agg"][name]
+        gap = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        closed = mesh_closed_form(kw["kind"], kw["neighborhood_size"], kw["compress"],
+                                  kw["pod_local"], multi, leaves)
+        print(f"    {name:30s} max gap {gap:.3e} (limit {MESH_AGG_TOL:g}); collective bytes "
+              f"{nbytes:.0f}, closed form {closed}")
+        if not all(np.isfinite(v).all() for v in got.values()) or not gap <= MESH_AGG_TOL:
+            fail(f"[4n] aggregation {name}: the card's result is {gap} from the CPU's")
+        if nbytes != closed:
+            fail(f"[4n] aggregation {name}: {nbytes} collective bytes, closed form {closed}")
+    for arch in ("debug-dense", "debug-moe"):
+        losses = {}
+        for kind in MESH_KINDS + ("none",):
+            (loss, flat), (host_loss, host_flat) = (card[0]["train"][(arch, kind)],
+                                                    host[0]["train"][(arch, kind)])
+            losses[kind] = loss
+            mean_gap = float(np.abs(flat - host_flat).mean())
+            wall = card[0]["walls"][(arch, kind)]
+            print(f"  {arch} {kind:8s} step: loss {loss:.6f}, card vs CPU loss "
+                  f"{abs(loss - host_loss):.3e} (limit {LM_CARD_TOL:g}), params mean gap "
+                  f"{mean_gap:.3e} (limit {LM_ROUND_MEAN_TOL:g}), max "
+                  f"{float(np.abs(flat - host_flat).max()):.3e}; wall {wall:.2f} ms "
+                  f"(rank 0, mean of {MESH_STEP_REPS})")
+            if not (np.isfinite(loss) and np.isfinite(flat).all()):
+                fail(f"[4n] {arch} {kind}: the card's step is not finite")
+            if not abs(loss - host_loss) <= LM_CARD_TOL:
+                fail(f"[4n] {arch} {kind}: the loss differs by {abs(loss - host_loss)} "
+                     f"between the card and the CPU")
+            if not mean_gap <= LM_ROUND_MEAN_TOL:
+                fail(f"[4n] {arch} {kind}: the params differ by {mean_gap} on average "
+                     f"between the card and the CPU")
+        spread = max(losses[k] for k in MESH_KINDS) - min(losses[k] for k in MESH_KINDS)
+        print(f"  {arch}: the four strategies' losses agree within {spread:.3e} (limit 1e-4)")
+        if not spread < 1e-4:
+            fail(f"[4n] {arch}: the strategies' losses spread {spread}")
+    ar = card[0]["walls"][("debug-dense", "all-reduce of the gradient")]
+    print(f"  one all-reduce of the debug-dense gradient over (pod, data): {ar:.2f} ms "
+          f"(rank 0, mean of {MESH_STEP_REPS}; staged through host memory)")
+    ep = max(r["ep_gap"] for r in card)
+    ep_aux = max(r["ep_aux_gap"] for r in card)
+    print(f"  debug-moe ep schedule vs token-local sort on the card, every rank: y max gap "
+          f"{ep:.3e}, aux {ep_aux:.3e} (limit {MESH_EP_TOL:g})")
+    if not (ep <= MESH_EP_TOL and ep_aux <= MESH_EP_TOL):
+        fail(f"[4n] the ep schedule differs from the token-local sort by {ep} (aux {ep_aux})")
+    rec = dryrun.run_one("debug-dense", "train_4k", False, "cfl")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    print(f"  dry-run record (debug-dense, train_4k, pod1, cfl; no jax on this machine): "
+          f"status {rec['status']}, {rec['num_clients']} clients on {rec['n_devices']} ranks, "
+          f"flops {rec['flops']:.4e}, bytes_accessed {rec['bytes_accessed']:.4e} (unfused "
+          f"upper bound), collective bytes {rec['total_collective_bytes']:.0f}, argument "
+          f"bytes {rec['argument_size_in_bytes']:.0f}")
+    if rec["status"] != "ok" or "jax" in sys.modules:
+        fail("[4n] the dry run failed or loaded jax")
 
 
 # ---------------------------------------------------------------------------
@@ -4185,7 +4454,7 @@ def lm_round_view(device, rounds=5):
         for remat in (True, False):
             model = Transformer(base.replace(remat=remat), device=device)
             tr = FederatedTrainer(lambda p, b: lm_loss(model, p, b), LM_CLIENTS,
-                                  AggregationStrategy("enfed", neighborhood_size=2), lr=LM_LR)
+                                  AggregationStrategy(kind="enfed", neighborhood_size=2), lr=LM_LR)
             state = tr.init(model.init(torch.Generator().manual_seed(0)))
             for _ in range(2):
                 state = tr.round(*state, batches, LM_ENFED_MASK)[:2]
@@ -4340,6 +4609,11 @@ def main() -> int:
     t_train = time.perf_counter()
     run_lm_training(dev)
     print(f"  [4m] wall {time.perf_counter() - t_train:.1f} s")
+    print(f" [4n] the mesh runtime: {MESH_RANKS} ranks on the card as make_debug_mesh("
+          "multi_pod=True), over gloo, against the same ranks on the CPU")
+    t_mesh = time.perf_counter()
+    run_mesh(dev)
+    print(f"  [4n] wall {time.perf_counter() - t_mesh:.1f} s")
     loop_paths = [loop_counts, int8_counts, *adv_loop.values(), *base_loop, *facade_loop,
                   *table_loop, *mob_loop, *flt_loop, *cad_loop]
     fleet_paths = [fleet_counts["fp32"], fleet_counts["int8"], *adv_fleet.values(), *base_fleet,

@@ -4,7 +4,8 @@ from repro_torch.data.har import (
     make_calories_tabular,
     make_har_windows,
 )
-from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.loader import batch_iterator, train_test_split
+from repro_torch.data.partition import dirichlet_partition, iid_partition
 from repro_torch.data.tokens import synthetic_token_batches
 
 __all__ = [
@@ -13,5 +14,8 @@ __all__ = [
     "HARDatasetConfig",
     "CaloriesDatasetConfig",
     "dirichlet_partition",
+    "iid_partition",
+    "batch_iterator",
+    "train_test_split",
     "synthetic_token_batches",
 ]

@@ -9,7 +9,7 @@ skewed clients); alpha=0.5 gives a realistic moderately non-IID fleet.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -39,3 +39,23 @@ def dirichlet_partition(y: np.ndarray, num_clients: int, alpha: float = 0.5,
         out.append(arr)
     return out
 
+
+def iid_partition(n: int, num_clients: int, seed: int = 0) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(n)
+    return [np.asarray(p) for p in np.array_split(idx, num_clients)]
+
+
+def partition_stats(y: np.ndarray, parts: List[np.ndarray]) -> Tuple[np.ndarray, float]:
+    """Per-client class histogram and a heterogeneity score (mean TV distance
+    between client label distribution and the global one)."""
+    classes = np.unique(y)
+    global_p = np.array([(y == c).mean() for c in classes])
+    hists = []
+    tvs = []
+    for p in parts:
+        yy = y[p]
+        h = np.array([(yy == c).mean() if len(yy) else 0.0 for c in classes])
+        hists.append(h)
+        tvs.append(0.5 * np.abs(h - global_p).sum())
+    return np.stack(hists), float(np.mean(tvs))

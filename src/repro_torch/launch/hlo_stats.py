@@ -16,8 +16,10 @@ twins and the card's kernels count the same integers for the same world.
 * :func:`memory_summary` gives the staged state, the round carry and, on
   the card, the peak allocation over the span.
 
-``collective_bytes`` parses post-SPMD HLO text; it has no meaning on one
-card and comes with the mesh tooling.
+* :func:`collective_bytes` sums the collectives of a mesh program by kind,
+  from the recorder its collective calls charge
+  (``repro_torch.sharding.collectives``), where the reference parses the
+  partitioned HLO text.
 """
 
 from __future__ import annotations
@@ -49,4 +51,22 @@ def memory_summary(staged_bytes: int, carry_bytes: int,
     out = {"staged_bytes": int(staged_bytes), "carry_bytes": int(carry_bytes)}
     if torch.device(device).type == "cuda" and peak_bytes is not None:
         out["peak_bytes"] = int(peak_bytes)
+    return out
+
+
+def collective_bytes(recorder) -> Dict[str, float]:
+    """Per-device bytes by collective kind, and op counts, of the
+    collectives a :class:`repro_torch.sharding.collectives.CollectiveRecorder`
+    saw: the reference's keys (``<kind>_bytes``, ``<kind>_count``,
+    ``total_collective_bytes``), each a float.  Bytes are each call's
+    output per device, as the reference's parse of the partitioned HLO
+    counts them."""
+    by_kind: Dict[str, int] = {}
+    counts: Dict[str, int] = {}
+    for kind, nbytes in recorder.events:
+        by_kind[kind] = by_kind.get(kind, 0) + nbytes
+        counts[kind] = counts.get(kind, 0) + 1
+    out = {f"{k}_bytes": float(v) for k, v in by_kind.items()}
+    out.update({f"{k}_count": float(v) for k, v in counts.items()})
+    out["total_collective_bytes"] = float(sum(by_kind.values()))
     return out

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import shard_activation
 
 NEG_INF = -1e30
 
@@ -169,6 +170,8 @@ def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_activation(q, ("batch", None, "model", None))
+    k = shard_activation(k, ("batch", None, None, None))
     i = _arange(S, x.device)[:, None]
     j = _arange(S, x.device)[None, :]
     mask = j <= i
@@ -176,7 +179,8 @@ def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
     if window is not None:
         mask = mask & (j > i - window)
     out = _gqa_core(q, k, v, mask[None, None, None])
-    return out.reshape(B, S, -1) @ params["wo"]
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return shard_activation(out, ("batch", None, None))
 
 
 def attention_init_cache(cfg: ModelConfig, block_type: str, batch: int, max_len: int,
@@ -298,7 +302,8 @@ def mla_apply(params, x, cfg: ModelConfig, positions=None):
     j = _arange(S, x.device)[None, :]
     mask = (j <= i)[None, None]
     out = _mla_core(q_nope, q_rope, k_nope, k_rope, v, mask, cfg)
-    return out.reshape(B, S, -1) @ params["wo"]
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return shard_activation(out, ("batch", None, None))
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -399,6 +404,7 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: Optional[int] = None, device=Non
 
 def mlp_apply(params, x):
     h = F.silu(x @ params["wg"]) * (x @ params["wu"])
+    h = shard_activation(h, ("batch", None, "model"))
     return h @ params["wd"]
 
 

@@ -1,5 +1,4 @@
-"""Mixture-of-experts layer (port of ``repro.models.moe``, its one-device
-branch).
+"""Mixture-of-experts layer (port of ``repro.models.moe``).
 
 Two dispatch schedules, selected by ``MoEConfig.dispatch``:
 
@@ -14,23 +13,76 @@ Two dispatch schedules, selected by ``MoEConfig.dispatch``:
 
 Both keep the reference's capacity ``max(1, int(T*k*1.25/E))``, its
 choice-major drop order and its Switch load-balance auxiliary loss.
-``"ep"`` (the expert-parallel schedule) needs a mesh; without one it falls
-back to ``"sort"``, as in the reference.  The mesh schedules (the
-expert-parallel one, the token-local wrap and ``disable_token_local``) come
-with the port's mesh tooling.
+
+On a mesh (``repro_torch.sharding.use_mesh``, one process per rank):
+
+* ``"ep"`` — the expert-parallel schedule: every ``model`` rank routes its
+  tokens, keeps only the slots of its E/n_model experts and all-reduces
+  the (T, D) partial output over ``model``, the schedule's one
+  collective.  It falls back to ``"sort"`` where the reference does (no
+  mesh, no ``model`` axis larger than 1, E not divisible by it, or
+  ``model`` manual).
+* the token-local wrap — when ``data`` is in the mesh, larger than 1, not
+  manual, and divides the batch the reference's region sees, routing runs
+  per ``data`` shard: capacity comes from the shard's tokens and ``aux``
+  is averaged over ``data``.  The rank reaches the shard's tokens from the
+  rows it holds (``MeshContext.rows``): as they are, by slicing a
+  replicated batch, or by gathering its rows over ``pod``.
+* :func:`disable_token_local` — the fp32 boundary cast of the wrap that
+  the reference's bf16 train steps take.
+
+Where the port keeps activations replicated over an axis, every rank of
+it computes the same loss; the gradients of values each rank uses for its
+own part of the work are summed over the axis
+(``repro_torch.sharding.collectives``), so every rank ends with the whole
+gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.ctx import current_mesh_context, shard_activation
+from repro_torch.sharding.specs import mesh_shape
 
 CAPACITY_FACTOR = 1.25
+
+# The reference's bf16 train steps enter the token-local region through an
+# fp32 boundary cast (its XLA-CPU partitioner fails on the bf16 boundary
+# under grad); the port keeps the cast so its numbers are the reference's.
+_TL_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def disable_token_local():
+    """Grad-safe mode: fp32-cast the token-local region's boundary."""
+    prev = getattr(_TL_STATE, "off", False)
+    _TL_STATE.off = True
+    try:
+        yield
+    finally:
+        _TL_STATE.off = prev
+
+
+def carried(fn):
+    """``fn`` under the calling thread's :func:`disable_token_local` on
+    whatever thread calls it (see ``repro_torch.sharding.ctx.carried``)."""
+    if not getattr(_TL_STATE, "off", False):
+        return fn
+
+    def run(*args, **kwargs):
+        with disable_token_local():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def moe_init(generator, cfg: ModelConfig, device=None) -> dict:
@@ -120,12 +172,102 @@ def _moe_local_sort(params, xt, cfg: ModelConfig):
     buf = torch.zeros((E * capacity + 1, D), dtype=xt.dtype, device=dev)
     buf[slot] = xt[tok_flat[order]]
     expert_in = buf[:-1].reshape(E, capacity, D)
+    expert_in = shard_activation(expert_in, ("expert", None, None))
     expert_out = _expert_ffn(params, expert_in)
+    expert_out = shard_activation(expert_out, ("expert", None, None))
     rows = torch.cat([expert_out.reshape(E * capacity, D),
                       torch.zeros((1, D), dtype=xt.dtype, device=dev)], dim=0)
     routed = rows[slot] * w_flat[order, None].to(xt.dtype)         # (T*k, D)
     y = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(0, tok_flat[order], routed)
     return y, _aux_loss(gates, top_i, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the rank's view of a data shard, and the expert-parallel schedule
+# ---------------------------------------------------------------------------
+
+
+def _data_block(x, ctx):
+    """The reference's ``data`` shard of the tokens, from the rows this rank
+    holds: ``(block, back, replicated)``.  ``back`` maps the block's output
+    to the rank's rows; ``replicated`` says whether the ranks of ``data``
+    hold one objective (the rows replicated over it) rather than each its
+    part of a mean taken after."""
+    mesh = ctx.mesh
+    extra = tuple(a for a in ctx.rows if a not in ctx.manual)
+    if extra == ():
+        return (coll.slice_rows(x, mesh, "data"),
+                lambda y: coll.gather_rows(y, mesh, "data", False), True)
+    if extra == ("data",):
+        return x, (lambda y: y), False
+    if extra == ("data", "pod"):
+        n, i = coll.axes_size(mesh, "pod"), coll.axis_index(mesh, "pod")
+        return (coll.gather_rows(x, mesh, "pod", True),
+                lambda y: y.chunk(n, dim=0)[i], False)
+    raise ValueError(f"rows split over {ctx.rows} (manual {sorted(ctx.manual)}): "
+                     "no data shard layout for the token-local MoE")
+
+
+def _moe_expert_parallel(params, x, cfg: ModelConfig, ctx):
+    """Each ``model`` rank routes its tokens and keeps ONLY those assigned
+    to the E/n_model experts it owns (``lo = rank * e_local``); the one
+    collective is the all-reduce of the (T, D) combined output over
+    ``model``.  With ``data`` not manual (``bind_data``) routing runs per
+    ``data`` shard and ``aux`` is averaged over ``data``."""
+    m = cfg.moe
+    mesh = ctx.mesh
+    sizes = mesh_shape(mesh)
+    B, S, D = x.shape
+    E, k = m.num_experts, m.num_experts_per_tok
+    n_model = sizes["model"]
+    n_data = sizes.get("data", 1)
+    bind_data = "data" in sizes and n_data > 1 and "data" not in ctx.manual
+    e_local = E // n_model
+    lo = coll.axis_index(mesh, "model") * e_local
+    xb, back, replicated = _data_block(x, ctx) if bind_data else (x, (lambda y: y), False)
+    router, wg, wu, wd = (params[n] for n in ("router", "wg", "wu", "wd"))
+    if replicated:  # every data rank routes its own shard with the same weights
+        router, wg, wu, wd = (coll.sum_grad(w, mesh, "data") for w in (router, wg, wu, wd))
+    # each model rank uses only its experts' slice and its slots' tokens
+    wg, wu, wd = (coll.sum_grad(w, mesh, "model")[lo:lo + e_local] for w in (wg, wu, wd))
+
+    xt = xb.reshape(-1, D)
+    T = xt.shape[0]
+    capacity = capacity_of(T, cfg)
+    dev = xt.device
+    logits = xt.to(torch.float32) @ router
+    gates = torch.softmax(logits, dim=-1)
+    top_v, top_i = _topk(gates, k)
+    # choice-major flatten: the GShard capacity-drop order (see _moe_local_sort)
+    e_flat = top_i.T.reshape(-1)
+    w_flat = coll.sum_grad(top_v.T.reshape(-1), mesh, "model")
+    tok_flat = torch.arange(T, device=dev).repeat(k)
+
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev), side="left")
+    pos = torch.arange(T * k, device=dev) - starts[e_sorted]
+    mine = (e_sorted >= lo) & (e_sorted < lo + e_local) & (pos < capacity)
+    slot = torch.where(mine, (e_sorted - lo) * capacity + pos, e_local * capacity)
+
+    xe = coll.sum_grad(xt, mesh, "model")
+    buf = torch.zeros((e_local * capacity + 1, D), dtype=xt.dtype, device=dev)
+    buf[slot] = xe[tok_flat[order]]
+    expert_in = buf[:-1].reshape(e_local, capacity, D)
+    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, wg))
+    h = h * torch.einsum("ecd,edf->ecf", expert_in, wu)
+    expert_out = torch.einsum("ecf,efd->ecd", h, wd)
+    rows = torch.cat([expert_out.reshape(e_local * capacity, D),
+                      torch.zeros((1, D), dtype=xt.dtype, device=dev)], dim=0)
+    routed = rows[slot] * w_flat[order, None].to(xt.dtype)
+    y_part = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(
+        0, tok_flat[order], routed)
+    y = coll.partial_sum(y_part, mesh, "model")          # the ONLY collective
+
+    aux = _aux_loss(gates, top_i, cfg)
+    if bind_data:
+        aux = coll.mean(aux, mesh, "data", replicated)
+    return back(y.reshape(xb.shape)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +308,54 @@ def _moe_local_einsum(params, xt, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _ref_batch(x, ctx) -> int:
+    """The leading axis of ``x`` as the reference's region sees it: the
+    rank's rows times the non-manual axes they are split over."""
+    sizes = mesh_shape(ctx.mesh)
+    n = 1
+    for a in ctx.rows:
+        if a not in ctx.manual:
+            n *= sizes[a]
+    return x.shape[0] * n
+
+
 def moe_apply(params, x, cfg: ModelConfig):
     """Returns (y, aux_loss).  x: (B, S, D)."""
     m = cfg.moe
     B, S, D = x.shape
-    # without a mesh the expert-parallel schedule falls back to "sort"
-    dispatch = "sort" if m.dispatch == "ep" else m.dispatch
+    ctx = current_mesh_context()
+    sizes = mesh_shape(ctx.mesh) if ctx is not None else {}
+    dispatch = m.dispatch
+    if dispatch == "ep":
+        ok = (ctx is not None and sizes.get("model", 1) > 1
+              and m.num_experts % sizes["model"] == 0 and "model" not in ctx.manual)
+        if not ok:
+            dispatch = "sort"  # no mesh / no model axis: fall back
+    if dispatch == "ep":
+        y, aux = _moe_expert_parallel(params, x, cfg, ctx)
+        if m.num_shared_experts > 0:
+            y = y + layers.mlp_apply(params["shared"], x)
+        return y, aux
     local = _moe_local_sort if dispatch == "sort" else _moe_local_einsum
-    y, aux = local(params, x.reshape(-1, D), cfg)
-    y = y.reshape(B, S, D)
+    wrap_data = (ctx is not None and sizes.get("data", 1) > 1 and "data" not in ctx.manual
+                 and _ref_batch(x, ctx) % sizes["data"] == 0)
+
+    if wrap_data:
+        # routing runs token-local over 'data'; only the routed-path params
+        # enter the region (the shared expert stays outside)
+        f32_boundary = getattr(_TL_STATE, "off", False)
+        bdt = torch.float32 if f32_boundary else x.dtype
+        xb, back, replicated = _data_block(x.to(bdt), ctx)
+        routed = {k: params[k].to(bdt) if f32_boundary else params[k]
+                  for k in ("router", "wg", "wu", "wd")}
+        if replicated:
+            routed = {k: coll.sum_grad(v, ctx.mesh, "data") for k, v in routed.items()}
+        yb, aux = local(routed, xb.reshape(-1, D), cfg)
+        aux = coll.mean(aux, ctx.mesh, "data", replicated)
+        y = back(yb.reshape(xb.shape)).to(x.dtype)
+    else:
+        y, aux = local(params, x.reshape(-1, D), cfg)
+        y = y.reshape(B, S, D)
     if m.num_shared_experts > 0:
         y = y + layers.mlp_apply(params["shared"], x)
     return y, aux

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import pvary_manual
 
 _RG_LRU_C = 8.0
 _F32 = torch.float32
@@ -211,7 +212,7 @@ def mlstm_apply(params, x, cfg: ModelConfig):
     u, z = torch.chunk(up, 2, dim=-1)                              # (B,S,d_inner)
     q, k, v, it, ft = _mlstm_inputs(params, u, B, S, cfg)
     st = mlstm_init_state(cfg, B, x.device)
-    carry = (st["C"], st["n"], st["m"])
+    carry = pvary_manual((st["C"], st["n"], st["m"]))
     xs = tuple(torch.movedim(a, 1, 0) for a in (q, k, v, it, ft))
     chunk = cfg.mlstm_chunk
     if chunk and S % chunk == 0 and S > chunk and torch.is_grad_enabled():
@@ -303,7 +304,7 @@ def slstm_apply(params, x, cfg: ModelConfig):
     B, S, D = x.shape
     u = (x @ params["w_up"]).to(_F32)
     st = slstm_init_state(cfg, B, x.device)
-    carry = (st["c"], st["n"], st["m"], st["h"])
+    carry = pvary_manual((st["c"], st["n"], st["m"], st["h"]))
     hs = []
     for t in range(S):
         carry, h_t = _slstm_step(params, carry, u[:, t], cfg)

@@ -12,8 +12,8 @@ leaves here.  Its per-block ``jax.checkpoint`` (``cfg.remat``) is
 ``torch.utils.checkpoint`` around each block of the stack while autograd
 records (the encoder's blocks and the MTP head's block stay unwrapped, as
 there); under ``torch.no_grad()`` (prefill, serve) each block is called
-directly.  Its ``shard_activation`` and ``pvary_manual`` do nothing without
-a mesh; they come back with the mesh tooling.
+directly.  Its ``shard_activation`` hints are the reference's: they change
+nothing on a plain tensor (``repro_torch.sharding.ctx``).
 
 Entry points:
   * ``init(generator)``                    -> params
@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import carried, pvary_manual, shard_activation
 from repro_torch.utils.tree import tree_map
 
 ATTN_TYPES = ("attn", "swa", "local")
@@ -235,7 +236,7 @@ class Transformer:
         x = params["embed"][batch["tokens"]]
         if cfg.num_prefix_tokens > 0 and "prefix_embeds" in batch:
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
-        return x
+        return shard_activation(x, ("batch", None, None))
 
     def _unembed(self, params, x):
         cfg = self.cfg
@@ -264,17 +265,19 @@ class Transformer:
         x = self._embed(params, batch)
         memory = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = pvary_manual(torch.zeros((), dtype=torch.float32, device=x.device))
         remat = cfg.remat and torch.is_grad_enabled()
+        # the recompute runs on autograd's thread: carry the mesh state there
+        block = moe.carried(carried(block_apply)) if remat else block_apply
         for blk, bt, _ in self._blocks(params):
             if remat:
-                x, a = checkpoint(block_apply, blk, x, cfg, bt, memory=memory,
+                x, a = checkpoint(block, blk, x, cfg, bt, memory=memory,
                                   positions=positions, use_reentrant=False)
             else:
                 x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions)
             aux = aux + a
         logits = self._unembed(params, x[:, -1:] if last_logit_only else x)
-        out = {"logits": logits, "aux_loss": aux}
+        out = {"logits": shard_activation(logits, ("batch", None, "model")), "aux_loss": aux}
         if cfg.mtp_depth > 0 and not last_logit_only:
             out["mtp_logits"] = self._mtp(params, x, batch)
         return out
@@ -314,6 +317,7 @@ class Transformer:
         """tokens: (B,1) int64; pos: the absolute position (an int)."""
         cfg = self.cfg
         x = params["embed"][tokens]
+        x = shard_activation(x, ("batch", None, None))
         scan_caches = {key: [] for key in cache.get("scan", {})}
         new_cache = {}
         for blk, bt, (r, key) in self._blocks(params):

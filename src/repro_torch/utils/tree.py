@@ -42,6 +42,44 @@ def tree_from_leaves(like, leaves):
     return _rebuild(like, iter(leaves))
 
 
+def tree_add(a, b):
+    """Elementwise ``a + b`` over two trees with identical structure."""
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    """Elementwise ``a - b`` over two trees with identical structure."""
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, scalar):
+    """Multiply every leaf of ``tree`` by ``scalar`` (python or 0-d tensor)."""
+    return tree_map(lambda x: x * scalar, tree)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_dot(a, b):
+    """Inner product of two trees (fp32 accumulation, leaves summed in jax
+    order)."""
+    leaves = [torch.sum(x.to(torch.float32) * y.to(torch.float32))
+              for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    out = torch.zeros((), dtype=torch.float32, device=leaves[0].device if leaves else None)
+    for leaf in leaves:
+        out = out + leaf
+    return out
+
+
+def tree_l2_norm(tree):
+    return torch.sqrt(tree_dot(tree, tree))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
 def tree_size(tree) -> int:
     """Total number of scalar parameters in a tree."""
     return sum(int(x.numel()) for x in tree_leaves(tree))

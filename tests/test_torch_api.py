@@ -48,6 +48,16 @@ from repro_torch.utils.tree import from_jax_params, tree_leaves  # noqa: E402
 
 from _torch_ref import RefInitTask as _RefInitTask  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's small ops on one thread: beside the suite's other
+    workers, torch's intra-op threads oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 BATCH = 16

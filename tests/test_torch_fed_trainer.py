@@ -60,11 +60,11 @@ PARAM_ATOL = 2 * LR * LOCAL
 FAR, FAR_SHARE = 1e-5, 1e-4
 ENFED_MASK = np.array([1.0, 1.0, 0.0, 1.0], np.float32)   # client 2 left out
 STRATEGIES = {
-    "cfl": (AggregationStrategy("cfl"), None),
-    "enfed": (AggregationStrategy("enfed", neighborhood_size=2), ENFED_MASK),
-    "dfl_ring": (AggregationStrategy("dfl_ring"), None),
-    "dfl_mesh": (AggregationStrategy("dfl_mesh"), None),
-    "none": (AggregationStrategy("none"), None),
+    "cfl": (AggregationStrategy(kind="cfl"), None),
+    "enfed": (AggregationStrategy(kind="enfed", neighborhood_size=2), ENFED_MASK),
+    "dfl_ring": (AggregationStrategy(kind="dfl_ring"), None),
+    "dfl_mesh": (AggregationStrategy(kind="dfl_mesh"), None),
+    "none": (AggregationStrategy(kind="none"), None),
 }
 PRESETS = ("debug-dense", "debug-moe")
 

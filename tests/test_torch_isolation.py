@@ -71,6 +71,10 @@ def test_every_new_port_module_is_checked():
         "configs/__init__", "models/config", "models/layers", "models/moe",
         "models/recurrent", "models/transformer", "launch/train", "data/tokens")} <= names
     assert "examples/torch_federated_lm.py" in names
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "sharding/__init__", "sharding/ctx", "sharding/specs", "sharding/collectives",
+        "launch/mesh", "launch/inputs", "launch/dryrun", "launch/roofline",
+        "optim/schedules", "data/loader")} <= names
     assert {f"benchmarks/{m}.py" for m in ("_torch_harness", "torch_table4_lstm",
                                            "torch_table5_mlp", "torch_table7_cloud",
                                            "torch_figs_contributors", "torch_run")} <= names

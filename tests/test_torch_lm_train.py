@@ -31,6 +31,7 @@ from repro_torch.data import tokens  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import Transformer, cross_entropy_loss  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
+from repro_torch.sharding.specs import AbstractMesh  # noqa: E402
 from repro_torch.utils.tree import from_jax_params, tree_leaves, value_and_grad  # noqa: E402
 
 from _torch_ref import np_tree, torch_model_config  # noqa: E402
@@ -150,10 +151,11 @@ def test_remat_wraps_each_block_only_while_autograd_records(graded, monkeypatch)
 
 def test_plain_train_step_is_one_adam_step_on_lm_loss(graded):
     """``make_federated_train_step`` without a mesh: one step of the port's
-    Adam on ``lm_loss``'s gradient; with a mesh and a mixing strategy it
-    names the slice that brings the mesh."""
+    Adam on ``lm_loss``'s gradient; given a mesh it builds the data-parallel
+    and the client-sharded steps (held against the reference in
+    ``tests/test_torch_distributed_train.py``)."""
     _, _, tm, tp, batch = graded("debug-dense")
-    step, opt = steps.make_federated_train_step(tm, None, AggregationStrategy("enfed"),
+    step, opt = steps.make_federated_train_step(tm, None, AggregationStrategy(kind="enfed"),
                                                 lr=3e-4)
     params, state, loss = step(tp, opt.init(tp), batch, None)
     want_loss, grads = _port_value_and_grad(tm, tp, batch)
@@ -161,10 +163,11 @@ def test_plain_train_step_is_one_adam_step_on_lm_loss(graded):
     assert torch.equal(loss, want_loss) and state.step == want_state.step == 1
     for a, p, u in zip(tree_leaves(params), tree_leaves(tp), tree_leaves(upd)):
         assert torch.equal(a, p + u)
-    none_step, _ = steps.make_federated_train_step(tm, object(), AggregationStrategy("none"))
+    mesh = AbstractMesh(("data", "model"), (4, 2))
+    none_step, _ = steps.make_federated_train_step(tm, mesh, AggregationStrategy(kind="none"))
     assert callable(none_step)
-    with pytest.raises(NotImplementedError, match="slice H"):
-        steps.make_federated_train_step(tm, object(), AggregationStrategy("cfl"))
+    cfl_step, _ = steps.make_federated_train_step(tm, mesh, AggregationStrategy(kind="cfl"))
+    assert callable(cfl_step)
 
 
 def test_stack_for_clients_matches_the_reference():

@@ -38,6 +38,16 @@ from repro_torch.utils.tree import to_numpy, tree_size  # noqa: E402
 
 from _torch_ref import RefInitTask, threefry  # noqa: E402
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's small ops on one thread: beside the suite's other
+    workers, torch's intra-op threads oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PARTITIONABLE = True
 SCENARIOS = [("calories", "lstm"), ("calories", "mlp"), ("har", "lstm"), ("har", "mlp")]
 # small sets: the holdout keeps its floor of 200 samples

@@ -170,13 +170,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      reference's debug meshes, against the same 8 ranks on the CPU: the FL
      aggregation of every strategy (distinct updates per client, a mask
      with one zero, fp32 and int8 rings, ``pod_local``) within 1e-6 and its
-     collective bytes equal to their closed form; one federated train step
-     of every strategy and of ``none`` for ``debug-dense`` and ``debug-moe``
-     on (2, 2, 2) (batch 8 x 16), losses within 1e-4 and params by [4m]'s
-     mean-gap rule, the four strategies' losses within 1e-4 of each other;
-     ``debug-moe``'s ``ep`` schedule against the token-local sort on every
-     rank within 2e-5; each step's wall and one all-reduce of the
-     ``debug-dense`` gradient on the card; one dry-run record
+     collective bytes equal to their closed form; the leaf blocks'
+     gather and reduce-scatter, their recorded bytes equal to their closed
+     form; one federated train step executed sharded (each rank holds only
+     its block of every param and Adam leaf under the reference's specs)
+     of every strategy and of ``none`` for ``debug-dense`` and
+     ``debug-moe`` on (2, 2, 2), of ``cfl`` for ``debug-dense`` on (4, 2),
+     and with fsdp for ``debug-dense`` on (2, 2, 2) and ``debug-moe`` on
+     (4, 2) (batch 8 x 16): losses within 1e-4 and the params gathered
+     whole by [4m]'s mean-gap rule, the four strategies' losses within 1e-4
+     of each other, every rank's held bytes equal to three times the
+     closed form of its param blocks; ``debug-moe``'s ``ep`` schedule
+     against the token-local sort on every rank within 2e-5, with whole
+     params and with each rank's experts; each step's wall, each rank's
+     allocated device memory once its blocks are placed, and one
+     all-reduce of the ``debug-dense`` gradient on the card; one dry-run
+     record
      (``repro_torch.launch.dryrun``) built with no jax; this path launches
      no hand-written kernel;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
@@ -3701,6 +3710,34 @@ MESH_BATCH, MESH_SEQ = 8, 16          # the reference test's batch
 MESH_STEP_REPS = 5
 MESH_KINDS = ("cfl", "enfed", "dfl_ring", "dfl_mesh")
 MESH_MASK = np.array([1.0, 0.0, 1.0, 1.0], np.float32)   # client 1 left out
+# the sharded train steps: (arch, fsdp, multi-pod, strategy)
+MESH_TRAIN_CASES = ([(arch, False, True, kind) for arch in ("debug-dense", "debug-moe")
+                     for kind in MESH_KINDS + ("none",)]
+                    + [("debug-dense", False, False, "cfl"), ("debug-dense", True, True, "cfl"),
+                       ("debug-moe", True, False, "cfl")])
+# per-rank bytes of the param blocks, (arch, fsdp, multi-pod): every split
+# of the reference's specs is even on both debug meshes; a rank holds
+# three times this (params, Adam's mu and nu)
+MESH_PARAM_BYTES = {("debug-dense", False, True): 856_576, ("debug-dense", False, False): 856_576,
+                    ("debug-dense", True, True): 430_592, ("debug-moe", False, True): 1_381_632,
+                    ("debug-moe", True, False): 1_234_176}
+# the step walls with every rank on its whole replica, before the auto axes
+# ran sharded (ms, rank 0, mean of 5; PERF.md section 5, two calls on an
+# NVIDIA H100 80GB HBM3 at 700.00 W)
+MESH_REPLICATED_MS = {
+    ("debug-dense", "cfl"): "234.75 / 172.23", ("debug-dense", "enfed"): "154.97 / 142.54",
+    ("debug-dense", "dfl_ring"): "152.63 / 122.10", ("debug-dense", "dfl_mesh"): "158.34 / 158.07",
+    ("debug-dense", "none"): "217.11 / 227.83", ("debug-moe", "cfl"): "275.24 / 215.24",
+    ("debug-moe", "enfed"): "186.38 / 192.12", ("debug-moe", "dfl_ring"): "151.22 / 206.43",
+    ("debug-moe", "dfl_mesh"): "150.00 / 197.47", ("debug-moe", "none"): "236.25 / 236.03"}
+# the leaf collectives: (multi-pod, spec, gathered axes, summed axes) of a
+# (16, 8) fp32 leaf
+MESH_LEAF_CASES = (
+    (False, (("data", "model"), None), ("data",), ("data",)),   # the fsdp embedding
+    (False, ("data", "model"), None, ("data",)),                # a ZeRO-3 leaf, whole
+    (True, (None, "model"), None, ("model",)),                  # an output-split hidden
+)
+MESH_LEAF = (16, 8)
 
 
 def mesh_agg_cases():
@@ -3756,10 +3793,39 @@ def mesh_rank(rank, world, device, data):
                 entered=entered, left=time.time())
 
 
+def mesh_case_name(arch, fsdp, multi, kind):
+    return f"{arch}{' fsdp' if fsdp else ''} {'(2, 2, 2)' if multi else '(4, 2)'} {kind}"
+
+
+def mesh_leaf_closed_form(multi, spec, axes, summed):
+    """The recorder's events of one leaf gather (forward) and its
+    backward: an all-gather per gathered tensor axis, n times the bytes
+    so far; a reduce-scatter per tensor axis with a summed axis, the
+    bytes so far over the axis's blocks."""
+    sizes = {"pod": 2, "data": 2, "model": 2} if multi else {"data": 4, "model": 2}
+    ents = [(e,) if isinstance(e, str) else (e or ()) for e in spec]
+    nbytes = int(np.prod(MESH_LEAF)) * 4
+    for e in ents:
+        nbytes //= int(np.prod([sizes[a] for a in e])) if e else 1
+    fwd, bwd = [], []
+    per_dim = [[a for a in e if axes is None or a in axes] for e in ents]
+    for g in per_dim:
+        if g:
+            nbytes *= int(np.prod([sizes[a] for a in g]))
+            fwd.append(("all-gather", nbytes))
+    for g in per_dim:
+        if g:
+            nbytes //= int(np.prod([sizes[a] for a in g]))
+            if set(g) & set(summed):
+                bwd.append(("reduce-scatter", nbytes))
+    return fwd, bwd
+
+
 def mesh_work(rank, meshes, device, data, timed):
-    """Aggregation, one federated train step of every strategy for both
-    presets, the MoE's ep schedule against the token-local sort, and
-    (``timed``) step and all-reduce walls, on ``device``."""
+    """Aggregation, the leaf collectives, one sharded federated train step
+    of every case of ``MESH_TRAIN_CASES``, the MoE's ep schedule against
+    the token-local sort, and (``timed``) step and all-reduce walls, on
+    ``device``."""
     import dataclasses as dc
 
     from repro_torch import kernels
@@ -3770,8 +3836,10 @@ def mesh_work(rank, meshes, device, data, timed):
     from repro_torch.launch.hlo_stats import collective_bytes
     from repro_torch.models import Transformer, moe
     from repro_torch.sharding import collectives as coll
-    from repro_torch.sharding.ctx import use_mesh
-    from repro_torch.utils.tree import from_jax_params, tree_leaves
+    from repro_torch.sharding.ctx import model_split, sharded_params, use_mesh
+    from repro_torch.sharding.specs import (P, _spec_for, leaf_block, leaves_with_path,
+                                            tree_block, tree_map_with_path)
+    from repro_torch.utils.tree import from_jax_params
 
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -3789,38 +3857,64 @@ def mesh_work(rank, meshes, device, data, timed):
         out["agg"][name] = ({k: v.cpu().numpy() for k, v in full.items()},
                             collective_bytes(rec)["total_collective_bytes"])
 
-    mesh = meshes[True]
+    out["leaf"] = []
+    for multi, spec, axes, summed in MESH_LEAF_CASES:
+        mesh = meshes[multi]
+        x = leaf_block(torch.from_numpy(data["leaf"]).to(dev), P(*spec), mesh,
+                       coll.coordinate(mesh)).requires_grad_(True)
+        with coll.record_collectives() as fwd:
+            y = coll.gather(x, mesh, P(*spec), axes=axes, summed=summed)
+        with coll.record_collectives() as bwd:
+            (g,) = torch.autograd.grad(torch.sum(y * y), x)
+        out["leaf"].append((fwd.events, bwd.events, bool(torch.isfinite(g).all())))
+
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in data["batch"].items()}
-    mask = torch.ones(4, dtype=torch.float32, device=dev)
-    for arch, host_params in data["params"].items():
-        cfg = get_config(arch)
+    for arch, fsdp, multi, kind in MESH_TRAIN_CASES:
+        mesh = meshes[multi]
+        cfg = get_config(arch).replace(fsdp=fsdp)
         model = Transformer(cfg, device=dev)
-        params = from_jax_params(host_params, dev)
         caxes = tmesh.client_axes_for(cfg, mesh)
         C = steps.num_clients(mesh, caxes)
-        for kind in MESH_KINDS + ("none",):
-            strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
-            step, opt = steps.make_federated_train_step(model, mesh, strat, lr=LM_LR)
-            if kind == "none":
-                args = (params, opt.init(params), batch, mask)
-            else:
-                args = (steps.client_block(steps.stack_for_clients(params, C), mesh, caxes),
-                        steps.client_block(steps.stack_for_clients(opt.init(params), C),
-                                           mesh, caxes), batch, mask)
-            p2, _, loss = step(*args)
-            if kind != "none":
-                p2 = gather_clients(p2, mesh, caxes)
-            flat = torch.cat([x.reshape(-1) for x in tree_leaves(p2)]).cpu()
-            out["train"][(arch, kind)] = (float(loss), flat.numpy() if rank == 0 else None)
-            if timed:
-                sync()
-                t0 = time.perf_counter()
-                for _ in range(MESH_STEP_REPS):
-                    step(*args)
-                sync()
-                out["walls"][(arch, kind)] = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
-        if timed and arch == "debug-dense":
-            grad = torch.randn(sum(x.numel() for x in tree_leaves(params)),
+        strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
+        step, opt = steps.make_federated_train_step(model, mesh, strat, lr=LM_LR)
+        mask = torch.ones(max(C, 1), dtype=torch.float32, device=dev)
+        before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        whole = from_jax_params(data["params"][arch], torch.device("cpu"))
+        # the blocks are cut on the host: no rank holds a whole replica on
+        # its device
+        if kind == "none" or not caxes:
+            blocks = (steps.param_block(whole, mesh, fsdp),
+                      steps.param_block(opt.init(whole), mesh, fsdp))
+        else:
+            blocks = (steps.client_block(steps.stack_for_clients(whole, C), mesh, caxes, fsdp),
+                      steps.client_block(steps.stack_for_clients(opt.init(whole), C), mesh,
+                                         caxes, fsdp))
+        del whole
+        args = tuple(tree_map_with_path(
+            lambda _, t: t.to(dev) if isinstance(t, torch.Tensor) else t, b) for b in blocks) \
+            + (batch, mask)
+        del blocks
+        sync()
+        held = sum(t.numel() * t.element_size() for tree in args[:2]
+                   for _, t in leaves_with_path(tree) if isinstance(t, torch.Tensor))
+        # after placement, and its rise over what the rank had allocated
+        # before (cuBLAS's workspaces, once the first product ran, included)
+        allocated = (torch.cuda.memory_allocated(dev), torch.cuda.memory_allocated(dev) - before) \
+            if dev.type == "cuda" else None
+        p2, _, loss = step(*args)
+        full = steps.gather_params(p2, model, mesh, () if kind == "none" else caxes)
+        flat = torch.cat([t.reshape(-1) for _, t in leaves_with_path(full)]).cpu()
+        name = mesh_case_name(arch, fsdp, multi, kind)
+        out["train"][name] = (float(loss), flat.numpy() if rank == 0 else None, held, allocated)
+        if timed:
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(MESH_STEP_REPS):
+                step(*args)
+            sync()
+            out["walls"][name] = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
+        if timed and (arch, fsdp, multi, kind) == ("debug-dense", False, True, "cfl"):
+            grad = torch.randn(held // 12,           # the param blocks' fp32 elements
                                generator=torch.Generator().manual_seed(rank)).to(dev)
             coll.all_reduce(grad, mesh, caxes)
             sync()
@@ -3828,29 +3922,40 @@ def mesh_work(rank, meshes, device, data, timed):
             for _ in range(MESH_STEP_REPS):
                 coll.all_reduce(grad, mesh, caxes)
             sync()
-            out["walls"][("debug-dense", "all-reduce of the gradient")] = (
+            out["walls"]["all-reduce of the gradient"] = (
                 (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3)
+            del grad
+        del args, p2, full
 
+    mesh = meshes[True]
     cfg = get_config("debug-moe")
     x = torch.from_numpy(data["x"]).to(dev)
-    with use_mesh(mesh), torch.no_grad():
+    moe_params = from_jax_params(data["params"]["debug-moe"]["scan"]["p0_attn"]["ffn"], dev)
+    moe_params = {k: v[0] for k, v in moe_params.items()}
+    specs = {k: _spec_for(f"tail0_attn/ffn/{k}", tuple(v.shape), mesh, fsdp=False)
+             for k, v in moe_params.items()}
+    out["ep_gap"], out["ep_aux_gap"] = {}, {}
+    for layout in ("whole", "sharded"):
         ys = {}
-        for dispatch in ("ep", "sort"):
-            c = cfg.replace(moe=dc.replace(cfg.moe, dispatch=dispatch))
-            moe_params = from_jax_params(data["params"]["debug-moe"]["scan"]["p0_attn"]["ffn"],
-                                         dev)
-            moe_params = {k: v[0] for k, v in moe_params.items()}
-            ys[dispatch] = moe.moe_apply(moe_params, x, c)
-    out["ep_gap"] = float((ys["ep"][0] - ys["sort"][0]).abs().max())
-    out["ep_aux_gap"] = float((ys["ep"][1] - ys["sort"][1]).abs())
+        with use_mesh(mesh), torch.no_grad():
+            for dispatch in ("ep", "sort"):
+                c = cfg.replace(moe=dc.replace(cfg.moe, dispatch=dispatch))
+                if layout == "whole":
+                    ys[dispatch] = moe.moe_apply(moe_params, x, c)
+                    continue
+                blocks = tree_block(moe_params, specs, mesh, coll.coordinate(mesh))
+                with sharded_params():
+                    ys[dispatch] = moe.moe_apply(blocks, x, c, tp=model_split())
+        out["ep_gap"][layout] = float((ys["ep"][0] - ys["sort"][0]).abs().max())
+        out["ep_aux_gap"][layout] = float((ys["ep"][1] - ys["sort"][1]).abs())
     out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
     return out
 
 
 def run_mesh(device):
-    """[4n]: 8 ranks on ``device`` as ``make_debug_mesh(multi_pod=True)``
-    (and the (4, 2) mesh for the aggregation), over gloo, against the same
-    8 ranks on the CPU; then one dry-run record built here."""
+    """[4n]: 8 ranks on ``device`` as ``make_debug_mesh`` (4, 2) and
+    (2, 2, 2), over gloo, against the same 8 ranks on the CPU; then one
+    dry-run record built here."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import spawn
@@ -3864,7 +3969,8 @@ def run_mesh(device):
         params={arch: to_numpy(Transformer(get_config(arch), device="cpu")
                                .init(torch.Generator().manual_seed(0)))
                 for arch in ("debug-dense", "debug-moe")},
-        x=rng.standard_normal((MESH_BATCH, MESH_SEQ, 128)).astype(np.float32))
+        x=rng.standard_normal((MESH_BATCH, MESH_SEQ, 128)).astype(np.float32),
+        leaf=rng.standard_normal(MESH_LEAF).astype(np.float32))
     toks = rng.integers(0, 512, (MESH_BATCH, MESH_SEQ + 1))
     data["batch"] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     t0, t_abs = time.perf_counter(), time.time()
@@ -3894,51 +4000,79 @@ def run_mesh(device):
             fail(f"[4n] aggregation {name}: the card's result is {gap} from the CPU's")
         if nbytes != closed:
             fail(f"[4n] aggregation {name}: {nbytes} collective bytes, closed form {closed}")
+    print("  leaf collectives (a (16, 8) leaf gathered, its gradient cut or reduce-scattered):")
+    for i, (multi, spec, axes, summed) in enumerate(MESH_LEAF_CASES):
+        want = mesh_leaf_closed_form(multi, spec, axes, summed)
+        got = [(r["leaf"][i][0], r["leaf"][i][1]) for r in card]
+        finite = all(r["leaf"][i][2] for r in card)
+        print(f"    {'(2, 2, 2)' if multi else '(4, 2)'} spec {spec} over {axes or 'every axis'}, "
+              f"summed {summed}: forward {got[0][0]}, backward {got[0][1]}; closed form {want}")
+        if any(g != want for g in got) or not finite:
+            fail(f"[4n] leaf collective {spec}: recorded {got[0]}, closed form {want}")
+    print("  sharded train steps, card vs CPU (each rank holds its blocks of every param "
+          "and Adam leaf):")
+    losses = {}
+    for arch, fsdp, multi, kind in MESH_TRAIN_CASES:
+        name = mesh_case_name(arch, fsdp, multi, kind)
+        (loss, flat, _, _), (host_loss, host_flat, _, _) = (card[0]["train"][name],
+                                                            host[0]["train"][name])
+        losses[(arch, fsdp, multi, kind)] = loss
+        mean_gap = float(np.abs(flat - host_flat).mean())
+        held = [r["train"][name][2] for r in card]
+        allocated = [r["train"][name][3] for r in card]
+        closed = 3 * MESH_PARAM_BYTES[(arch, fsdp, multi)]
+        wall = card[0]["walls"][name]
+        whole = MESH_REPLICATED_MS.get((arch, kind)) if not fsdp and multi else None
+        print(f"    {name:30s} loss {loss:.6f}, card vs CPU loss {abs(loss - host_loss):.3e} "
+              f"(limit {LM_CARD_TOL:g}), params mean gap {mean_gap:.3e} (limit "
+              f"{LM_ROUND_MEAN_TOL:g}), max {float(np.abs(flat - host_flat).max()):.3e}; "
+              f"wall {wall:.2f} ms (rank 0, mean of {MESH_STEP_REPS}"
+              f"{'; on whole replicas ' + whole + ' ms' if whole else ''})")
+        print(f"      held bytes per rank {held} (closed form 3 x "
+              f"{MESH_PARAM_BYTES[(arch, fsdp, multi)]:,} = {closed:,}); "
+              f"torch.cuda.memory_allocated once placed, and its rise over before: "
+              f"{allocated}")
+        if not (np.isfinite(loss) and np.isfinite(flat).all()):
+            fail(f"[4n] {name}: the card's step is not finite")
+        if not abs(loss - host_loss) <= LM_CARD_TOL:
+            fail(f"[4n] {name}: the loss differs by {abs(loss - host_loss)} "
+                 f"between the card and the CPU")
+        if not mean_gap <= LM_ROUND_MEAN_TOL:
+            fail(f"[4n] {name}: the params differ by {mean_gap} on average "
+                 f"between the card and the CPU")
+        if held != [closed] * MESH_RANKS:
+            fail(f"[4n] {name}: the ranks hold {held} bytes, closed form {closed}")
     for arch in ("debug-dense", "debug-moe"):
-        losses = {}
-        for kind in MESH_KINDS + ("none",):
-            (loss, flat), (host_loss, host_flat) = (card[0]["train"][(arch, kind)],
-                                                    host[0]["train"][(arch, kind)])
-            losses[kind] = loss
-            mean_gap = float(np.abs(flat - host_flat).mean())
-            wall = card[0]["walls"][(arch, kind)]
-            print(f"  {arch} {kind:8s} step: loss {loss:.6f}, card vs CPU loss "
-                  f"{abs(loss - host_loss):.3e} (limit {LM_CARD_TOL:g}), params mean gap "
-                  f"{mean_gap:.3e} (limit {LM_ROUND_MEAN_TOL:g}), max "
-                  f"{float(np.abs(flat - host_flat).max()):.3e}; wall {wall:.2f} ms "
-                  f"(rank 0, mean of {MESH_STEP_REPS})")
-            if not (np.isfinite(loss) and np.isfinite(flat).all()):
-                fail(f"[4n] {arch} {kind}: the card's step is not finite")
-            if not abs(loss - host_loss) <= LM_CARD_TOL:
-                fail(f"[4n] {arch} {kind}: the loss differs by {abs(loss - host_loss)} "
-                     f"between the card and the CPU")
-            if not mean_gap <= LM_ROUND_MEAN_TOL:
-                fail(f"[4n] {arch} {kind}: the params differ by {mean_gap} on average "
-                     f"between the card and the CPU")
-        spread = max(losses[k] for k in MESH_KINDS) - min(losses[k] for k in MESH_KINDS)
-        print(f"  {arch}: the four strategies' losses agree within {spread:.3e} (limit 1e-4)")
+        vals = [losses[(arch, False, True, k)] for k in MESH_KINDS]
+        spread = max(vals) - min(vals)
+        print(f"  {arch} (2, 2, 2): the four strategies' losses agree within {spread:.3e} "
+              f"(limit 1e-4)")
         if not spread < 1e-4:
             fail(f"[4n] {arch}: the strategies' losses spread {spread}")
-    ar = card[0]["walls"][("debug-dense", "all-reduce of the gradient")]
-    print(f"  one all-reduce of the debug-dense gradient over (pod, data): {ar:.2f} ms "
-          f"(rank 0, mean of {MESH_STEP_REPS}; staged through host memory)")
-    ep = max(r["ep_gap"] for r in card)
-    ep_aux = max(r["ep_aux_gap"] for r in card)
-    print(f"  debug-moe ep schedule vs token-local sort on the card, every rank: y max gap "
-          f"{ep:.3e}, aux {ep_aux:.3e} (limit {MESH_EP_TOL:g})")
-    if not (ep <= MESH_EP_TOL and ep_aux <= MESH_EP_TOL):
-        fail(f"[4n] the ep schedule differs from the token-local sort by {ep} (aux {ep_aux})")
+    ar = card[0]["walls"]["all-reduce of the gradient"]
+    print(f"  one all-reduce of a debug-dense rank's gradient blocks over (pod, data): "
+          f"{ar:.2f} ms (rank 0, mean of {MESH_STEP_REPS}; staged through host memory)")
+    for layout in ("whole", "sharded"):
+        ep = max(r["ep_gap"][layout] for r in card)
+        ep_aux = max(r["ep_aux_gap"][layout] for r in card)
+        print(f"  debug-moe ep schedule vs token-local sort on the card, every rank, {layout} "
+              f"params: y max gap {ep:.3e}, aux {ep_aux:.3e} (limit {MESH_EP_TOL:g})")
+        if not (ep <= MESH_EP_TOL and ep_aux <= MESH_EP_TOL):
+            fail(f"[4n] the ep schedule differs from the token-local sort by {ep} "
+                 f"(aux {ep_aux}, {layout} params)")
     rec = dryrun.run_one("debug-dense", "train_4k", False, "cfl")
     import torch.distributed as dist
 
     dist.destroy_process_group()
     print(f"  dry-run record (debug-dense, train_4k, pod1, cfl; no jax on this machine): "
           f"status {rec['status']}, {rec['num_clients']} clients on {rec['n_devices']} ranks, "
-          f"flops {rec['flops']:.4e}, bytes_accessed {rec['bytes_accessed']:.4e} (unfused "
-          f"upper bound), collective bytes {rec['total_collective_bytes']:.0f}, argument "
-          f"bytes {rec['argument_size_in_bytes']:.0f}")
-    if rec["status"] != "ok" or "jax" in sys.modules:
-        fail("[4n] the dry run failed or loaded jax")
+          f"model axis {rec['model_axis']}, flops {rec['flops']:.4e}, bytes_accessed "
+          f"{rec['bytes_accessed']:.4e} (unfused upper bound), collective bytes "
+          f"{rec['total_collective_bytes']:.0f}, argument bytes "
+          f"{rec['argument_size_in_bytes']:.0f}, of which rank 0 holds "
+          f"{rec['executed_param_bytes_per_device']:.0f} of params and Adam state")
+    if rec["status"] != "ok" or "jax" in sys.modules or rec["model_axis"] != "sharded":
+        fail("[4n] the dry run failed, loaded jax or ran replicated")
 
 
 # ---------------------------------------------------------------------------

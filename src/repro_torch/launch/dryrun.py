@@ -17,13 +17,16 @@ runs rank 0's step for real under three counters:
 
 ``argument_size_in_bytes`` is the per-device bytes of the step's arguments
 under the reference's placements (``param_specs``, ``fed_param_shardings``,
-``batch_input_shardings``, ``cache_shardings``).  The port runs the
-``model`` axis (and ``data`` under fsdp) replicated, so each record also
-gives ``executed_param_bytes_per_device`` (what rank 0 holds) and
-``model_axis: "replicated"``: the placements are not what runs, and the
-flops are rank 0's whole replica.  A mesh's failure is recorded as the
-reference records it (``status: "error"`` with the traceback); a cached
-record is skipped.
+``batch_input_shardings``, ``cache_shardings``).  The train and prefill
+steps run sharded: rank 0 holds its blocks under those placements and
+computes split over ``model`` where the layers allow it, so their records
+read ``model_axis: "sharded"``, ``executed_param_bytes_per_device`` (the
+param and Adam blocks rank 0 holds) equals the arguments' bytes less the
+batch's and the mask's, and the flops are rank 0's share.  The decode step
+keeps its params and cache whole (``model_axis: "replicated"``; its
+``executed_param_bytes_per_device`` is the whole params).  A mesh's
+failure is recorded as the reference records it (``status: "error"`` with
+the traceback); a cached record is skipped.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch debug-dense --shape train_4k
@@ -58,8 +61,9 @@ from repro_torch.core.topology import AggregationStrategy
 from repro_torch.launch import inputs as inp
 from repro_torch.launch.hlo_stats import collective_bytes
 from repro_torch.launch.mesh import client_axes_for, make_production_mesh
-from repro_torch.launch.steps import (fed_param_shardings, make_federated_train_step,
-                                      make_prefill_step, make_serve_step, num_clients,
+from repro_torch.launch.steps import (client_block, fed_param_shardings,
+                                      make_federated_train_step, make_prefill_step,
+                                      make_serve_step, num_clients, param_block,
                                       stack_for_clients)
 from repro_torch.models import Transformer
 from repro_torch.sharding import collectives as coll
@@ -69,6 +73,9 @@ from repro_torch.sharding.specs import (leaves_with_path, mesh_shape, param_spec
 
 META = torch.device("meta")
 BYTES_NOTE = "unfused upper bound: every aten op's input and output tensor bytes"
+# the recorder's kinds and CommDebugMode's ops they must count alike
+COMM_OPS = (("all-reduce", "c10d.allreduce_"), ("all-gather", "c10d._allgather_base_"),
+            ("reduce-scatter", "c10d._reduce_scatter_base_"))
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +170,8 @@ def _rank_rows(tree, mesh, axis_of=lambda path: 0):
 
 
 def lower_train(cfg, model, mesh, strategy_kind, neighborhood, compress=None):
-    """Run rank 0's federated train step; returns (argument bytes, executed
-    param bytes, number of clients)."""
+    """Run rank 0's federated train step on its blocks; returns (argument
+    bytes, the param and Adam bytes rank 0 holds, number of clients)."""
     caxes = client_axes_for(cfg, mesh)
     C = num_clients(mesh, caxes)
     strategy = AggregationStrategy(kind=strategy_kind, client_axes=caxes,
@@ -182,15 +189,17 @@ def lower_train(cfg, model, mesh, strategy_kind, neighborhood, compress=None):
                                    param_specs(_arrays(opt_state), mesh, fsdp=cfg.fsdp), mesh)
                       + _arg_bytes(batch, inp.batch_input_shardings(batch, mesh), mesh)
                       + mask.numel() * 4)
-        step(params, opt_state, batch, mask)
-        return args_bytes, _tree_bytes(params) + _tree_bytes(opt_state), C
+        blk_p, blk_o = param_block(params, mesh, cfg.fsdp), param_block(opt_state, mesh, cfg.fsdp)
+        step(blk_p, blk_o, batch, mask)
+        return args_bytes, _tree_bytes(blk_p) + _tree_bytes(blk_o), C
     pf, of = stack_for_clients(params, C), stack_for_clients(_arrays(opt_state), C)
     args_bytes = (_arg_bytes(pf, fed_param_shardings(pf, mesh, caxes, cfg.fsdp), mesh)
                   + _arg_bytes(of, fed_param_shardings(of, mesh, caxes, cfg.fsdp), mesh)
                   + _arg_bytes(batch, inp.batch_input_shardings(
                       batch, mesh, client_stacked=True, client_axes=caxes), mesh)
                   + mask.numel() * 4)
-    blk_p, blk_o = stack_for_clients(params, 1), stack_for_clients(opt_state, 1)
+    blk_p = client_block(stack_for_clients(params, C), mesh, caxes, cfg.fsdp)
+    blk_o = client_block(stack_for_clients(opt_state, C), mesh, caxes, cfg.fsdp)
     step(blk_p, blk_o, batch, mask)
     return args_bytes, _tree_bytes(blk_p) + _tree_bytes(blk_o), C
 
@@ -203,9 +212,10 @@ def lower_prefill(cfg, model, mesh, shape_name):
     args_bytes = (_arg_bytes(params, param_specs(params, mesh, fsdp=cfg.fsdp), mesh)
                   + _arg_bytes(batch, inp.batch_input_shardings(batch, mesh), mesh))
     local, layout = _rank_rows(batch, mesh)
+    blocks = param_block(params, mesh, cfg.fsdp)
     with torch.no_grad(), row_axes(layout):
-        step(params, local)
-    return args_bytes, _tree_bytes(params)
+        step(blocks, local)
+    return args_bytes, _tree_bytes(blocks)
 
 
 def lower_decode(cfg, model, mesh, shape_name, mla_absorbed=False):
@@ -278,13 +288,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "cfl",
     counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
     rec["comm_debug_counts"] = counts
     seen = recorder.counts()
-    for kind_, op in (("all-reduce", "c10d.allreduce_"), ("all-gather", "c10d._allgather_base_")):
+    for kind_, op in COMM_OPS:
         if seen.get(kind_, 0) != counts.get(op, 0):
             raise RuntimeError(f"the recorder saw {seen.get(kind_, 0)} {kind_}s, "
                                f"CommDebugMode {counts.get(op, 0)}")
     rec["argument_size_in_bytes"] = float(args_bytes)
     rec["executed_param_bytes_per_device"] = float(executed)
-    rec["model_axis"] = "replicated"
+    rec["model_axis"] = "replicated" if kind == "decode" else "sharded"
     rec["n_devices"] = int(np.prod(list(mesh_shape(mesh).values())))
     rec["status"] = "ok"
     return rec

@@ -18,7 +18,10 @@ in-process fake group of 256 or 512 ranks
 The mesh's device type is ``cpu``: its process groups are gloo on the
 host, through which every collective stages its payload
 (``repro_torch.sharding.collectives``).  Where a rank computes is its
-model's device, the card unless the caller names another.
+model's device, the card unless the caller names another; what it holds
+of the params and optimizer state in the train and prefill steps is its
+block of each leaf under the reference's specs (``repro_torch.launch.
+steps``), not a replica.
 
 Mesh constructors are functions, so importing this module touches no
 process group.

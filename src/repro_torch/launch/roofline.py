@@ -14,8 +14,9 @@ plus the dominant bottleneck, MODEL_FLOPS = 6·N·D (train) / 2·N_active·D
 
 The dry run's ``bytes_accessed`` is an unfused upper bound (every aten
 op's inputs and outputs), so the memory term is one too.  Its flops are
-rank 0's whole replica (the ``model`` axis runs replicated), so the
-utilization ratio reads against that.
+rank 0's: of its blocks (train and prefill, split over ``model`` where the
+layers allow it, a leaf gathered whole where they do not) or of the whole
+params (decode), so the utilization ratio reads against that.
 
 Collective algo factor: all-reduce counts 2x its payload (ring
 reduce-scatter + all-gather); the others count 1x.

@@ -16,10 +16,18 @@ explicit and selectable:
             k-neighborhood of the data axis
 
 The reference keeps the ``model`` (and for fsdp configs ``data``) axes in
-GSPMD's auto mode; the port runs each rank on its full local replica of
-them, which changes no number.  A step given a mesh runs under that mesh's
-context (``repro_torch.sharding.use_mesh``), as the reference's callers
-trace it.
+GSPMD's auto mode.  The port executes them sharded: a rank holds, of
+every param and Adam leaf, only the block that the reference's spec gives
+its device (:func:`client_block` under ``fed_param_shardings``,
+:func:`param_block` under ``param_specs``), Adam runs on the blocks, and
+the model computes split over ``model`` where the reference's hints place
+it and gathers a leaf at use elsewhere (``repro_torch.models.
+transformer``).  Under fsdp ``data`` is ZeRO-3: the rows split over it,
+a leaf's ``data`` blocks gathered at use and its gradient reduce-scattered
+back; without fsdp the ``model`` ranks of one client compute on the same
+rows, so a gathered leaf's gradient is cut to the block, not summed.  A
+step given a mesh runs under that mesh's context
+(``repro_torch.sharding.use_mesh``), as the reference's callers trace it.
 """
 
 from __future__ import annotations
@@ -29,13 +37,16 @@ import contextlib
 import numpy as np
 import torch
 
-from repro_torch.core.topology import AggregationStrategy, aggregate_local
+from repro_torch.core.topology import AggregationStrategy, aggregate_local, gather_clients
 from repro_torch.models import Transformer, cross_entropy_loss
 from repro_torch.models.moe import disable_token_local
 from repro_torch.optim import adam, apply_updates
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.ctx import current_mesh_context, manual_axes, row_axes, use_mesh
-from repro_torch.sharding.specs import P, _path_str, _spec_for, mesh_shape, tree_map_with_path
+from repro_torch.sharding.ctx import (current_mesh_context, manual_axes, row_axes,
+                                      sharded_params, use_mesh)
+from repro_torch.sharding.specs import (P, _path_str, _spec_for, leaves_with_path,
+                                        map_with_specs, mesh_shape,
+                                        param_specs, spec_axes, tree_block, tree_map_with_path)
 from repro_torch.utils.tree import tree_leaves, tree_map, value_and_grad
 
 MTP_LOSS_WEIGHT = 0.3
@@ -88,7 +99,9 @@ def fed_param_shardings(params_shape, mesh, client_axes, fsdp: bool):
     client = tuple(client_axes)
 
     def f(path, leaf):
-        base = _spec_for(_path_str(path), tuple(leaf.shape[1:]), mesh, fsdp=fsdp)
+        # a host int leaf (the optimizer's step count) is a scalar
+        base = _spec_for(_path_str(path), tuple(getattr(leaf, "shape", (1,)))[1:], mesh,
+                         fsdp=fsdp)
         inner = [None if (e in client or (isinstance(e, tuple) and set(e) & set(client))) else e
                  for e in base]
         return P(client if len(client) > 1 else client[0], *inner) if client else P(None, *inner)
@@ -96,11 +109,45 @@ def fed_param_shardings(params_shape, mesh, client_axes, fsdp: bool):
     return tree_map_with_path(f, params_shape)
 
 
-def client_block(tree, mesh, client_axes):
-    """This rank's block (leading axis 1) of a client-stacked ``(C, ...)``
-    tree."""
-    c = coll.axis_index(mesh, client_axes) if client_axes else 0
-    return tree_map_with_path(_tensors(lambda x: x[c:c + 1]), tree)
+def client_block(tree, mesh, client_axes, fsdp: bool):
+    """This rank's block of a client-stacked ``(C, ...)`` tree under
+    ``fed_param_shardings``: its client's (leading axis 1) and, of that,
+    the block of each leaf that the reference's spec gives the rank's
+    device."""
+    specs = fed_param_shardings(tree, mesh, client_axes, fsdp)
+    return tree_block(tree, specs, mesh, coll.coordinate(mesh))
+
+
+def param_block(tree, mesh, fsdp: bool):
+    """This rank's block of every leaf of a params (or optimizer-state)
+    tree under ``param_specs``: what the data-parallel step and the
+    prefill step take on a mesh."""
+    return tree_block(tree, param_specs(tree, mesh, fsdp=fsdp), mesh, coll.coordinate(mesh))
+
+
+def gather_params(blocks, model: Transformer, mesh, client_axes=()):
+    """The inverse of :func:`param_block` (and, with ``client_axes``, of
+    :func:`client_block`, the clients stacked ``(C, ...)``) for a params
+    tree: every leaf whole, on every rank (for checks; one all-gather per
+    sharded leaf)."""
+    specs = model.param_specs(mesh)
+    if client_axes:
+        whole = map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, P(None, *s)), blocks,
+                               specs)
+        return gather_clients(whole, mesh, client_axes)
+    return map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, s), blocks, specs)
+
+
+def _mean_over_rows(grads, specs, mesh, axes, n: int):
+    """The mean of every leaf's gradient over the ``n`` row blocks that
+    ``axes`` split: a leaf sharded over one of them had its gradient summed
+    over it by its gather's backward (reduce-scatter), the rest is one
+    all-reduce here."""
+    def f(g, spec):
+        rest = tuple(a for a in axes if a not in spec_axes(spec))
+        return (coll.all_reduce(g, mesh, rest) if rest else g) / n
+
+    return map_with_specs(f, grads, specs)
 
 
 def _rows(tree, n: int, i: int):
@@ -144,18 +191,19 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
     * ``mesh=None``: one step of Adam on the batch's ``lm_loss`` (the
       reference's step with no client axes on one device).
     * a mesh and client axes (strategy other than ``"none"``): every rank
-      of the mesh calls the step with its client's block of params and
-      optimizer state (leading axis 1, :func:`client_block`), the global
-      batch (the rank takes its client's rows) and the per-client mask;
-      it returns the rank's new blocks and the loss averaged over the
-      clients.
+      of the mesh calls the step with its block of its client's params and
+      optimizer state (:func:`client_block`), the global batch (the rank
+      takes its client's rows, and under fsdp its ``data`` block of them)
+      and the per-client mask; it returns the rank's new blocks and the
+      loss averaged over the clients.
     * a mesh and no client axes, or ``"none"``: plain data parallel.  Every
-      rank holds the whole params and takes its block of the global batch
-      over the batch axes (``data``-major, so the blocks of one ``data``
-      shard sit on the ``pod`` ranks of one ``data`` index); gradients and
-      loss are averaged over the batch axes, as XLA reduces the global
-      batch's mean.  A batch whose leading axis the batch axes do not
-      divide stays whole on every rank, and nothing is averaged.
+      rank holds its blocks of the params (:func:`param_block`) and takes
+      its block of the global batch over the batch axes (``data``-major,
+      so the blocks of one ``data`` shard sit on the ``pod`` ranks of one
+      ``data`` index); gradients and loss are averaged over the batch
+      axes, as XLA reduces the global batch's mean.  A batch whose leading
+      axis the batch axes do not divide stays whole on every rank, and
+      nothing is averaged.
     """
     opt = adam(lr)
     client_axes = tuple(strategy.client_axes)
@@ -182,6 +230,10 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
         return plain_step, opt
 
     sizes = mesh_shape(mesh)
+    specs = model.param_specs(mesh)
+    clash = {a for _, s in leaves_with_path(specs) for a in spec_axes(s)} & set(client_axes)
+    if clash and strategy.kind != "none":
+        raise ValueError(f"the specs shard params over the client axes {sorted(clash)}")
 
     if not client_axes or strategy.kind == "none":
         bt = tuple(a for a in ("pod", "data") if a in sizes)
@@ -192,12 +244,12 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
             del mask
             _check_device(model, params, batch)
             split = nb > 1 and _batch_size(batch) % nb == 0 and _batch_size(batch) > 1
-            with _mesh_context(mesh):
+            with _mesh_context(mesh), sharded_params():
                 local = _rows(batch, nb, coll.axis_index(mesh, layout)) if split else batch
                 with row_axes(layout if split else ()), tl_guard():
                     loss, grads = value_and_grad(lambda p: lm_loss(model, p, local), params)
                 if split:
-                    grads = tree_map(lambda g: coll.all_reduce(g, mesh, bt) / nb, grads)
+                    grads = _mean_over_rows(grads, specs, mesh, bt, nb)
                     loss = coll.all_reduce(loss, mesh, bt) / nb
             params, opt_state = adam_step(params, opt_state, grads)
             return params, opt_state, loss
@@ -205,6 +257,10 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
         return dp_step, opt
 
     C = num_clients(mesh, client_axes)
+    # under fsdp a client's ranks along data are ZeRO-3 data parallel
+    inner = ("data",) if (model.cfg.fsdp and sizes.get("data", 1) > 1
+                          and "data" not in client_axes) else ()
+    n_in = sizes["data"] if inner else 1
     squeeze = lambda t: tree_map_with_path(_tensors(lambda x: x[0]), t)
     expand = lambda t: tree_map_with_path(_tensors(lambda x: x[None]), t)
 
@@ -214,10 +270,17 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
             raise ValueError(f"the batch's {_batch_size(batch)} rows do not split over "
                              f"{C} clients")
         p, o = squeeze(params_blk), squeeze(opt_blk)
-        with _mesh_context(mesh):
+        with _mesh_context(mesh), sharded_params():
             batch_blk = _rows(batch, C, coll.axis_index(mesh, client_axes))
-            with row_axes(client_axes), manual_axes(client_axes), tl_guard():
+            split = n_in > 1 and _batch_size(batch_blk) % n_in == 0 and _batch_size(batch_blk) > 1
+            if split:
+                batch_blk = _rows(batch_blk, n_in, coll.axis_index(mesh, inner))
+            rows = client_axes + (inner if split else ())
+            with row_axes(rows), manual_axes(client_axes), tl_guard():
                 loss, grads = value_and_grad(lambda q: lm_loss(model, q, batch_blk), p)
+                if split:
+                    grads = _mean_over_rows(grads, specs, mesh, inner, n_in)
+                    loss = coll.all_reduce(loss, mesh, inner) / n_in
                 grads = aggregate_local(grads, mask, mesh, strategy)
                 loss = coll.all_reduce(loss, mesh, client_axes) / C
         p, o = adam_step(p, o, grads)
@@ -232,14 +295,21 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
 
 
 def make_prefill_step(model: Transformer):
+    """prefill_step(params, batch) -> the last position's logits.  Under a
+    mesh context ``params`` are the rank's blocks (:func:`param_block`)
+    and ``batch`` its rows."""
     def prefill_step(params, batch):
-        out = model.forward(params, batch, last_logit_only=True)
+        on_mesh = current_mesh_context() is not None
+        with sharded_params() if on_mesh else contextlib.nullcontext():
+            out = model.forward(params, batch, last_logit_only=True)
         return out["logits"]
 
     return prefill_step
 
 
 def make_serve_step(model: Transformer, mla_absorbed: bool = False):
+    """serve_step(params, cache, tokens, pos) -> (logits, cache); the params
+    and the cache whole, on a mesh too."""
     def serve_step(params, cache, tokens, pos, memory=None):
         logits, cache = model.decode_step(params, tokens, cache, pos,
                                           memory=memory, mla_absorbed=mla_absorbed)

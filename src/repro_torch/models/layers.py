@@ -18,6 +18,15 @@ and softmax in fp32, masked entries filled with -1e30, the scale
 ``1/sqrt(dh)``.  Initializers draw from an explicit ``torch.Generator`` (on
 the CPU) and move to ``device``; the weights are not the reference's draws
 (parity tests carry the reference's own params across).
+
+On a mesh whose params are blocks (``repro_torch.sharding.ctx.
+model_split``) the layers the reference's hints split over ``model`` are
+given ``tp``: attention runs head-parallel (each rank holds the columns of
+``wq``/``wk``/``wv`` of its query heads and their kv heads, which the
+kv-major head order keeps together), the SwiGLU MLP on its block of the
+hidden; the output projection, split on either axis, is applied by
+:func:`project_out`.  Values replicated over ``model`` that a rank uses
+for its part only have their gradients summed over it.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import shard_activation
+from repro_torch.sharding.specs import P
 
 NEG_INF = -1e30
 
@@ -122,20 +133,58 @@ def attention_init(generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
-def _qkv(params, x, cfg: ModelConfig):
+def heads_split(cfg: ModelConfig, n: int) -> bool:
+    """Whether attention runs head-parallel over a ``model`` axis of ``n``:
+    every rank then holds whole kv heads and the query heads of their
+    groups."""
+    return cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+
+
+def ffn_split(d_ff: int, n: int) -> bool:
+    """Whether a SwiGLU MLP of hidden ``d_ff`` runs on a block of its
+    hidden over a ``model`` axis of ``n``."""
+    return d_ff % n == 0
+
+
+def _local_bias(b, width: int, tp):
+    """This rank's ``width`` columns of a replicated bias."""
+    if tp is None or b.shape[0] == width:
+        return b
+    return coll.sum_grad(b, tp.mesh, "model")[tp.index * width:(tp.index + 1) * width]
+
+
+def _qkv(params, x, cfg: ModelConfig, tp=None):
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(B, S, cfg.num_heads, dh)
-    k = k.reshape(B, S, cfg.num_kv_heads, dh)
-    v = v.reshape(B, S, cfg.num_kv_heads, dh)
+        q = q + _local_bias(params["bq"], q.shape[-1], tp)
+        k = k + _local_bias(params["bk"], k.shape[-1], tp)
+        v = v + _local_bias(params["bv"], v.shape[-1], tp)
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     return q, k, v
+
+
+def project_out(h, w, d_out: int, tp):
+    """``h @ w`` where ``h`` holds this rank's block of the hidden columns
+    and ``w`` is split over ``model``: on its input like ``h`` (partial
+    sums, all-reduced), or on its output (``h`` gathered, each rank's
+    output columns gathered).  ``tp`` None: ``h`` and ``w`` whole."""
+    if tp is None:
+        return h @ w
+    if w.shape[0] == h.shape[-1]:
+        return coll.partial_sum(h @ w, tp.mesh, "model")
+    cols = P(*([None] * (h.dim() - 1)), "model")
+    split_out = w.shape[-1] != d_out
+    # each rank's output columns use every hidden column: the gathered
+    # hidden's gradient is a part per rank, summed back to the block
+    h = coll.gather(h, tp.mesh, cols, summed=("model",) if split_out else ())
+    y = h @ w
+    return coll.gather(y, tp.mesh, cols) if split_out else y
 
 
 def _gqa_core(q, k, v, mask):
@@ -162,12 +211,16 @@ def _window_for(block_type: str, cfg: ModelConfig) -> Optional[int]:
 
 
 def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
-                    positions=None):
-    """Full-sequence causal (optionally windowed) attention."""
+                    positions=None, tp=None):
+    """Full-sequence causal (optionally windowed) attention; head-parallel
+    over ``tp`` (this rank's heads' columns of ``wq``/``wk``/``wv``, ``wo``
+    split) when given."""
     B, S, _ = x.shape
     if positions is None:
         positions = _arange(S, x.device)[None, :]
-    q, k, v = _qkv(params, x, cfg)
+    if tp is not None:
+        x = coll.sum_grad(x, tp.mesh, "model")
+    q, k, v = _qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = shard_activation(q, ("batch", None, "model", None))
@@ -179,7 +232,7 @@ def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
     if window is not None:
         mask = mask & (j > i - window)
     out = _gqa_core(q, k, v, mask[None, None, None])
-    out = out.reshape(B, S, -1) @ params["wo"]
+    out = project_out(out.reshape(B, S, -1), params["wo"], cfg.d_model, tp)
     return shard_activation(out, ("batch", None, None))
 
 
@@ -402,10 +455,14 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: Optional[int] = None, device=Non
     }
 
 
-def mlp_apply(params, x):
+def mlp_apply(params, x, tp=None):
+    """SwiGLU; on this rank's block of the hidden over ``tp`` (``wg``,
+    ``wu`` split on their output, ``wd`` split) when given."""
+    if tp is not None:
+        x = coll.sum_grad(x, tp.mesh, "model")
     h = F.silu(x @ params["wg"]) * (x @ params["wu"])
     h = shard_activation(h, ("batch", None, "model"))
-    return h @ params["wd"]
+    return project_out(h, params["wd"], x.shape[-1], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,18 @@ choice-major drop order and its Switch load-balance auxiliary loss.
 
 On a mesh (``repro_torch.sharding.use_mesh``, one process per rank):
 
-* ``"ep"`` — the expert-parallel schedule: every ``model`` rank routes its
-  tokens, keeps only the slots of its E/n_model experts and all-reduces
-  the (T, D) partial output over ``model``, the schedule's one
-  collective.  It falls back to ``"sort"`` where the reference does (no
-  mesh, no ``model`` axis larger than 1, E not divisible by it, or
-  ``model`` manual).
+* the rank's experts — when the params are blocks (``tp``, the steps'
+  :func:`repro_torch.sharding.ctx.sharded_params`) and ``model`` divides
+  E, each rank holds only its E/n_model experts and its router columns.
+  Every dispatch then routes every token as the whole model does (the
+  router's (T, E) logits gathered before the softmax; the same routes and
+  capacity), computes its experts' slots only and all-reduces the (T, D)
+  partial output over ``model``.
+* ``"ep"`` — the expert-parallel schedule, that computation on a mesh
+  whatever the params: with whole params (the serve step) a rank takes
+  its experts' slice of the replica.  It falls back to ``"sort"`` where
+  the reference does (no mesh, no ``model`` axis larger than 1, E not
+  divisible by it, or ``model`` manual).
 * the token-local wrap — when ``data`` is in the mesh, larger than 1, not
   manual, and divides the batch the reference's region sees, routing runs
   per ``data`` shard: capacity comes from the shard's tokens and ``aux``
@@ -31,11 +37,11 @@ On a mesh (``repro_torch.sharding.use_mesh``, one process per rank):
 * :func:`disable_token_local` — the fp32 boundary cast of the wrap that
   the reference's bf16 train steps take.
 
-Where the port keeps activations replicated over an axis, every rank of
-it computes the same loss; the gradients of values each rank uses for its
+Where the activations are replicated over an axis, every rank of it
+computes the same loss; the gradients of values each rank uses for its
 own part of the work are summed over the axis
-(``repro_torch.sharding.collectives``), so every rank ends with the whole
-gradient.
+(``repro_torch.sharding.collectives``), so every rank ends with the
+whole gradient of what it holds.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import current_mesh_context, shard_activation
-from repro_torch.sharding.specs import mesh_shape
+from repro_torch.sharding.specs import P, mesh_shape
 
 CAPACITY_FACTOR = 1.25
 
@@ -120,11 +126,41 @@ def _topk(gates, k):
     return top_v, top_i
 
 
-def _route(params, xt, cfg: ModelConfig):
-    """Router gates (T, E) fp32 and the normalized top-k (values, ids)."""
+def experts_split(cfg: ModelConfig, n: int) -> bool:
+    """Whether each rank of a ``model`` axis of ``n`` holds E/n experts
+    (the reference's spec puts the expert axis, and the router's, on
+    ``model`` exactly then)."""
+    return cfg.moe.num_experts % n == 0
+
+
+def shared_d_ff(cfg: ModelConfig) -> int:
+    m = cfg.moe
+    return (m.d_ff_expert or cfg.d_ff) * m.num_shared_experts
+
+
+def _route(params, xt, cfg: ModelConfig, split=None):
+    """Router gates (T, E) fp32 and the normalized top-k (values, ids).  A
+    router holding this rank's experts' columns (``split``) has its logits
+    gathered over ``model`` first."""
     logits = xt.to(torch.float32) @ params["router"]
+    if logits.shape[-1] != cfg.moe.num_experts:
+        logits = coll.gather(logits, split[0], P(None, "model"))
     gates = torch.softmax(logits, dim=-1)
     return (gates,) + _topk(gates, cfg.moe.num_experts_per_tok)
+
+
+def _route_part(params, xt, cfg: ModelConfig, split):
+    """:func:`_route` and the tokens as the experts take them.  With
+    ``split`` the rank computes its experts' part only: the tokens (and
+    the router's input, when it holds its experts' columns) and the top-k
+    values it weighs its slots by have their gradients summed over
+    ``model``."""
+    if split is None:
+        return _route(params, xt, cfg) + (xt,)
+    xe = coll.sum_grad(xt, split[0], "model")
+    split_router = params["router"].shape[-1] != cfg.moe.num_experts
+    gates, top_v, top_i = _route(params, xe if split_router else xt, cfg, split)
+    return gates, coll.sum_grad(top_v, split[0], "model"), top_i, xe
 
 
 def _aux_loss(gates, top_i, cfg: ModelConfig):
@@ -145,14 +181,18 @@ def capacity_of(T: int, cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _moe_local_sort(params, xt, cfg: ModelConfig):
-    """xt: (T, D) token block. Returns (y (T, D), aux scalar)."""
+def _moe_local_sort(params, xt, cfg: ModelConfig, split=None):
+    """xt: (T, D) token block. Returns (y (T, D), aux scalar).  ``split``
+    (mesh, lo, e_local): ``params`` hold experts ``lo ... lo + e_local``
+    only; every token is routed, the rank computes its experts' slots and
+    the partial outputs are summed over ``model``."""
     m = cfg.moe
     T, D = xt.shape
     E, k = m.num_experts, m.num_experts_per_tok
     capacity = capacity_of(T, cfg)
     dev = xt.device
-    gates, top_v, top_i = _route(params, xt, cfg)
+    lo, e_loc = (split[1], split[2]) if split else (0, E)
+    gates, top_v, top_i, xe = _route_part(params, xt, cfg, split)
 
     # Flatten choice-major (j*T + t) so each expert's queue holds all
     # 1st-choice tokens (in token order) before any 2nd-choice token —
@@ -167,18 +207,22 @@ def _moe_local_sort(params, xt, cfg: ModelConfig):
     starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev), side="left")
     pos = torch.arange(T * k, device=dev) - starts[e_sorted]
     keep = pos < capacity
-    slot = torch.where(keep, e_sorted * capacity + pos, E * capacity)  # sentinel row
+    if split:
+        keep = keep & (e_sorted >= lo) & (e_sorted < lo + e_loc)
+    slot = torch.where(keep, (e_sorted - lo) * capacity + pos, e_loc * capacity)  # sentinel
 
-    buf = torch.zeros((E * capacity + 1, D), dtype=xt.dtype, device=dev)
-    buf[slot] = xt[tok_flat[order]]
-    expert_in = buf[:-1].reshape(E, capacity, D)
+    buf = torch.zeros((e_loc * capacity + 1, D), dtype=xt.dtype, device=dev)
+    buf[slot] = xe[tok_flat[order]]
+    expert_in = buf[:-1].reshape(e_loc, capacity, D)
     expert_in = shard_activation(expert_in, ("expert", None, None))
     expert_out = _expert_ffn(params, expert_in)
     expert_out = shard_activation(expert_out, ("expert", None, None))
-    rows = torch.cat([expert_out.reshape(E * capacity, D),
+    rows = torch.cat([expert_out.reshape(e_loc * capacity, D),
                       torch.zeros((1, D), dtype=xt.dtype, device=dev)], dim=0)
     routed = rows[slot] * w_flat[order, None].to(xt.dtype)         # (T*k, D)
     y = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(0, tok_flat[order], routed)
+    if split:
+        y = coll.partial_sum(y, split[0], "model")
     return y, _aux_loss(gates, top_i, cfg)
 
 
@@ -208,63 +252,29 @@ def _data_block(x, ctx):
                      "no data shard layout for the token-local MoE")
 
 
-def _moe_expert_parallel(params, x, cfg: ModelConfig, ctx):
+def _moe_expert_parallel(params, x, cfg: ModelConfig, ctx, tp=None):
     """Each ``model`` rank routes its tokens and keeps ONLY those assigned
     to the E/n_model experts it owns (``lo = rank * e_local``); the one
     collective is the all-reduce of the (T, D) combined output over
     ``model``.  With ``data`` not manual (``bind_data``) routing runs per
-    ``data`` shard and ``aux`` is averaged over ``data``."""
-    m = cfg.moe
+    ``data`` shard and ``aux`` is averaged over ``data``.  ``tp`` None:
+    ``params`` are whole, and the rank takes its experts' slice."""
     mesh = ctx.mesh
     sizes = mesh_shape(mesh)
-    B, S, D = x.shape
-    E, k = m.num_experts, m.num_experts_per_tok
-    n_model = sizes["model"]
+    D = x.shape[-1]
+    E = cfg.moe.num_experts
     n_data = sizes.get("data", 1)
     bind_data = "data" in sizes and n_data > 1 and "data" not in ctx.manual
-    e_local = E // n_model
+    e_local = E // sizes["model"]
     lo = coll.axis_index(mesh, "model") * e_local
     xb, back, replicated = _data_block(x, ctx) if bind_data else (x, (lambda y: y), False)
-    router, wg, wu, wd = (params[n] for n in ("router", "wg", "wu", "wd"))
+    routed = {n: params[n] for n in ("router", "wg", "wu", "wd")}
     if replicated:  # every data rank routes its own shard with the same weights
-        router, wg, wu, wd = (coll.sum_grad(w, mesh, "data") for w in (router, wg, wu, wd))
-    # each model rank uses only its experts' slice and its slots' tokens
-    wg, wu, wd = (coll.sum_grad(w, mesh, "model")[lo:lo + e_local] for w in (wg, wu, wd))
-
-    xt = xb.reshape(-1, D)
-    T = xt.shape[0]
-    capacity = capacity_of(T, cfg)
-    dev = xt.device
-    logits = xt.to(torch.float32) @ router
-    gates = torch.softmax(logits, dim=-1)
-    top_v, top_i = _topk(gates, k)
-    # choice-major flatten: the GShard capacity-drop order (see _moe_local_sort)
-    e_flat = top_i.T.reshape(-1)
-    w_flat = coll.sum_grad(top_v.T.reshape(-1), mesh, "model")
-    tok_flat = torch.arange(T, device=dev).repeat(k)
-
-    order = torch.argsort(e_flat, stable=True)
-    e_sorted = e_flat[order]
-    starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev), side="left")
-    pos = torch.arange(T * k, device=dev) - starts[e_sorted]
-    mine = (e_sorted >= lo) & (e_sorted < lo + e_local) & (pos < capacity)
-    slot = torch.where(mine, (e_sorted - lo) * capacity + pos, e_local * capacity)
-
-    xe = coll.sum_grad(xt, mesh, "model")
-    buf = torch.zeros((e_local * capacity + 1, D), dtype=xt.dtype, device=dev)
-    buf[slot] = xe[tok_flat[order]]
-    expert_in = buf[:-1].reshape(e_local, capacity, D)
-    h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, wg))
-    h = h * torch.einsum("ecd,edf->ecf", expert_in, wu)
-    expert_out = torch.einsum("ecf,efd->ecd", h, wd)
-    rows = torch.cat([expert_out.reshape(e_local * capacity, D),
-                      torch.zeros((1, D), dtype=xt.dtype, device=dev)], dim=0)
-    routed = rows[slot] * w_flat[order, None].to(xt.dtype)
-    y_part = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(
-        0, tok_flat[order], routed)
-    y = coll.partial_sum(y_part, mesh, "model")          # the ONLY collective
-
-    aux = _aux_loss(gates, top_i, cfg)
+        routed = {n: coll.sum_grad(w, mesh, "data") for n, w in routed.items()}
+    if tp is None:  # a whole replica: each model rank uses only its experts' slice
+        routed.update({n: coll.sum_grad(routed[n], mesh, "model")[lo:lo + e_local]
+                       for n in ("wg", "wu", "wd")})
+    y, aux = _moe_local_sort(routed, xb.reshape(-1, D), cfg, (mesh, lo, e_local))
     if bind_data:
         aux = coll.mean(aux, mesh, "data", replicated)
     return back(y.reshape(xb.shape)), aux
@@ -275,13 +285,15 @@ def _moe_expert_parallel(params, x, cfg: ModelConfig, ctx):
 # ---------------------------------------------------------------------------
 
 
-def _moe_local_einsum(params, xt, cfg: ModelConfig):
+def _moe_local_einsum(params, xt, cfg: ModelConfig, split=None):
+    """The GShard dispatch of ``_moe_local_sort``'s routes, ``split`` as
+    there."""
     m = cfg.moe
     T, D = xt.shape
     E, k = m.num_experts, m.num_experts_per_tok
     capacity = capacity_of(T, cfg)
     dev = xt.device
-    gates, top_v, top_i = _route(params, xt, cfg)
+    gates, top_v, top_i, xe = _route_part(params, xt, cfg, split)
 
     dispatch = torch.zeros((T, E, capacity), dtype=gates.dtype, device=dev)
     combine = torch.zeros((T, E, capacity), dtype=gates.dtype, device=dev)
@@ -297,9 +309,14 @@ def _moe_local_einsum(params, xt, cfg: ModelConfig):
         combine = combine + slot * top_v[:, j, None, None]
         counts = counts + torch.sum(oh * within.to(torch.int32), dim=0, dtype=torch.int32)
 
-    expert_in = torch.einsum("tec,td->ecd", dispatch.to(xt.dtype), xt)
+    if split:  # this rank's experts
+        lo, e_loc = split[1], split[2]
+        dispatch, combine = dispatch[:, lo:lo + e_loc], combine[:, lo:lo + e_loc]
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(xt.dtype), xe)
     expert_out = _expert_ffn(params, expert_in)
     y = torch.einsum("tec,ecd->td", combine.to(xt.dtype), expert_out)
+    if split:
+        y = coll.partial_sum(y, split[0], "model")
     return y, _aux_loss(gates, top_i, cfg)
 
 
@@ -319,12 +336,18 @@ def _ref_batch(x, ctx) -> int:
     return x.shape[0] * n
 
 
-def moe_apply(params, x, cfg: ModelConfig):
-    """Returns (y, aux_loss).  x: (B, S, D)."""
+def moe_apply(params, x, cfg: ModelConfig, tp=None):
+    """Returns (y, aux_loss).  x: (B, S, D).  ``tp``: the ``model`` axis
+    when ``params`` are this rank's blocks (its experts and router columns
+    where ``model`` divides E, its shared expert's hidden block)."""
     m = cfg.moe
     B, S, D = x.shape
     ctx = current_mesh_context()
     sizes = mesh_shape(ctx.mesh) if ctx is not None else {}
+    etp = tp if tp is not None and experts_split(cfg, tp.n) else None
+    stp = tp if tp is not None and layers.ffn_split(shared_d_ff(cfg), tp.n) else None
+    split = (tp.mesh, tp.index * (m.num_experts // tp.n), m.num_experts // tp.n) \
+        if etp is not None else None
     dispatch = m.dispatch
     if dispatch == "ep":
         ok = (ctx is not None and sizes.get("model", 1) > 1
@@ -332,9 +355,9 @@ def moe_apply(params, x, cfg: ModelConfig):
         if not ok:
             dispatch = "sort"  # no mesh / no model axis: fall back
     if dispatch == "ep":
-        y, aux = _moe_expert_parallel(params, x, cfg, ctx)
+        y, aux = _moe_expert_parallel(params, x, cfg, ctx, etp)
         if m.num_shared_experts > 0:
-            y = y + layers.mlp_apply(params["shared"], x)
+            y = y + layers.mlp_apply(params["shared"], x, tp=stp)
         return y, aux
     local = _moe_local_sort if dispatch == "sort" else _moe_local_einsum
     wrap_data = (ctx is not None and sizes.get("data", 1) > 1 and "data" not in ctx.manual
@@ -350,12 +373,12 @@ def moe_apply(params, x, cfg: ModelConfig):
                   for k in ("router", "wg", "wu", "wd")}
         if replicated:
             routed = {k: coll.sum_grad(v, ctx.mesh, "data") for k, v in routed.items()}
-        yb, aux = local(routed, xb.reshape(-1, D), cfg)
+        yb, aux = local(routed, xb.reshape(-1, D), cfg, split)
         aux = coll.mean(aux, ctx.mesh, "data", replicated)
         y = back(yb.reshape(xb.shape)).to(x.dtype)
     else:
-        y, aux = local(params, x.reshape(-1, D), cfg)
+        y, aux = local(params, x.reshape(-1, D), cfg, split)
         y = y.reshape(B, S, D)
     if m.num_shared_experts > 0:
-        y = y + layers.mlp_apply(params["shared"], x)
+        y = y + layers.mlp_apply(params["shared"], x, tp=stp)
     return y, aux

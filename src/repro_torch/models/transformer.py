@@ -15,6 +15,20 @@ there); under ``torch.no_grad()`` (prefill, serve) each block is called
 directly.  Its ``shard_activation`` hints are the reference's: they change
 nothing on a plain tensor (``repro_torch.sharding.ctx``).
 
+On a mesh under ``repro_torch.sharding.ctx.sharded_params`` (the train
+and prefill steps) ``params`` are this rank's blocks under
+:meth:`Transformer.param_specs`, the reference's specs.  Each block
+gathers its leaves at use, inside the checkpointed block so remat gathers
+again: over ``data`` (fsdp, ZeRO-3: the gradient reduce-scattered where
+``data`` splits the rows), and over ``model`` except the leaves its layers
+compute on split (heads, the SwiGLU hidden, the experts and router:
+``_kept``).  A leaf is gathered whole where a layer cannot split (another
+mixer, the encoder, cross-attention, a head count ``model`` does not
+divide).  The embedding is vocab-parallel where ``model`` splits the
+vocab (each rank looks up the rows it holds, the others masked to 0, one
+all-reduce); the unembedding runs split on the vocab (logits gathered) or
+on ``d_model`` (partial logits all-reduced), as its spec places it.
+
 Entry points:
   * ``init(generator)``                    -> params
   * ``forward(params, batch)``             -> {"logits", "aux_loss"[, "mtp_logits"]}
@@ -33,7 +47,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.ctx import carried, pvary_manual, shard_activation
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.ctx import (carried, current_mesh_context, model_split, pvary_manual,
+                                      shard_activation)
+from repro_torch.sharding.specs import P, entry_axes, mesh_shape, param_specs, spec_axes
 from repro_torch.utils.tree import tree_map
 
 ATTN_TYPES = ("attn", "swa", "local")
@@ -50,6 +67,57 @@ def _stack(trees):
 
 def _index(tree, r: int):
     return tree_map(lambda a: a[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks at use
+# ---------------------------------------------------------------------------
+
+
+def _use(leaf, spec, keep_model: bool = False):
+    """A leaf block as the layers compute on it: gathered over the axes of
+    its spec (but ``model`` when ``keep_model``).  The gradient is summed
+    over the axes that split the rows and cut to the block over the
+    others."""
+    ctx = current_mesh_context()
+    axes = tuple(a for a in spec_axes(spec) if not (keep_model and a == "model"))
+    if not axes:
+        return leaf
+    rows = set(ctx.rows) - set(ctx.manual)
+    return coll.gather(leaf, ctx.mesh, spec, axes=axes,
+                       summed=tuple(a for a in axes if a in rows))
+
+
+def _use_tree(params, specs, kept=frozenset(), path=""):
+    if isinstance(params, dict):
+        return {k: _use_tree(v, specs[k], kept, f"{path}{k}/") for k, v in params.items()}
+    return _use(params, specs, keep_model=path[:-1] in kept)
+
+
+def _kept(cfg: ModelConfig, block_type: str, causal: bool, tp) -> frozenset:
+    """The leaves of a block (paths within it) its layers compute on split
+    over ``model``."""
+    if tp is None:
+        return frozenset()
+    kept = set()
+    if causal and block_type in ATTN_TYPES and layers.heads_split(cfg, tp.n):
+        kept |= {"mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo"}
+    if cfg.moe is not None:
+        if moe.experts_split(cfg, tp.n):
+            kept |= {"ffn/router", "ffn/wg", "ffn/wu", "ffn/wd"}
+        if cfg.moe.num_shared_experts and layers.ffn_split(moe.shared_d_ff(cfg), tp.n):
+            kept |= {"ffn/shared/wg", "ffn/shared/wu", "ffn/shared/wd"}
+    elif cfg.d_ff > 0 and layers.ffn_split(cfg.d_ff, tp.n):
+        kept |= {"ffn/wg", "ffn/wu", "ffn/wd"}
+    return frozenset(kept)
+
+
+def _strip_layer(specs):
+    """The per-layer specs of stacked leaves (the stacked axis is never
+    sharded)."""
+    if isinstance(specs, dict):
+        return {k: _strip_layer(v) for k, v in specs.items()}
+    return P(*specs[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +152,19 @@ def block_init(generator, cfg: ModelConfig, block_type: str, cross: bool = False
 
 
 def block_apply(params, x, cfg: ModelConfig, block_type: str,
-                memory=None, positions=None, causal: bool = True):
-    """Full-sequence block. Returns (x, aux_loss)."""
+                memory=None, positions=None, causal: bool = True, specs=None):
+    """Full-sequence block. Returns (x, aux_loss).  ``specs``: ``params``
+    are this rank's blocks under these specs (see the module's docstring)."""
+    tp = model_split() if specs is not None else None
+    kept = _kept(cfg, block_type, causal, tp)
+    if specs is not None:
+        params = _use_tree(params, specs, kept)
+    attn_tp = tp if "mixer/wq" in kept else None
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     if block_type in ATTN_TYPES:
         if causal:
-            h = layers.attention_apply(params["mixer"], h, cfg, block_type, positions)
+            h = layers.attention_apply(params["mixer"], h, cfg, block_type, positions,
+                                       tp=attn_tp)
         else:
             h = _bidir_attention(params["mixer"], h, cfg, positions)
     elif block_type == "mla":
@@ -108,9 +183,9 @@ def block_apply(params, x, cfg: ModelConfig, block_type: str,
     if "ffn" in params:
         h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
         if cfg.moe is not None:
-            h, aux = moe.moe_apply(params["ffn"], h, cfg)
+            h, aux = moe.moe_apply(params["ffn"], h, cfg, tp=tp)
         else:
-            h = layers.mlp_apply(params["ffn"], h)
+            h = layers.mlp_apply(params["ffn"], h, tp=tp if "ffn/wg" in kept else None)
         x = x + h
     return x, aux
 
@@ -185,6 +260,21 @@ class Transformer:
         P = len(cfg.block_pattern)
         self.repeats = cfg.num_layers // P
         self.tail_types = cfg.block_pattern[: cfg.num_layers % P]
+        self._specs = {}
+
+    def param_specs(self, mesh):
+        """The reference's spec of every leaf (``param_specs`` with the
+        config's fsdp) on ``mesh``: a rank of the train or prefill step
+        holds each leaf's block under it."""
+        key = tuple(mesh_shape(mesh).items())
+        if key not in self._specs:
+            shapes = Transformer(self.cfg, device="meta").init(torch.Generator())
+            self._specs[key] = param_specs(shapes, mesh, fsdp=self.cfg.fsdp)
+        return self._specs[key]
+
+    def _sharded_specs(self):
+        ctx = current_mesh_context()
+        return self.param_specs(ctx.mesh) if ctx is not None and ctx.sharded else None
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
@@ -221,28 +311,90 @@ class Transformer:
         return params
 
     # -- encoder ------------------------------------------------------------
-    def encode(self, params, frames):
+    def encode(self, params, frames, specs=None):
         """frames: (B,T,D) precomputed frontend embeddings (stub carve-out)."""
         cfg = self.cfg
         x = frames.to(cfg.torch_dtype)
         blocks = params["encoder"]["blocks"]
+        enc = specs["encoder"] if specs is not None else None
+        bspec = _strip_layer(enc["blocks"]) if enc is not None else None
         for r in range(cfg.encoder_layers):
-            x, _ = block_apply(_index(blocks, r), x, cfg, "attn", causal=False)
-        return layers.rmsnorm_apply(params["encoder"]["norm"], x, cfg.norm_eps)
+            x, _ = block_apply(_index(blocks, r), x, cfg, "attn", causal=False, specs=bspec)
+        norm = params["encoder"]["norm"]
+        if enc is not None:
+            norm = _use_tree(norm, enc["norm"])
+        return layers.rmsnorm_apply(norm, x, cfg.norm_eps)
 
     # -- embedding ----------------------------------------------------------
-    def _embed(self, params, batch):
+    def _lookup(self, params, tokens, specs=None):
+        """The embedding rows of ``tokens``.  Where ``model`` splits the
+        vocab, vocab-parallel: each rank looks up the rows it holds, the
+        others masked to 0, and the ranks' rows are summed (exactly one is
+        not 0)."""
+        emb = params["embed"]
+        if specs is None:
+            return emb[tokens]
+        spec, tp = specs["embed"], model_split()
+        ent = entry_axes(spec[0])
+        if tp is None or "model" not in ent:
+            return _use(emb, spec)[tokens]
+        emb = _use(emb, spec, keep_model=True)
+        sizes = mesh_shape(tp.mesh)
+        n = 1
+        for a in ent:
+            n *= sizes[a]
+        blk = self.cfg.vocab_size // n
+        b, r = tokens // blk, tokens % blk
+        # the block digits of a token's row, the entry's first axis major;
+        # this rank holds the blocks of its model digit, in the order of
+        # the other digits (gathered over their axes)
+        owner, local, stride, lstride = 0, 0, 1, 1
+        for a in reversed(ent):
+            digit = (b // stride) % sizes[a]
+            if a == "model":
+                owner = digit
+            else:
+                local = local + digit * lstride
+                lstride *= sizes[a]
+            stride *= sizes[a]
+        mine = owner == tp.index
+        rows = emb[torch.where(mine, local * blk + r, 0)]
+        rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                              device=rows.device))
+        return coll.partial_sum(rows, tp.mesh, "model")
+
+    def _embed(self, params, batch, specs=None):
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]]
+        x = self._lookup(params, batch["tokens"], specs)
         if cfg.num_prefix_tokens > 0 and "prefix_embeds" in batch:
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return shard_activation(x, ("batch", None, None))
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, specs=None):
         cfg = self.cfg
-        x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        logits = x @ w
+        norm = params["final_norm"]
+        if specs is not None:
+            norm = _use_tree(norm, specs["final_norm"])
+        x = layers.rmsnorm_apply(norm, x, cfg.norm_eps)
+        if specs is None:
+            w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+            logits = x @ w
+        elif cfg.tie_embeddings:
+            logits = x @ _use(params["embed"], specs["embed"]).T
+        else:
+            spec, tp = specs["unembed"], model_split()
+            split = tp is not None and "model" in spec_axes(spec)
+            w = _use(params["unembed"], spec, keep_model=split)
+            if not split:
+                logits = x @ w
+            else:
+                x = coll.sum_grad(x, tp.mesh, "model")
+                if spec[-1] == "model":     # this rank's vocab columns
+                    logits = coll.gather(x @ w, tp.mesh, P(*([None] * (x.dim() - 1)), "model"))
+                else:                        # this rank's rows of d_model
+                    d = w.shape[0]
+                    logits = coll.partial_sum(x[..., tp.index * d:(tp.index + 1) * d] @ w,
+                                              tp.mesh, "model")
         return layers.softcap(logits, cfg.logit_softcap)
 
     def _blocks(self, params):
@@ -262,41 +414,51 @@ class Transformer:
         the full sequence but only the final position is unembedded (the
         vocab matmul dominates otherwise)."""
         cfg = self.cfg
-        x = self._embed(params, batch)
-        memory = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
+        specs = self._sharded_specs()
+        x = self._embed(params, batch, specs)
+        memory = self.encode(params, batch["frames"], specs) if cfg.is_encoder_decoder else None
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = pvary_manual(torch.zeros((), dtype=torch.float32, device=x.device))
         remat = cfg.remat and torch.is_grad_enabled()
         # the recompute runs on autograd's thread: carry the mesh state there
         block = moe.carried(carried(block_apply)) if remat else block_apply
-        for blk, bt, _ in self._blocks(params):
+        for blk, bt, (r, key) in self._blocks(params):
+            bspec = None
+            if specs is not None:
+                bspec = specs[key] if r is None else _strip_layer(specs["scan"][key])
             if remat:
                 x, a = checkpoint(block, blk, x, cfg, bt, memory=memory,
-                                  positions=positions, use_reentrant=False)
+                                  positions=positions, specs=bspec, use_reentrant=False)
             else:
-                x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions)
+                x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions,
+                                   specs=bspec)
             aux = aux + a
-        logits = self._unembed(params, x[:, -1:] if last_logit_only else x)
+        logits = self._unembed(params, x[:, -1:] if last_logit_only else x, specs)
         out = {"logits": shard_activation(logits, ("batch", None, "model")), "aux_loss": aux}
         if cfg.mtp_depth > 0 and not last_logit_only:
-            out["mtp_logits"] = self._mtp(params, x, batch)
+            out["mtp_logits"] = self._mtp(params, x, batch, specs)
         return out
 
-    def _mtp(self, params, h, batch):
+    def _mtp(self, params, h, batch, specs=None):
         """DeepSeek-V3 multi-token-prediction head: predict token t+2 from
         the final hidden state at t combined with the embedding of t+1."""
         cfg = self.cfg
-        emb_next = params["embed"][batch["tokens"]]
+        emb_next = self._lookup(params, batch["tokens"], specs)
         emb_next = torch.roll(emb_next, -1, dims=1)
         if cfg.num_prefix_tokens > 0 and "prefix_embeds" in batch:
             pad = torch.zeros((h.shape[0], cfg.num_prefix_tokens, cfg.d_model), dtype=h.dtype,
                               device=h.device)
             emb_next = torch.cat([pad, emb_next], dim=1)
-        g = torch.cat([layers.rmsnorm_apply(params["mtp"]["norm"], h, cfg.norm_eps),
+        mtp = params["mtp"]
+        if specs is not None:
+            mtp = dict(mtp, norm=_use_tree(mtp["norm"], specs["mtp"]["norm"]),
+                       proj=_use(mtp["proj"], specs["mtp"]["proj"]))
+        g = torch.cat([layers.rmsnorm_apply(mtp["norm"], h, cfg.norm_eps),
                        emb_next.to(h.dtype)], dim=-1)
-        g = g @ params["mtp"]["proj"]
-        g, _ = block_apply(params["mtp"]["block"], g, cfg, cfg.block_pattern[-1])
-        return self._unembed(params, g)
+        g = g @ mtp["proj"]
+        g, _ = block_apply(mtp["block"], g, cfg, cfg.block_pattern[-1],
+                           specs=specs["mtp"]["block"] if specs is not None else None)
+        return self._unembed(params, g, specs)
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:

@@ -7,7 +7,9 @@ from repro_torch.sharding.ctx import (
     shard_activation,
     batch_axes,
     manual_axes,
+    model_split,
     pvary_manual,
+    sharded_params,
 )
 from repro_torch.sharding.specs import (P, AbstractMesh, param_specs, input_specs_sharding,
                                         batch_spec, replicated, to_placements)
@@ -19,7 +21,9 @@ __all__ = [
     "shard_activation",
     "batch_axes",
     "manual_axes",
+    "model_split",
     "pvary_manual",
+    "sharded_params",
     "P",
     "AbstractMesh",
     "param_specs",

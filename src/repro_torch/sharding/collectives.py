@@ -10,13 +10,14 @@ per-axis process groups:
 | ``psum``    | :func:`all_reduce` (``dist.all_reduce``)                   |
 | ``all_gather`` | :func:`all_gather` (one gather into a stacked tensor)   |
 | ``ppermute`` ring hop | :func:`ppermute` (one ``dist.batch_isend_irecv``) |
+| ``psum_scatter`` | :func:`reduce_scatter` (``dist.reduce_scatter_tensor``)  |
 
 Several axes (the client axes ``("pod", "data")``) use the one group that
 spans them, so a ``psum`` over both is one all-reduce.
 
 Every call charges the active :class:`CollectiveRecorder` with its kind
-(``all-reduce``, ``all-gather``, ``collective-permute``) and its output
-bytes per device, as the reference's parse of the partitioned HLO counts
+(``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``) and its output bytes per device, as the reference's parse of the partitioned HLO counts
 them (``repro.launch.hlo_stats.collective_bytes``).
 
 Host staging.  Gloo is the one backend that runs several ranks on one card
@@ -31,10 +32,20 @@ A ``meta`` tensor (the dry run) carries no value: the fake process group
 takes its all-reduces and all-gathers, and a ring hop of one is recorded
 and not sent (point-to-point has no ``meta`` backend).
 
-The autograd functions at the end are the differentiable forms the MoE's
-mesh schedules need: each rank of an axis over which the port keeps the
-activations *replicated* computes the same loss, so a value used on one
-rank only must have its gradient summed over the axis.
+A leaf that the reference's spec shards is held as blocks
+(``repro_torch.sharding.specs.leaf_block``): :func:`gather_leaf` puts a
+leaf's blocks together over some of its axes, :func:`scatter_leaf` cuts a
+whole leaf's gradient back to the block.
+
+The autograd functions at the end are the differentiable forms the
+layers' mesh schedules need.  The ranks of an axis over which the
+activations are *replicated* (``model``; ``data`` where the rows are not
+split) compute the same loss, so a value used on one rank only must have
+its gradient summed over the axis, and a gathered value's gradient is
+taken as is; the ranks of an axis that splits the rows (``data`` in a
+data-parallel step) each hold a part of the objective, so a gathered
+value's gradient is summed over it (:func:`gather`, ZeRO-3's
+reduce-scatter).
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.specs import axis_names, mesh_shape
+from repro_torch.sharding.specs import axis_names, entry_axes, mesh_shape
 
 _RECORDERS: List["CollectiveRecorder"] = []   # process-wide: the card's backward
                                                # runs collectives on its own thread
@@ -174,6 +185,7 @@ def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 _gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_scatter_single = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -189,6 +201,73 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = out.to(x.device) if staged else out
     _charge("all-gather", out)
     return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (``x``'s blocks in :func:`axis_index` order, ``axes`` in mesh order)."""
+    n = axes_size(mesh, axes)
+    group = axis_group(mesh, axes)
+    staged = _staged(x, group)
+    src = x.detach().movedim(dim, 0)
+    src = (src.cpu() if staged else src).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"axis {dim} of {tuple(x.shape)} does not split over {axes} ({n})")
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=x.dtype,
+                      device=src.device)
+    _scatter_single(out, src, group=group)
+    out = out.movedim(0, dim).contiguous()
+    out = out.to(x.device) if staged else out
+    _charge("reduce-scatter", out)
+    return out
+
+
+def _gathered_axes(entry, axes) -> Tuple[str, ...]:
+    return tuple(a for a in entry_axes(entry) if axes is None or a in axes)
+
+
+def gather_leaf(x: torch.Tensor, mesh, spec, axes=None) -> torch.Tensor:
+    """The blocks of a leaf put together over ``axes`` (every axis
+    ``spec`` names by default): one all-gather per tensor axis that the
+    spec shards over them.  Over part of a tuple entry, the result holds
+    the blocks of the gathered axes at this rank's index of the others
+    (``("data", "model")`` gathered over ``data``: blocks ``d * n_model +
+    model`` for every ``d``)."""
+    for i, entry in enumerate(spec):
+        g = _gathered_axes(entry, axes)
+        if g:
+            shape = tuple(x.shape)
+            x = all_gather(x.contiguous(), mesh, g).movedim(0, i)
+            x = x.reshape(shape[:i] + (-1,) + shape[i + 1:])
+    return x
+
+
+def scatter_leaf(g: torch.Tensor, mesh, spec, axes=None, summed=()) -> torch.Tensor:
+    """The inverse of :func:`gather_leaf` for a gradient: this rank's block
+    of ``g``, summed over the gathered axes in ``summed`` (one
+    reduce-scatter per tensor axis) and taken at this rank's index over
+    the others."""
+    sizes, coord = mesh_shape(mesh), coordinate(mesh)
+    for i, entry in enumerate(spec):
+        gathered = _gathered_axes(entry, axes)
+        if not gathered:
+            continue
+        shape = list(g.shape)
+        n = 1
+        for a in gathered:
+            n *= sizes[a]
+        view = g.reshape(shape[:i] + [sizes[a] for a in gathered] + [shape[i] // n]
+                         + shape[i + 1:])
+        k, keep = i, []
+        for a in gathered:
+            if a in summed:
+                keep.append(a)
+                k += 1
+            else:
+                view = view.select(k, coord[a])
+        view = view.reshape(shape[:i] + [-1] + shape[i + 1:])
+        g = reduce_scatter(view, mesh, tuple(keep), dim=i) if keep else view.contiguous()
+    return g
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -325,3 +404,49 @@ def gather_rows(x, mesh, axis, sum_grad_: bool):
 
 def slice_rows(x, mesh, axis):
     return _SliceRows.apply(x, mesh, axis)
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`gather_leaf` forward; :func:`scatter_leaf` backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec, axes, summed):
+        ctx.mesh, ctx.spec, ctx.axes, ctx.summed = mesh, spec, axes, summed
+        return gather_leaf(x, mesh, spec, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_leaf(g.contiguous(), ctx.mesh, ctx.spec, ctx.axes, ctx.summed), \
+            None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """The sum over the spec's axes of the ranks' whole values, cut to this
+    rank's block (a reduce-scatter) forward; the block's gradient gathered
+    whole backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec, axes):
+        ctx.mesh, ctx.spec, ctx.axes = mesh, spec, axes
+        every = tuple(a for entry in spec for a in _gathered_axes(entry, axes))
+        return scatter_leaf(x.detach(), mesh, spec, axes, every)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_leaf(g, ctx.mesh, ctx.spec, ctx.axes), None, None, None
+
+
+def gather(x, mesh, spec, axes=None, summed=()):
+    """Differentiable :func:`gather_leaf`.  Its backward cuts the gradient
+    to the block: summed over the axes in ``summed`` (those whose ranks
+    each computed a part of the gradient: different rows, or a part of the
+    work), taken as is over the others (ranks that computed the same
+    gradient on the same rows)."""
+    return _Gather.apply(x, mesh, spec, None if axes is None else tuple(axes), tuple(summed))
+
+
+def scatter_sum(x, mesh, spec, axes=None):
+    """Differentiable reduce-scatter: this rank's block under ``spec`` of
+    the sum of the ranks' whole ``x`` over the spec's axes (``axes`` of
+    them by default all)."""
+    return _ScatterSum.apply(x, mesh, spec, None if axes is None else tuple(axes))

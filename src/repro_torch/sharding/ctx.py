@@ -11,9 +11,14 @@ Logical axes:
   "model"  -> "model" (tensor-parallel: heads / d_ff / experts)
   "expert" -> "model" (expert-parallel shares the model axis)
 
-The port runs one process per mesh rank, each on its full local replica
-of the auto axes, so a hint on a plain tensor changes nothing; on a
-``DTensor`` it redistributes to the resolved placements.
+The port runs one process per mesh rank.  Under :func:`sharded_params`
+(the train and prefill steps on a mesh) the params a rank is given are
+its blocks under the reference's specs, and the layers compute split over
+``model`` where the reference's hints place them (heads, the SwiGLU
+hidden, the vocab, the experts: :func:`model_split`), gathering any other
+leaf at use; outside it (the serve step) the params are whole.  A hint on
+a plain tensor changes nothing; on a ``DTensor`` it redistributes to the
+resolved placements.
 
 Beside the reference's ``manual`` axes (the client axes inside the
 federated step), the context records ``rows``: the mesh axes over which
@@ -27,10 +32,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 
-from repro_torch.sharding.specs import P, axis_names, to_placements
+from repro_torch.sharding.specs import P, axis_names, mesh_shape, to_placements
 
 _STATE = threading.local()
 
@@ -46,6 +51,7 @@ class MeshContext:
         self.model_axis = "model" if "model" in names else None
         self.manual: frozenset = frozenset()
         self.rows: Tuple[str, ...] = ()
+        self.sharded = False
 
     def resolve(self, logical) -> P:
         """Map a tuple of logical axis names to a :class:`P`."""
@@ -113,6 +119,43 @@ def row_axes(axes):
         yield
     finally:
         ctx.rows = prev
+
+
+@contextlib.contextmanager
+def sharded_params():
+    """Record that the params the model is given are this rank's blocks
+    under the reference's specs (``repro_torch.sharding.specs``)."""
+    ctx = current_mesh_context()
+    if ctx is None:
+        raise RuntimeError("sharded params need a mesh context (use_mesh)")
+    prev = ctx.sharded
+    ctx.sharded = True
+    try:
+        yield
+    finally:
+        ctx.sharded = prev
+
+
+class ModelSplit(NamedTuple):
+    """The ``model`` axis a layer computes split over: its mesh, size and
+    this rank's index along it."""
+    mesh: object
+    n: int
+    index: int
+
+
+def model_split() -> Optional[ModelSplit]:
+    """The ``model`` axis when the params are blocks
+    (:func:`sharded_params`), the axis is larger than 1 and not manual;
+    None otherwise (whole params: the layers compute unsplit)."""
+    ctx = current_mesh_context()
+    if ctx is None or not ctx.sharded or ctx.model_axis is None or "model" in ctx.manual:
+        return None
+    n = mesh_shape(ctx.mesh)["model"]
+    if n == 1:
+        return None
+    names = axis_names(ctx.mesh)
+    return ModelSplit(ctx.mesh, n, int(ctx.mesh.get_coordinate()[names.index("model")]))
 
 
 def carried(fn):

@@ -14,11 +14,14 @@
 
 Inputs shard their leading (batch) axis over ``("pod", "data")``.
 
-The port keeps these specs as *placements*: the dry run reads per-device
-bytes from them, and :func:`to_placements` turns one into DTensor
-placements.  The train, prefill and serve steps run each rank on its full
-local replica (the auto axes replicated); the numbers are the reference's
-because GSPMD's partitioning changes no value.
+On a mesh the train and prefill steps hold, on every rank, only the
+block of each leaf that its spec gives the rank's device
+(:func:`leaf_block`; :func:`leaf_from_blocks` puts the blocks back
+together), and compute split where the layers allow it
+(``repro_torch.sharding.collectives`` moves the blocks).  The serve step
+keeps its params and cache whole.  The dry run reads per-device bytes
+from the specs, and :func:`to_placements` turns one into DTensor
+placements.
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` with named
 dimensions, or an :class:`AbstractMesh` (axis names and sizes, no
@@ -29,6 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
+
+import torch
 
 
 class P(tuple):
@@ -236,3 +241,95 @@ def shard_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
             n *= sizes[ax]
         out[i] = -(-out[i] // n)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# blocks: what one device holds of a leaf
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` names, in entry order."""
+    return tuple(a for entry in spec for a in entry_axes(entry))
+
+
+def _block_index(entry, sizes, coord) -> Tuple[int, int]:
+    """(number of blocks, this coordinate's block) of one tensor axis: the
+    entry's axes row-major, the first named major (jax's order, so
+    ``("data", "model")`` puts block ``data * n_model + model`` on a
+    device)."""
+    n, idx = 1, 0
+    for ax in entry_axes(entry):
+        n *= sizes[ax]
+        idx = idx * sizes[ax] + coord[ax]
+    return n, idx
+
+
+def leaf_block(x, spec: P, mesh, coord: Dict[str, int]):
+    """The block of ``x`` that the device at ``coord`` (``{axis: index}``)
+    holds under ``spec``, as a tensor of its own (no view keeps ``x``
+    alive).  Every split must be even."""
+    sizes = mesh_shape(mesh)
+    for i, entry in enumerate(spec):
+        n, idx = _block_index(entry, sizes, coord)
+        if n == 1:
+            continue
+        if x.shape[i] % n:
+            raise ValueError(f"axis {i} of a {tuple(x.shape)} leaf does not split over "
+                             f"{entry_axes(entry)} ({n} blocks)")
+        size = x.shape[i] // n
+        x = x.narrow(i, idx * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def coordinates(mesh):
+    """Every device's ``{axis: index}``, in rank order (the mesh's devices
+    are ``arange(n).reshape(shape)``, the reference's and the port's)."""
+    sizes = mesh_shape(mesh)
+    names = tuple(sizes)
+    out = [{}]
+    for ax in names:
+        out = [dict(c, **{ax: i}) for c in out for i in range(sizes[ax])]
+    return out
+
+
+def leaf_from_blocks(blocks, spec: P, mesh):
+    """The inverse of :func:`leaf_block`: the whole leaf from every
+    device's block, ``blocks`` in rank order."""
+    sizes = mesh_shape(mesh)
+    coords = coordinates(mesh)
+    first = blocks[0]
+    shape = [d * _block_index(e, sizes, coords[0])[0] for d, e in
+             zip(first.shape, tuple(spec) + (None,) * (first.dim() - len(spec)))]
+    out = torch.empty(shape, dtype=first.dtype, device=first.device)
+    for blk, coord in zip(blocks, coords):
+        view = out
+        for i, entry in enumerate(spec):
+            n, idx = _block_index(entry, sizes, coord)
+            if n > 1:
+                view = view.narrow(i, idx * blk.shape[i], blk.shape[i])
+        view.copy_(blk)
+    return out
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree (nested dicts and
+    NamedTuples; a host int leaf passes through)."""
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_specs(fn, getattr(tree, f), getattr(specs, f))
+                            for f in tree._fields))
+    return fn(tree, specs) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_block(tree, specs, mesh, coord: Dict[str, int]):
+    """:func:`leaf_block` of every leaf of ``tree`` under ``specs``."""
+    return map_with_specs(lambda x, s: leaf_block(x, s, mesh, coord), tree, specs)

@@ -2,6 +2,7 @@
 ``repro_torch.launch.mesh.spawn``'s processes (torch and the port only, no
 jax), computes on the CPU and returns numpy results to the test."""
 
+import contextlib
 import dataclasses
 
 import torch
@@ -13,7 +14,8 @@ from repro_torch.launch.hlo_stats import collective_bytes
 from repro_torch.models import moe
 from repro_torch.models.transformer import Transformer
 from repro_torch.sharding import collectives as coll
-from repro_torch.sharding.ctx import use_mesh
+from repro_torch.sharding.ctx import model_split, sharded_params, use_mesh
+from repro_torch.sharding.specs import _spec_for, leaves_with_path, param_specs, tree_block
 from repro_torch.utils.tree import from_jax_params, tree_map, value_and_grad
 
 
@@ -65,68 +67,160 @@ def aggregation(rank, world, data, device="cpu"):
     return out if rank == 0 else None
 
 
-def train_steps(rank, world, data, device="cpu"):
-    """One federated train step of every strategy on (2, 2, 2) from the
-    reference's weights; rank 0 returns the losses and the client-stacked
-    params."""
+def _held_bytes(*trees) -> int:
+    return sum(x.numel() * x.element_size() for t in trees for _, x in leaves_with_path(t)
+               if isinstance(x, torch.Tensor))
+
+
+def sharded_step(rank, params, case, lr, batch, device="cpu"):
+    """One federated train step of ``case`` (arch, fsdp, multi-pod, kind)
+    from whole ``params`` (numpy): the rank's blocks in and out.  Returns
+    the loss, the rank's new param blocks, the shapes of its Adam blocks
+    and the bytes of the blocks it held going in."""
     dev = torch.device(device)
-    mesh = tmesh.make_debug_mesh(multi_pod=True)
-    cfg = get_config(data["arch"])
+    mesh = tmesh.make_debug_mesh(multi_pod=case["multi"])
+    cfg = get_config(case["arch"])
+    if case["fsdp"]:
+        cfg = cfg.replace(fsdp=True)
     model = Transformer(cfg, device=dev)
-    params = from_jax_params(data["params"], dev)
-    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in data["batch"].items()}
+    whole = from_jax_params(params, dev)
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
     caxes = tmesh.client_axes_for(cfg, mesh)
     C = steps.num_clients(mesh, caxes)
+    strat = AggregationStrategy(kind=case["kind"], client_axes=caxes, neighborhood_size=2)
+    step, opt = steps.make_federated_train_step(model, mesh, strat, lr=lr)
+    mask = torch.ones(max(C, 1), dtype=torch.float32, device=dev)
+    if case["kind"] == "none" or not caxes:
+        specs = param_specs(whole, mesh, fsdp=cfg.fsdp)
+        pb = steps.param_block(whole, mesh, cfg.fsdp)
+        ob = steps.param_block(opt.init(whole), mesh, cfg.fsdp)
+    else:
+        stacked = steps.stack_for_clients(whole, C)
+        specs = steps.fed_param_shardings(stacked, mesh, caxes, cfg.fsdp)
+        pb = steps.client_block(stacked, mesh, caxes, cfg.fsdp)
+        ob = steps.client_block(steps.stack_for_clients(opt.init(whole), C), mesh, caxes,
+                                cfg.fsdp)
+        del stacked
+    held = _held_bytes(pb, ob)
+    del whole
+    p2, o2, loss = step(pb, ob, batch, mask)
+    return dict(loss=float(loss), blocks=_np(p2), held=held,
+                specs={"/" + k: tuple(v) for k, v in leaves_with_path(specs)},
+                adam={name: {k: v.shape for k, v in tree_items(getattr(o2, name))}
+                      for name in ("mu", "nu")})
+
+
+def sharded_steps(rank, world, data, device="cpu"):
+    """:func:`sharded_step` of every case of ``data["cases"]``, each from
+    its preset's weights in ``data["params"]``."""
+    return {name: sharded_step(rank, data["params"][case["arch"]], case, data["lr"],
+                               data["batch"], device)
+            for name, case in data["cases"].items()}
+
+
+def train_steps(rank, world, data, device="cpu"):
+    """One federated train step of every strategy on (2, 2, 2) from the
+    reference's weights; every rank returns the losses, its param blocks
+    and the params gathered whole (client-stacked, except ``"none"``)."""
+    dev = torch.device(device)
+    cfg = get_config(data["arch"])
+    model = Transformer(cfg, device=dev)
+    mesh = tmesh.make_debug_mesh(multi_pod=True)
+    caxes = tmesh.client_axes_for(cfg, mesh)
     out = {}
     for kind in data["kinds"]:
-        strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
-        step, opt = steps.make_federated_train_step(model, mesh, strat, lr=data["lr"])
-        mask = torch.from_numpy(data["mask"]).to(dev)
-        if kind == "none":
-            p2, _, loss = step(params, opt.init(params), batch, mask)
-            full = p2
-        else:
-            pf = steps.client_block(steps.stack_for_clients(params, C), mesh, caxes)
-            of = steps.client_block(steps.stack_for_clients(opt.init(params), C), mesh, caxes)
-            p2, _, loss = step(pf, of, batch, mask)
-            full = gather_clients(p2, mesh, caxes)
-        out[kind] = dict(loss=float(loss), params=_np(full))
-    return out if rank == 0 else None
+        case = dict(arch=data["arch"], fsdp=False, multi=True, kind=kind)
+        res = sharded_step(rank, data["params"], case, data["lr"], data["batch"], device)
+        blocks = from_jax_params(res["blocks"], dev)
+        full = steps.gather_params(blocks, model, mesh, () if kind == "none" else caxes)
+        out[kind] = dict(res, params=_np(full))
+    return out
+
+
+def _moe_specs(params, mesh):
+    """The specs of a MoE block's ``ffn`` leaves (as the model's tree
+    places them: the expert rule needs the ``/ffn/`` path)."""
+    return {k: _spec_for(f"tail0_attn/ffn/{k}", tuple(v.shape), mesh, fsdp=False)
+            for k, v in params.items()}
 
 
 def moe_schedules(rank, world, data, device="cpu"):
     """``moe_apply`` on a mesh (expert-parallel, token-local sort and
     einsum) on the same replicated tokens: the output, ``aux`` and the
     gradient of ``sum(y * r) + aux`` with respect to the params and the
-    tokens, on every rank."""
+    tokens, on every rank.  Once with whole params (``"whole"``, as the
+    serve step runs), once with the rank's blocks under their specs
+    (``"sharded"``, as the train and prefill steps run; the gradients of
+    the blocks gathered whole)."""
     dev = torch.device(device)
     out = {}
     for multi in (False, True):
         mesh = tmesh.make_debug_mesh(multi_pod=multi)
         for dispatch in data["dispatches"]:
-            cfg = get_config("debug-moe")
-            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
-            params = from_jax_params(data["params"], dev)
-            x = torch.from_numpy(data["x"]).to(dev)
-            r = torch.from_numpy(data["r"]).to(dev)
-            tree = {"p": params, "x": x}
+            for layout in ("whole", "sharded"):
+                cfg = get_config("debug-moe")
+                cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+                params = from_jax_params(data["params"], dev)
+                specs = _moe_specs(params, mesh)
+                if layout == "sharded":
+                    params = tree_block(params, specs, mesh, coll.coordinate(mesh))
+                x = torch.from_numpy(data["x"]).to(dev)
+                r = torch.from_numpy(data["r"]).to(dev)
+                tree = {"p": params, "x": x}
+                with use_mesh(mesh), (sharded_params() if layout == "sharded"
+                                      else contextlib.nullcontext()):
+                    tp = model_split()
 
-            def f(t):
-                y, aux = moe.moe_apply(t["p"], t["x"], cfg)
-                return torch.sum(y * r) + aux
+                    def f(t):
+                        y, aux = moe.moe_apply(t["p"], t["x"], cfg, tp=tp)
+                        return torch.sum(y * r) + aux
 
-            with use_mesh(mesh):
-                with torch.no_grad():
-                    y, aux = moe.moe_apply(params, x, cfg)
-                val, grads = value_and_grad(f, tree)
-            out[(multi, dispatch)] = dict(y=y.numpy(), aux=float(aux), val=float(val),
-                                          grads=_np(grads))
+                    with torch.no_grad():
+                        y, aux = moe.moe_apply(params, x, cfg, tp=tp)
+                    val, grads = value_and_grad(f, tree)
+                if layout == "sharded":
+                    grads = dict(grads, p={k: coll.gather_leaf(v, mesh, specs[k])
+                                           for k, v in grads["p"].items()})
+                out[(multi, dispatch, layout)] = dict(y=y.numpy(), aux=float(aux),
+                                                      val=float(val), grads=_np(grads))
+    return out
+
+
+def leaf_collectives(rank, world, data):
+    """``coll.gather`` and ``coll.scatter_sum`` of each case of
+    ``data["leaf_cases"]`` (mesh, spec, axes, summed, kind) on this rank's
+    block of the leaf (gather) or this rank's whole value (scatter_sum):
+    the value, the gradient of ``sum(value * weights[rank])`` and the
+    recorder's events of the forward and the backward."""
+    from repro_torch.sharding.specs import P, leaf_block
+
+    out = {}
+    for name, case in data["leaf_cases"].items():
+        mesh = tmesh.make_debug_mesh(multi_pod=case["multi"])
+        spec = P(*case["spec"])
+        coord = coll.coordinate(mesh)
+        if case["kind"] == "gather":
+            x = leaf_block(torch.from_numpy(data["leaf"]), spec, mesh, coord)
+        else:
+            x = torch.from_numpy(data["values"][rank])
+        x.requires_grad_(True)
+        with coll.record_collectives() as fwd:
+            if case["kind"] == "gather":
+                y = coll.gather(x, mesh, spec, axes=case["axes"], summed=case["summed"])
+            else:
+                y = coll.scatter_sum(x, mesh, spec)
+        w = torch.from_numpy(data["weights"][rank][tuple(slice(0, n) for n in y.shape)])
+        with coll.record_collectives() as bwd:
+            (g,) = torch.autograd.grad(torch.sum(y * w), x)
+        out[name] = dict(value=y.detach().numpy(), grad=g.numpy(), fwd=fwd.events,
+                         bwd=bwd.events, coord=coord)
     return out
 
 
 def agg_and_moe(rank, world, data):
-    """The aggregation and MoE bodies in one set of ranks."""
-    return dict(agg=aggregation(rank, world, data), moe=moe_schedules(rank, world, data["moe"]))
+    """The aggregation, MoE and leaf-collective bodies in one set of ranks."""
+    return dict(agg=aggregation(rank, world, data), moe=moe_schedules(rank, world, data["moe"]),
+                leaf=leaf_collectives(rank, world, data))
 
 
 def run_with_reference(script: str, data, body):

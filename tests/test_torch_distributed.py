@@ -15,7 +15,12 @@ reference's on 8 fake host devices: the tier-1 twins of
   ``CommDebugMode``'s.
 * MoE schedules: ``moe_apply`` with ``dispatch="ep"`` (expert parallel),
   ``"sort"`` and ``"einsum"`` (token-local) on both meshes, output, aux
-  and the gradient of ``sum(y * r) + aux`` within ``MOE_TOL``.
+  and the gradient of ``sum(y * r) + aux`` within ``MOE_TOL``: with whole
+  params (the serve step's layout) and with each rank's blocks (its
+  experts and router columns; the train and prefill steps' layout).
+* The leaf blocks' collectives: ``gather`` and ``scatter_sum`` on 8 ranks,
+  values and gradients against one process's computation, and the
+  recorder's bytes against their closed form.
 
 The train-step twin is ``tests/test_torch_distributed_train.py``.  The
 reference runs once per file in one subprocess; the port's ranks run
@@ -32,6 +37,27 @@ import _torch_mesh_ranks as ranks  # noqa: E402
 AGG_TOL = dict(atol=1e-6, rtol=1e-6)
 MOE_TOL = dict(atol=2e-5, rtol=1e-5)
 DISPATCHES = ("ep", "sort", "einsum")
+LEAF = (16, 8)
+# (kind, multi-pod, spec, gathered axes, axes summed backward): the fsdp
+# embedding's data part, a ZeRO-3 leaf gathered whole (data summed, model
+# cut), a hidden gathered over model (summed: output-split projection) or
+# cut (replicated use), and reduce-scatters of whole values
+LEAF_CASES = {
+    "gather-embed-fsdp": dict(kind="gather", multi=False, spec=(("data", "model"), None),
+                              axes=("data",), summed=("data",)),
+    "gather-zero3": dict(kind="gather", multi=False, spec=("data", "model"), axes=None,
+                         summed=("data",)),
+    "gather-hidden-summed": dict(kind="gather", multi=True, spec=(None, "model"), axes=None,
+                                 summed=("model",)),
+    "gather-rows-cut": dict(kind="gather", multi=True, spec=("model", None), axes=None,
+                            summed=()),
+    "gather-two-axes-cut": dict(kind="gather", multi=True, spec=(("pod", "data"), "model"),
+                                axes=None, summed=()),
+    "scatter-2d": dict(kind="scatter", multi=False, spec=("data", "model"), axes=None,
+                       summed=None),
+    "scatter-tuple": dict(kind="scatter", multi=True, spec=(None, ("data", "model")),
+                          axes=None, summed=None),
+}
 
 
 def _cases():
@@ -135,9 +161,13 @@ def runs():
     moe_data = dict(params=moe_params, dispatches=DISPATCHES,
                     x=rng.standard_normal((8, 16, cfg.d_model)).astype(np.float32),
                     r=rng.standard_normal((8, 16, cfg.d_model)).astype(np.float32))
-    data = dict(cases=CASES, updates=updates, masks=masks, moe=moe_data)
+    data = dict(cases=CASES, updates=updates, masks=masks, moe=moe_data,
+                leaf_cases=LEAF_CASES, leaf=rng.standard_normal(LEAF).astype(np.float32),
+                values=rng.standard_normal((8,) + LEAF).astype(np.float32),
+                weights=rng.standard_normal((8,) + LEAF).astype(np.float32))
     ref, per_rank = ranks.run_with_reference(_REFERENCE, data, ranks.agg_and_moe)
-    return dict(ref=ref, port=dict(agg=per_rank[0]["agg"], moe=[r["moe"] for r in per_rank]),
+    return dict(ref=ref, port=dict(agg=per_rank[0]["agg"], moe=[r["moe"] for r in per_rank],
+                                   leaf=[r["leaf"] for r in per_rank]),
                 data=data)
 
 
@@ -275,8 +305,20 @@ def test_aggregation_strategies_numerics_twin(runs, name):
 @pytest.mark.parametrize("multi", [False, True], ids=["pod1", "pod2"])
 @pytest.mark.parametrize("dispatch", DISPATCHES)
 def test_moe_schedules_match_the_reference_on_a_mesh(runs, dispatch, multi):
+    _moe_matches(runs, dispatch, multi, "whole")
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["pod1", "pod2"])
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_sharded_moe_schedules_match_the_reference_on_a_mesh(runs, dispatch, multi):
+    """Each rank holds its experts and router columns only: the same
+    routes, output and gradients (gathered whole)."""
+    _moe_matches(runs, dispatch, multi, "sharded")
+
+
+def _moe_matches(runs, dispatch, multi, layout):
     want = runs["ref"]["moe"][(multi, dispatch)]
-    per_rank = [r[(multi, dispatch)] for r in runs["port"]["moe"]]
+    per_rank = [r[(multi, dispatch, layout)] for r in runs["port"]["moe"]]
     for got in per_rank:
         np.testing.assert_allclose(got["y"], want["y"], **MOE_TOL)
         assert abs(got["aux"] - want["aux"]) <= 1e-6
@@ -289,6 +331,147 @@ def test_moe_schedules_match_the_reference_on_a_mesh(runs, dispatch, multi):
 
 def test_ep_agrees_with_token_local_sort(runs):
     for multi in (False, True):
-        ep, srt = runs["port"]["moe"][0][(multi, "ep")], runs["port"]["moe"][0][(multi, "sort")]
+        ep = runs["port"]["moe"][0][(multi, "ep", "whole")]
+        srt = runs["port"]["moe"][0][(multi, "sort", "whole")]
         np.testing.assert_allclose(ep["y"], srt["y"], **MOE_TOL)
         assert abs(ep["aux"] - srt["aux"]) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the leaf blocks' collectives
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(case):
+    from repro_torch.sharding.specs import AbstractMesh
+
+    return AbstractMesh(("pod", "data", "model"), (2, 2, 2)) if case["multi"] else \
+        AbstractMesh(("data", "model"), (4, 2))
+
+
+def _gathered_axes(spec, axes):
+    from repro_torch.sharding.specs import P, entry_axes, spec_axes
+
+    axes = spec_axes(spec) if axes is None else axes
+    return P(*[tuple(a for a in entry_axes(e) if a in axes) or None for e in spec])
+
+
+def _gathered(leaf, spec, mesh, coord, axes, dim=0):
+    """One process's gather: over the gathered axes of each tensor axis,
+    the blocks in their row-major order, at ``coord`` over the others."""
+    import itertools
+
+    import torch
+
+    from repro_torch.sharding.specs import entry_axes, leaf_block
+
+    sizes = mesh.shape
+    for i in range(dim, len(spec)):
+        g = [a for a in entry_axes(spec[i]) if a in axes]
+        if g:
+            parts = [_gathered(leaf, spec, mesh, dict(coord, **dict(zip(g, c))), axes, i + 1)
+                     for c in itertools.product(*[range(sizes[a]) for a in g])]
+            return torch.cat(parts, dim=i)
+    return leaf_block(leaf, spec, mesh, coord)
+
+
+def _peers(mesh, coord, axes):
+    """The ranks whose coordinates differ from ``coord`` only along ``axes``."""
+    from repro_torch.sharding.specs import coordinates
+
+    return [r for r, c in enumerate(coordinates(mesh))
+            if all(c[a] == coord[a] for a in c if a not in axes)]
+
+
+def _expectation(case, data, coord):
+    """(value, gradient) of one rank, from every rank's inputs in one
+    process: the loss summed over the ranks, each rank's ``sum(value *
+    weights[rank])``."""
+    import torch
+
+    from repro_torch.sharding.specs import P, coordinates, leaf_block, leaf_from_blocks, spec_axes
+
+    mesh, spec = _mesh_of(case), P(*case["spec"])
+    weights = lambda r, shape: torch.from_numpy(data["weights"][r][tuple(slice(0, n)
+                                                                          for n in shape)])
+    coords = coordinates(mesh)
+    if case["kind"] == "gather":
+        axes = spec_axes(_gathered_axes(spec, case["axes"]))
+        value = _gathered(torch.from_numpy(data["leaf"]), spec, mesh, coord, axes)
+        cut = _gathered_axes(spec, axes)
+        grad = sum(leaf_block(weights(r, value.shape), cut, mesh, coord)
+                   for r in _peers(mesh, coord, case["summed"]))
+        return value.numpy(), grad.numpy()
+    peers = _peers(mesh, coord, spec_axes(spec))
+    value = leaf_block(sum(torch.from_numpy(data["values"][r]) for r in peers), spec, mesh,
+                       coord)
+    # every rank's block position holds the weights of the peer sitting there
+    at = {tuple(coords[r][a] for a in spec_axes(spec)): r for r in peers}
+    grad = leaf_from_blocks([weights(at[tuple(c[a] for a in spec_axes(spec))], value.shape)
+                             for c in coords], spec, mesh)
+    return value.numpy(), grad.numpy()
+
+
+def _leaf_closed_form(case):
+    """The recorder's events (kind, output bytes per device) forward and
+    backward: one all-gather per gathered tensor axis (n times the bytes so
+    far), one reduce-scatter per tensor axis with a summed axis (the bytes
+    so far over the axis's blocks)."""
+    from repro_torch.sharding.specs import P, entry_axes
+
+    mesh, spec = _mesh_of(case), P(*case["spec"])
+    sizes = mesh.shape
+    axes = case["axes"]
+    summed = case["summed"] if case["kind"] == "gather" else None
+    per_dim = []
+    for e in spec:
+        g = [a for a in entry_axes(e) if axes is None or a in axes]
+        n = int(np.prod([sizes[a] for a in g])) if g else 1
+        per_dim.append((g, n, summed is None or bool(set(g) & set(summed))))
+    whole = int(np.prod(LEAF)) * 4
+    block = whole
+    for e in spec:
+        block //= int(np.prod([sizes[a] for a in entry_axes(e)])) if entry_axes(e) else 1
+    gathers, nbytes = [], block if case["kind"] == "gather" else None
+    if case["kind"] == "gather":
+        for g, n, _ in per_dim:
+            if g:
+                nbytes *= n
+                gathers.append(("all-gather", nbytes))
+        scatters = []
+        for g, n, has_sum in per_dim:
+            if g:
+                nbytes //= n
+                if has_sum:
+                    scatters.append(("reduce-scatter", nbytes))
+        return gathers, scatters
+    nbytes, scatters = whole, []
+    for g, n, _ in per_dim:
+        if g:
+            nbytes //= n
+            scatters.append(("reduce-scatter", nbytes))
+    for g, n, _ in per_dim:
+        if g:
+            nbytes *= n
+            gathers.append(("all-gather", nbytes))
+    return scatters, gathers
+
+
+@pytest.mark.parametrize("name", LEAF_CASES)
+def test_leaf_collectives_match_one_process(runs, name):
+    """``gather`` (values and the backward's cut or reduce-scatter) and
+    ``scatter_sum`` (and its backward's gather) on 8 ranks against one
+    process's computation, on every rank."""
+    case = LEAF_CASES[name]
+    for per_rank in runs["port"]["leaf"]:
+        got = per_rank[name]
+        value, grad = _expectation(case, runs["data"], got["coord"])
+        np.testing.assert_allclose(got["value"], value, rtol=1e-6, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got["grad"], grad, rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("name", LEAF_CASES)
+def test_leaf_collective_bytes_match_closed_form(runs, name):
+    fwd, bwd = _leaf_closed_form(LEAF_CASES[name])
+    for per_rank in runs["port"]["leaf"]:
+        assert per_rank[name]["fwd"] == fwd and per_rank[name]["bwd"] == bwd

@@ -9,8 +9,12 @@ tokens, for every strategy and for ``"none"`` (plain data parallel over
 ``pod``): losses within ``LOSS_ATOL``, params by the rule of
 ``tests/test_torch_fed_trainer.py`` (max gap within two Adam steps, few
 elements beyond ``FAR``); the four strategies' losses agree within 1e-4,
-the reference's assertion.  The reference runs in one subprocess while
-the port's ranks run."""
+the reference's assertion.  The port's step runs sharded: each rank's
+param block equals the reference's output's shard on the device of the
+rank's index, re-placed under the specs the rank holds (by the same
+rule), and each rank holds three times its per-rank parameter bytes
+(params, Adam's ``mu`` and ``nu``).  The reference runs in one subprocess
+while the port's ranks run."""
 
 import numpy as np
 import pytest
@@ -36,7 +40,7 @@ from repro.launch.mesh import client_axes_for, make_debug_mesh
 from repro.launch.steps import (fed_param_shardings, make_federated_train_step, num_clients,
                                 stack_for_clients)
 from repro.models import Transformer
-from repro.sharding import use_mesh
+from repro.sharding import param_specs, use_mesh
 
 tr = pickle.load(open(sys.argv[1], "rb"))
 out = {}
@@ -60,7 +64,14 @@ for kind in tr["kinds"]:
             psh = fed_param_shardings(jax.eval_shape(lambda: pf), mesh, caxes, cfg.fsdp)
             bsh = batch_input_shardings(batch, mesh, client_stacked=True, client_axes=caxes)
             p2, _, loss = jax.jit(step, in_shardings=(psh, None, bsh, None))(pf, of, batch, mask)
-    out[kind] = dict(loss=float(loss), params=jax.tree_util.tree_map(np.asarray, p2))
+    if kind == "none":
+        psh = param_specs(params, mesh, fsdp=cfg.fsdp)
+    placed = jax.device_put(p2, psh)
+    blocks = jax.tree_util.tree_map(
+        lambda a: [np.asarray(s.data) for s in sorted(a.addressable_shards,
+                                                      key=lambda s: s.device.id)], placed)
+    out[kind] = dict(loss=float(loss), params=jax.tree_util.tree_map(np.asarray, p2),
+                     blocks=blocks)
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -79,7 +90,7 @@ def runs():
                         "labels": toks[:, 1:].astype(np.int64)},
                  mask=np.ones(4, np.float32), kinds=KINDS + ("none",))
     ref, per_rank = ranks.run_with_reference(_REFERENCE, train, ranks.train_steps)
-    return dict(ref=ref, port=per_rank[0])
+    return dict(ref=ref, port=per_rank[0], ranks=per_rank)
 
 
 @pytest.mark.parametrize("kind", KINDS + ("none",))
@@ -103,3 +114,24 @@ def test_federated_train_step_all_strategies_twin(runs):
     """Same data, same init: the same loss under every aggregation kind."""
     vals = [runs["port"][k]["loss"] for k in KINDS]
     assert all(np.isfinite(vals)) and max(vals) - min(vals) < 1e-4, vals
+
+
+@pytest.mark.parametrize("kind", KINDS + ("none",))
+def test_rank_blocks_match_the_reference_shards(runs, kind):
+    """Each rank's param block is the reference's shard on the device of
+    the rank's index; each rank holds 3 x 1,381,632 bytes (its blocks of
+    the params, ``mu`` and ``nu``)."""
+    want = dict(ranks.tree_items(runs["ref"][kind]["blocks"]))     # (8, *block) per leaf
+    for rank, per_rank in enumerate(runs["ranks"]):
+        got = dict(ranks.tree_items(per_rank[kind]["blocks"]))
+        assert set(got) == set(want)
+        total = far = 0
+        for path, w in want.items():
+            g = got[path]
+            assert g.shape == w[rank].shape, (path, g.shape, w[rank].shape)
+            gap = np.abs(g - w[rank])
+            assert gap.max() <= PARAM_ATOL, (rank, path, gap.max())
+            total += gap.size
+            far += int((gap > FAR).sum())
+        assert far <= FAR_SHARE * total, f"rank {rank}: {far} of {total} elements beyond {FAR}"
+        assert per_rank[kind]["held"] == 3 * 1_381_632

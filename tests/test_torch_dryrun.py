@@ -6,9 +6,13 @@ schedules, the record's status and skips are the reference's
 ``argument_size_in_bytes`` is the sum over the step's arguments of the
 per-device block bytes that the reference's specs give on a
 ``jax.sharding.AbstractMesh`` (token ids counted at the port's int64);
-the records round-trip through ``repro_torch.launch.roofline``.  Also the
-CLI's file tags and skip-cached behaviour, and why the roofline's scan
-correction is 1: the port's flop counter runs every layer."""
+the records round-trip through ``repro_torch.launch.roofline``.  The train
+and prefill records run rank 0's blocks (``model_axis: "sharded"``, the
+param and Adam bytes it holds equal to the arguments' less the batch's
+and the mask's); decode keeps its params whole (``"replicated"``).  Also
+the CLI's file tags and skip-cached behaviour, why the roofline's scan
+correction is 1 (the port's flop counter runs every layer), and that a
+``model`` axis of 2 halves rank 0's per-layer prefill flops."""
 
 import json
 
@@ -91,19 +95,20 @@ def _ref_argument_bytes(arch, shape, mp, strategy):
         stack = lambda t: jax.tree_util.tree_map(
             lambda x: jax.ShapeDtypeStruct((C,) + x.shape, x.dtype), t)
         pf, of = stack(params), stack(opt)
+        inputs = _bytes(batch, jinputs.batch_input_shardings(
+            batch, mesh, client_stacked=True, client_axes=caxes), TOKEN_KEYS) + 4 * C
         return (_bytes(pf, jsteps.fed_param_shardings(pf, mesh, caxes, cfg.fsdp))
                 + _bytes(of, jsteps.fed_param_shardings(of, mesh, caxes, cfg.fsdp))
-                + _bytes(batch, jinputs.batch_input_shardings(
-                    batch, mesh, client_stacked=True, client_axes=caxes), TOKEN_KEYS)
-                + 4 * C), C
+                + inputs), C, inputs
     if shp["kind"] == "prefill":
         batch = jinputs.prefill_inputs(cfg, B, S)
-        return _bytes(params, psh) + _bytes(batch, jinputs.batch_input_shardings(
-            batch, mesh), TOKEN_KEYS), None
+        inputs = _bytes(batch, jinputs.batch_input_shardings(batch, mesh), TOKEN_KEYS)
+        return _bytes(params, psh) + inputs, None, inputs
     cache = jinputs.cache_shapes(model, B, S)
     toks = {"tokens": jax.ShapeDtypeStruct((B, 1), jnp.int32)}
     return (_bytes(params, psh) + _bytes(cache, jinputs.cache_shardings(cache, mesh))
-            + _bytes(toks, jinputs.batch_input_shardings(toks, mesh), TOKEN_KEYS) + 4), None
+            + _bytes(toks, jinputs.batch_input_shardings(toks, mesh), TOKEN_KEYS) + 4), None, \
+        None
 
 
 CASES = [(a, s, mp, st) for a in ARCHS for s in SHAPES for mp in (False, True)
@@ -122,15 +127,21 @@ def test_dryrun_record_matches_the_reference(records, arch, shape, mp, strategy)
         return
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["n_devices"] == (512 if mp else 256)
-    want_bytes, C = _ref_argument_bytes(arch, shape, mp, strategy)
+    want_bytes, C, inputs = _ref_argument_bytes(arch, shape, mp, strategy)
     assert rec["argument_size_in_bytes"] == want_bytes
     if C is not None:
         assert rec["num_clients"] == C
         # the schedule's all-reduces: the client-mean loss at least
         assert rec["all-reduce_count"] >= 1
     assert rec["flops"] > 0 and rec["bytes_accessed"] > rec["executed_param_bytes_per_device"]
-    assert rec["model_axis"] == "replicated"
-    for kind, op in (("all-reduce", "c10d.allreduce_"), ("all-gather", "c10d._allgather_base_")):
+    # the train and prefill steps run rank 0's blocks: what it holds is the
+    # placements' params (and Adam state), the arguments less the inputs
+    if inputs is None:
+        assert rec["model_axis"] == "replicated"
+    else:
+        assert rec["model_axis"] == "sharded"
+        assert rec["executed_param_bytes_per_device"] == want_bytes - inputs
+    for kind, op in dryrun.COMM_OPS:
         assert rec.get(f"{kind}_count", 0.0) == rec["comm_debug_counts"].get(op, 0)
 
 
@@ -191,3 +202,36 @@ def test_dryrun_needs_no_device_and_counts_every_layer():
     assert 0 <= prologue < 0.5 * flops[2]
     assert roofline.scan_correction(tconfigs.get_config("debug-dense")) == 1.0
     assert not torch.cuda.is_initialized()
+
+
+def test_model_axis_halves_rank0_per_layer_prefill_flops():
+    """``debug-dense`` prefill on a fake 8-rank group as
+    ``make_debug_mesh()`` (4, 2): rank 0's per-layer flops (the 4-layer
+    model's less the 2-layer one's) are half those of the same rows on a
+    mesh of ``data`` alone (4 ranks), within 1 %: attention runs
+    head-parallel, the MLP on its hidden block."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.ctx import use_mesh
+
+    per_layer = {}
+    try:
+        for n, make in ((8, tmesh.make_debug_mesh), (4, lambda: tmesh._mesh((4,), ("data",)))):
+            dryrun._fake_group(n)
+            mesh = make()
+            flops = {}
+            for layers in (2, 4):
+                cfg = tconfigs.get_config("debug-dense").replace(num_layers=layers)
+                counter = FlopCounterMode(display=False)
+                with use_mesh(mesh), counter:
+                    dryrun.lower_prefill(cfg, Transformer(cfg, device="meta"), mesh,
+                                         "prefill_32k")
+                flops[layers] = counter.get_total_flops()
+            per_layer[n] = (flops[4] - flops[2]) / 2
+    finally:
+        dist.destroy_process_group()
+    assert per_layer[4] > 0
+    assert abs(per_layer[8] / per_layer[4] - 0.5) <= 0.01 * 0.5, per_layer

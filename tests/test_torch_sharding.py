@@ -10,7 +10,11 @@ B = 1, S = 4,096, the second reaching the sequence branch) and
 ``input_specs_sharding``.  Specs must be equal exactly.  Also:
 ``client_axes_for``, ``num_clients``, ``to_placements`` and
 ``shard_activation`` on a plain tensor and on a DTensor over a fake-group
-mesh, and ``_spec_for``'s branches one by one."""
+mesh, and ``_spec_for``'s branches one by one.  A rank's block of a leaf
+(``leaf_block``) has the reference's ``NamedSharding.shard_shape`` and the
+blocks of every device put the leaf back together (``leaf_from_blocks``),
+for every param and Adam leaf of both presets on both debug meshes; a
+tuple entry's blocks follow jax's order (the first axis major)."""
 
 import pytest
 
@@ -93,6 +97,61 @@ def test_param_specs_match_the_reference_on_every_leaf(arch, what, fsdp, mesh_na
     ref, port = _shapes(arch, what)
     _assert_equal(_port_specs(specs.param_specs(port, tm, fsdp=fsdp)),
                   _ref_specs(jspecs.param_specs(ref, jm, fsdp=fsdp)))
+
+
+@pytest.mark.parametrize("mesh_name", ["4x2", "2x2x2"])
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("what", ["params", "opt"])
+@pytest.mark.parametrize("arch", PRESETS)
+def test_blocks_round_trip_on_every_leaf(arch, what, fsdp, mesh_name):
+    """Every device's block of every leaf under its spec: the reference's
+    shard shape; together, the leaf bit for bit."""
+    from jax.sharding import NamedSharding
+
+    jm, tm = _meshes(mesh_name)
+    ref, meta = _shapes(arch, what)
+    gen = torch.Generator().manual_seed(0)
+    tree = specs.tree_map_with_path(
+        lambda _, x: torch.randn(tuple(x.shape), generator=gen)
+        if isinstance(x, torch.Tensor) else x, meta)
+    pspecs = specs.param_specs(tree, tm, fsdp=fsdp)
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    want = {jspecs._path_str(p): NamedSharding(jm, sh.spec).shard_shape(x.shape)
+            for (p, x), sh in zip(flat, jax.tree_util.tree_leaves(
+                jspecs.param_specs(ref, jm, fsdp=fsdp),
+                is_leaf=lambda t: isinstance(t, NamedSharding)))}
+    per_rank = [specs.tree_block(tree, pspecs, tm, c) for c in specs.coordinates(tm)]
+    for blocks in per_rank:
+        got = {k: tuple(v.shape) for k, v in specs.leaves_with_path(blocks)
+               if isinstance(v, torch.Tensor)}
+        assert got == {k: v for k, v in want.items() if k in got}
+        assert len(got) == len([v for _, v in specs.leaves_with_path(tree)
+                                if isinstance(v, torch.Tensor)])
+    flat_specs = dict(specs.leaves_with_path(pspecs))
+    per_leaf = [dict(specs.leaves_with_path(b)) for b in per_rank]
+    for k, leaf in specs.leaves_with_path(tree):
+        if isinstance(leaf, torch.Tensor):
+            back = specs.leaf_from_blocks([b[k] for b in per_leaf], flat_specs[k], tm)
+            assert torch.equal(back, leaf), k
+
+
+def test_tuple_entry_blocks_follow_jax_order():
+    """``("data", "model")`` on (4, 2): device (d, m) holds block
+    ``d * 2 + m``; ``("pod", "data")`` on (2, 2, 2): block ``p * 2 + d`` on
+    every ``model`` index."""
+    x = torch.arange(16.0).reshape(16, 1)
+    mesh = specs.AbstractMesh(("data", "model"), (4, 2))
+    for c in specs.coordinates(mesh):
+        blk = specs.leaf_block(x, specs.P(("data", "model"), None), mesh, c)
+        b = c["data"] * 2 + c["model"]
+        assert blk.flatten().tolist() == [2.0 * b, 2.0 * b + 1]
+    mesh = specs.AbstractMesh(("pod", "data", "model"), (2, 2, 2))
+    for c in specs.coordinates(mesh):
+        blk = specs.leaf_block(x, specs.P(("pod", "data"), None), mesh, c)
+        b = c["pod"] * 2 + c["data"]
+        assert blk.flatten().tolist() == [4.0 * b + i for i in range(4)]
+    assert [tuple(c.values()) for c in specs.coordinates(mesh)] == \
+        [(p, d, m) for p in range(2) for d in range(2) for m in range(2)]
 
 
 @pytest.mark.parametrize("mesh_name", MESHES)

@@ -184,10 +184,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      against the token-local sort on every rank within 2e-5, with whole
      params and with each rank's experts; each step's wall, each rank's
      allocated device memory once its blocks are placed, and one
-     all-reduce of the ``debug-dense`` gradient on the card; one dry-run
-     record
-     (``repro_torch.launch.dryrun``) built with no jax; this path launches
-     no hand-written kernel;
+     all-reduce of the ``debug-dense`` gradient on the card; the serve
+     step executed sharded (each rank holds its param blocks and its cache
+     blocks under the reference's ``cache_shardings``: the batch over
+     ``data``, ``head_dim`` over ``model``) for ``debug-dense`` and
+     ``debug-moe`` on (4, 2) and ``debug-dense`` on (2, 4), where ``model``
+     splits ``head_dim`` but not the kv heads: a prompt of 8 prefilled by
+     sequential decode and 4 tokens decoded, the logits at every step
+     within 1e-4 of the CPU's, every rank's held param and cache bytes
+     equal to their closed form, each case's wall per decode step and the
+     memory allocated once placed; two dry-run records (``repro_torch.
+     launch.dryrun``, the train and the decode step, both read
+     ``model_axis: "sharded"``) built with no jax; this path launches no
+     hand-written kernel;
 5. time each kernel with CUDA events at the main paths' shapes, beside its
    plain twin, the closest PyTorch library call and its bound on the card
    (the LSTM's two kernels per sequence at 1 and 64 lanes, beside cuDNN's
@@ -3738,6 +3747,16 @@ MESH_LEAF_CASES = (
     (True, (None, "model"), None, ("model",)),                  # an output-split hidden
 )
 MESH_LEAF = (16, 8)
+# the sharded serve step: (arch, mesh shape), a prompt of MESH_PROMPT
+# prefilled by sequential decode, then MESH_GEN tokens decoded; every rank
+# holds its param blocks and its cache blocks (2 layers x (k, v) of
+# B/n_data rows x 12 slots x 2 kv heads x 32/n_model of head_dim fp32,
+# 12,288 B on both meshes)
+MESH_DECODE_CASES = (("debug-dense", (4, 2)), ("debug-moe", (4, 2)), ("debug-dense", (2, 4)))
+MESH_PROMPT, MESH_GEN = 8, 4
+MESH_DECODE_PARAM_BYTES = {("debug-dense", (4, 2)): 856_576, ("debug-moe", (4, 2)): 1_381_632,
+                           ("debug-dense", (2, 4)): 430_592}
+MESH_CACHE_BYTES = 2 * 2 * (2 * 12 * 2 * 16) * 4
 
 
 def mesh_agg_cases():
@@ -3784,6 +3803,7 @@ def mesh_rank(rank, world, device, data):
 
     t0 = time.perf_counter()
     meshes = {m: tmesh.make_debug_mesh(multi_pod=m) for m in (False, True)}
+    meshes[(2, 4)] = tmesh._mesh((2, 4), ("data", "model"))
     t1 = time.perf_counter()
     card = mesh_work(rank, meshes, device, data, True)
     t2 = time.perf_counter()
@@ -3927,6 +3947,11 @@ def mesh_work(rank, meshes, device, data, timed):
             del grad
         del args, p2, full
 
+    out["decode"] = {}
+    for arch, shape in MESH_DECODE_CASES:
+        out["decode"][mesh_decode_name(arch, shape)] = mesh_decode(
+            rank, meshes[False if shape == (4, 2) else shape], arch, dev, data, timed)
+
     mesh = meshes[True]
     cfg = get_config("debug-moe")
     x = torch.from_numpy(data["x"]).to(dev)
@@ -3952,6 +3977,55 @@ def mesh_work(rank, meshes, device, data, timed):
     return out
 
 
+def mesh_decode_name(arch, shape):
+    return f"{arch} {shape}"
+
+
+def mesh_decode(rank, mesh, arch, dev, data, timed):
+    """The serve step of ``arch`` on ``mesh`` on this rank's blocks (cut on
+    the host, then placed on ``dev``): every step's whole logits, the bytes
+    of the blocks it held, the memory allocated once placed and (``timed``)
+    the mean wall of a decode step after the prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.specs import leaves_with_path, tree_map_with_path
+    from repro_torch.utils.tree import from_jax_params
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = get_config(arch)
+    model = Transformer(cfg, device=dev)
+    toks = torch.from_numpy(data["decode_tokens"]).to(dev)
+    B, L = toks.shape[0], MESH_PROMPT + MESH_GEN
+    sync()
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+    whole = from_jax_params(data["params"][arch], torch.device("cpu"))
+    to_dev = lambda t: tree_map_with_path(lambda _, x: x.to(dev), t)
+    params = to_dev(steps.param_block(whole, mesh, cfg.fsdp))
+    cache = to_dev(steps.cache_block(Transformer(cfg, device="cpu").init_cache(B, L), mesh))
+    del whole
+    sync()
+    held = sum(t.numel() * t.element_size() for tree in (params, cache)
+               for _, t in leaves_with_path(tree))
+    # after placement, and its rise over what the rank had allocated before
+    allocated = (torch.cuda.memory_allocated(dev), torch.cuda.memory_allocated(dev) - before) \
+        if dev.type == "cuda" else None
+    step = steps.make_serve_step(model, max_len=L)
+    logits, t_gen = [], 0.0
+    with use_mesh(mesh), torch.no_grad():
+        for t in range(L):
+            sync()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, toks[:, t:t + 1], t)
+            sync()
+            if t >= MESH_PROMPT:
+                t_gen += time.perf_counter() - t0
+            logits.append(lg.cpu().numpy())
+    return dict(logits=np.stack(logits) if rank == 0 else None, held=held,
+                allocated=allocated, ms=t_gen / MESH_GEN * 1e3 if timed else None)
+
+
 def run_mesh(device):
     """[4n]: 8 ranks on ``device`` as ``make_debug_mesh`` (4, 2) and
     (2, 2, 2), over gloo, against the same 8 ranks on the CPU; then one
@@ -3973,6 +4047,7 @@ def run_mesh(device):
         leaf=rng.standard_normal(MESH_LEAF).astype(np.float32))
     toks = rng.integers(0, 512, (MESH_BATCH, MESH_SEQ + 1))
     data["batch"] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    data["decode_tokens"] = rng.integers(0, 512, (MESH_BATCH, MESH_PROMPT + MESH_GEN))
     t0, t_abs = time.perf_counter(), time.time()
     ranks = spawn(mesh_rank, MESH_RANKS, str(device), data)
     card, host = [r["card"] for r in ranks], [r["host"] for r in ranks]
@@ -4060,19 +4135,47 @@ def run_mesh(device):
         if not (ep <= MESH_EP_TOL and ep_aux <= MESH_EP_TOL):
             fail(f"[4n] the ep schedule differs from the token-local sort by {ep} "
                  f"(aux {ep_aux}, {layout} params)")
-    rec = dryrun.run_one("debug-dense", "train_4k", False, "cfl")
+    print(f"  sharded serve step, card vs CPU (each rank holds its param blocks and its "
+          f"cache blocks; a prompt of {MESH_PROMPT} prefilled by sequential decode, "
+          f"{MESH_GEN} tokens decoded; batch {MESH_BATCH}; {nvidia_smi_line()}):")
+    for arch, shape in MESH_DECODE_CASES:
+        name = mesh_decode_name(arch, shape)
+        got, want = card[0]["decode"][name], host[0]["decode"][name]
+        gap = float(np.abs(got["logits"] - want["logits"]).max())
+        held = [r["decode"][name]["held"] for r in card]
+        closed = MESH_DECODE_PARAM_BYTES[(arch, shape)] + MESH_CACHE_BYTES
+        print(f"    {name:24s} logits at every step card vs CPU max gap {gap:.3e} (limit "
+              f"{LM_CARD_TOL:g}); decode wall {got['ms']:.2f} ms a step, {MESH_BATCH} tokens "
+              f"(rank 0, mean of {MESH_GEN}); held bytes per rank {held} (closed form "
+              f"{MESH_DECODE_PARAM_BYTES[(arch, shape)]:,} of params + {MESH_CACHE_BYTES:,} "
+              f"of cache = {closed:,}); torch.cuda.memory_allocated once placed, and its "
+              f"rise over before: {[r['decode'][name]['allocated'] for r in card]}")
+        if not np.isfinite(got["logits"]).all() or not gap <= LM_CARD_TOL:
+            fail(f"[4n] sharded decode {name}: the card's logits are {gap} from the CPU's")
+        if held != [closed] * MESH_RANKS:
+            fail(f"[4n] sharded decode {name}: the ranks hold {held} bytes, closed form {closed}")
     import torch.distributed as dist
 
-    dist.destroy_process_group()
-    print(f"  dry-run record (debug-dense, train_4k, pod1, cfl; no jax on this machine): "
-          f"status {rec['status']}, {rec['num_clients']} clients on {rec['n_devices']} ranks, "
-          f"model axis {rec['model_axis']}, flops {rec['flops']:.4e}, bytes_accessed "
-          f"{rec['bytes_accessed']:.4e} (unfused upper bound), collective bytes "
-          f"{rec['total_collective_bytes']:.0f}, argument bytes "
-          f"{rec['argument_size_in_bytes']:.0f}, of which rank 0 holds "
-          f"{rec['executed_param_bytes_per_device']:.0f} of params and Adam state")
-    if rec["status"] != "ok" or "jax" in sys.modules or rec["model_axis"] != "sharded":
-        fail("[4n] the dry run failed, loaded jax or ran replicated")
+    for shape, what in (("train_4k", "params and Adam state"), ("decode_32k", "params")):
+        rec = dryrun.run_one("debug-dense", shape, False, "cfl")
+        dist.destroy_process_group()
+        extra = (f"{rec['num_clients']} clients on " if "num_clients" in rec else "")
+        cache = (f" and {rec['executed_cache_bytes_per_device']:.0f} of cache"
+                 if "executed_cache_bytes_per_device" in rec else "")
+        print(f"  dry-run record (debug-dense, {shape}, pod1, cfl; no jax on this machine): "
+              f"status {rec['status']}, {extra}{rec['n_devices']} ranks, "
+              f"model axis {rec['model_axis']}, flops {rec['flops']:.4e}, bytes_accessed "
+              f"{rec['bytes_accessed']:.4e} (unfused upper bound), collective bytes "
+              f"{rec['total_collective_bytes']:.0f}, argument bytes "
+              f"{rec['argument_size_in_bytes']:.0f}, of which rank 0 holds "
+              f"{rec['executed_param_bytes_per_device']:.0f} of {what}{cache}")
+        if rec["status"] != "ok" or "jax" in sys.modules or rec["model_axis"] != "sharded":
+            fail(f"[4n] the dry run of {shape} failed, loaded jax or ran replicated")
+        # rank 0's cache block: 8 rows x 32,768 slots x 2 kv heads x 2 of
+        # head_dim fp32, 2 layers x (k, v)
+        if shape == "decode_32k" and rec["executed_cache_bytes_per_device"] != 16_777_216:
+            fail(f"[4n] the dry-run decode holds {rec['executed_cache_bytes_per_device']} "
+                 "bytes of cache on rank 0, closed form 16,777,216")
 
 
 # ---------------------------------------------------------------------------

@@ -17,16 +17,17 @@ runs rank 0's step for real under three counters:
 
 ``argument_size_in_bytes`` is the per-device bytes of the step's arguments
 under the reference's placements (``param_specs``, ``fed_param_shardings``,
-``batch_input_shardings``, ``cache_shardings``).  The train and prefill
-steps run sharded: rank 0 holds its blocks under those placements and
-computes split over ``model`` where the layers allow it, so their records
-read ``model_axis: "sharded"``, ``executed_param_bytes_per_device`` (the
-param and Adam blocks rank 0 holds) equals the arguments' bytes less the
-batch's and the mask's, and the flops are rank 0's share.  The decode step
-keeps its params and cache whole (``model_axis: "replicated"``; its
-``executed_param_bytes_per_device`` is the whole params).  A mesh's
-failure is recorded as the reference records it (``status: "error"`` with
-the traceback); a cached record is skipped.
+``batch_input_shardings``, ``cache_shardings``).  Every step runs sharded:
+rank 0 holds its blocks under those placements and computes split over
+``model`` where the layers allow it, so every record reads ``model_axis:
+"sharded"`` and the flops are rank 0's share.  The param (and, training,
+Adam) blocks rank 0 holds, ``executed_param_bytes_per_device``, are the
+arguments' bytes less the batch's and the mask's in the train and prefill
+records; in the decode records they, rank 0's cache blocks
+(``executed_cache_bytes_per_device``), its token rows and ``pos``'s 4
+bytes make the arguments' bytes.  A mesh's failure is recorded as the reference
+records it (``status: "error"`` with the traceback); a cached record is
+skipped.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch debug-dense --shape train_4k
@@ -61,7 +62,7 @@ from repro_torch.core.topology import AggregationStrategy
 from repro_torch.launch import inputs as inp
 from repro_torch.launch.hlo_stats import collective_bytes
 from repro_torch.launch.mesh import client_axes_for, make_production_mesh
-from repro_torch.launch.steps import (client_block, fed_param_shardings,
+from repro_torch.launch.steps import (cache_block, client_block, fed_param_shardings,
                                       make_federated_train_step, make_prefill_step,
                                       make_serve_step, num_clients, param_block,
                                       stack_for_clients)
@@ -149,7 +150,7 @@ def _batch_layout(mesh):
     return bt, int(np.prod([sizes[a] for a in bt])) if bt else 1
 
 
-def _rank_rows(tree, mesh, axis_of=lambda path: 0):
+def _rank_rows(tree, mesh):
     """Rank 0's block of a batch-leading tree over the batch axes
     (``data``-major, as the plain data-parallel step lays it out), where
     ``batch_input_shardings`` would shard the leaf; the layout it used."""
@@ -159,10 +160,9 @@ def _rank_rows(tree, mesh, axis_of=lambda path: 0):
 
     def f(path, x):
         nonlocal split
-        ax = axis_of(path)
-        if nb > 1 and x.dim() > ax and x.shape[ax] > 1 and x.shape[ax] % nb == 0:
+        if nb > 1 and x.dim() > 0 and x.shape[0] > 1 and x.shape[0] % nb == 0:
             split = True
-            return x.chunk(nb, dim=ax)[coll.axis_index(mesh, layout)]
+            return x.chunk(nb, dim=0)[coll.axis_index(mesh, layout)]
         return x
 
     out = tree_map_with_path(f, tree)
@@ -219,9 +219,11 @@ def lower_prefill(cfg, model, mesh, shape_name):
 
 
 def lower_decode(cfg, model, mesh, shape_name, mla_absorbed=False):
+    """Run rank 0's serve step on its param and cache blocks; returns
+    (argument bytes, the param bytes and the cache bytes rank 0 holds)."""
     shp = INPUT_SHAPES[shape_name]
     B, S = shp["global_batch"], shp["seq_len"]
-    step = make_serve_step(model, mla_absorbed=mla_absorbed)
+    step = make_serve_step(model, mla_absorbed=mla_absorbed, max_len=S)
     params = model.init(torch.Generator().manual_seed(0))
     cache = inp.cache_shapes(model, B, S)
     tokens = inp.decode_inputs(cfg, B)["tokens"]
@@ -233,16 +235,10 @@ def lower_decode(cfg, model, mesh, shape_name, mla_absorbed=False):
                   + 4)                                           # pos, an int32 scalar
     if memory is not None:
         args_bytes += _arg_bytes({"m": memory}, inp.cache_shardings({"m": memory}, mesh), mesh)
-    local_tokens, layout = _rank_rows(tokens, mesh)
-    if layout:
-        local_cache, _ = _rank_rows(cache, mesh,
-                                    axis_of=lambda path: 1 if "scan" in path else 0)
-        local_memory = _rank_rows(memory, mesh)[0] if memory is not None else None
-    else:
-        local_cache, local_memory = cache, memory
-    with torch.no_grad(), row_axes(layout):
-        step(params, local_cache, local_tokens, S - 1, memory=local_memory)
-    return args_bytes, _tree_bytes(params)
+    blocks, cache_blk = param_block(params, mesh, cfg.fsdp), cache_block(cache, mesh)
+    with torch.no_grad():
+        step(blocks, cache_blk, tokens, S - 1, memory=memory)
+    return args_bytes, _tree_bytes(blocks), _tree_bytes(cache_blk)
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "cfl",
@@ -279,7 +275,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "cfl",
             elif kind == "prefill":
                 args_bytes, executed = lower_prefill(cfg, model, mesh, shape_name)
             else:
-                args_bytes, executed = lower_decode(cfg, model, mesh, shape_name, mla_absorbed)
+                args_bytes, executed, cache_bytes = lower_decode(cfg, model, mesh, shape_name,
+                                                                 mla_absorbed)
+                rec["executed_cache_bytes_per_device"] = float(cache_bytes)
     rec["run_s"] = round(time.time() - t0, 3)
     rec["flops"] = float(flops.get_total_flops())
     rec["bytes_accessed"] = float(nbytes.bytes)
@@ -294,7 +292,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "cfl",
                                f"CommDebugMode {counts.get(op, 0)}")
     rec["argument_size_in_bytes"] = float(args_bytes)
     rec["executed_param_bytes_per_device"] = float(executed)
-    rec["model_axis"] = "replicated" if kind == "decode" else "sharded"
+    rec["model_axis"] = "sharded"
     rec["n_devices"] = int(np.prod(list(mesh_shape(mesh).values())))
     rec["status"] = "ok"
     return rec

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.models import Transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.specs import P, _key_str, mesh_shape, tree_map_with_path
+from repro_torch.sharding.specs import P, cache_specs, mesh_shape, tree_map_with_path
 
 META = torch.device("meta")
 
@@ -104,7 +104,8 @@ def batch_input_shardings(inputs, mesh, client_stacked: bool = False,
 
 
 def cache_shardings(cache, mesh):
-    """Decode-state sharding heuristics:
+    """Decode-state sharding heuristics (``repro_torch.sharding.specs.
+    cache_specs``, where the model's sharded decode reads them too):
 
     * stacked-layer leading axis (scan subtrees) never sharded;
     * batch axis over ('pod','data') when divisible;
@@ -112,27 +113,4 @@ def cache_shardings(cache, mesh):
       (sequence-parallel decode for global_batch=1 long-context);
     * the innermost axis is tensor-parallel over 'model' when divisible.
     """
-    sizes = mesh_shape(mesh)
-    bt = _batch_tuple(mesh)
-    nb = _nb(mesh)
-    model_n = sizes.get("model", 1)
-    data_n = sizes.get("data", 1)
-
-    def f(path, leaf):
-        keys = [_key_str(k) for k in path]
-        start = 1 if "scan" in keys else 0
-        shape = tuple(leaf.shape)
-        axes = [None] * len(shape)
-        if len(shape) > start and shape[start] > 1 and shape[start] % nb == 0:
-            axes[start] = bt if len(bt) > 1 else bt[0]
-        else:
-            for j in range(start + 1, len(shape)):
-                if shape[j] >= 2048 and data_n > 1 and shape[j] % data_n == 0:
-                    axes[j] = "data"
-                    break
-        last = len(shape) - 1
-        if last > start and axes[last] is None and model_n > 1 and shape[last] % model_n == 0:
-            axes[last] = "model"
-        return P(*axes)
-
-    return tree_map_with_path(f, cache)
+    return cache_specs(cache, mesh)

@@ -25,8 +25,10 @@ it and gathers a leaf at use elsewhere (``repro_torch.models.
 transformer``).  Under fsdp ``data`` is ZeRO-3: the rows split over it,
 a leaf's ``data`` blocks gathered at use and its gradient reduce-scattered
 back; without fsdp the ``model`` ranks of one client compute on the same
-rows, so a gathered leaf's gradient is cut to the block, not summed.  A
-step given a mesh runs under that mesh's context
+rows, so a gathered leaf's gradient is cut to the block, not summed.  The
+serve step holds the same param blocks and its blocks of the decode cache
+under ``cache_shardings`` (:func:`cache_block`).  A step given a mesh
+runs under that mesh's context
 (``repro_torch.sharding.use_mesh``), as the reference's callers trace it.
 """
 
@@ -44,9 +46,9 @@ from repro_torch.optim import adam, apply_updates
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import (current_mesh_context, manual_axes, row_axes,
                                       sharded_params, use_mesh)
-from repro_torch.sharding.specs import (P, _path_str, _spec_for, leaves_with_path,
-                                        map_with_specs, mesh_shape,
-                                        param_specs, spec_axes, tree_block, tree_map_with_path)
+from repro_torch.sharding.specs import (P, _path_str, _spec_for, cache_specs, leaves_with_path,
+                                        map_with_specs, mesh_shape, param_specs, spec_axes,
+                                        tree_block, tree_map_with_path)
 from repro_torch.utils.tree import tree_leaves, tree_map, value_and_grad
 
 MTP_LOSS_WEIGHT = 0.3
@@ -123,6 +125,21 @@ def param_block(tree, mesh, fsdp: bool):
     tree under ``param_specs``: what the data-parallel step and the
     prefill step take on a mesh."""
     return tree_block(tree, param_specs(tree, mesh, fsdp=fsdp), mesh, coll.coordinate(mesh))
+
+
+def cache_block(cache, mesh):
+    """This rank's block of every leaf of a whole decode cache under
+    ``inputs.cache_shardings`` (the reference's placement): what the serve
+    step takes and returns on a mesh."""
+    return tree_block(cache, cache_specs(cache, mesh), mesh, coll.coordinate(mesh))
+
+
+def gather_cache(blocks, model: Transformer, mesh, batch: int, max_len: int):
+    """The inverse of :func:`cache_block` for a cache of ``batch`` rows and
+    ``max_len`` slots: every leaf whole, on every rank (for checks; one
+    all-gather per sharded tensor axis)."""
+    specs = model.cache_specs(mesh, batch, max_len)
+    return map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, s), blocks, specs)
 
 
 def gather_params(blocks, model: Transformer, mesh, client_axes=()):
@@ -307,12 +324,40 @@ def make_prefill_step(model: Transformer):
     return prefill_step
 
 
-def make_serve_step(model: Transformer, mla_absorbed: bool = False):
-    """serve_step(params, cache, tokens, pos) -> (logits, cache); the params
-    and the cache whole, on a mesh too."""
+def make_serve_step(model: Transformer, mla_absorbed: bool = False, max_len: int = None):
+    """serve_step(params, cache, tokens, pos) -> (logits, cache).
+
+    Off a mesh the params and the cache are whole.  Under a mesh context
+    every rank holds only its blocks: ``params`` under ``param_specs``
+    (:func:`param_block`), ``cache`` under ``cache_shardings`` of the whole
+    cache of ``max_len`` slots (:func:`cache_block`), and it returns its
+    new cache blocks.  ``tokens`` (and an encoder's ``memory``, an input
+    the step does not carry) come whole; a rank decodes its rows of them
+    as ``batch_input_shardings`` places them (``pod``-major over the batch
+    axes, where they divide the batch) and the logits are returned whole.
+    """
     def serve_step(params, cache, tokens, pos, memory=None):
-        logits, cache = model.decode_step(params, tokens, cache, pos,
-                                          memory=memory, mla_absorbed=mla_absorbed)
+        ctx = current_mesh_context()
+        if ctx is None:
+            return model.decode_step(params, tokens, cache, pos, memory=memory,
+                                     mla_absorbed=mla_absorbed)
+        if max_len is None:
+            raise ValueError("a serve step on a mesh needs the cache's max_len")
+        mesh, B = ctx.mesh, int(tokens.shape[0])
+        sizes = mesh_shape(mesh)
+        bt = tuple(a for a in ("pod", "data") if a in sizes)
+        nb = int(np.prod([sizes[a] for a in bt])) if bt else 1
+        rows = bt if nb > 1 and B > 1 and B % nb == 0 else ()
+        if rows:
+            i = coll.axis_index(mesh, rows)
+            tokens = tokens.chunk(nb, dim=0)[i]
+            memory = memory.chunk(nb, dim=0)[i] if memory is not None else None
+        with sharded_params(), row_axes(rows):
+            logits, cache = model.decode_step(params, tokens, cache, pos, memory=memory,
+                                              mla_absorbed=mla_absorbed,
+                                              cache_specs=model.cache_specs(mesh, B, max_len))
+        if rows:
+            logits = coll.gather_leaf(logits, mesh, P(rows if len(rows) > 1 else rows[0]))
         return logits, cache
 
     return serve_step

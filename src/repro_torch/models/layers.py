@@ -27,12 +27,23 @@ kv-major head order keeps together), the SwiGLU MLP on its block of the
 hidden; the output projection, split on either axis, is applied by
 :func:`project_out`.  Values replicated over ``model`` that a rank uses
 for its part only have their gradients summed over it.
+
+Where ``model`` divides ``head_dim`` but not the heads (and in every
+decode on a mesh, whose cache ``cache_shardings`` splits on ``head_dim``)
+attention splits ``head_dim`` instead (``dh_tp``): each rank takes its
+``dh/n`` columns of every head of q, k and v (RoPE applied whole first:
+its pairs straddle the blocks), sums the partial scores over ``model``
+before the scale, the mask and the softmax, and projects its columns of
+the output through its rows of ``wo`` (:func:`gqa_core_split`,
+:func:`project_head_dim`).  A decode whose cache splits the sequence over
+``data`` (``seq``) combines the softmax across the ``data`` ranks from
+each one's max and sum of exponentials.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +151,21 @@ def heads_split(cfg: ModelConfig, n: int) -> bool:
     return cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
 
 
+def head_dim_split(cfg: ModelConfig, n: int) -> bool:
+    """Whether attention can run split on ``head_dim`` over a ``model``
+    axis of ``n``: every rank then takes ``dh/n`` columns of every head."""
+    return cfg.resolved_head_dim % n == 0
+
+
+class SeqSplit(NamedTuple):
+    """The ``data`` axis a decode cache splits its slots over: its mesh,
+    size and this rank's index along it (each rank holds a contiguous
+    ``C/n`` of the ``C`` slots)."""
+    mesh: object
+    n: int
+    index: int
+
+
 def ffn_split(d_ff: int, n: int) -> bool:
     """Whether a SwiGLU MLP of hidden ``d_ff`` runs on a block of its
     hidden over a ``model`` axis of ``n``."""
@@ -202,6 +228,65 @@ def _gqa_core(q, k, v, mask):
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
+def head_dim_block(x, tp):
+    """This rank's ``dh/n`` columns of every head of ``x`` (..., dh)."""
+    d = x.shape[-1] // tp.n
+    return x[..., tp.index * d:(tp.index + 1) * d]
+
+
+def split_scores(q, k):
+    """A part of the fp32 scores (B, K, G, S, T) of q (B,S,H,d) against k
+    (B,T,K,d): the whole scores where ``d`` is the whole head, this rank's
+    share where q and k hold its columns of every head (summed over
+    ``model`` to give the scores)."""
+    B, S, H, d = q.shape
+    K = k.shape[2]
+    qr = q.reshape(B, S, K, H // K, d)
+    return torch.einsum("bskgd,btkd->bkgst", qr.to(torch.float32), k.to(torch.float32))
+
+
+def split_output(scores, v, mask, dh: int, seq: Optional[SeqSplit] = None):
+    """The attention output (B, S, H, d) of the summed ``scores`` over v
+    (B,T,K,d): ``_gqa_core``'s scale ``1/sqrt(dh)`` (``dh`` the whole
+    head), mask and softmax.  ``seq``: v and the scores' last axis hold
+    this rank's slots, and the softmax is combined across ``data`` (the
+    decode's; its collectives carry no gradient)."""
+    B, K, G, S, _ = scores.shape
+    scores = torch.where(mask, scores * (1.0 / math.sqrt(dh)), NEG_INF)
+    if seq is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
+    else:
+        top = coll.all_gather(scores.amax(dim=-1, keepdim=True), seq.mesh, "data").amax(dim=0)
+        e = torch.exp(scores - top)
+        den = coll.all_reduce(e.sum(dim=-1, keepdim=True), seq.mesh, "data")
+        num = coll.all_reduce(torch.einsum("bkgst,btkd->bskgd", e, v.to(torch.float32)),
+                              seq.mesh, "data")
+        out = num / den.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, S, K * G, -1)
+
+
+def gqa_core_split(q, k, v, mask, dh: int, tp=None, seq: Optional[SeqSplit] = None):
+    """``_gqa_core`` split on ``head_dim`` over ``tp`` (q, k, v hold this
+    rank's ``dh/n`` columns of every head; the output is its columns of
+    every head's output) and, in a decode, on the slots over ``seq``.  The
+    partial scores are summed over ``model``; each rank then uses the
+    summed scores for its own columns, so their gradient is summed back."""
+    scores = split_scores(q, k)
+    if tp is not None:
+        scores = coll.sum_grad(coll.partial_sum(scores, tp.mesh, "model"), tp.mesh, "model")
+    return split_output(scores, v, mask, dh, seq).to(q.dtype)
+
+
+def project_head_dim(out, wo, tp):
+    """``out`` (B, S, H, dh/n), this rank's columns of every head, through
+    its rows of the whole ``wo`` (rows ``h*dh + index*dh/n ...``), the
+    ranks' partial outputs summed over ``model``."""
+    B, S, H, d = out.shape
+    rows = wo.reshape(H, tp.n, d, -1)[:, tp.index].reshape(H * d, -1)
+    return coll.partial_sum(out.reshape(B, S, H * d) @ rows, tp.mesh, "model")
+
+
 def _window_for(block_type: str, cfg: ModelConfig) -> Optional[int]:
     if block_type == "swa":
         return cfg.sliding_window
@@ -211,15 +296,17 @@ def _window_for(block_type: str, cfg: ModelConfig) -> Optional[int]:
 
 
 def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
-                    positions=None, tp=None):
+                    positions=None, tp=None, dh_tp=None):
     """Full-sequence causal (optionally windowed) attention; head-parallel
     over ``tp`` (this rank's heads' columns of ``wq``/``wk``/``wv``, ``wo``
-    split) when given."""
+    split) when given; split on ``head_dim`` over ``dh_tp`` (the params
+    whole, each rank its ``dh/n`` columns of every head) when given."""
     B, S, _ = x.shape
     if positions is None:
         positions = _arange(S, x.device)[None, :]
-    if tp is not None:
-        x = coll.sum_grad(x, tp.mesh, "model")
+    split = tp if tp is not None else dh_tp
+    if split is not None:
+        x = coll.sum_grad(x, split.mesh, "model")
     q, k, v = _qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -231,8 +318,13 @@ def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
     window = _window_for(block_type, cfg)
     if window is not None:
         mask = mask & (j > i - window)
-    out = _gqa_core(q, k, v, mask[None, None, None])
-    out = project_out(out.reshape(B, S, -1), params["wo"], cfg.d_model, tp)
+    if dh_tp is not None:
+        q, k, v = (head_dim_block(t, dh_tp) for t in (q, k, v))
+        out = gqa_core_split(q, k, v, mask[None, None, None], cfg.resolved_head_dim, dh_tp)
+        out = project_head_dim(out, params["wo"], dh_tp)
+    else:
+        out = _gqa_core(q, k, v, mask[None, None, None])
+        out = project_out(out.reshape(B, S, -1), params["wo"], cfg.d_model, tp)
     return shard_activation(out, ("batch", None, None))
 
 
@@ -256,10 +348,16 @@ def _write_slot(buf: torch.Tensor, slot: int, row: torch.Tensor) -> torch.Tensor
     return out
 
 
-def attention_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str = "attn"):
+def attention_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str = "attn",
+                     dh_tp=None, seq: Optional[SeqSplit] = None):
     """One-token decode. ``pos`` is the absolute position (an int).
 
     Full attention: cache slot = pos.  Windowed: ring buffer slot = pos % C.
+
+    On a mesh the params are whole and the cache is this rank's block:
+    ``dh_tp``, its ``dh/n`` columns of every kv head (the new token's k and
+    v computed whole, RoPE'd, then cut); ``seq``, its ``C/n`` contiguous
+    slots of the ``C`` (only the rank that holds the slot writes it).
     """
     B, S, _ = x.shape
     assert S == 1
@@ -267,14 +365,27 @@ def attention_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: s
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
-    C = cache["k"].shape[1]
+    if dh_tp is not None:
+        q, k, v = (head_dim_block(t, dh_tp) for t in (q, k, v))
+    n_loc = cache["k"].shape[1]
+    lo = seq.index * n_loc if seq is not None else 0
+    C = n_loc * (seq.n if seq is not None else 1)
     window = _window_for(block_type, cfg)
     slot = pos if window is None else pos % C
-    new_k = _write_slot(cache["k"], slot, k)
-    new_v = _write_slot(cache["v"], slot, v)
-    valid = _arange(C, x.device) <= (pos if window is None else min(pos, C - 1))
-    out = _gqa_core(q, new_k, new_v, valid[None, None, None, None, :])
-    out = out.reshape(B, 1, -1) @ params["wo"]
+    if seq is None or lo <= slot < lo + n_loc:
+        new_k = _write_slot(cache["k"], slot - lo, k)
+        new_v = _write_slot(cache["v"], slot - lo, v)
+    else:
+        new_k, new_v = cache["k"], cache["v"]
+    valid = lo + _arange(n_loc, x.device) <= (pos if window is None else min(pos, C - 1))
+    mask = valid[None, None, None, None, :]
+    if dh_tp is None and seq is None:
+        out = _gqa_core(q, new_k, new_v, mask)
+        out = out.reshape(B, 1, -1) @ params["wo"]
+    else:
+        out = gqa_core_split(q, new_k, new_v, mask, cfg.resolved_head_dim, dh_tp, seq)
+        out = (project_head_dim(out, params["wo"], dh_tp) if dh_tp is not None
+               else out.reshape(B, 1, -1) @ params["wo"])
     return out, {"k": new_k, "v": new_v}
 
 

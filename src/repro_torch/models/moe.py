@@ -236,7 +236,9 @@ def _data_block(x, ctx):
     holds: ``(block, back, replicated)``.  ``back`` maps the block's output
     to the rank's rows; ``replicated`` says whether the ranks of ``data``
     hold one objective (the rows replicated over it) rather than each its
-    part of a mean taken after."""
+    part of a mean taken after.  Rows split ``pod``-major over ``("pod",
+    "data")`` (the serve step's, as ``batch_input_shardings`` places them)
+    carry no gradient."""
     mesh = ctx.mesh
     extra = tuple(a for a in ctx.rows if a not in ctx.manual)
     if extra == ():
@@ -248,6 +250,19 @@ def _data_block(x, ctx):
         n, i = coll.axes_size(mesh, "pod"), coll.axis_index(mesh, "pod")
         return (coll.gather_rows(x, mesh, "pod", True),
                 lambda y: y.chunk(n, dim=0)[i], False)
+    if extra == ("pod", "data") and not torch.is_grad_enabled():
+        # the serve step's rows, pod-major as the cache's: the data shard
+        # is cut from the whole batch, the rank's rows from the whole output
+        bt = ("pod", "data")
+        n, i = coll.axes_size(mesh, bt), coll.axis_index(mesh, bt)
+        whole = coll.all_gather(x, mesh, bt).reshape((-1,) + tuple(x.shape[1:]))
+        nd, d = coll.axes_size(mesh, "data"), coll.axis_index(mesh, "data")
+
+        def back(y):
+            y = coll.all_gather(y, mesh, "data").reshape((-1,) + tuple(y.shape[1:]))
+            return y.chunk(n, dim=0)[i]
+
+        return whole.chunk(nd, dim=0)[d], back, False
     raise ValueError(f"rows split over {ctx.rows} (manual {sorted(ctx.manual)}): "
                      "no data shard layout for the token-local MoE")
 

@@ -15,19 +15,33 @@ there); under ``torch.no_grad()`` (prefill, serve) each block is called
 directly.  Its ``shard_activation`` hints are the reference's: they change
 nothing on a plain tensor (``repro_torch.sharding.ctx``).
 
-On a mesh under ``repro_torch.sharding.ctx.sharded_params`` (the train
-and prefill steps) ``params`` are this rank's blocks under
+On a mesh under ``repro_torch.sharding.ctx.sharded_params`` (the train,
+prefill and serve steps) ``params`` are this rank's blocks under
 :meth:`Transformer.param_specs`, the reference's specs.  Each block
 gathers its leaves at use, inside the checkpointed block so remat gathers
 again: over ``data`` (fsdp, ZeRO-3: the gradient reduce-scattered where
 ``data`` splits the rows), and over ``model`` except the leaves its layers
 compute on split (heads, the SwiGLU hidden, the experts and router:
-``_kept``).  A leaf is gathered whole where a layer cannot split (another
-mixer, the encoder, cross-attention, a head count ``model`` does not
-divide).  The embedding is vocab-parallel where ``model`` splits the
-vocab (each rank looks up the rows it holds, the others masked to 0, one
-all-reduce); the unembedding runs split on the vocab (logits gathered) or
-on ``d_model`` (partial logits all-reduced), as its spec places it.
+``_kept``).  Where ``model`` does not divide the heads but divides
+``head_dim``, causal attention gathers its leaves whole and each rank
+computes its ``dh/n`` columns of every head, the scores summed over
+``model`` (``layers.gqa_core_split``; the leaves' gradients are summed
+over ``model``, each rank having used them for its part).  A leaf is
+gathered whole where a layer cannot split (another mixer, the encoder,
+cross-attention, neither heads nor ``head_dim`` divisible).  The embedding
+is vocab-parallel where ``model`` splits the vocab (each rank looks up the
+rows it holds, the others masked to 0, one all-reduce); the unembedding
+runs split on the vocab (logits gathered) or on ``d_model`` (partial
+logits all-reduced), as its spec places it.
+
+The serve step's :meth:`Transformer.decode_step` on a mesh takes, beside
+the param blocks, the rank's rows of the tokens and its blocks of the
+cache under :meth:`Transformer.cache_specs` (the reference's
+``cache_shardings``).  Attention runs on its cache block as it is
+(``head_dim`` split over ``model``, the slots over ``data`` where the
+sequence is split: ``layers.attention_decode``); every other mixer's
+state is gathered at use and its new state cut back to the block
+(storage sharded, compute replicated).
 
 Entry points:
   * ``init(generator)``                    -> params
@@ -50,7 +64,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import (carried, current_mesh_context, model_split, pvary_manual,
                                       shard_activation)
-from repro_torch.sharding.specs import P, entry_axes, mesh_shape, param_specs, spec_axes
+from repro_torch.sharding.specs import (P, cache_specs, entry_axes, leaf_block, map_with_specs,
+                                        mesh_shape, param_specs, spec_axes)
 from repro_torch.utils.tree import tree_map
 
 ATTN_TYPES = ("attn", "swa", "local")
@@ -74,24 +89,44 @@ def _index(tree, r: int):
 # ---------------------------------------------------------------------------
 
 
-def _use(leaf, spec, keep_model: bool = False):
+def _use(leaf, spec, keep_model: bool = False, partial: bool = False):
     """A leaf block as the layers compute on it: gathered over the axes of
     its spec (but ``model`` when ``keep_model``).  The gradient is summed
     over the axes that split the rows and cut to the block over the
-    others."""
+    others; over ``model`` too where every rank uses the leaf for its part
+    of the work (``partial``)."""
     ctx = current_mesh_context()
     axes = tuple(a for a in spec_axes(spec) if not (keep_model and a == "model"))
+    if partial and "model" not in axes:
+        leaf = coll.sum_grad(leaf, ctx.mesh, "model")
     if not axes:
         return leaf
     rows = set(ctx.rows) - set(ctx.manual)
     return coll.gather(leaf, ctx.mesh, spec, axes=axes,
-                       summed=tuple(a for a in axes if a in rows))
+                       summed=tuple(a for a in axes if a in rows or (partial and a == "model")))
 
 
-def _use_tree(params, specs, kept=frozenset(), path=""):
+def _use_tree(params, specs, kept=frozenset(), partial=frozenset(), path=""):
     if isinstance(params, dict):
-        return {k: _use_tree(v, specs[k], kept, f"{path}{k}/") for k, v in params.items()}
-    return _use(params, specs, keep_model=path[:-1] in kept)
+        return {k: _use_tree(v, specs[k], kept, partial, f"{path}{k}/")
+                for k, v in params.items()}
+    return _use(params, specs, keep_model=path[:-1] in kept, partial=path[:-1] in partial)
+
+
+ATTN_LEAVES = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "mixer/bq", "mixer/bk",
+               "mixer/bv")
+
+
+def _attention_split(cfg: ModelConfig, block_type: str, causal: bool, tp):
+    """How a block's full-sequence attention computes over ``model``:
+    ``"heads"`` (head-parallel on the rank's blocks), ``"head_dim"`` (each
+    rank its ``dh/n`` columns of every head, the leaves whole) or None
+    (every rank every head)."""
+    if tp is None or not causal or block_type not in ATTN_TYPES:
+        return None
+    if layers.heads_split(cfg, tp.n):
+        return "heads"
+    return "head_dim" if layers.head_dim_split(cfg, tp.n) else None
 
 
 def _kept(cfg: ModelConfig, block_type: str, causal: bool, tp) -> frozenset:
@@ -100,7 +135,7 @@ def _kept(cfg: ModelConfig, block_type: str, causal: bool, tp) -> frozenset:
     if tp is None:
         return frozenset()
     kept = set()
-    if causal and block_type in ATTN_TYPES and layers.heads_split(cfg, tp.n):
+    if _attention_split(cfg, block_type, causal, tp) == "heads":
         kept |= {"mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo"}
     if cfg.moe is not None:
         if moe.experts_split(cfg, tp.n):
@@ -157,14 +192,16 @@ def block_apply(params, x, cfg: ModelConfig, block_type: str,
     are this rank's blocks under these specs (see the module's docstring)."""
     tp = model_split() if specs is not None else None
     kept = _kept(cfg, block_type, causal, tp)
+    split = _attention_split(cfg, block_type, causal, tp)
     if specs is not None:
-        params = _use_tree(params, specs, kept)
-    attn_tp = tp if "mixer/wq" in kept else None
+        params = _use_tree(params, specs, kept,
+                           frozenset(ATTN_LEAVES) if split == "head_dim" else frozenset())
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     if block_type in ATTN_TYPES:
         if causal:
             h = layers.attention_apply(params["mixer"], h, cfg, block_type, positions,
-                                       tp=attn_tp)
+                                       tp=tp if split == "heads" else None,
+                                       dh_tp=tp if split == "head_dim" else None)
         else:
             h = _bidir_attention(params["mixer"], h, cfg, positions)
     elif block_type == "mla":
@@ -217,11 +254,51 @@ def block_init_cache(cfg: ModelConfig, block_type: str, batch: int, max_len: int
     raise ValueError(block_type)
 
 
+def _state_use(state, specs):
+    """A mixer's decode state block gathered over every axis but the
+    batch's (the rank's rows are the rows it computes)."""
+    mesh = current_mesh_context().mesh
+    return map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, P(None, *s[1:])), state, specs)
+
+
+def _state_block(state, specs):
+    """The inverse of :func:`_state_use`: the rank's block of a state."""
+    mesh = current_mesh_context().mesh
+    coord = coll.coordinate(mesh)
+    return map_with_specs(lambda x, s: leaf_block(x, P(None, *s[1:]), mesh, coord), state,
+                          specs)
+
+
+def _cache_split(spec, tp):
+    """(``head_dim`` split, slot split) of an attention cache block under
+    its ``spec`` (B, C, K, dh): the last axis over ``model``, the slots
+    over ``data``."""
+    dh_tp = tp if spec[-1] == "model" else None
+    seq = None
+    if spec[1] == "data":
+        mesh = current_mesh_context().mesh
+        seq = layers.SeqSplit(mesh, coll.axes_size(mesh, "data"), coll.axis_index(mesh, "data"))
+    return dh_tp, seq
+
+
 def block_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str,
-                 memory=None, mla_absorbed: bool = False):
+                 memory=None, mla_absorbed: bool = False, specs=None, cache_specs=None):
+    """One-token block.  ``specs``: ``params`` are this rank's blocks under
+    these specs and ``cache`` its block under ``cache_specs`` (see the
+    module's docstring)."""
+    tp = model_split() if specs is not None else None
+    # the decode's attention computes on its whole leaves: how it splits
+    # follows its cache block, not the heads
+    kept = _kept(cfg, block_type, False, tp)
+    if specs is not None:
+        params = _use_tree(params, specs, kept)
+        if block_type not in ATTN_TYPES:
+            cache = _state_use(cache, cache_specs)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     if block_type in ATTN_TYPES:
-        h, cache = layers.attention_decode(params["mixer"], h, cache, pos, cfg, block_type)
+        dh_tp, seq = _cache_split(cache_specs["k"], tp) if specs is not None else (None, None)
+        h, cache = layers.attention_decode(params["mixer"], h, cache, pos, cfg, block_type,
+                                           dh_tp=dh_tp, seq=seq)
     elif block_type == "mla":
         fn = layers.mla_decode_absorbed if mla_absorbed else layers.mla_decode
         h, cache = fn(params["mixer"], h, cache, pos, cfg)
@@ -238,10 +315,12 @@ def block_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str,
     if "ffn" in params:
         h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
         if cfg.moe is not None:
-            h, _ = moe.moe_apply(params["ffn"], h, cfg)
+            h, _ = moe.moe_apply(params["ffn"], h, cfg, tp=tp)
         else:
-            h = layers.mlp_apply(params["ffn"], h)
+            h = layers.mlp_apply(params["ffn"], h, tp=tp if "ffn/wg" in kept else None)
         x = x + h
+    if specs is not None and block_type not in ATTN_TYPES:
+        cache = _state_block(cache, cache_specs)
     return x, cache
 
 
@@ -270,6 +349,16 @@ class Transformer:
         if key not in self._specs:
             shapes = Transformer(self.cfg, device="meta").init(torch.Generator())
             self._specs[key] = param_specs(shapes, mesh, fsdp=self.cfg.fsdp)
+        return self._specs[key]
+
+    def cache_specs(self, mesh, batch: int, max_len: int):
+        """The reference's ``cache_shardings`` of the decode cache of
+        ``batch`` rows and ``max_len`` slots on ``mesh``: a rank of the
+        serve step holds each cache leaf's block under it."""
+        key = (tuple(mesh_shape(mesh).items()), batch, max_len)
+        if key not in self._specs:
+            shapes = Transformer(self.cfg, device="meta").init_cache(batch, max_len)
+            self._specs[key] = cache_specs(shapes, mesh)
         return self._specs[key]
 
     def _sharded_specs(self):
@@ -475,22 +564,33 @@ class Transformer:
         return cache
 
     def decode_step(self, params, tokens, cache, pos: int, memory=None,
-                    mla_absorbed: bool = False):
-        """tokens: (B,1) int64; pos: the absolute position (an int)."""
+                    mla_absorbed: bool = False, cache_specs=None):
+        """tokens: (B,1) int64; pos: the absolute position (an int).  Under
+        ``sharded_params`` ``params`` are this rank's blocks, ``tokens``
+        (and ``memory``) its rows and ``cache`` its blocks under
+        ``cache_specs`` (:meth:`cache_specs` of the whole cache)."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        specs = self._sharded_specs()
+        if specs is not None and cache_specs is None:
+            raise ValueError("a decode on param blocks needs the specs of its cache blocks")
+        x = self._lookup(params, tokens, specs)
         x = shard_activation(x, ("batch", None, None))
         scan_caches = {key: [] for key in cache.get("scan", {})}
         new_cache = {}
         for blk, bt, (r, key) in self._blocks(params):
             c = cache[key] if r is None else _index(cache["scan"][key], r)
+            bspec = cspec = None
+            if specs is not None:
+                bspec = specs[key] if r is None else _strip_layer(specs["scan"][key])
+                cspec = (cache_specs[key] if r is None
+                         else _strip_layer(cache_specs["scan"][key]))
             x, c = block_decode(blk, x, c, pos, cfg, bt, memory=memory,
-                                mla_absorbed=mla_absorbed)
+                                mla_absorbed=mla_absorbed, specs=bspec, cache_specs=cspec)
             if r is None:
                 new_cache[key] = c
             else:
                 scan_caches[key].append(c)
         if scan_caches:
             new_cache["scan"] = {key: _stack(cs) for key, cs in scan_caches.items()}
-        logits = self._unembed(params, x)
+        logits = self._unembed(params, x, specs)
         return logits, new_cache

@@ -12,13 +12,13 @@ Logical axes:
   "expert" -> "model" (expert-parallel shares the model axis)
 
 The port runs one process per mesh rank.  Under :func:`sharded_params`
-(the train and prefill steps on a mesh) the params a rank is given are
-its blocks under the reference's specs, and the layers compute split over
-``model`` where the reference's hints place them (heads, the SwiGLU
-hidden, the vocab, the experts: :func:`model_split`), gathering any other
-leaf at use; outside it (the serve step) the params are whole.  A hint on
-a plain tensor changes nothing; on a ``DTensor`` it redistributes to the
-resolved placements.
+(the train, prefill and serve steps on a mesh) the params a rank is given
+are its blocks under the reference's specs, and the layers compute split
+over ``model`` where the reference's hints place them (heads or
+``head_dim``, the SwiGLU hidden, the vocab, the experts:
+:func:`model_split`), gathering any other leaf at use; outside it the
+params are whole.  A hint on a plain tensor changes nothing; on a
+``DTensor`` it redistributes to the resolved placements.
 
 Beside the reference's ``manual`` axes (the client axes inside the
 federated step), the context records ``rows``: the mesh axes over which

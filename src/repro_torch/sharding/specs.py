@@ -18,10 +18,10 @@ On a mesh the train and prefill steps hold, on every rank, only the
 block of each leaf that its spec gives the rank's device
 (:func:`leaf_block`; :func:`leaf_from_blocks` puts the blocks back
 together), and compute split where the layers allow it
-(``repro_torch.sharding.collectives`` moves the blocks).  The serve step
-keeps its params and cache whole.  The dry run reads per-device bytes
-from the specs, and :func:`to_placements` turns one into DTensor
-placements.
+(``repro_torch.sharding.collectives`` moves the blocks); the serve step
+holds the same blocks of the params and, of its cache, the blocks
+:func:`cache_specs` gives.  The dry run reads per-device bytes from the
+specs, and :func:`to_placements` turns one into DTensor placements.
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` with named
 dimensions, or an :class:`AbstractMesh` (axis names and sizes, no
@@ -180,6 +180,44 @@ def param_specs(params, mesh, fsdp: bool = True):
         lambda path, leaf: _spec_for(_path_str(path), tuple(getattr(leaf, "shape", ())), mesh,
                                      fsdp=fsdp),
         params)
+
+
+def cache_specs(cache, mesh):
+    """A :class:`P` for every leaf of a decode cache, the reference's
+    ``cache_shardings`` heuristics:
+
+    * stacked-layer leading axis (scan subtrees) never sharded;
+    * batch axis over ('pod','data') when divisible;
+    * otherwise a long (>=2048) sequence axis is sharded over 'data'
+      (sequence-parallel decode for global_batch=1 long-context);
+    * the innermost axis is tensor-parallel over 'model' when divisible.
+    """
+    sizes = mesh_shape(mesh)
+    bt = tuple(a for a in ("pod", "data") if a in sizes)
+    nb = 1
+    for a in bt:
+        nb *= sizes[a]
+    model_n = sizes.get("model", 1)
+    data_n = sizes.get("data", 1)
+
+    def f(path, leaf):
+        keys = [_key_str(k) for k in path]
+        start = 1 if "scan" in keys else 0
+        shape = tuple(leaf.shape)
+        axes = [None] * len(shape)
+        if len(shape) > start and shape[start] > 1 and shape[start] % nb == 0:
+            axes[start] = bt if len(bt) > 1 else bt[0]
+        else:
+            for j in range(start + 1, len(shape)):
+                if shape[j] >= 2048 and data_n > 1 and shape[j] % data_n == 0:
+                    axes[j] = "data"
+                    break
+        last = len(shape) - 1
+        if last > start and axes[last] is None and model_n > 1 and shape[last] % model_n == 0:
+            axes[last] = "model"
+        return P(*axes)
+
+    return tree_map_with_path(f, cache)
 
 
 def batch_spec(mesh) -> tuple:

@@ -73,12 +73,13 @@ def _held_bytes(*trees) -> int:
 
 
 def sharded_step(rank, params, case, lr, batch, device="cpu"):
-    """One federated train step of ``case`` (arch, fsdp, multi-pod, kind)
-    from whole ``params`` (numpy): the rank's blocks in and out.  Returns
+    """One federated train step of ``case`` (arch, fsdp, the mesh: multi-pod
+    or a ``shape``, kind) from whole ``params`` (numpy): the rank's blocks
+    in and out.  Returns
     the loss, the rank's new param blocks, the shapes of its Adam blocks
     and the bytes of the blocks it held going in."""
     dev = torch.device(device)
-    mesh = tmesh.make_debug_mesh(multi_pod=case["multi"])
+    mesh = case_mesh(case)
     cfg = get_config(case["arch"])
     if case["fsdp"]:
         cfg = cfg.replace(fsdp=True)
@@ -254,3 +255,112 @@ def run_with_reference(script: str, data, body):
     assert proc.returncode == 0, stderr[-4000:]
     with open(dst, "rb") as f:
         return pickle.load(f), port
+
+
+def case_mesh(case):
+    """The mesh of a case: ``make_debug_mesh`` (``multi``) or a
+    ``("data", "model")`` mesh of ``shape``."""
+    if "shape" in case:
+        return tmesh._mesh(tuple(case["shape"]), ("data", "model"))
+    return tmesh.make_debug_mesh(multi_pod=case["multi"])
+
+
+def case_config(case):
+    """A registered preset by name, or a config from its fields."""
+    from repro_torch.models.config import ModelConfig
+
+    return get_config(case["arch"]) if "arch" in case else ModelConfig(**case["fields"])
+
+
+def sharded_decode(rank, case, params, tokens, device="cpu"):
+    """The serve step of ``case`` on this rank's blocks: ``tokens`` (B, T)
+    fed one a step at ``case["positions"]`` (by default 0 ... T-1) into a
+    cache of ``case["max_len"]`` slots (the prompt prefilled by sequential
+    decode, as ``repro_torch.launch.serve`` does, then the decode steps).
+    Returns the whole logits of every step, the rank's cache blocks after
+    the last and the bytes of the param and cache blocks it held going
+    in."""
+    from repro_torch.sharding.ctx import use_mesh as _use_mesh
+
+    dev = torch.device(device)
+    mesh = case_mesh(case)
+    cfg = case_config(case)
+    model = Transformer(cfg, device=dev)
+    whole = from_jax_params(params, torch.device("cpu"))
+    B, L = tokens.shape[0], case["max_len"]
+    pb = tree_map(lambda t: t.to(dev), steps.param_block(whole, mesh, cfg.fsdp))
+    cache = tree_map(lambda t: t.to(dev),
+                     steps.cache_block(Transformer(cfg, device="cpu").init_cache(B, L), mesh))
+    held = _held_bytes(pb, cache)
+    del whole
+    toks = torch.from_numpy(tokens).long().to(dev)
+    step = steps.make_serve_step(model, max_len=L)
+    logits = []
+    with _use_mesh(mesh), torch.no_grad():
+        for t, pos in enumerate(case.get("positions", range(toks.shape[1]))):
+            lg, cache = step(pb, cache, toks[:, t:t + 1], pos)
+            logits.append(lg.cpu().numpy())
+    return dict(logits=logits, cache=_np(cache), held=held)
+
+
+def sharded_prefill(rank, case, params, tokens, device="cpu"):
+    """The prefill step of ``case`` on this rank's param blocks and its
+    rows of ``tokens`` over ``data``; the last position's logits gathered
+    whole."""
+    from repro_torch.sharding.ctx import row_axes, use_mesh as _use_mesh
+    from repro_torch.sharding.specs import P
+
+    dev = torch.device(device)
+    mesh = case_mesh(case)
+    cfg = case_config(case)
+    model = Transformer(cfg, device=dev)
+    pb = steps.param_block(from_jax_params(params, dev), mesh, cfg.fsdp)
+    rows = torch.from_numpy(tokens).long().to(dev).chunk(
+        coll.axes_size(mesh, "data"), dim=0)[coll.axis_index(mesh, "data")]
+    with _use_mesh(mesh), torch.no_grad(), row_axes(("data",)):
+        logits = steps.make_prefill_step(model)(pb, {"tokens": rows})
+        logits = coll.gather_leaf(logits, mesh, P("data"))
+    return logits.cpu().numpy()
+
+
+def sharded_grads(rank, case, params, batch):
+    """The gradient of ``lm_loss`` on this rank's param blocks (the whole
+    batch on every rank), gathered whole; and, on rank 0, the same
+    gradient on one device."""
+    from repro_torch.sharding.ctx import use_mesh as _use_mesh
+    from repro_torch.sharding.specs import map_with_specs
+
+    mesh = case_mesh(case)
+    cfg = case_config(case)
+    model = Transformer(cfg, device="cpu")
+    whole = from_jax_params(params, torch.device("cpu"))
+    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    with _use_mesh(mesh), sharded_params():
+        _, g = value_and_grad(lambda p: steps.lm_loss(model, p, batch),
+                              steps.param_block(whole, mesh, cfg.fsdp))
+    out = dict(sharded=_np(map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, s), g,
+                                          model.param_specs(mesh))))
+    if rank == 0:
+        out["one_device"] = _np(value_and_grad(lambda p: steps.lm_loss(model, p, batch),
+                                               whole)[1])
+    return out
+
+
+def decode_cases(rank, world, data):
+    """Every decode case of ``data["decode"]``, the prefill cases of
+    ``data["prefill"]``, the train steps of ``data["train"]`` and the
+    gradients of ``data["grads"]``."""
+    out = {"decode": {}, "prefill": {}, "train": {}, "grads": {}}
+    for name, case in data["decode"].items():
+        out["decode"][name] = sharded_decode(rank, case, data["params"][case["params"]],
+                                             data["tokens"][name])
+    for name, case in data["prefill"].items():
+        out["prefill"][name] = sharded_prefill(rank, case, data["params"][case["params"]],
+                                               data["tokens"][name])
+    for name, case in data["train"].items():
+        out["train"][name] = sharded_step(rank, data["params"][case["params"]], case,
+                                          data["lr"], data["batch"])
+    for name, case in data["grads"].items():
+        out["grads"][name] = sharded_grads(rank, case, data["params"][case["params"]],
+                                           data["batch"])
+    return out

@@ -6,10 +6,14 @@ schedules, the record's status and skips are the reference's
 ``argument_size_in_bytes`` is the sum over the step's arguments of the
 per-device block bytes that the reference's specs give on a
 ``jax.sharding.AbstractMesh`` (token ids counted at the port's int64);
-the records round-trip through ``repro_torch.launch.roofline``.  The train
-and prefill records run rank 0's blocks (``model_axis: "sharded"``, the
-param and Adam bytes it holds equal to the arguments' less the batch's
-and the mask's); decode keeps its params whole (``"replicated"``).  Also
+the records round-trip through ``repro_torch.launch.roofline``.  Every
+record runs rank 0's blocks (``model_axis: "sharded"``): in the train and
+prefill records the param and Adam bytes it holds equal the arguments'
+less the batch's and the mask's; in the decode records its param and
+cache blocks with its token rows and ``pos``'s 4 bytes make the
+arguments' bytes (``debug-dense`` ``decode_32k`` on (16, 16): a cache
+block of 8 rows x 32,768 slots x 2 kv heads x 2 of ``head_dim`` x 4 B x
+2 layers x (k, v), 16,777,216 B).  Also
 the CLI's file tags and skip-cached behaviour, why the roofline's scan
 correction is 1 (the port's flop counter runs every layer), and that a
 ``model`` axis of 2 halves rank 0's per-layer prefill flops."""
@@ -106,9 +110,9 @@ def _ref_argument_bytes(arch, shape, mp, strategy):
         return _bytes(params, psh) + inputs, None, inputs
     cache = jinputs.cache_shapes(model, B, S)
     toks = {"tokens": jax.ShapeDtypeStruct((B, 1), jnp.int32)}
+    inputs = _bytes(toks, jinputs.batch_input_shardings(toks, mesh), TOKEN_KEYS) + 4
     return (_bytes(params, psh) + _bytes(cache, jinputs.cache_shardings(cache, mesh))
-            + _bytes(toks, jinputs.batch_input_shardings(toks, mesh), TOKEN_KEYS) + 4), None, \
-        None
+            + inputs), None, inputs
 
 
 CASES = [(a, s, mp, st) for a in ARCHS for s in SHAPES for mp in (False, True)
@@ -134,13 +138,14 @@ def test_dryrun_record_matches_the_reference(records, arch, shape, mp, strategy)
         # the schedule's all-reduces: the client-mean loss at least
         assert rec["all-reduce_count"] >= 1
     assert rec["flops"] > 0 and rec["bytes_accessed"] > rec["executed_param_bytes_per_device"]
-    # the train and prefill steps run rank 0's blocks: what it holds is the
-    # placements' params (and Adam state), the arguments less the inputs
-    if inputs is None:
-        assert rec["model_axis"] == "replicated"
-    else:
-        assert rec["model_axis"] == "sharded"
-        assert rec["executed_param_bytes_per_device"] == want_bytes - inputs
+    # every step runs rank 0's blocks: what it holds is the placements'
+    # params (and Adam state, or the cache), the arguments less the inputs
+    assert rec["model_axis"] == "sharded"
+    held = rec["executed_param_bytes_per_device"] + rec.get("executed_cache_bytes_per_device", 0)
+    assert held == want_bytes - inputs
+    if (arch, shape, mp) == ("debug-dense", "decode_32k", False):
+        assert rec["executed_cache_bytes_per_device"] == 8 * 32_768 * 2 * 2 * 4 * 2 * 2 == \
+            16_777_216
     for kind, op in dryrun.COMM_OPS:
         assert rec.get(f"{kind}_count", 0.0) == rec["comm_debug_counts"].get(op, 0)
 

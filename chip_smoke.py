@@ -3754,9 +3754,36 @@ MESH_LEAF = (16, 8)
 # 12,288 B on both meshes)
 MESH_DECODE_CASES = (("debug-dense", (4, 2)), ("debug-moe", (4, 2)), ("debug-dense", (2, 4)))
 MESH_PROMPT, MESH_GEN = 8, 4
+# the mixer variants of the reference's tests/test_models.py, one cfl step
+# each on (4, 2), split over model: the tied unembedding vocab-parallel
+# beside the MTP head, the RG-LRU on its channels, the encoder's and the
+# cross-attention's heads
+_MESH_BASE = dict(name="t", family="dense", num_layers=3, d_model=64, num_heads=4,
+                  num_kv_heads=2, d_ff=128, vocab_size=128)
+MESH_VARIANTS = {
+    "tied+MTP (4, 2) cfl": dict(_MESH_BASE, tie_embeddings=True, mtp_depth=1),
+    "rg_hybrid (4, 2) cfl": dict(_MESH_BASE, num_layers=5,
+                                 block_pattern=("rglru", "rglru", "local"), local_window=8,
+                                 rnn_width=64),
+    "encoder-decoder (4, 2) cfl": dict(_MESH_BASE, encoder_layers=2),
+}
+# per-rank bytes of the param blocks (every leaf of two axes or more halved
+# on model, the 1-D leaves whole) and of each of Adam's mu and nu (the
+# encoder-decoder's two per-layer 1-D encoder leaves of (2, 64) split over
+# model under the optimizer state's path: 256 B each)
+MESH_VARIANT_BYTES = {
+    "tied+MTP (4, 2) cfl": ((657_920 - 2_560) // 2 + 2_560,) * 2,
+    "rg_hybrid (4, 2) cfl": ((942_848 - 4_864) // 2 + 4_864,) * 2,
+    "encoder-decoder (4, 2) cfl": ((954_112 - 3_840) // 2 + 3_840,
+                                   (954_112 - 3_840) // 2 + 3_840 - 2 * 256)}
 MESH_DECODE_PARAM_BYTES = {("debug-dense", (4, 2)): 856_576, ("debug-moe", (4, 2)): 1_381_632,
                            ("debug-dense", (2, 4)): 430_592}
 MESH_CACHE_BYTES = 2 * 2 * (2 * 12 * 2 * 16) * 4
+# the dry run's debug-dense train_4k record on (16, 16): its collective
+# bytes with the logits gathered whole, less that gather, plus the
+# vocab-parallel loss's (tests/test_torch_dryrun.py)
+_ROWS = 16 * 4_096
+MESH_TRAIN_4K_COLLECTIVE = 26_584_422_920 - _ROWS * 512 * 4 + 16 * _ROWS * 4 + 2 * _ROWS * 4
 
 
 def mesh_agg_cases():
@@ -3843,22 +3870,20 @@ def mesh_leaf_closed_form(multi, spec, axes, summed):
 
 def mesh_work(rank, meshes, device, data, timed):
     """Aggregation, the leaf collectives, one sharded federated train step
-    of every case of ``MESH_TRAIN_CASES``, the MoE's ep schedule against
-    the token-local sort, and (``timed``) step and all-reduce walls, on
-    ``device``."""
+    of every case of ``MESH_TRAIN_CASES`` and of every mixer variant of
+    ``MESH_VARIANTS``, the MoE's ep schedule against the token-local sort,
+    and (``timed``) step and all-reduce walls, on ``device``."""
     import dataclasses as dc
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.topology import (AggregationStrategy, aggregate_updates,
                                            gather_clients)
-    from repro_torch.launch import mesh as tmesh, steps
     from repro_torch.launch.hlo_stats import collective_bytes
-    from repro_torch.models import Transformer, moe
+    from repro_torch.models import moe
     from repro_torch.sharding import collectives as coll
     from repro_torch.sharding.ctx import model_split, sharded_params, use_mesh
-    from repro_torch.sharding.specs import (P, _spec_for, leaf_block, leaves_with_path,
-                                            tree_block, tree_map_with_path)
+    from repro_torch.sharding.specs import P, _spec_for, leaf_block, tree_block
     from repro_torch.utils.tree import from_jax_params
 
     dev = torch.device(device)
@@ -3891,49 +3916,15 @@ def mesh_work(rank, meshes, device, data, timed):
     batch = {k: torch.from_numpy(v).long().to(dev) for k, v in data["batch"].items()}
     for arch, fsdp, multi, kind in MESH_TRAIN_CASES:
         mesh = meshes[multi]
-        cfg = get_config(arch).replace(fsdp=fsdp)
-        model = Transformer(cfg, device=dev)
-        caxes = tmesh.client_axes_for(cfg, mesh)
-        C = steps.num_clients(mesh, caxes)
-        strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
-        step, opt = steps.make_federated_train_step(model, mesh, strat, lr=LM_LR)
-        mask = torch.ones(max(C, 1), dtype=torch.float32, device=dev)
-        before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
-        whole = from_jax_params(data["params"][arch], torch.device("cpu"))
-        # the blocks are cut on the host: no rank holds a whole replica on
-        # its device
-        if kind == "none" or not caxes:
-            blocks = (steps.param_block(whole, mesh, fsdp),
-                      steps.param_block(opt.init(whole), mesh, fsdp))
-        else:
-            blocks = (steps.client_block(steps.stack_for_clients(whole, C), mesh, caxes, fsdp),
-                      steps.client_block(steps.stack_for_clients(opt.init(whole), C), mesh,
-                                         caxes, fsdp))
-        del whole
-        args = tuple(tree_map_with_path(
-            lambda _, t: t.to(dev) if isinstance(t, torch.Tensor) else t, b) for b in blocks) \
-            + (batch, mask)
-        del blocks
-        sync()
-        held = sum(t.numel() * t.element_size() for tree in args[:2]
-                   for _, t in leaves_with_path(tree) if isinstance(t, torch.Tensor))
-        # after placement, and its rise over what the rank had allocated
-        # before (cuBLAS's workspaces, once the first product ran, included)
-        allocated = (torch.cuda.memory_allocated(dev), torch.cuda.memory_allocated(dev) - before) \
-            if dev.type == "cuda" else None
-        p2, _, loss = step(*args)
-        full = steps.gather_params(p2, model, mesh, () if kind == "none" else caxes)
-        flat = torch.cat([t.reshape(-1) for _, t in leaves_with_path(full)]).cpu()
         name = mesh_case_name(arch, fsdp, multi, kind)
-        out["train"][name] = (float(loss), flat.numpy() if rank == 0 else None, held, allocated)
+        out["train"][name], wall = mesh_train_step(
+            rank, mesh, get_config(arch).replace(fsdp=fsdp), data["params"][arch], kind, dev,
+            batch, timed)
         if timed:
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(MESH_STEP_REPS):
-                step(*args)
-            sync()
-            out["walls"][name] = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
+            out["walls"][name] = wall
         if timed and (arch, fsdp, multi, kind) == ("debug-dense", False, True, "cfl"):
+            caxes = ("pod", "data")
+            held = out["train"][name][2]
             grad = torch.randn(held // 12,           # the param blocks' fp32 elements
                                generator=torch.Generator().manual_seed(rank)).to(dev)
             coll.all_reduce(grad, mesh, caxes)
@@ -3945,7 +3936,18 @@ def mesh_work(rank, meshes, device, data, timed):
             out["walls"]["all-reduce of the gradient"] = (
                 (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3)
             del grad
-        del args, p2, full
+
+    # the mixer variants, split over model, and the vocab-parallel loss
+    vbatch = {k: (torch.from_numpy(v).long() if v.dtype.kind == "i" else torch.from_numpy(v))
+              .to(dev) for k, v in data["variant_batch"].items()}
+    for name in MESH_VARIANTS:
+        cfg = mesh_variant_config(name)
+        vb = vbatch if cfg.is_encoder_decoder else {k: v for k, v in vbatch.items()
+                                                   if k != "frames"}
+        out["train"][name], wall = mesh_train_step(rank, meshes[False], cfg,
+                                                   data["params"][name], "cfl", dev, vb, timed)
+        if timed:
+            out["walls"][name] = wall
 
     out["decode"] = {}
     for arch, shape in MESH_DECODE_CASES:
@@ -3975,6 +3977,70 @@ def mesh_work(rank, meshes, device, data, timed):
         out["ep_aux_gap"][layout] = float((ys["ep"][1] - ys["sort"][1]).abs())
     out["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
     return out
+
+
+def mesh_train_step(rank, mesh, cfg, params, kind, dev, batch, timed):
+    """One sharded federated train step of ``cfg`` under ``kind`` on
+    ``mesh`` from ``params`` (numpy, whole): the rank's blocks cut on the
+    host, then placed on ``dev``.  Returns ((loss, the params gathered
+    whole on rank 0, the bytes of the blocks it held going in, the memory
+    allocated once placed), the mean step wall in ms when ``timed``)."""
+    from repro_torch.core.topology import AggregationStrategy
+    from repro_torch.launch import mesh as tmesh, steps
+    from repro_torch.models import Transformer
+    from repro_torch.sharding.specs import leaves_with_path, tree_map_with_path
+    from repro_torch.utils.tree import from_jax_params
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model = Transformer(cfg, device=dev)
+    caxes = tmesh.client_axes_for(cfg, mesh)
+    C = steps.num_clients(mesh, caxes)
+    strat = AggregationStrategy(kind=kind, client_axes=caxes, neighborhood_size=2)
+    step, opt = steps.make_federated_train_step(model, mesh, strat, lr=LM_LR)
+    mask = torch.ones(max(C, 1), dtype=torch.float32, device=dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+    whole = from_jax_params(params, torch.device("cpu"))
+    # the blocks are cut on the host: no rank holds a whole replica on its
+    # device
+    if kind == "none" or not caxes:
+        blocks = (steps.param_block(whole, mesh, cfg.fsdp),
+                  steps.param_block(opt.init(whole), mesh, cfg.fsdp))
+    else:
+        blocks = (steps.client_block(steps.stack_for_clients(whole, C), mesh, caxes, cfg.fsdp),
+                  steps.client_block(steps.stack_for_clients(opt.init(whole), C), mesh,
+                                     caxes, cfg.fsdp))
+    del whole
+    args = tuple(tree_map_with_path(
+        lambda _, t: t.to(dev) if isinstance(t, torch.Tensor) else t, b) for b in blocks) \
+        + (batch, mask)
+    del blocks
+    sync()
+    held = sum(t.numel() * t.element_size() for tree in args[:2]
+               for _, t in leaves_with_path(tree) if isinstance(t, torch.Tensor))
+    # after placement, and its rise over what the rank had allocated before
+    # (cuBLAS's workspaces, once the first product ran, included)
+    allocated = (torch.cuda.memory_allocated(dev), torch.cuda.memory_allocated(dev) - before) \
+        if dev.type == "cuda" else None
+    p2, _, loss = step(*args)
+    full = steps.gather_params(p2, model, mesh, () if kind == "none" else caxes)
+    flat = torch.cat([t.reshape(-1) for _, t in leaves_with_path(full)]).cpu()
+    wall = None
+    if timed:
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEP_REPS):
+            step(*args)
+        sync()
+        wall = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
+    return (float(loss), flat.numpy() if rank == 0 else None, held, allocated), wall
+
+
+def mesh_variant_config(name):
+    """A mixer variant of the reference's ``tests/test_models.py`` (vocab
+    128, 4 heads, 2 kv heads)."""
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(**MESH_VARIANTS[name])
 
 
 def mesh_decode_name(arch, shape):
@@ -4047,6 +4113,14 @@ def run_mesh(device):
         leaf=rng.standard_normal(MESH_LEAF).astype(np.float32))
     toks = rng.integers(0, 512, (MESH_BATCH, MESH_SEQ + 1))
     data["batch"] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for name in MESH_VARIANTS:
+        data["params"][name] = to_numpy(Transformer(mesh_variant_config(name), device="cpu")
+                                        .init(torch.Generator().manual_seed(0)))
+    toks = rng.integers(0, _MESH_BASE["vocab_size"], (MESH_BATCH, MESH_SEQ + 1))
+    data["variant_batch"] = {
+        "tokens": toks[:, :-1], "labels": toks[:, 1:],
+        "frames": rng.standard_normal((MESH_BATCH, MESH_SEQ, _MESH_BASE["d_model"]))
+        .astype(np.float32)}
     data["decode_tokens"] = rng.integers(0, 512, (MESH_BATCH, MESH_PROMPT + MESH_GEN))
     t0, t_abs = time.perf_counter(), time.time()
     ranks = spawn(mesh_rank, MESH_RANKS, str(device), data)
@@ -4117,6 +4191,31 @@ def run_mesh(device):
                  f"between the card and the CPU")
         if held != [closed] * MESH_RANKS:
             fail(f"[4n] {name}: the ranks hold {held} bytes, closed form {closed}")
+    print("  the mixer variants split over model, one cfl step each on (4, 2), card vs CPU "
+          "(the loss vocab-parallel):")
+    for name in MESH_VARIANTS:
+        (loss, flat, _, _), (host_loss, host_flat, _, _) = (card[0]["train"][name],
+                                                            host[0]["train"][name])
+        mean_gap = float(np.abs(flat - host_flat).mean())
+        held = [r["train"][name][2] for r in card]
+        params_b, adam_b = MESH_VARIANT_BYTES[name]
+        closed = params_b + 2 * adam_b
+        print(f"    {name:30s} loss {loss:.6f}, card vs CPU loss {abs(loss - host_loss):.3e} "
+              f"(limit {LM_CARD_TOL:g}), params mean gap {mean_gap:.3e} (limit "
+              f"{LM_ROUND_MEAN_TOL:g}), max {float(np.abs(flat - host_flat).max()):.3e}; "
+              f"wall {card[0]['walls'][name]:.2f} ms (rank 0, mean of {MESH_STEP_REPS}); "
+              f"held bytes per rank {held} (closed form {params_b:,} + 2 x {adam_b:,} = "
+              f"{closed:,})")
+        if not (np.isfinite(loss) and np.isfinite(flat).all()):
+            fail(f"[4n] {name}: the card's step is not finite")
+        if not abs(loss - host_loss) <= LM_CARD_TOL:
+            fail(f"[4n] {name}: the loss differs by {abs(loss - host_loss)} "
+                 f"between the card and the CPU")
+        if not mean_gap <= LM_ROUND_MEAN_TOL:
+            fail(f"[4n] {name}: the params differ by {mean_gap} on average "
+                 f"between the card and the CPU")
+        if held != [closed] * MESH_RANKS:
+            fail(f"[4n] {name}: the ranks hold {held} bytes, closed form {closed}")
     for arch in ("debug-dense", "debug-moe"):
         vals = [losses[(arch, False, True, k)] for k in MESH_KINDS]
         spread = max(vals) - min(vals)
@@ -4171,6 +4270,12 @@ def run_mesh(device):
               f"{rec['executed_param_bytes_per_device']:.0f} of {what}{cache}")
         if rec["status"] != "ok" or "jax" in sys.modules or rec["model_axis"] != "sharded":
             fail(f"[4n] the dry run of {shape} failed, loaded jax or ran replicated")
+        # the loss on rank 0's vocab block: the whole logits' all-gather
+        # (16 rows x 4,096 x 512 fp32) out, a 16-way gather of the rows'
+        # maxima and two all-reduces of their fp32 sums in
+        if shape == "train_4k" and rec["total_collective_bytes"] != MESH_TRAIN_4K_COLLECTIVE:
+            fail(f"[4n] the dry-run train step moves {rec['total_collective_bytes']} collective "
+                 f"bytes, closed form {MESH_TRAIN_4K_COLLECTIVE} (logits in vocab blocks)")
         # rank 0's cache block: 8 rows x 32,768 slots x 2 kv heads x 2 of
         # head_dim fp32, 2 layers x (k, v)
         if shape == "decode_32k" and rec["executed_cache_bytes_per_device"] != 16_777_216:

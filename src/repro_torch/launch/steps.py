@@ -25,7 +25,14 @@ it and gathers a leaf at use elsewhere (``repro_torch.models.
 transformer``).  Under fsdp ``data`` is ZeRO-3: the rows split over it,
 a leaf's ``data`` blocks gathered at use and its gradient reduce-scattered
 back; without fsdp the ``model`` ranks of one client compute on the same
-rows, so a gathered leaf's gradient is cut to the block, not summed.  The
+rows, so a gathered leaf's gradient is cut to the block, not summed.
+Where ``model`` splits the vocab the logits stay in blocks and
+:func:`lm_loss` is vocab-parallel (:func:`vocab_cross_entropy`: the rows'
+maxima gathered, the sums of exponentials and the labels' logits summed
+over ``model``), as GSPMD takes the reference's log-softmax over the
+logits' ``model`` blocks.  Adam's blocks are the reference's placements
+of its state, which differ from the params' for an encoder's per-layer
+1-D leaves (``_AdamLayout``).  The
 serve step holds the same param blocks and its blocks of the decode cache
 under ``cache_shardings`` (:func:`cache_block`).  A step given a mesh
 runs under that mesh's context
@@ -46,21 +53,60 @@ from repro_torch.optim import adam, apply_updates
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import (current_mesh_context, manual_axes, row_axes,
                                       sharded_params, use_mesh)
-from repro_torch.sharding.specs import (P, _path_str, _spec_for, cache_specs, leaves_with_path,
-                                        map_with_specs, mesh_shape, param_specs, spec_axes,
-                                        tree_block, tree_map_with_path)
+from repro_torch.sharding.specs import (P, _path_str, _spec_for, cache_specs, leaf_block,
+                                        leaves_with_path, map_with_specs, mesh_shape,
+                                        param_specs, spec_axes, tree_block, tree_map_with_path)
 from repro_torch.utils.tree import tree_leaves, tree_map, value_and_grad
 
 MTP_LOSS_WEIGHT = 0.3
 
 
+def vocab_terms(logits, labels, top, vocab):
+    """A rank's part of the two sums of a cross-entropy whose vocab
+    ``model`` splits, on its block of ``logits`` (N, V/n) (fp32): the sum
+    over its columns of ``exp(logit - top)`` (``top`` the rows' maxima over
+    every block) and the label's logit where it holds the label, 0
+    elsewhere."""
+    s = torch.exp(logits - top[:, None]).sum(dim=-1)
+    owner, col = vocab.locate(labels)
+    mine = owner == vocab.index
+    lab = torch.gather(logits, -1, torch.where(mine, col, 0)[:, None])[:, 0]
+    return s, torch.where(mine, lab, torch.zeros((), dtype=lab.dtype, device=lab.device))
+
+
+def vocab_cross_entropy(logits, labels, vocab):
+    """``cross_entropy_loss`` on this rank's block of the logits (N, V/n)
+    and its :class:`~repro_torch.models.transformer.VocabSplit`: the rows'
+    maxima gathered over ``model`` (no gradient: the loss does not depend
+    on them), the sums of exponentials and the labels' logits summed over
+    ``model``, then ``mean(log(sum) + max - label logit)`` in fp32."""
+    x = logits.to(torch.float32)
+    top = coll.all_gather(x.detach().amax(dim=-1), vocab.mesh, "model").amax(dim=0)
+    s, lab = vocab_terms(x, labels.long(), top, vocab)
+    s = coll.partial_sum(s, vocab.mesh, "model")
+    lab = coll.partial_sum(lab, vocab.mesh, "model")
+    return torch.mean(torch.log(s) + top - lab)
+
+
 def lm_loss(model: Transformer, params, batch):
-    out = model.forward(params, batch)
+    """The next-token loss (and the MTP head's).  On a mesh whose ``model``
+    splits the vocab the logits stay in blocks, the loss
+    :func:`vocab_cross_entropy`; elsewhere ``cross_entropy_loss`` on the
+    whole logits."""
+    out = model.forward(params, batch, vocab_blocks=True)
+    vocab = out["vocab"]
+
+    def ce(logits, labels):
+        logits, labels = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
+        if vocab is None:
+            return cross_entropy_loss(logits, labels)
+        return vocab_cross_entropy(logits, labels, vocab)
+
     logits = out["logits"]
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # VLM prefix tokens carry no labels
         logits = logits[:, -labels.shape[1]:]
-    loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    loss = ce(logits, labels)
     loss = loss + out["aux_loss"]
     if "mtp_logits" in out:
         mtp = out["mtp_logits"]
@@ -68,8 +114,7 @@ def lm_loss(model: Transformer, params, batch):
             mtp = mtp[:, -labels.shape[1]:]
         # MTP head predicts token t+2: shift labels left by one more step
         mtp_labels = torch.roll(labels, -1, dims=1)
-        loss = loss + MTP_LOSS_WEIGHT * cross_entropy_loss(
-            mtp[:, :-1].reshape(-1, mtp.shape[-1]), mtp_labels[:, :-1].reshape(-1))
+        loss = loss + MTP_LOSS_WEIGHT * ce(mtp[:, :-1], mtp_labels[:, :-1])
     return loss
 
 
@@ -95,6 +140,12 @@ def stack_for_clients(tree, C: int):
     return tree_map_with_path(_tensors(lambda x: x.expand((C,) + tuple(x.shape)).clone()), tree)
 
 
+def _inner_spec(path: str, shape, mesh, client, fsdp: bool) -> P:
+    """The base (TP/FSDP) spec of a client's leaf, the client axes left out."""
+    return P(*[None if (e in client or (isinstance(e, tuple) and set(e) & set(client))) else e
+               for e in _spec_for(path, tuple(shape), mesh, fsdp=fsdp)])
+
+
 def fed_param_shardings(params_shape, mesh, client_axes, fsdp: bool):
     """Specs for client-stacked params: axis 0 over the client axes, the
     remaining axes per the base (TP/FSDP) rules."""
@@ -102,10 +153,8 @@ def fed_param_shardings(params_shape, mesh, client_axes, fsdp: bool):
 
     def f(path, leaf):
         # a host int leaf (the optimizer's step count) is a scalar
-        base = _spec_for(_path_str(path), tuple(getattr(leaf, "shape", (1,)))[1:], mesh,
-                         fsdp=fsdp)
-        inner = [None if (e in client or (isinstance(e, tuple) and set(e) & set(client))) else e
-                 for e in base]
+        inner = _inner_spec(_path_str(path), tuple(getattr(leaf, "shape", (1,)))[1:], mesh,
+                            client, fsdp)
         return P(client if len(client) > 1 else client[0], *inner) if client else P(None, *inner)
 
     return tree_map_with_path(f, params_shape)
@@ -153,6 +202,42 @@ def gather_params(blocks, model: Transformer, mesh, client_axes=()):
                                specs)
         return gather_clients(whole, mesh, client_axes)
     return map_with_specs(lambda x, s: coll.gather_leaf(x, mesh, s), blocks, specs)
+
+
+class _AdamLayout:
+    """The leaves whose Adam blocks the reference places otherwise than the
+    params: a per-layer 1-D leaf of the encoder (``encoder/blocks/...``,
+    (layers, D)) is replicated, but under an optimizer state's path the
+    rules do not see its stacked axis and split its last over ``model``.
+    Adam runs on the Adam blocks: the gradient (and the param) cut to them,
+    the update gathered back to the param's block."""
+
+    def __init__(self, model: Transformer, mesh, client_axes, fsdp: bool):
+        self.mesh, self.specs = mesh, {}
+        shapes = Transformer(model.cfg, device="meta").init(torch.Generator())
+        for path, leaf in leaves_with_path(shapes):
+            ps, os = (_inner_spec(pre + path, leaf.shape, mesh, tuple(client_axes), fsdp)
+                      for pre in ("", ".mu/"))
+            if ps != os:
+                self.specs[path] = (ps, os)
+
+    def _move(self, tree, src: int):
+        coord = coll.coordinate(self.mesh)
+
+        def f(path, x):
+            specs = self.specs.get(_path_str(path))
+            if specs is None:
+                return x
+            whole = coll.gather_leaf(x, self.mesh, specs[src])
+            return leaf_block(whole, specs[1 - src], self.mesh, coord)
+
+        return tree_map_with_path(f, tree)
+
+    def to_adam(self, tree):
+        return self._move(tree, 0)
+
+    def to_params(self, tree):
+        return self._move(tree, 1)
 
 
 def _mean_over_rows(grads, specs, mesh, axes, n: int):
@@ -231,9 +316,14 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
                    and (model.cfg.fsdp or not client_axes or strategy.kind == "none"))
     tl_guard = disable_token_local if needs_guard else contextlib.nullcontext
 
-    def adam_step(params, opt_state, grads):
+    def adam_step(params, opt_state, grads, layout=None):
         with torch.no_grad():
-            upd, opt_state = opt.update(grads, opt_state, params)
+            if layout is None or not layout.specs:
+                upd, opt_state = opt.update(grads, opt_state, params)
+            else:
+                upd, opt_state = opt.update(layout.to_adam(grads), opt_state,
+                                            layout.to_adam(params))
+                upd = layout.to_params(upd)
             return apply_updates(params, upd), opt_state
 
     if mesh is None:
@@ -253,6 +343,7 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
         raise ValueError(f"the specs shard params over the client axes {sorted(clash)}")
 
     if not client_axes or strategy.kind == "none":
+        adam_layout = _AdamLayout(model, mesh, (), model.cfg.fsdp)
         bt = tuple(a for a in ("pod", "data") if a in sizes)
         nb = int(np.prod([sizes[a] for a in bt])) if bt else 1
         layout = tuple(reversed(bt))            # data-major over (data, pod)
@@ -268,7 +359,7 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
                 if split:
                     grads = _mean_over_rows(grads, specs, mesh, bt, nb)
                     loss = coll.all_reduce(loss, mesh, bt) / nb
-            params, opt_state = adam_step(params, opt_state, grads)
+            params, opt_state = adam_step(params, opt_state, grads, adam_layout)
             return params, opt_state, loss
 
         return dp_step, opt
@@ -278,6 +369,7 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
     inner = ("data",) if (model.cfg.fsdp and sizes.get("data", 1) > 1
                           and "data" not in client_axes) else ()
     n_in = sizes["data"] if inner else 1
+    adam_layout = _AdamLayout(model, mesh, client_axes, model.cfg.fsdp)
     squeeze = lambda t: tree_map_with_path(_tensors(lambda x: x[0]), t)
     expand = lambda t: tree_map_with_path(_tensors(lambda x: x[None]), t)
 
@@ -300,7 +392,7 @@ def make_federated_train_step(model: Transformer, mesh, strategy: AggregationStr
                     loss = coll.all_reduce(loss, mesh, inner) / n_in
                 grads = aggregate_local(grads, mask, mesh, strategy)
                 loss = coll.all_reduce(loss, mesh, client_axes) / C
-        p, o = adam_step(p, o, grads)
+        p, o = adam_step(p, o, grads, adam_layout)
         return expand(p), expand(o), loss
 
     return train_step, opt

@@ -24,7 +24,9 @@ model_split``) the layers the reference's hints split over ``model`` are
 given ``tp``: attention runs head-parallel (each rank holds the columns of
 ``wq``/``wk``/``wv`` of its query heads and their kv heads, which the
 kv-major head order keeps together), the SwiGLU MLP on its block of the
-hidden; the output projection, split on either axis, is applied by
+hidden; MLA on its heads (``wuq``, ``wuk``, ``wuv``; the latents whole,
+:func:`mla_heads`); cross-attention as attention, over the whole
+``memory``; the output projection, split on either axis, is applied by
 :func:`project_out`.  Values replicated over ``model`` that a rank uses
 for its part only have their gradients summed over it.
 
@@ -296,11 +298,12 @@ def _window_for(block_type: str, cfg: ModelConfig) -> Optional[int]:
 
 
 def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
-                    positions=None, tp=None, dh_tp=None):
-    """Full-sequence causal (optionally windowed) attention; head-parallel
-    over ``tp`` (this rank's heads' columns of ``wq``/``wk``/``wv``, ``wo``
-    split) when given; split on ``head_dim`` over ``dh_tp`` (the params
-    whole, each rank its ``dh/n`` columns of every head) when given."""
+                    positions=None, tp=None, dh_tp=None, causal: bool = True):
+    """Full-sequence causal (optionally windowed) attention, or with
+    ``causal=False`` unmasked (the encoder's); head-parallel over ``tp``
+    (this rank's heads' columns of ``wq``/``wk``/``wv``, ``wo`` split) when
+    given; split on ``head_dim`` over ``dh_tp`` (the params whole, each
+    rank its ``dh/n`` columns of every head) when given."""
     B, S, _ = x.shape
     if positions is None:
         positions = _arange(S, x.device)[None, :]
@@ -314,7 +317,7 @@ def attention_apply(params, x, cfg: ModelConfig, block_type: str = "attn",
     k = shard_activation(k, ("batch", None, None, None))
     i = _arange(S, x.device)[:, None]
     j = _arange(S, x.device)[None, :]
-    mask = j <= i
+    mask = j <= i if causal else torch.ones((S, S), dtype=torch.bool, device=x.device)
     window = _window_for(block_type, cfg)
     if window is not None:
         mask = mask & (j > i - window)
@@ -417,23 +420,24 @@ def mla_init(generator, cfg: ModelConfig, device=None) -> dict:
 
 
 def _mla_q(params, x, positions, cfg: ModelConfig):
+    """The queries of the heads whose columns ``wuq`` holds (every head, or
+    this rank's on a ``model`` split)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
     cq = rmsnorm_apply(params["q_norm"], x @ params["wdq"], cfg.norm_eps)
-    q = (cq @ params["wuq"]).reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = (cq @ params["wuq"]).reshape(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
 def _mla_expand_kv(params, c_kv, cfg: ModelConfig):
-    """Expand cached latent to per-head k_nope / v."""
+    """Expand cached latent to per-head k_nope / v (of the heads whose
+    columns ``wuk`` and ``wuv`` hold)."""
     m = cfg.mla
     B, T, _ = c_kv.shape
-    H = cfg.num_heads
-    k_nope = (c_kv @ params["wuk"]).reshape(B, T, H, m.qk_nope_head_dim)
-    v = (c_kv @ params["wuv"]).reshape(B, T, H, m.v_head_dim)
+    k_nope = (c_kv @ params["wuk"]).reshape(B, T, -1, m.qk_nope_head_dim)
+    v = (c_kv @ params["wuv"]).reshape(B, T, -1, m.v_head_dim)
     return k_nope, v
 
 
@@ -454,10 +458,11 @@ def _mla_kv_rope(params, x, positions, cfg: ModelConfig):
     return apply_rope((x @ params["wkr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
 
 
-def mla_apply(params, x, cfg: ModelConfig, positions=None):
+def mla_heads(params, x, cfg: ModelConfig, positions):
+    """The full-sequence MLA output (B, S, H * v_head_dim) of the heads
+    whose columns ``wuq``, ``wuk`` and ``wuv`` hold, before ``wo``; the
+    latents and the shared rope key are computed whole."""
     B, S, _ = x.shape
-    if positions is None:
-        positions = _arange(S, x.device)[None, :]
     q_nope, q_rope = _mla_q(params, x, positions, cfg)
     c_kv = rmsnorm_apply(params["kv_norm"], x @ params["wdkv"], cfg.norm_eps)
     k_rope = _mla_kv_rope(params, x, positions, cfg)
@@ -465,8 +470,19 @@ def mla_apply(params, x, cfg: ModelConfig, positions=None):
     i = _arange(S, x.device)[:, None]
     j = _arange(S, x.device)[None, :]
     mask = (j <= i)[None, None]
-    out = _mla_core(q_nope, q_rope, k_nope, k_rope, v, mask, cfg)
-    out = out.reshape(B, S, -1) @ params["wo"]
+    return _mla_core(q_nope, q_rope, k_nope, k_rope, v, mask, cfg).reshape(B, S, -1)
+
+
+def mla_apply(params, x, cfg: ModelConfig, positions=None, tp=None):
+    """Full-sequence MLA; head-parallel over ``tp`` when given: ``wuq``,
+    ``wuk`` and ``wuv`` hold this rank's heads' columns, the down
+    projections and norms are whole (each rank uses them for its heads, so
+    their gradients are summed over ``model``), ``wo`` split."""
+    if positions is None:
+        positions = _arange(x.shape[1], x.device)[None, :]
+    if tp is not None:
+        x = coll.sum_grad(x, tp.mesh, "model")
+    out = project_out(mla_heads(params, x, cfg, positions), params["wo"], cfg.d_model, tp)
     return shard_activation(out, ("batch", None, None))
 
 
@@ -540,15 +556,26 @@ def mla_decode_absorbed(params, x, cache, pos: int, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def cross_attention_apply(params, x, memory, cfg: ModelConfig):
-    """Decoder query attends over encoder ``memory`` (B, T, D). No mask."""
+def cross_attention_apply(params, x, memory, cfg: ModelConfig, tp=None, dh_tp=None):
+    """Decoder query attends over encoder ``memory`` (B, T, D). No mask.
+    Split over ``model`` as :func:`attention_apply` splits: head-parallel
+    over ``tp``, on ``head_dim`` over ``dh_tp`` (``memory`` replicated over
+    ``model``, its gradient summed as ``x``'s)."""
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, dh)
-    k = (memory @ params["wk"]).reshape(B, memory.shape[1], cfg.num_kv_heads, dh)
-    v = (memory @ params["wv"]).reshape(B, memory.shape[1], cfg.num_kv_heads, dh)
-    out = _gqa_core(q, k, v, torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device))
-    return out.reshape(B, S, -1) @ params["wo"]
+    split = tp if tp is not None else dh_tp
+    if split is not None:
+        x = coll.sum_grad(x, split.mesh, "model")
+        memory = coll.sum_grad(memory, split.mesh, "model")
+    q = (x @ params["wq"]).reshape(B, S, -1, dh)
+    k = (memory @ params["wk"]).reshape(B, memory.shape[1], -1, dh)
+    v = (memory @ params["wv"]).reshape(B, memory.shape[1], -1, dh)
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    if dh_tp is not None:
+        q, k, v = (head_dim_block(t, dh_tp) for t in (q, k, v))
+        return project_head_dim(gqa_core_split(q, k, v, mask, dh, dh_tp), params["wo"], dh_tp)
+    out = _gqa_core(q, k, v, mask)
+    return project_out(out.reshape(B, S, -1), params["wo"], cfg.d_model, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ Full-sequence mode runs the linear first-order recurrence as a log-depth
 (Hillis-Steele) scan over time, where the reference calls
 ``jax.lax.associative_scan``; both reorder the sums of a sequential scan, so
 the port is held to the reference allclose.  Decode mode is one step
-carrying ``h``.
+carrying ``h``.  On a ``model`` split (``tp``) each rank computes its
+block of the W channels: its columns of ``wx``, ``wy``, ``conv_w`` and the
+gates, its slice of ``conv_b`` and ``lam``; the gates read every channel
+of the conv'd input (one all-gather), and its rows of ``wo`` give a
+partial output summed over ``model``; a decode's state blocks hold its
+channels.
 
 xLSTM [arXiv:2405.04517]:
   * mLSTM: matrix memory C (dh x dh per head), exponential input gate,
@@ -30,7 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.ctx import pvary_manual
+from repro_torch.sharding.specs import P
 
 _RG_LRU_C = 8.0
 _F32 = torch.float32
@@ -42,7 +49,7 @@ _F32 = torch.float32
 
 
 def rglru_init(generator, cfg: ModelConfig, device=None) -> dict:
-    W = cfg.rnn_width or cfg.d_model
+    W = rglru_width(cfg)
     dt = cfg.torch_dtype
     # lambda init so that a ~ U[0.9, 0.999]^c-root (Griffin appendix)
     u = torch.rand((W,), generator=generator, dtype=_F32) * (0.999 - 0.9) + 0.9
@@ -74,10 +81,13 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _rglru_coeffs(params, x):
-    """Gated decay a_t and normalized input b_t for the linear scan."""
-    r = torch.sigmoid(x @ params["w_rec_gate"])
-    i = torch.sigmoid(x @ params["w_input_gate"])
+def _rglru_coeffs(params, x, x_all=None):
+    """Gated decay a_t and normalized input b_t for the linear scan.  On a
+    ``model`` split ``x`` holds this rank's channels and ``x_all`` every
+    channel (the gates' input; ``x`` itself unsplit)."""
+    x_all = x if x_all is None else x_all
+    r = torch.sigmoid(x_all @ params["w_rec_gate"])
+    i = torch.sigmoid(x_all @ params["w_input_gate"])
     log_a = -_RG_LRU_C * layers.softplus(params["lam"]) * r.to(_F32)
     a = torch.exp(log_a)
     # sqrt(1 - a^2) multiplier keeps the state norm bounded
@@ -100,19 +110,67 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_apply(params, x, cfg: ModelConfig):
-    """Full-sequence Griffin block. x: (B,S,D) -> (B,S,D)."""
+def rglru_width(cfg: ModelConfig) -> int:
+    return cfg.rnn_width or cfg.d_model
+
+
+def rglru_channels(params, tp):
+    """``params`` with its 1-D leaves (``conv_b``, ``lam``) cut to the
+    channels whose columns ``wx`` holds over ``tp`` (a replicated leaf that
+    each rank uses in part: its gradient summed over ``model``)."""
+    if tp is None:
+        return params
+    w = params["wx"].shape[-1]
+    return dict(params, conv_b=layers._local_bias(params["conv_b"], w, tp),
+                lam=layers._local_bias(params["lam"], w, tp))
+
+
+def _all_channels(u, tp):
+    """``u`` (..., W/n), this rank's channels, gathered over ``model`` (the
+    gates read every channel; each rank uses the gathered ``u`` for its
+    own, so its gradient is summed back)."""
+    if tp is None:
+        return u
+    return coll.gather(u, tp.mesh, P(*([None] * (u.dim() - 1)), "model"), summed=("model",))
+
+
+def rglru_input(params, x):
+    """The gate branch and the conv'd recurrent branch (B, S, W) of the
+    channels whose columns ``wx`` and ``wy`` hold."""
     gate = F.gelu(x @ params["wy"], approximate="tanh")
-    u = x @ params["wx"]
-    u = _causal_conv(u, params["conv_w"], params["conv_b"])
-    a, b = _rglru_coeffs(params, u)
-    h = linear_scan(a, b)
-    h = h.to(x.dtype) * gate
-    return h @ params["wo"]
+    u = _causal_conv(x @ params["wx"], params["conv_w"], params["conv_b"])
+    return gate, u
+
+
+def rglru_mix(params, gate, u, u_all):
+    """The scanned and gated output (B, S, W) of the channels of ``u``,
+    their gates read from ``u_all``."""
+    a, b = _rglru_coeffs(params, u, u_all)
+    return linear_scan(a, b).to(gate.dtype) * gate
+
+
+def _rglru_out(h, wo, cfg: ModelConfig, tp):
+    """``h @ wo``; over ``tp`` the rows of the whole ``wo`` for this rank's
+    channels, the partial outputs summed over ``model``."""
+    if tp is None:
+        return h @ wo
+    w = h.shape[-1]
+    return layers.project_out(h, wo[tp.index * w:(tp.index + 1) * w], cfg.d_model, tp)
+
+
+def rglru_apply(params, x, cfg: ModelConfig, tp=None):
+    """Full-sequence Griffin block. x: (B,S,D) -> (B,S,D).  Channel-parallel
+    over ``tp`` when given: ``wx``, ``wy``, ``conv_w`` and the gates hold
+    this rank's channels' columns, ``wo`` is whole."""
+    if tp is not None:
+        x = coll.sum_grad(x, tp.mesh, "model")
+    p = rglru_channels(params, tp)
+    gate, u = rglru_input(p, x)
+    return _rglru_out(rglru_mix(p, gate, u, _all_channels(u, tp)), params["wo"], cfg, tp)
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    W = cfg.rnn_width or cfg.d_model
+    W = rglru_width(cfg)
     return {
         "h": torch.zeros((batch, W), dtype=_F32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, W), dtype=cfg.torch_dtype,
@@ -120,15 +178,17 @@ def rglru_init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     }
 
 
-def rglru_decode(params, x, state, cfg: ModelConfig):
-    """One-token Griffin step. x: (B,1,D)."""
-    gate = F.gelu(x @ params["wy"], approximate="tanh")            # (B,1,W)
-    u = (x @ params["wx"])[:, 0, :]                                # (B,W)
+def rglru_decode(params, x, state, cfg: ModelConfig, tp=None):
+    """One-token Griffin step. x: (B,1,D).  Over ``tp`` on this rank's
+    channels, ``state`` its blocks (``h`` (B, W/n), ``conv`` (B, K-1, W/n))."""
+    p = rglru_channels(params, tp)
+    gate = F.gelu(x @ p["wy"], approximate="tanh")                 # (B,1,W)
+    u = (x @ p["wx"])[:, 0, :]                                     # (B,W)
     hist = torch.cat([state["conv"], u[:, None, :]], dim=1)        # (B,K,W)
-    u_conv = torch.einsum("bkw,kw->bw", hist, params["conv_w"]) + params["conv_b"]
-    a, b = _rglru_coeffs(params, u_conv[:, None, :])
+    u_conv = (torch.einsum("bkw,kw->bw", hist, p["conv_w"]) + p["conv_b"])[:, None, :]
+    a, b = _rglru_coeffs(p, u_conv, _all_channels(u_conv, tp))
     h = a[:, 0] * state["h"] + b[:, 0]
-    out = (h[:, None, :].to(x.dtype) * gate) @ params["wo"]
+    out = _rglru_out(h[:, None, :].to(x.dtype) * gate, params["wo"], cfg, tp)
     return out, {"h": h, "conv": hist[:, 1:, :]}
 
 

@@ -21,31 +21,42 @@ prefill and serve steps) ``params`` are this rank's blocks under
 gathers its leaves at use, inside the checkpointed block so remat gathers
 again: over ``data`` (fsdp, ZeRO-3: the gradient reduce-scattered where
 ``data`` splits the rows), and over ``model`` except the leaves its layers
-compute on split (heads, the SwiGLU hidden, the experts and router:
-``_kept``).  Where ``model`` does not divide the heads but divides
-``head_dim``, causal attention gathers its leaves whole and each rank
-computes its ``dh/n`` columns of every head, the scores summed over
-``model`` (``layers.gqa_core_split``; the leaves' gradients are summed
-over ``model``, each rank having used them for its part).  A leaf is
-gathered whole where a layer cannot split (another mixer, the encoder,
-cross-attention, neither heads nor ``head_dim`` divisible).  The embedding
-is vocab-parallel where ``model`` splits the vocab (each rank looks up the
-rows it holds, the others masked to 0, one all-reduce); the unembedding
-runs split on the vocab (logits gathered) or on ``d_model`` (partial
-logits all-reduced), as its spec places it.
+compute on split (``_leaf_sets``): attention's heads (causal, the
+encoder's unmasked and cross-attention alike), MLA's heads (``wuq``,
+``wuk``, ``wuv``), the RG-LRU's channels (``wx``, ``wy``, ``conv_w`` and
+the gates' columns), the SwiGLU hidden, the experts and router.  Where
+``model`` does not divide the heads but divides ``head_dim``, attention
+(and cross-attention) gathers its leaves whole and each rank computes its
+``dh/n`` columns of every head, the scores summed over ``model``
+(``layers.gqa_core_split``).  A leaf gathered whole or replicated that
+every rank uses for its part (those, MLA's down projections and norms,
+the RG-LRU's ``lam``, ``conv_b`` and ``wo``) has its gradient summed over
+``model``.  A leaf is gathered whole where a layer cannot split (the
+mLSTM, the sLSTM, the MTP head's ``proj``, neither heads nor ``head_dim``
+divisible).  The embedding is vocab-parallel where ``model`` splits the
+vocab (each rank looks up the rows it holds, the others masked to 0, one
+all-reduce; :class:`VocabSplit` places every id).  The unembedding, tied
+or not, runs split on the vocab or on ``d_model`` (partial logits
+all-reduced), as its spec places it; split on the vocab, ``forward(...,
+vocab_blocks=True)`` (the loss's) returns the rank's block of the logits
+and its :class:`VocabSplit`, and otherwise the blocks are gathered whole
+(prefill and serve).
 
 The serve step's :meth:`Transformer.decode_step` on a mesh takes, beside
 the param blocks, the rank's rows of the tokens and its blocks of the
 cache under :meth:`Transformer.cache_specs` (the reference's
 ``cache_shardings``).  Attention runs on its cache block as it is
 (``head_dim`` split over ``model``, the slots over ``data`` where the
-sequence is split: ``layers.attention_decode``); every other mixer's
-state is gathered at use and its new state cut back to the block
+sequence is split: ``layers.attention_decode``); the RG-LRU on its state
+blocks (``h`` and ``conv`` hold its channels); cross-attention as in the
+full sequence; every other mixer's state (MLA's latent cache, the mLSTM's,
+the sLSTM's) is gathered at use and its new state cut back to the block
 (storage sharded, compute replicated).
 
 Entry points:
   * ``init(generator)``                    -> params
   * ``forward(params, batch)``             -> {"logits", "aux_loss"[, "mtp_logits"]}
+                                             (with ``vocab_blocks``, also "vocab")
   * ``init_cache(batch, max_len)``         -> decode cache
   * ``decode_step(params, tok, cache, pos[, memory])`` -> (logits, cache)
 
@@ -54,6 +65,8 @@ Batch dict keys: ``tokens`` (B,S) int64; optional ``prefix_embeds``
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -113,38 +126,68 @@ def _use_tree(params, specs, kept=frozenset(), partial=frozenset(), path=""):
     return _use(params, specs, keep_model=path[:-1] in kept, partial=path[:-1] in partial)
 
 
-ATTN_LEAVES = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "mixer/bq", "mixer/bk",
-               "mixer/bv")
-
-
-def _attention_split(cfg: ModelConfig, block_type: str, causal: bool, tp):
-    """How a block's full-sequence attention computes over ``model``:
-    ``"heads"`` (head-parallel on the rank's blocks), ``"head_dim"`` (each
-    rank its ``dh/n`` columns of every head, the leaves whole) or None
-    (every rank every head)."""
-    if tp is None or not causal or block_type not in ATTN_TYPES:
+def _attention_split(cfg: ModelConfig, tp):
+    """How full-sequence attention computes over ``model``: ``"heads"``
+    (head-parallel on the rank's blocks), ``"head_dim"`` (each rank its
+    ``dh/n`` columns of every head, the leaves whole) or None (every rank
+    every head)."""
+    if tp is None:
         return None
     if layers.heads_split(cfg, tp.n):
         return "heads"
     return "head_dim" if layers.head_dim_split(cfg, tp.n) else None
 
 
-def _kept(cfg: ModelConfig, block_type: str, causal: bool, tp) -> frozenset:
-    """The leaves of a block (paths within it) its layers compute on split
-    over ``model``."""
+def _mixer_split(cfg: ModelConfig, block_type: str, tp, decode: bool = False):
+    """How a block's mixer computes over ``model``: attention as
+    :func:`_attention_split` gives (a decode's attention follows its cache
+    block instead), MLA ``"heads"`` where ``model`` divides the heads (its
+    decode gathers), the RG-LRU ``"channels"`` where ``model`` divides its
+    width; None: the mixer's leaves gathered whole."""
     if tp is None:
-        return frozenset()
-    kept = set()
-    if _attention_split(cfg, block_type, causal, tp) == "heads":
-        kept |= {"mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo"}
-    if cfg.moe is not None:
+        return None
+    if block_type in ATTN_TYPES:
+        return None if decode else _attention_split(cfg, tp)
+    if block_type == "mla":
+        return "heads" if not decode and cfg.num_heads % tp.n == 0 else None
+    if block_type == "rglru":
+        return "channels" if recurrent.rglru_width(cfg) % tp.n == 0 else None
+    return None
+
+
+_QKVO = ("wq", "wk", "wv", "wo")
+# the leaves a split computes on as the rank's blocks ...
+_KEPT = {("attn", "heads"): _QKVO, ("mla", "heads"): ("wuq", "wuk", "wuv", "wo"),
+         ("rglru", "channels"): ("wx", "wy", "conv_w", "w_input_gate", "w_rec_gate")}
+# ... and those it gathers whole and uses in part on every rank (their
+# gradients summed over ``model``)
+_PARTIAL = {("attn", "head_dim"): _QKVO + ("bq", "bk", "bv"),
+            ("mla", "heads"): ("wdq", "wdkv", "wkr", "q_norm/scale", "kv_norm/scale"),
+            ("rglru", "channels"): ("wo",)}
+
+
+def _leaf_sets(cfg: ModelConfig, block_type: str, tp, mixer, cross):
+    """(kept, partial): the leaves of a block (paths within it) its layers
+    compute on split over ``model``, and the leaves gathered whole that
+    every rank uses for its part."""
+    kept, partial = set(), set()
+    kind = "attn" if block_type in ATTN_TYPES else block_type
+    for sub, k, split in (("mixer", kind, mixer), ("cross", "attn", cross)):
+        kept |= {f"{sub}/{n}" for n in _KEPT.get((k, split), ())}
+        partial |= {f"{sub}/{n}" for n in _PARTIAL.get((k, split), ())}
+    if tp is not None and cfg.moe is not None:
         if moe.experts_split(cfg, tp.n):
             kept |= {"ffn/router", "ffn/wg", "ffn/wu", "ffn/wd"}
         if cfg.moe.num_shared_experts and layers.ffn_split(moe.shared_d_ff(cfg), tp.n):
             kept |= {"ffn/shared/wg", "ffn/shared/wu", "ffn/shared/wd"}
-    elif cfg.d_ff > 0 and layers.ffn_split(cfg.d_ff, tp.n):
+    elif tp is not None and cfg.d_ff > 0 and layers.ffn_split(cfg.d_ff, tp.n):
         kept |= {"ffn/wg", "ffn/wu", "ffn/wd"}
-    return frozenset(kept)
+    return frozenset(kept), frozenset(partial)
+
+
+def _splits(tp, split):
+    """(``tp``, ``dh_tp``) of an attention split."""
+    return (tp if split == "heads" else None), (tp if split == "head_dim" else None)
 
 
 def _strip_layer(specs):
@@ -191,31 +234,26 @@ def block_apply(params, x, cfg: ModelConfig, block_type: str,
     """Full-sequence block. Returns (x, aux_loss).  ``specs``: ``params``
     are this rank's blocks under these specs (see the module's docstring)."""
     tp = model_split() if specs is not None else None
-    kept = _kept(cfg, block_type, causal, tp)
-    split = _attention_split(cfg, block_type, causal, tp)
+    mixer = _mixer_split(cfg, block_type, tp)
+    cross = _attention_split(cfg, tp) if memory is not None else None
+    kept, partial = _leaf_sets(cfg, block_type, tp, mixer, cross)
     if specs is not None:
-        params = _use_tree(params, specs, kept,
-                           frozenset(ATTN_LEAVES) if split == "head_dim" else frozenset())
+        params = _use_tree(params, specs, kept, partial)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     if block_type in ATTN_TYPES:
-        if causal:
-            h = layers.attention_apply(params["mixer"], h, cfg, block_type, positions,
-                                       tp=tp if split == "heads" else None,
-                                       dh_tp=tp if split == "head_dim" else None)
-        else:
-            h = _bidir_attention(params["mixer"], h, cfg, positions)
+        a_tp, dh_tp = _splits(tp, mixer)
+        h = layers.attention_apply(params["mixer"], h, cfg, block_type, positions,
+                                   tp=a_tp, dh_tp=dh_tp, causal=causal)
     elif block_type == "mla":
-        h = layers.mla_apply(params["mixer"], h, cfg, positions)
+        h = layers.mla_apply(params["mixer"], h, cfg, positions, tp=tp if mixer else None)
     elif block_type == "rglru":
-        h = recurrent.rglru_apply(params["mixer"], h, cfg)
+        h = recurrent.rglru_apply(params["mixer"], h, cfg, tp=tp if mixer else None)
     elif block_type == "mlstm":
         h = recurrent.mlstm_apply(params["mixer"], h, cfg)
     elif block_type == "slstm":
         h = recurrent.slstm_apply(params["mixer"], h, cfg)
     x = x + h
-    if "cross" in params and memory is not None:
-        h = layers.rmsnorm_apply(params["norm_x"], x, cfg.norm_eps)
-        x = x + layers.cross_attention_apply(params["cross"], h, memory, cfg)
+    x = _cross(params, x, memory, cfg, tp, cross)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in params:
         h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
@@ -227,16 +265,15 @@ def block_apply(params, x, cfg: ModelConfig, block_type: str,
     return x, aux
 
 
-def _bidir_attention(params, x, cfg: ModelConfig, positions=None):
-    B, S, _ = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = layers._qkv(params, x, cfg)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
-    out = layers._gqa_core(q, k, v, torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
-                                                  device=x.device))
-    return out.reshape(B, S, -1) @ params["wo"]
+def _cross(params, x, memory, cfg: ModelConfig, tp, split):
+    """The cross-attention residual over ``memory``, split as ``split``
+    gives."""
+    if "cross" not in params or memory is None:
+        return x
+    h = layers.rmsnorm_apply(params["norm_x"], x, cfg.norm_eps)
+    a_tp, dh_tp = _splits(tp, split)
+    return x + layers.cross_attention_apply(params["cross"], h, memory, cfg, tp=a_tp,
+                                            dh_tp=dh_tp)
 
 
 def block_init_cache(cfg: ModelConfig, block_type: str, batch: int, max_len: int,
@@ -281,19 +318,30 @@ def _cache_split(spec, tp):
     return dh_tp, seq
 
 
+def _state_split(cache_specs) -> bool:
+    """Whether an RG-LRU's decode state blocks hold this rank's channels:
+    ``h`` (B, W) and ``conv`` (B, K-1, W) with the last axis, and only it
+    past the batch, on ``model``."""
+    return (tuple(cache_specs["h"][1:]) == ("model",)
+            and tuple(cache_specs["conv"][1:]) == (None, "model"))
+
+
 def block_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str,
                  memory=None, mla_absorbed: bool = False, specs=None, cache_specs=None):
     """One-token block.  ``specs``: ``params`` are this rank's blocks under
     these specs and ``cache`` its block under ``cache_specs`` (see the
     module's docstring)."""
     tp = model_split() if specs is not None else None
-    # the decode's attention computes on its whole leaves: how it splits
-    # follows its cache block, not the heads
-    kept = _kept(cfg, block_type, False, tp)
+    mixer = _mixer_split(cfg, block_type, tp, decode=True)
+    if mixer == "channels" and not _state_split(cache_specs):
+        mixer = None
+    cross = _attention_split(cfg, tp) if memory is not None else None
+    kept, partial = _leaf_sets(cfg, block_type, tp, mixer, cross)
+    gathered = specs is not None and block_type not in ATTN_TYPES and mixer is None
     if specs is not None:
-        params = _use_tree(params, specs, kept)
-        if block_type not in ATTN_TYPES:
-            cache = _state_use(cache, cache_specs)
+        params = _use_tree(params, specs, kept, partial)
+    if gathered:
+        cache = _state_use(cache, cache_specs)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     if block_type in ATTN_TYPES:
         dh_tp, seq = _cache_split(cache_specs["k"], tp) if specs is not None else (None, None)
@@ -303,15 +351,14 @@ def block_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str,
         fn = layers.mla_decode_absorbed if mla_absorbed else layers.mla_decode
         h, cache = fn(params["mixer"], h, cache, pos, cfg)
     elif block_type == "rglru":
-        h, cache = recurrent.rglru_decode(params["mixer"], h, cache, cfg)
+        h, cache = recurrent.rglru_decode(params["mixer"], h, cache, cfg,
+                                          tp=tp if mixer else None)
     elif block_type == "mlstm":
         h, cache = recurrent.mlstm_decode(params["mixer"], h, cache, cfg)
     elif block_type == "slstm":
         h, cache = recurrent.slstm_decode(params["mixer"], h, cache, cfg)
     x = x + h
-    if "cross" in params and memory is not None:
-        h = layers.rmsnorm_apply(params["norm_x"], x, cfg.norm_eps)
-        x = x + layers.cross_attention_apply(params["cross"], h, memory, cfg)
+    x = _cross(params, x, memory, cfg, tp, cross)
     if "ffn" in params:
         h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
         if cfg.moe is not None:
@@ -319,9 +366,58 @@ def block_decode(params, x, cache, pos: int, cfg: ModelConfig, block_type: str,
         else:
             h = layers.mlp_apply(params["ffn"], h, tp=tp if "ffn/wg" in kept else None)
         x = x + h
-    if specs is not None and block_type not in ATTN_TYPES:
+    if gathered:
         cache = _state_block(cache, cache_specs)
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# the vocab over ``model``
+# ---------------------------------------------------------------------------
+
+
+class VocabSplit(NamedTuple):
+    """How ``model`` splits a vocab axis whose spec entry names ``axes``
+    (``("model",)``, or ``("data", "model")`` under fsdp, the first axis
+    major): the vocab is cut into blocks, one per digit combination of the
+    entry's axes; a rank holds, once gathered over the entry's other axes,
+    the blocks of its ``model`` digit in the order of the other digits.
+    The embedding's lookup, the tied unembedding and the loss all place
+    vocab ids by :meth:`locate`."""
+    mesh: object
+    axes: tuple
+    index: int                       # this rank's index along ``model``
+    vocab: int
+
+    def locate(self, ids):
+        """(owner, row) of each vocab id: the ``model`` index of the rank
+        that holds it, and its row in that rank's gathered block."""
+        sizes = mesh_shape(self.mesh)
+        n = 1
+        for a in self.axes:
+            n *= sizes[a]
+        blk = self.vocab // n
+        b, r = ids // blk, ids % blk
+        # the block digits of an id's row, the entry's first axis major
+        owner, local, stride, lstride = 0, 0, 1, 1
+        for a in reversed(self.axes):
+            digit = (b // stride) % sizes[a]
+            if a == "model":
+                owner = digit
+            else:
+                local = local + digit * lstride
+                lstride *= sizes[a]
+            stride *= sizes[a]
+        return owner, local * blk + r
+
+    def ids(self, device=None):
+        """The vocab ids of this rank's block, in row order."""
+        ids = torch.arange(self.vocab, device=device)
+        owner, row = self.locate(ids)
+        mine = owner == self.index
+        out = torch.empty(int(mine.sum()), dtype=ids.dtype, device=device)
+        out[row[mine]] = ids[mine]
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +511,13 @@ class Transformer:
         return layers.rmsnorm_apply(norm, x, cfg.norm_eps)
 
     # -- embedding ----------------------------------------------------------
+    def _vocab_split(self, entry, tp):
+        """The :class:`VocabSplit` of a vocab axis whose spec entry is
+        ``entry``, where ``model`` splits it; None otherwise."""
+        if tp is None or "model" not in entry_axes(entry):
+            return None
+        return VocabSplit(tp.mesh, entry_axes(entry), tp.index, self.cfg.vocab_size)
+
     def _lookup(self, params, tokens, specs=None):
         """The embedding rows of ``tokens``.  Where ``model`` splits the
         vocab, vocab-parallel: each rank looks up the rows it holds, the
@@ -423,34 +526,17 @@ class Transformer:
         emb = params["embed"]
         if specs is None:
             return emb[tokens]
-        spec, tp = specs["embed"], model_split()
-        ent = entry_axes(spec[0])
-        if tp is None or "model" not in ent:
+        spec = specs["embed"]
+        vocab = self._vocab_split(spec[0], model_split())
+        if vocab is None:
             return _use(emb, spec)[tokens]
         emb = _use(emb, spec, keep_model=True)
-        sizes = mesh_shape(tp.mesh)
-        n = 1
-        for a in ent:
-            n *= sizes[a]
-        blk = self.cfg.vocab_size // n
-        b, r = tokens // blk, tokens % blk
-        # the block digits of a token's row, the entry's first axis major;
-        # this rank holds the blocks of its model digit, in the order of
-        # the other digits (gathered over their axes)
-        owner, local, stride, lstride = 0, 0, 1, 1
-        for a in reversed(ent):
-            digit = (b // stride) % sizes[a]
-            if a == "model":
-                owner = digit
-            else:
-                local = local + digit * lstride
-                lstride *= sizes[a]
-            stride *= sizes[a]
-        mine = owner == tp.index
-        rows = emb[torch.where(mine, local * blk + r, 0)]
+        owner, row = vocab.locate(tokens)
+        mine = owner == vocab.index
+        rows = emb[torch.where(mine, row, 0)]
         rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                               device=rows.device))
-        return coll.partial_sum(rows, tp.mesh, "model")
+        return coll.partial_sum(rows, vocab.mesh, "model")
 
     def _embed(self, params, batch, specs=None):
         cfg = self.cfg
@@ -459,17 +545,29 @@ class Transformer:
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return shard_activation(x, ("batch", None, None))
 
-    def _unembed(self, params, x, specs=None):
+    def _unembed(self, params, x, specs=None, vocab_blocks: bool = False):
+        """(logits, vocab): the logits of ``x``, whole, and None; with
+        ``vocab_blocks``, where ``model`` splits the vocab of the
+        unembedding (the untied ``unembed``'s columns or the tied
+        ``embed``'s rows), this rank's block of the logits and its
+        :class:`VocabSplit`."""
         cfg = self.cfg
         norm = params["final_norm"]
         if specs is not None:
             norm = _use_tree(norm, specs["final_norm"])
         x = layers.rmsnorm_apply(norm, x, cfg.norm_eps)
+        vocab = None
         if specs is None:
             w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
             logits = x @ w
         elif cfg.tie_embeddings:
-            logits = x @ _use(params["embed"], specs["embed"]).T
+            spec = specs["embed"]
+            vocab = self._vocab_split(spec[0], model_split()) if vocab_blocks else None
+            if vocab is None:
+                logits = x @ _use(params["embed"], spec).T
+            else:                            # this rank's vocab rows
+                x = coll.sum_grad(x, vocab.mesh, "model")
+                logits = x @ _use(params["embed"], spec, keep_model=True).T
         else:
             spec, tp = specs["unembed"], model_split()
             split = tp is not None and "model" in spec_axes(spec)
@@ -479,12 +577,17 @@ class Transformer:
             else:
                 x = coll.sum_grad(x, tp.mesh, "model")
                 if spec[-1] == "model":     # this rank's vocab columns
-                    logits = coll.gather(x @ w, tp.mesh, P(*([None] * (x.dim() - 1)), "model"))
+                    logits = x @ w
+                    if vocab_blocks:
+                        vocab = self._vocab_split(spec[-1], tp)
+                    else:
+                        logits = coll.gather(logits, tp.mesh,
+                                             P(*([None] * (x.dim() - 1)), "model"))
                 else:                        # this rank's rows of d_model
                     d = w.shape[0]
                     logits = coll.partial_sum(x[..., tp.index * d:(tp.index + 1) * d] @ w,
                                               tp.mesh, "model")
-        return layers.softcap(logits, cfg.logit_softcap)
+        return layers.softcap(logits, cfg.logit_softcap), vocab
 
     def _blocks(self, params):
         """(block params, block type, key) of every layer in order: the
@@ -498,10 +601,13 @@ class Transformer:
             yield params[key], bt, (None, key)
 
     # -- full-sequence forward ---------------------------------------------
-    def forward(self, params, batch, last_logit_only: bool = False):
+    def forward(self, params, batch, last_logit_only: bool = False, vocab_blocks: bool = False):
         """``last_logit_only=True`` is the prefill path: hidden states run
         the full sequence but only the final position is unembedded (the
-        vocab matmul dominates otherwise)."""
+        vocab matmul dominates otherwise).  ``vocab_blocks=True`` is the
+        loss's: on a mesh whose ``model`` splits the vocab the logits (and
+        the MTP head's) are this rank's block, ``out["vocab"]`` its
+        :class:`VocabSplit` (None where the logits are whole)."""
         cfg = self.cfg
         specs = self._sharded_specs()
         x = self._embed(params, batch, specs)
@@ -522,13 +628,16 @@ class Transformer:
                 x, a = block_apply(blk, x, cfg, bt, memory=memory, positions=positions,
                                    specs=bspec)
             aux = aux + a
-        logits = self._unembed(params, x[:, -1:] if last_logit_only else x, specs)
+        logits, vocab = self._unembed(params, x[:, -1:] if last_logit_only else x, specs,
+                                      vocab_blocks)
         out = {"logits": shard_activation(logits, ("batch", None, "model")), "aux_loss": aux}
+        if vocab_blocks:
+            out["vocab"] = vocab
         if cfg.mtp_depth > 0 and not last_logit_only:
-            out["mtp_logits"] = self._mtp(params, x, batch, specs)
+            out["mtp_logits"] = self._mtp(params, x, batch, specs, vocab_blocks)
         return out
 
-    def _mtp(self, params, h, batch, specs=None):
+    def _mtp(self, params, h, batch, specs=None, vocab_blocks: bool = False):
         """DeepSeek-V3 multi-token-prediction head: predict token t+2 from
         the final hidden state at t combined with the embedding of t+1."""
         cfg = self.cfg
@@ -547,7 +656,7 @@ class Transformer:
         g = g @ mtp["proj"]
         g, _ = block_apply(mtp["block"], g, cfg, cfg.block_pattern[-1],
                            specs=specs["mtp"]["block"] if specs is not None else None)
-        return self._unembed(params, g, specs)
+        return self._unembed(params, g, specs, vocab_blocks)[0]
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -592,5 +701,5 @@ class Transformer:
                 scan_caches[key].append(c)
         if scan_caches:
             new_cache["scan"] = {key: _stack(cs) for key, cs in scan_caches.items()}
-        logits = self._unembed(params, x, specs)
+        logits, _ = self._unembed(params, x, specs)
         return logits, new_cache

@@ -67,6 +67,15 @@ def aggregation(rank, world, data, device="cpu"):
     return out if rank == 0 else None
 
 
+def _batch(batch, dev):
+    """A numpy batch as tensors on ``dev``: token ids int64, frames as
+    they are."""
+    import numpy as np
+
+    return {k: (torch.from_numpy(v).long() if np.issubdtype(v.dtype, np.integer)
+                else torch.from_numpy(v)).to(dev) for k, v in batch.items()}
+
+
 def _held_bytes(*trees) -> int:
     return sum(x.numel() * x.element_size() for t in trees for _, x in leaves_with_path(t)
                if isinstance(x, torch.Tensor))
@@ -80,12 +89,12 @@ def sharded_step(rank, params, case, lr, batch, device="cpu"):
     and the bytes of the blocks it held going in."""
     dev = torch.device(device)
     mesh = case_mesh(case)
-    cfg = get_config(case["arch"])
+    cfg = case_config(case)
     if case["fsdp"]:
         cfg = cfg.replace(fsdp=True)
     model = Transformer(cfg, device=dev)
     whole = from_jax_params(params, dev)
-    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+    batch = _batch(batch, dev)
     caxes = tmesh.client_axes_for(cfg, mesh)
     C = steps.num_clients(mesh, caxes)
     strat = AggregationStrategy(kind=case["kind"], client_axes=caxes, neighborhood_size=2)
@@ -104,8 +113,9 @@ def sharded_step(rank, params, case, lr, batch, device="cpu"):
         del stacked
     held = _held_bytes(pb, ob)
     del whole
-    p2, o2, loss = step(pb, ob, batch, mask)
-    return dict(loss=float(loss), blocks=_np(p2), held=held,
+    with coll.record_collectives() as rec:
+        p2, o2, loss = step(pb, ob, batch, mask)
+    return dict(loss=float(loss), blocks=_np(p2), held=held, collectives=rec.events,
                 specs={"/" + k: tuple(v) for k, v in leaves_with_path(specs)},
                 adam={name: {k: v.shape for k, v in tree_items(getattr(o2, name))}
                       for name in ("mu", "nu")})
@@ -224,11 +234,12 @@ def agg_and_moe(rank, world, data):
                 leaf=leaf_collectives(rank, world, data))
 
 
-def run_with_reference(script: str, data, body):
+def run_with_reference(script: str, data, body, port_data=None):
     """Run the reference's ``script`` (reads the pickled ``data`` from
     argv[1], writes its results to argv[2]) in a subprocess of 8 fake host
-    devices while ``body`` runs on 8 ranks of this host; returns (the
-    reference's results, the ranks' results)."""
+    devices while ``body`` runs on 8 ranks of this host (on ``port_data``
+    where given, else ``data``); returns (the reference's results, the
+    ranks' results)."""
     import os
     import pickle
     import subprocess
@@ -249,7 +260,7 @@ def run_with_reference(script: str, data, body):
     proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(script), src, dst],
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        port = spawn(body, 8, data)
+        port = spawn(body, 8, data if port_data is None else port_data)
     finally:
         _, stderr = proc.communicate(timeout=600)
     assert proc.returncode == 0, stderr[-4000:]
@@ -266,20 +277,28 @@ def case_mesh(case):
 
 
 def case_config(case):
-    """A registered preset by name, or a config from its fields."""
-    from repro_torch.models.config import ModelConfig
+    """A registered preset by name, or a config from its fields (an MLA
+    config as a dict of its own fields)."""
+    from repro_torch.models.config import MLAConfig, ModelConfig
 
-    return get_config(case["arch"]) if "arch" in case else ModelConfig(**case["fields"])
+    if "arch" in case:
+        return get_config(case["arch"])
+    fields = dict(case["fields"])
+    if isinstance(fields.get("mla"), dict):
+        fields["mla"] = MLAConfig(**fields["mla"])
+    return ModelConfig(**fields)
 
 
-def sharded_decode(rank, case, params, tokens, device="cpu"):
+def sharded_decode(rank, case, params, tokens, device="cpu", memory=None):
     """The serve step of ``case`` on this rank's blocks: ``tokens`` (B, T)
     fed one a step at ``case["positions"]`` (by default 0 ... T-1) into a
     cache of ``case["max_len"]`` slots (the prompt prefilled by sequential
     decode, as ``repro_torch.launch.serve`` does, then the decode steps).
     Returns the whole logits of every step, the rank's cache blocks after
-    the last and the bytes of the param and cache blocks it held going
-    in."""
+    the last, the bytes of the param and cache blocks it held going in and
+    the keys of every decode state gathered at use (an encoder-decoder's
+    ``memory`` (B, T, D) comes whole, as the serve step takes it)."""
+    from repro_torch.models import transformer
     from repro_torch.sharding.ctx import use_mesh as _use_mesh
 
     dev = torch.device(device)
@@ -295,12 +314,23 @@ def sharded_decode(rank, case, params, tokens, device="cpu"):
     del whole
     toks = torch.from_numpy(tokens).long().to(dev)
     step = steps.make_serve_step(model, max_len=L)
-    logits = []
-    with _use_mesh(mesh), torch.no_grad():
-        for t, pos in enumerate(case.get("positions", range(toks.shape[1]))):
-            lg, cache = step(pb, cache, toks[:, t:t + 1], pos)
-            logits.append(lg.cpu().numpy())
-    return dict(logits=logits, cache=_np(cache), held=held)
+    mem = torch.from_numpy(memory).to(dev) if memory is not None else None
+    logits, gathered = [], []
+    state_use = transformer._state_use
+
+    def recording_state_use(state, specs):
+        gathered.append(tuple(sorted(state)))
+        return state_use(state, specs)
+
+    transformer._state_use = recording_state_use
+    try:
+        with _use_mesh(mesh), torch.no_grad():
+            for t, pos in enumerate(case.get("positions", range(toks.shape[1]))):
+                lg, cache = step(pb, cache, toks[:, t:t + 1], pos, memory=mem)
+                logits.append(lg.cpu().numpy())
+    finally:
+        transformer._state_use = state_use
+    return dict(logits=logits, cache=_np(cache), held=held, gathered=sorted(set(gathered)))
 
 
 def sharded_prefill(rank, case, params, tokens, device="cpu"):
@@ -331,10 +361,10 @@ def sharded_grads(rank, case, params, batch):
     from repro_torch.sharding.specs import map_with_specs
 
     mesh = case_mesh(case)
-    cfg = case_config(case)
+    cfg = case_config(case).replace(fsdp=case.get("fsdp", False))
     model = Transformer(cfg, device="cpu")
     whole = from_jax_params(params, torch.device("cpu"))
-    batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    batch = _batch(batch, torch.device("cpu"))
     with _use_mesh(mesh), sharded_params():
         _, g = value_and_grad(lambda p: steps.lm_loss(model, p, batch),
                               steps.param_block(whole, mesh, cfg.fsdp))
@@ -363,4 +393,23 @@ def decode_cases(rank, world, data):
     for name, case in data["grads"].items():
         out["grads"][name] = sharded_grads(rank, case, data["params"][case["params"]],
                                            data["batch"])
+    return out
+
+
+def variant_cases(rank, world, data):
+    """The mixer variants' cases of ``data``: a train step of every case of
+    ``data["train"]`` (its own batch), the serve steps of
+    ``data["decode"]`` (an encoder-decoder's with its ``memory``) and the
+    gradients of ``data["grads"]``."""
+    out = {"train": {}, "decode": {}, "grads": {}}
+    for name, case in data["train"].items():
+        out["train"][name] = sharded_step(rank, data["params"][case["params"]], case,
+                                          data["lr"], data["batches"][name])
+    for name, case in data["decode"].items():
+        out["decode"][name] = sharded_decode(rank, case, data["params"][case["params"]],
+                                             data["tokens"][name],
+                                             memory=data["memory"].get(name))
+    for name, case in data["grads"].items():
+        out["grads"][name] = sharded_grads(rank, case, data["params"][case["params"]],
+                                           data["batches"][case["batch"]])
     return out

@@ -150,6 +150,28 @@ def test_dryrun_record_matches_the_reference(records, arch, shape, mp, strategy)
         assert rec.get(f"{kind}_count", 0.0) == rec["comm_debug_counts"].get(op, 0)
 
 
+# debug-dense train_4k cfl on (16, 16): the record's collective bytes with
+# the loss on whole logits, gathered over ``model`` on every rank (the
+# port's step until its LM loss went vocab-parallel), and what rank 0 holds
+# of them: 16 rows x 4,096 positions, 512 vocab columns fp32 whole, 32 a
+# block
+WHOLE_LOGITS_TOTAL = 26_584_422_920
+ROWS = 16 * 4_096
+
+
+def test_train_record_keeps_the_logits_in_vocab_blocks(records):
+    """The train step's loss runs on rank 0's vocab block: the logits'
+    all-gather (``ROWS`` x 512 fp32, 134,217,728 B charged as its gathered
+    output) leaves the record's collective bytes, and the loss's come in
+    its place, a 16-way gather of ``ROWS`` fp32 maxima (4,194,304 B) and
+    two all-reduces of ``ROWS`` fp32 (the sums of exponentials and the
+    labels' logits, 262,144 B each)."""
+    rec = records[("debug-dense", "train_4k", False, "cfl")]
+    assert rec["status"] == "ok"
+    assert rec["total_collective_bytes"] == \
+        WHOLE_LOGITS_TOTAL - ROWS * 512 * 4 + 16 * ROWS * 4 + 2 * ROWS * 4 == 26_454_923_784
+
+
 def test_records_round_trip_through_the_roofline(records, tmp_path):
     for (arch, shape, mp, strat), rec in records.items():
         tag = dryrun.record_tag(arch, shape, mp, strat)

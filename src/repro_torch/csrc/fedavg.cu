@@ -120,12 +120,16 @@ __global__ void __launch_bounds__(kThreads)
   store_group(out + static_cast<size_t>(blockIdx.y) * l + col, col, l, res);
 }
 
+// Sessions past 65,535 go in further launches (over_grid_y).
 template <int N, class Load>
 int launch_n(Load load, const void* w, void* out, int r, int n, int l, cudaStream_t stream) {
-  const dim3 grid((l - 1) / (kThreads * Load::kCols) + 1, r);
-  fedavg_kernel<N><<<grid, kThreads, 0, stream>>>(load, static_cast<const float*>(w),
-                                                  static_cast<float*>(out), n, l);
-  return static_cast<int>(cudaGetLastError());
+  return over_grid_y(r, [&](int r0, int rs) {
+    const size_t row0 = static_cast<size_t>(r0) * n;
+    const dim3 grid((l - 1) / (kThreads * Load::kCols) + 1, rs);
+    fedavg_kernel<N><<<grid, kThreads, 0, stream>>>(
+        load.from_row(row0), static_cast<const float*>(w) + row0,
+        static_cast<float*>(out) + static_cast<size_t>(r0) * l, n, l);
+  });
 }
 
 static_assert(kMaxN == 16, "launch instantiates N = 1 ... 16");

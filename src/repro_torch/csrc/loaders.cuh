@@ -21,6 +21,11 @@
 // or four scalars, as its address allows, and the same holds for the
 // stores.  The address depends on the row alone, so all the threads of a
 // warp that share a row take the same branch.
+//
+// over_grid_y launches a kernel whose sessions or lanes lie on gridDim.y
+// in launches of at most 65,535 of them (the axis's limit), each from its
+// first row's pointers; every launch of up to 65,535 is the one launch it
+// was before.
 #pragma once
 
 #include <cstdint>
@@ -30,6 +35,19 @@ namespace {
 
 constexpr int kVec = 4;      // elements in a group
 constexpr int kTile = 1024;  // int8 wire tile: one fp32 scale a tile
+constexpr int kMaxGridY = 65535;
+
+// launch(first, count) launches count rows from row first;
+// returns the first launch's error, else 0.
+template <typename Launch>
+int over_grid_y(int rows, Launch launch) {
+  for (int r0 = 0; r0 < rows; r0 += kMaxGridY) {
+    launch(r0, rows - r0 < kMaxGridY ? rows - r0 : kMaxGridY);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  return 0;
+}
 
 struct LoadDense {
   using Raw = float4;
@@ -54,6 +72,13 @@ struct LoadDense {
   }
   __device__ __forceinline__ Raw fetch(size_t row, int col) const { return group(row, col); }
   __device__ __forceinline__ static float4 expand(const Raw& raw) { return raw; }
+  // the one element at col of row, as group() gives it
+  __device__ __forceinline__ float at(size_t row, int col) const {
+    return __ldg(u + row * l + col);
+  }
+  // the loader of the rows from row0 on (a later launch of a kernel whose
+  // sessions pass gridDim.y)
+  LoadDense from_row(size_t row0) const { return LoadDense{u + row0 * l, l}; }
 };
 
 // Dense rows 2 columns a group: one float2 where the row's address allows
@@ -82,6 +107,7 @@ struct LoadDensePairs {
       if (kExact || j < rows) raw[j] = group(row0 + j, col);
   }
   __device__ __forceinline__ static float2 expand(const Raw& raw) { return raw; }
+  LoadDensePairs from_row(size_t row0) const { return LoadDensePairs{u + row0 * l, l}; }
 };
 
 // The 4 codes at p: one char4 where p is on a 4-byte boundary (always,
@@ -131,6 +157,14 @@ struct LoadQ8 {
   }
   __device__ __forceinline__ float4 group(size_t row, int col) const {
     return expand(fetch(row, col));
+  }
+  // the one element at col of row, as expand() rounds it
+  __device__ __forceinline__ float at(size_t row, int col) const {
+    return __fmul_rn(static_cast<float>(__ldg(q + row * lp + col)),
+                     __ldg(s + row * (lp / kTile) + col / kTile));
+  }
+  LoadQ8 from_row(size_t row0) const {
+    return LoadQ8{q + row0 * lp, s + row0 * (lp / kTile), lp};
   }
 };
 

@@ -75,6 +75,24 @@
 // a thread in flight, the shared-memory pass and its barriers only add
 // work.
 //
+// Any N.  Past N = 16 (and for any N when the caller forces it, as the
+// tests do to hold the two forms against each other) each statistic runs a
+// body whose N is a run-time argument, with the same arithmetic.  The
+// trimmed mean keeps the templated body's 4 columns a thread and its scans
+// (the strict > scan, then the strict < scan, in n order, the first index
+// winning a tie; the fma chain in n order, inactive rows adding fmaf(0, 0):
+// the sign of a zero sum is the templated body's) but re-reads each row from
+// global memory or L2 in each of its three passes instead of holding N
+// groups in registers.  The median stages one column a thread, value n of
+// thread t at n * blockDim.x + t of shared memory (no bank conflicts), with
+// as many columns a block as the N values fit (128 at N <= 453, one warp at
+// N = 1,816); past that the caller gives a scratch buffer of R x N x L
+// floats in global memory, value n of column c at n * L + c.  There it runs
+// the same odd-even network and picks the same two ranks.  Both read
+// through the same loaders (LoadQ8's at() rounds as expand() does), so the
+// q8 forms stay bitwise the dense forms on the dequantized buffer.
+// Sessions past 65,535 go in further launches (loaders.cuh's over_grid_y).
+//
 // Squared norm: one block of 512 threads per (r, n) row, which it walks
 // in chunks of 8,192 elements.  In a chunk, thread t loads the four
 // 4-element groups t, t + 512, t + 1024 and t + 1536 (64 bytes of a
@@ -99,7 +117,9 @@
 
 namespace {
 
-constexpr int kMaxN = 16;
+constexpr int kMaxN = 16;                               // the largest templated N
+constexpr int kMaxShared = 232448;                      // dynamic shared memory of a block
+constexpr int kMedianSharedN = kMaxShared / (4 * 32);   // N a one-warp median tile holds: 1,816
 constexpr int kColThreads = 128;
 constexpr int kColSpan = kColThreads * kVec;            // columns of a column block: 512
 constexpr int kSqThreads = 512;
@@ -284,6 +304,112 @@ __global__ void __launch_bounds__(kColThreads)
   columns<Median, N>(load, w, out, l);
 }
 
+// The trimmed mean for a run-time n: session blockIdx.y, the 4 columns at
+// 4 * threadIdx.x of the block's 512, as TrimmedMean::column() computes
+// each, in three passes over the session's rows.
+template <class Load>
+__global__ void __launch_bounds__(kColThreads)
+    trimmed_mean_any_kernel(Load load, const float* __restrict__ w, float* __restrict__ out,
+                            int n, int l) {
+  const int col = blockIdx.x * kColSpan + kVec * threadIdx.x;
+  if (col >= l) return;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * n;
+  const float* ws = w + row0;
+  // the first-index maximum of the active values, and their count m
+  int amax[kVec], m = 0;
+  float vmax[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    amax[k] = n;
+    vmax[k] = 0.f;
+  }
+  for (int j = 0; j < n; ++j) {
+    if (!(__ldg(ws + j) > 0.f)) continue;
+    ++m;
+    const float4 v = Load::expand(load.fetch(row0 + j, col));
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float x = component(v, k);
+      if (amax[k] == n || x > vmax[k]) {
+        amax[k] = j;
+        vmax[k] = x;
+      }
+    }
+  }
+  // the first-index minimum of the rest
+  int amin[kVec];
+  float vmin[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    amin[k] = n;
+    vmin[k] = 0.f;
+  }
+  for (int j = 0; j < n; ++j) {
+    if (!(__ldg(ws + j) > 0.f)) continue;
+    const float4 v = Load::expand(load.fetch(row0 + j, col));
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float x = component(v, k);
+      if (j != amax[k] && (amin[k] == n || x < vmin[k])) {
+        amin[k] = j;
+        vmin[k] = x;
+      }
+    }
+  }
+  // the weighted sum of the others, in n order
+  float num[kVec] = {0.f, 0.f, 0.f, 0.f}, den[kVec] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < n; ++j) {
+    const float wv = __ldg(ws + j);
+    const bool act = wv > 0.f;
+    const float wb = act ? wv : 0.f;
+    const float4 v =
+        act ? Load::expand(load.fetch(row0 + j, col)) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float wu = (m > 2 && (j == amax[k] || j == amin[k])) ? 0.f : wb;
+      num[k] = fmaf(wu, component(v, k), num[k]);
+      den[k] += wu;
+    }
+  }
+  float res[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) res[k] = num[k] / fmaxf(den[k], 1e-9f);
+  store_group(out + static_cast<size_t>(blockIdx.y) * l + col, col, l, res);
+}
+
+// The median for a run-time n: session blockIdx.y, column blockIdx.x *
+// blockDim.x + threadIdx.x.  Its n values (inactive at +inf) lie in shared
+// memory at j * blockDim.x + threadIdx.x, or with a scratch buffer at
+// its session's j * l + col; sort_network's phases on them, then
+// Median::column()'s two ranks.
+template <class Load>
+__global__ void median_any_kernel(Load load, const float* __restrict__ w,
+                                  float* __restrict__ out, int n, int l, float* scratch) {
+  extern __shared__ float vals[];
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= l) return;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * n;
+  const size_t stride = scratch ? static_cast<size_t>(l) : blockDim.x;
+  float* x = scratch ? scratch + row0 * l + col : vals + threadIdx.x;
+  int m = 0;
+  for (int j = 0; j < n; ++j) {
+    const bool act = __ldg(w + row0 + j) > 0.f;
+    m += act;
+    x[j * stride] = act ? load.at(row0 + j, col) : INFINITY;
+  }
+  for (int phase = 0; phase < n; ++phase) {
+    for (int j = phase % 2; j + 1 < n; j += 2) {
+      const float a = x[j * stride], b = x[(j + 1) * stride];
+      x[j * stride] = fminf(a, b);
+      x[(j + 1) * stride] = fmaxf(a, b);
+    }
+  }
+  const int lo = m > 0 ? (m - 1) / 2 : 0;
+  const int hi = m / 2;
+  out[static_cast<size_t>(blockIdx.y) * l + col] =
+      m > 0 ? 0.5f * (x[lo * stride] + x[hi * stride]) : 0.f;
+}
+
 __device__ __forceinline__ void add_squares(const float4 v, float (&acc)[kVec]) {
   acc[0] = fmaf(v.x, v.x, acc[0]);
   acc[1] = fmaf(v.y, v.y, acc[1]);
@@ -324,24 +450,63 @@ __global__ void __launch_bounds__(kSqThreads)
 template <int N, class Load>
 int launch_n(bool median, Load load, const float* w, float* out, int r, int l,
              cudaStream_t stream) {
-  const dim3 grid((l - 1) / kColSpan + 1, r);
-  if (median)
-    median_kernel<N><<<grid, kColThreads, 0, stream>>>(load, w, out, l);
-  else
-    trimmed_mean_kernel<N><<<grid, kColThreads, 0, stream>>>(load, w, out, l);
-  return static_cast<int>(cudaGetLastError());
+  return over_grid_y(r, [&](int r0, int rs) {
+    const dim3 grid((l - 1) / kColSpan + 1, rs);
+    const Load ld = load.from_row(static_cast<size_t>(r0) * N);
+    const float* wr = w + static_cast<size_t>(r0) * N;
+    float* o = out + static_cast<size_t>(r0) * l;
+    if (median)
+      median_kernel<N><<<grid, kColThreads, 0, stream>>>(ld, wr, o, l);
+    else
+      trimmed_mean_kernel<N><<<grid, kColThreads, 0, stream>>>(ld, wr, o, l);
+  });
+}
+
+// Columns of a run-time-n median block: 128, or as many warps as the n
+// values of a column fit in shared memory; 0 where one warp's do not.
+int median_threads(int n) {
+  if (n > kMedianSharedN) return 0;
+  const int warps = kMaxShared / (4 * 32 * n);
+  return warps >= kColThreads / 32 ? kColThreads : 32 * warps;
+}
+
+template <class Load>
+int launch_any(bool median, Load load, const float* w, float* out, int r, int n, int l,
+               float* scratch, cudaStream_t stream) {
+  const int threads = median ? (scratch ? kColThreads : median_threads(n)) : kColThreads;
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = median && !scratch ? 4 * n * threads : 0;
+  if (median) {
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        median_any_kernel<Load>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err != 0) return err;
+  }
+  return over_grid_y(r, [&](int r0, int rs) {
+    const Load ld = load.from_row(static_cast<size_t>(r0) * n);
+    const float* wr = w + static_cast<size_t>(r0) * n;
+    float* o = out + static_cast<size_t>(r0) * l;
+    if (median)
+      median_any_kernel<<<dim3((l - 1) / threads + 1, rs), threads, smem, stream>>>(
+          ld, wr, o, n, l, scratch ? scratch + static_cast<size_t>(r0) * n * l : nullptr);
+    else
+      trimmed_mean_any_kernel<<<dim3((l - 1) / kColSpan + 1, rs), kColThreads, 0, stream>>>(
+          ld, wr, o, n, l);
+  });
 }
 
 static_assert(kMaxN == 16, "launch_columns instantiates N = 1 ... 16");
 
+// The templated body for N <= 16 unless any_n, else the run-time-n body.
 template <class Load>
-int launch_columns(bool median, Load load, const void* w, void* out, int r, int n, int l,
-                   void* stream) {
-  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+int launch_columns(bool median, Load load, const void* w, void* out, void* scratch, int r,
+                   int n, int l, int any_n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (r <= 0 || l <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* wf = static_cast<const float*>(w);
   auto* of = static_cast<float*>(out);
+  if (any_n || n > kMaxN)
+    return launch_any(median, load, wf, of, r, n, l, static_cast<float*>(scratch), st);
   switch (n) {
 #define ROBUST_N(K) \
   case K:           \
@@ -375,30 +540,34 @@ LoadQ8<false> q8(const void* q, const void* s, int lp) {
 }  // namespace
 
 // u: (R, N, L) fp32, w: (R, N) fp32, out: (R, L) fp32, contiguous on the
-// current device, 1 <= N <= 16.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for N outside [1, 16]).
+// current device, N >= 1.  any_n runs the run-time-N body at N <= 16 too.
+// scratch: null, or (the median past a one-warp shared tile, N > 1,816) R x
+// N x L fp32.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for N < 1, or a median past the tile without
+// scratch).
 extern "C" int robust_trimmed_mean_launch(const void* u, const void* w, void* out,
-                                          int r, int n, int l, void* stream) {
-  return launch_columns(false, dense(u, l), w, out, r, n, l, stream);
+                                          void* scratch, int r, int n, int l, int any_n,
+                                          void* stream) {
+  return launch_columns(false, dense(u, l), w, out, scratch, r, n, l, any_n, stream);
 }
 
-extern "C" int robust_median_launch(const void* u, const void* w, void* out,
-                                    int r, int n, int l, void* stream) {
-  return launch_columns(true, dense(u, l), w, out, r, n, l, stream);
+extern "C" int robust_median_launch(const void* u, const void* w, void* out, void* scratch,
+                                    int r, int n, int l, int any_n, void* stream) {
+  return launch_columns(true, dense(u, l), w, out, scratch, r, n, l, any_n, stream);
 }
 
 // q: (R, N, Lp) int8 with Lp % 1024 == 0, s: (R, N, Lp / 1024) fp32,
-// w: (R, N) fp32, out: (R, Lp) fp32.
-extern "C" int robust_trimmed_mean_q8_launch(const void* q, const void* s,
-                                             const void* w, void* out, int r,
-                                             int n, int lp, void* stream) {
-  return launch_columns(false, q8(q, s, lp), w, out, r, n, lp, stream);
+// w: (R, N) fp32, out: (R, Lp) fp32; scratch and any_n as above.
+extern "C" int robust_trimmed_mean_q8_launch(const void* q, const void* s, const void* w,
+                                             void* out, void* scratch, int r, int n, int lp,
+                                             int any_n, void* stream) {
+  return launch_columns(false, q8(q, s, lp), w, out, scratch, r, n, lp, any_n, stream);
 }
 
-extern "C" int robust_median_q8_launch(const void* q, const void* s,
-                                       const void* w, void* out, int r, int n,
-                                       int lp, void* stream) {
-  return launch_columns(true, q8(q, s, lp), w, out, r, n, lp, stream);
+extern "C" int robust_median_q8_launch(const void* q, const void* s, const void* w,
+                                       void* out, void* scratch, int r, int n, int lp,
+                                       int any_n, void* stream) {
+  return launch_columns(true, q8(q, s, lp), w, out, scratch, r, n, lp, any_n, stream);
 }
 
 // u: (rows, L) fp32 (rows = R * N), out: (rows,) fp32.

@@ -31,11 +31,30 @@ _COUNTERS = {
 }
 
 
+# of those launches, the ones that ran a kernel's second layout or body:
+# the LSTM pair with its weights read through L2, the robust columns' run-time-N
+# bodies
+_LAYOUT_COUNTERS = {
+    "lstm_cell_l2": (_lstm_cell, "l2_launches"),
+    "lstm_cell_bwd_l2": (_lstm_cell, "l2_bwd_launches"),
+    "trimmed_mean_any_n": (_robust, "trimmed_mean_any_launches"),
+    "trimmed_mean_q8_any_n": (_robust, "trimmed_mean_q8_any_launches"),
+    "median_any_n": (_robust, "median_any_launches"),
+    "median_q8_any_n": (_robust, "median_q8_any_launches"),
+}
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
+def layout_counts() -> Dict[str, int]:
+    """Of :func:`launch_counts`, the launches of each second layout or body
+    since the last reset."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _LAYOUT_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTERS.values():
+    for mod, attr in (*_COUNTERS.values(), *_LAYOUT_COUNTERS.values()):
         setattr(mod, attr, 0)

@@ -38,8 +38,6 @@ def fedavg_batched_cuda(updates: torch.Tensor,
         raise ValueError(f"updates must be (R, N, L) (got {tuple(updates.shape)})")
     r, n, l = updates.shape
     dev = check_args(("updates", updates, F32, None), ("weights", weights, F32, (r, n)))
-    if r > 65535:
-        raise ValueError(f"at most 65535 sessions per launch (got {r})")
     out = updates.new_empty((r, l))
     if r and l:
         _fedavg(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), r, n, l,
@@ -64,8 +62,6 @@ def fedavg_batched_q8_cuda(q: torch.Tensor, scales: torch.Tensor,
     r, n, lp = q.shape
     dev = check_args(("q", q, torch.int8, None), ("scales", scales, F32, (r, n, lp // TILE)),
                      ("weights", weights, F32, (r, n)))
-    if r > 65535:
-        raise ValueError(f"at most 65535 sessions per launch (got {r})")
     out = scales.new_empty((r, lp))
     if r and lp:
         _fedavg_q8(q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),

@@ -6,17 +6,20 @@ op :func:`lstm_cell_cuda`, which replaces
 ``repro.kernels.lstm_cell.kernel.lstm_cell_pallas``, is the forward at
 T = 1.  Every input carries a leading lane axis (the fleet's lanes train
 different params in one launch) and may have any lane stride.
-``launches`` counts forward launches, ``bwd_launches`` backward ones.
+``launches`` counts forward launches, ``bwd_launches`` backward ones, in
+either layout; ``l2_launches`` and ``l2_bwd_launches`` count those that
+ran the weights-through-L2 layout.
 
-:func:`plan` sizes a launch and refuses, with a ``ValueError``, a shape
-whose weights do not fit in a block's shared memory; the launchers call it
-before they look at the device, so the refusal shows on the CPU too.
+:func:`plan` sizes a launch for any F >= 1 and H >= 1: the weights in a
+block's shared memory where they fit (with fewer batch-row groups if need
+be), else read from global memory through L2.  The launchers call it
+before they look at the device, so their checks show on the CPU too.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,14 +28,20 @@ from repro_torch.kernels.common import check_args, current_stream
 
 launches = 0
 bwd_launches = 0
+l2_launches = 0
+l2_bwd_launches = 0
 
 MAX_SHARED_BYTES = 232_448   # dynamic shared memory of one H100 block (227 KB)
 ROWS = 4                     # batch rows a thread owns (kRows in the source)
 THREADS = 256                # threads a block aims at: H x groups
-MAX_HIDDEN = 1024            # one thread per column j: at most 1024 threads
+MAX_THREADS = 1024           # threads of a block
+L2_THREADS = 256             # threads of a weights-through-L2 block (kL2Threads)
+MAX_GRID_Y = 65_535          # lanes of one launch (kMaxGridY): more go in further launches
+LAYOUTS = ("smem", "l2")
+STATE_GLOBAL, DGATES_OUT = 1, 2   # the l2 layout's modes (kStateGlobal, kDgatesOut)
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _fwd = _build.CFunction("lstm_seq_fwd_launch", _FWD_ARGTYPES)
 _bwd = _build.CFunction("lstm_seq_bwd_launch", _BWD_ARGTYPES)
 _INT_MAX = 2 ** 31 - 1
@@ -43,31 +52,81 @@ def _round4(n: int) -> int:
 
 
 def _shared_bytes(f: int, hidden: int, tile: int, backward: bool) -> int:
-    """Dynamic shared memory of one block, as the source lays it out: the
-    lane's [wx; wh] at a row stride of 4H + 1 floats, b, the h tile (two
-    in the forward), and in the backward the (tile, 4H) dgates tile."""
+    """Dynamic shared memory of one block of the shared-memory layout, as
+    the source lays it out: the lane's [wx; wh] at a row stride of 4H + 1
+    floats, b, the h tile (two in the forward), and in the backward the
+    (tile, 4H) dgates tile."""
     weights = _round4((f + hidden) * (4 * hidden + 1))
     h_tiles = (1 if backward else 2) * tile * _round4(hidden)
     dgates = tile * 4 * hidden if backward else 0
     return 4 * (weights + 4 * hidden + h_tiles + dgates)
 
 
-def plan(batch: int, f: int, hidden: int, backward: bool = False) -> Tuple[int, int]:
-    """(groups, shared bytes) of one launch: a block of ``hidden * groups``
-    threads takes a tile of ``groups * ROWS`` batch rows.  Raises
-    ``ValueError`` when that block's shared memory passes
-    ``MAX_SHARED_BYTES``; there is no other path for such a shape."""
-    kind = "backward" if backward else "forward"
-    if not 1 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"the LSTM {kind} kernel takes 1 <= H <= {MAX_HIDDEN} (got H={hidden})")
-    groups = max(1, min(THREADS // hidden, -(-batch // ROWS)))
-    smem = _shared_bytes(f, hidden, groups * ROWS, backward)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the LSTM {kind} kernel keeps a lane's weights in shared memory: F={f}, "
-            f"H={hidden} needs {smem} B, over the {MAX_SHARED_BYTES} B (227 KB) a block "
-            "of an H100 can have")
-    return groups, smem
+def _state_floats(hidden: int, tile: int, backward: bool, mode: int) -> int:
+    """A block's state in the weights-through-L2 layout (``state_layout``
+    of the source): the forward's two h tiles and c, the backward's h
+    tile, dh, dc and, unless ``DGATES_OUT``, its (tile, 4H) dgates tile."""
+    dgates = tile * 4 * hidden if backward and not mode & DGATES_OUT else 0
+    return 3 * tile * _round4(hidden) + dgates
+
+
+class Plan(NamedTuple):
+    """One launch's layout: ``"smem"`` (a block of ``hidden * groups``
+    threads holds the lane's weights in shared memory) or ``"l2"`` (a block
+    of ``span * groups`` threads reads them through L2, its state in
+    ``smem`` bytes of shared memory or, with ``STATE_GLOBAL`` in ``mode``,
+    ``state`` floats a block of a scratch buffer).  The batch tile is
+    ``groups * ROWS`` rows."""
+    layout: str
+    groups: int
+    smem: int
+    span: int
+    mode: int = 0
+    state: int = 0
+
+
+def _groups(batch: int, width: int) -> int:
+    return max(1, min(THREADS // width, -(-batch // ROWS)))
+
+
+def plan(batch: int, f: int, hidden: int, backward: bool = False, *,
+         _layout: Optional[str] = None) -> Plan:
+    """The :class:`Plan` of one launch at (B, F, H).  The shared-memory
+    layout where a block of ``_groups`` groups, or fewer, fits
+    ``MAX_SHARED_BYTES`` (up to H = 114 at F = 6, 115 in the forward);
+    else the weights through L2, for any F >= 1 and H >= 1.  ``_layout``
+    forces one (``"l2"`` on a shape the first holds: the tests' check that
+    both layouts give the same bits)."""
+    if f < 1 or hidden < 1:
+        raise ValueError(f"the LSTM kernels take F >= 1 and H >= 1 (got F={f}, H={hidden})")
+    if _layout not in (None,) + LAYOUTS:
+        raise ValueError(f"unknown layout {_layout!r} (one of {LAYOUTS})")
+    if _layout != "l2" and hidden <= MAX_THREADS:
+        for groups in range(_groups(batch, hidden), 0, -1):
+            smem = _shared_bytes(f, hidden, groups * ROWS, backward)
+            if smem <= MAX_SHARED_BYTES:
+                return Plan("smem", groups, smem, hidden)
+    if _layout == "smem":
+        raise ValueError(f"F={f}, H={hidden}: a lane's weights do not fit a block's shared memory")
+    span = -(-hidden // -(-hidden // L2_THREADS))    # the fewest passes of <= 256 columns
+    groups = _groups(batch, span)
+    tile = groups * ROWS
+    for mode in ((0, DGATES_OUT) if backward else (0,)):
+        smem = 4 * _state_floats(hidden, tile, backward, mode)
+        if smem <= MAX_SHARED_BYTES:
+            return Plan("l2", groups, smem, span, mode)
+    mode = STATE_GLOBAL | (DGATES_OUT if backward else 0)
+    return Plan("l2", groups, 0, span, mode, _state_floats(hidden, tile, backward, mode))
+
+
+def _work(x_seq, p: Plan, lanes: int, batch: int):
+    """The scratch buffer of a launch whose state lies in global memory
+    (``state`` floats for each block of the first ``MAX_GRID_Y`` lanes), or
+    None."""
+    if not p.state:
+        return None
+    blocks = -(-batch // (p.groups * ROWS)) * min(lanes, MAX_GRID_Y)
+    return x_seq.new_empty(blocks * p.state)
 
 
 def _lane_arg(name: str, t: torch.Tensor, shape, index: int) -> int:
@@ -93,20 +152,18 @@ def _lane_arg(name: str, t: torch.Tensor, shape, index: int) -> int:
     return stride
 
 
-def _seq_shapes(x_seq, h, backward):
-    """(lanes, steps, batch, f, hidden, groups, smem, device index) of a
-    launch: the plan checked, the device not yet (the index is
+def _seq_shapes(x_seq, h, backward, layout):
+    """(lanes, steps, batch, f, hidden, plan, device index) of a launch:
+    the plan made, the device not yet checked (the index is
     ``x_seq.get_device()``, -1 off the GPU; see :func:`_require_cuda`)."""
     if x_seq.dim() != 4 or h.dim() != 3:
         raise ValueError("x_seq must be (L, T, B, F) and the states (L, B, H)")
     lanes, steps, batch, f = x_seq.shape
     hidden = h.shape[2]
-    groups, smem = plan(batch, f, hidden, backward)
+    p = plan(batch, f, hidden, backward, _layout=layout)
     if steps < 1:
         raise ValueError("the sequence needs at least one step")
-    if lanes > 65535:
-        raise ValueError(f"at most 65535 lanes per launch (got {lanes})")
-    return lanes, steps, batch, f, hidden, groups, smem, x_seq.get_device()
+    return lanes, steps, batch, f, hidden, p, x_seq.get_device()
 
 
 def _require_cuda(x_seq) -> None:
@@ -122,14 +179,16 @@ def _weight_strides(wx, wh, b, lanes, f, hidden, dev):
             _lane_arg("b", b, (lanes, 4 * hidden), dev)]
 
 
-def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False):
+def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
+                  _layout: Optional[str] = None):
     """x_seq (L, T, B, F), h0 and c0 (L, B, H), wx (L, F, 4H), wh (L, H, 4H),
     b (L, 4H), fp32 on one CUDA device, each lane's block contiguous (the
     lane stride is free) -> (h, c): the final states, each a contiguous
     (L, B, H), or with ``save`` the states before and after every step,
-    each a contiguous (L, T+1, B, H) whose [:, 0] is h0, c0."""
-    global launches
-    lanes, steps, batch, f, hidden, groups, smem, dev = _seq_shapes(x_seq, h0, False)
+    each a contiguous (L, T+1, B, H) whose [:, 0] is h0, c0.  ``_layout``
+    forces a layout (:func:`plan`)."""
+    global launches, l2_launches
+    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, h0, False, _layout)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     h_ls = _lane_arg("h0", h0, (lanes, batch, hidden), dev)
     c_ls = _lane_arg("c0", c0, (lanes, batch, hidden), dev)
@@ -140,21 +199,26 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False):
     c_out = x_seq.new_empty(shape)
     if lanes * batch * hidden == 0:
         return h_out, c_out
+    work = _work(x_seq, p, lanes, batch)
     _fwd(x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), lanes, steps, batch, f,
-         hidden, groups, int(save), x_ls, h_ls, c_ls, *w_ls, smem, current_stream(dev))
+         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+         None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
+         int(save), x_ls, h_ls, c_ls, *w_ls, int(p.layout == "l2"), p.span, p.mode, p.smem,
+         current_stream(dev))
     launches += 1
+    l2_launches += p.layout == "l2"
     return h_out, c_out
 
 
-def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last):
+def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
+                           _layout: Optional[str] = None):
     """The backward of :func:`lstm_seq_cuda` from its saved states: x_seq,
     wx, wh, b as there; h_seq, c_seq (L, T+1, B, H) and the cotangents of
     the final states dh_last, dc_last (L, B, H), contiguous.  Returns
     (dgates (L, T, B, 4H), dh0, dc0 (L, B, H)), contiguous: the cotangents
     of each step's gate pre-activations and of the initial states."""
-    global bwd_launches
-    lanes, steps, batch, f, hidden, groups, smem, dev = _seq_shapes(x_seq, dh_last, True)
+    global bwd_launches, l2_bwd_launches
+    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, dh_last, True, _layout)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     w_ls = _weight_strides(wx, wh, b, lanes, f, hidden, dev)
     seq, last = (lanes, steps + 1, batch, hidden), (lanes, batch, hidden)
@@ -168,11 +232,14 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last):
     dc0 = x_seq.new_empty(last)
     if lanes * batch * hidden == 0:
         return dgates, dh0, dc0
+    work = _work(x_seq, p, lanes, batch)
     _bwd(x_seq.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), wx.data_ptr(),
          wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
-         dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), lanes, steps, batch, f,
-         hidden, groups, x_ls, *w_ls, smem, current_stream(dev))
+         dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+         None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
+         x_ls, *w_ls, int(p.layout == "l2"), p.span, p.mode, p.smem, current_stream(dev))
     bwd_launches += 1
+    l2_bwd_launches += p.layout == "l2"
     return dgates, dh0, dc0
 
 

@@ -9,8 +9,14 @@ Each replaces one Pallas entry point of ``repro.kernels.robust.kernel``:
 * ``sqnorm_cuda`` / ``sqnorm_q8_cuda``: ``sqnorm_batched_pallas`` and
   ``sqnorm_batched_q8_pallas``.
 
-Each has its own launch counter.  The column kernels hold a contributor's
-values in registers, so N is bounded by ``MAX_N``.
+Each has its own launch counter.  The column kernels take any number of
+contributors N: up to ``MAX_N`` a body with N fixed at compile time holds
+a contributor's values in registers, past it a body with a run-time N (its
+own counters, ``*_any_launches``, count the launches that ran it) re-reads
+them (the trimmed mean) or stages them in shared memory (the median; past
+``MEDIAN_SHARED_N`` in a scratch buffer).  ``_any_n=True`` runs the
+run-time body at any N: the tests hold it bit for bit against the
+templated one.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_args, current_stream
 from repro_torch.kernels.quantize.ref import TILE
 
-MAX_N = 16   # kMaxN of csrc/robust.cu
+MAX_N = 16   # the largest N of the templated column bodies (kMaxN of csrc/robust.cu)
+MEDIAN_SHARED_N = 232_448 // (4 * 32)   # N of a one-warp median tile (kMedianSharedN): 1,816
 F32, I8 = torch.float32, torch.int8
 
 trimmed_mean_launches = 0
@@ -32,9 +39,13 @@ median_launches = 0
 median_q8_launches = 0
 sqnorm_launches = 0
 sqnorm_q8_launches = 0
+trimmed_mean_any_launches = 0
+trimmed_mean_q8_any_launches = 0
+median_any_launches = 0
+median_q8_any_launches = 0
 
-_COLUMN_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_COLUMN_Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_COLUMN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_COLUMN_Q8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SQNORM_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _SQNORM_Q8_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
@@ -58,77 +69,92 @@ def _wire_shape(q: torch.Tensor):
     return q.shape
 
 
-def _check_columns(r: int, n: int) -> None:
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the robust column kernels take 1 to {MAX_N} contributors "
-                         f"(MAX_N, kMaxN of csrc/robust.cu), got N = {n}")
-    if r > 65535:
-        raise ValueError(f"at most 65535 sessions per launch (got {r})")
+def _scratch(kind: str, like: torch.Tensor, r: int, n: int, l: int):
+    """The median's scratch buffer past a one-warp shared tile, else None."""
+    if kind == "median" and n > MEDIAN_SHARED_N:
+        return like.new_empty((r, n, l), dtype=F32)
+    return None
 
 
-def _columns(kind: str, updates: torch.Tensor, weights: torch.Tensor):
-    """(out, whether the kernel was launched)."""
+def _check_columns(n: int) -> None:
+    if n < 1:
+        raise ValueError(f"the robust column kernels need N >= 1 contributors (got N = {n})")
+
+
+def _launch(kind: str, ptrs, like, r: int, n: int, l: int, dev: int, any_n: bool) -> bool:
+    """One column launch (``ptrs`` the inputs' and the output's pointers);
+    returns whether the run-time-N body ran."""
+    scratch = _scratch(kind.removesuffix("_q8"), like, r, n, l)
+    _C[kind](*ptrs, None if scratch is None else scratch.data_ptr(), r, n, l, int(any_n),
+             current_stream(dev))
+    return any_n or n > MAX_N
+
+
+def _columns(kind: str, updates: torch.Tensor, weights: torch.Tensor, any_n: bool):
+    """(out, whether the kernel was launched, whether its run-time-N body ran)."""
     r, n, l = _updates_shape(updates)
+    _check_columns(n)
     dev = check_args(("updates", updates, F32, None), ("weights", weights, F32, (r, n)))
-    _check_columns(r, n)
     out = updates.new_empty((r, l))
-    if r and l:
-        _C[kind](updates.data_ptr(), weights.data_ptr(), out.data_ptr(), r, n, l,
-                 current_stream(dev))
-    return out, bool(r and l)
+    if not (r and l):
+        return out, False, False
+    ptrs = (updates.data_ptr(), weights.data_ptr(), out.data_ptr())
+    return out, True, _launch(kind, ptrs, updates, r, n, l, dev, any_n)
 
 
-def _columns_q8(kind: str, q: torch.Tensor, scales: torch.Tensor,
-                weights: torch.Tensor):
+def _columns_q8(kind: str, q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+                any_n: bool):
     r, n, lp = _wire_shape(q)
+    _check_columns(n)
     dev = check_args(("q", q, I8, None), ("scales", scales, F32, (r, n, lp // TILE)),
                      ("weights", weights, F32, (r, n)))
-    _check_columns(r, n)
     out = scales.new_empty((r, lp))
-    if r and lp:
-        _C[kind + "_q8"](q.data_ptr(), scales.data_ptr(), weights.data_ptr(),
-                         out.data_ptr(), r, n, lp, current_stream(dev))
-    return out, bool(r and lp)
+    if not (r and lp):
+        return out, False, False
+    ptrs = (q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr())
+    return out, True, _launch(kind + "_q8", ptrs, scales, r, n, lp, dev, any_n)
 
 
-def trimmed_mean_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def trimmed_mean_cuda(updates: torch.Tensor, weights: torch.Tensor, *,
+                      _any_n: bool = False) -> torch.Tensor:
     """updates (R, N, L) fp32, weights (R, N) fp32, contiguous on one CUDA
-    device, N <= MAX_N -> (R, L) fp32 per-coordinate trimmed means."""
-    global trimmed_mean_launches
-    out, launched = _columns("trimmed_mean", updates, weights)
-    if launched:
-        trimmed_mean_launches += 1
+    device -> (R, L) fp32 per-coordinate trimmed means."""
+    global trimmed_mean_launches, trimmed_mean_any_launches
+    out, launched, any_body = _columns("trimmed_mean", updates, weights, _any_n)
+    trimmed_mean_launches += launched
+    trimmed_mean_any_launches += any_body
     return out
 
 
-def trimmed_mean_q8_cuda(q: torch.Tensor, scales: torch.Tensor,
-                         weights: torch.Tensor) -> torch.Tensor:
+def trimmed_mean_q8_cuda(q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, *,
+                         _any_n: bool = False) -> torch.Tensor:
     """q (R, N, Lp) int8, scales (R, N, Lp / 1024) fp32, weights (R, N)
     -> (R, Lp) fp32: the trimmed mean of ``q * scale``."""
-    global trimmed_mean_q8_launches
-    out, launched = _columns_q8("trimmed_mean", q, scales, weights)
-    if launched:
-        trimmed_mean_q8_launches += 1
+    global trimmed_mean_q8_launches, trimmed_mean_q8_any_launches
+    out, launched, any_body = _columns_q8("trimmed_mean", q, scales, weights, _any_n)
+    trimmed_mean_q8_launches += launched
+    trimmed_mean_q8_any_launches += any_body
     return out
 
 
-def median_cuda(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def median_cuda(updates: torch.Tensor, weights: torch.Tensor, *,
+                _any_n: bool = False) -> torch.Tensor:
     """updates (R, N, L) fp32, weights (R, N) fp32 -> (R, L) fp32
     per-coordinate masked medians."""
-    global median_launches
-    out, launched = _columns("median", updates, weights)
-    if launched:
-        median_launches += 1
+    global median_launches, median_any_launches
+    out, launched, any_body = _columns("median", updates, weights, _any_n)
+    median_launches += launched
+    median_any_launches += any_body
     return out
 
 
-def median_q8_cuda(q: torch.Tensor, scales: torch.Tensor,
-                   weights: torch.Tensor) -> torch.Tensor:
+def median_q8_cuda(q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, *,
+                   _any_n: bool = False) -> torch.Tensor:
     """The masked median of ``q * scale``: (R, Lp) fp32."""
-    global median_q8_launches
-    out, launched = _columns_q8("median", q, scales, weights)
-    if launched:
-        median_q8_launches += 1
+    global median_q8_launches, median_q8_any_launches
+    out, launched, any_body = _columns_q8("median", q, scales, weights, _any_n)
+    median_q8_launches += launched
+    median_q8_any_launches += any_body
     return out
 
 

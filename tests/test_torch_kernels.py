@@ -311,7 +311,14 @@ def test_lane_cell_launcher_accepts_the_fleets_buffer_views(width):
 # fleet's fit and scoring shapes, the loop engine's, and edge shapes
 SEQ_SHAPES = [(64, 32, 6, 64, 32), (1, 32, 6, 64, 32), (1, 45, 6, 64, 32),
               (64, 45, 6, 64, 32), (1, 1, 6, 64, 1), (64, 32, 6, 64, 64), (3, 33, 5, 40, 8),
-              (2, 7, 3, 5, 3)]
+              (2, 7, 3, 5, 3),
+              # past a block's shared memory at the first choice of groups: fewer
+              # groups (H = 113, F = 142), else the weights through L2
+              (1, 32, 6, 113, 32), (1, 32, 6, 128, 32), (64, 32, 6, 128, 32),
+              (1, 45, 9, 256, 16), (1, 8, 142, 64, 8), (1, 4, 6, 1100, 4),
+              # the backward's dgates tile in its output (H > 2,075), then the
+              # state of both in a scratch buffer (H > 4,842)
+              (1, 2, 6, 2100, 2), (1, 1, 2, 5000, 2)]
 # the backward: T reverse steps and a batched product over T * B rows, in
 # another order than the twin's per-step sums, relative to the largest value
 SEQ_BWD_REL = 1e-4
@@ -342,13 +349,18 @@ def test_seq_kernels_match_twins_on_card(lanes, b, f, h, t, cuda_device):
     from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
     from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
 
+    from repro_torch.kernels.lstm_cell.kernel import plan
+
     args = _seq_inputs_as_fleet_views(lanes, b, f, h, t, cuda_device)
     before = kernels.launch_counts()
+    l2_before = kernels.layout_counts()
     hs, cs = lstm_seq_cuda(*args, save=True)
     h_t, c_t = lstm_seq_cuda(*args)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after["lstm_cell"] == before["lstm_cell"] + 2
+    l2 = plan(b, f, h).layout == "l2"
+    assert kernels.layout_counts()["lstm_cell_l2"] == l2_before["lstm_cell_l2"] + 2 * l2
     hr, cr = lstm_seq_ref(*args)
     torch.testing.assert_close(hs, hr, **LSTM_TOL)
     torch.testing.assert_close(cs, cr, **LSTM_TOL)
@@ -362,6 +374,8 @@ def test_seq_kernels_match_twins_on_card(lanes, b, f, h, t, cuda_device):
     full = lstm_ops.lstm_seq_backward(x, hs, cs, wx, wh, bias, dh, dc)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["lstm_cell_bwd"] == after["lstm_cell_bwd"] + 2
+    l2 = plan(b, f, h, True).layout == "l2"
+    assert kernels.layout_counts()["lstm_cell_bwd_l2"] == l2_before["lstm_cell_bwd_l2"] + 2 * l2
     want = lstm_seq_backward_ref(x, hs, cs, wx, wh, bias, dh, dc)
     for name, got, w in zip(("dgates", "dh0", "dc0", "dx", "dwx", "dwh", "db"),
                             (dgates, dh0, dc0) + tuple(full[3:]), want):
@@ -778,15 +792,124 @@ def test_robust_column_kernels_at_every_n(n, cuda_device):
 
 
 @pytest.mark.cuda
-def test_robust_kernels_are_deterministic_and_reject_too_many_contributors(cuda_device):
+def test_robust_kernels_are_deterministic_and_take_17_contributors(cuda_device):
     x = torch.randn((4, 5, 4099), device=cuda_device)
     a, b = robust_kernel.sqnorm_cuda(x), robust_kernel.sqnorm_cuda(x)
     assert torch.equal(a, b)
-    w = torch.ones((1, robust_kernel.MAX_N + 1), device=cuda_device)
-    u = torch.zeros((1, robust_kernel.MAX_N + 1, 8), device=cuda_device)
-    for call in (robust_kernel.trimmed_mean_cuda, robust_kernel.median_cuda):
-        with pytest.raises(ValueError, match=f"1 to {robust_kernel.MAX_N}"):
-            call(u, w)
+    n = robust_kernel.MAX_N + 1
+    u, w = (t.to(cuda_device) for t in _column_world(n, 1030, 17))
+    for call, twin in ((robust_kernel.trimmed_mean_cuda, robust_ref.trimmed_mean_batched_ref),
+                       (robust_kernel.median_cuda, robust_ref.median_batched_ref)):
+        got = call(u, w)
+        assert torch.equal(_bits(got), _bits(call(u, w)))
+        want = twin(u, w)
+        assert float((got - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1.0)
+
+
+# N past the templated bodies' 16: the run-time-N bodies, the median's shared
+# tile at 128 (N <= 453), 96, 64 and 32 columns a block, and past its one
+# warp (MEDIAN_SHARED_N) a scratch buffer
+WIDE_N = (17, 24, 33, 64, 300, 500, 700, 1000, robust_kernel.MEDIAN_SHARED_N + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", WIDE_N)
+def test_robust_column_kernels_past_16_contributors(n, cuda_device):
+    """The run-time-N bodies, dense and q8, against the twins within 1e-6 of
+    the largest output on check_robust's edge rows (_column_world: an
+    inactive lane, an all-zero row, one and two active, ties, an outlier),
+    the same bits on rows at 4-, 8- and 16-byte alignment, each q8 form
+    bit-equal to its dense form on the dequantized buffer, and their
+    launches counted apart."""
+    for l in (7, 513, 1030) if n < 1000 else (7, 130):
+        x, w = _column_world(n, l, n * 10_007 + l)
+        q, s = quantize_batched_ref(x.reshape(5 * n, l))
+        lp = q.shape[-1]
+        q, s = q.reshape(5, n, lp).to(cuda_device), s.reshape(5, n, -1).to(cuda_device)
+        dq = dequantize_batched_ref(q, s).contiguous()
+        xd, wd = x.to(cuda_device), w.to(cuda_device)
+        flat = torch.empty(x.numel() + 3, device=cuda_device)
+        for (kernel, q8_kernel, twin), name in zip(COLUMN_KERNELS, ("trimmed_mean", "median")):
+            before = kernels.layout_counts()
+            got = kernel(xd, wd)
+            got8 = q8_kernel(q, s, wd)
+            want = twin(xd, wd)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in kernels.layout_counts().items()}
+            assert moved[name + "_any_n"] == 1 and moved[name + "_q8_any_n"] == 1
+            err = float((got - want).abs().max())
+            assert err <= 1e-6 * max(float(want.abs().max()), 1.0), (l, err)
+            assert bool((got[1] == 0).all())
+            for off in (1, 2, 3):
+                xo = flat[off:off + x.numel()].view(x.shape)
+                xo.copy_(xd)
+                assert torch.equal(_bits(kernel(xo, wd)), _bits(got)), (l, off)
+            assert torch.equal(_bits(got8), _bits(kernel(dq, wd))), l
+
+
+def _special_world(n, l, seed):
+    """_column_world with NaN, infinities and signed zeros in some columns."""
+    x, w = _column_world(n, l, seed)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1.0, -1.0])
+    g = torch.Generator().manual_seed(seed + 1)
+    cols = slice(40, 72) if l > 72 else slice(0, l)
+    pick = torch.randint(0, len(specials), x[:, :, cols].shape, generator=g)
+    x[:, :, cols] = specials[pick]
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, robust_kernel.MAX_N + 1))
+def test_robust_run_time_bodies_equal_the_templated_ones(n, cuda_device):
+    """At N = 1 ... 16 the run-time-N bodies (forced through ``_any_n``)
+    give the templated bodies' bits, dense and q8, NaN, infinities and
+    signed zeros included."""
+    for l in (7, 513, 1030):
+        x, w = (t.to(cuda_device) for t in _special_world(n, l, n * 31 + l))
+        q, s = quantize_batched_ref(_column_world(n, l, n + l)[0].reshape(5 * n, l))
+        q, s = q.reshape(5, n, -1).to(cuda_device), s.reshape(5, n, -1).to(cuda_device)
+        for kernel, q8_kernel, _ in COLUMN_KERNELS:
+            assert torch.equal(_bits(kernel(x, w, _any_n=True)), _bits(kernel(x, w))), l
+            assert torch.equal(_bits(q8_kernel(q, s, w, _any_n=True)), _bits(q8_kernel(q, s, w)))
+
+
+@pytest.mark.cuda
+def test_launchers_take_more_than_65535_lanes_or_sessions(cuda_device):
+    """Past gridDim.y's 65,535, one wrapper call each of eq. 14 (dense and
+    q8), the robust columns (templated and run-time N) and the LSTM pair
+    at 65,537 sessions or lanes, against the twins."""
+    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+
+    big = 65_537
+    g = torch.Generator().manual_seed(3)
+    for n in (2, 17):
+        u = torch.randn((big, n, 3), generator=g).to(cuda_device)
+        w = (torch.rand((big, n), generator=g) + 0.1).to(cuda_device)
+        for kernel, twin in ((fedavg_batched_cuda, fedavg_batched_ref),
+                             (robust_kernel.trimmed_mean_cuda,
+                              robust_ref.trimmed_mean_batched_ref),
+                             (robust_kernel.median_cuda, robust_ref.median_batched_ref)):
+            got, want = kernel(u, w), twin(u, w)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-6 * max(float(want.abs().max()), 1.0)
+    q, s = quantize_batched_ref(torch.randn((big * 2, TILE), generator=g))
+    q, s = q.reshape(big, 2, TILE).to(cuda_device), s.reshape(big, 2, 1).to(cuda_device)
+    w = torch.ones((big, 2), device=cuda_device)
+    torch.testing.assert_close(fedavg_batched_q8_cuda(q, s, w), fedavg_batched_q8_ref(q, s, w),
+                               **FEDAVG_TOL)
+    args = [torch.randn(shape, generator=g).to(cuda_device) * 0.5
+            for shape in ((big, 2, 1, 1), (big, 1, 1), (big, 1, 1), (big, 1, 4), (big, 1, 4),
+                          (big, 4))]
+    hs, cs = lstm_seq_cuda(*args, save=True)
+    hr, cr = lstm_seq_ref(*args)
+    torch.testing.assert_close(hs, hr, **LSTM_TOL)
+    torch.testing.assert_close(cs, cr, **LSTM_TOL)
+    dh, dc = torch.ones_like(args[1]), torch.ones_like(args[2])
+    got = lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc)
+    want = lstm_seq_backward_ref(args[0], hs, cs, *args[3:], dh, dc)
+    for a, b in zip(got, want[:3]):
+        assert _rel_err(a, b) <= SEQ_BWD_REL
 
 
 # ---------------------------------------------------------------------------

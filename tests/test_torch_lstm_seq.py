@@ -27,7 +27,7 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
 
 # (L, T, B, F, H); L = 0 means no lane axis
 SHAPES = [(1, 1, 1, 3, 5), (1, 3, 5, 6, 16), (3, 8, 5, 3, 5), (3, 3, 1, 6, 16),
-          (0, 8, 5, 6, 16), (3, 1, 5, 3, 16)]
+          (0, 8, 5, 6, 16), (3, 1, 5, 3, 16), (1, 3, 5, 6, 128), (2, 2, 3, 9, 130)]
 
 
 @pytest.fixture
@@ -250,28 +250,95 @@ def test_backward_charges_its_kernel_and_counts_the_weight_products_apart(monkey
     assert mode.get_total_flops() == want
 
 
+def _plan_before(batch, f, hidden, backward):
+    """(groups, smem) of the one layout the launchers had before the
+    weights-through-L2 layout, or None where they refused the shape."""
+    groups = max(1, min(lk.THREADS // hidden, -(-batch // lk.ROWS)))
+    smem = lk._shared_bytes(f, hidden, groups * lk.ROWS, backward)
+    return (groups, smem) if hidden <= 1024 and smem <= lk.MAX_SHARED_BYTES else None
+
+
 @pytest.mark.parametrize("backward", [False, True])
-def test_launcher_refuses_weights_over_shared_memory(backward):
-    """H = 128 at F = 6 does not fit a block's 227 KB: refused by the plan,
-    before the device is looked at, with the limit named."""
-    assert lk.plan(32, 6, 64, backward)[1] <= lk.MAX_SHARED_BYTES
-    args = [_t(a) for a in _inputs(1, 2, 4, 6, 128, 0)]
-    with pytest.raises(ValueError, match=f"{lk.MAX_SHARED_BYTES} B"):
+@pytest.mark.parametrize("f,h", [(6, 113), (6, 128), (9, 111), (6, 256), (142, 64), (6, 1100)])
+def test_plan_takes_shapes_past_a_blocks_shared_memory(f, h, backward):
+    """Shapes whose weights pass a block's 227 KB at the launchers' first
+    choice of batch-row groups: the plan takes each, in the shared-memory
+    layout with fewer groups where that fits, else with the weights through
+    L2, and never asks for more than a block's shared memory.  The launcher
+    then gets past the plan to the device check."""
+    p = lk.plan(32, f, h, backward)
+    assert p.layout in lk.LAYOUTS
+    assert 0 <= p.smem <= lk.MAX_SHARED_BYTES
+    threads = lk.MAX_THREADS if p.layout == "smem" else lk.L2_THREADS
+    assert p.span * p.groups <= threads and p.span * -(-h // p.span) >= h
+    if p.layout == "smem":
+        assert p.span == h and p.smem == lk._shared_bytes(f, h, p.groups * lk.ROWS, backward)
+    else:
+        assert h > 112
+    assert _plan_before(32, f, h, True) is None       # the pair could not train it
+    args = [_t(a) for a in _inputs(1, 2, 4, f, h, 0)]
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         if backward:
-            h_seq = torch.zeros(1, 3, 4, 128)
+            h_seq = torch.zeros(1, 3, 4, h)
             lk.lstm_seq_backward_cuda(args[0], h_seq, h_seq, *args[3:], args[1], args[2])
         else:
             lk.lstm_seq_cuda(*args)
 
 
+def test_plan_keeps_every_shape_that_fit_before():
+    """Every shape the shared-memory layout took before keeps its layout,
+    groups and shared memory, so it runs the same launch; past it, fewer
+    groups, then the weights through L2 (its state in shared memory, then
+    the backward's dgates tile in the output, then the state in a scratch
+    buffer)."""
+    for batch in (1, 5, 32, 45):
+        for f in (1, 3, 6, 9, 141):
+            for h in range(1, 131):
+                for backward in (False, True):
+                    before = _plan_before(batch, f, h, backward)
+                    if before is not None:
+                        p = lk.plan(batch, f, h, backward)
+                        assert (p.layout, p.groups, p.smem) == ("smem",) + before
+    assert lk.plan(32, 6, 113, True)[:3] == ("smem", 1, 226_528)
+    assert lk.plan(32, 6, 2100, True).mode == lk.DGATES_OUT
+    big = lk.plan(32, 6, 5000, True)
+    assert big.mode == lk.STATE_GLOBAL | lk.DGATES_OUT and big.smem == 0 and big.state > 0
+    assert lk.plan(32, 6, 64, _layout="l2").layout == "l2"
+    with pytest.raises(ValueError, match="shared memory"):
+        lk.plan(32, 6, 128, _layout="smem")
+
+
 def test_plan_fills_the_fleet_grid_and_matches_the_stated_layout():
     """At H = 64 a block is 4 x 64 threads over a 16-row batch tile (the
     fleet's 64 lanes x B = 32 give 128 blocks); the weights take 71.7 KB."""
-    groups, smem = lk.plan(32, 6, 64)
-    assert groups * lk.ROWS == 16
-    assert 70 * 257 * 4 < smem < 96 * 1024
-    assert lk.plan(1, 6, 64)[0] == 1                 # B = 1: a 4-row tile
-    assert lk.plan(45, 3, 5)[0] * 5 <= lk.THREADS
+    p = lk.plan(32, 6, 64)
+    assert p.layout == "smem" and p.groups * lk.ROWS == 16
+    assert 70 * 257 * 4 < p.smem < 96 * 1024
+    assert lk.plan(1, 6, 64).groups == 1                 # B = 1: a 4-row tile
+    assert lk.plan(45, 3, 5).groups * 5 <= lk.THREADS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,t,b,f,h", [(2, 8, 32, 6, 64), (1, 4, 5, 6, 112),
+                                           (3, 3, 33, 5, 40)])
+def test_the_two_layouts_agree_bit_for_bit_on_the_card(lanes, t, b, f, h):
+    """On shapes the shared-memory layout holds, the weights-through-L2
+    layout (forced) gives its bits: every saved state, dgates, dh0, dc0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    args = [_t(a).to(dev) for a in _inputs(lanes, t, b, f, h, 41)]
+    g = torch.Generator().manual_seed(2)
+    dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) for _ in range(2))
+    outs = {}
+    for layout in ("smem", "l2"):
+        assert lk.plan(b, f, h, _layout=layout).layout == layout
+        hs, cs = lk.lstm_seq_cuda(*args, save=True, _layout=layout)
+        back = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _layout=layout)
+        outs[layout] = [o.view(torch.int32) for o in (hs, cs, *back)]
+    torch.cuda.synchronize()
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), *outs.values()):
+        assert torch.equal(a, c), name
 
 
 def test_launchers_reject_cpu_tensors():

@@ -24,6 +24,8 @@ from repro_torch.kernels.robust import ops as tops  # noqa: E402
 from repro_torch.kernels.robust import ref as tref  # noqa: E402
 
 SHAPES = [(1, 3, 17), (4, 5, 2048), (8, 4, 3001), (16, 6, 777)]
+# past the 16 contributors of the card's templated column bodies
+WIDE_SHAPES = [(2, 17, 300), (3, 24, 513), (2, 33, 257)]
 # sums over N in another order than XLA's: fp32 rounding only (the
 # reference's own Pallas-vs-oracle tolerance)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -59,7 +61,7 @@ _PAIRS = {
 
 
 @pytest.mark.parametrize("stat", list(_PAIRS))
-@pytest.mark.parametrize("r,n,l", SHAPES)
+@pytest.mark.parametrize("r,n,l", SHAPES + WIDE_SHAPES)
 def test_column_twins_match_pallas_and_oracle(stat, r, n, l):
     pallas, oracle, twin = _PAIRS[stat]
     u, w = _world(r, n, l)
@@ -145,10 +147,11 @@ def test_median_weights_gate_activity_only():
     assert tops.median_flat_batched(u, torch.zeros(1, 4)).tolist() == [[0.0]]
 
 
-@pytest.mark.parametrize("n", range(1, 17))
+@pytest.mark.parametrize("n", [*range(1, 17), 17, 24, 33])
 def test_column_twins_at_every_active_count(n):
-    """N = 1 .. 16 with every number of active contributors, against the
-    jnp oracles: the (m - 1) // 2 and m // 2 ranks, the <= 2 fallback."""
+    """N = 1 .. 16, 17, 24 and 33 with every number of active
+    contributors, against the jnp oracles: the (m - 1) // 2 and m // 2
+    ranks, the <= 2 fallback."""
     rng = np.random.default_rng(n)
     u = rng.normal(size=(n + 1, n, 33)).astype(np.float32)
     w = np.zeros((n + 1, n), np.float32)
@@ -279,13 +282,17 @@ def test_cpu_dispatch_runs_the_twins_without_launching():
     assert not any(counts.values())
 
 
-def test_robust_kernel_wrappers_reject_cpu_tensors():
-    u, w = torch.zeros(1, 3, 8), torch.ones(1, 3)
-    q, s = torch.zeros(1, 3, 1024, dtype=torch.int8), torch.ones(1, 3, 1)
+@pytest.mark.parametrize("n", [3, 17, 33])
+def test_robust_kernel_wrappers_reject_cpu_tensors(n):
+    """Any N reaches the device check (past 16 the run-time-N bodies)."""
+    u, w = torch.zeros(1, n, 8), torch.ones(1, n)
+    q, s = torch.zeros(1, n, 1024, dtype=torch.int8), torch.ones(1, n, 1)
     for call in (lambda: tkernel.trimmed_mean_cuda(u, w), lambda: tkernel.median_cuda(u, w),
                  lambda: tkernel.sqnorm_cuda(u), lambda: tkernel.trimmed_mean_q8_cuda(q, s, w),
                  lambda: tkernel.median_q8_cuda(q, s, w), lambda: tkernel.sqnorm_q8_cuda(q, s)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(ValueError, match="Lp % 1024"):
-        tkernel.sqnorm_q8_cuda(torch.zeros(1, 3, 1000, dtype=torch.int8), s)
+        tkernel.sqnorm_q8_cuda(torch.zeros(1, n, 1000, dtype=torch.int8), s)
+    with pytest.raises(ValueError, match="N >= 1"):
+        tkernel.median_cuda(torch.zeros(1, 0, 8), torch.ones(1, 0))

@@ -21,9 +21,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    within 1e-6 of the largest output at every N from 1 to 16, the squared
    norm within 1e-5 relative, each int8 robust kernel bit-equal to its
    dense kernel on the dequantized buffer; the second layouts: the LSTM
-   pair with its weights read through L2 bit-equal to the shared-memory
-   layout at H = 64 and 112 (forced) and within the pair's limits at
-   (64, 32, 6, 128) and (1, 32, 6, 256), T = 32, the robust columns'
+   pair with a lane's weights across a thread-block cluster and read
+   through L2, both bit-equal to the shared-memory layout at H = 64 and 112
+   (forced), the cluster bit-equal to the forced L2 layout and within the
+   pair's limits at (64, 32, 6, 128) and (1, 32, 6, 256), the L2 layout
+   within them at (1, 32, 6, 512), T = 32, the robust columns'
    run-time-N bodies within 1e-6 at N = 24 (the fleet's P) and 33, q8
    bit-equal to dense, and bit-equal to the templated bodies at every N
    from 1 to 16 with NaN, infinities and signed zeros; dequantize also bit-equal to
@@ -205,9 +207,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      hand-written kernel;
    - the second layouts' worlds, each card vs CPU: the quickstart world
      with ``LSTMClassifierConfig(hidden=128)`` (contributors pretrained 1
-     epoch; the LSTM pair reads its weights through L2), a 2-round loop
-     session within 1e-4 and a 4-requester fleet round within [4c]'s fp32
-     limit, rounds and stops equal; a HAR world of 25 devices with
+     epoch; the LSTM pair holds a lane's weights across a cluster), a
+     2-round loop session within 1e-4 and a 4-requester fleet round within
+     [4c]'s fp32 limit, rounds and stops equal; at ``hidden=512`` (past
+     the cluster's cap: the weights through L2) a 1-round loop session
+     from unpretrained contributors within 1e-4; a HAR world of 25 devices with
      ``n_max=24`` (the robust columns' run-time-N bodies) in [4d]'s
      Byzantine world at noise of scale 1 under the median and the trimmed
      mean, fp32 and int8: a loop round and a 4-requester fleet round,
@@ -223,7 +227,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (the dense trimmed mean and median also at the loop engine's R = 1), and the
    floor of one launch (dequantize of one element); the second layouts'
    rows, each held against its twin on its timed inputs: the LSTM pair
-   through L2 at (64, 32, 6, 128) and (1, 32, 6, 256), T = 32, beside
+   across a cluster at (64, 32, 6, 128) and (1, 32, 6, 256) (with the
+   plan's cluster size and bytes a block), through L2 at (1, 32, 6, 512),
+   T = 32, beside
    cuDNN at one lane, the run-time-N robust columns at (64, 24, P); then
    the host time of each piece of one launch;
 6. trace one fit epoch of the loop engine and one round of the 64-requester
@@ -239,6 +245,7 @@ It imports only ``repro_torch`` (no JAX) and needs one CUDA device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -992,11 +999,19 @@ def check_robust(dev, n_params, n_contrib):
     return errs
 
 
-# the second layouts' shapes: the LSTM pair with its weights through L2 at the
-# hidden=128 world's fleet fit and at one lane of H = 256 (name, L, B, F, H,
-# T); the robust columns' run-time-N bodies at the n_max=24 world's (R, 24,
-# P) and at N = 33
-LSTM_L2_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 256, 32))
+# the second layouts' shapes (name, L, B, F, H, T): the LSTM pair with a
+# lane's weights across a cluster at the hidden=128 world's fleet fit and at
+# one lane of H = 256, with its weights through L2 past the cluster's cap at
+# one lane of H = 512 (the hidden=512 world's fit); the robust columns'
+# run-time-N bodies at the n_max=24 world's (R, 24, P) and at N = 33
+LSTM_CLUSTER_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 256, 32))
+# every shape [4o]'s hidden=128 paths launch the pair at (its cluster plans:
+# C = 16 at these lane counts): the fit batch and the evaluation's whole
+# test split, at the loop's one lane and the R = 4 fleet's four; [4o] fails
+# if its paths launch another
+LSTM_O_SHAPES = (("H=128 loop fit", 1, 32, 6, 128, 32), ("H=128 loop eval", 1, 45, 6, 128, 32),
+                 ("H=128 R=4 fit", 4, 32, 6, 128, 32), ("H=128 R=4 eval", 4, 56, 6, 128, 32))
+LSTM_L2_SHAPES = (("H=512", 1, 32, 6, 512, 32),)
 WIDE_N = 24
 
 
@@ -1015,11 +1030,11 @@ def lstm_views(g, dev, lanes, b, f, h, t):
     return x, h0, c0, w, dh, dc
 
 
-def lstm_l2_errors(name, x, h0, c0, w, dh, dc):
+def lstm_wide_errors(name, layout, x, h0, c0, w, dh, dc):
     """The LSTM pair at one shape against the twins, forward within 1e-5
     (every saved state) and backward within 1e-4 of each output's largest
     value (dgates, dh0, dc0 and the weight gradients the wrapper forms);
-    fails unless both kernels ran the weights-through-L2 layout.  Returns
+    fails unless both kernels ran ``layout`` ("cluster" or "l2").  Returns
     the forward's and the backward's largest abs errors."""
     from repro_torch import kernels
     from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
@@ -1032,12 +1047,12 @@ def lstm_l2_errors(name, x, h0, c0, w, dh, dc):
     full = lstm_seq_backward(x, hs, cs, *w, dh, dc, need_dx=False)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in kernels.layout_counts().items()}
-    if not (moved["lstm_cell_l2"] == 1 and moved["lstm_cell_bwd_l2"] == 2):
-        fail(f"lstm_seq {name}: the weights-through-L2 layout did not run ({moved})")
+    if not (moved[f"lstm_cell_{layout}"] == 1 and moved[f"lstm_cell_bwd_{layout}"] == 2):
+        fail(f"lstm_seq {name}: the {layout} layout did not run ({moved})")
     hr, cr = lstm_seq_ref(x, h0, c0, *w)
     ferr = max(float((hs - hr).abs().max()), float((cs - cr).abs().max()))
     if not ferr <= 1e-5:
-        fail(f"lstm_seq l2 forward {name}: max abs err {ferr}")
+        fail(f"lstm_seq {layout} forward {name}: max abs err {ferr}")
     want = lstm_seq_backward_ref(x, hs, cs, *w, dh, dc)
     berr, parts = 0.0, []
     for out, got, ref in zip(("dgates", "dh0", "dc0", "dwx", "dwh", "db"),
@@ -1045,10 +1060,10 @@ def lstm_l2_errors(name, x, h0, c0, w, dh, dc):
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         if not err <= 1e-4 * scale:
-            fail(f"lstm_seq l2 backward {name} {out}: max abs err {err} (largest {scale})")
+            fail(f"lstm_seq {layout} backward {name} {out}: max abs err {err} (largest {scale})")
         parts.append(f"{out} {err:.2e}/{scale:.2e}")
         berr = max(berr, err)
-    print(f"  lstm_seq l2 {name} L,B,F,H,T={x.shape[0]},{x.shape[2]},{x.shape[3]},"
+    print(f"  lstm_seq {layout} {name} L,B,F,H,T={x.shape[0]},{x.shape[2]},{x.shape[3]},"
           f"{h0.shape[2]},{x.shape[1]}: forward max abs err {ferr:.3e}; backward err/largest "
           + ", ".join(parts))
     return ferr, berr
@@ -1063,11 +1078,14 @@ def special_values(x, g):
 
 
 def check_second_layouts(dev, n_params):
-    """The LSTM pair's weights-through-L2 layout and the robust columns'
-    run-time-N bodies against the twins and against the first layouts:
-    the forced L2 layout bit-equal to the shared-memory one at H = 64 (the
-    fleet's fit) and H = 112; the L2 layout at LSTM_L2_SHAPES within the
-    pair's limits; the run-time-N trimmed mean and median at (64, 24, P)
+    """The LSTM pair's cluster and weights-through-L2 layouts and the
+    robust columns' run-time-N bodies against the twins and against the
+    first layouts: the forced L2 and cluster layouts bit-equal to the
+    shared-memory one at H = 64 (the fleet's fit) and H = 112; the cluster
+    layout at LSTM_CLUSTER_SHAPES and at LSTM_O_SHAPES (every launch of
+    [4o]'s hidden=128 paths) bit-equal to the forced L2 one and within the
+    pair's limits, the L2 layout within them at LSTM_L2_SHAPES; the
+    run-time-N trimmed mean and median at (64, 24, P)
     and (5, 33, 4,099), dense and q8, within 1e-6 of the largest output
     on the edge rows of :func:`check_robust` (an inactive lane, an
     all-zero row, one and two active, ties, an outlier), each q8 form
@@ -1075,30 +1093,50 @@ def check_second_layouts(dev, n_params):
     run-time-N bodies bit-equal to the templated ones at every N from 1
     to 16, NaN, infinities and signed zeros included.  Returns the largest
     errors under the kernel table's names."""
-    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    from repro_torch.kernels.lstm_cell.kernel import (device_sms, lstm_seq_backward_cuda,
+                                                      lstm_seq_cuda, plan)
     from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
 
     g = torch.Generator().manual_seed(31)
     errs = {}
+    def bits(x, h0, c0, w, dh, dc, layout):
+        lanes, _, b, f = x.shape
+        fwd, bwd = (plan(b, f, h0.shape[-1], backward, lanes=lanes, sms=device_sms(dev),
+                         _layout=layout) for backward in (False, True))
+        hs, cs = lstm_seq_cuda(x, h0, c0, *w, save=True, _plan=fwd)
+        back = lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc, _plan=bwd)
+        return [o.view(torch.int32) for o in (hs, cs, *back)]
+
     for lanes, b, f, h, t in ((FLEET_R, 32, 6, 64, 32), (4, 32, 6, 112, 8)):
-        x, h0, c0, w, dh, dc = lstm_views(g, dev, lanes, b, f, h, t)
-        outs = []
-        for layout in ("smem", "l2"):
-            hs, cs = lstm_seq_cuda(x, h0, c0, *w, save=True, _layout=layout)
-            back = lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc, _layout=layout)
-            outs.append([o.view(torch.int32) for o in (hs, cs, *back)])
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, c) for a, c in zip(*outs)):
-            fail(f"lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the L2 layout differs from "
-                 "the shared-memory one")
-        print(f"  lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the weights-through-L2 layout "
-              "(forced) bit-equal to the shared-memory one (states, dgates, dh0, dc0)")
-    for name, lanes, b, f, h, t in LSTM_L2_SHAPES:
-        ferr, berr = lstm_l2_errors(name, *lstm_views(g, dev, lanes, b, f, h, t))
+        args = lstm_views(g, dev, lanes, b, f, h, t)
+        want = bits(*args, "smem")
+        for layout in ("l2", "cluster"):
+            got = bits(*args, layout)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, want)):
+                fail(f"lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the {layout} layout differs "
+                     "from the shared-memory one")
+        print(f"  lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the weights-through-L2 and the "
+              "cluster layouts (forced) bit-equal to the shared-memory one (states, dgates, "
+              "dh0, dc0)")
+    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_O_SHAPES + LSTM_L2_SHAPES:
+        args = lstm_views(g, dev, lanes, b, f, h, t)
+        fwd, bwd = (plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
+                    for backward in (False, True))
+        layout = bwd.layout
+        if layout == "cluster":
+            if not all(torch.equal(a, c) for a, c in zip(bits(*args, None), bits(*args, "l2"))):
+                fail(f"lstm_seq {name}: the cluster layout differs from the forced L2 one")
+            print(f"  lstm_seq {name} L,B={lanes},{b}: the cluster layout (C = {fwd.cluster} "
+                  f"forward, {bwd.cluster} backward) bit-equal to the weights-through-L2 one "
+                  "(forced)")
+        ferr, berr = lstm_wide_errors(name, layout, *args)
         suffix = "" if h == 128 else f"_h{h}"
-        errs["lstm_cell_l2" + suffix], errs["lstm_cell_bwd_l2" + suffix] = ferr, berr
+        for key, err in ((f"lstm_cell_{layout}" + suffix, ferr),
+                         (f"lstm_cell_bwd_{layout}" + suffix, berr)):
+            errs[key] = max(errs.get(key, 0.0), err)
 
     columns = (("trimmed_mean", rk.trimmed_mean_cuda, rk.trimmed_mean_q8_cuda,
                 rr.trimmed_mean_batched_ref),
@@ -1649,7 +1687,8 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 # phase 4o: the worlds that need the second layouts
 # ---------------------------------------------------------------------------
 
-O_HIDDEN = 128          # the quickstart world's LSTM at H = 128: weights through L2
+O_HIDDEN = 128          # the quickstart world's LSTM at H = 128: weights across a cluster
+O_WIDE_HIDDEN = 512     # and at H = 512, past the cluster's cap: weights through L2
 O_N_MAX = 24            # the HAR world of 25 devices: 24 contributors a round
 O_EPOCHS = 1            # fit epochs a round in [4o], [4]'s 8 cut for time; no
                         # contributor refresh (its CPU side was most of [4o]'s wall)
@@ -1682,6 +1721,47 @@ def o_loop_diff(card, host):
 
     return max(float((a.cpu() - b).abs().max())
                for a, b in zip(tree_leaves(card.params), tree_leaves(host.params)))
+
+
+@contextlib.contextmanager
+def lstm_launch_shapes():
+    """Counts the LSTM pair's launches through ``kernels/lstm_cell/ops.py``
+    while the block runs, by (L, B, F, H, T, backward)."""
+    from repro_torch.kernels.lstm_cell import ops
+
+    seen = collections.Counter()
+    inner = ops.lstm_seq_cuda, ops.lstm_seq_backward_cuda
+
+    def record(fn, backward):
+        def launch(x_seq, states, *args, **kw):
+            lanes, t, b, f = x_seq.shape
+            seen[(lanes, b, f, states.shape[-1], t, backward)] += 1
+            return fn(x_seq, states, *args, **kw)
+        return launch
+
+    ops.lstm_seq_cuda, ops.lstm_seq_backward_cuda = record(inner[0], False), record(inner[1], True)
+    try:
+        yield seen
+    finally:
+        ops.lstm_seq_cuda, ops.lstm_seq_backward_cuda = inner
+
+
+def o_held(tag, seen, layout):
+    """Fails unless every launch of the pair on a [4o] path (``seen``) was
+    recorded, and was at a shape of LSTM_O_SHAPES, which [3] held against
+    the twins and the forced L2 layout."""
+    fwd = sum(n for k, n in seen.items() if not k[-1])
+    if (fwd, sum(seen.values()) - fwd) != (layout["lstm_cell_cluster"],
+                                          layout["lstm_cell_bwd_cluster"]):
+        fail(f"[4o] {tag}: {dict(seen)} are not the path's cluster launches ({layout})")
+    held = {shape[1:] for shape in LSTM_O_SHAPES}
+    missed = sorted({k[:5] for k in seen} - held)
+    if missed:
+        fail(f"[4o] {tag}: launched the LSTM pair at {missed} (L, B, F, H, T), which [3] did not "
+             "hold: add them to LSTM_O_SHAPES")
+    print(f"    {tag}: every launch at a shape [3] held, (L, B) "
+          + ", ".join(f"{k[0]},{k[1]} {'bwd' if k[-1] else 'fwd'} x{n}"
+                      for k, n in sorted(seen.items())))
 
 
 def o_run(tag, device, run_card, run_host, need, layout_need):
@@ -1720,8 +1800,12 @@ def o_check(tag, diff, tol, same):
 
 def run_second_layouts(device, world, pretrained, limits):
     """[4o]: the quickstart world with ``LSTMClassifierConfig(hidden=128)``
-    (the LSTM pair's weights through L2): a 2-round loop session and one
-    fleet round of 4 requesters, card vs CPU under [4]'s limits; then a HAR
+    (the LSTM pair holds a lane's weights across a thread-block cluster): a
+    2-round loop session and one fleet round of 4 requesters, card vs CPU
+    under [4]'s limits, each card launch of the pair at a shape that [3]
+    held (LSTM_O_SHAPES); at ``hidden=512`` (past the cluster's cap: the
+    weights through L2) a 1-round loop session whose contributors are
+    unpretrained, card vs CPU under [4a]'s limit; then a HAR
     world of 25 devices with ``n_max=24`` (the robust columns' run-time-N
     bodies) in [4d]'s Byzantine world (noise of scale 1: ``O_ADVERSARY``)
     under the median and the trimmed mean, fp32 and int8: one fleet round
@@ -1756,17 +1840,19 @@ def run_second_layouts(device, world, pretrained, limits):
           f"{time.perf_counter() - t0:.2f} s")
     world128 = (task, shards, own_train, own_test, fleet)
     lstm_need = ("lstm_cell", "lstm_cell_bwd")
-    l2_need = ("lstm_cell_l2", "lstm_cell_bwd_l2")
+    cluster_need = ("lstm_cell_cluster", "lstm_cell_bwd_cluster")
 
     def loop128(d, tk, pp):
         return lambda: EnFedSession(tk, own_train, own_test, fleet,
                                     contributor_states(pp, shards, fleet, d), o_cfg(2),
                                     device=d).run()
 
-    card, host, counts, layout = o_run(
-        f"H={O_HIDDEN} loop, 2 rounds of {O_EPOCHS} epochs", device,
-        loop128(device, task, pre), loop128(cpu, cpu_task, host_pre),
-        ("fedavg", "aes_ctr") + lstm_need, l2_need)
+    with lstm_launch_shapes() as seen:
+        card, host, counts, layout = o_run(
+            f"H={O_HIDDEN} loop, 2 rounds of {O_EPOCHS} epochs", device,
+            loop128(device, task, pre), loop128(cpu, cpu_task, host_pre),
+            ("fedavg", "aes_ctr") + lstm_need, cluster_need)
+    o_held(f"H={O_HIDDEN} loop", seen, layout)
     keep("loop", counts, layout)
     check_session(card, f"[4o] H={O_HIDDEN} loop")
     o_check(f"H={O_HIDDEN} loop", o_loop_diff(card, host), O_LOOP_TOL,
@@ -1775,14 +1861,38 @@ def run_second_layouts(device, world, pretrained, limits):
     def fleet128(d, tk, pp):
         return lambda: run_fleet(tk, fleet_specs(d, world128, pp, 4), o_cfg(1), device=d)
 
-    card, host, counts, layout = o_run(
-        f"H={O_HIDDEN} fleet R=4, 1 round of {O_EPOCHS} epochs", device,
-        fleet128(device, task, pre), fleet128(cpu, cpu_task, host_pre), ("fedavg",) + lstm_need,
-        l2_need)
+    with lstm_launch_shapes() as seen:
+        card, host, counts, layout = o_run(
+            f"H={O_HIDDEN} fleet R=4, 1 round of {O_EPOCHS} epochs", device,
+            fleet128(device, task, pre), fleet128(cpu, cpu_task, host_pre),
+            ("fedavg",) + lstm_need, cluster_need)
+    o_held(f"H={O_HIDDEN} fleet R=4", seen, layout)
     keep("fleet", counts, layout)
     o_check(f"H={O_HIDDEN} fleet R=4", float((o_lanes(card) - o_lanes(host)).abs().max()),
             limits["fp32"], {"stop codes": np.array_equal(card.stop_codes, host.stop_codes),
                              "rounds": np.array_equal(card.rounds, host.rounds)})
+
+    # the quickstart world at H = 512, the contributors' params at their init
+    cfg512 = dataclasses.replace(task0.model.cfg, hidden=O_WIDE_HIDDEN)
+    task512 = SupervisedTask(LSTMClassifier(cfg512, device=device), lr=task0.lr)
+    cpu_task512 = SupervisedTask(LSTMClassifier(cfg512, device=cpu), lr=task0.lr)
+    watch(task512.model)
+    pre512 = [task512.init(seed=20 + i) for i in range(len(fleet))]
+    host_pre512 = [tree_map(lambda t: t.cpu(), p) for p in pre512]
+
+    def loop512(d, tk, pp):
+        return lambda: EnFedSession(tk, own_train, own_test, fleet,
+                                    contributor_states(pp, shards, fleet, d), o_cfg(1),
+                                    device=d).run()
+
+    card, host, counts, layout = o_run(
+        f"H={O_WIDE_HIDDEN} loop, 1 round of {O_EPOCHS} epoch", device,
+        loop512(device, task512, pre512), loop512(cpu, cpu_task512, host_pre512),
+        ("fedavg", "aes_ctr") + lstm_need, ("lstm_cell_l2", "lstm_cell_bwd_l2"))
+    keep("loop", counts, layout)
+    check_session(card, f"[4o] H={O_WIDE_HIDDEN} loop")
+    o_check(f"H={O_WIDE_HIDDEN} loop", o_loop_diff(card, host), O_LOOP_TOL,
+            {"rounds": card.rounds == host.rounds, "stop": card.stop_reason == host.stop_reason})
 
     # the HAR world of 25 devices: the requester and 24 contributors
     x, y, _ = make_har_windows(HARDatasetConfig(num_samples=200 * (O_N_MAX + 1), seq_len=32))
@@ -4917,17 +5027,21 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
 
 
 def time_second_layouts(dev, counts, errs, n_params, flush):
-    """The second layouts' rows: the LSTM pair with its weights through L2
-    at LSTM_L2_SHAPES (the hidden=128 world's fleet fit, one lane at H =
-    256), beside cuDNN's ``torch.lstm`` at one lane (for the 64-lane row
-    in its note); the robust columns' run-time-N bodies at the n_max=24
-    world's (64, 24, P) fp32 and (64, 24, Lp) int8, beside
-    ``torch.nanquantile`` + ``where`` for the dense median.  Each is held
-    against its twin on the timed inputs here (the LSTM forward within
-    1e-5, its backward within 1e-4 of the largest value, the columns
-    within 1e-6 of the largest output, the q8 forms bit-equal to dense on
-    the dequantized buffer).  Every row is timed warm and cold."""
-    from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
+    """The second layouts' rows: the LSTM pair with a lane's weights
+    across a cluster at LSTM_CLUSTER_SHAPES (the hidden=128 world's fleet
+    fit, one lane at H = 256) and through L2 at LSTM_L2_SHAPES (one lane at
+    H = 512), beside cuDNN's ``torch.lstm`` at one lane (for the 64-lane
+    row in its note), with the plan's cluster size and bytes per block
+    (``kernel_bench.py --lstm-plans`` times every plan that fits); the
+    robust columns' run-time-N bodies at the n_max=24 world's (64, 24,
+    P) fp32 and (64, 24, Lp) int8, beside ``torch.nanquantile`` + ``where``
+    for the dense median.  Each is held against its twin on the timed
+    inputs here (the LSTM forward within 1e-5, its backward within 1e-4 of
+    the largest value, the columns within 1e-6 of the largest output, the
+    q8 forms bit-equal to dense on the dequantized buffer).  Every row is
+    timed warm and cold."""
+    from repro_torch.kernels.lstm_cell.kernel import (DGATES_OUT, device_sms,
+                                                      lstm_seq_backward_cuda, lstm_seq_cuda, plan)
     from repro_torch.kernels.lstm_cell.ops import lstm_seq_backward_cost, lstm_seq_cost
     from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
     from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
@@ -4938,8 +5052,11 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
     g = torch.Generator().manual_seed(32)
     src = "src/repro_torch/csrc/lstm_cell.cu"
     rows = []
-    for name, lanes, b, f, h, t in LSTM_L2_SHAPES:
+    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_L2_SHAPES:
         x, h0, c0, w, dh, dc = lstm_views(g, dev, lanes, b, f, h, t)
+        plans = tuple(plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
+                      for backward in (False, True))
+        layout = plans[1].layout
         hs, cs = lstm_seq_cuda(x, h0, c0, *w, save=True)
         hr, cr = lstm_seq_ref(x, h0, c0, *w)
         ferr = max(float((hs - hr).abs().max()), float((cs - cr).abs().max()))
@@ -4947,7 +5064,7 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
         want = lstm_seq_backward_ref(x, hs, cs, *w, dh, dc)
         rel = max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(back, want))
         if not (ferr <= 1e-5 and rel <= 1e-4):
-            fail(f"[5] lstm_seq l2 {name}: forward max abs err {ferr}, backward rel {rel}")
+            fail(f"[5] lstm_seq {layout} {name}: forward max abs err {ferr}, backward rel {rel}")
 
         def fwd():
             return lstm_seq_cuda(x, h0, c0, *w, save=True)
@@ -4963,25 +5080,32 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
         cudnn_note = (f" (cuDNN at one lane, L,B,F,H,T=1,{b},{f},{h},{t}: forward "
                       f"{lib_fwd:.5f}, backward {lib_bwd:.5f} ms; its h_T differs by "
                       f"{lib_diff:.3e})")
-        for kname, kern, plain, cost, ker, lib in (
-                ("lstm_cell_l2", fwd, lambda: lstm_seq_ref(x, h0, c0, *w),
-                 lstm_seq_cost(lanes, b, f, h, t, save=True), "lstm_seq_fwd_l2_kernel", lib_fwd),
-                ("lstm_cell_bwd_l2", bwd, lambda: lstm_seq_backward_ref(x, hs, cs, *w, dh, dc),
-                 lstm_seq_backward_cost(lanes, b, f, h, t), "lstm_seq_bwd_l2_kernel", lib_bwd)):
+        for kname, kern, plain, cost, lib, p in (
+                (f"lstm_cell_{layout}", fwd, lambda: lstm_seq_ref(x, h0, c0, *w),
+                 lstm_seq_cost(lanes, b, f, h, t, save=True), lib_fwd, plans[0]),
+                (f"lstm_cell_bwd_{layout}", bwd,
+                 lambda: lstm_seq_backward_ref(x, hs, cs, *w, dh, dc),
+                 lstm_seq_backward_cost(lanes, b, f, h, t), lib_bwd, plans[1])):
             b_ms, b_by = cost_bound(cost)
-            what = "forward, states saved" if kname == "lstm_cell_l2" else "backward"
+            backward = "bwd" in kname
+            ker = f"lstm_seq_{'bwd' if backward else 'fwd'}_{layout}_kernel"
+            if layout == "cluster":
+                how = (f"cluster of {p.cluster} blocks, {p.smem:,} B a block"
+                       + ("; dgates through the output" if p.mode & DGATES_OUT else ""))
+            else:
+                how = f"weights through L2, {p.smem:,} B a block"
             rows.append(dict(
                 name=kname + suffix, route="cuda", source=src,
-                replaces=("src/repro/kernels/lstm_cell/kernel.py:66" if kname == "lstm_cell_l2"
-                          else "src/repro/kernels/lstm_cell/kernel.py:66 (its VJP, by XLA "
-                               "autodiff in the reference)"),
+                replaces=("src/repro/kernels/lstm_cell/kernel.py:66 (its VJP, by XLA autodiff "
+                          "in the reference)" if backward
+                          else "src/repro/kernels/lstm_cell/kernel.py:66"),
                 device_us=device_us(kern, ker), device_us_cold=device_us(kern, ker, flush=flush),
                 host_us=host_us(kern, calls=200, burst=20), launches=counts[kname],
-                max_abs_err=errs.get(kname + suffix, ferr if kname == "lstm_cell_l2" else rel),
+                max_abs_err=errs.get(kname + suffix, rel if backward else ferr),
                 ms=cuda_ms(kern, iters=50, warmup=5), plain_ms=cuda_ms(plain, iters=10, warmup=2),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib if one_lane else None,
                 library_note="" if one_lane else cudnn_note,
-                shape=f"{shape} ({what}; weights through L2)"))
+                shape=f"{shape} ({'backward' if backward else 'forward, states saved'}; {how})"))
 
     r, n, l = FLEET_R, WIDE_N, n_params
     lp = l + (-l) % TILE
@@ -5377,8 +5501,8 @@ def main() -> int:
                                                     fleet_score_b, cfg.seq_len)
     errs["lstm_cell"] = max(errs["lstm_cell"], seq_fwd)
     errs.update(check_robust(dev, n_params, n_contrib))
-    print("  the second layouts (the LSTM pair's weights through L2, the robust columns' "
-          "run-time N)")
+    print("  the second layouts (the LSTM pair's weights across a cluster and through L2, the "
+          "robust columns' run-time N)")
     errs.update(check_second_layouts(dev, n_params))
     print("  the paper-table twins' shapes (benchmarks/_torch_harness.py)")
     table = check_table_shapes(dev, scenarios)
@@ -5454,7 +5578,8 @@ def main() -> int:
     t_mesh = time.perf_counter()
     run_mesh(dev)
     print(f"  [4n] wall {time.perf_counter() - t_mesh:.1f} s")
-    print(f" [4o] the second layouts' worlds: hidden={O_HIDDEN} (weights through L2), "
+    print(f" [4o] the second layouts' worlds: hidden={O_HIDDEN} (weights across a cluster), "
+          f"hidden={O_WIDE_HIDDEN} (weights through L2), "
           f"n_max={O_N_MAX} under the median and the trimmed mean (run-time N), card vs CPU")
     t_o = time.perf_counter()
     o_loop, o_fleet, o_layouts = run_second_layouts(dev, world, pretrained, limits)

@@ -2,6 +2,18 @@
 of ``chip_smoke.py`` does, for the package in any source tree.
 
     python3 kernel_bench.py [--src DIR] [--label NAME] [--out FILE]
+    python3 kernel_bench.py --lstm-plans
+    python3 kernel_bench.py [--src DIR] [--label NAME] --lstm "L,B,F,H,T;..."
+
+``--lstm-plans`` times instead the LSTM pair of this checkout at
+``chip_smoke.LSTM_CLUSTER_SHAPES`` under every cluster plan that fits
+(``kernels/lstm_cell/kernel.py::cluster_plans`` at each cluster size,
+with batch-row groups 8, 4, 2 or 1) and under the weights-through-L2
+layout, each checked bit-equal to the planned launch: what the rule of
+``kernels/lstm_cell/kernel.py::plan`` is read against.  ``--lstm`` times
+only the LSTM pair (the forward saving its states, the backward; device ms
+and host us a call) of the tree in ``DIR`` at the given shapes, through its
+public wrappers, so that two versions compare in one run on one card.
 
 ``DIR`` (default: ``src`` of this checkout) is the directory that holds
 ``repro_torch``; its kernels are built from its own ``csrc`` into the
@@ -37,11 +49,21 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--lstm-plans", action="store_true")
+    ap.add_argument("--lstm", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.lstm_plans:
+        sys.path.insert(0, str(ROOT / "src"))
+        print(f"kernel_bench --lstm-plans: {chip_smoke.nvidia_smi_line()}")
+        lstm_plans(torch.device("cuda"))
+        return 0
     sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.lstm:
+        lstm_shapes(torch.device("cuda"), args.label, args.lstm)
+        return 0
     from repro_torch.core import SupervisedTask
     from repro_torch.kernels import _build
     from repro_torch.models import LSTMClassifier, LSTMClassifierConfig
@@ -65,6 +87,62 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
+
+
+def lstm_shapes(dev, label: str, shapes: str) -> None:
+    """The LSTM pair's ms (CUDA events, 30 calls after 3) at each shape
+    "L,B,F,H,T" of ``shapes`` (";"-separated), on chip_smoke's inputs, and
+    the host's microseconds to enqueue one call (``chip_smoke.host_us``,
+    200 calls) where a call takes under 10 ms."""
+    from repro_torch.kernels.lstm_cell import kernel as lk
+
+    smi = chip_smoke.nvidia_smi_line()
+    for shape in shapes.split(";"):
+        lanes, b, f, h, t = (int(v) for v in shape.split(","))
+        g = torch.Generator().manual_seed(34)
+        x, h0, c0, w, dh, dc = chip_smoke.lstm_views(g, dev, lanes, b, f, h, t)
+        hs, cs = lk.lstm_seq_cuda(x, h0, c0, *w, save=True)
+        parts = []
+        for kind, run in (("forward", lambda: lk.lstm_seq_cuda(x, h0, c0, *w, save=True)),
+                          ("backward", lambda: lk.lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc))):
+            ms = chip_smoke.cuda_ms(run, iters=30, warmup=3)
+            host = (f"host {chip_smoke.host_us(run, calls=200, burst=20):.3f} us"
+                    if ms < 10 else "host not measured")
+            parts.append(f"{kind} {ms:.5f} ms ({host})")
+        print(f"  lstm [{label}] L,B,F,H,T={shape}: " + ", ".join(parts) + f" ({smi})")
+
+
+def lstm_plans(dev) -> None:
+    """The LSTM pair's ms (CUDA events, 10 calls after 2) at each wide
+    shape under each plan that fits, the chosen plan marked."""
+    from repro_torch.kernels.lstm_cell import kernel as lk
+
+    g = torch.Generator().manual_seed(33)
+    for name, lanes, b, f, h, t in chip_smoke.LSTM_CLUSTER_SHAPES:
+        x, h0, c0, w, dh, dc = chip_smoke.lstm_views(g, dev, lanes, b, f, h, t)
+        hs, cs = lk.lstm_seq_cuda(x, h0, c0, *w, save=True)
+        runs = {False: lambda p: lk.lstm_seq_cuda(x, h0, c0, *w, save=True, _plan=p),
+                True: lambda p: lk.lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc, _plan=p)}
+        for backward, run in runs.items():
+            chosen = lk.plan(b, f, h, backward, lanes=lanes, sms=lk.device_sms(dev))
+            want = [o.view(torch.int32).clone() for o in run(chosen)]
+            plans = [p for c in lk.CLUSTERS for p in lk.cluster_plans(b, f, h, c, backward)
+                     if p.groups & (p.groups - 1) == 0]
+            plans.append(lk.plan(b, f, h, backward, lanes=lanes, _layout="l2"))
+            parts = []
+            for p in plans:
+                got = run(p)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a.view(torch.int32), c) for a, c in zip(got, want)):
+                    raise SystemExit(f"lstm {name}: plan {p} differs from the chosen plan's bits")
+                ms = chip_smoke.cuda_ms(lambda: run(p), iters=10, warmup=2)
+                what = ("L2" if p.layout == "l2" else
+                        f"C={p.cluster} tile {p.groups * lk.ROWS}"
+                        + (" out" if p.mode & lk.DGATES_OUT else "") + f" {p.smem:,} B")
+                parts.append(f"{what}{'*' if p == chosen else ''} {ms:.5f}")
+            print(f"  lstm {'backward' if backward else 'forward'} {name} L,B,F,H,T={lanes},{b},"
+                  f"{f},{h},{t} (ms; * the plan's, every plan bit-equal to it): "
+                  + "; ".join(parts))
 
 
 if __name__ == "__main__":

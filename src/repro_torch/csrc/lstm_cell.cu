@@ -34,54 +34,98 @@
 // what stands in the way: step t + 1 needs all of h_t, so a block can only
 // run its batch tile's T steps one after another.
 //
-// Design: grid (ceil(B / Bt), L), no grid axis over time: the T steps are a
-// loop inside the block.  Lanes past 65,535 go in further launches
-// (loaders.cuh's over_grid_y).
-// Two layouts of the weights, chosen per shape by the wrapper's plan:
+// Design: no grid axis over time: the T steps are a loop inside the block
+// (or the cluster).  Lanes past 65,535 go in further launches (loaders.cuh's
+// over_grid_y).  Three layouts of the weights, chosen per shape by the
+// wrapper's plan in this order:
 //
-// Shared memory (lstm_seq_{fwd,bwd}_kernel).  The block stages its lane's
-// [wx; wh] and b in dynamic shared memory once, with a row stride of 4H + 1
-// floats: the forward reads a fixed k at consecutive gate columns, the
-// backward's dh = dgates wh^T a fixed column at consecutive k, and both are
-// free of bank conflicts.  A block is H x G threads; thread (j, grp) owns
-// output column j of batch rows grp + G r, r < kRows, for all four gates,
-// so its c (and in the backward its dh and dc) stay in registers for all T
-// steps.  The tile's h_t lives in shared memory (double-buffered in the
-// forward, one __syncthreads a step; the backward stages h_t from h_seq and
-// keeps the step's dgates tile there, two __syncthreads a step).  A lane's
-// weights at F = 6, H = 64 take 71.7 KB; the plan tries fewer groups G
-// (down to a 4-row tile) before it leaves this layout, which holds up to
-// H = 114 at F = 6 (H = 115 in the forward).  The saved states of the
-// fleet's fit (64 lanes, B = 32, T = 32) are 2 x 33 x 64 x 32 x 64 x 4 B
-// ~ 35 MB, and its dgates ~ 67 MB: small beside 80 GB.
+// Shared memory (lstm_seq_{fwd,bwd}_kernel), grid (ceil(B / Bt), L).  The
+// block stages its lane's [wx; wh] and b in dynamic shared memory once, with
+// a row stride of 4H + 1 floats: the forward reads a fixed k at consecutive
+// gate columns, the backward's dh = dgates wh^T a fixed column at
+// consecutive k, and both are free of bank conflicts.  A block is H x G
+// threads; thread (j, grp) owns output column j of batch rows grp + G r,
+// r < kRows, for all four gates, so its c (and in the backward its dh and
+// dc) stay in registers for all T steps.  The tile's h_t lives in shared
+// memory (double-buffered in the forward, one __syncthreads a step; the
+// backward stages h_t from h_seq and keeps the step's dgates tile there, two
+// __syncthreads a step).  A lane's weights at F = 6, H = 64 take 71.7 KB;
+// the plan tries fewer groups G (down to a 4-row tile) before it leaves
+// this layout, which holds up to H = 114 at F = 6 (H = 115 in the forward).
+// The saved states of the fleet's fit (64 lanes, B = 32, T = 32) are
+// 2 x 33 x 64 x 32 x 64 x 4 B ~ 35 MB, and its dgates ~ 67 MB: small
+// beside 80 GB.
+//
+// A lane's weights across a thread-block cluster
+// (lstm_seq_{fwd,bwd}_cluster_kernel), for the shapes past one block's
+// shared memory: up to H = 461 in the forward and H = 334 in the backward
+// at F = 6.  A lane and its batch tile run on a cluster of C blocks (2, 4,
+// 8 or 16; grid (C ceil(B / Bt), L), the cluster's size given at launch).
+// Block q owns the hidden units J_q = [q Hc, (q + 1) Hc), Hc = ceil(H / C),
+// and stages the four gate columns of each of them, of [wx; wh] and b, as
+// one float4 a unit and row: a warp's 32 units read a row in one
+// instruction where the one-block layout issues four.  Thread (j, grp) of
+// its Hc x G threads owns unit j of the one-block layout's rows and keeps c,
+// dh and dc in registers.  Each block keeps the whole tile's h_t.  The
+// forward writes each h_{t+1} into every block's next h tile through
+// distributed shared memory, and one cluster barrier a step takes the
+// place of the __syncthreads; the x-part of the next step's gates is summed
+// between the barrier's arrive and its wait, from an x tile copied by
+// cp.async a step ahead.  The backward recomputes its columns' gates from
+// h_seq (its h_t and x_t tiles copied by cp.async a step ahead, during the
+// previous step's dh; its c_t and c_{t+1} loaded as early), forms their
+// dgates, and publishes them either into every block's dgates tile (a
+// barrier after the writes, and one before the next step's, whose wait
+// follows the next step's gates) or, where that tile does not fit, through
+// the dgates output it writes anyway (kDgatesOut, one barrier a step).  It
+// then forms dh for its own units from rows J_q of wh, which it also holds
+// by groups of four columns, a float4 a unit: a warp reads its rows' group
+// as 32 consecutive float4s, where the weights-through-L2 layout's warp
+// read 32 loads 4H floats apart.  Stores to global memory go after a
+// barrier's arrive, whose release then waits for the remote writes alone.
+// At H = 128 a backward block (C = 4) holds 69 KB of columns and 66 KB of
+// wh's rows, where one block would need 275 KB; 64 such lanes ask for 35
+// MB of shared memory, more than the card's 132 x 227 KB, so their
+// backward runs in two waves of one 217-KB block an SM, eight warps.  With
+// so few warps a scheduler the loads' latency shows: the 64-lane pair runs
+// at 4-8x its fp32 bound, one lane (16-32 blocks) at 40-60x.
 //
 // Weights through L2 (lstm_seq_{fwd,bwd}_l2_kernel), for every shape the
-// first layout cannot hold.  Nothing is copied: each gate column reads its
-// weights with __ldg straight from the lane's wx (F, 4H), wh (H, 4H) and b
-// at row stride 4H (at H = 128 a lane's 275 KB; the fleet's 64 lanes, 17.6
-// MB, stay in the 50 MB L2).  A block is S x G threads, S = H split into
-// the fewest passes of at most 256 columns (kL2Threads: the registers of a
-// thread's 4 rows x 4 gates of sums bound a block to 256 threads); a
-// thread walks its columns j, j + S, ...  The block keeps in shared memory only its state: the h
-// tile(s), c (the backward: dh and dc), and the backward's dgates tile.  A
-// dgates tile that does not fit there is written to the dgates output
-// first and read back from it after a __syncthreads; a state that does not
-// fit at all (H > 4,842 at a 4-row tile) lies in a global scratch buffer,
-// one region a block, that the wrapper allocates.
+// cluster cannot hold either.  Nothing is copied for the gates: each gate
+// column reads its weights with __ldg straight from the lane's wx (F, 4H),
+// wh (H, 4H) and b at row stride 4H.  A block is S x G threads, S = H split
+// into the fewest passes of at most 256 columns (kL2Threads: the registers
+// of a thread's 4 rows x 4 gates of sums bound a block to 256 threads); a
+// thread walks its columns j, j + S, ...  The block keeps in shared memory
+// its state: the h tile(s), c (the backward: dh and dc), and the backward's
+// dgates tile.  A dgates tile that does not fit there is written to the
+// dgates output first and read back from it after a __syncthreads; a state
+// that does not fit at all lies in a global scratch buffer, one region a
+// block, that the wrapper allocates.  The backward's dh reads a pass's rows
+// of wh kWhCols columns at a time through a double-buffered stage in shared
+// memory (cp.async, a warp's copies consecutive), always in shared memory.
 //
 // Rounding: each gate sums the x-part over k with fmaf, the h-part over k
-// with fmaf, then (x-part + h-part) + b, the plain version's order; expf
-// and tanhf are the accurate ones (no --use_fast_math).  Both layouts run
-// that order and share the cell's elementwise code (cell_forward,
-// cell_backward, whose fused products are written out, not left to the
-// compiler), so they agree bit for bit on any shape both can run.  The
-// backward recomputes the gates with the same function, so they are the
-// forward's bit for bit.  fp32 FMA only: one TF32 product already breaks
-// the 1e-5 limit against the plain version, so a wgmma / 3xTF32 design, or
-// one that spreads a lane over a cluster, is left to a later change.
+// with fmaf, then (x-part + h-part) + b, the plain version's order; dh sums
+// over the 4H columns in ascending order with fmaf; expf and tanhf are the
+// accurate ones (no --use_fast_math).  Every output element is summed by
+// one thread in that order in all three layouts, which share the cell's
+// elementwise code (cell_forward, cell_backward, whose fused products are
+// written out, not left to the compiler), so they agree bit for bit on any
+// shape two of them can run.  The backward recomputes the gates with the
+// same function, so they are the forward's bit for bit.  fp32 FMA only: one
+// TF32 product already breaks the 1e-5 limit against the plain version, so
+// a wgmma / 3xTF32 design is left to a later change.
+#include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <vector>
+
 #include "loaders.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -91,6 +135,9 @@ constexpr int kL2Threads = 256;        // threads of a weights-through-L2 block
 // the weights-through-L2 layout's modes (bits)
 constexpr int kStateGlobal = 1;        // the block's state in the scratch buffer
 constexpr int kDgatesOut = 2;          // the backward's dgates tile in the output
+                                       // (also a mode of the cluster layout)
+constexpr int kWhCols = 32;            // columns of wh a stage of the L2 backward's dh holds
+constexpr int kMaxCluster = 16;        // blocks of a cluster (above 8: non-portable)
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -442,6 +489,25 @@ __device__ __forceinline__ float* block_state(float* smem, float* work, int mode
   return work + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * total;
 }
 
+// The floats of the L2 backward's stage of wh: two halves of span rows of
+// kWhCols columns at row stride kWhCols + 1 (conflict-free reads of one
+// column at consecutive rows).
+__host__ __device__ inline int l2_stage_floats(int span) { return 2 * span * (kWhCols + 1); }
+
+// Copies wh[row0 + i, col0 + kk] (i < rows, kk < kWhCols, col0 + kk < h4)
+// into stg[i (kWhCols + 1) + kk] with cp.async, consecutive threads on
+// consecutive columns of a row; the caller commits the group.
+__device__ __forceinline__ void stage_wh_chunk(float* stg, const float* __restrict__ wh,
+                                               int row0, int rows, int col0, int h4) {
+  for (int i = threadIdx.x; i < rows * kWhCols; i += blockDim.x) {
+    const int r = i / kWhCols;
+    const int kk = i - r * kWhCols;
+    if (col0 + kk < h4)
+      __pipeline_memcpy_async(stg + r * (kWhCols + 1) + kk,
+                              wh + static_cast<size_t>(row0 + r) * h4 + col0 + kk, 4);
+  }
+}
+
 // preacts() with the weights read from the lane's wx, wh and b in global
 // memory (row stride 4H): the same sums in the same order, so the same
 // bits.  ht is the tile's h_t (row stride hs), in shared or global memory.
@@ -592,6 +658,8 @@ __global__ void __launch_bounds__(kL2Threads)
   const int tile = a.groups * kRows;
   const StateLayout lo = state_layout(hidden, tile, true, mode);
   float* st = block_state(smem, work, mode, lo.total);
+  float* stage = smem + ((mode & kStateGlobal) ? 0 : round4(lo.total));
+  const int stage_half = span * (kWhCols + 1);
   float* hbuf = st + lo.h_off;
   float* dhs = st + lo.dh_off;
   float* dcs = st + lo.dc_off;
@@ -666,29 +734,53 @@ __global__ void __launch_bounds__(kL2Threads)
     }
     __syncthreads();
     // dh_t[b, j] = sum over the 4H gate columns of dgates_t[b, col] wh[j, col],
-    // in the shared-memory layout's order
-    for (int j = j0; j < hidden; j += span) {
+    // in the shared-memory layout's order.  A pass's span rows of wh come
+    // through the stage kWhCols columns at a time, the next chunk's copies
+    // in flight while the block sums the current one
+    const int chunks = (h4 + kWhCols - 1) / kWhCols;
+    for (int p = 0; p * span < hidden; ++p) {
+      const int row0 = p * span;
+      const int rows = min(span, hidden - row0);
+      const int j = j0 + row0;
+      const float* wr = stage + j0 * (kWhCols + 1);
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      const float* wr = wh + static_cast<size_t>(j) * h4;
-      for (int col = 0; col < h4; col += 4) {
-        // scalar loads: a lane's weights start anywhere (views of a flat
-        // (L, P) buffer); the dgates tile's rows are 16-byte aligned
-        const float w0 = __ldg(wr + col), w1 = __ldg(wr + col + 1), w2 = __ldg(wr + col + 2),
-                    w3 = __ldg(wr + col + 3);
+      stage_wh_chunk(stage, wh, row0, rows, 0, h4);
+      __pipeline_commit();
+      for (int c = 0; c < chunks; ++c) {
+        if (c + 1 < chunks)
+          stage_wh_chunk(stage + ((c + 1) & 1) * stage_half, wh, row0, rows,
+                         (c + 1) * kWhCols, h4);
+        __pipeline_commit();
+        __pipeline_wait_prior(1);
+        __syncthreads();
+        if (j < hidden) {
+          const float* w = wr + (c & 1) * stage_half;
+          const int col0 = c * kWhCols;
+          const int n = min(kWhCols, h4 - col0);
+          for (int kk = 0; kk < n; kk += 4) {
+            const float w0 = w[kk], w1 = w[kk + 1], w2 = w[kk + 2], w3 = w[kk + 3];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 d = valid[r] ? *reinterpret_cast<const float4*>(dgs + rowl[r] * h4 + col)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-          acc[r] = fmaf(d.x, w0, acc[r]);
-          acc[r] = fmaf(d.y, w1, acc[r]);
-          acc[r] = fmaf(d.z, w2, acc[r]);
-          acc[r] = fmaf(d.w, w3, acc[r]);
+            for (int r = 0; r < kRows; ++r) {
+              const float4 d = valid[r]
+                  ? *reinterpret_cast<const float4*>(dgs + rowl[r] * h4 + col0 + kk)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+              acc[r] = fmaf(d.x, w0, acc[r]);
+              acc[r] = fmaf(d.y, w1, acc[r]);
+              acc[r] = fmaf(d.z, w2, acc[r]);
+              acc[r] = fmaf(d.w, w3, acc[r]);
+            }
+          }
         }
+        // the chunk after next lands in this half only after every thread
+        // has summed it
+        __syncthreads();
       }
+      if (j < hidden) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) dhs[rowl[r] * lo.hs + j] = acc[r];
+        for (int r = 0; r < kRows; ++r) dhs[rowl[r] * lo.hs + j] = acc[r];
+      }
     }
     // the next step overwrites hbuf and the dgates tile only after its
     // first __syncthreads, which every thread reaches after this reduction;
@@ -705,6 +797,481 @@ __global__ void __launch_bounds__(kL2Threads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// A lane's weights across a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// Offsets (floats) of a cluster block's dynamic shared memory, each 16-byte
+// aligned: its units' gate columns of [wx; wh] (F + H rows of Hc float4s,
+// unit u's four gates in float4 u), their bias (Hc float4s), the h tile(s)
+// of all H units and the x_t tile (stride F; two of each in the forward),
+// and in the backward rows J_q of wh (4H / 4 column groups of Hc float4s:
+// group c of unit u holds wh[j0 + u, 4c .. 4c + 3]) and, unless
+// kDgatesOut, the step's (tile, 4H) dgates tile.  A warp's 32 units read
+// 32 consecutive float4s at one row or column group: one instruction, no
+// bank conflict.
+struct ClusterLayout {
+  int hc;        // units a block owns, ceil(H / C)
+  int hs;        // row stride of an h tile, H rounded up to 4
+  int b_off, h_off, x_off, wt_off, dg_off, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int f, int hidden, int cluster, int tile,
+                                                        bool backward, int mode) {
+  ClusterLayout l;
+  l.hc = (hidden + cluster - 1) / cluster;
+  l.hs = round4(hidden);
+  l.b_off = (f + hidden) * 4 * l.hc;
+  l.h_off = l.b_off + 4 * l.hc;
+  l.x_off = l.h_off + (backward ? 1 : 2) * tile * l.hs;
+  l.wt_off = l.x_off + (backward ? 1 : 2) * round4(tile * f);
+  l.dg_off = l.wt_off + (backward ? l.hc * 4 * hidden : 0);
+  l.total = l.dg_off + (backward && !(mode & kDgatesOut) ? tile * 4 * hidden : 0);
+  return l;
+}
+
+// The cluster barrier in two halves: arrive releases this thread's writes
+// (shared, distributed shared and global) to the cluster, wait returns once
+// every thread of the cluster has arrived and acquires theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The block's units j0 .. j0 + Hc - 1: component g of float4 k Hc + u of
+// ws is column g H + j0 + u of row k of the lane's [wx; wh], of float4 u of
+// bs b's; units past H are zero.  Consecutive threads read a gate's
+// consecutive columns.
+__device__ void stage_columns(float* ws, float* bs, const float* __restrict__ wx,
+                              const float* __restrict__ wh, const float* __restrict__ b,
+                              int f, int hidden, int j0, const ClusterLayout& lo) {
+  const int h4 = 4 * hidden;
+  const int w = 4 * lo.hc;
+  const int n = (f + hidden) * w;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int k = i / w;
+    const int lc = i - k * w;
+    const int g = lc / lo.hc;
+    const int u = lc - g * lo.hc;
+    const int col = g * hidden + j0 + u;
+    ws[(k * lo.hc + u) * 4 + g] = j0 + u >= hidden ? 0.f
+        : k < f ? __ldg(wx + k * h4 + col) : __ldg(wh + static_cast<size_t>(k - f) * h4 + col);
+  }
+  for (int i = threadIdx.x; i < w; i += blockDim.x) {
+    const int g = i / lo.hc;
+    const int u = i - g * lo.hc;
+    bs[u * 4 + g] = j0 + u < hidden ? __ldg(b + g * hidden + j0 + u) : 0.f;
+  }
+}
+
+// The cluster layout's gate sums, preacts() in two parts with unit u's
+// four gate weights of a row in one float4 (w4, Hc float4s a row): the
+// x-part from the step's x tile in shared memory (gates_x_tile, row stride
+// F, rows past the batch zero) and the h-part (gates_h).  The same sums in
+// the same order, so the same bits.
+__device__ __forceinline__ void gates_x_tile(const float* xs, const float4* w4, int f, int hc,
+                                             int u, const int (&rowl)[kRows],
+                                             float (&ax)[kRows][4]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) ax[r][g] = 0.f;
+  for (int k = 0; k < f; ++k) {
+    const float4 w = w4[k * hc + u];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float v = xs[rowl[r] * f + k];
+      ax[r][0] = fmaf(v, w.x, ax[r][0]);
+      ax[r][1] = fmaf(v, w.y, ax[r][1]);
+      ax[r][2] = fmaf(v, w.z, ax[r][2]);
+      ax[r][3] = fmaf(v, w.w, ax[r][3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int hs, int f,
+                                        int hidden, int hc, int u, const int (&rowl)[kRows],
+                                        float (&ah)[kRows][4]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) ah[r][g] = 0.f;
+  const float4* wr = w4 + f * hc + u;
+  int k = 0;
+#pragma unroll 2
+  for (; k + 4 <= hidden; k += 4) {
+    float4 hv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      hv[r] = *reinterpret_cast<const float4*>(ht + rowl[r] * hs + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 w = wr[(k + kk) * hc];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float v = kk == 0 ? hv[r].x : kk == 1 ? hv[r].y : kk == 2 ? hv[r].z : hv[r].w;
+        ah[r][0] = fmaf(v, w.x, ah[r][0]);
+        ah[r][1] = fmaf(v, w.y, ah[r][1]);
+        ah[r][2] = fmaf(v, w.z, ah[r][2]);
+        ah[r][3] = fmaf(v, w.w, ah[r][3]);
+      }
+    }
+  }
+  for (; k < hidden; ++k) {
+    const float4 w = wr[k * hc];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float v = ht[rowl[r] * hs + k];
+      ah[r][0] = fmaf(v, w.x, ah[r][0]);
+      ah[r][1] = fmaf(v, w.y, ah[r][1]);
+      ah[r][2] = fmaf(v, w.z, ah[r][2]);
+      ah[r][3] = fmaf(v, w.w, ah[r][3]);
+    }
+  }
+}
+
+// Copies the tile's rows of a (B, width) array into dst (row stride ds) with
+// cp.async, consecutive threads on consecutive elements; the caller
+// commits.  Rows past the batch are not written (zero_tile_tail).
+__device__ __forceinline__ void stage_tile_async(float* dst, const float* __restrict__ src,
+                                                 int tile0, int tile, int batch, int width,
+                                                 int ds) {
+  const int rows = min(tile, batch - tile0);
+  for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+    const int bl = i / width;
+    const int k = i - bl * width;
+    __pipeline_memcpy_async(dst + bl * ds + k,
+                            src + static_cast<size_t>(tile0 + bl) * width + k, 4);
+  }
+}
+
+// Zeroes the rows of a tile (row stride ds, width columns) past the batch.
+__device__ void zero_tile_tail(float* dst, int tile0, int tile, int batch, int width, int ds) {
+  const int rows = min(tile, batch - tile0);
+  for (int i = threadIdx.x; i < (tile - rows) * width; i += blockDim.x) {
+    const int bl = rows + i / width;
+    dst[bl * ds + i % width] = 0.f;
+  }
+}
+
+// The forward across a cluster.  Block q (its rank) of the cluster of tile
+// blockIdx.x / C owns units q Hc + u; thread (u, grp) of its Hc x G owns
+// unit j = q Hc + u of rows grp + G r, its c in registers.  Each step it
+// writes its h_{t+1} into the next h tile of every block of the cluster.
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_seq_fwd_cluster_kernel(SeqArgs a, const float* __restrict__ h0,
+                                const float* __restrict__ c0, int h0_ls, int c0_ls,
+                                float* __restrict__ h_out, float* __restrict__ c_out, int save,
+                                int cluster) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int q = static_cast<int>(cl.block_rank());
+  const int lane = blockIdx.y;
+  const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
+  const int tile = a.groups * kRows;
+  const ClusterLayout lo = cluster_layout(f, hidden, cluster, tile, false, 0);
+  float* ws = smem;
+  float* bs = smem + lo.b_off;
+  float* hbuf = smem + lo.h_off;
+  float* xbuf = smem + lo.x_off;
+  const int xt_size = round4(tile * f);
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
+  h0 += static_cast<size_t>(lane) * h0_ls;
+  c0 += static_cast<size_t>(lane) * c0_ls;
+  stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls,
+                a.wh + static_cast<size_t>(lane) * a.wh_ls,
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo);
+
+  const int u = threadIdx.x % lo.hc;
+  const int grp = threadIdx.x / lo.hc;
+  const int j = q * lo.hc + u;
+  const bool live = j < hidden;
+  const int tile0 = (blockIdx.x / cluster) * tile;
+  const size_t bh = static_cast<size_t>(batch) * hidden;
+  const size_t out_lane = save ? (steps + 1) * bh : bh;
+  h_out += lane * out_lane;
+  c_out += lane * out_lane;
+  int rowl[kRows], rowg[kRows];
+  bool valid[kRows];
+  tile_rows(grp, a.groups, tile0, batch, rowl, rowg, valid);
+  // h0's tile, and each step's x tile a step ahead into the other half, by
+  // cp.async
+  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  zero_tile_tail(xbuf, tile0, tile, batch, f, f);
+  zero_tile_tail(xbuf + xt_size, tile0, tile, batch, f, f);
+  stage_tile_async(hbuf, h0, tile0, tile, batch, hidden, lo.hs);
+  stage_tile_async(xbuf, x, tile0, tile, batch, f, f);
+  __pipeline_commit();
+  float c[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const size_t o = static_cast<size_t>(rowg[r]) * hidden + j;
+    c[r] = live && valid[r] ? __ldg(c0 + o) : 0.f;
+    if (save && live && valid[r]) {
+      h_out[o] = __ldg(h0 + o);
+      c_out[o] = c[r];
+    }
+  }
+  // every block of the cluster has started and staged before any writes
+  // into its h tiles; the first step's x-part meanwhile
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float ax[kRows][4];
+  cluster_arrive();
+  gates_x_tile(xbuf, w4, f, lo.hc, u, rowl, ax);
+  cluster_wait();
+
+  for (int t = 0; t < steps; ++t) {
+    const float* ht = hbuf + (t & 1) * tile * lo.hs;
+    const int next = ((t + 1) & 1) * tile * lo.hs;
+    float* xn = xbuf + ((t + 1) & 1) * xt_size;
+    if (t + 1 < steps) {
+      // the half every thread of the block last read before the previous
+      // step's __syncthreads
+      stage_tile_async(xn, x + static_cast<size_t>(t + 1) * batch * f, tile0, tile, batch, f, f);
+      __pipeline_commit();
+    }
+    float ah[kRows][4];
+    gates_h(w4, ht, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+    const float4 bu = reinterpret_cast<const float4*>(bs)[u];
+    float hv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float pre[4] = {ax[r][0] + ah[r][0] + bu.x, ax[r][1] + ah[r][1] + bu.y,
+                            ax[r][2] + ah[r][2] + bu.z, ax[r][3] + ah[r][3] + bu.w};
+      hv[r] = cell_forward(pre, c[r]);
+    }
+    if (t + 1 < steps && live) {
+      for (int rank = 0; rank < cluster; ++rank) {
+        float* hn = cl.map_shared_rank(hbuf, rank) + next;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) hn[rowl[r] * lo.hs + j] = valid[r] ? hv[r] : 0.f;
+      }
+    }
+    // the next step reads h_{t+1} once every block has written its units;
+    // its writes go to the tile this step read, which every block has
+    // finished reading once it arrives.  The outputs are stored after the
+    // arrive, whose release then waits for the remote writes alone
+    if (t + 1 < steps) cluster_arrive();
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (live && valid[r] && (save || t == steps - 1)) {
+        const size_t o = (save ? (t + 1) * bh : 0) + static_cast<size_t>(rowg[r]) * hidden + j;
+        h_out[o] = hv[r];
+        c_out[o] = c[r];
+      }
+    }
+    if (t + 1 == steps) break;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    gates_x_tile(xn, w4, f, lo.hc, u, rowl, ax);
+    cluster_wait();
+  }
+}
+
+// The thread's c_t and c_{t+1} of step t (its unit, its rows of the batch)
+// from c_seq (T + 1, B, H).
+__device__ __forceinline__ void load_c(float (&c_prev)[kRows], float (&c_new)[kRows],
+                                       const float* __restrict__ c_seq, int t, size_t bh,
+                                       const int (&rowg)[kRows], const bool (&valid)[kRows],
+                                       bool live, int j, int hidden) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const size_t o = static_cast<size_t>(rowg[r]) * hidden + j;
+    const bool in = live && valid[r];
+    c_prev[r] = in ? __ldg(c_seq + t * bh + o) : 0.f;
+    c_new[r] = in ? __ldg(c_seq + (t + 1) * bh + o) : 0.f;
+  }
+}
+
+// The thread's dgates of one step into the output (its unit's four gate
+// columns of each of its rows in the batch).
+__device__ __forceinline__ void store_dgates(float* dgt, const float (&d)[kRows][4],
+                                             const int (&rowg)[kRows], const bool (&valid)[kRows],
+                                             bool live, int j, int hidden) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (!(live && valid[r])) continue;
+    float* grow = dgt + static_cast<size_t>(rowg[r]) * 4 * hidden + j;
+    grow[0] = d[r][0];
+    grow[hidden] = d[r][1];
+    grow[2 * hidden] = d[r][2];
+    grow[3 * hidden] = d[r][3];
+  }
+}
+
+// The backward across a cluster; blocks and threads as in the forward.  A
+// block recomputes its units' gates from the staged h_t and x_t tiles,
+// forms their dgates, and publishes them: into every block's dgates tile
+// (between two barriers: the one before the writes lets every block finish
+// reading the previous step's tile), or under kDgatesOut only into the
+// dgates output.  After one barrier each block forms dh for its own units
+// from the whole tile and rows J_q of wh.
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_seq_bwd_cluster_kernel(SeqArgs a, const float* __restrict__ h_seq,
+                                const float* __restrict__ c_seq,
+                                const float* __restrict__ dh_last,
+                                const float* __restrict__ dc_last, float* dgates,
+                                float* __restrict__ dh0, float* __restrict__ dc0, int cluster,
+                                int mode) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int q = static_cast<int>(cl.block_rank());
+  const int lane = blockIdx.y;
+  const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
+  const int h4 = 4 * hidden;
+  const int tile = a.groups * kRows;
+  const bool dg_out = mode & kDgatesOut;
+  const ClusterLayout lo = cluster_layout(f, hidden, cluster, tile, true, mode);
+  float* ws = smem;
+  float* bs = smem + lo.b_off;
+  float* hbuf = smem + lo.h_off;
+  float* xs = smem + lo.x_off;
+  float* wt = smem + lo.wt_off;
+  const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
+  const float* wh = a.wh + static_cast<size_t>(lane) * a.wh_ls;
+  const int j0 = q * lo.hc;
+  stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls, wh,
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo);
+  // rows j0 .. j0 + Hc - 1 of wh, all 4H columns, by groups of 4 columns
+  for (int i = threadIdx.x; i < lo.hc * h4; i += blockDim.x) {
+    const int uu = i / h4;
+    const int col = i - uu * h4;
+    wt[((col >> 2) * lo.hc + uu) * 4 + (col & 3)] =
+        j0 + uu < hidden ? __ldg(wh + static_cast<size_t>(j0 + uu) * h4 + col) : 0.f;
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const float4* wt4 = reinterpret_cast<const float4*>(wt);
+
+  const int u = threadIdx.x % lo.hc;
+  const int grp = threadIdx.x / lo.hc;
+  const int j = j0 + u;
+  const bool live = j < hidden;
+  const int tile0 = (blockIdx.x / cluster) * tile;
+  const size_t bh = static_cast<size_t>(batch) * hidden;
+  h_seq += lane * (steps + 1) * bh;
+  c_seq += lane * (steps + 1) * bh;
+  dgates += lane * static_cast<size_t>(steps) * batch * h4;
+  int rowl[kRows], rowg[kRows];
+  bool valid[kRows];
+  tile_rows(grp, a.groups, tile0, batch, rowl, rowg, valid);
+  float dh[kRows], dc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const size_t o = lane * bh + static_cast<size_t>(rowg[r]) * hidden + j;
+    dh[r] = live && valid[r] ? __ldg(dh_last + o) : 0.f;
+    dc[r] = live && valid[r] ? __ldg(dc_last + o) : 0.f;
+  }
+  // the step's h_t and x_t tiles come by cp.async, each issued a step ahead
+  // (after the barrier past which no thread of the block reads them)
+  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  zero_tile_tail(xs, tile0, tile, batch, f, f);
+  stage_tile_async(hbuf, h_seq + (steps - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+  stage_tile_async(xs, x + static_cast<size_t>(steps - 1) * batch * f, tile0, tile, batch, f, f);
+  __pipeline_commit();
+  // the block has started, and (the first step's wait) every block has
+  // before any writes into its dgates tile
+  if (!dg_out) cluster_arrive();
+
+  // the step's c_t and c_{t+1}, loaded a step ahead too
+  float c_prev[kRows], c_new[kRows];
+  load_c(c_prev, c_new, c_seq, steps - 1, bh, rowg, valid, live, j, hidden);
+
+  for (int t = steps - 1; t >= 0; --t) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    float pre[kRows][4];
+    {
+      float ax[kRows][4], ah[kRows][4];
+      gates_x_tile(xs, w4, f, lo.hc, u, rowl, ax);
+      gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+      const float4 bu = reinterpret_cast<const float4*>(bs)[u];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        pre[r][0] = ax[r][0] + ah[r][0] + bu.x;
+        pre[r][1] = ax[r][1] + ah[r][1] + bu.y;
+        pre[r][2] = ax[r][2] + ah[r][2] + bu.z;
+        pre[r][3] = ax[r][3] + ah[r][3] + bu.w;
+      }
+    }
+    float* dgt = dgates + static_cast<size_t>(t) * batch * h4;
+    float d[kRows][4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      cell_backward(pre[r], c_prev[r], c_new[r], dh[r], dc[r], d[r]);
+    if (t > 0) load_c(c_prev, c_new, c_seq, t - 1, bh, rowg, valid, live, j, hidden);
+    const float* dgs = smem + lo.dg_off;
+    if (dg_out) {
+      // rows past the batch are not in the output: only valid rows are read
+      dgs = dgt + static_cast<size_t>(tile0) * h4;
+      store_dgates(dgt, d, rowg, valid, live, j, hidden);
+    } else {
+      cluster_wait();
+      if (live) {
+        for (int rank = 0; rank < cluster; ++rank) {
+          float* dst = cl.map_shared_rank(smem + lo.dg_off, rank);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            float* drow = dst + rowl[r] * h4 + j;
+            drow[0] = d[r][0];
+            drow[hidden] = d[r][1];
+            drow[2 * hidden] = d[r][2];
+            drow[3 * hidden] = d[r][3];
+          }
+        }
+      }
+    }
+    cluster_arrive();
+    // the output's copy goes after the arrive, whose release then waits for
+    // the remote writes alone
+    if (!dg_out) store_dgates(dgt, d, rowg, valid, live, j, hidden);
+    cluster_wait();
+    // every thread of the block is past its reads of this step's h and x
+    // tiles: the next step's copies go in flight during the reduction
+    if (t > 0) {
+      stage_tile_async(hbuf, h_seq + (t - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+      stage_tile_async(xs, x + static_cast<size_t>(t - 1) * batch * f, tile0, tile, batch, f, f);
+      __pipeline_commit();
+    }
+    // dh_t[b, j] = sum over the 4H gate columns of dgates_t[b, col] wh[j, col],
+    // in the shared-memory layout's order
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 8
+    for (int col = 0; col < h4; col += 4) {
+      const float4 w = wt4[(col >> 2) * lo.hc + u];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 dv = !dg_out || valid[r]
+            ? *reinterpret_cast<const float4*>(dgs + rowl[r] * h4 + col)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        acc[r] = fmaf(dv.x, w.x, acc[r]);
+        acc[r] = fmaf(dv.y, w.y, acc[r]);
+        acc[r] = fmaf(dv.z, w.z, acc[r]);
+        acc[r] = fmaf(dv.w, w.w, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) dh[r] = acc[r];
+    // this block has read its dgates tile: the next step's writes into it
+    // wait for this arrive
+    if (!dg_out) cluster_arrive();
+  }
+  if (!dg_out) cluster_wait();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (!(live && valid[r])) continue;
+    const size_t o = lane * bh + static_cast<size_t>(rowg[r]) * hidden + j;
+    dh0[o] = dh[r];
+    dc0[o] = dc[r];
+  }
+}
+
 // Checks the caller's shared-memory size against the kernel's own layout,
 // raises the kernel's limit to it, and returns the launch configuration.
 template <typename Kernel>
@@ -716,19 +1283,98 @@ int prepare(Kernel kernel, int f, int hidden, int groups, int smem, bool backwar
 }
 
 // The same for the weights-through-L2 layout: a block of span x groups
-// threads, its state in shared memory (smem bytes, its own layout) or in
-// the scratch buffer (smem 0).
+// threads, its state in shared memory (its own layout) or in the scratch
+// buffer, and in the backward the stage of wh in shared memory after it.
 template <typename Kernel>
 int prepare_l2(Kernel kernel, int hidden, int groups, int span, int mode, int smem,
                const void* work, bool backward) {
   if (span < 1 || groups < 1 || span * groups > kL2Threads)
     return static_cast<int>(cudaErrorInvalidValue);
   const StateLayout lo = state_layout(hidden, groups * kRows, backward, mode);
-  const bool ok = (mode & kStateGlobal) ? smem == 0 && work != nullptr
-                                        : smem == 4 * lo.total && smem <= kMaxShared;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const bool global = mode & kStateGlobal;
+  const int want = 4 * ((global ? 0 : round4(lo.total)) + (backward ? l2_stage_floats(span) : 0));
+  if (smem != want || smem > kMaxShared || global != (work != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+// What the cluster launches of this process have set up, on each device:
+// per kernel, the largest dynamic shared memory its attribute allows and
+// whether it allows clusters above 8; the configurations (kernel, cluster,
+// threads, shared memory) of which the card holds at least one cluster at
+// once.  A later launch of a known configuration makes none of those calls.
+struct ClusterKernelState {
+  const void* kernel;
+  int device, smem, non_portable;
+};
+struct ClusterConfig {
+  const void* kernel;
+  int device, cluster, threads, smem;
+};
+std::mutex cluster_mutex;
+std::vector<ClusterKernelState> cluster_kernels;
+std::vector<ClusterConfig> cluster_configs;
+
+// The same for the cluster layout (C blocks of Hc x groups threads), and the
+// launch configuration of its first launch: the cluster's size as a launch
+// attribute (above 8 once the kernel allows it).  Refuses a configuration
+// of which the card can hold no cluster at once
+// (cudaOccupancyMaxActiveClusters 0).
+template <typename Kernel>
+int prepare_cluster(Kernel kernel, int f, int hidden, int groups, int cluster, int mode,
+                    int smem, bool backward, cudaLaunchConfig_t& cfg,
+                    cudaLaunchAttribute& attr) {
+  if (cluster < 2 || cluster > kMaxCluster || (cluster & (cluster - 1)) || groups < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ClusterLayout lo = cluster_layout(f, hidden, cluster, groups * kRows, backward, mode);
+  if (lo.hc * groups > kL2Threads || smem != 4 * lo.total || smem > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cfg.blockDim = dim3(lo.hc * groups);
+  cfg.dynamicSmemBytes = smem;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int device = 0;
+  int err = static_cast<int>(cudaGetDevice(&device));
+  if (err != 0) return err;
+  const ClusterConfig want{fn, device, cluster, lo.hc * groups, smem};
+  std::lock_guard<std::mutex> lock(cluster_mutex);
+  for (const ClusterConfig& c : cluster_configs)
+    if (c.kernel == fn && c.device == device && c.cluster == cluster &&
+        c.threads == want.threads && c.smem == smem)
+      return 0;
+  ClusterKernelState* state = nullptr;
+  for (ClusterKernelState& k : cluster_kernels)
+    if (k.kernel == fn && k.device == device) state = &k;
+  if (state == nullptr) {
+    cluster_kernels.push_back({fn, device, 0, 0});
+    state = &cluster_kernels.back();
+  }
+  // the attribute only grows: a smaller one would refuse a known
+  // configuration's launch
+  if (smem > state->smem) {
+    err = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err != 0) return err;
+    state->smem = smem;
+  }
+  if (cluster > 8 && !state->non_portable) {
+    err = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+    if (err != 0) return err;
+    state->non_portable = 1;
+  }
+  int clusters = 0;
+  err = static_cast<int>(cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg));
+  if (err != 0) return err;
+  if (clusters <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  cluster_configs.push_back(want);
+  return 0;
 }
 
 const float* at(const void* p, int l0, size_t lane_stride) {
@@ -741,78 +1387,123 @@ float* at(void* p, int l0, size_t lane_stride) {
 
 }  // namespace
 
+// The layouts (the launchers' layout argument)
+constexpr int kLayoutSmem = 0, kLayoutL2 = 1, kLayoutCluster = 2;
+
 // Forward.  x (L, T, B, F), h0, c0 (L, B, H), wx, wh, b: fp32 on the current
 // device, each dense within a lane, lane l at pointer + l * <its lane
 // stride> (elements).  h_out, c_out contiguous: (L, T+1, B, H) if save,
-// else (L, B, H).  groups, l2, span, mode and smem come from the wrapper's
-// plan: the shared-memory layout (l2 = 0: a block of hidden * groups
-// threads, a batch tile of groups * 4 rows) or weights through L2 (l2 = 1:
-// span * groups threads; mode's kStateGlobal puts each block's state in
-// work, one region a block of the first 65,535 lanes).  smem must equal the
-// kernel's own layout.  Returns a CUDA error code (0 on success).
+// else (L, B, H).  groups, layout, span, cluster, mode and smem come from
+// the wrapper's plan: the shared-memory layout (a block of hidden * groups
+// threads, a batch tile of groups * 4 rows), weights through L2 (span *
+// groups threads; mode's kStateGlobal puts each block's state in work, one
+// region a block of the first 65,535 lanes) or across a cluster of cluster
+// blocks (each of ceil(hidden / cluster) * groups threads).  smem must
+// equal the kernel's own layout.  Returns a CUDA error code (0 on success).
 extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0,
                                    const void* wx, const void* wh, const void* b,
                                    void* h_out, void* c_out, void* work, int lanes, int steps,
                                    int batch, int f, int hidden, int groups, int save, int x_ls,
-                                   int h0_ls, int c0_ls, int wx_ls, int wh_ls, int b_ls, int l2,
-                                   int span, int mode, int smem, void* stream) {
+                                   int h0_ls, int c0_ls, int wx_ls, int wh_ls, int b_ls,
+                                   int layout, int span, int cluster, int mode, int smem,
+                                   void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
-  const int err = l2 ? prepare_l2(lstm_seq_fwd_l2_kernel, hidden, groups, span, mode, smem,
-                                  work, false)
-                     : prepare(lstm_seq_fwd_kernel, f, hidden, groups, smem, false);
-  if (err != 0) return err;
   const int tile = groups * kRows;
+  const int tiles = (batch + tile - 1) / tile;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
+  const int err =
+      layout == kLayoutCluster
+          ? prepare_cluster(lstm_seq_fwd_cluster_kernel, f, hidden, groups, cluster, 0, smem,
+                            false, cfg, attr)
+      : layout == kLayoutL2
+          ? prepare_l2(lstm_seq_fwd_l2_kernel, hidden, groups, span, mode, smem, work, false)
+      : layout == kLayoutSmem ? prepare(lstm_seq_fwd_kernel, f, hidden, groups, smem, false)
+                              : static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
   const size_t bh = static_cast<size_t>(batch) * hidden;
   const size_t out_lane = save ? (steps + 1) * bh : bh;
   const auto st = static_cast<cudaStream_t>(stream);
-  return over_grid_y(lanes, [&](int l0, int n) {
-    const dim3 grid((batch + tile - 1) / tile, n);
+  cfg.stream = st;
+  int refused = 0;
+  const int last = over_grid_y(lanes, [&](int l0, int n) {
+    const dim3 grid(tiles, n);
     const SeqArgs a{at(x, l0, x_ls), at(wx, l0, wx_ls), at(wh, l0, wh_ls), at(b, l0, b_ls),
                     x_ls, wx_ls, wh_ls, b_ls, steps, batch, f, hidden, groups};
-    if (l2)
+    if (layout == kLayoutCluster) {
+      cfg.gridDim = dim3(tiles * cluster, n);
+      const int e = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, lstm_seq_fwd_cluster_kernel, a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls,
+          c0_ls, at(h_out, l0, out_lane), at(c_out, l0, out_lane), save, cluster));
+      if (refused == 0) refused = e;
+    } else if (layout == kLayoutL2) {
       lstm_seq_fwd_l2_kernel<<<grid, span * groups, smem, st>>>(
           a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls, c0_ls, at(h_out, l0, out_lane),
           at(c_out, l0, out_lane), save, span, mode, static_cast<float*>(work));
-    else
+    } else {
       lstm_seq_fwd_kernel<<<grid, hidden * groups, smem, st>>>(
           a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls, c0_ls, at(h_out, l0, out_lane),
           at(c_out, l0, out_lane), save);
+    }
   });
+  return refused != 0 ? refused : last;
 }
 
 // Backward.  x, wx, wh, b as for the forward; h_seq, c_seq (L, T+1, B, H)
 // and dh_last, dc_last (L, B, H) contiguous; writes dgates (L, T, B, 4H),
-// dh0 and dc0 (L, B, H), contiguous.  groups, l2, span, mode (kStateGlobal,
-// kDgatesOut), smem and work as for the forward.  Returns a CUDA error code.
+// dh0 and dc0 (L, B, H), contiguous.  groups, layout, span, cluster, mode
+// (kStateGlobal, kDgatesOut), smem and work as for the forward.  Returns a
+// CUDA error code.
 extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void* c_seq,
                                    const void* wx, const void* wh, const void* b,
                                    const void* dh_last, const void* dc_last, void* dgates,
                                    void* dh0, void* dc0, void* work, int lanes, int steps,
                                    int batch, int f, int hidden, int groups, int x_ls, int wx_ls,
-                                   int wh_ls, int b_ls, int l2, int span, int mode, int smem,
-                                   void* stream) {
+                                   int wh_ls, int b_ls, int layout, int span, int cluster,
+                                   int mode, int smem, void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
-  const int err = l2 ? prepare_l2(lstm_seq_bwd_l2_kernel, hidden, groups, span, mode, smem,
-                                  work, true)
-                     : prepare(lstm_seq_bwd_kernel, f, hidden, groups, smem, true);
-  if (err != 0) return err;
   const int tile = groups * kRows;
+  const int tiles = (batch + tile - 1) / tile;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
+  const int err =
+      layout == kLayoutCluster
+          ? prepare_cluster(lstm_seq_bwd_cluster_kernel, f, hidden, groups, cluster, mode, smem,
+                            true, cfg, attr)
+      : layout == kLayoutL2
+          ? prepare_l2(lstm_seq_bwd_l2_kernel, hidden, groups, span, mode, smem, work, true)
+      : layout == kLayoutSmem ? prepare(lstm_seq_bwd_kernel, f, hidden, groups, smem, true)
+                              : static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
   const size_t bh = static_cast<size_t>(batch) * hidden;
   const size_t seq_lane = (steps + 1) * bh;
   const size_t dg_lane = static_cast<size_t>(steps) * batch * 4 * hidden;
   const auto st = static_cast<cudaStream_t>(stream);
-  return over_grid_y(lanes, [&](int l0, int n) {
-    const dim3 grid((batch + tile - 1) / tile, n);
+  cfg.stream = st;
+  int refused = 0;
+  const int last = over_grid_y(lanes, [&](int l0, int n) {
+    const dim3 grid(tiles, n);
     const SeqArgs a{at(x, l0, x_ls), at(wx, l0, wx_ls), at(wh, l0, wh_ls), at(b, l0, b_ls),
                     x_ls, wx_ls, wh_ls, b_ls, steps, batch, f, hidden, groups};
-    if (l2)
+    if (layout == kLayoutCluster) {
+      cfg.gridDim = dim3(tiles * cluster, n);
+      const int e = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, lstm_seq_bwd_cluster_kernel, a, at(h_seq, l0, seq_lane),
+          at(c_seq, l0, seq_lane), at(dh_last, l0, bh), at(dc_last, l0, bh),
+          at(dgates, l0, dg_lane), at(dh0, l0, bh), at(dc0, l0, bh), cluster, mode));
+      if (refused == 0) refused = e;
+    } else if (layout == kLayoutL2) {
       lstm_seq_bwd_l2_kernel<<<grid, span * groups, smem, st>>>(
           a, at(h_seq, l0, seq_lane), at(c_seq, l0, seq_lane), at(dh_last, l0, bh),
           at(dc_last, l0, bh), at(dgates, l0, dg_lane), at(dh0, l0, bh), at(dc0, l0, bh), span,
           mode, static_cast<float*>(work));
-    else
+    } else {
       lstm_seq_bwd_kernel<<<grid, hidden * groups, smem, st>>>(
           a, at(h_seq, l0, seq_lane), at(c_seq, l0, seq_lane), at(dh_last, l0, bh),
           at(dc_last, l0, bh), at(dgates, l0, dg_lane), at(dh0, l0, bh), at(dc0, l0, bh));
+    }
   });
+  return refused != 0 ? refused : last;
 }

@@ -7,18 +7,21 @@ op :func:`lstm_cell_cuda`, which replaces
 T = 1.  Every input carries a leading lane axis (the fleet's lanes train
 different params in one launch) and may have any lane stride.
 ``launches`` counts forward launches, ``bwd_launches`` backward ones, in
-either layout; ``l2_launches`` and ``l2_bwd_launches`` count those that
-ran the weights-through-L2 layout.
+any layout; ``cluster_launches``/``cluster_bwd_launches`` and
+``l2_launches``/``l2_bwd_launches`` count those that ran a lane's weights
+across a thread-block cluster or read them through L2.
 
 :func:`plan` sizes a launch for any F >= 1 and H >= 1: the weights in a
 block's shared memory where they fit (with fewer batch-row groups if need
-be), else read from global memory through L2.  The launchers call it
-before they look at the device, so their checks show on the CPU too.
+be), else spread over the shared memory of a cluster of 2-16 blocks, else
+read from global memory through L2.  The launchers call it before they
+look at the device, so their checks show on the CPU too.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -28,6 +31,8 @@ from repro_torch.kernels.common import check_args, current_stream
 
 launches = 0
 bwd_launches = 0
+cluster_launches = 0
+cluster_bwd_launches = 0
 l2_launches = 0
 l2_bwd_launches = 0
 
@@ -37,11 +42,17 @@ THREADS = 256                # threads a block aims at: H x groups
 MAX_THREADS = 1024           # threads of a block
 L2_THREADS = 256             # threads of a weights-through-L2 block (kL2Threads)
 MAX_GRID_Y = 65_535          # lanes of one launch (kMaxGridY): more go in further launches
-LAYOUTS = ("smem", "l2")
-STATE_GLOBAL, DGATES_OUT = 1, 2   # the l2 layout's modes (kStateGlobal, kDgatesOut)
+LAYOUTS = ("smem", "cluster", "l2")
+_LAYOUT_CODES = {"smem": 0, "l2": 1, "cluster": 2}   # kLayoutSmem, kLayoutL2, kLayoutCluster
+# the l2 layout's modes (kStateGlobal, kDgatesOut); the cluster's backward
+# takes DGATES_OUT too
+STATE_GLOBAL, DGATES_OUT = 1, 2
+CLUSTERS = (2, 4, 8, 16)     # blocks of a cluster (16: non-portable, allowed on an H100)
+SMS = 132                    # streaming multiprocessors of an H100 SXM (plans off the card)
+WH_COLS = 32                 # columns of wh a stage of the L2 backward's dh holds (kWhCols)
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _fwd = _build.CFunction("lstm_seq_fwd_launch", _FWD_ARGTYPES)
 _bwd = _build.CFunction("lstm_seq_bwd_launch", _BWD_ARGTYPES)
 _INT_MAX = 2 ** 31 - 1
@@ -70,9 +81,35 @@ def _state_floats(hidden: int, tile: int, backward: bool, mode: int) -> int:
     return 3 * tile * _round4(hidden) + dgates
 
 
+def _l2_stage_floats(span: int) -> int:
+    """The L2 backward's stage of wh in shared memory (``l2_stage_floats``
+    of the source): two halves of ``span`` rows of ``WH_COLS`` columns at
+    row stride ``WH_COLS + 1``."""
+    return 2 * span * (WH_COLS + 1)
+
+
+def _cluster_floats(f: int, hidden: int, cluster: int, tile: int, backward: bool,
+                    mode: int = 0) -> int:
+    """Dynamic shared memory (floats) of one block of the cluster layout
+    (``cluster_layout`` of the source): its Hc = ceil(H / C) units' four
+    gate columns of [wx; wh] (a float4 a unit and row) and their bias, the
+    tile's h over all H units and its x_t (two of each in the forward), and
+    in the backward rows J_q of wh and, unless ``DGATES_OUT``, the (tile,
+    4H) dgates tile."""
+    hc = -(-hidden // cluster)
+    columns = (f + hidden + 1) * 4 * hc
+    tiles = (1 if backward else 2) * (tile * _round4(hidden) + _round4(tile * f))
+    rows = hc * 4 * hidden if backward else 0
+    dgates = tile * 4 * hidden if backward and not mode & DGATES_OUT else 0
+    return columns + tiles + rows + dgates
+
+
 class Plan(NamedTuple):
     """One launch's layout: ``"smem"`` (a block of ``hidden * groups``
-    threads holds the lane's weights in shared memory) or ``"l2"`` (a block
+    threads holds the lane's weights in shared memory), ``"cluster"``
+    (``cluster`` blocks of ``span * groups`` threads, span = ceil(H / C),
+    each hold their units' columns in ``smem`` bytes; under ``DGATES_OUT``
+    the backward's dgates go through its output) or ``"l2"`` (a block
     of ``span * groups`` threads reads them through L2, its state in
     ``smem`` bytes of shared memory or, with ``STATE_GLOBAL`` in ``mode``,
     ``state`` floats a block of a scratch buffer).  The batch tile is
@@ -83,40 +120,115 @@ class Plan(NamedTuple):
     span: int
     mode: int = 0
     state: int = 0
+    cluster: int = 0
 
 
 def _groups(batch: int, width: int) -> int:
     return max(1, min(THREADS // width, -(-batch // ROWS)))
 
 
-def plan(batch: int, f: int, hidden: int, backward: bool = False, *,
-         _layout: Optional[str] = None) -> Plan:
-    """The :class:`Plan` of one launch at (B, F, H).  The shared-memory
-    layout where a block of ``_groups`` groups, or fewer, fits
-    ``MAX_SHARED_BYTES`` (up to H = 114 at F = 6, 115 in the forward);
-    else the weights through L2, for any F >= 1 and H >= 1.  ``_layout``
-    forces one (``"l2"`` on a shape the first holds: the tests' check that
-    both layouts give the same bits)."""
+def cluster_plans(batch: int, f: int, hidden: int, cluster: int, backward: bool):
+    """Yields every :class:`Plan` of a cluster of ``cluster`` blocks that fits at
+    (B, F, H), in the plan's order of preference: the most batch-row groups
+    first; the backward keeps its dgates tile in shared memory down to half
+    the groups before it publishes them through the output (on an H100 at
+    one lane of H = 256, C = 16: a 16-row tile in shared memory 0.88 ms, a
+    32-row tile through the output 1.22 ms, ``kernel_bench.py
+    --lstm-plans``), and takes fewer groups in shared memory only after
+    that."""
+    hc = -(-hidden // cluster)
+    if hc > L2_THREADS:
+        return
+    top = _groups(batch, hc)
+    half = (top + 1) // 2
+    order = [(g, 0) for g in range(top, half - 1, -1)]
+    if backward:
+        order += [(g, DGATES_OUT) for g in range(top, 0, -1)]
+    order += [(g, 0) for g in range(half - 1, 0, -1)]
+    for groups, mode in order:
+        smem = 4 * _cluster_floats(f, hidden, cluster, groups * ROWS, backward, mode)
+        if smem <= MAX_SHARED_BYTES:
+            yield Plan("cluster", groups, smem, hc, mode, 0, cluster)
+
+
+def _cluster_plan(batch: int, f: int, hidden: int, backward: bool, lanes: int, sms: int,
+                  cluster: Optional[int]) -> Optional[Plan]:
+    """The smallest cluster that fits, doubled while the launch's blocks
+    (lanes x tiles x C) would leave most of the card's ``sms`` SMs idle and
+    the next size fits; ``cluster`` forces a size."""
+    sizes = (cluster,) if cluster else CLUSTERS
+    fits = {}
+    for c in sizes:
+        first = next(cluster_plans(batch, f, hidden, c, backward), None)
+        if first is not None:
+            fits[c] = first
+    fitting = list(fits)
+    if not fitting:
+        return None
+    i = 0
+    while (i + 1 < len(fitting) and fitting[i + 1] == 2 * fitting[i]
+           and lanes * -(-batch // (fits[fitting[i]].groups * ROWS)) * fitting[i] < sms):
+        i += 1
+    return fits[fitting[i]]
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device) -> int:
+    """The streaming multiprocessors of ``device`` if it is a GPU, else
+    ``SMS`` (an H100 SXM's): the count a plan made off the card assumes."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SMS
+    return _cuda_sms(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(batch: int, f: int, hidden: int, backward: bool = False, *, lanes: int = 1,
+         sms: int = SMS, _layout: Optional[str] = None, _cluster: Optional[int] = None) -> Plan:
+    """The :class:`Plan` of one launch of ``lanes`` lanes at (B, F, H).
+    The shared-memory layout where a block of ``_groups`` groups, or fewer,
+    fits ``MAX_SHARED_BYTES`` (up to H = 114 at F = 6, 115 in the forward);
+    else a cluster's (up to H = 334 at F = 6, 461 in the forward); else the
+    weights through L2, for any F >= 1 and H >= 1.  ``sms`` is the card's
+    count of SMs (:func:`device_sms`), which sizes the cluster.  ``_layout``
+    forces one (the checks that the layouts give the same bits, through the
+    launchers' ``_plan``) and raises where it does not fit; ``_cluster``
+    forces the cluster's size.  Cached: a launch's plan costs the host
+    one lookup."""
     if f < 1 or hidden < 1:
         raise ValueError(f"the LSTM kernels take F >= 1 and H >= 1 (got F={f}, H={hidden})")
     if _layout not in (None,) + LAYOUTS:
         raise ValueError(f"unknown layout {_layout!r} (one of {LAYOUTS})")
-    if _layout != "l2" and hidden <= MAX_THREADS:
+    if _cluster is not None and (_cluster not in CLUSTERS or _layout not in (None, "cluster")):
+        raise ValueError(f"a cluster of {_cluster} blocks: one of {CLUSTERS}, in that layout")
+    if _layout in (None, "smem") and _cluster is None and hidden <= MAX_THREADS:
         for groups in range(_groups(batch, hidden), 0, -1):
             smem = _shared_bytes(f, hidden, groups * ROWS, backward)
             if smem <= MAX_SHARED_BYTES:
                 return Plan("smem", groups, smem, hidden)
     if _layout == "smem":
         raise ValueError(f"F={f}, H={hidden}: a lane's weights do not fit a block's shared memory")
+    if _layout in (None, "cluster"):
+        p = _cluster_plan(batch, f, hidden, backward, lanes, sms, _cluster)
+        if p is not None:
+            return p
+        if _layout == "cluster" or _cluster is not None:
+            raise ValueError(f"F={f}, H={hidden}: a lane's weights do not fit the shared "
+                             "memory of a cluster" + (f" of {_cluster}" if _cluster else ""))
     span = -(-hidden // -(-hidden // L2_THREADS))    # the fewest passes of <= 256 columns
     groups = _groups(batch, span)
     tile = groups * ROWS
+    stage = _l2_stage_floats(span) if backward else 0
     for mode in ((0, DGATES_OUT) if backward else (0,)):
-        smem = 4 * _state_floats(hidden, tile, backward, mode)
+        smem = 4 * (_state_floats(hidden, tile, backward, mode) + stage)
         if smem <= MAX_SHARED_BYTES:
             return Plan("l2", groups, smem, span, mode)
     mode = STATE_GLOBAL | (DGATES_OUT if backward else 0)
-    return Plan("l2", groups, 0, span, mode, _state_floats(hidden, tile, backward, mode))
+    return Plan("l2", groups, 4 * stage, span, mode, _state_floats(hidden, tile, backward, mode))
 
 
 def _work(x_seq, p: Plan, lanes: int, batch: int):
@@ -152,7 +264,7 @@ def _lane_arg(name: str, t: torch.Tensor, shape, index: int) -> int:
     return stride
 
 
-def _seq_shapes(x_seq, h, backward, layout):
+def _seq_shapes(x_seq, h, backward, forced):
     """(lanes, steps, batch, f, hidden, plan, device index) of a launch:
     the plan made, the device not yet checked (the index is
     ``x_seq.get_device()``, -1 off the GPU; see :func:`_require_cuda`)."""
@@ -160,7 +272,7 @@ def _seq_shapes(x_seq, h, backward, layout):
         raise ValueError("x_seq must be (L, T, B, F) and the states (L, B, H)")
     lanes, steps, batch, f = x_seq.shape
     hidden = h.shape[2]
-    p = plan(batch, f, hidden, backward, _layout=layout)
+    p = forced or plan(batch, f, hidden, backward, lanes=lanes, sms=device_sms(x_seq.device))
     if steps < 1:
         raise ValueError("the sequence needs at least one step")
     return lanes, steps, batch, f, hidden, p, x_seq.get_device()
@@ -180,15 +292,17 @@ def _weight_strides(wx, wh, b, lanes, f, hidden, dev):
 
 
 def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
-                  _layout: Optional[str] = None):
+                  _plan: Optional[Plan] = None):
     """x_seq (L, T, B, F), h0 and c0 (L, B, H), wx (L, F, 4H), wh (L, H, 4H),
     b (L, 4H), fp32 on one CUDA device, each lane's block contiguous (the
     lane stride is free) -> (h, c): the final states, each a contiguous
     (L, B, H), or with ``save`` the states before and after every step,
-    each a contiguous (L, T+1, B, H) whose [:, 0] is h0, c0.  ``_layout``
-    forces a layout (:func:`plan`)."""
-    global launches, l2_launches
-    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, h0, False, _layout)
+    each a contiguous (L, T+1, B, H) whose [:, 0] is h0, c0.  ``_plan``
+    replaces the launch's :func:`plan`, e.g. one made with ``_layout`` to
+    force a layout (the source refuses one that does not match its own
+    layouts)."""
+    global launches, cluster_launches, l2_launches
+    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, h0, False, _plan)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     h_ls = _lane_arg("h0", h0, (lanes, batch, hidden), dev)
     c_ls = _lane_arg("c0", c0, (lanes, batch, hidden), dev)
@@ -203,22 +317,24 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
     _fwd(x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
          b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
          None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
-         int(save), x_ls, h_ls, c_ls, *w_ls, int(p.layout == "l2"), p.span, p.mode, p.smem,
-         current_stream(dev))
+         int(save), x_ls, h_ls, c_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span, p.cluster,
+         p.mode, p.smem, current_stream(dev))
     launches += 1
+    cluster_launches += p.layout == "cluster"
     l2_launches += p.layout == "l2"
     return h_out, c_out
 
 
 def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
-                           _layout: Optional[str] = None):
+                           _plan: Optional[Plan] = None):
     """The backward of :func:`lstm_seq_cuda` from its saved states: x_seq,
     wx, wh, b as there; h_seq, c_seq (L, T+1, B, H) and the cotangents of
     the final states dh_last, dc_last (L, B, H), contiguous.  Returns
     (dgates (L, T, B, 4H), dh0, dc0 (L, B, H)), contiguous: the cotangents
-    of each step's gate pre-activations and of the initial states."""
-    global bwd_launches, l2_bwd_launches
-    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, dh_last, True, _layout)
+    of each step's gate pre-activations and of the initial states.
+    ``_plan`` as for :func:`lstm_seq_cuda`."""
+    global bwd_launches, cluster_bwd_launches, l2_bwd_launches
+    lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, dh_last, True, _plan)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     w_ls = _weight_strides(wx, wh, b, lanes, f, hidden, dev)
     seq, last = (lanes, steps + 1, batch, hidden), (lanes, batch, hidden)
@@ -237,8 +353,10 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
          wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
          dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
          None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
-         x_ls, *w_ls, int(p.layout == "l2"), p.span, p.mode, p.smem, current_stream(dev))
+         x_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span, p.cluster, p.mode, p.smem,
+         current_stream(dev))
     bwd_launches += 1
+    cluster_bwd_launches += p.layout == "cluster"
     l2_bwd_launches += p.layout == "l2"
     return dgates, dh0, dc0
 

@@ -275,6 +275,8 @@ def test_plan_takes_shapes_past_a_blocks_shared_memory(f, h, backward):
         assert p.span == h and p.smem == lk._shared_bytes(f, h, p.groups * lk.ROWS, backward)
     else:
         assert h > 112
+    if p.layout == "l2":
+        assert h > CLUSTER_CAP[backward]
     assert _plan_before(32, f, h, True) is None       # the pair could not train it
     args = [_t(a) for a in _inputs(1, 2, 4, f, h, 0)]
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -302,7 +304,8 @@ def test_plan_keeps_every_shape_that_fit_before():
     assert lk.plan(32, 6, 113, True)[:3] == ("smem", 1, 226_528)
     assert lk.plan(32, 6, 2100, True).mode == lk.DGATES_OUT
     big = lk.plan(32, 6, 5000, True)
-    assert big.mode == lk.STATE_GLOBAL | lk.DGATES_OUT and big.smem == 0 and big.state > 0
+    assert big.mode == lk.STATE_GLOBAL | lk.DGATES_OUT and big.state > 0
+    assert big.smem == 4 * lk._l2_stage_floats(big.span)   # only the stage of wh
     assert lk.plan(32, 6, 64, _layout="l2").layout == "l2"
     with pytest.raises(ValueError, match="shared memory"):
         lk.plan(32, 6, 128, _layout="smem")
@@ -316,6 +319,232 @@ def test_plan_fills_the_fleet_grid_and_matches_the_stated_layout():
     assert 70 * 257 * 4 < p.smem < 96 * 1024
     assert lk.plan(1, 6, 64).groups == 1                 # B = 1: a 4-row tile
     assert lk.plan(45, 3, 5).groups * 5 <= lk.THREADS
+
+
+# the largest H of the cluster layout at F = 6 (forward, backward)
+CLUSTER_CAP = {False: 461, True: 334}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_picks_the_cluster_up_to_its_cap(backward):
+    """Past the shared-memory layout, every H up to the cap at F = 6, and
+    (F, H) = (9, 128), take the cluster layout, at one lane and at the
+    fleet's 64; past the cap the weights go through L2."""
+    cap = CLUSTER_CAP[backward]
+    for lanes in (1, 64):
+        for h in range(115, cap + 1):
+            p = lk.plan(32, 6, h, backward, lanes=lanes)
+            want = "smem" if _plan_before(32, 6, h, backward) else "cluster"
+            assert p.layout == want, (lanes, h)
+        assert lk.plan(32, 9, 128, backward, lanes=lanes).layout == "cluster"
+        for h in (cap + 1, 512, 1100):
+            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "l2", h
+
+
+def test_plan_sizes_the_cluster_by_the_cards_sms():
+    """The smallest cluster that fits, doubled while lanes x tiles x C is
+    under the 132 SMs: the hidden=128 world's fleet fit (64 lanes) takes
+    C = 2 forward and C = 4 backward (its dgates tile in shared memory),
+    one lane C = 16; one lane at H = 256 C = 16, the backward's dgates tile
+    kept in shared memory at half the groups.  At the card test's B = 37
+    (top 10 groups) the dgates stay in shared memory at H = 192 and go
+    through the output from H = 256 up to the cap."""
+    fwd, bwd = lk.plan(32, 6, 128, lanes=64), lk.plan(32, 6, 128, True, lanes=64)
+    assert (fwd.cluster, fwd.groups, fwd.smem) == (2, 4, 155_392)
+    assert (bwd.cluster, bwd.groups, bwd.mode, bwd.smem) == (4, 8, 0, 217_344)
+    assert lk.plan(32, 6, 128).cluster == lk.plan(32, 6, 128, True).cluster == 16
+    one = lk.plan(32, 6, 256, True)
+    assert (one.cluster, one.groups, one.mode) == (16, 4, 0)
+    assert lk.plan(32, 6, 256, lanes=64).cluster == 8
+    for h in (256, 300, CLUSTER_CAP[True]):
+        assert lk.plan(37, 6, h, True, lanes=2).mode == lk.DGATES_OUT
+    assert lk.plan(37, 6, 192, True, lanes=2).mode == 0
+    # a card with twice the SMs doubles the fleet fit's clusters once more;
+    # off the card a plan assumes an H100 SXM's 132
+    assert lk.plan(32, 6, 128, lanes=64, sms=2 * lk.SMS).cluster == 8
+    assert lk.device_sms(torch.device("cpu")) == lk.SMS == 132
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_cluster_plans_fit_a_block_and_tile_the_grid(backward):
+    """Every cluster plan, chosen or forced at each size: the mirrored
+    bytes of a block are the plan's and at most a block's shared memory,
+    C is 2, 4, 8 or 16, a block holds ceil(H / C) units of the tile's
+    groups, and the grid's x (C blocks a batch tile) is a multiple of C."""
+    seen = 0
+    for batch in (1, 5, 32, 45):
+        for f, h in [(6, h) for h in range(115, 460, 7)] + [(9, 128), (1, 300), (142, 64)]:
+            for cluster in (None,) + lk.CLUSTERS:
+                try:
+                    p = lk.plan(batch, f, h, backward, lanes=3, _layout="cluster",
+                                _cluster=cluster)
+                except ValueError:
+                    assert cluster is not None or h > CLUSTER_CAP[backward]
+                    continue
+                seen += 1
+                tile = p.groups * lk.ROWS
+                assert p.layout == "cluster" and p.cluster in lk.CLUSTERS
+                assert cluster in (None, p.cluster)
+                assert p.smem == 4 * lk._cluster_floats(f, h, p.cluster, tile, backward, p.mode)
+                assert p.smem <= lk.MAX_SHARED_BYTES
+                assert p.span == -(-h // p.cluster) and p.span * p.groups <= lk.L2_THREADS
+                assert p.mode in ((0, lk.DGATES_OUT) if backward else (0,))
+                grid_x = p.cluster * -(-batch // tile)
+                assert grid_x % p.cluster == 0 and grid_x // p.cluster * tile >= batch
+                every = list(lk.cluster_plans(batch, f, h, p.cluster, backward))
+                assert every[0] == p and len(set(every)) == len(every)
+                assert all(q.smem <= lk.MAX_SHARED_BYTES and q.span * q.groups <= lk.L2_THREADS
+                           for q in every)
+    assert seen > 300
+
+
+def test_forcing_the_cluster_where_it_does_not_fit_raises():
+    with pytest.raises(ValueError, match="cluster"):
+        lk.plan(32, 6, 512, True, _layout="cluster")
+    with pytest.raises(ValueError, match="cluster"):
+        lk.plan(32, 6, 1100, _layout="cluster")
+    with pytest.raises(ValueError, match="cluster of 2"):
+        lk.plan(32, 6, 256, _cluster=2)
+    with pytest.raises(ValueError, match="one of"):
+        lk.plan(32, 6, 128, _cluster=3)
+    with pytest.raises(ValueError, match="one of"):
+        lk.plan(32, 6, 128, _layout="l2", _cluster=4)
+    args = [_t(a) for a in _inputs(1, 2, 4, 6, 512, 0)]
+    with pytest.raises(ValueError, match="cluster"):
+        lk.lstm_seq_cuda(*args, _plan=lk.plan(4, 6, 512, _layout="cluster"))
+
+
+def _card_inputs(lanes, t, b, f, h, seed):
+    dev = torch.device("cuda")
+    args = [_t(a).to(dev) for a in _inputs(lanes, t, b, f, h, seed)]
+    g = torch.Generator().manual_seed(seed + 1)
+    dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) for _ in range(2))
+    return args, dh, dc
+
+
+def _run_pair(args, dh, dc, **force):
+    """Every output of the pair as int32 bits: h_seq, c_seq, dgates, dh0,
+    dc0; ``force`` (``_layout``, ``_cluster``) goes to each launch's plan."""
+    lanes, _, b, f = args[0].shape
+    h = args[1].shape[-1]
+    fwd, bwd = (lk.plan(b, f, h, backward, lanes=lanes, **force) for backward in (False, True))
+    hs, cs = lk.lstm_seq_cuda(*args, save=True, _plan=fwd)
+    back = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _plan=bwd)
+    return [o.view(torch.int32) for o in (hs, cs, *back)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,t,b,f,h", [(2, 8, 32, 6, 64), (1, 4, 5, 6, 112)])
+def test_the_cluster_layout_equals_the_shared_memory_one_on_the_card(lanes, t, b, f, h):
+    """On shapes one block holds, the cluster layout forced at each size
+    gives the shared-memory layout's bits: every saved state, dgates, dh0,
+    dc0; and it counts as a cluster launch."""
+    _need_card()
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, 43)
+    want = _run_pair(args, dh, dc, _layout="smem")
+    for cluster in lk.CLUSTERS:
+        before = kernels.layout_counts()
+        got = _run_pair(args, dh, dc, _layout="cluster", _cluster=cluster)
+        torch.cuda.synchronize()
+        after = kernels.layout_counts()
+        assert after["lstm_cell_cluster"] == before["lstm_cell_cluster"] + 1
+        assert after["lstm_cell_bwd_cluster"] == before["lstm_cell_bwd_cluster"] + 1
+        for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+            assert torch.equal(a, c), (cluster, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 192, 256, CLUSTER_CAP[True]])
+def test_the_cluster_layout_equals_the_l2_one_and_the_twins_on_the_card(h):
+    """Past one block: the planned cluster (and the cluster at each size
+    that fits; dgates published in shared memory at H = 192, through the
+    output from H = 256) gives the forced
+    L2 layout's bits, at a ragged batch of two tiles; and both match the
+    twins within the pair's limits (forward 1e-5, backward 1e-4 of the
+    largest value)."""
+    _need_card()
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+
+    lanes, t, b, f = 2, 4, 37, 6
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, h)
+    want = _run_pair(args, dh, dc, _layout="l2")
+    assert lk.plan(b, f, h, True, lanes=lanes).layout == "cluster"
+    for cluster in (None,) + lk.CLUSTERS:
+        try:
+            lk.plan(b, f, h, True, lanes=lanes, _layout="cluster", _cluster=cluster)
+        except ValueError:
+            continue
+        got = _run_pair(args, dh, dc, _layout="cluster", _cluster=cluster)
+        torch.cuda.synchronize()
+        for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+            assert torch.equal(a, c), (cluster, name)
+    hs, cs = (o.view(torch.float32) for o in want[:2])
+    hr, cr = lstm_seq_ref(*args)
+    torch.testing.assert_close(hs, hr, rtol=0, atol=1e-5)
+    torch.testing.assert_close(cs, cr, rtol=0, atol=1e-5)
+    ref = lstm_seq_backward_ref(args[0], hs, cs, *args[3:], dh, dc)
+    for name, got, w in zip(("dgates", "dh0", "dc0"), want[2:], ref):
+        got = got.view(torch.float32)
+        assert float((got - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of fp32 arrays, exactly: the product in float64 is
+    exact, TwoSum gives the sum's error, and a float64 sum that lands on a
+    midpoint of two fp32 values is moved to the side the error points to."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.astype(np.float32)
+    up = np.nextafter(r, np.float32(np.inf))
+    down = np.nextafter(r, np.float32(-np.inf))
+    r64 = r.astype(np.float64)
+    to_up = (s == (r64 + up.astype(np.float64)) / 2) & (err > 0)
+    to_down = (s == (r64 + down.astype(np.float64)) / 2) & (err < 0)
+    return np.where(to_up, up, np.where(to_down, down, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,layout", [(512, "l2"), (1100, "l2"), (128, "cluster"),
+                                      (64, "smem")])
+def test_dh0_is_the_ascending_fma_sum_on_the_card(h, layout):
+    """dh0[b, j] = sum over the 4H gate columns of dgates[0, b, col] wh[j, col],
+    each term an fmaf in ascending column order, bit for bit in every
+    layout: past the cap the L2 backward reads wh through its stage in
+    shared memory and keeps that order."""
+    _need_card()
+    lanes, t, b, f = 1, 2, 5, 6
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, 7)
+    assert lk.plan(b, f, h, True).layout == layout
+    hs, cs = lk.lstm_seq_cuda(*args, save=True)
+    dgates, dh0, _ = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc)
+    torch.cuda.synchronize()
+    d = dgates[0, 0].cpu().numpy()
+    w = args[4][0].cpu().numpy()
+    acc = np.zeros((b, h), np.float32)
+    for col in range(4 * h):
+        acc = _fma32(d[:, col, None], w[None, :, col], acc)
+    assert np.array_equal(dh0[0].cpu().numpy().view(np.int32), acc.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_the_cluster_layout_takes_more_than_65535_lanes_on_the_card():
+    """65,537 lanes at a small shape, the cluster layout forced: two
+    launches' worth of lanes on gridDim.y, the shared-memory layout's bits."""
+    _need_card()
+    args, dh, dc = _card_inputs(65_537, 2, 3, 2, 5, 11)
+    want = _run_pair(args, dh, dc, _layout="smem")
+    got = _run_pair(args, dh, dc, _layout="cluster", _cluster=2)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda
@@ -332,9 +561,11 @@ def test_the_two_layouts_agree_bit_for_bit_on_the_card(lanes, t, b, f, h):
     dh, dc = (torch.randn((lanes, b, h), generator=g).to(dev) for _ in range(2))
     outs = {}
     for layout in ("smem", "l2"):
-        assert lk.plan(b, f, h, _layout=layout).layout == layout
-        hs, cs = lk.lstm_seq_cuda(*args, save=True, _layout=layout)
-        back = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _layout=layout)
+        fwd, bwd = (lk.plan(b, f, h, backward, lanes=lanes, _layout=layout)
+                    for backward in (False, True))
+        assert fwd.layout == bwd.layout == layout
+        hs, cs = lk.lstm_seq_cuda(*args, save=True, _plan=fwd)
+        back = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _plan=bwd)
         outs[layout] = [o.view(torch.int32) for o in (hs, cs, *back)]
     torch.cuda.synchronize()
     for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), *outs.values()):

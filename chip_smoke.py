@@ -72,8 +72,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      on a holdout (10 rounds of 8 epochs at most) and ``cloud_only_config``,
      with EnFed's ``T_train`` and ``E_tot`` against each from one
      ``CostModel``; the fleet's ``method="cfl"`` and ``"dfl"`` (mesh, ring)
-     at 64 requesters of 6 lanes for 3 rounds, eq. 14 launched once a round
-     (cfl) or 6 times (dfl), with the peak device memory; one 4-requester
+     at 64 requesters of 6 lanes for 2 rounds, eq. 14 launched once a round
+     (cfl) or 6 times (dfl), with the peak device memory; one 2-requester
      round of cfl and of dfl on the card and on the CPU under the limit rule
      of the fleet round above (the nodes' inits perturbed); and
      ``examples/torch_quickstart.py`` as a process of its own, exit 0;
@@ -293,12 +293,21 @@ LM_TRAIN_STEPS = 30
 # the Byzantine world of [4d]: 20 % of the links deliver noise of scale 10
 ADVERSARY = dict(p_byzantine=0.2, attack="noise", scale=10.0, seed=7)
 ADV_ROUNDS = 3
-BASELINE_FLEET_ROUNDS = 3
+# [4e]'s depth, cut for the script's time limit: the fleet baselines run 2
+# rounds (3 before; every check is the same at any count), and the MLP
+# world's loop learners as many.  Not 1: after one round the MLP world's
+# loop DFL mesh scores below chance on the holdout (0.0744 on an H100),
+# which [4e]'s check refuses
+BASELINE_FLEET_ROUNDS = 2
 BASELINE_LANES = 6             # the requester's shard and its 5 neighbours
 # the MLP world's loop learners and EnFed session: no method reached its
 # target within 10 rounds there (every run took all 10, ~50 s a learner),
-# so they run the fleet's 3 rounds, all of them to the budget as at 10
+# so they run the fleet's rounds, all of them to the budget as at 10
 MLP_ROUNDS = BASELINE_FLEET_ROUNDS
+# requesters of the one baseline fleet round card vs CPU (and of each of
+# its CPU runs under a perturbation or a fault): 2 (4 before), so that its
+# CPU side halves
+BASELINE_ROUND_R = 2
 # one baseline fleet round (4 requesters x 6 lanes) card vs CPU, under [4c]'s
 # rule (the ULP_REL spread below the limit, a FAULT_REL fault above it).
 # From random inits, 8 epochs of Adam spread a 1e-7 perturbation of the inits
@@ -1001,9 +1010,12 @@ def check_robust(dev, n_params, n_contrib):
 
 # the second layouts' shapes (name, L, B, F, H, T): the LSTM pair with a
 # lane's weights across a cluster at the hidden=128 world's fleet fit and at
-# one lane of H = 256, with its weights through L2 past the cluster's cap at
-# one lane of H = 512 (the hidden=512 world's fit); the robust columns'
-# run-time-N bodies at the n_max=24 world's (R, 24, P) and at N = 33
+# one lane of H = 256; across the card past the cluster's cap at every
+# shape [4o]'s hidden=512 loop launches (LSTM_GRID_SHAPES: its fit batch,
+# and the evaluation's whole test split, forward only on that path); with
+# its weights through L2 past the grid's cap at one lane of H = 1,100
+# ([4o]'s hidden=1100 fit); the robust columns' run-time-N bodies at the
+# n_max=24 world's (R, 24, P) and at N = 33
 LSTM_CLUSTER_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 256, 32))
 # every shape [4o]'s hidden=128 paths launch the pair at (its cluster plans:
 # C = 16 at these lane counts): the fit batch and the evaluation's whole
@@ -1011,7 +1023,8 @@ LSTM_CLUSTER_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 2
 # if its paths launch another
 LSTM_O_SHAPES = (("H=128 loop fit", 1, 32, 6, 128, 32), ("H=128 loop eval", 1, 45, 6, 128, 32),
                  ("H=128 R=4 fit", 4, 32, 6, 128, 32), ("H=128 R=4 eval", 4, 56, 6, 128, 32))
-LSTM_L2_SHAPES = (("H=512", 1, 32, 6, 512, 32),)
+LSTM_GRID_SHAPES = (("H=512 loop fit", 1, 32, 6, 512, 32), ("H=512 loop eval", 1, 45, 6, 512, 32))
+LSTM_L2_SHAPES = (("H=1100 fit", 1, 32, 6, 1100, 32),)
 WIDE_N = 24
 
 
@@ -1034,7 +1047,7 @@ def lstm_wide_errors(name, layout, x, h0, c0, w, dh, dc):
     """The LSTM pair at one shape against the twins, forward within 1e-5
     (every saved state) and backward within 1e-4 of each output's largest
     value (dgates, dh0, dc0 and the weight gradients the wrapper forms);
-    fails unless both kernels ran ``layout`` ("cluster" or "l2").  Returns
+    fails unless both kernels ran ``layout`` ("cluster", "grid" or "l2").  Returns
     the forward's and the backward's largest abs errors."""
     from repro_torch import kernels
     from repro_torch.kernels.lstm_cell.kernel import lstm_seq_backward_cuda, lstm_seq_cuda
@@ -1078,13 +1091,16 @@ def special_values(x, g):
 
 
 def check_second_layouts(dev, n_params):
-    """The LSTM pair's cluster and weights-through-L2 layouts and the
+    """The LSTM pair's cluster, grid and weights-through-L2 layouts and the
     robust columns' run-time-N bodies against the twins and against the
-    first layouts: the forced L2 and cluster layouts bit-equal to the
+    first layouts: the forced L2, cluster and grid layouts bit-equal to the
     shared-memory one at H = 64 (the fleet's fit) and H = 112; the cluster
     layout at LSTM_CLUSTER_SHAPES and at LSTM_O_SHAPES (every launch of
     [4o]'s hidden=128 paths) bit-equal to the forced L2 one and within the
-    pair's limits, the L2 layout within them at LSTM_L2_SHAPES; the
+    pair's limits, and at LSTM_CLUSTER_SHAPES to the forced grid; the grid
+    layout at LSTM_GRID_SHAPES (every launch of [4o]'s hidden=512 loop)
+    bit-equal to the forced L2 one and within the pair's limits; the L2
+    layout within them at LSTM_L2_SHAPES (past the grid's cap); the
     run-time-N trimmed mean and median at (64, 24, P)
     and (5, 33, 4,099), dense and q8, within 1e-6 of the largest output
     on the edge rows of :func:`check_robust` (an inactive lane, an
@@ -1112,26 +1128,36 @@ def check_second_layouts(dev, n_params):
     for lanes, b, f, h, t in ((FLEET_R, 32, 6, 64, 32), (4, 32, 6, 112, 8)):
         args = lstm_views(g, dev, lanes, b, f, h, t)
         want = bits(*args, "smem")
-        for layout in ("l2", "cluster"):
+        for layout in ("l2", "cluster", "grid"):
             got = bits(*args, layout)
             torch.cuda.synchronize()
             if not all(torch.equal(a, c) for a, c in zip(got, want)):
                 fail(f"lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the {layout} layout differs "
                      "from the shared-memory one")
-        print(f"  lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the weights-through-L2 and the "
-              "cluster layouts (forced) bit-equal to the shared-memory one (states, dgates, "
-              "dh0, dc0)")
-    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_O_SHAPES + LSTM_L2_SHAPES:
+        print(f"  lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the weights-through-L2, the "
+              "cluster and the grid layouts (forced) bit-equal to the shared-memory one "
+              "(states, dgates, dh0, dc0)")
+    shapes = LSTM_CLUSTER_SHAPES + LSTM_O_SHAPES + LSTM_GRID_SHAPES + LSTM_L2_SHAPES
+    for name, lanes, b, f, h, t in shapes:
         args = lstm_views(g, dev, lanes, b, f, h, t)
         fwd, bwd = (plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
                     for backward in (False, True))
         layout = bwd.layout
-        if layout == "cluster":
-            if not all(torch.equal(a, c) for a, c in zip(bits(*args, None), bits(*args, "l2"))):
-                fail(f"lstm_seq {name}: the cluster layout differs from the forced L2 one")
-            print(f"  lstm_seq {name} L,B={lanes},{b}: the cluster layout (C = {fwd.cluster} "
-                  f"forward, {bwd.cluster} backward) bit-equal to the weights-through-L2 one "
-                  "(forced)")
+        if layout in ("cluster", "grid"):
+            planned = bits(*args, None)
+            if not all(torch.equal(a, c) for a, c in zip(planned, bits(*args, "l2"))):
+                fail(f"lstm_seq {name}: the {layout} layout differs from the forced L2 one")
+            how = (f"C = {fwd.cluster} forward, {bwd.cluster} backward" if layout == "cluster"
+                   else f"K = {fwd.blocks} forward, {bwd.blocks} backward")
+            print(f"  lstm_seq {name} L,B={lanes},{b}: the {layout} layout ({how}) bit-equal "
+                  "to the weights-through-L2 one (forced)")
+            if (name, lanes, b, f, h, t) in LSTM_CLUSTER_SHAPES:
+                grid = bits(*args, "grid")
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, c) for a, c in zip(planned, grid)):
+                    fail(f"lstm_seq {name}: the grid layout (forced) differs from the cluster one")
+                print(f"  lstm_seq {name} L,B={lanes},{b}: the grid layout (forced) bit-equal "
+                      "to the cluster one")
         ferr, berr = lstm_wide_errors(name, layout, *args)
         suffix = "" if h == 128 else f"_h{h}"
         for key, err in ((f"lstm_cell_{layout}" + suffix, ferr),
@@ -1688,7 +1714,9 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 # ---------------------------------------------------------------------------
 
 O_HIDDEN = 128          # the quickstart world's LSTM at H = 128: weights across a cluster
-O_WIDE_HIDDEN = 512     # and at H = 512, past the cluster's cap: weights through L2
+O_WIDE_HIDDEN = 512     # at H = 512, past the cluster's cap: weights across the card
+O_L2_HIDDEN = 1100      # and at H = 1,100, past the grid's cap: weights through L2
+O_L2_BATCH = 32         # one fit step of the requester's first 32 windows at H = 1,100
 O_N_MAX = 24            # the HAR world of 25 devices: 24 contributors a round
 O_EPOCHS = 1            # fit epochs a round in [4o], [4]'s 8 cut for time; no
                         # contributor refresh (its CPU side was most of [4o]'s wall)
@@ -1746,19 +1774,20 @@ def lstm_launch_shapes():
         ops.lstm_seq_cuda, ops.lstm_seq_backward_cuda = inner
 
 
-def o_held(tag, seen, layout):
+def o_held(tag, seen, layout, kind="cluster", shapes=LSTM_O_SHAPES, table="LSTM_O_SHAPES"):
     """Fails unless every launch of the pair on a [4o] path (``seen``) was
-    recorded, and was at a shape of LSTM_O_SHAPES, which [3] held against
-    the twins and the forced L2 layout."""
+    recorded as a launch of the ``kind`` layout, and was at a shape of
+    ``shapes`` (``table`` by name), which [3] held against the twins (and,
+    but for the L2 layout's, the forced L2 layout)."""
     fwd = sum(n for k, n in seen.items() if not k[-1])
-    if (fwd, sum(seen.values()) - fwd) != (layout["lstm_cell_cluster"],
-                                          layout["lstm_cell_bwd_cluster"]):
-        fail(f"[4o] {tag}: {dict(seen)} are not the path's cluster launches ({layout})")
-    held = {shape[1:] for shape in LSTM_O_SHAPES}
+    if (fwd, sum(seen.values()) - fwd) != (layout[f"lstm_cell_{kind}"],
+                                          layout[f"lstm_cell_bwd_{kind}"]):
+        fail(f"[4o] {tag}: {dict(seen)} are not the path's {kind} launches ({layout})")
+    held = {shape[1:] for shape in shapes}
     missed = sorted({k[:5] for k in seen} - held)
     if missed:
         fail(f"[4o] {tag}: launched the LSTM pair at {missed} (L, B, F, H, T), which [3] did not "
-             "hold: add them to LSTM_O_SHAPES")
+             f"hold: add them to {table}")
     print(f"    {tag}: every launch at a shape [3] held, (L, B) "
           + ", ".join(f"{k[0]},{k[1]} {'bwd' if k[-1] else 'fwd'} x{n}"
                       for k, n in sorted(seen.items())))
@@ -1804,8 +1833,11 @@ def run_second_layouts(device, world, pretrained, limits):
     2-round loop session and one fleet round of 4 requesters, card vs CPU
     under [4]'s limits, each card launch of the pair at a shape that [3]
     held (LSTM_O_SHAPES); at ``hidden=512`` (past the cluster's cap: the
-    weights through L2) a 1-round loop session whose contributors are
-    unpretrained, card vs CPU under [4a]'s limit; then a HAR
+    weights across the card) a 1-round loop session whose contributors are
+    unpretrained, card vs CPU under [4a]'s limit, each launch at a shape [3]
+    held (LSTM_GRID_SHAPES); at ``hidden=1100`` (past the grid's cap: the
+    weights through L2) one fit step of 32 windows, card vs CPU under the
+    same limit, at LSTM_L2_SHAPES; then a HAR
     world of 25 devices with ``n_max=24`` (the robust columns' run-time-N
     bodies) in [4d]'s Byzantine world (noise of scale 1: ``O_ADVERSARY``)
     under the median and the trimmed mean, fp32 and int8: one fleet round
@@ -1816,7 +1848,7 @@ def run_second_layouts(device, world, pretrained, limits):
                                   run_fleet)
     from repro_torch.data import HARDatasetConfig, dirichlet_partition, make_har_windows
     from repro_torch.models import LSTMClassifier
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     cpu = torch.device("cpu")
     task0, shards, own_train, own_test, fleet = world
@@ -1885,14 +1917,43 @@ def run_second_layouts(device, world, pretrained, limits):
                                     contributor_states(pp, shards, fleet, d), o_cfg(1),
                                     device=d).run()
 
-    card, host, counts, layout = o_run(
-        f"H={O_WIDE_HIDDEN} loop, 1 round of {O_EPOCHS} epoch", device,
-        loop512(device, task512, pre512), loop512(cpu, cpu_task512, host_pre512),
-        ("fedavg", "aes_ctr") + lstm_need, ("lstm_cell_l2", "lstm_cell_bwd_l2"))
+    with lstm_launch_shapes() as seen:
+        card, host, counts, layout = o_run(
+            f"H={O_WIDE_HIDDEN} loop, 1 round of {O_EPOCHS} epoch", device,
+            loop512(device, task512, pre512), loop512(cpu, cpu_task512, host_pre512),
+            ("fedavg", "aes_ctr") + lstm_need, ("lstm_cell_grid", "lstm_cell_bwd_grid"))
+    o_held(f"H={O_WIDE_HIDDEN} loop", seen, layout, "grid", LSTM_GRID_SHAPES, "LSTM_GRID_SHAPES")
     keep("loop", counts, layout)
     check_session(card, f"[4o] H={O_WIDE_HIDDEN} loop")
     o_check(f"H={O_WIDE_HIDDEN} loop", o_loop_diff(card, host), O_LOOP_TOL,
             {"rounds": card.rounds == host.rounds, "stop": card.stop_reason == host.stop_reason})
+
+    # the quickstart world at H = 1,100: one fit step from an init
+    cfg_l2 = dataclasses.replace(task0.model.cfg, hidden=O_L2_HIDDEN)
+    task_l2 = SupervisedTask(LSTMClassifier(cfg_l2, device=device), lr=task0.lr)
+    cpu_task_l2 = SupervisedTask(LSTMClassifier(cfg_l2, device=cpu), lr=task0.lr)
+    watch(task_l2.model)
+    init_l2 = task_l2.init(seed=30)
+    host_init_l2 = tree_map(lambda t: t.cpu(), init_l2)
+    windows = tuple(a[:O_L2_BATCH] for a in own_train)
+
+    def fit_l2(tk, p0):
+        return lambda: tk.fit(p0, windows, epochs=1, batch_size=O_L2_BATCH, seed=0)
+
+    with lstm_launch_shapes() as seen:
+        card, host, counts, layout = o_run(
+            f"H={O_L2_HIDDEN} fit, one step of {O_L2_BATCH} windows", device,
+            fit_l2(task_l2, init_l2), fit_l2(cpu_task_l2, host_init_l2), lstm_need,
+            ("lstm_cell_l2", "lstm_cell_bwd_l2"))
+    o_held(f"H={O_L2_HIDDEN} fit", seen, layout, "l2", LSTM_L2_SHAPES, "LSTM_L2_SHAPES")
+    keep("loop", counts, layout)
+    leaves = list(zip(tree_leaves(card[0]), tree_leaves(host[0])))
+    if not all(bool(torch.isfinite(a).all()) for a, _ in leaves):
+        fail(f"[4o] H={O_L2_HIDDEN} fit: non-finite parameters on the card")
+    loss_gap = abs(card[1][0] - host[1][0])
+    o_check(f"H={O_L2_HIDDEN} fit", max(float((a.cpu() - b).abs().max()) for a, b in leaves),
+            O_LOOP_TOL, {"loss": loss_gap <= 1e-5 * max(1.0, abs(host[1][0]))})
+    print(f"    H={O_L2_HIDDEN} fit: loss card {card[1][0]:.6f}, CPU {host[1][0]:.6f}")
 
     # the HAR world of 25 devices: the requester and 24 contributors
     x, y, _ = make_har_windows(HARDatasetConfig(num_samples=200 * (O_N_MAX + 1), seq_len=32))
@@ -2130,8 +2191,9 @@ BASELINE_METHODS = (("cfl", "mesh"), ("dfl", "mesh"), ("dfl", "ring"))
 
 def run_fleet_baselines(device, bw):
     """``run_fleet(method="cfl"|"dfl")`` at R = 64 (6 lanes each: 384 fit
-    lanes) for 3 rounds of 8 epochs.  Eq. 14 must run once a round (cfl) or
-    once per mixing row, 6 a round (dfl).  Returns each run's counts."""
+    lanes) for BASELINE_FLEET_ROUNDS rounds of 8 epochs.  Eq. 14 must run
+    once a round (cfl) or once per mixing row, 6 a round (dfl).  Returns
+    each run's counts."""
     from repro_torch.core import EnFedConfig, run_fleet
     from repro_torch.utils.tree import tree_leaves
 
@@ -2171,10 +2233,11 @@ def run_fleet_baselines(device, bw):
 
 
 def baseline_round_check(device, bw, tol):
-    """One round (BASELINE_ROUND_EPOCHS) of 4 requesters per method, card vs
-    CPU, under [4c]'s rule: the limit ``tol`` lies above the CPU's own
-    spread when every node's init is perturbed by 1e-7 relative (3 seeds)
-    and below the difference a 1e-4 relative fault of the inits makes."""
+    """One round (BASELINE_ROUND_EPOCHS) of BASELINE_ROUND_R requesters per
+    method, card vs CPU, under [4c]'s rule: the limit ``tol`` lies above
+    the CPU's own spread when every node's init is perturbed by 1e-7
+    relative (3 seeds) and below the difference a 1e-4 relative fault of
+    the inits makes."""
     from repro_torch.core import EnFedConfig, SupervisedTask, run_fleet
     from repro_torch.utils.tree import tree_map, tree_ravel
 
@@ -2203,7 +2266,7 @@ def baseline_round_check(device, bw, tol):
         tag = f"{method}" + (f" {topo}" if method == "dfl" else "")
 
         def run(d, task):
-            return run_fleet(task, baseline_specs(d, bw, 4), cfg, method=method,
+            return run_fleet(task, baseline_specs(d, bw, BASELINE_ROUND_R), cfg, method=method,
                              dfl_topology=topo, device=d)
 
         card, host = run(device, bw.task), run(cpu, PerturbedInit(0.0, 0))
@@ -2213,7 +2276,8 @@ def baseline_round_check(device, bw, tol):
         noise = max(float((lanes(run(cpu, PerturbedInit(ULP_REL, sd))) - ref).abs().max())
                     for sd in range(3))
         fault = float((lanes(run(cpu, PerturbedInit(FAULT_REL, 0))) - ref).abs().max())
-        print(f"  one {tag} round R=4 card vs CPU: max abs param diff {diff:.3e} (per lane "
+        print(f"  one {tag} round R={BASELINE_ROUND_R} card vs CPU: max abs param diff "
+              f"{diff:.3e} (per lane "
               f"{', '.join(f'{v:.3e}' for v in per_lane.tolist())}; limit {tol:.3e}); CPU vs "
               f"CPU: {ULP_REL:g} perturbation {noise:.3e}, {FAULT_REL:g} fault {fault:.3e}")
         if not noise < tol:
@@ -5029,10 +5093,13 @@ def time_robust_kernels(dev, counts, errs, n_params, n_contrib, flush):
 def time_second_layouts(dev, counts, errs, n_params, flush):
     """The second layouts' rows: the LSTM pair with a lane's weights
     across a cluster at LSTM_CLUSTER_SHAPES (the hidden=128 world's fleet
-    fit, one lane at H = 256) and through L2 at LSTM_L2_SHAPES (one lane at
-    H = 512), beside cuDNN's ``torch.lstm`` at one lane (for the 64-lane
-    row in its note), with the plan's cluster size and bytes per block
-    (``kernel_bench.py --lstm-plans`` times every plan that fits); the
+    fit, one lane at H = 256), across the card at the fit shape of
+    LSTM_GRID_SHAPES (one lane at H = 512) and through L2 at LSTM_L2_SHAPES
+    (one lane at H = 1,100, timed with few calls: a backward takes ~0.1 s),
+    beside cuDNN's ``torch.lstm`` at one lane (for the 64-lane row in its
+    note), with the plan's cluster size or K and lanes a launch, and bytes
+    per block (``kernel_bench.py --lstm-plans`` times every plan that
+    fits); the
     robust columns' run-time-N bodies at the n_max=24 world's (64, 24,
     P) fp32 and (64, 24, Lp) int8, beside ``torch.nanquantile`` + ``where``
     for the dense median.  Each is held against its twin on the timed
@@ -5052,7 +5119,7 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
     g = torch.Generator().manual_seed(32)
     src = "src/repro_torch/csrc/lstm_cell.cu"
     rows = []
-    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_L2_SHAPES:
+    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_GRID_SHAPES[:1] + LSTM_L2_SHAPES:
         x, h0, c0, w, dh, dc = lstm_views(g, dev, lanes, b, f, h, t)
         plans = tuple(plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
                       for backward in (False, True))
@@ -5072,8 +5139,10 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
         def bwd():
             return lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc)
 
+        slow = layout == "l2"
         lib_fwd, lib_bwd, lib_diff = time_cudnn_lstm(x[0], h0[0], c0[0], *(p[0] for p in w),
-                                                     dh[0], dc[0], hs[0, -1])
+                                                     dh[0], dc[0], hs[0, -1],
+                                                     iters=20 if slow else 200)
         one_lane = lanes == 1
         suffix = "" if h == 128 else f"_h{h}"
         shape = f"L,B,F,H,T={lanes},{b},{f},{h},{t}"
@@ -5092,17 +5161,24 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
             if layout == "cluster":
                 how = (f"cluster of {p.cluster} blocks, {p.smem:,} B a block"
                        + ("; dgates through the output" if p.mode & DGATES_OUT else ""))
+            elif layout == "grid":
+                how = (f"K = {p.blocks} blocks a lane of {p.span * p.groups} threads, "
+                       f"{p.per_launch} lanes a launch, {p.smem:,} B a block")
             else:
                 how = f"weights through L2, {p.smem:,} B a block"
+            print(f"  {kname + suffix}: {shape}, {how}")
             rows.append(dict(
                 name=kname + suffix, route="cuda", source=src,
                 replaces=("src/repro/kernels/lstm_cell/kernel.py:66 (its VJP, by XLA autodiff "
                           "in the reference)" if backward
                           else "src/repro/kernels/lstm_cell/kernel.py:66"),
-                device_us=device_us(kern, ker), device_us_cold=device_us(kern, ker, flush=flush),
-                host_us=host_us(kern, calls=200, burst=20), launches=counts[kname],
+                device_us=device_us(kern, ker, iters=4 if slow else 50),
+                device_us_cold=device_us(kern, ker, iters=4 if slow else 50, flush=flush),
+                host_us=host_us(kern, calls=10 if slow else 200, burst=5 if slow else 20),
+                launches=counts[kname],
                 max_abs_err=errs.get(kname + suffix, rel if backward else ferr),
-                ms=cuda_ms(kern, iters=50, warmup=5), plain_ms=cuda_ms(plain, iters=10, warmup=2),
+                ms=cuda_ms(kern, iters=5 if slow else 50, warmup=1 if slow else 5),
+                plain_ms=cuda_ms(plain, iters=3 if slow else 10, warmup=1 if slow else 2),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib if one_lane else None,
                 library_note="" if one_lane else cudnn_note,
                 shape=f"{shape} ({'backward' if backward else 'forward, states saved'}; {how})"))
@@ -5154,12 +5230,12 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
     return rows
 
 
-def time_cudnn_lstm(x, h0, c0, wx, wh, b, dh, dc, h_last):
+def time_cudnn_lstm(x, h0, c0, wx, wh, b, dh, dc, h_last, iters=200):
     """cuDNN's LSTM (``torch.nn.LSTM``, fp32 with TF32 off) over one lane's
     sequence x (T, B, F) with the same weights, as the yardstick of the
     two kernels: ms of its training forward, and of its backward through
-    autograd (which forms the weight gradients too).  Also the largest
-    difference of its h_T from the kernel's ``h_last``."""
+    autograd (which forms the weight gradients too), over ``iters`` calls.
+    Also the largest difference of its h_T from the kernel's ``h_last``."""
     lstm = torch.nn.LSTM(wx.shape[0], wh.shape[0]).to(x.device)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(wx.t())
@@ -5167,11 +5243,12 @@ def time_cudnn_lstm(x, h0, c0, wx, wh, b, dh, dc, h_last):
         lstm.bias_ih_l0.copy_(b)
         lstm.bias_hh_l0.zero_()
     state = (h0[None].contiguous(), c0[None].contiguous())
-    fwd_ms = cuda_ms(lambda: lstm(x, state))
+    fwd_ms = cuda_ms(lambda: lstm(x, state), iters=iters, warmup=max(1, iters // 10))
     _, (hn, cn) = lstm(x, state)
     params = list(lstm.parameters())
     bwd_ms = cuda_ms(lambda: torch.autograd.grad((hn, cn), params, (dh[None], dc[None]),
-                                                 retain_graph=True))
+                                                 retain_graph=True),
+                     iters=iters, warmup=max(1, iters // 10))
     return fwd_ms, bwd_ms, float((hn[0].detach() - h_last).abs().max())
 
 
@@ -5579,7 +5656,8 @@ def main() -> int:
     run_mesh(dev)
     print(f"  [4n] wall {time.perf_counter() - t_mesh:.1f} s")
     print(f" [4o] the second layouts' worlds: hidden={O_HIDDEN} (weights across a cluster), "
-          f"hidden={O_WIDE_HIDDEN} (weights through L2), "
+          f"hidden={O_WIDE_HIDDEN} (weights across the card), hidden={O_L2_HIDDEN} (weights "
+          "through L2), "
           f"n_max={O_N_MAX} under the median and the trimmed mean (run-time N), card vs CPU")
     t_o = time.perf_counter()
     o_loop, o_fleet, o_layouts = run_second_layouts(dev, world, pretrained, limits)

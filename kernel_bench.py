@@ -6,9 +6,12 @@ of ``chip_smoke.py`` does, for the package in any source tree.
     python3 kernel_bench.py [--src DIR] [--label NAME] --lstm "L,B,F,H,T;..."
 
 ``--lstm-plans`` times instead the LSTM pair of this checkout at
-``chip_smoke.LSTM_CLUSTER_SHAPES`` under every cluster plan that fits
-(``kernels/lstm_cell/kernel.py::cluster_plans`` at each cluster size,
-with batch-row groups 8, 4, 2 or 1) and under the weights-through-L2
+``chip_smoke.LSTM_CLUSTER_SHAPES`` and the fit shape of
+``chip_smoke.LSTM_GRID_SHAPES`` (one lane of H = 512) under every cluster
+plan that fits (``kernels/lstm_cell/kernel.py::cluster_plans`` at each
+cluster size, with batch-row groups 8, 4, 2 or 1), at one lane under every
+grid plan with the largest batch tile (``grid_plans``: each count of rows
+a thread and each K, so at H = 256 the grid against the cluster), and under the weights-through-L2
 layout, each checked bit-equal to the planned launch: what the rule of
 ``kernels/lstm_cell/kernel.py::plan`` is read against.  ``--lstm`` times
 only the LSTM pair (the forward saving its states, the backward; device ms
@@ -118,16 +121,22 @@ def lstm_plans(dev) -> None:
     from repro_torch.kernels.lstm_cell import kernel as lk
 
     g = torch.Generator().manual_seed(33)
-    for name, lanes, b, f, h, t in chip_smoke.LSTM_CLUSTER_SHAPES:
+    sms = lk.device_sms(dev)
+    shapes = chip_smoke.LSTM_CLUSTER_SHAPES + chip_smoke.LSTM_GRID_SHAPES[:1]
+    for name, lanes, b, f, h, t in shapes:
         x, h0, c0, w, dh, dc = chip_smoke.lstm_views(g, dev, lanes, b, f, h, t)
         hs, cs = lk.lstm_seq_cuda(x, h0, c0, *w, save=True)
         runs = {False: lambda p: lk.lstm_seq_cuda(x, h0, c0, *w, save=True, _plan=p),
                 True: lambda p: lk.lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc, _plan=p)}
         for backward, run in runs.items():
-            chosen = lk.plan(b, f, h, backward, lanes=lanes, sms=lk.device_sms(dev))
+            chosen = lk.plan(b, f, h, backward, lanes=lanes, sms=sms)
             want = [o.view(torch.int32).clone() for o in run(chosen)]
             plans = [p for c in lk.CLUSTERS for p in lk.cluster_plans(b, f, h, c, backward)
                      if p.groups & (p.groups - 1) == 0]
+            if lanes == 1:
+                grid = list(lk.grid_plans(b, f, h, backward, sms))
+                tile = max(q.groups * q.rows for q in grid)
+                plans += [p for p in grid if p.groups * p.rows == tile]
             plans.append(lk.plan(b, f, h, backward, lanes=lanes, _layout="l2"))
             parts = []
             for p in plans:
@@ -137,6 +146,9 @@ def lstm_plans(dev) -> None:
                     raise SystemExit(f"lstm {name}: plan {p} differs from the chosen plan's bits")
                 ms = chip_smoke.cuda_ms(lambda: run(p), iters=10, warmup=2)
                 what = ("L2" if p.layout == "l2" else
+                        f"grid R={p.rows} K={p.blocks} x {p.span * p.groups} threads "
+                        f"{p.smem:,} B"
+                        if p.layout == "grid" else
                         f"C={p.cluster} tile {p.groups * lk.ROWS}"
                         + (" out" if p.mode & lk.DGATES_OUT else "") + f" {p.smem:,} B")
                 parts.append(f"{what}{'*' if p == chosen else ''} {ms:.5f}")

@@ -25,7 +25,9 @@
 // over_grid_y launches a kernel whose sessions or lanes lie on gridDim.y
 // in launches of at most 65,535 of them (the axis's limit), each from its
 // first row's pointers; every launch of up to 65,535 is the one launch it
-// was before.
+// was before.  over_lanes does the same in launches of at most `per` rows
+// (a cooperative launch holds only as many blocks as the card keeps
+// resident at once).
 #pragma once
 
 #include <cstdint>
@@ -37,16 +39,21 @@ constexpr int kVec = 4;      // elements in a group
 constexpr int kTile = 1024;  // int8 wire tile: one fp32 scale a tile
 constexpr int kMaxGridY = 65535;
 
-// launch(first, count) launches count rows from row first;
+// launch(first, count) launches count rows from row first, count <= per;
 // returns the first launch's error, else 0.
 template <typename Launch>
-int over_grid_y(int rows, Launch launch) {
-  for (int r0 = 0; r0 < rows; r0 += kMaxGridY) {
-    launch(r0, rows - r0 < kMaxGridY ? rows - r0 : kMaxGridY);
+int over_lanes(int rows, int per, Launch launch) {
+  for (int r0 = 0; r0 < rows; r0 += per) {
+    launch(r0, rows - r0 < per ? rows - r0 : per);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   return 0;
+}
+
+template <typename Launch>
+int over_grid_y(int rows, Launch launch) {
+  return over_lanes(rows, kMaxGridY, launch);
 }
 
 struct LoadDense {

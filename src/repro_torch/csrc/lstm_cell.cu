@@ -35,9 +35,9 @@
 // run its batch tile's T steps one after another.
 //
 // Design: no grid axis over time: the T steps are a loop inside the block
-// (or the cluster).  Lanes past 65,535 go in further launches (loaders.cuh's
-// over_grid_y).  Three layouts of the weights, chosen per shape by the
-// wrapper's plan in this order:
+// (or the cluster, or the lane's blocks across the card).  Lanes past
+// 65,535 go in further launches (loaders.cuh's over_lanes).  Four layouts
+// of the weights, chosen per shape by the wrapper's plan in this order:
 //
 // Shared memory (lstm_seq_{fwd,bwd}_kernel), grid (ceil(B / Bt), L).  The
 // block stages its lane's [wx; wh] and b in dynamic shared memory once, with
@@ -90,8 +90,40 @@
 // so few warps a scheduler the loads' latency shows: the 64-lane pair runs
 // at 4-8x its fp32 bound, one lane (16-32 blocks) at 40-60x.
 //
+// A lane's weights across the whole card (lstm_seq_{fwd,bwd}_grid_kernel),
+// for the shapes past the cluster's 16 blocks: up to H = 924 in the forward
+// and H = 660 in the backward at F = 6, B = 32.  A lane and its batch tile
+// run on K blocks, K up to the card's resident capacity (132 at one block
+// an SM), in one persistent cooperative launch (cudaLaunchKernelEx with
+// cudaLaunchAttributeCooperative: the driver keeps every block resident or
+// refuses the launch, and the launcher returns its error; lanes past one
+// launch's capacity go in further launches).  Block q owns units J_q =
+// [q Hc, (q + 1) Hc), Hc = ceil(H / K), and stages their columns as the
+// cluster layout does.  Blocks of different SMs share no shared memory,
+// so what a cluster's blocks write into each other's tiles goes through
+// L2: the forward writes each h_{t+1} into an exchange buffer, two halves
+// a tile, and the backward its dgates into the output it writes anyway.
+// One barrier a step of the tile's K blocks: after a __syncthreads thread 0
+// fences and adds 1 to the tile's arrival counter (red.release.gpu; the
+// wrapper allocates the counters zeroed), then spins with ld.acquire.gpu
+// until it reads K (t + 1), while the block sums the next step's x-part.
+// Past the barrier the block copies what the others wrote by cp.async.cg,
+// which reads at L2 and never through L1 (an __ldg could return a line L1
+// kept from before): the whole h_{t+1} tile (row stride H + 4 rounded, so
+// a warp's 8 rows at one k hit 8 bank groups), or the step's dgates
+// kDgCols columns at a time through a double-buffered stage, from which it
+// forms dh for its own units with rows J_q of wh.  Each step has its own
+// slice of dgates and the forward alternates its halves, so one barrier a
+// step is enough.  With one block an SM and the weights spread, a lane
+// has few threads (H x B / 4 at 4 batch rows a thread: 4,096 at H = 512,
+// B = 32, under 2 warps an SM) and each waits on its own loads, so a grid
+// thread owns R = 4, 2 or 1 rows (a template parameter; each output is
+// still one thread's sum, so the bits do not move): at one row a thread
+// the H = 512 pair takes 128 blocks of 128 threads and runs 1.5-1.6x
+// faster than at four.
+//
 // Weights through L2 (lstm_seq_{fwd,bwd}_l2_kernel), for every shape the
-// cluster cannot hold either.  Nothing is copied for the gates: each gate
+// grid cannot hold either.  Nothing is copied for the gates: each gate
 // column reads its weights with __ldg straight from the lane's wx (F, 4H),
 // wh (H, 4H) and b at row stride 4H.  A block is S x G threads, S = H split
 // into the fewest passes of at most 256 columns (kL2Threads: the registers
@@ -109,7 +141,7 @@
 // with fmaf, then (x-part + h-part) + b, the plain version's order; dh sums
 // over the 4H columns in ascending order with fmaf; expf and tanhf are the
 // accurate ones (no --use_fast_math).  Every output element is summed by
-// one thread in that order in all three layouts, which share the cell's
+// one thread in that order in all four layouts, which share the cell's
 // elementwise code (cell_forward, cell_backward, whose fused products are
 // written out, not left to the compiler), so they agree bit for bit on any
 // shape two of them can run.  The backward recomputes the gates with the
@@ -129,7 +161,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;               // batch rows a thread owns
+constexpr int kRows = 4;               // batch rows a thread owns (the grid layout: R = 4, 2, 1)
 constexpr int kMaxShared = 232448;     // dynamic shared memory of an H100 block
 constexpr int kL2Threads = 256;        // threads of a weights-through-L2 block
 // the weights-through-L2 layout's modes (bits)
@@ -138,6 +170,7 @@ constexpr int kDgatesOut = 2;          // the backward's dgates tile in the outp
                                        // (also a mode of the cluster layout)
 constexpr int kWhCols = 32;            // columns of wh a stage of the L2 backward's dh holds
 constexpr int kMaxCluster = 16;        // blocks of a cluster (above 8: non-portable)
+constexpr int kDgCols = 128;           // columns of dgates a stage of the grid backward's dh holds
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -558,11 +591,12 @@ __device__ __forceinline__ void preacts_l2(const float* __restrict__ xt,
 }
 
 // The tile's rows of thread group grp: local row, batch row, in the batch.
+template <int R>
 __device__ __forceinline__ void tile_rows(int grp, int groups, int tile0, int batch,
-                                          int (&rowl)[kRows], int (&rowg)[kRows],
-                                          bool (&valid)[kRows]) {
+                                          int (&rowl)[R], int (&rowg)[R],
+                                          bool (&valid)[R]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     rowl[r] = grp + groups * r;
     rowg[r] = tile0 + rowl[r];
     valid[r] = rowg[r] < batch;
@@ -847,22 +881,22 @@ __device__ __forceinline__ void cluster_wait() {
 // consecutive columns.
 __device__ void stage_columns(float* ws, float* bs, const float* __restrict__ wx,
                               const float* __restrict__ wh, const float* __restrict__ b,
-                              int f, int hidden, int j0, const ClusterLayout& lo) {
+                              int f, int hidden, int j0, int hc) {
   const int h4 = 4 * hidden;
-  const int w = 4 * lo.hc;
+  const int w = 4 * hc;
   const int n = (f + hidden) * w;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int k = i / w;
     const int lc = i - k * w;
-    const int g = lc / lo.hc;
-    const int u = lc - g * lo.hc;
+    const int g = lc / hc;
+    const int u = lc - g * hc;
     const int col = g * hidden + j0 + u;
-    ws[(k * lo.hc + u) * 4 + g] = j0 + u >= hidden ? 0.f
+    ws[(k * hc + u) * 4 + g] = j0 + u >= hidden ? 0.f
         : k < f ? __ldg(wx + k * h4 + col) : __ldg(wh + static_cast<size_t>(k - f) * h4 + col);
   }
   for (int i = threadIdx.x; i < w; i += blockDim.x) {
-    const int g = i / lo.hc;
-    const int u = i - g * lo.hc;
+    const int g = i / hc;
+    const int u = i - g * hc;
     bs[u * 4 + g] = j0 + u < hidden ? __ldg(b + g * hidden + j0 + u) : 0.f;
   }
 }
@@ -872,17 +906,18 @@ __device__ void stage_columns(float* ws, float* bs, const float* __restrict__ wx
 // x-part from the step's x tile in shared memory (gates_x_tile, row stride
 // F, rows past the batch zero) and the h-part (gates_h).  The same sums in
 // the same order, so the same bits.
+template <int R>
 __device__ __forceinline__ void gates_x_tile(const float* xs, const float4* w4, int f, int hc,
-                                             int u, const int (&rowl)[kRows],
-                                             float (&ax)[kRows][4]) {
+                                             int u, const int (&rowl)[R],
+                                             float (&ax)[R][4]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int g = 0; g < 4; ++g) ax[r][g] = 0.f;
   for (int k = 0; k < f; ++k) {
     const float4 w = w4[k * hc + u];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float v = xs[rowl[r] * f + k];
       ax[r][0] = fmaf(v, w.x, ax[r][0]);
       ax[r][1] = fmaf(v, w.y, ax[r][1]);
@@ -892,26 +927,27 @@ __device__ __forceinline__ void gates_x_tile(const float* xs, const float4* w4, 
   }
 }
 
+template <int R>
 __device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int hs, int f,
-                                        int hidden, int hc, int u, const int (&rowl)[kRows],
-                                        float (&ah)[kRows][4]) {
+                                        int hidden, int hc, int u, const int (&rowl)[R],
+                                        float (&ah)[R][4]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int g = 0; g < 4; ++g) ah[r][g] = 0.f;
   const float4* wr = w4 + f * hc + u;
   int k = 0;
 #pragma unroll 2
   for (; k + 4 <= hidden; k += 4) {
-    float4 hv[kRows];
+    float4 hv[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int r = 0; r < R; ++r)
       hv[r] = *reinterpret_cast<const float4*>(ht + rowl[r] * hs + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float4 w = wr[(k + kk) * hc];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float v = kk == 0 ? hv[r].x : kk == 1 ? hv[r].y : kk == 2 ? hv[r].z : hv[r].w;
         ah[r][0] = fmaf(v, w.x, ah[r][0]);
         ah[r][1] = fmaf(v, w.y, ah[r][1]);
@@ -923,7 +959,7 @@ __device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int h
   for (; k < hidden; ++k) {
     const float4 w = wr[k * hc];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float v = ht[rowl[r] * hs + k];
       ah[r][0] = fmaf(v, w.x, ah[r][0]);
       ah[r][1] = fmaf(v, w.y, ah[r][1]);
@@ -984,7 +1020,7 @@ __global__ void __launch_bounds__(kL2Threads)
   c0 += static_cast<size_t>(lane) * c0_ls;
   stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls,
                 a.wh + static_cast<size_t>(lane) * a.wh_ls,
-                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo);
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo.hc);
 
   const int u = threadIdx.x % lo.hc;
   const int grp = threadIdx.x / lo.hc;
@@ -1075,12 +1111,13 @@ __global__ void __launch_bounds__(kL2Threads)
 
 // The thread's c_t and c_{t+1} of step t (its unit, its rows of the batch)
 // from c_seq (T + 1, B, H).
-__device__ __forceinline__ void load_c(float (&c_prev)[kRows], float (&c_new)[kRows],
+template <int R>
+__device__ __forceinline__ void load_c(float (&c_prev)[R], float (&c_new)[R],
                                        const float* __restrict__ c_seq, int t, size_t bh,
-                                       const int (&rowg)[kRows], const bool (&valid)[kRows],
+                                       const int (&rowg)[R], const bool (&valid)[R],
                                        bool live, int j, int hidden) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const size_t o = static_cast<size_t>(rowg[r]) * hidden + j;
     const bool in = live && valid[r];
     c_prev[r] = in ? __ldg(c_seq + t * bh + o) : 0.f;
@@ -1090,11 +1127,12 @@ __device__ __forceinline__ void load_c(float (&c_prev)[kRows], float (&c_new)[kR
 
 // The thread's dgates of one step into the output (its unit's four gate
 // columns of each of its rows in the batch).
-__device__ __forceinline__ void store_dgates(float* dgt, const float (&d)[kRows][4],
-                                             const int (&rowg)[kRows], const bool (&valid)[kRows],
+template <int R>
+__device__ __forceinline__ void store_dgates(float* dgt, const float (&d)[R][4],
+                                             const int (&rowg)[R], const bool (&valid)[R],
                                              bool live, int j, int hidden) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     if (!(live && valid[r])) continue;
     float* grow = dgt + static_cast<size_t>(rowg[r]) * 4 * hidden + j;
     grow[0] = d[r][0];
@@ -1136,7 +1174,7 @@ __global__ void __launch_bounds__(kL2Threads)
   const float* wh = a.wh + static_cast<size_t>(lane) * a.wh_ls;
   const int j0 = q * lo.hc;
   stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls, wh,
-                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo);
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo.hc);
   // rows j0 .. j0 + Hc - 1 of wh, all 4H columns, by groups of 4 columns
   for (int i = threadIdx.x; i < lo.hc * h4; i += blockDim.x) {
     const int uu = i / h4;
@@ -1272,6 +1310,387 @@ __global__ void __launch_bounds__(kL2Threads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// A lane's weights across the whole card
+// ---------------------------------------------------------------------------
+
+// Offsets (floats) of a grid block's dynamic shared memory, each 16-byte
+// aligned: its units' gate columns and bias as in the cluster layout, the
+// tile's h over all H units (row stride hs: H rounded up to 4, plus 4, so
+// that the 8 rows a warp reads at one k fall in 8 different bank groups),
+// the x_t tile(s) (two in the forward), and in the backward rows J_q of wh
+// (as the cluster's) and the double-buffered stage of the step's dgates
+// (tile rows of kDgCols columns at row stride kDgCols + 4).
+struct GridLayout {
+  int hc;        // units a block owns, ceil(H / K)
+  int hs;        // row stride of the h tile, in shared memory and the exchange buffer
+  int b_off, h_off, x_off, wt_off, dg_off, total;
+};
+
+__host__ __device__ inline GridLayout grid_layout(int f, int hidden, int blocks, int tile,
+                                                  bool backward) {
+  GridLayout l;
+  l.hc = (hidden + blocks - 1) / blocks;
+  l.hs = round4(hidden) + 4;
+  l.b_off = (f + hidden) * 4 * l.hc;
+  l.h_off = l.b_off + 4 * l.hc;
+  l.x_off = l.h_off + tile * l.hs;
+  l.wt_off = l.x_off + (backward ? 1 : 2) * round4(tile * f);
+  l.dg_off = l.wt_off + (backward ? l.hc * 4 * hidden : 0);
+  l.total = l.dg_off + (backward ? 2 * tile * (kDgCols + 4) : 0);
+  return l;
+}
+
+// The barrier of a lane's K blocks (one batch tile's), on an arrival
+// counter in global memory that starts at 0 and grows by K a step.  The
+// caller's __syncthreads() precedes grid_arrive, so the fence of thread 0
+// then releases every write the block made before it (the pattern of
+// cooperative_groups' grid sync); grid_wait returns to every thread of the
+// block once the counter reaches target.  Only a cooperative launch, whose
+// blocks are all resident at once, may spin on it.
+__device__ __forceinline__ void grid_arrive(unsigned* counter) {
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(counter), "r"(1u)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* counter, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// stage_tile_async by 16-byte copies where the rows allow it (width and ds
+// multiples of 4, src 16-byte aligned: a uniform branch), else by 4-byte
+// ones: the grid layout's h tiles, a (tile, H) block of an input.
+__device__ __forceinline__ void stage_tile_async_wide(float* dst, const float* __restrict__ src,
+                                                      int tile0, int tile, int batch, int width,
+                                                      int ds) {
+  if ((width & 3) || (ds & 3) || (reinterpret_cast<uintptr_t>(src) & 15)) {
+    stage_tile_async(dst, src, tile0, tile, batch, width, ds);
+    return;
+  }
+  const int rows = min(tile, batch - tile0);
+  const int w4 = width / 4;
+  for (int i = threadIdx.x; i < rows * w4; i += blockDim.x) {
+    const int bl = i / w4;
+    const int k = 4 * (i - bl * w4);
+    __pipeline_memcpy_async(dst + bl * ds + k,
+                            src + static_cast<size_t>(tile0 + bl) * width + k, 16);
+  }
+}
+
+// 16 bytes from global to shared memory by cp.async.cg, which reads at L2
+// and never through L1: the reads of what other blocks of the launch wrote
+// (never __ldg or any other load that L1 may have kept from before).  The
+// caller commits the group.
+__device__ __forceinline__ void copy_cg16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// The forward across the card.  Blocks (q, tile) = (blockIdx.x % K,
+// blockIdx.x / K) of lane blockIdx.y; block q owns units q Hc + u as in the
+// cluster layout, thread (u, grp) of its Hc x G keeps their c in
+// registers.  Each step it writes its h_{t+1} (zero in rows past the
+// batch) into the lane's exchange buffer, two (tile, hs) halves a tile,
+// passes the barrier of the tile's K blocks (the next x-part summed
+// between arrive and wait), and copies the whole h_{t+1} tile back by
+// cp.async.cg.
+template <int R>
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_seq_fwd_grid_kernel(SeqArgs a, const float* __restrict__ h0,
+                             const float* __restrict__ c0, int h0_ls, int c0_ls,
+                             float* __restrict__ h_out, float* __restrict__ c_out, int save,
+                             int blocks, float* xchg, unsigned* sync) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = blockIdx.x % blocks;
+  const int tix = blockIdx.x / blocks;
+  const int tiles = gridDim.x / blocks;
+  const int lane = blockIdx.y;
+  const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
+  const int tile = a.groups * R;
+  const GridLayout lo = grid_layout(f, hidden, blocks, tile, false);
+  float* ws = smem;
+  float* bs = smem + lo.b_off;
+  float* hbuf = smem + lo.h_off;
+  float* xbuf = smem + lo.x_off;
+  const int xt_size = round4(tile * f);
+  const int part = tile * lo.hs;
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
+  h0 += static_cast<size_t>(lane) * h0_ls;
+  c0 += static_cast<size_t>(lane) * c0_ls;
+  float* xg = xchg + (static_cast<size_t>(lane) * tiles + tix) * 2 * part;
+  unsigned* counter = sync + lane * tiles + tix;
+  stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls,
+                a.wh + static_cast<size_t>(lane) * a.wh_ls,
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo.hc);
+
+  const int u = threadIdx.x % lo.hc;
+  const int grp = threadIdx.x / lo.hc;
+  const int j = q * lo.hc + u;
+  const bool live = j < hidden;
+  const int tile0 = tix * tile;
+  const size_t bh = static_cast<size_t>(batch) * hidden;
+  const size_t out_lane = save ? (steps + 1) * bh : bh;
+  h_out += lane * out_lane;
+  c_out += lane * out_lane;
+  int rowl[R], rowg[R];
+  bool valid[R];
+  tile_rows(grp, a.groups, tile0, batch, rowl, rowg, valid);
+  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  zero_tile_tail(xbuf, tile0, tile, batch, f, f);
+  zero_tile_tail(xbuf + xt_size, tile0, tile, batch, f, f);
+  stage_tile_async_wide(hbuf, h0, tile0, tile, batch, hidden, lo.hs);
+  stage_tile_async(xbuf, x, tile0, tile, batch, f, f);
+  __pipeline_commit();
+  float c[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t o = static_cast<size_t>(rowg[r]) * hidden + j;
+    c[r] = live && valid[r] ? __ldg(c0 + o) : 0.f;
+    if (save && live && valid[r]) {
+      h_out[o] = __ldg(h0 + o);
+      c_out[o] = c[r];
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float ax[R][4];
+  gates_x_tile(xbuf, w4, f, lo.hc, u, rowl, ax);
+
+  for (int t = 0; t < steps; ++t) {
+    float* xn = xbuf + ((t + 1) & 1) * xt_size;
+    float* hx = xg + ((t + 1) & 1) * part;
+    if (t + 1 < steps) {
+      // the half every thread of the block last read two steps ago
+      stage_tile_async(xn, x + static_cast<size_t>(t + 1) * batch * f, tile0, tile, batch, f, f);
+      __pipeline_commit();
+    }
+    float ah[R][4];
+    gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+    const float4 bu = reinterpret_cast<const float4*>(bs)[u];
+    float hv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float pre[4] = {ax[r][0] + ah[r][0] + bu.x, ax[r][1] + ah[r][1] + bu.y,
+                            ax[r][2] + ah[r][2] + bu.z, ax[r][3] + ah[r][3] + bu.w};
+      hv[r] = cell_forward(pre, c[r]);
+    }
+    if (t + 1 < steps && live) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) hx[rowl[r] * lo.hs + j] = valid[r] ? hv[r] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (live && valid[r] && (save || t == steps - 1)) {
+        const size_t o = (save ? (t + 1) * bh : 0) + static_cast<size_t>(rowg[r]) * hidden + j;
+        h_out[o] = hv[r];
+        c_out[o] = c[r];
+      }
+    }
+    if (t + 1 == steps) break;
+    // every thread is past its reads of the h tile and has written its
+    // h_{t+1}; the half of the exchange written here is next written two
+    // steps on, after every block has passed the next barrier and so
+    // copied this one
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    grid_arrive(counter);
+    gates_x_tile(xn, w4, f, lo.hc, u, rowl, ax);
+    grid_wait(counter, static_cast<unsigned>(blocks) * (t + 1));
+    for (int i = 4 * threadIdx.x; i < part; i += 4 * blockDim.x) copy_cg16(hbuf + i, hx + i);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+}
+
+// The backward across the card; blocks and threads as in the forward.  A
+// block recomputes its units' gates from the h_t and x_t tiles (copied a
+// step ahead), forms their dgates and writes them to the dgates output,
+// passes the tile's barrier, and forms dh for its own units from rows J_q
+// of wh and the step's whole dgates tile, streamed from L2 by cp.async.cg
+// through a double-buffered stage of kDgCols columns.  Each step has its
+// own slice of dgates, so one barrier a step is enough.
+template <int R>
+__global__ void __launch_bounds__(kL2Threads)
+    lstm_seq_bwd_grid_kernel(SeqArgs a, const float* __restrict__ h_seq,
+                             const float* __restrict__ c_seq,
+                             const float* __restrict__ dh_last,
+                             const float* __restrict__ dc_last, float* dgates,
+                             float* __restrict__ dh0, float* __restrict__ dc0, int blocks,
+                             unsigned* sync) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = blockIdx.x % blocks;
+  const int tix = blockIdx.x / blocks;
+  const int tiles = gridDim.x / blocks;
+  const int lane = blockIdx.y;
+  const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
+  const int h4 = 4 * hidden;
+  const int tile = a.groups * R;
+  const GridLayout lo = grid_layout(f, hidden, blocks, tile, true);
+  constexpr int ds = kDgCols + 4;
+  float* ws = smem;
+  float* bs = smem + lo.b_off;
+  float* hbuf = smem + lo.h_off;
+  float* xs = smem + lo.x_off;
+  float* wt = smem + lo.wt_off;
+  float* stg = smem + lo.dg_off;
+  const int half = tile * ds;
+  const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
+  const float* wh = a.wh + static_cast<size_t>(lane) * a.wh_ls;
+  unsigned* counter = sync + lane * tiles + tix;
+  const int j0 = q * lo.hc;
+  stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls, wh,
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo.hc);
+  for (int i = threadIdx.x; i < lo.hc * h4; i += blockDim.x) {
+    const int uu = i / h4;
+    const int col = i - uu * h4;
+    wt[((col >> 2) * lo.hc + uu) * 4 + (col & 3)] =
+        j0 + uu < hidden ? __ldg(wh + static_cast<size_t>(j0 + uu) * h4 + col) : 0.f;
+  }
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const float4* wt4 = reinterpret_cast<const float4*>(wt);
+
+  const int u = threadIdx.x % lo.hc;
+  const int grp = threadIdx.x / lo.hc;
+  const int j = j0 + u;
+  const bool live = j < hidden;
+  const int tile0 = tix * tile;
+  const int rows = min(tile, batch - tile0);
+  const size_t bh = static_cast<size_t>(batch) * hidden;
+  h_seq += lane * (steps + 1) * bh;
+  c_seq += lane * (steps + 1) * bh;
+  dgates += lane * static_cast<size_t>(steps) * batch * h4;
+  int rowl[R], rowg[R];
+  bool valid[R];
+  tile_rows(grp, a.groups, tile0, batch, rowl, rowg, valid);
+  float dh[R], dc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t o = lane * bh + static_cast<size_t>(rowg[r]) * hidden + j;
+    dh[r] = live && valid[r] ? __ldg(dh_last + o) : 0.f;
+    dc[r] = live && valid[r] ? __ldg(dc_last + o) : 0.f;
+  }
+  // rows past the batch: zero in both halves of the stage, never copied
+  zero_tile_tail(stg, tile0, tile, batch, kDgCols, ds);
+  zero_tile_tail(stg + half, tile0, tile, batch, kDgCols, ds);
+  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  zero_tile_tail(xs, tile0, tile, batch, f, f);
+  stage_tile_async_wide(hbuf, h_seq + (steps - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+  stage_tile_async(xs, x + static_cast<size_t>(steps - 1) * batch * f, tile0, tile, batch, f, f);
+  __pipeline_commit();
+  float c_prev[R], c_new[R];
+  load_c(c_prev, c_new, c_seq, steps - 1, bh, rowg, valid, live, j, hidden);
+  const int chunks = (h4 + kDgCols - 1) / kDgCols;
+  const int n4 = kDgCols / 4;
+
+  for (int t = steps - 1; t >= 0; --t) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    float pre[R][4];
+    {
+      float ax[R][4], ah[R][4];
+      gates_x_tile(xs, w4, f, lo.hc, u, rowl, ax);
+      gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+      const float4 bu = reinterpret_cast<const float4*>(bs)[u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        pre[r][0] = ax[r][0] + ah[r][0] + bu.x;
+        pre[r][1] = ax[r][1] + ah[r][1] + bu.y;
+        pre[r][2] = ax[r][2] + ah[r][2] + bu.z;
+        pre[r][3] = ax[r][3] + ah[r][3] + bu.w;
+      }
+    }
+    float* dgt = dgates + static_cast<size_t>(t) * batch * h4;
+    float d[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      cell_backward(pre[r], c_prev[r], c_new[r], dh[r], dc[r], d[r]);
+    if (t > 0) load_c(c_prev, c_new, c_seq, t - 1, bh, rowg, valid, live, j, hidden);
+    store_dgates(dgt, d, rowg, valid, live, j, hidden);
+    // every thread has stored its dgates and read the h and x tiles: the
+    // next step's copies go in flight while the block waits and reduces
+    __syncthreads();
+    grid_arrive(counter);
+    if (t > 0) {
+      stage_tile_async_wide(hbuf, h_seq + (t - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+      stage_tile_async(xs, x + static_cast<size_t>(t - 1) * batch * f, tile0, tile, batch, f, f);
+      __pipeline_commit();
+    }
+    grid_wait(counter, static_cast<unsigned>(blocks) * (steps - t));
+    // dh_t[b, j] = sum over the 4H gate columns of dgates_t[b, col] wh[j, col],
+    // in the shared-memory layout's order, kDgCols columns a stage
+    const float* src = dgt + static_cast<size_t>(tile0) * h4;
+    auto stage = [&](int ch) {
+      float* dst = stg + (ch & 1) * half;
+      const int col0 = ch * kDgCols;
+      const int m4 = min(n4, (h4 - col0) / 4);
+      for (int i = threadIdx.x; i < rows * m4; i += blockDim.x) {
+        const int r = i / m4;
+        const int k = 4 * (i - r * m4);
+        copy_cg16(dst + r * ds + k, src + static_cast<size_t>(r) * h4 + col0 + k);
+      }
+      __pipeline_commit();
+    };
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    stage(0);
+    for (int ch = 0; ch < chunks; ++ch) {
+      if (ch + 1 < chunks)
+        stage(ch + 1);
+      else
+        __pipeline_commit();
+      __pipeline_wait_prior(1);
+      __syncthreads();
+      const float* dv0 = stg + (ch & 1) * half;
+      const int col0 = ch * kDgCols;
+      const int n = min(kDgCols, h4 - col0);
+      auto sum4 = [&](int kk) {
+        const float4 w = wt4[((col0 + kk) >> 2) * lo.hc + u];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 dv = *reinterpret_cast<const float4*>(dv0 + rowl[r] * ds + kk);
+          acc[r] = fmaf(dv.x, w.x, acc[r]);
+          acc[r] = fmaf(dv.y, w.y, acc[r]);
+          acc[r] = fmaf(dv.z, w.z, acc[r]);
+          acc[r] = fmaf(dv.w, w.w, acc[r]);
+        }
+      };
+      // a full chunk's trip count is a constant, which lets the compiler
+      // issue several groups' loads ahead (7 % at H = 512)
+      if (n == kDgCols) {
+#pragma unroll 8
+        for (int kk = 0; kk < kDgCols; kk += 4) sum4(kk);
+      } else {
+        for (int kk = 0; kk < n; kk += 4) sum4(kk);
+      }
+      // the chunk after next lands in this half only after every thread
+      // has summed it
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) dh[r] = acc[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!(live && valid[r])) continue;
+    const size_t o = lane * bh + static_cast<size_t>(rowg[r]) * hidden + j;
+    dh0[o] = dh[r];
+    dc0[o] = dc[r];
+  }
+}
+
 // Checks the caller's shared-memory size against the kernel's own layout,
 // raises the kernel's limit to it, and returns the launch configuration.
 template <typename Kernel>
@@ -1377,6 +1796,75 @@ int prepare_cluster(Kernel kernel, int f, int hidden, int groups, int cluster, i
   return 0;
 }
 
+// What the grid launches of this process have set up, on each device: the
+// capacity (resident blocks an SM x SMs) of each configuration (kernel,
+// threads, shared memory), so that a later launch of a known
+// configuration makes no attribute or occupancy call.
+struct GridConfig {
+  const void* kernel;
+  int device, threads, smem, capacity;
+};
+std::vector<GridConfig> grid_configs;
+
+// The same for the grid layout (K blocks of Hc x groups threads a batch
+// tile): a cooperative launch (cudaLaunchAttributeCooperative: the driver
+// keeps every block resident at once or refuses the launch), of per_launch
+// lanes x tiles x K blocks, which must not pass the card's capacity for
+// the configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor x its
+// SMs); a capacity of 0 is refused too.
+template <typename Kernel>
+int prepare_grid(Kernel kernel, int f, int hidden, int groups, int rows, int blocks,
+                 int per_launch, int tiles, int smem, bool backward, cudaLaunchConfig_t& cfg,
+                 cudaLaunchAttribute& attr) {
+  if (blocks < 1 || groups < 1 || per_launch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const GridLayout lo = grid_layout(f, hidden, blocks, groups * rows, backward);
+  if (lo.hc * groups > kL2Threads || smem != 4 * lo.total || smem > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = lo.hc * groups;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int device = 0;
+  int err = static_cast<int>(cudaGetDevice(&device));
+  if (err != 0) return err;
+  std::lock_guard<std::mutex> lock(cluster_mutex);
+  int capacity = -1;
+  for (const GridConfig& c : grid_configs)
+    if (c.kernel == fn && c.device == device && c.threads == threads && c.smem == smem)
+      capacity = c.capacity;
+  if (capacity < 0) {
+    ClusterKernelState* state = nullptr;
+    for (ClusterKernelState& k : cluster_kernels)
+      if (k.kernel == fn && k.device == device) state = &k;
+    if (state == nullptr) {
+      cluster_kernels.push_back({fn, device, 0, 0});
+      state = &cluster_kernels.back();
+    }
+    if (smem > state->smem) {
+      err = static_cast<int>(
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+      if (err != 0) return err;
+      state->smem = smem;
+    }
+    int per_sm = 0, sms = 0;
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                         threads, smem));
+    if (err != 0) return err;
+    err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+    if (err != 0) return err;
+    capacity = per_sm * sms;
+    grid_configs.push_back({fn, device, threads, smem, capacity});
+  }
+  if (capacity <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (static_cast<long long>(per_launch) * tiles * blocks > capacity)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  return 0;
+}
+
 const float* at(const void* p, int l0, size_t lane_stride) {
   return static_cast<const float*>(p) + static_cast<size_t>(l0) * lane_stride;
 }
@@ -1388,33 +1876,53 @@ float* at(void* p, int l0, size_t lane_stride) {
 }  // namespace
 
 // The layouts (the launchers' layout argument)
-constexpr int kLayoutSmem = 0, kLayoutL2 = 1, kLayoutCluster = 2;
+constexpr int kLayoutSmem = 0, kLayoutL2 = 1, kLayoutCluster = 2, kLayoutGrid = 3;
+
+// The grid kernels' instantiation for `rows` batch rows a thread (4, 2 or
+// 1), or nullptr.
+template <typename Fn>
+Fn grid_instance(int rows, Fn four, Fn two, Fn one) {
+  return rows == 4 ? four : rows == 2 ? two : rows == 1 ? one : nullptr;
+}
 
 // Forward.  x (L, T, B, F), h0, c0 (L, B, H), wx, wh, b: fp32 on the current
 // device, each dense within a lane, lane l at pointer + l * <its lane
 // stride> (elements).  h_out, c_out contiguous: (L, T+1, B, H) if save,
-// else (L, B, H).  groups, layout, span, cluster, mode and smem come from
-// the wrapper's plan: the shared-memory layout (a block of hidden * groups
-// threads, a batch tile of groups * 4 rows), weights through L2 (span *
-// groups threads; mode's kStateGlobal puts each block's state in work, one
-// region a block of the first 65,535 lanes) or across a cluster of cluster
-// blocks (each of ceil(hidden / cluster) * groups threads).  smem must
-// equal the kernel's own layout.  Returns a CUDA error code (0 on success).
+// else (L, B, H).  groups, layout, span, cluster, blocks, per_launch,
+// rows, mode and smem come from the wrapper's plan: the shared-memory
+// layout (a block of hidden * groups threads, a batch tile of groups * 4
+// rows), weights through L2 (span * groups threads; mode's kStateGlobal
+// puts each block's state in work, one region a block of the first 65,535
+// lanes), across a
+// cluster of cluster blocks (each of ceil(hidden / cluster) * groups
+// threads) or across the card (blocks blocks a batch tile of groups *
+// rows rows, rows = 4, 2 or 1 a thread, each of ceil(hidden / blocks) *
+// groups threads, in cooperative launches of per_launch lanes; work holds
+// each tile's two exchange halves for per_launch lanes, and sync, zeroed,
+// one arrival counter a tile of every lane).  smem must equal the
+// kernel's own layout.  Returns a CUDA error code (0 on success).
 extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0,
                                    const void* wx, const void* wh, const void* b,
-                                   void* h_out, void* c_out, void* work, int lanes, int steps,
-                                   int batch, int f, int hidden, int groups, int save, int x_ls,
-                                   int h0_ls, int c0_ls, int wx_ls, int wh_ls, int b_ls,
-                                   int layout, int span, int cluster, int mode, int smem,
-                                   void* stream) {
+                                   void* h_out, void* c_out, void* work, void* sync, int lanes,
+                                   int steps, int batch, int f, int hidden, int groups, int save,
+                                   int x_ls, int h0_ls, int c0_ls, int wx_ls, int wh_ls, int b_ls,
+                                   int layout, int span, int cluster, int blocks, int per_launch,
+                                   int rows, int mode, int smem, void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
-  const int tile = groups * kRows;
+  const int tile = groups * (layout == kLayoutGrid ? rows : kRows);
   const int tiles = (batch + tile - 1) / tile;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr = {};
   cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
+  const auto grid_fn = grid_instance(rows, lstm_seq_fwd_grid_kernel<4>,
+                                     lstm_seq_fwd_grid_kernel<2>, lstm_seq_fwd_grid_kernel<1>);
   const int err =
-      layout == kLayoutCluster
+      layout == kLayoutGrid
+          ? (work == nullptr || sync == nullptr || grid_fn == nullptr
+                 ? static_cast<int>(cudaErrorInvalidValue)
+                 : prepare_grid(grid_fn, f, hidden, groups, rows, blocks, per_launch, tiles,
+                                smem, false, cfg, attr))
+      : layout == kLayoutCluster
           ? prepare_cluster(lstm_seq_fwd_cluster_kernel, f, hidden, groups, cluster, 0, smem,
                             false, cfg, attr)
       : layout == kLayoutL2
@@ -1427,11 +1935,20 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
   const auto st = static_cast<cudaStream_t>(stream);
   cfg.stream = st;
   int refused = 0;
-  const int last = over_grid_y(lanes, [&](int l0, int n) {
+  const int per = layout == kLayoutGrid ? per_launch : kMaxGridY;
+  const int last = over_lanes(lanes, per, [&](int l0, int n) {
     const dim3 grid(tiles, n);
     const SeqArgs a{at(x, l0, x_ls), at(wx, l0, wx_ls), at(wh, l0, wh_ls), at(b, l0, b_ls),
                     x_ls, wx_ls, wh_ls, b_ls, steps, batch, f, hidden, groups};
-    if (layout == kLayoutCluster) {
+    if (layout == kLayoutGrid) {
+      cfg.gridDim = dim3(tiles * blocks, n);
+      const int e = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, grid_fn, a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls, c0_ls,
+          at(h_out, l0, out_lane), at(c_out, l0, out_lane), save, blocks,
+          static_cast<float*>(work),
+          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles));
+      if (refused == 0) refused = e;
+    } else if (layout == kLayoutCluster) {
       cfg.gridDim = dim3(tiles * cluster, n);
       const int e = static_cast<int>(cudaLaunchKernelEx(
           &cfg, lstm_seq_fwd_cluster_kernel, a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls,
@@ -1452,24 +1969,33 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
 
 // Backward.  x, wx, wh, b as for the forward; h_seq, c_seq (L, T+1, B, H)
 // and dh_last, dc_last (L, B, H) contiguous; writes dgates (L, T, B, 4H),
-// dh0 and dc0 (L, B, H), contiguous.  groups, layout, span, cluster, mode
-// (kStateGlobal, kDgatesOut), smem and work as for the forward.  Returns a
-// CUDA error code.
+// dh0 and dc0 (L, B, H), contiguous.  groups, layout, span, cluster,
+// blocks, per_launch, rows, mode (kStateGlobal, kDgatesOut), smem, work and sync
+// as for the forward (the grid backward exchanges its dgates through the
+// output and takes no work).  Returns a CUDA error code.
 extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void* c_seq,
                                    const void* wx, const void* wh, const void* b,
                                    const void* dh_last, const void* dc_last, void* dgates,
-                                   void* dh0, void* dc0, void* work, int lanes, int steps,
-                                   int batch, int f, int hidden, int groups, int x_ls, int wx_ls,
-                                   int wh_ls, int b_ls, int layout, int span, int cluster,
-                                   int mode, int smem, void* stream) {
+                                   void* dh0, void* dc0, void* work, void* sync, int lanes,
+                                   int steps, int batch, int f, int hidden, int groups, int x_ls,
+                                   int wx_ls, int wh_ls, int b_ls, int layout, int span,
+                                   int cluster, int blocks, int per_launch, int rows, int mode,
+                                   int smem, void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
-  const int tile = groups * kRows;
+  const int tile = groups * (layout == kLayoutGrid ? rows : kRows);
   const int tiles = (batch + tile - 1) / tile;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr = {};
   cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
+  const auto grid_fn = grid_instance(rows, lstm_seq_bwd_grid_kernel<4>,
+                                     lstm_seq_bwd_grid_kernel<2>, lstm_seq_bwd_grid_kernel<1>);
   const int err =
-      layout == kLayoutCluster
+      layout == kLayoutGrid
+          ? (sync == nullptr || grid_fn == nullptr
+                 ? static_cast<int>(cudaErrorInvalidValue)
+                 : prepare_grid(grid_fn, f, hidden, groups, rows, blocks, per_launch, tiles,
+                                smem, true, cfg, attr))
+      : layout == kLayoutCluster
           ? prepare_cluster(lstm_seq_bwd_cluster_kernel, f, hidden, groups, cluster, mode, smem,
                             true, cfg, attr)
       : layout == kLayoutL2
@@ -1483,11 +2009,20 @@ extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void*
   const auto st = static_cast<cudaStream_t>(stream);
   cfg.stream = st;
   int refused = 0;
-  const int last = over_grid_y(lanes, [&](int l0, int n) {
+  const int per = layout == kLayoutGrid ? per_launch : kMaxGridY;
+  const int last = over_lanes(lanes, per, [&](int l0, int n) {
     const dim3 grid(tiles, n);
     const SeqArgs a{at(x, l0, x_ls), at(wx, l0, wx_ls), at(wh, l0, wh_ls), at(b, l0, b_ls),
                     x_ls, wx_ls, wh_ls, b_ls, steps, batch, f, hidden, groups};
-    if (layout == kLayoutCluster) {
+    if (layout == kLayoutGrid) {
+      cfg.gridDim = dim3(tiles * blocks, n);
+      const int e = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, grid_fn, a, at(h_seq, l0, seq_lane), at(c_seq, l0, seq_lane),
+          at(dh_last, l0, bh), at(dc_last, l0, bh), at(dgates, l0, dg_lane), at(dh0, l0, bh),
+          at(dc0, l0, bh), blocks,
+          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles));
+      if (refused == 0) refused = e;
+    } else if (layout == kLayoutCluster) {
       cfg.gridDim = dim3(tiles * cluster, n);
       const int e = static_cast<int>(cudaLaunchKernelEx(
           &cfg, lstm_seq_bwd_cluster_kernel, a, at(h_seq, l0, seq_lane),

@@ -32,11 +32,13 @@ _COUNTERS = {
 
 
 # of those launches, the ones that ran a kernel's second layout or body:
-# the LSTM pair with a lane's weights across a thread-block cluster or read
-# through L2, the robust columns' run-time-N bodies
+# the LSTM pair with a lane's weights across a thread-block cluster, across
+# the whole card or read through L2, the robust columns' run-time-N bodies
 _LAYOUT_COUNTERS = {
     "lstm_cell_cluster": (_lstm_cell, "cluster_launches"),
     "lstm_cell_bwd_cluster": (_lstm_cell, "cluster_bwd_launches"),
+    "lstm_cell_grid": (_lstm_cell, "grid_launches"),
+    "lstm_cell_bwd_grid": (_lstm_cell, "grid_bwd_launches"),
     "lstm_cell_l2": (_lstm_cell, "l2_launches"),
     "lstm_cell_bwd_l2": (_lstm_cell, "l2_bwd_launches"),
     "trimmed_mean_any_n": (_robust, "trimmed_mean_any_launches"),

@@ -7,15 +7,17 @@ op :func:`lstm_cell_cuda`, which replaces
 T = 1.  Every input carries a leading lane axis (the fleet's lanes train
 different params in one launch) and may have any lane stride.
 ``launches`` counts forward launches, ``bwd_launches`` backward ones, in
-any layout; ``cluster_launches``/``cluster_bwd_launches`` and
-``l2_launches``/``l2_bwd_launches`` count those that ran a lane's weights
-across a thread-block cluster or read them through L2.
+any layout; ``cluster_launches``/``cluster_bwd_launches``,
+``grid_launches``/``grid_bwd_launches`` and ``l2_launches``/
+``l2_bwd_launches`` count those that ran a lane's weights across a
+thread-block cluster, across the whole card or read them through L2.
 
 :func:`plan` sizes a launch for any F >= 1 and H >= 1: the weights in a
 block's shared memory where they fit (with fewer batch-row groups if need
 be), else spread over the shared memory of a cluster of 2-16 blocks, else
-read from global memory through L2.  The launchers call it before they
-look at the device, so their checks show on the CPU too.
+over K blocks of the whole card in one cooperative launch, else read from
+global memory through L2.  The launchers call it before they look at the
+device, so their checks show on the CPU too.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ launches = 0
 bwd_launches = 0
 cluster_launches = 0
 cluster_bwd_launches = 0
+grid_launches = 0
+grid_bwd_launches = 0
 l2_launches = 0
 l2_bwd_launches = 0
 
@@ -42,17 +46,25 @@ THREADS = 256                # threads a block aims at: H x groups
 MAX_THREADS = 1024           # threads of a block
 L2_THREADS = 256             # threads of a weights-through-L2 block (kL2Threads)
 MAX_GRID_Y = 65_535          # lanes of one launch (kMaxGridY): more go in further launches
-LAYOUTS = ("smem", "cluster", "l2")
-_LAYOUT_CODES = {"smem": 0, "l2": 1, "cluster": 2}   # kLayoutSmem, kLayoutL2, kLayoutCluster
+LAYOUTS = ("smem", "cluster", "grid", "l2")
+# kLayoutSmem, kLayoutL2, kLayoutCluster, kLayoutGrid
+_LAYOUT_CODES = {"smem": 0, "l2": 1, "cluster": 2, "grid": 3}
 # the l2 layout's modes (kStateGlobal, kDgatesOut); the cluster's backward
 # takes DGATES_OUT too
 STATE_GLOBAL, DGATES_OUT = 1, 2
 CLUSTERS = (2, 4, 8, 16)     # blocks of a cluster (16: non-portable, allowed on an H100)
 SMS = 132                    # streaming multiprocessors of an H100 SXM (plans off the card)
 WH_COLS = 32                 # columns of wh a stage of the L2 backward's dh holds (kWhCols)
+DG_COLS = 128                # columns of dgates a stage of the grid backward's dh holds (kDgCols)
+# threads a grid block aims at: 4 warps at one block an SM, one a
+# scheduler; fewer blocks than that read the h tile fewer times, and more
+# threads a block hid no more latency (kernel_bench.py --lstm-plans)
+GRID_THREADS = 128
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+GRID_ROWS = (4, 2, 1)        # batch rows a thread of a grid block owns (the kernel's R)
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 _fwd = _build.CFunction("lstm_seq_fwd_launch", _FWD_ARGTYPES)
 _bwd = _build.CFunction("lstm_seq_bwd_launch", _BWD_ARGTYPES)
 _INT_MAX = 2 ** 31 - 1
@@ -104,16 +116,37 @@ def _cluster_floats(f: int, hidden: int, cluster: int, tile: int, backward: bool
     return columns + tiles + rows + dgates
 
 
+def _grid_floats(f: int, hidden: int, blocks: int, tile: int, backward: bool) -> int:
+    """Dynamic shared memory (floats) of one block of the grid layout
+    (``grid_layout`` of the source): its Hc = ceil(H / K) units' columns and
+    bias as in the cluster layout, the tile's h over all H units at row
+    stride ``_round4(H) + 4``, its x_t (two in the forward), and in the
+    backward rows J_q of wh and the two halves of the dgates stage (tile
+    rows of ``DG_COLS + 4``)."""
+    hc = -(-hidden // blocks)
+    columns = (f + hidden + 1) * 4 * hc
+    h_tile = tile * (_round4(hidden) + 4)
+    x_tiles = (1 if backward else 2) * _round4(tile * f)
+    rows = hc * 4 * hidden if backward else 0
+    stage = 2 * tile * (DG_COLS + 4) if backward else 0
+    return columns + h_tile + x_tiles + rows + stage
+
+
 class Plan(NamedTuple):
     """One launch's layout: ``"smem"`` (a block of ``hidden * groups``
     threads holds the lane's weights in shared memory), ``"cluster"``
     (``cluster`` blocks of ``span * groups`` threads, span = ceil(H / C),
     each hold their units' columns in ``smem`` bytes; under ``DGATES_OUT``
-    the backward's dgates go through its output) or ``"l2"`` (a block
-    of ``span * groups`` threads reads them through L2, its state in
-    ``smem`` bytes of shared memory or, with ``STATE_GLOBAL`` in ``mode``,
-    ``state`` floats a block of a scratch buffer).  The batch tile is
-    ``groups * ROWS`` rows."""
+    the backward's dgates go through its output), ``"grid"`` (``blocks``
+    blocks a batch tile, K, of ``span * groups`` threads, span = ceil(H /
+    K), each hold their units' columns in ``smem`` bytes, in cooperative
+    launches of ``per_launch`` lanes: per_launch x tiles x K blocks within
+    ``capacity``, the blocks the card keeps resident at once) or ``"l2"``
+    (a block of ``span * groups`` threads reads them through L2, its state
+    in ``smem`` bytes of shared memory or, with ``STATE_GLOBAL`` in
+    ``mode``, ``state`` floats a block of a scratch buffer).  The batch tile
+    is ``groups * rows`` rows: a thread owns ``rows`` of them (``ROWS``
+    but in the grid layout, whose threads own 4, 2 or 1)."""
     layout: str
     groups: int
     smem: int
@@ -121,6 +154,10 @@ class Plan(NamedTuple):
     mode: int = 0
     state: int = 0
     cluster: int = 0
+    blocks: int = 0
+    per_launch: int = 0
+    capacity: int = 0
+    rows: int = ROWS
 
 
 def _groups(batch: int, width: int) -> int:
@@ -172,6 +209,54 @@ def _cluster_plan(batch: int, f: int, hidden: int, backward: bool, lanes: int, s
     return fits[fitting[i]]
 
 
+def grid_plans(batch: int, f: int, hidden: int, backward: bool, sms: int = SMS):
+    """Yields every :class:`Plan` of the grid layout that fits at (B, F, H)
+    on a card of ``sms`` SMs: for each count of rows a thread owns
+    (``GRID_ROWS``), each K = ceil(H / Hc) from the fewest blocks (Hc up
+    to ``L2_THREADS``) to the most, each with the most batch-row groups (at
+    most ``L2_THREADS`` threads a block) down to 1, whose block fits
+    ``MAX_SHARED_BYTES`` and whose K x tiles blocks fit the capacity the
+    plan counts on, one block an SM (one fits wherever its shared memory
+    does: at most 256 threads of at most 255 registers)."""
+    for rows in GRID_ROWS:
+        seen = set()
+        for want in range(min(hidden, L2_THREADS), 0, -1):
+            blocks = -(-hidden // want)
+            if blocks in seen:
+                continue
+            seen.add(blocks)
+            hc = -(-hidden // blocks)
+            top = max(1, min(L2_THREADS // hc, -(-batch // rows)))
+            for groups in range(top, 0, -1):
+                tiles = -(-batch // (groups * rows))
+                if blocks * tiles > sms:
+                    break
+                smem = 4 * _grid_floats(f, hidden, blocks, groups * rows, backward)
+                if smem <= MAX_SHARED_BYTES:
+                    yield Plan("grid", groups, smem, hc, 0, 0, 0, blocks,
+                               sms // (blocks * tiles), sms, rows)
+
+
+def _grid_plan(batch: int, f: int, hidden: int, backward: bool, sms: int) -> Optional[Plan]:
+    """Of :func:`grid_plans`, those with the fewest batch tiles; of them
+    those whose threads own the fewest rows; of them the fewest blocks of
+    at most ``GRID_THREADS`` threads (else the fewest blocks).  On an H100
+    at one lane of (B, F, H) = (32, 6, 512) that is 1 row a thread, K =
+    128 blocks of 128 threads: forward 0.36730 ms, backward 1.19990, the
+    fastest of every plan with a 32-row tile but the backward's K = 86
+    (1.20793); 4 rows a thread took 0.53502 and 1.92836 at its best K
+    (``kernel_bench.py --lstm-plans``)."""
+    plans = list(grid_plans(batch, f, hidden, backward, sms))
+    if not plans:
+        return None
+    tiles = min(-(-batch // (p.groups * p.rows)) for p in plans)
+    plans = [p for p in plans if -(-batch // (p.groups * p.rows)) == tiles]
+    rows = min(p.rows for p in plans)
+    plans = [p for p in plans if p.rows == rows]
+    narrow = [p for p in plans if p.span * p.groups <= GRID_THREADS]
+    return min(narrow or plans, key=lambda p: p.blocks)
+
+
 @functools.lru_cache(maxsize=None)
 def _cuda_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -193,12 +278,13 @@ def plan(batch: int, f: int, hidden: int, backward: bool = False, *, lanes: int 
     The shared-memory layout where a block of ``_groups`` groups, or fewer,
     fits ``MAX_SHARED_BYTES`` (up to H = 114 at F = 6, 115 in the forward);
     else a cluster's (up to H = 334 at F = 6, 461 in the forward); else the
-    weights through L2, for any F >= 1 and H >= 1.  ``sms`` is the card's
-    count of SMs (:func:`device_sms`), which sizes the cluster.  ``_layout``
-    forces one (the checks that the layouts give the same bits, through the
-    launchers' ``_plan``) and raises where it does not fit; ``_cluster``
-    forces the cluster's size.  Cached: a launch's plan costs the host
-    one lookup."""
+    grid's across the card (up to H = 660 at F = 6, B = 32, 924 in the
+    forward); else the weights through L2, for any F >= 1 and H >= 1.
+    ``sms`` is the card's count of SMs (:func:`device_sms`), which sizes
+    the cluster and bounds the grid.  ``_layout`` forces one (the checks
+    that the layouts give the same bits, through the launchers' ``_plan``)
+    and raises where it does not fit; ``_cluster`` forces the cluster's
+    size.  Cached: a launch's plan costs the host one lookup."""
     if f < 1 or hidden < 1:
         raise ValueError(f"the LSTM kernels take F >= 1 and H >= 1 (got F={f}, H={hidden})")
     if _layout not in (None,) + LAYOUTS:
@@ -219,6 +305,13 @@ def plan(batch: int, f: int, hidden: int, backward: bool = False, *, lanes: int 
         if _layout == "cluster" or _cluster is not None:
             raise ValueError(f"F={f}, H={hidden}: a lane's weights do not fit the shared "
                              "memory of a cluster" + (f" of {_cluster}" if _cluster else ""))
+    if _layout in (None, "grid"):
+        p = _grid_plan(batch, f, hidden, backward, sms)
+        if p is not None:
+            return p
+        if _layout == "grid":
+            raise ValueError(f"F={f}, H={hidden}, B={batch}: a lane's weights do not fit the "
+                             f"shared memory of {sms} blocks across the card (the grid layout)")
     span = -(-hidden // -(-hidden // L2_THREADS))    # the fewest passes of <= 256 columns
     groups = _groups(batch, span)
     tile = groups * ROWS
@@ -231,14 +324,28 @@ def plan(batch: int, f: int, hidden: int, backward: bool = False, *, lanes: int 
     return Plan("l2", groups, 4 * stage, span, mode, _state_floats(hidden, tile, backward, mode))
 
 
-def _work(x_seq, p: Plan, lanes: int, batch: int):
-    """The scratch buffer of a launch whose state lies in global memory
-    (``state`` floats for each block of the first ``MAX_GRID_Y`` lanes), or
-    None."""
+def _work(x_seq, p: Plan, lanes: int, batch: int, hidden: int, backward: bool):
+    """The scratch buffers of a launch, (work, sync), each None where the
+    launch takes none.  work: the state of an L2 launch whose state lies in
+    global memory (``state`` floats for each block of the first
+    ``MAX_GRID_Y`` lanes), or a grid forward's exchange of h (two (tile,
+    H + 4 rounded) halves for each tile of ``per_launch`` lanes, which each
+    launch reuses).  sync: a grid launch's arrival counters, zeroed, one a
+    tile of every lane."""
+    tiles = -(-batch // (p.groups * p.rows))
+    if p.layout == "grid":
+        sync = torch.zeros(lanes * tiles, dtype=torch.int32, device=x_seq.device)
+        if backward:
+            return None, sync
+        part = p.groups * p.rows * (_round4(hidden) + 4)
+        return x_seq.new_empty(min(lanes, p.per_launch) * tiles * 2 * part), sync
     if not p.state:
-        return None
-    blocks = -(-batch // (p.groups * ROWS)) * min(lanes, MAX_GRID_Y)
-    return x_seq.new_empty(blocks * p.state)
+        return None, None
+    return x_seq.new_empty(tiles * min(lanes, MAX_GRID_Y) * p.state), None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _lane_arg(name: str, t: torch.Tensor, shape, index: int) -> int:
@@ -301,7 +408,7 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
     replaces the launch's :func:`plan`, e.g. one made with ``_layout`` to
     force a layout (the source refuses one that does not match its own
     layouts)."""
-    global launches, cluster_launches, l2_launches
+    global launches, cluster_launches, grid_launches, l2_launches
     lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, h0, False, _plan)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     h_ls = _lane_arg("h0", h0, (lanes, batch, hidden), dev)
@@ -313,14 +420,15 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
     c_out = x_seq.new_empty(shape)
     if lanes * batch * hidden == 0:
         return h_out, c_out
-    work = _work(x_seq, p, lanes, batch)
+    work, sync = _work(x_seq, p, lanes, batch, hidden, False)
     _fwd(x_seq.data_ptr(), h0.data_ptr(), c0.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-         None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
-         int(save), x_ls, h_ls, c_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span, p.cluster,
-         p.mode, p.smem, current_stream(dev))
+         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), _ptr(work), _ptr(sync), lanes, steps,
+         batch, f, hidden, p.groups, int(save), x_ls, h_ls, c_ls, *w_ls,
+         _LAYOUT_CODES[p.layout], p.span, p.cluster, p.blocks, p.per_launch, p.rows, p.mode,
+         p.smem, current_stream(dev))
     launches += 1
     cluster_launches += p.layout == "cluster"
+    grid_launches += p.layout == "grid"
     l2_launches += p.layout == "l2"
     return h_out, c_out
 
@@ -333,7 +441,7 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
     (dgates (L, T, B, 4H), dh0, dc0 (L, B, H)), contiguous: the cotangents
     of each step's gate pre-activations and of the initial states.
     ``_plan`` as for :func:`lstm_seq_cuda`."""
-    global bwd_launches, cluster_bwd_launches, l2_bwd_launches
+    global bwd_launches, cluster_bwd_launches, grid_bwd_launches, l2_bwd_launches
     lanes, steps, batch, f, hidden, p, dev = _seq_shapes(x_seq, dh_last, True, _plan)
     x_ls = _lane_arg("x_seq", x_seq, (lanes, steps, batch, f), dev)
     w_ls = _weight_strides(wx, wh, b, lanes, f, hidden, dev)
@@ -348,15 +456,15 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
     dc0 = x_seq.new_empty(last)
     if lanes * batch * hidden == 0:
         return dgates, dh0, dc0
-    work = _work(x_seq, p, lanes, batch)
+    work, sync = _work(x_seq, p, lanes, batch, hidden, True)
     _bwd(x_seq.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), wx.data_ptr(),
          wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
-         dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-         None if work is None else work.data_ptr(), lanes, steps, batch, f, hidden, p.groups,
-         x_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span, p.cluster, p.mode, p.smem,
-         current_stream(dev))
+         dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), _ptr(work), _ptr(sync), lanes,
+         steps, batch, f, hidden, p.groups, x_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span,
+         p.cluster, p.blocks, p.per_launch, p.rows, p.mode, p.smem, current_stream(dev))
     bwd_launches += 1
     cluster_bwd_launches += p.layout == "cluster"
+    grid_bwd_launches += p.layout == "grid"
     l2_bwd_launches += p.layout == "l2"
     return dgates, dh0, dc0
 

@@ -276,7 +276,7 @@ def test_plan_takes_shapes_past_a_blocks_shared_memory(f, h, backward):
     else:
         assert h > 112
     if p.layout == "l2":
-        assert h > CLUSTER_CAP[backward]
+        assert h > GRID_CAP[backward]
     assert _plan_before(32, f, h, True) is None       # the pair could not train it
     args = [_t(a) for a in _inputs(1, 2, 4, f, h, 0)]
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -323,13 +323,16 @@ def test_plan_fills_the_fleet_grid_and_matches_the_stated_layout():
 
 # the largest H of the cluster layout at F = 6 (forward, backward)
 CLUSTER_CAP = {False: 461, True: 334}
+# the largest H of the grid layout at F = 6, B = 32
+GRID_CAP = {False: 924, True: 660}
 
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_plan_picks_the_cluster_up_to_its_cap(backward):
     """Past the shared-memory layout, every H up to the cap at F = 6, and
     (F, H) = (9, 128), take the cluster layout, at one lane and at the
-    fleet's 64; past the cap the weights go through L2."""
+    fleet's 64; past the cap a lane's weights go across the card, and
+    past the grid's cap through L2."""
     cap = CLUSTER_CAP[backward]
     for lanes in (1, 64):
         for h in range(115, cap + 1):
@@ -337,8 +340,98 @@ def test_plan_picks_the_cluster_up_to_its_cap(backward):
             want = "smem" if _plan_before(32, 6, h, backward) else "cluster"
             assert p.layout == want, (lanes, h)
         assert lk.plan(32, 9, 128, backward, lanes=lanes).layout == "cluster"
-        for h in (cap + 1, 512, 1100):
-            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "l2", h
+        for h in (cap + 1, 512):
+            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "grid", h
+        assert lk.plan(32, 6, 1100, backward, lanes=lanes).layout == "l2"
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_picks_the_grid_past_the_clusters_cap(backward):
+    """Every H from past the cluster's cap up to the grid's at F = 6,
+    B = 32 (H = 335 and 512 in the backward, 462 and 512 in the forward
+    among them) takes the grid layout, at one lane and at the fleet's 64;
+    past the grid's cap (H = 1,100, 1,600) the weights go through L2.  A
+    B = 45 scoring batch has a larger h tile and a lower cap."""
+    for lanes in (1, 64):
+        for h in range(CLUSTER_CAP[backward] + 1, GRID_CAP[backward] + 1):
+            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "grid", (lanes, h)
+        for h in (GRID_CAP[backward] + 1, 1100, 1600):
+            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "l2", (lanes, h)
+    for h in ((335, 512) if backward else (462, 512)):
+        assert lk.plan(32, 6, h, backward).layout == "grid"
+    cap45 = max(h for h in range(300, 1000) if lk.plan(45, 6, h, backward).layout == "grid")
+    assert cap45 < GRID_CAP[backward]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_grid_plans_fit_a_block_and_the_cards_capacity(backward):
+    """Every grid plan, chosen or not, at several batches, widths and SM
+    counts: the mirrored bytes of a block are the plan's and at most a
+    block's shared memory, a block holds ceil(H / K) units of the tile's
+    groups in at most 256 threads, a thread 4, 2 or 1 rows, no block is
+    empty, and lanes per launch x tiles x K is within the plan's capacity,
+    the card's SMs at one block an SM.  The chosen plan is one of them,
+    with the fewest tiles, then the fewest rows a thread, then the fewest
+    blocks of at most GRID_THREADS threads."""
+    seen = 0
+    for sms in (lk.SMS, 114):
+        for batch in (1, 5, 32, 45):
+            for f, h in [(6, h) for h in range(335, 1000, 37)] + [(6, 64), (9, 128), (1, 300)]:
+                every = list(lk.grid_plans(batch, f, h, backward, sms))
+                for p in every:
+                    seen += 1
+                    tile = p.groups * p.rows
+                    tiles = -(-batch // tile)
+                    assert p.rows in lk.GRID_ROWS
+                    assert p.layout == "grid" and p.cluster == 0 and p.mode == 0
+                    assert p.smem == 4 * lk._grid_floats(f, h, p.blocks, tile, backward)
+                    assert p.smem <= lk.MAX_SHARED_BYTES
+                    assert p.span == -(-h // p.blocks) and p.span * p.groups <= lk.L2_THREADS
+                    assert (p.blocks - 1) * p.span < h
+                    assert p.capacity == sms and p.per_launch >= 1
+                    assert p.per_launch * tiles * p.blocks <= p.capacity
+                assert len(set(every)) == len(every)
+                try:
+                    chosen = lk.plan(batch, f, h, backward, sms=sms, _layout="grid")
+                except ValueError:
+                    assert not every
+                    continue
+                assert chosen in every
+                tiles = min(-(-batch // (q.groups * q.rows)) for q in every)
+                top = [p for p in every if -(-batch // (p.groups * p.rows)) == tiles]
+                top = [p for p in top if p.rows == min(q.rows for q in top)]
+                narrow = [p for p in top if p.span * p.groups <= lk.GRID_THREADS]
+                assert chosen.blocks == min(p.blocks for p in (narrow or top))
+    assert seen > 1000
+
+
+def test_forcing_the_grid_where_it_does_not_fit_raises():
+    with pytest.raises(ValueError, match="grid layout"):
+        lk.plan(32, 6, 1100, _layout="grid")
+    with pytest.raises(ValueError, match="grid layout"):
+        lk.plan(32, 6, GRID_CAP[True] + 1, True, _layout="grid")
+    with pytest.raises(ValueError, match="grid layout"):
+        lk.plan(32, 6, 512, True, sms=16, _layout="grid")
+    args = [_t(a) for a in _inputs(1, 2, 4, 6, 1100, 0)]
+    with pytest.raises(ValueError, match="grid layout"):
+        lk.lstm_seq_cuda(*args, _plan=lk.plan(4, 6, 2000, _layout="grid"))
+
+
+def test_grid_scratch_is_an_exchange_and_zeroed_counters():
+    """The grid forward's scratch: two (tile, H + 4 rounded) halves a tile
+    for the lanes of one launch, and one zeroed arrival counter a tile of
+    every lane; the backward takes only the counters; the other layouts
+    none (the L2 layout's global state aside)."""
+    x = torch.zeros(1)
+    p = lk.plan(5, 6, 512)                    # a 5-row tile, 6 lanes a launch
+    assert (p.layout, p.groups * p.rows, p.per_launch) == ("grid", 5, 6)
+    work, sync = lk._work(x, p, 9, 5, 512, False)
+    assert work.numel() == 6 * 1 * 2 * 5 * 516
+    assert sync.dtype == torch.int32 and sync.numel() == 9 and not sync.any()
+    q = lk.plan(5, 6, 512, True, _layout="grid")
+    work, sync = lk._work(x, q, 3, 5, 512, True)
+    assert work is None and sync.numel() == 3 * -(-5 // (q.groups * q.rows))
+    assert lk._work(x, lk.plan(32, 6, 64), 3, 32, 64, False) == (None, None)
 
 
 def test_plan_sizes_the_cluster_by_the_cards_sms():
@@ -512,19 +605,22 @@ def _fma32(a, b, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,layout", [(512, "l2"), (1100, "l2"), (128, "cluster"),
-                                      (64, "smem")])
+@pytest.mark.parametrize("h,layout", [(512, "l2"), (512, "grid"), (1100, "l2"),
+                                      (128, "cluster"), (64, "smem")])
 def test_dh0_is_the_ascending_fma_sum_on_the_card(h, layout):
     """dh0[b, j] = sum over the 4H gate columns of dgates[0, b, col] wh[j, col],
     each term an fmaf in ascending column order, bit for bit in every
-    layout: past the cap the L2 backward reads wh through its stage in
-    shared memory and keeps that order."""
+    layout (the planned one, L2 forced at H = 512): the L2 backward reads
+    wh through its stage in shared memory, the grid backward the dgates
+    other blocks wrote through its stage, and both keep that order."""
     _need_card()
     lanes, t, b, f = 1, 2, 5, 6
     args, dh, dc = _card_inputs(lanes, t, b, f, h, 7)
-    assert lk.plan(b, f, h, True).layout == layout
+    force = dict(_layout=layout) if (h, layout) == (512, "l2") else {}
+    assert lk.plan(b, f, h, True, **force).layout == layout
     hs, cs = lk.lstm_seq_cuda(*args, save=True)
-    dgates, dh0, _ = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc)
+    dgates, dh0, _ = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc,
+                                               _plan=lk.plan(b, f, h, True, **force))
     torch.cuda.synchronize()
     d = dgates[0, 0].cpu().numpy()
     w = args[4][0].cpu().numpy()
@@ -542,6 +638,115 @@ def test_the_cluster_layout_takes_more_than_65535_lanes_on_the_card():
     args, dh, dc = _card_inputs(65_537, 2, 3, 2, 5, 11)
     want = _run_pair(args, dh, dc, _layout="smem")
     got = _run_pair(args, dh, dc, _layout="cluster", _cluster=2)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), name
+
+
+def _grid_pair(args, dh, dc, backward_too=True, **force):
+    """The pair's outputs as int32 bits with each launch's plan forced by
+    ``force``; the backward only where ``backward_too``."""
+    lanes, _, b, f = args[0].shape
+    h = args[1].shape[-1]
+    fwd = lk.plan(b, f, h, False, lanes=lanes, **force)
+    hs, cs = lk.lstm_seq_cuda(*args, save=True, _plan=fwd)
+    out = [hs, cs]
+    if backward_too:
+        bwd = lk.plan(b, f, h, True, lanes=lanes, **force)
+        out += lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _plan=bwd)
+    return [o.view(torch.int32) for o in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [335, 462, 512, GRID_CAP[True], GRID_CAP[False]])
+def test_the_grid_layout_equals_the_l2_one_and_the_twins_on_the_card(h):
+    """Past the cluster's cap (and at H = 335 forced in the forward, which
+    the cluster holds): the grid layout gives the forced L2 layout's bits,
+    every saved state, dgates, dh0 and dc0 (the backward where it fits,
+    up to its cap), at the batch its caps are for; it counts as a grid
+    launch, and both match the twins within the pair's limits (forward
+    1e-5, backward 1e-4 of the largest value)."""
+    _need_card()
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+
+    lanes, t, b, f = 1, 4, 32, 6
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, h)
+    back = h <= GRID_CAP[True]
+    want = _grid_pair(args, dh, dc, back, _layout="l2")
+    before = kernels.layout_counts()
+    got = _grid_pair(args, dh, dc, back, _layout="grid")
+    torch.cuda.synchronize()
+    after = kernels.layout_counts()
+    assert after["lstm_cell_grid"] == before["lstm_cell_grid"] + 1
+    assert after["lstm_cell_bwd_grid"] == before["lstm_cell_bwd_grid"] + back
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), name
+    hs, cs = (o.view(torch.float32) for o in got[:2])
+    hr, cr = lstm_seq_ref(*args)
+    torch.testing.assert_close(hs, hr, rtol=0, atol=1e-5)
+    torch.testing.assert_close(cs, cr, rtol=0, atol=1e-5)
+    if back:
+        ref = lstm_seq_backward_ref(args[0], hs, cs, *args[3:], dh, dc)
+        for name, g, w in zip(("dgates", "dh0", "dc0"), got[2:], ref):
+            g = g.view(torch.float32)
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,t,b,f,h,other", [(2, 8, 32, 6, 64, "smem"),
+                                                 (1, 4, 37, 6, 256, "cluster")])
+def test_the_grid_layout_equals_the_first_layouts_on_the_card(lanes, t, b, f, h, other):
+    """On shapes one block or a cluster holds, the grid layout (forced)
+    gives their bits: the shared-memory layout's at H = 64, the cluster's
+    at H = 256 (a ragged batch of two tiles in the cluster)."""
+    _need_card()
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, 47)
+    want = _grid_pair(args, dh, dc, _layout=other)
+    got = _grid_pair(args, dh, dc, _layout="grid")
+    torch.cuda.synchronize()
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", lk.GRID_ROWS)
+def test_every_grid_row_count_gives_the_same_bits_on_the_card(rows):
+    """The grid kernels with 4, 2 or 1 batch rows a thread (the largest
+    tile, the fewest blocks that fit) at a ragged batch: the forced L2
+    layout's bits, forward and backward, and each a grid launch."""
+    _need_card()
+    lanes, t, b, f, h = 1, 3, 37, 6, 512
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, 17)
+    want = _grid_pair(args, dh, dc, _layout="l2")
+    plans = []
+    for backward in (False, True):
+        every = [p for p in lk.grid_plans(b, f, h, backward) if p.rows == rows]
+        tile = max(p.groups * p.rows for p in every)
+        plans.append(min((p for p in every if p.groups * p.rows == tile),
+                         key=lambda p: p.blocks))
+    before = kernels.layout_counts()
+    hs, cs = lk.lstm_seq_cuda(*args, save=True, _plan=plans[0])
+    back = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc, _plan=plans[1])
+    torch.cuda.synchronize()
+    after = kernels.layout_counts()
+    assert after["lstm_cell_grid"] == before["lstm_cell_grid"] + 1
+    assert after["lstm_cell_bwd_grid"] == before["lstm_cell_bwd_grid"] + 1
+    got = [o.view(torch.int32) for o in (hs, cs, *back)]
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), (rows, name)
+
+
+@pytest.mark.cuda
+def test_the_grid_layout_takes_more_lanes_than_one_launch_holds_on_the_card():
+    """Five lanes at H = 512, B = 32, T = 3: one lane a launch (K = 128 of
+    the card's 132 SMs) takes five cooperative launches each way; the
+    forced L2 layout's bits."""
+    _need_card()
+    args, dh, dc = _card_inputs(5, 3, 32, 6, 512, 13)
+    assert lk.plan(32, 6, 512, lanes=5).per_launch == 1
+    assert lk.plan(32, 6, 512, True, lanes=5).per_launch == 1
+    want = _grid_pair(args, dh, dc, _layout="l2")
+    got = _grid_pair(args, dh, dc)
     torch.cuda.synchronize()
     for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
         assert torch.equal(a, c), name

@@ -1012,10 +1012,13 @@ def check_robust(dev, n_params, n_contrib):
 # lane's weights across a cluster at the hidden=128 world's fleet fit and at
 # one lane of H = 256; across the card past the cluster's cap at every
 # shape [4o]'s hidden=512 loop launches (LSTM_GRID_SHAPES: its fit batch,
-# and the evaluation's whole test split, forward only on that path); with
-# its weights through L2 past the grid's cap at one lane of H = 1,100
-# ([4o]'s hidden=1100 fit); the robust columns' run-time-N bodies at the
-# n_max=24 world's (R, 24, P) and at N = 33
+# and the evaluation's whole test split, forward only on that path); across
+# the card with what a block cannot hold streamed, past the whole grid's cap,
+# at one lane of H = 1,100 ([4o]'s hidden=1100 fit of 32 windows,
+# LSTM_STREAM_SHAPES); with its weights through L2 past the streamed grid's
+# cap at one lane of H = 1,100, B = 128 ([4o]'s fit of 128 windows,
+# LSTM_L2_SHAPES); the robust columns' run-time-N bodies at the n_max=24
+# world's (R, 24, P) and at N = 33
 LSTM_CLUSTER_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 256, 32))
 # every shape [4o]'s hidden=128 paths launch the pair at (its cluster plans:
 # C = 16 at these lane counts): the fit batch and the evaluation's whole
@@ -1024,7 +1027,8 @@ LSTM_CLUSTER_SHAPES = (("H=128", FLEET_R, 32, 6, 128, 32), ("H=256", 1, 32, 6, 2
 LSTM_O_SHAPES = (("H=128 loop fit", 1, 32, 6, 128, 32), ("H=128 loop eval", 1, 45, 6, 128, 32),
                  ("H=128 R=4 fit", 4, 32, 6, 128, 32), ("H=128 R=4 eval", 4, 56, 6, 128, 32))
 LSTM_GRID_SHAPES = (("H=512 loop fit", 1, 32, 6, 512, 32), ("H=512 loop eval", 1, 45, 6, 512, 32))
-LSTM_L2_SHAPES = (("H=1100 fit", 1, 32, 6, 1100, 32),)
+LSTM_STREAM_SHAPES = (("H=1100 fit", 1, 32, 6, 1100, 32),)
+LSTM_L2_SHAPES = (("H=1100 fit of 128", 1, 128, 6, 1100, 32),)
 WIDE_N = 24
 
 
@@ -1099,9 +1103,12 @@ def check_second_layouts(dev, n_params):
     [4o]'s hidden=128 paths) bit-equal to the forced L2 one and within the
     pair's limits, and at LSTM_CLUSTER_SHAPES to the forced grid; the grid
     layout at LSTM_GRID_SHAPES (every launch of [4o]'s hidden=512 loop)
-    bit-equal to the forced L2 one and within the pair's limits; the L2
-    layout within them at LSTM_L2_SHAPES (past the grid's cap); the
-    run-time-N trimmed mean and median at (64, 24, P)
+    bit-equal to the forced L2 one and within the pair's limits, and at its
+    fit shape each streaming mode forced bit-equal to the whole grid; the
+    streamed grid at LSTM_STREAM_SHAPES ([4o]'s hidden=1100 fit of 32
+    windows) bit-equal to the forced L2 one and within the pair's limits;
+    the L2 layout within them at LSTM_L2_SHAPES (past the streamed grid's
+    cap); the run-time-N trimmed mean and median at (64, 24, P)
     and (5, 33, 4,099), dense and q8, within 1e-6 of the largest output
     on the edge rows of :func:`check_robust` (an inactive lane, an
     all-zero row, one and two active, ties, an outlier), each q8 form
@@ -1109,8 +1116,9 @@ def check_second_layouts(dev, n_params):
     run-time-N bodies bit-equal to the templated ones at every N from 1
     to 16, NaN, infinities and signed zeros included.  Returns the largest
     errors under the kernel table's names."""
-    from repro_torch.kernels.lstm_cell.kernel import (device_sms, lstm_seq_backward_cuda,
-                                                      lstm_seq_cuda, plan)
+    from repro_torch.kernels.lstm_cell.kernel import (KAPPA, STREAM_LEVELS, device_sms,
+                                                      lstm_seq_backward_cuda, lstm_seq_cuda, plan,
+                                                      stream_plan)
     from repro_torch.kernels.quantize.ref import dequantize_batched_ref, quantize_batched_ref
     from repro_torch.kernels.robust import kernel as rk
     from repro_torch.kernels.robust import ref as rr
@@ -1137,18 +1145,27 @@ def check_second_layouts(dev, n_params):
         print(f"  lstm_seq L,B,F,H,T={lanes},{b},{f},{h},{t}: the weights-through-L2, the "
               "cluster and the grid layouts (forced) bit-equal to the shared-memory one "
               "(states, dgates, dh0, dc0)")
-    shapes = LSTM_CLUSTER_SHAPES + LSTM_O_SHAPES + LSTM_GRID_SHAPES + LSTM_L2_SHAPES
+    shapes = (LSTM_CLUSTER_SHAPES + LSTM_O_SHAPES + LSTM_GRID_SHAPES + LSTM_STREAM_SHAPES
+              + LSTM_L2_SHAPES)
     for name, lanes, b, f, h, t in shapes:
         args = lstm_views(g, dev, lanes, b, f, h, t)
         fwd, bwd = (plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
                     for backward in (False, True))
         layout = bwd.layout
+        if (name, lanes, b, f, h, t) in LSTM_STREAM_SHAPES and not (
+                layout == "grid" and bwd.mode and fwd.mode):
+            fail(f"lstm_seq {name}: the plan does not stream the grid ({fwd}, {bwd})")
+        if (name, lanes, b, f, h, t) in LSTM_L2_SHAPES and layout != "l2":
+            fail(f"lstm_seq {name}: the plan does not read the weights through L2 ({bwd})")
         if layout in ("cluster", "grid"):
             planned = bits(*args, None)
             if not all(torch.equal(a, c) for a, c in zip(planned, bits(*args, "l2"))):
                 fail(f"lstm_seq {name}: the {layout} layout differs from the forced L2 one")
             how = (f"C = {fwd.cluster} forward, {bwd.cluster} backward" if layout == "cluster"
-                   else f"K = {fwd.blocks} forward, {bwd.blocks} backward")
+                   else "; ".join(f"{d} K = {p.blocks}, R = {p.rows}, mode {p.mode}"
+                                  + (f", kappa {p.kappa}" if p.mode else "")
+                                  + (f", rho {p.rho}" if p.rho else "")
+                                  for d, p in (("forward", fwd), ("backward", bwd))))
             print(f"  lstm_seq {name} L,B={lanes},{b}: the {layout} layout ({how}) bit-equal "
                   "to the weights-through-L2 one (forced)")
             if (name, lanes, b, f, h, t) in LSTM_CLUSTER_SHAPES:
@@ -1158,8 +1175,28 @@ def check_second_layouts(dev, n_params):
                     fail(f"lstm_seq {name}: the grid layout (forced) differs from the cluster one")
                 print(f"  lstm_seq {name} L,B={lanes},{b}: the grid layout (forced) bit-equal "
                       "to the cluster one")
+            if (name, lanes, b, f, h, t) == LSTM_GRID_SHAPES[0]:
+                x, h0, c0, w, dh, dc = args
+                hs, cs = lstm_seq_cuda(x, h0, c0, *w, save=True, _plan=fwd)
+                for backward, base in ((False, fwd), (True, bwd)):
+                    for mode in STREAM_LEVELS[backward]:
+                        q = stream_plan(base, f, h, backward, mode, KAPPA)
+                        if backward:
+                            got = lstm_seq_backward_cuda(x, hs, cs, *w, dh, dc, _plan=q)
+                            want = planned[2:]
+                        else:
+                            got = lstm_seq_cuda(x, h0, c0, *w, save=True, _plan=q)
+                            want = planned[:2]
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(a.view(torch.int32), c)
+                                   for a, c in zip(got, want)):
+                            fail(f"lstm_seq {name}: the grid streamed in mode {mode} (forced) "
+                                 "differs from the whole grid")
+                print(f"  lstm_seq {name} L,B={lanes},{b}: every streaming mode (forced, kappa "
+                      f"{KAPPA}) bit-equal to the whole grid, forward "
+                      f"{STREAM_LEVELS[False]}, backward {STREAM_LEVELS[True]}")
         ferr, berr = lstm_wide_errors(name, layout, *args)
-        suffix = "" if h == 128 else f"_h{h}"
+        suffix = "" if h == 128 else f"_h{h}" + ("" if b == 32 or layout != "l2" else f"_b{b}")
         for key, err in ((f"lstm_cell_{layout}" + suffix, ferr),
                          (f"lstm_cell_bwd_{layout}" + suffix, berr)):
             errs[key] = max(errs.get(key, 0.0), err)
@@ -1715,8 +1752,9 @@ def fleet_adversary_round_check(device, world, pretrained, limits):
 
 O_HIDDEN = 128          # the quickstart world's LSTM at H = 128: weights across a cluster
 O_WIDE_HIDDEN = 512     # at H = 512, past the cluster's cap: weights across the card
-O_L2_HIDDEN = 1100      # and at H = 1,100, past the grid's cap: weights through L2
-O_L2_BATCH = 32         # one fit step of the requester's first 32 windows at H = 1,100
+O_L2_HIDDEN = 1100      # and at H = 1,100, past the whole grid's cap: the grid streams
+O_STREAM_BATCH = 32     # one fit step of the requester's first 32 windows at H = 1,100
+O_L2_BATCH = 128        # and of its first 128: past the streamed grid's cap, weights through L2
 O_N_MAX = 24            # the HAR world of 25 devices: 24 contributors a round
 O_EPOCHS = 1            # fit epochs a round in [4o], [4]'s 8 cut for time; no
                         # contributor refresh (its CPU side was most of [4o]'s wall)
@@ -1835,9 +1873,10 @@ def run_second_layouts(device, world, pretrained, limits):
     held (LSTM_O_SHAPES); at ``hidden=512`` (past the cluster's cap: the
     weights across the card) a 1-round loop session whose contributors are
     unpretrained, card vs CPU under [4a]'s limit, each launch at a shape [3]
-    held (LSTM_GRID_SHAPES); at ``hidden=1100`` (past the grid's cap: the
-    weights through L2) one fit step of 32 windows, card vs CPU under the
-    same limit, at LSTM_L2_SHAPES; then a HAR
+    held (LSTM_GRID_SHAPES); at ``hidden=1100`` one fit step of 32 windows
+    (past the whole grid's cap: the grid streams), at LSTM_STREAM_SHAPES,
+    and one of 128 (past the streamed grid's cap: the weights through L2),
+    at LSTM_L2_SHAPES, each card vs CPU under the same limit; then a HAR
     world of 25 devices with ``n_max=24`` (the robust columns' run-time-N
     bodies) in [4d]'s Byzantine world (noise of scale 1: ``O_ADVERSARY``)
     under the median and the trimmed mean, fp32 and int8: one fleet round
@@ -1935,25 +1974,32 @@ def run_second_layouts(device, world, pretrained, limits):
     watch(task_l2.model)
     init_l2 = task_l2.init(seed=30)
     host_init_l2 = tree_map(lambda t: t.cpu(), init_l2)
-    windows = tuple(a[:O_L2_BATCH] for a in own_train)
+    for n, kind, shapes, table in ((O_STREAM_BATCH, "grid", LSTM_STREAM_SHAPES,
+                                    "LSTM_STREAM_SHAPES"),
+                                   (O_L2_BATCH, "l2", LSTM_L2_SHAPES, "LSTM_L2_SHAPES")):
+        windows = tuple(a[:n] for a in own_train)
+        if len(windows[0]) != n:
+            fail(f"[4o] H={O_L2_HIDDEN} fit: the requester has {len(windows[0])} windows, "
+                 f"not {n}")
 
-    def fit_l2(tk, p0):
-        return lambda: tk.fit(p0, windows, epochs=1, batch_size=O_L2_BATCH, seed=0)
+        def fit_l2(tk, p0, windows=windows, n=n):
+            return lambda: tk.fit(p0, windows, epochs=1, batch_size=n, seed=0)
 
-    with lstm_launch_shapes() as seen:
-        card, host, counts, layout = o_run(
-            f"H={O_L2_HIDDEN} fit, one step of {O_L2_BATCH} windows", device,
-            fit_l2(task_l2, init_l2), fit_l2(cpu_task_l2, host_init_l2), lstm_need,
-            ("lstm_cell_l2", "lstm_cell_bwd_l2"))
-    o_held(f"H={O_L2_HIDDEN} fit", seen, layout, "l2", LSTM_L2_SHAPES, "LSTM_L2_SHAPES")
-    keep("loop", counts, layout)
-    leaves = list(zip(tree_leaves(card[0]), tree_leaves(host[0])))
-    if not all(bool(torch.isfinite(a).all()) for a, _ in leaves):
-        fail(f"[4o] H={O_L2_HIDDEN} fit: non-finite parameters on the card")
-    loss_gap = abs(card[1][0] - host[1][0])
-    o_check(f"H={O_L2_HIDDEN} fit", max(float((a.cpu() - b).abs().max()) for a, b in leaves),
-            O_LOOP_TOL, {"loss": loss_gap <= 1e-5 * max(1.0, abs(host[1][0]))})
-    print(f"    H={O_L2_HIDDEN} fit: loss card {card[1][0]:.6f}, CPU {host[1][0]:.6f}")
+        tag = f"H={O_L2_HIDDEN} fit of {n}"
+        with lstm_launch_shapes() as seen:
+            card, host, counts, layout = o_run(
+                f"{tag}, one step", device, fit_l2(task_l2, init_l2),
+                fit_l2(cpu_task_l2, host_init_l2), lstm_need,
+                (f"lstm_cell_{kind}", f"lstm_cell_bwd_{kind}"))
+        o_held(tag, seen, layout, kind, shapes, table)
+        keep("loop", counts, layout)
+        leaves = list(zip(tree_leaves(card[0]), tree_leaves(host[0])))
+        if not all(bool(torch.isfinite(a).all()) for a, _ in leaves):
+            fail(f"[4o] {tag}: non-finite parameters on the card")
+        loss_gap = abs(card[1][0] - host[1][0])
+        o_check(tag, max(float((a.cpu() - b).abs().max()) for a, b in leaves),
+                O_LOOP_TOL, {"loss": loss_gap <= 1e-5 * max(1.0, abs(host[1][0]))})
+        print(f"    {tag}: loss card {card[1][0]:.6f}, CPU {host[1][0]:.6f}")
 
     # the HAR world of 25 devices: the requester and 24 contributors
     x, y, _ = make_har_windows(HARDatasetConfig(num_samples=200 * (O_N_MAX + 1), seq_len=32))
@@ -4268,7 +4314,9 @@ MESH_RANKS = 8
 MESH_AGG_TOL = 1e-6
 MESH_EP_TOL = 2e-5
 MESH_BATCH, MESH_SEQ = 8, 16          # the reference test's batch
-MESH_STEP_REPS = 5
+# timed repetitions of each sharded step and of the all-reduce (walls only,
+# no check reads them): 5 until the script's time asked for 2
+MESH_STEP_REPS = 2
 MESH_KINDS = ("cfl", "enfed", "dfl_ring", "dfl_mesh")
 MESH_MASK = np.array([1.0, 0.0, 1.0, 1.0], np.float32)   # client 1 left out
 # the sharded train steps: (arch, fsdp, multi-pod, strategy)
@@ -5094,12 +5142,13 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
     """The second layouts' rows: the LSTM pair with a lane's weights
     across a cluster at LSTM_CLUSTER_SHAPES (the hidden=128 world's fleet
     fit, one lane at H = 256), across the card at the fit shape of
-    LSTM_GRID_SHAPES (one lane at H = 512) and through L2 at LSTM_L2_SHAPES
-    (one lane at H = 1,100, timed with few calls: a backward takes ~0.1 s),
-    beside cuDNN's ``torch.lstm`` at one lane (for the 64-lane row in its
-    note), with the plan's cluster size or K and lanes a launch, and bytes
-    per block (``kernel_bench.py --lstm-plans`` times every plan that
-    fits); the
+    LSTM_GRID_SHAPES (one lane at H = 512), streamed across the card at
+    LSTM_STREAM_SHAPES (one lane at H = 1,100) and through L2 at
+    LSTM_L2_SHAPES (one lane at H = 1,100, B = 128, timed with few calls: a
+    backward takes ~0.1 s), beside cuDNN's ``torch.lstm`` at one lane (for
+    the 64-lane row in its note), with the plan's cluster size or K, R,
+    mode, kappa, rho and lanes a launch, and bytes per block
+    (``kernel_bench.py --lstm-plans`` times every plan that fits); the
     robust columns' run-time-N bodies at the n_max=24 world's (64, 24,
     P) fp32 and (64, 24, Lp) int8, beside ``torch.nanquantile`` + ``where``
     for the dense median.  Each is held against its twin on the timed
@@ -5119,7 +5168,8 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
     g = torch.Generator().manual_seed(32)
     src = "src/repro_torch/csrc/lstm_cell.cu"
     rows = []
-    for name, lanes, b, f, h, t in LSTM_CLUSTER_SHAPES + LSTM_GRID_SHAPES[:1] + LSTM_L2_SHAPES:
+    for name, lanes, b, f, h, t in (LSTM_CLUSTER_SHAPES + LSTM_GRID_SHAPES[:1]
+                                    + LSTM_STREAM_SHAPES + LSTM_L2_SHAPES):
         x, h0, c0, w, dh, dc = lstm_views(g, dev, lanes, b, f, h, t)
         plans = tuple(plan(b, f, h, backward, lanes=lanes, sms=device_sms(dev))
                       for backward in (False, True))
@@ -5144,7 +5194,7 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
                                                      dh[0], dc[0], hs[0, -1],
                                                      iters=20 if slow else 200)
         one_lane = lanes == 1
-        suffix = "" if h == 128 else f"_h{h}"
+        suffix = "" if h == 128 else f"_h{h}" + ("" if b == 32 or layout != "l2" else f"_b{b}")
         shape = f"L,B,F,H,T={lanes},{b},{f},{h},{t}"
         cudnn_note = (f" (cuDNN at one lane, L,B,F,H,T=1,{b},{f},{h},{t}: forward "
                       f"{lib_fwd:.5f}, backward {lib_bwd:.5f} ms; its h_T differs by "
@@ -5162,8 +5212,10 @@ def time_second_layouts(dev, counts, errs, n_params, flush):
                 how = (f"cluster of {p.cluster} blocks, {p.smem:,} B a block"
                        + ("; dgates through the output" if p.mode & DGATES_OUT else ""))
             elif layout == "grid":
-                how = (f"K = {p.blocks} blocks a lane of {p.span * p.groups} threads, "
-                       f"{p.per_launch} lanes a launch, {p.smem:,} B a block")
+                how = (f"K = {p.blocks} blocks a lane of {p.span * p.groups} threads, R = "
+                       f"{p.rows}, {p.per_launch} lanes a launch, {p.smem:,} B a block"
+                       + (f"; streamed, mode {p.mode}, kappa {p.kappa}"
+                          + (f", rho {p.rho}" if p.rho else "") if p.mode else ""))
             else:
                 how = f"weights through L2, {p.smem:,} B a block"
             print(f"  {kname + suffix}: {shape}, {how}")
@@ -5578,7 +5630,8 @@ def main() -> int:
                                                     fleet_score_b, cfg.seq_len)
     errs["lstm_cell"] = max(errs["lstm_cell"], seq_fwd)
     errs.update(check_robust(dev, n_params, n_contrib))
-    print("  the second layouts (the LSTM pair's weights across a cluster and through L2, the "
+    print("  the second layouts (the LSTM pair's weights across a cluster, across the card, "
+          "streamed across it and through L2, the "
           "robust columns' run-time N)")
     errs.update(check_second_layouts(dev, n_params))
     print("  the paper-table twins' shapes (benchmarks/_torch_harness.py)")
@@ -5656,8 +5709,8 @@ def main() -> int:
     run_mesh(dev)
     print(f"  [4n] wall {time.perf_counter() - t_mesh:.1f} s")
     print(f" [4o] the second layouts' worlds: hidden={O_HIDDEN} (weights across a cluster), "
-          f"hidden={O_WIDE_HIDDEN} (weights across the card), hidden={O_L2_HIDDEN} (weights "
-          "through L2), "
+          f"hidden={O_WIDE_HIDDEN} (weights across the card), hidden={O_L2_HIDDEN} (streamed "
+          f"across the card at {O_STREAM_BATCH} windows, through L2 at {O_L2_BATCH}), "
           f"n_max={O_N_MAX} under the median and the trimmed mean (run-time N), card vs CPU")
     t_o = time.perf_counter()
     o_loop, o_fleet, o_layouts = run_second_layouts(dev, world, pretrained, limits)

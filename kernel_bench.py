@@ -12,8 +12,14 @@ plan that fits (``kernels/lstm_cell/kernel.py::cluster_plans`` at each
 cluster size, with batch-row groups 8, 4, 2 or 1), at one lane under every
 grid plan with the largest batch tile (``grid_plans``: each count of rows
 a thread and each K, so at H = 256 the grid against the cluster), and under the weights-through-L2
-layout, each checked bit-equal to the planned launch: what the rule of
-``kernels/lstm_cell/kernel.py::plan`` is read against.  ``--lstm`` times
+layout, each checked bit-equal to the planned launch; at H = 512 also
+under each streaming mode and chunk width forced on the planned grid
+(``stream_plan``); and at the streamed fit shape of
+``chip_smoke.LSTM_STREAM_SHAPES`` (one lane of H = 1,100) under every
+streamed grid plan with the largest tile (each R, K and kappa, at the
+least streaming that fits) and each more streaming mode forced on the
+planned one: what the rule of ``kernels/lstm_cell/kernel.py::plan`` is
+read against.  ``--lstm`` times
 only the LSTM pair (the forward saving its states, the backward; device ms
 and host us a call) of the tree in ``DIR`` at the given shapes, through its
 public wrappers, so that two versions compare in one run on one card.
@@ -96,7 +102,8 @@ def lstm_shapes(dev, label: str, shapes: str) -> None:
     """The LSTM pair's ms (CUDA events, 30 calls after 3) at each shape
     "L,B,F,H,T" of ``shapes`` (";"-separated), on chip_smoke's inputs, and
     the host's microseconds to enqueue one call (``chip_smoke.host_us``,
-    200 calls) where a call takes under 10 ms."""
+    200 calls) where a call takes under 10 ms; at one lane also cuDNN's
+    (``chip_smoke.time_cudnn_lstm``, 30 calls)."""
     from repro_torch.kernels.lstm_cell import kernel as lk
 
     smi = chip_smoke.nvidia_smi_line()
@@ -112,6 +119,10 @@ def lstm_shapes(dev, label: str, shapes: str) -> None:
             host = (f"host {chip_smoke.host_us(run, calls=200, burst=20):.3f} us"
                     if ms < 10 else "host not measured")
             parts.append(f"{kind} {ms:.5f} ms ({host})")
+        if lanes == 1:
+            lib = chip_smoke.time_cudnn_lstm(x[0], h0[0], c0[0], *(p[0] for p in w), dh[0], dc[0],
+                                             hs[0, -1], iters=30)
+            parts.append(f"cuDNN forward {lib[0]:.5f}, backward {lib[1]:.5f} ms")
         print(f"  lstm [{label}] L,B,F,H,T={shape}: " + ", ".join(parts) + f" ({smi})")
 
 
@@ -122,7 +133,8 @@ def lstm_plans(dev) -> None:
 
     g = torch.Generator().manual_seed(33)
     sms = lk.device_sms(dev)
-    shapes = chip_smoke.LSTM_CLUSTER_SHAPES + chip_smoke.LSTM_GRID_SHAPES[:1]
+    shapes = (chip_smoke.LSTM_CLUSTER_SHAPES + chip_smoke.LSTM_GRID_SHAPES[:1]
+              + chip_smoke.LSTM_STREAM_SHAPES[:1])
     for name, lanes, b, f, h, t in shapes:
         x, h0, c0, w, dh, dc = chip_smoke.lstm_views(g, dev, lanes, b, f, h, t)
         hs, cs = lk.lstm_seq_cuda(x, h0, c0, *w, save=True)
@@ -135,8 +147,21 @@ def lstm_plans(dev) -> None:
                      if p.groups & (p.groups - 1) == 0]
             if lanes == 1:
                 grid = list(lk.grid_plans(b, f, h, backward, sms))
+                if chosen.mode:
+                    grid = [p for p in grid if p.mode]
+                else:
+                    grid = [p for p in grid if not p.mode]
                 tile = max(q.groups * q.rows for q in grid)
                 plans += [p for p in grid if p.groups * p.rows == tile]
+            if chosen.layout == "grid":
+                # each streaming mode (and chunk width) forced on the chosen geometry
+                levels = lk.STREAM_LEVELS[backward]
+                for mode in levels[levels.index(chosen.mode) + 1 if chosen.mode else 0:]:
+                    for kappa in lk.KAPPAS:
+                        try:
+                            plans.append(lk.stream_plan(chosen, f, h, backward, mode, kappa))
+                        except ValueError:
+                            pass
             plans.append(lk.plan(b, f, h, backward, lanes=lanes, _layout="l2"))
             parts = []
             for p in plans:
@@ -144,10 +169,15 @@ def lstm_plans(dev) -> None:
                 torch.cuda.synchronize()
                 if not all(torch.equal(a.view(torch.int32), c) for a, c in zip(got, want)):
                     raise SystemExit(f"lstm {name}: plan {p} differs from the chosen plan's bits")
-                ms = chip_smoke.cuda_ms(lambda: run(p), iters=10, warmup=2)
+                # the L2 layout past H = 1,000 takes ~0.1 s a call: a few calls
+                slow = p.layout == "l2" and h > 1000
+                ms = chip_smoke.cuda_ms(lambda: run(p), iters=3 if slow else 10,
+                                        warmup=1 if slow else 2)
                 what = ("L2" if p.layout == "l2" else
                         f"grid R={p.rows} K={p.blocks} x {p.span * p.groups} threads "
-                        f"{p.smem:,} B"
+                        + (f"mode {p.mode} kappa {p.kappa}"
+                           + (f" rho {p.rho}" if p.rho else "") + " " if p.mode else "")
+                        + f"{p.smem:,} B"
                         if p.layout == "grid" else
                         f"C={p.cluster} tile {p.groups * lk.ROWS}"
                         + (" out" if p.mode & lk.DGATES_OUT else "") + f" {p.smem:,} B")

@@ -91,8 +91,11 @@
 // at 4-8x its fp32 bound, one lane (16-32 blocks) at 40-60x.
 //
 // A lane's weights across the whole card (lstm_seq_{fwd,bwd}_grid_kernel),
-// for the shapes past the cluster's 16 blocks: up to H = 924 in the forward
-// and H = 660 in the backward at F = 6, B = 32.  A lane and its batch tile
+// for the shapes past the cluster's 16 blocks: whole in each block up to
+// H = 924 in the forward and H = 660 in the backward at F = 6, B = 32, and
+// with what a block cannot hold streamed (below) up to H = 4,224 at B = 32
+// in both directions (K x tiles blocks of at most 256 threads on the
+// card's SMs, roughly B x H <= 132 x 1,024).  A lane and its batch tile
 // run on K blocks, K up to the card's resident capacity (132 at one block
 // an SM), in one persistent cooperative launch (cudaLaunchKernelEx with
 // cudaLaunchAttributeCooperative: the driver keeps every block resident or
@@ -122,8 +125,36 @@
 // the H = 512 pair takes 128 blocks of 128 threads and runs 1.5-1.6x
 // faster than at four.
 //
+// Past H = 924 / 660 a grid block no longer holds its columns, the whole h
+// tile (141 KB at B = 32, H = 1,100) and, in the backward, rows J_q of wh
+// at once, so its mode streams, least first: kStreamH, the gates' h-part
+// sums h in chunks of kappa columns (k ascending) through a ring of kRing
+// stages in shared memory, chunk c + 2 copied by cp.async.cg while chunk c
+// is summed, one __syncthreads a chunk (the forward reads its chunks from
+// the exchange buffer after the barrier, the backward from h_seq, its
+// first chunks issued a step ahead, during the previous step's dh); the
+// L2 traffic is the whole-tile copy's, the block holds only kRing chunks.
+// kStreamWh (the backward): rows J_q of wh are copied beside each dgates
+// chunk into the same double-buffered stage (Hc runs of kDgCols floats,
+// row stride kDgCols + 4), not held.  kStreamCols: the block holds rows
+// [0, rho) of its columns (the x rows and the first chunks of the h rows;
+// rho - F a multiple of kappa) and streams the rest every step from a
+// packed copy, (F + H - rho) x Hc float4s of its own in a scratch buffer
+// the wrapper allocates, written by the block at the launch's start while
+// it stages the rows it holds; one thread then takes each chunk's rows in
+// one TMA bulk copy (cp.async.bulk, completing on the stage's mbarrier,
+// which every thread waits on) while the warps stay on the sums.  The
+// plan takes the least streaming that fits, under kStreamCols with the
+// largest rho.  What the launch itself writes is never read through L1:
+// the exchange buffer and dgates by cp.async.cg or after the barrier's
+// acquire, the packed copy by the bulk copy (async proxy, at L2) after
+// each writer's fence.proxy.async and a __syncthreads; wx, wh, b, x, h0,
+// h_seq and c_seq, which it only reads, may take __ldg and cp.async.
+// Every chunk keeps each sum's terms in the same order, so a streamed
+// launch gives the whole one's bits, and the L2 layout's.
+//
 // Weights through L2 (lstm_seq_{fwd,bwd}_l2_kernel), for every shape the
-// grid cannot hold either.  Nothing is copied for the gates: each gate
+// grid cannot hold either, streamed or not.  Nothing is copied for the gates: each gate
 // column reads its weights with __ldg straight from the lane's wx (F, 4H),
 // wh (H, 4H) and b at row stride 4H.  A block is S x G threads, S = H split
 // into the fewest passes of at most 256 columns (kL2Threads: the registers
@@ -171,6 +202,11 @@ constexpr int kDgatesOut = 2;          // the backward's dgates tile in the outp
 constexpr int kWhCols = 32;            // columns of wh a stage of the L2 backward's dh holds
 constexpr int kMaxCluster = 16;        // blocks of a cluster (above 8: non-portable)
 constexpr int kDgCols = 128;           // columns of dgates a stage of the grid backward's dh holds
+// the grid layout's streaming modes (bits of its mode)
+constexpr int kStreamH = 4;            // the h tile through a ring of kappa-row chunks
+constexpr int kStreamWh = 8;           // the backward's rows J_q of wh beside each dgates chunk
+constexpr int kStreamCols = 16;        // rows past rho of the columns from the packed copy
+constexpr int kRing = 3;               // stages of the grid's ring
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -878,10 +914,12 @@ __device__ __forceinline__ void cluster_wait() {
 // The block's units j0 .. j0 + Hc - 1: component g of float4 k Hc + u of
 // ws is column g H + j0 + u of row k of the lane's [wx; wh], of float4 u of
 // bs b's; units past H are zero.  Consecutive threads read a gate's
-// consecutive columns.
+// consecutive columns.  Rows from rho on go, in the same order, to the
+// block's packed copy (row rho first) instead of ws.
 __device__ void stage_columns(float* ws, float* bs, const float* __restrict__ wx,
                               const float* __restrict__ wh, const float* __restrict__ b,
-                              int f, int hidden, int j0, int hc) {
+                              int f, int hidden, int j0, int hc, int rho = 1 << 30,
+                              float* packed = nullptr) {
   const int h4 = 4 * hidden;
   const int w = 4 * hc;
   const int n = (f + hidden) * w;
@@ -891,8 +929,12 @@ __device__ void stage_columns(float* ws, float* bs, const float* __restrict__ wx
     const int g = lc / hc;
     const int u = lc - g * hc;
     const int col = g * hidden + j0 + u;
-    ws[(k * hc + u) * 4 + g] = j0 + u >= hidden ? 0.f
+    const float v = j0 + u >= hidden ? 0.f
         : k < f ? __ldg(wx + k * h4 + col) : __ldg(wh + static_cast<size_t>(k - f) * h4 + col);
+    if (k < rho)
+      ws[(k * hc + u) * 4 + g] = v;
+    else
+      packed[((k - rho) * hc + u) * 4 + g] = v;
   }
   for (int i = threadIdx.x; i < w; i += blockDim.x) {
     const int g = i / hc;
@@ -927,18 +969,15 @@ __device__ __forceinline__ void gates_x_tile(const float* xs, const float4* w4, 
   }
 }
 
+// n rows of the h-part, continuing the sums in ah: wr is unit u's float4
+// of the first row (Hc float4s a row), ht the first of the n columns of the
+// tile's h (row stride hs).
 template <int R>
-__device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int hs, int f,
-                                        int hidden, int hc, int u, const int (&rowl)[R],
-                                        float (&ah)[R][4]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) ah[r][g] = 0.f;
-  const float4* wr = w4 + f * hc + u;
+__device__ __forceinline__ void gates_h_rows(const float4* wr, const float* ht, int hs, int n,
+                                             int hc, const int (&rowl)[R], float (&ah)[R][4]) {
   int k = 0;
 #pragma unroll 2
-  for (; k + 4 <= hidden; k += 4) {
+  for (; k + 4 <= n; k += 4) {
     float4 hv[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -956,7 +995,7 @@ __device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int h
       }
     }
   }
-  for (; k < hidden; ++k) {
+  for (; k < n; ++k) {
     const float4 w = wr[k * hc];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -967,6 +1006,22 @@ __device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int h
       ah[r][3] = fmaf(v, w.w, ah[r][3]);
     }
   }
+}
+
+template <int R>
+__device__ __forceinline__ void zero_sums(float (&a)[R][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a[r][g] = 0.f;
+}
+
+template <int R>
+__device__ __forceinline__ void gates_h(const float4* w4, const float* ht, int hs, int f,
+                                        int hidden, int hc, int u, const int (&rowl)[R],
+                                        float (&ah)[R][4]) {
+  zero_sums(ah);
+  gates_h_rows(w4 + f * hc + u, ht, hs, hidden, hc, rowl, ah);
 }
 
 // Copies the tile's rows of a (B, width) array into dst (row stride ds) with
@@ -1315,30 +1370,57 @@ __global__ void __launch_bounds__(kL2Threads)
 // ---------------------------------------------------------------------------
 
 // Offsets (floats) of a grid block's dynamic shared memory, each 16-byte
-// aligned: its units' gate columns and bias as in the cluster layout, the
-// tile's h over all H units (row stride hs: H rounded up to 4, plus 4, so
-// that the 8 rows a warp reads at one k fall in 8 different bank groups),
-// the x_t tile(s) (two in the forward), and in the backward rows J_q of wh
-// (as the cluster's) and the double-buffered stage of the step's dgates
-// (tile rows of kDgCols columns at row stride kDgCols + 4).
+// aligned: its units' gate columns and bias as in the cluster layout (under
+// kStreamCols only rows [0, rho) of the columns); the tile's h over all H
+// units (row stride hs: H rounded up to 4, plus 4, so that the 8 rows a warp
+// reads at one k fall in 8 different bank groups) or, under kStreamH, the
+// ring's kRing stages of kappa of its columns (row stride kappa + 4, for the
+// same reason); the x_t tile(s) (two in the forward); in the backward rows
+// J_q of wh (as the cluster's; not under kStreamWh) and the two halves of
+// the stage of the step's dgates (tile rows of kDgCols columns at row stride
+// kDgCols + 4, then, under kStreamWh, Hc rows of wh's same columns); under
+// kStreamCols the ring's stages of kappa streamed rows of the columns (Hc
+// float4s a row) and their kRing mbarriers.
 struct GridLayout {
   int hc;        // units a block owns, ceil(H / K)
-  int hs;        // row stride of the h tile, in shared memory and the exchange buffer
-  int b_off, h_off, x_off, wt_off, dg_off, total;
+  int hs;        // row stride of the h tile, or of a ring stage
+  int xs;        // row stride of the forward's exchange buffer, H rounded up to 4, plus 4
+  int rho;       // rows of [wx; wh] the block holds: F + H unless kStreamCols
+  int b_off, h_off, x_off, wt_off, dg_off, wr_off, bar_off, total;
 };
 
 __host__ __device__ inline GridLayout grid_layout(int f, int hidden, int blocks, int tile,
-                                                  bool backward) {
+                                                  bool backward, int mode = 0, int kappa = 0,
+                                                  int rho = 0) {
   GridLayout l;
+  const bool sh = mode & kStreamH;
+  const bool cols = mode & kStreamCols;
+  const bool whs = backward && (mode & kStreamWh);
   l.hc = (hidden + blocks - 1) / blocks;
-  l.hs = round4(hidden) + 4;
-  l.b_off = (f + hidden) * 4 * l.hc;
+  l.xs = round4(hidden) + 4;
+  l.hs = sh ? kappa + 4 : l.xs;
+  l.rho = cols ? rho : f + hidden;
+  l.b_off = l.rho * 4 * l.hc;
   l.h_off = l.b_off + 4 * l.hc;
-  l.x_off = l.h_off + tile * l.hs;
+  l.x_off = l.h_off + (sh ? kRing : 1) * tile * l.hs;
   l.wt_off = l.x_off + (backward ? 1 : 2) * round4(tile * f);
-  l.dg_off = l.wt_off + (backward ? l.hc * 4 * hidden : 0);
-  l.total = l.dg_off + (backward ? 2 * tile * (kDgCols + 4) : 0);
+  l.dg_off = l.wt_off + (backward && !whs ? l.hc * 4 * hidden : 0);
+  l.wr_off = l.dg_off + (backward ? 2 * (tile + (whs ? l.hc : 0)) * (kDgCols + 4) : 0);
+  l.bar_off = l.wr_off + (cols ? kRing * kappa * 4 * l.hc : 0);
+  l.total = l.bar_off + (cols ? round4(2 * kRing) : 0);
   return l;
+}
+
+// A mode the grid kernels take: 0, or kStreamH alone or with kStreamWh (the
+// backward's) and kStreamCols; under kStreamH kappa a positive multiple of
+// 4; under kStreamCols F <= rho < F + H and rho - F a multiple of kappa, so
+// that a chunk's rows are all held or all streamed.
+__host__ inline bool grid_mode_ok(int f, int hidden, int mode, int kappa, int rho,
+                                  bool backward) {
+  if (mode & ~(kStreamH | kStreamWh | kStreamCols)) return false;
+  if (!(mode & kStreamH)) return mode == 0;
+  if (((mode & kStreamWh) && !backward) || kappa < 4 || (kappa & 3)) return false;
+  return !(mode & kStreamCols) || (rho >= f && rho < f + hidden && (rho - f) % kappa == 0);
 }
 
 // The barrier of a lane's K blocks (one batch tile's), on an arrival
@@ -1396,20 +1478,205 @@ __device__ __forceinline__ void copy_cg16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// Calls f(r, c) for i = threadIdx.x, threadIdx.x + blockDim.x, ... below
+// rows x w, with r = i / w and c = i % w, dividing once: the copies of a
+// ring's or a stage's chunk, issued every chunk, spend no division each.
+template <typename F>
+__device__ __forceinline__ void for_tile(int rows, int w, F f) {
+  const int dr = blockDim.x / w;
+  const int dc = blockDim.x - dr * w;
+  int r = threadIdx.x / w;
+  int c = threadIdx.x - r * w;
+  while (r < rows) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The ring's mbarriers: one arrival (the thread that issues a stage's bulk
+// copy, with the copy's bytes) completes a phase.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One TMA bulk copy of bytes (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on bar.  It reads in the async
+// proxy, at L2: what the launch wrote there must be fenced first
+// (fence_proxy_async by each writer, then the __syncthreads before the
+// issue).
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of bar with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A step's h-part through the ring (kStreamH): chunk c is columns [c kappa,
+// c kappa + n) of the tile's h, its valid rows copied by cp.async.cg into
+// stage c % kRing, and, under kStreamCols where rows F + c kappa on of
+// [wx; wh] are past rho, those rows of the block's columns, one bulk copy
+// of its packed copy on the stage's mbarrier.  Chunks go in ascending k,
+// so each gate's h-part is the same fmaf chain as with the whole tile.
+struct Ring {
+  float* h;                  // stage 0 of the h chunks, tile x hs floats a stage
+  float* w;                  // stage 0 of the streamed rows, kappa x Hc float4s a stage
+  unsigned long long* bar;   // the stages' mbarriers
+  float* packed;             // the block's packed copy (row rho first), or nullptr
+  int tile, hs, kappa, rho, f, hidden, hc, chunks;
+  bool cols;
+};
+
+__device__ __forceinline__ Ring make_ring(float* smem, const GridLayout& lo, int mode, int tile,
+                                          int f, int hidden, int kappa, float* packed) {
+  Ring g;
+  g.h = smem + lo.h_off;
+  g.w = smem + lo.wr_off;
+  g.bar = reinterpret_cast<unsigned long long*>(smem + lo.bar_off);
+  g.cols = mode & kStreamCols;
+  // one region a block of the launch
+  g.packed = g.cols ? packed + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                                   (f + hidden - lo.rho) * 4 * lo.hc
+                    : nullptr;
+  g.tile = tile;
+  g.hs = lo.hs;
+  g.kappa = kappa;
+  g.rho = lo.rho;
+  g.f = f;
+  g.hidden = hidden;
+  g.hc = lo.hc;
+  g.chunks = (mode & kStreamH) ? (hidden + kappa - 1) / kappa : 0;
+  return g;
+}
+
+// Issues chunk c from src (the tile's row 0 of h at column 0, row stride
+// ss; rows past `rows` are never copied).  16-byte copies where the rows
+// allow (always for the exchange buffer, whose row stride is a multiple of
+// 4 with pad columns past H), else 4-byte ones (h0 or h_seq at H % 4 != 0,
+// which the launch only reads).  The caller commits.
+__device__ __forceinline__ void ring_issue(const Ring& g, const float* src, int ss, int rows,
+                                           int c) {
+  const int slot = c % kRing;
+  const int k0 = c * g.kappa;
+  const int n = min(g.kappa, g.hidden - k0);
+  float* dst = g.h + slot * g.tile * g.hs;
+  src += k0;
+  if (!(ss & 3) && !(reinterpret_cast<uintptr_t>(src) & 15)) {
+    for_tile(rows, (n + 3) >> 2, [&](int r, int k4) {
+      copy_cg16(dst + r * g.hs + 4 * k4, src + static_cast<size_t>(r) * ss + 4 * k4);
+    });
+  } else {
+    for_tile(rows, n, [&](int r, int k) {
+      __pipeline_memcpy_async(dst + r * g.hs + k, src + static_cast<size_t>(r) * ss + k, 4);
+    });
+  }
+  if (g.cols && threadIdx.x == 0 && g.f + k0 >= g.rho)
+    bulk_load(g.w + slot * g.kappa * 4 * g.hc,
+              g.packed + static_cast<size_t>(g.f + k0 - g.rho) * 4 * g.hc,
+              static_cast<unsigned>(n * g.hc * 16), g.bar + slot);
+}
+
+// The ring's first kRing - 1 chunks, a commit group each (copies the
+// caller issued before join the first).
+__device__ __forceinline__ void ring_start(const Ring& g, const float* src, int ss, int rows) {
+#pragma unroll
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < g.chunks) ring_issue(g, src, ss, rows, c);
+    __pipeline_commit();
+  }
+}
+
+// Sums the step's h-part into ah chunk by chunk, after ring_start from the
+// same src: at chunk c, once it has landed and every thread is past chunk c
+// - 1 (one __syncthreads), chunk c + kRing - 1 goes in flight into c - 1's
+// stage.  parity holds a bit a stage: the phase of its mbarrier this thread
+// waits on next.  On return the last chunk's stage is still being read: the
+// caller passes a __syncthreads before the next ring_start.
+template <int R>
+__device__ __forceinline__ void ring_sum(const Ring& g, const float* src, int ss, int rows,
+                                         const float4* w4, int u, const int (&rowl)[R],
+                                         float (&ah)[R][4], unsigned& parity) {
+  for (int c = 0; c < g.chunks; ++c) {
+    __pipeline_wait_prior(kRing - 2);
+    __syncthreads();
+    if (c + kRing - 1 < g.chunks) ring_issue(g, src, ss, rows, c + kRing - 1);
+    __pipeline_commit();
+    const int slot = c % kRing;
+    const int k0 = c * g.kappa;
+    const float4* wr = w4 + (g.f + k0) * g.hc + u;
+    if (g.cols && g.f + k0 >= g.rho) {
+      mbar_wait(g.bar + slot, (parity >> slot) & 1u);
+      parity ^= 1u << slot;
+      wr = reinterpret_cast<const float4*>(g.w + slot * g.kappa * 4 * g.hc) + u;
+    }
+    gates_h_rows(wr, g.h + slot * g.tile * g.hs, g.hs, min(g.kappa, g.hidden - k0), g.hc, rowl,
+                 ah);
+  }
+}
+
+// After stage_columns: under kStreamCols each thread fences the packed rows
+// it wrote (they are read by bulk copies, in the async proxy), and thread 0
+// initialises the ring's mbarriers; a __syncthreads follows before the
+// first issue.
+__device__ __forceinline__ void ring_init(const Ring& g) {
+  if (!g.cols) return;
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(g.bar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// Zeroes the rows past the batch in every stage of the ring (never copied).
+__device__ __forceinline__ void ring_zero_tails(const Ring& g, int tile0, int batch) {
+  for (int s = 0; s < kRing; ++s)
+    zero_tile_tail(g.h + s * g.tile * g.hs, tile0, g.tile, batch, g.kappa, g.hs);
+}
+
 // The forward across the card.  Blocks (q, tile) = (blockIdx.x % K,
 // blockIdx.x / K) of lane blockIdx.y; block q owns units q Hc + u as in the
 // cluster layout, thread (u, grp) of its Hc x G keeps their c in
 // registers.  Each step it writes its h_{t+1} (zero in rows past the
-// batch) into the lane's exchange buffer, two (tile, hs) halves a tile,
+// batch) into the lane's exchange buffer, two (tile, xs) halves a tile,
 // passes the barrier of the tile's K blocks (the next x-part summed
 // between arrive and wait), and copies the whole h_{t+1} tile back by
-// cp.async.cg.
+// cp.async.cg, or under kStreamH starts the ring on it.  Both grid kernels
+// are bounded to one block an SM, as the plan lays them out: left to its
+// default the compiler held the R = 2 forward to 64 registers, spilling,
+// and it ran 1.25x slower at H = 1,100 (kernel_bench.py --lstm, same bits).
 template <int R>
-__global__ void __launch_bounds__(kL2Threads)
+__global__ void __launch_bounds__(kL2Threads, 1)
     lstm_seq_fwd_grid_kernel(SeqArgs a, const float* __restrict__ h0,
                              const float* __restrict__ c0, int h0_ls, int c0_ls,
                              float* __restrict__ h_out, float* __restrict__ c_out, int save,
-                             int blocks, float* xchg, unsigned* sync) {
+                             int blocks, float* xchg, unsigned* sync, int mode, int kappa,
+                             int rho, float* packed) {
   extern __shared__ __align__(16) float smem[];
   const int q = blockIdx.x % blocks;
   const int tix = blockIdx.x / blocks;
@@ -1417,28 +1684,33 @@ __global__ void __launch_bounds__(kL2Threads)
   const int lane = blockIdx.y;
   const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
   const int tile = a.groups * R;
-  const GridLayout lo = grid_layout(f, hidden, blocks, tile, false);
+  const GridLayout lo = grid_layout(f, hidden, blocks, tile, false, mode, kappa, rho);
+  const bool sh = mode & kStreamH;
   float* ws = smem;
   float* bs = smem + lo.b_off;
   float* hbuf = smem + lo.h_off;
   float* xbuf = smem + lo.x_off;
   const int xt_size = round4(tile * f);
-  const int part = tile * lo.hs;
+  const int part = tile * lo.xs;
   const float4* w4 = reinterpret_cast<const float4*>(ws);
   const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
   h0 += static_cast<size_t>(lane) * h0_ls;
   c0 += static_cast<size_t>(lane) * c0_ls;
   float* xg = xchg + (static_cast<size_t>(lane) * tiles + tix) * 2 * part;
   unsigned* counter = sync + lane * tiles + tix;
+  const Ring ring = make_ring(smem, lo, mode, tile, f, hidden, kappa, packed);
   stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls,
                 a.wh + static_cast<size_t>(lane) * a.wh_ls,
-                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo.hc);
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, q * lo.hc, lo.hc, lo.rho,
+                ring.packed);
+  ring_init(ring);
 
   const int u = threadIdx.x % lo.hc;
   const int grp = threadIdx.x / lo.hc;
   const int j = q * lo.hc + u;
   const bool live = j < hidden;
   const int tile0 = tix * tile;
+  const int rows = min(tile, batch - tile0);
   const size_t bh = static_cast<size_t>(batch) * hidden;
   const size_t out_lane = save ? (steps + 1) * bh : bh;
   h_out += lane * out_lane;
@@ -1446,10 +1718,13 @@ __global__ void __launch_bounds__(kL2Threads)
   int rowl[R], rowg[R];
   bool valid[R];
   tile_rows(grp, a.groups, tile0, batch, rowl, rowg, valid);
-  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  if (sh)
+    ring_zero_tails(ring, tile0, batch);
+  else
+    zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
   zero_tile_tail(xbuf, tile0, tile, batch, f, f);
   zero_tile_tail(xbuf + xt_size, tile0, tile, batch, f, f);
-  stage_tile_async_wide(hbuf, h0, tile0, tile, batch, hidden, lo.hs);
+  if (!sh) stage_tile_async_wide(hbuf, h0, tile0, tile, batch, hidden, lo.hs);
   stage_tile_async(xbuf, x, tile0, tile, batch, f, f);
   __pipeline_commit();
   float c[R];
@@ -1466,6 +1741,9 @@ __global__ void __launch_bounds__(kL2Threads)
   __syncthreads();
   float ax[R][4];
   gates_x_tile(xbuf, w4, f, lo.hc, u, rowl, ax);
+  unsigned parity = 0;
+  const float* h0t = h0 + static_cast<size_t>(tile0) * hidden;
+  if (sh) ring_start(ring, h0t, hidden, rows);
 
   for (int t = 0; t < steps; ++t) {
     float* xn = xbuf + ((t + 1) & 1) * xt_size;
@@ -1476,7 +1754,15 @@ __global__ void __launch_bounds__(kL2Threads)
       __pipeline_commit();
     }
     float ah[R][4];
-    gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+    if (sh) {
+      zero_sums(ah);
+      if (t == 0)
+        ring_sum(ring, h0t, hidden, rows, w4, u, rowl, ah, parity);
+      else
+        ring_sum(ring, xg + (t & 1) * part, lo.xs, rows, w4, u, rowl, ah, parity);
+    } else {
+      gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+    }
     const float4 bu = reinterpret_cast<const float4*>(bs)[u];
     float hv[R];
 #pragma unroll
@@ -1487,7 +1773,7 @@ __global__ void __launch_bounds__(kL2Threads)
     }
     if (t + 1 < steps && live) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) hx[rowl[r] * lo.hs + j] = valid[r] ? hv[r] : 0.f;
+      for (int r = 0; r < R; ++r) hx[rowl[r] * lo.xs + j] = valid[r] ? hv[r] : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -1498,37 +1784,43 @@ __global__ void __launch_bounds__(kL2Threads)
       }
     }
     if (t + 1 == steps) break;
-    // every thread is past its reads of the h tile and has written its
-    // h_{t+1}; the half of the exchange written here is next written two
-    // steps on, after every block has passed the next barrier and so
-    // copied this one
+    // every thread is past its reads of the h tile (or the ring) and has
+    // written its h_{t+1}; the half of the exchange written here is next
+    // written two steps on, after every block has passed the next barrier
+    // and so copied this one
     __pipeline_wait_prior(0);
     __syncthreads();
     grid_arrive(counter);
     gates_x_tile(xn, w4, f, lo.hc, u, rowl, ax);
     grid_wait(counter, static_cast<unsigned>(blocks) * (t + 1));
-    for (int i = 4 * threadIdx.x; i < part; i += 4 * blockDim.x) copy_cg16(hbuf + i, hx + i);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    if (sh) {
+      ring_start(ring, hx, lo.xs, rows);
+    } else {
+      for (int i = 4 * threadIdx.x; i < part; i += 4 * blockDim.x) copy_cg16(hbuf + i, hx + i);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
   }
 }
 
 // The backward across the card; blocks and threads as in the forward.  A
 // block recomputes its units' gates from the h_t and x_t tiles (copied a
-// step ahead), forms their dgates and writes them to the dgates output,
+// step ahead; under kStreamH h_t through the ring, its first chunks issued
+// a step ahead), forms their dgates and writes them to the dgates output,
 // passes the tile's barrier, and forms dh for its own units from rows J_q
 // of wh and the step's whole dgates tile, streamed from L2 by cp.async.cg
-// through a double-buffered stage of kDgCols columns.  Each step has its
-// own slice of dgates, so one barrier a step is enough.
+// through a double-buffered stage of kDgCols columns (under kStreamWh with
+// rows J_q's same columns beside them).  Each step has its own slice of
+// dgates, so one barrier a step is enough.
 template <int R>
-__global__ void __launch_bounds__(kL2Threads)
+__global__ void __launch_bounds__(kL2Threads, 1)
     lstm_seq_bwd_grid_kernel(SeqArgs a, const float* __restrict__ h_seq,
                              const float* __restrict__ c_seq,
                              const float* __restrict__ dh_last,
                              const float* __restrict__ dc_last, float* dgates,
                              float* __restrict__ dh0, float* __restrict__ dc0, int blocks,
-                             unsigned* sync) {
+                             unsigned* sync, int mode, int kappa, int rho, float* packed) {
   extern __shared__ __align__(16) float smem[];
   const int q = blockIdx.x % blocks;
   const int tix = blockIdx.x / blocks;
@@ -1537,7 +1829,9 @@ __global__ void __launch_bounds__(kL2Threads)
   const int f = a.f, hidden = a.hidden, batch = a.batch, steps = a.steps;
   const int h4 = 4 * hidden;
   const int tile = a.groups * R;
-  const GridLayout lo = grid_layout(f, hidden, blocks, tile, true);
+  const GridLayout lo = grid_layout(f, hidden, blocks, tile, true, mode, kappa, rho);
+  const bool sh = mode & kStreamH;
+  const bool whs = mode & kStreamWh;
   constexpr int ds = kDgCols + 4;
   float* ws = smem;
   float* bs = smem + lo.b_off;
@@ -1545,19 +1839,25 @@ __global__ void __launch_bounds__(kL2Threads)
   float* xs = smem + lo.x_off;
   float* wt = smem + lo.wt_off;
   float* stg = smem + lo.dg_off;
-  const int half = tile * ds;
+  const int half = (tile + (whs ? lo.hc : 0)) * ds;
   const float* x = a.x + static_cast<size_t>(lane) * a.x_ls;
   const float* wh = a.wh + static_cast<size_t>(lane) * a.wh_ls;
   unsigned* counter = sync + lane * tiles + tix;
   const int j0 = q * lo.hc;
+  const int units = min(lo.hc, hidden - j0);
+  const Ring ring = make_ring(smem, lo, mode, tile, f, hidden, kappa, packed);
   stage_columns(ws, bs, a.wx + static_cast<size_t>(lane) * a.wx_ls, wh,
-                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo.hc);
-  for (int i = threadIdx.x; i < lo.hc * h4; i += blockDim.x) {
-    const int uu = i / h4;
-    const int col = i - uu * h4;
-    wt[((col >> 2) * lo.hc + uu) * 4 + (col & 3)] =
-        j0 + uu < hidden ? __ldg(wh + static_cast<size_t>(j0 + uu) * h4 + col) : 0.f;
+                a.b + static_cast<size_t>(lane) * a.b_ls, f, hidden, j0, lo.hc, lo.rho,
+                ring.packed);
+  if (!whs) {
+    for (int i = threadIdx.x; i < lo.hc * h4; i += blockDim.x) {
+      const int uu = i / h4;
+      const int col = i - uu * h4;
+      wt[((col >> 2) * lo.hc + uu) * 4 + (col & 3)] =
+          j0 + uu < hidden ? __ldg(wh + static_cast<size_t>(j0 + uu) * h4 + col) : 0.f;
+    }
   }
+  ring_init(ring);
   const float4* w4 = reinterpret_cast<const float4*>(ws);
   const float4* wt4 = reinterpret_cast<const float4*>(wt);
 
@@ -1581,27 +1881,56 @@ __global__ void __launch_bounds__(kL2Threads)
     dh[r] = live && valid[r] ? __ldg(dh_last + o) : 0.f;
     dc[r] = live && valid[r] ? __ldg(dc_last + o) : 0.f;
   }
-  // rows past the batch: zero in both halves of the stage, never copied
+  // rows past the batch, and under kStreamWh wh's rows of units past H:
+  // zero in both halves of the stage, never copied
   zero_tile_tail(stg, tile0, tile, batch, kDgCols, ds);
   zero_tile_tail(stg + half, tile0, tile, batch, kDgCols, ds);
-  zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
+  if (whs) {
+    for (int i = threadIdx.x; i < (lo.hc - units) * kDgCols; i += blockDim.x) {
+      const int o = (tile + units + i / kDgCols) * ds + i % kDgCols;
+      stg[o] = 0.f;
+      stg[half + o] = 0.f;
+    }
+  }
+  if (sh)
+    ring_zero_tails(ring, tile0, batch);
+  else
+    zero_tile_tail(hbuf, tile0, tile, batch, hidden, lo.hs);
   zero_tile_tail(xs, tile0, tile, batch, f, f);
-  stage_tile_async_wide(hbuf, h_seq + (steps - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+  if (!sh)
+    stage_tile_async_wide(hbuf, h_seq + (steps - 1) * bh, tile0, tile, batch, hidden, lo.hs);
   stage_tile_async(xs, x + static_cast<size_t>(steps - 1) * batch * f, tile0, tile, batch, f, f);
-  __pipeline_commit();
+  if (sh) {
+    // the mbarriers and the packed rows before the first bulk copy; the x
+    // tile's copies join the ring's first group
+    __syncthreads();
+    ring_start(ring, h_seq + (steps - 1) * bh + static_cast<size_t>(tile0) * hidden, hidden,
+               rows);
+  } else {
+    __pipeline_commit();
+  }
   float c_prev[R], c_new[R];
   load_c(c_prev, c_new, c_seq, steps - 1, bh, rowg, valid, live, j, hidden);
   const int chunks = (h4 + kDgCols - 1) / kDgCols;
   const int n4 = kDgCols / 4;
+  const bool wh16 = !(reinterpret_cast<uintptr_t>(wh) & 15);
+  unsigned parity = 0;
 
   for (int t = steps - 1; t >= 0; --t) {
-    __pipeline_wait_prior(0);
-    __syncthreads();
     float pre[R][4];
     {
       float ax[R][4], ah[R][4];
-      gates_x_tile(xs, w4, f, lo.hc, u, rowl, ax);
-      gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+      if (sh) {
+        zero_sums(ah);
+        ring_sum(ring, h_seq + t * bh + static_cast<size_t>(tile0) * hidden, hidden, rows, w4,
+                 u, rowl, ah, parity);
+        gates_x_tile(xs, w4, f, lo.hc, u, rowl, ax);
+      } else {
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        gates_x_tile(xs, w4, f, lo.hc, u, rowl, ax);
+        gates_h(w4, hbuf, lo.hs, f, hidden, lo.hc, u, rowl, ah);
+      }
       const float4 bu = reinterpret_cast<const float4*>(bs)[u];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -1618,14 +1947,23 @@ __global__ void __launch_bounds__(kL2Threads)
       cell_backward(pre[r], c_prev[r], c_new[r], dh[r], dc[r], d[r]);
     if (t > 0) load_c(c_prev, c_new, c_seq, t - 1, bh, rowg, valid, live, j, hidden);
     store_dgates(dgt, d, rowg, valid, live, j, hidden);
-    // every thread has stored its dgates and read the h and x tiles: the
-    // next step's copies go in flight while the block waits and reduces
+    // every thread has stored its dgates and read the h and x tiles (or the
+    // ring): the next step's copies go in flight while the block waits and
+    // reduces
     __syncthreads();
     grid_arrive(counter);
     if (t > 0) {
-      stage_tile_async_wide(hbuf, h_seq + (t - 1) * bh, tile0, tile, batch, hidden, lo.hs);
-      stage_tile_async(xs, x + static_cast<size_t>(t - 1) * batch * f, tile0, tile, batch, f, f);
-      __pipeline_commit();
+      if (sh) {
+        stage_tile_async(xs, x + static_cast<size_t>(t - 1) * batch * f, tile0, tile, batch, f,
+                         f);
+        ring_start(ring, h_seq + (t - 1) * bh + static_cast<size_t>(tile0) * hidden, hidden,
+                   rows);
+      } else {
+        stage_tile_async_wide(hbuf, h_seq + (t - 1) * bh, tile0, tile, batch, hidden, lo.hs);
+        stage_tile_async(xs, x + static_cast<size_t>(t - 1) * batch * f, tile0, tile, batch, f,
+                         f);
+        __pipeline_commit();
+      }
     }
     grid_wait(counter, static_cast<unsigned>(blocks) * (steps - t));
     // dh_t[b, j] = sum over the 4H gate columns of dgates_t[b, col] wh[j, col],
@@ -1635,10 +1973,24 @@ __global__ void __launch_bounds__(kL2Threads)
       float* dst = stg + (ch & 1) * half;
       const int col0 = ch * kDgCols;
       const int m4 = min(n4, (h4 - col0) / 4);
-      for (int i = threadIdx.x; i < rows * m4; i += blockDim.x) {
-        const int r = i / m4;
-        const int k = 4 * (i - r * m4);
-        copy_cg16(dst + r * ds + k, src + static_cast<size_t>(r) * h4 + col0 + k);
+      for_tile(rows, m4, [&](int r, int k4) {
+        copy_cg16(dst + r * ds + 4 * k4, src + static_cast<size_t>(r) * h4 + col0 + 4 * k4);
+      });
+      if (whs) {
+        // rows J_q of wh at the same columns, which the launch only reads
+        const float* wsrc = wh + static_cast<size_t>(j0) * h4 + col0;
+        float* wdst = dst + tile * ds;
+        if (wh16) {
+          for_tile(units, m4, [&](int uu, int k4) {
+            __pipeline_memcpy_async(wdst + uu * ds + 4 * k4,
+                                    wsrc + static_cast<size_t>(uu) * h4 + 4 * k4, 16);
+          });
+        } else {
+          for_tile(units, 4 * m4, [&](int uu, int k) {
+            __pipeline_memcpy_async(wdst + uu * ds + k, wsrc + static_cast<size_t>(uu) * h4 + k,
+                                    4);
+          });
+        }
       }
       __pipeline_commit();
     };
@@ -1656,8 +2008,12 @@ __global__ void __launch_bounds__(kL2Threads)
       const float* dv0 = stg + (ch & 1) * half;
       const int col0 = ch * kDgCols;
       const int n = min(kDgCols, h4 - col0);
+      // unit u's weights at this chunk's columns, a float4 a group of four
+      const float4* wb = whs ? reinterpret_cast<const float4*>(dv0 + (tile + u) * ds)
+                             : wt4 + (col0 >> 2) * lo.hc + u;
+      const int wstep = whs ? 1 : lo.hc;
       auto sum4 = [&](int kk) {
-        const float4 w = wt4[((col0 + kk) >> 2) * lo.hc + u];
+        const float4 w = wb[(kk >> 2) * wstep];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 dv = *reinterpret_cast<const float4*>(dv0 + rowl[r] * ds + kk);
@@ -1807,17 +2163,21 @@ struct GridConfig {
 std::vector<GridConfig> grid_configs;
 
 // The same for the grid layout (K blocks of Hc x groups threads a batch
-// tile): a cooperative launch (cudaLaunchAttributeCooperative: the driver
-// keeps every block resident at once or refuses the launch), of per_launch
-// lanes x tiles x K blocks, which must not pass the card's capacity for
-// the configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor x its
-// SMs); a capacity of 0 is refused too.
+// tile, in one of grid_mode_ok's modes; kStreamCols needs the packed copy):
+// a cooperative launch (cudaLaunchAttributeCooperative: the driver keeps
+// every block resident at once or refuses the launch), of per_launch lanes
+// x tiles x K blocks, which must not pass the card's capacity for the
+// configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor x its SMs);
+// a capacity of 0 is refused too.
 template <typename Kernel>
 int prepare_grid(Kernel kernel, int f, int hidden, int groups, int rows, int blocks,
-                 int per_launch, int tiles, int smem, bool backward, cudaLaunchConfig_t& cfg,
-                 cudaLaunchAttribute& attr) {
-  if (blocks < 1 || groups < 1 || per_launch < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const GridLayout lo = grid_layout(f, hidden, blocks, groups * rows, backward);
+                 int per_launch, int tiles, int mode, int kappa, int rho, const void* packed,
+                 int smem, bool backward, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  if (blocks < 1 || groups < 1 || per_launch < 1 ||
+      !grid_mode_ok(f, hidden, mode, kappa, rho, backward) ||
+      ((mode & kStreamCols) && packed == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GridLayout lo = grid_layout(f, hidden, blocks, groups * rows, backward, mode, kappa, rho);
   if (lo.hc * groups > kL2Threads || smem != 4 * lo.total || smem > kMaxShared)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = lo.hc * groups;
@@ -1885,21 +2245,36 @@ Fn grid_instance(int rows, Fn four, Fn two, Fn one) {
   return rows == 4 ? four : rows == 2 ? two : rows == 1 ? one : nullptr;
 }
 
+// The packed copy of a grid launch under kStreamCols: in work past the
+// forward's exchange (two (tile, H + 4 rounded) halves a tile of the
+// launch's lanes), the whole of work in the backward; else nullptr.
+static float* grid_packed(void* work, int layout, int mode, bool backward, int lanes, int per_launch,
+                   int tiles, int tile, int hidden) {
+  if (layout != kLayoutGrid || !(mode & kStreamCols) || work == nullptr) return nullptr;
+  const size_t exchange = backward ? 0
+      : static_cast<size_t>(lanes < per_launch ? lanes : per_launch) * tiles * 2 * tile *
+            (round4(hidden) + 4);
+  return static_cast<float*>(work) + exchange;
+}
+
 // Forward.  x (L, T, B, F), h0, c0 (L, B, H), wx, wh, b: fp32 on the current
 // device, each dense within a lane, lane l at pointer + l * <its lane
 // stride> (elements).  h_out, c_out contiguous: (L, T+1, B, H) if save,
 // else (L, B, H).  groups, layout, span, cluster, blocks, per_launch,
-// rows, mode and smem come from the wrapper's plan: the shared-memory
-// layout (a block of hidden * groups threads, a batch tile of groups * 4
-// rows), weights through L2 (span * groups threads; mode's kStateGlobal
-// puts each block's state in work, one region a block of the first 65,535
-// lanes), across a
+// rows, mode, kappa, rho and smem come from the wrapper's plan: the
+// shared-memory layout (a block of hidden * groups threads, a batch tile of
+// groups * 4 rows), weights through L2 (span * groups threads; mode's
+// kStateGlobal puts each block's state in work, one region a block of the
+// first 65,535 lanes), across a
 // cluster of cluster blocks (each of ceil(hidden / cluster) * groups
 // threads) or across the card (blocks blocks a batch tile of groups *
 // rows rows, rows = 4, 2 or 1 a thread, each of ceil(hidden / blocks) *
 // groups threads, in cooperative launches of per_launch lanes; work holds
-// each tile's two exchange halves for per_launch lanes, and sync, zeroed,
-// one arrival counter a tile of every lane).  smem must equal the
+// each tile's two exchange halves for per_launch lanes, then under
+// kStreamCols the packed copy, (F + H - rho) x Hc float4s for each block of
+// a launch; sync, zeroed, one arrival counter a tile of every lane; mode's
+// kStreamH streams the h tile through a ring of kappa-column chunks,
+// kStreamCols also the rows of the columns from rho on).  smem must equal the
 // kernel's own layout.  Returns a CUDA error code (0 on success).
 extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0,
                                    const void* wx, const void* wh, const void* b,
@@ -1907,7 +2282,8 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
                                    int steps, int batch, int f, int hidden, int groups, int save,
                                    int x_ls, int h0_ls, int c0_ls, int wx_ls, int wh_ls, int b_ls,
                                    int layout, int span, int cluster, int blocks, int per_launch,
-                                   int rows, int mode, int smem, void* stream) {
+                                   int rows, int mode, int kappa, int rho, int smem,
+                                   void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
   const int tile = groups * (layout == kLayoutGrid ? rows : kRows);
   const int tiles = (batch + tile - 1) / tile;
@@ -1916,12 +2292,13 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
   cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
   const auto grid_fn = grid_instance(rows, lstm_seq_fwd_grid_kernel<4>,
                                      lstm_seq_fwd_grid_kernel<2>, lstm_seq_fwd_grid_kernel<1>);
+  float* packed = grid_packed(work, layout, mode, false, lanes, per_launch, tiles, tile, hidden);
   const int err =
       layout == kLayoutGrid
           ? (work == nullptr || sync == nullptr || grid_fn == nullptr
                  ? static_cast<int>(cudaErrorInvalidValue)
                  : prepare_grid(grid_fn, f, hidden, groups, rows, blocks, per_launch, tiles,
-                                smem, false, cfg, attr))
+                                mode, kappa, rho, packed, smem, false, cfg, attr))
       : layout == kLayoutCluster
           ? prepare_cluster(lstm_seq_fwd_cluster_kernel, f, hidden, groups, cluster, 0, smem,
                             false, cfg, attr)
@@ -1946,7 +2323,8 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
           &cfg, grid_fn, a, at(h0, l0, h0_ls), at(c0, l0, c0_ls), h0_ls, c0_ls,
           at(h_out, l0, out_lane), at(c_out, l0, out_lane), save, blocks,
           static_cast<float*>(work),
-          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles));
+          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles, mode, kappa, rho,
+          packed));
       if (refused == 0) refused = e;
     } else if (layout == kLayoutCluster) {
       cfg.gridDim = dim3(tiles * cluster, n);
@@ -1970,9 +2348,11 @@ extern "C" int lstm_seq_fwd_launch(const void* x, const void* h0, const void* c0
 // Backward.  x, wx, wh, b as for the forward; h_seq, c_seq (L, T+1, B, H)
 // and dh_last, dc_last (L, B, H) contiguous; writes dgates (L, T, B, 4H),
 // dh0 and dc0 (L, B, H), contiguous.  groups, layout, span, cluster,
-// blocks, per_launch, rows, mode (kStateGlobal, kDgatesOut), smem, work and sync
-// as for the forward (the grid backward exchanges its dgates through the
-// output and takes no work).  Returns a CUDA error code.
+// blocks, per_launch, rows, mode (kStateGlobal, kDgatesOut; the grid's
+// kStreamH, kStreamWh, kStreamCols), kappa, rho, smem, work and sync as for
+// the forward (the grid backward exchanges its dgates through the output,
+// and its work is only the packed copy under kStreamCols).  Returns a CUDA
+// error code.
 extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void* c_seq,
                                    const void* wx, const void* wh, const void* b,
                                    const void* dh_last, const void* dc_last, void* dgates,
@@ -1980,7 +2360,7 @@ extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void*
                                    int steps, int batch, int f, int hidden, int groups, int x_ls,
                                    int wx_ls, int wh_ls, int b_ls, int layout, int span,
                                    int cluster, int blocks, int per_launch, int rows, int mode,
-                                   int smem, void* stream) {
+                                   int kappa, int rho, int smem, void* stream) {
   if (lanes <= 0 || batch <= 0 || steps <= 0) return 0;
   const int tile = groups * (layout == kLayoutGrid ? rows : kRows);
   const int tiles = (batch + tile - 1) / tile;
@@ -1989,12 +2369,13 @@ extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void*
   cfg.gridDim = dim3(tiles * cluster, lanes < kMaxGridY ? lanes : kMaxGridY);
   const auto grid_fn = grid_instance(rows, lstm_seq_bwd_grid_kernel<4>,
                                      lstm_seq_bwd_grid_kernel<2>, lstm_seq_bwd_grid_kernel<1>);
+  float* packed = grid_packed(work, layout, mode, true, lanes, per_launch, tiles, tile, hidden);
   const int err =
       layout == kLayoutGrid
           ? (sync == nullptr || grid_fn == nullptr
                  ? static_cast<int>(cudaErrorInvalidValue)
                  : prepare_grid(grid_fn, f, hidden, groups, rows, blocks, per_launch, tiles,
-                                smem, true, cfg, attr))
+                                mode, kappa, rho, packed, smem, true, cfg, attr))
       : layout == kLayoutCluster
           ? prepare_cluster(lstm_seq_bwd_cluster_kernel, f, hidden, groups, cluster, mode, smem,
                             true, cfg, attr)
@@ -2020,7 +2401,8 @@ extern "C" int lstm_seq_bwd_launch(const void* x, const void* h_seq, const void*
           &cfg, grid_fn, a, at(h_seq, l0, seq_lane), at(c_seq, l0, seq_lane),
           at(dh_last, l0, bh), at(dc_last, l0, bh), at(dgates, l0, dg_lane), at(dh0, l0, bh),
           at(dc0, l0, bh), blocks,
-          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles));
+          static_cast<unsigned*>(sync) + static_cast<size_t>(l0) * tiles, mode, kappa, rho,
+          packed));
       if (refused == 0) refused = e;
     } else if (layout == kLayoutCluster) {
       cfg.gridDim = dim3(tiles * cluster, n);

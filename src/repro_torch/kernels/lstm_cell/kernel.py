@@ -15,9 +15,11 @@ thread-block cluster, across the whole card or read them through L2.
 :func:`plan` sizes a launch for any F >= 1 and H >= 1: the weights in a
 block's shared memory where they fit (with fewer batch-row groups if need
 be), else spread over the shared memory of a cluster of 2-16 blocks, else
-over K blocks of the whole card in one cooperative launch, else read from
-global memory through L2.  The launchers call it before they look at the
-device, so their checks show on the CPU too.
+over K blocks of the whole card in one cooperative launch (streaming
+through a ring in shared memory what a block cannot hold: the h tile, then
+the backward's rows of wh, then the rows of its columns past the first
+rho), else read from global memory through L2.  The launchers call it
+before they look at the device, so their checks show on the CPU too.
 """
 
 from __future__ import annotations
@@ -62,9 +64,24 @@ DG_COLS = 128                # columns of dgates a stage of the grid backward's 
 GRID_THREADS = 128
 
 GRID_ROWS = (4, 2, 1)        # batch rows a thread of a grid block owns (the kernel's R)
+# the grid layout's streaming modes (kStreamH, kStreamWh, kStreamCols): the
+# h tile through the ring, kappa columns a chunk; the backward's rows J_q
+# of wh beside each dgates chunk; the rows of the block's columns from rho
+# on, from a packed copy in the scratch buffer
+STREAM_H, STREAM_WH, STREAM_COLS = 4, 8, 16
+# the modes the plan tries, least streaming first (forward, backward)
+STREAM_LEVELS = {False: (STREAM_H, STREAM_H | STREAM_COLS),
+                 True: (STREAM_H, STREAM_H | STREAM_WH, STREAM_H | STREAM_WH | STREAM_COLS)}
+RING = 3                     # stages of the ring (kRing)
+# columns of h a chunk of the ring holds: the widths grid_plans offers, the
+# plan taking the widest that fits (on an H100 at one lane of (32, 6, 1100,
+# 32) every streamed plan's time fell with a wider chunk at the same K:
+# kernel_bench.py --lstm-plans), and stream_plan's default
+KAPPAS = (128, 64, 32)
+KAPPA = KAPPAS[0]
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 23 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 _fwd = _build.CFunction("lstm_seq_fwd_launch", _FWD_ARGTYPES)
 _bwd = _build.CFunction("lstm_seq_bwd_launch", _BWD_ARGTYPES)
 _INT_MAX = 2 ** 31 - 1
@@ -116,20 +133,30 @@ def _cluster_floats(f: int, hidden: int, cluster: int, tile: int, backward: bool
     return columns + tiles + rows + dgates
 
 
-def _grid_floats(f: int, hidden: int, blocks: int, tile: int, backward: bool) -> int:
+def _grid_floats(f: int, hidden: int, blocks: int, tile: int, backward: bool, mode: int = 0,
+                 kappa: int = 0, rho: int = 0) -> int:
     """Dynamic shared memory (floats) of one block of the grid layout
-    (``grid_layout`` of the source): its Hc = ceil(H / K) units' columns and
-    bias as in the cluster layout, the tile's h over all H units at row
-    stride ``_round4(H) + 4``, its x_t (two in the forward), and in the
-    backward rows J_q of wh and the two halves of the dgates stage (tile
-    rows of ``DG_COLS + 4``)."""
+    (``grid_layout`` of the source): its Hc = ceil(H / K) units' columns
+    (under ``STREAM_COLS`` only rows [0, rho) of them) and bias as in the
+    cluster layout, the tile's h over all H units at row stride
+    ``_round4(H) + 4`` (under ``STREAM_H`` the ring's ``RING`` stages of
+    ``kappa`` columns at row stride kappa + 4), its x_t (two in the
+    forward), in the backward rows J_q of wh (not under ``STREAM_WH``) and
+    the two halves of the dgates stage (tile rows of ``DG_COLS + 4``, and
+    under ``STREAM_WH`` Hc rows of wh beside them), and under
+    ``STREAM_COLS`` the ring's stages of kappa streamed rows and its
+    mbarriers."""
     hc = -(-hidden // blocks)
-    columns = (f + hidden + 1) * 4 * hc
-    h_tile = tile * (_round4(hidden) + 4)
+    streamed = mode & STREAM_H
+    wh_rows = backward and mode & STREAM_WH
+    cols = mode & STREAM_COLS
+    columns = ((rho if cols else f + hidden) + 1) * 4 * hc
+    h_tile = RING * tile * (kappa + 4) if streamed else tile * (_round4(hidden) + 4)
     x_tiles = (1 if backward else 2) * _round4(tile * f)
-    rows = hc * 4 * hidden if backward else 0
-    stage = 2 * tile * (DG_COLS + 4) if backward else 0
-    return columns + h_tile + x_tiles + rows + stage
+    rows = hc * 4 * hidden if backward and not wh_rows else 0
+    stage = 2 * (tile + (hc if wh_rows else 0)) * (DG_COLS + 4) if backward else 0
+    ring = RING * kappa * 4 * hc + _round4(2 * RING) if cols else 0
+    return columns + h_tile + x_tiles + rows + stage + ring
 
 
 class Plan(NamedTuple):
@@ -141,7 +168,10 @@ class Plan(NamedTuple):
     blocks a batch tile, K, of ``span * groups`` threads, span = ceil(H /
     K), each hold their units' columns in ``smem`` bytes, in cooperative
     launches of ``per_launch`` lanes: per_launch x tiles x K blocks within
-    ``capacity``, the blocks the card keeps resident at once) or ``"l2"``
+    ``capacity``, the blocks the card keeps resident at once; ``mode`` 0,
+    or a level of ``STREAM_LEVELS``: the h tile through a ring of
+    ``kappa``-column chunks, the backward's rows of wh beside its dgates,
+    the rows of the columns from ``rho`` on from a packed copy) or ``"l2"``
     (a block of ``span * groups`` threads reads them through L2, its state
     in ``smem`` bytes of shared memory or, with ``STATE_GLOBAL`` in
     ``mode``, ``state`` floats a block of a scratch buffer).  The batch tile
@@ -158,6 +188,8 @@ class Plan(NamedTuple):
     per_launch: int = 0
     capacity: int = 0
     rows: int = ROWS
+    kappa: int = 0
+    rho: int = 0
 
 
 def _groups(batch: int, width: int) -> int:
@@ -209,15 +241,14 @@ def _cluster_plan(batch: int, f: int, hidden: int, backward: bool, lanes: int, s
     return fits[fitting[i]]
 
 
-def grid_plans(batch: int, f: int, hidden: int, backward: bool, sms: int = SMS):
-    """Yields every :class:`Plan` of the grid layout that fits at (B, F, H)
-    on a card of ``sms`` SMs: for each count of rows a thread owns
-    (``GRID_ROWS``), each K = ceil(H / Hc) from the fewest blocks (Hc up
-    to ``L2_THREADS``) to the most, each with the most batch-row groups (at
-    most ``L2_THREADS`` threads a block) down to 1, whose block fits
-    ``MAX_SHARED_BYTES`` and whose K x tiles blocks fit the capacity the
-    plan counts on, one block an SM (one fits wherever its shared memory
-    does: at most 256 threads of at most 255 registers)."""
+def _grid_shapes(batch: int, hidden: int, sms: int):
+    """(rows, K, Hc, groups, tiles) of the grid layout at (B, H) on a card
+    of ``sms`` SMs: for each count of rows a thread owns (``GRID_ROWS``),
+    each K = ceil(H / Hc) from the fewest blocks (Hc up to ``L2_THREADS``)
+    to the most, each with the most batch-row groups (at most
+    ``L2_THREADS`` threads a block) down to 1 whose K x tiles blocks fit
+    the capacity the plan counts on, one block an SM (one fits wherever its
+    shared memory does: at most 256 threads of at most 255 registers)."""
     for rows in GRID_ROWS:
         seen = set()
         for want in range(min(hidden, L2_THREADS), 0, -1):
@@ -231,28 +262,114 @@ def grid_plans(batch: int, f: int, hidden: int, backward: bool, sms: int = SMS):
                 tiles = -(-batch // (groups * rows))
                 if blocks * tiles > sms:
                     break
-                smem = 4 * _grid_floats(f, hidden, blocks, groups * rows, backward)
-                if smem <= MAX_SHARED_BYTES:
-                    yield Plan("grid", groups, smem, hc, 0, 0, 0, blocks,
-                               sms // (blocks * tiles), sms, rows)
+                yield rows, blocks, hc, groups, tiles
+
+
+def _streamed(f: int, hidden: int, blocks: int, tile: int, backward: bool, mode: int,
+              kappa: int, rho: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """(smem bytes, rho) of a grid block under the streaming ``mode`` with
+    chunks of ``kappa`` columns, or None where it does not fit
+    ``MAX_SHARED_BYTES``.  Under ``STREAM_COLS`` the block holds rows [0,
+    rho) of its columns: ``rho`` where given (F plus a multiple of kappa,
+    below F + H), else the most that fit; else rho is 0."""
+    if not mode & STREAM_COLS:
+        smem = 4 * _grid_floats(f, hidden, blocks, tile, backward, mode, kappa)
+        return (smem, 0) if smem <= MAX_SHARED_BYTES else None
+    hc = -(-hidden // blocks)
+    if rho is None:
+        room = MAX_SHARED_BYTES // 4 - _grid_floats(f, hidden, blocks, tile, backward, mode,
+                                                    kappa, f)
+        if room < 0:
+            return None
+        rho = f + kappa * min(room // (kappa * 4 * hc), (hidden - 1) // kappa)
+    smem = 4 * _grid_floats(f, hidden, blocks, tile, backward, mode, kappa, rho)
+    return (smem, rho) if smem <= MAX_SHARED_BYTES else None
+
+
+def grid_plans(batch: int, f: int, hidden: int, backward: bool, sms: int = SMS):
+    """Yields every :class:`Plan` of the grid layout that fits at (B, F, H)
+    on a card of ``sms`` SMs: first, over :func:`_grid_shapes`, each whose
+    block holds the whole (mode 0) within ``MAX_SHARED_BYTES``; then, over
+    the same shapes whose block does not, for each chunk width of
+    ``KAPPAS``, the least streaming of ``STREAM_LEVELS`` that fits (under
+    ``STREAM_COLS`` with the most rows held)."""
+    shapes = list(_grid_shapes(batch, hidden, sms))
+    whole = set()
+    for rows, blocks, hc, groups, tiles in shapes:
+        smem = 4 * _grid_floats(f, hidden, blocks, groups * rows, backward)
+        if smem <= MAX_SHARED_BYTES:
+            whole.add((rows, blocks, groups))
+            yield Plan("grid", groups, smem, hc, 0, 0, 0, blocks,
+                       sms // (blocks * tiles), sms, rows)
+    for rows, blocks, hc, groups, tiles in shapes:
+        if (rows, blocks, groups) in whole:
+            continue
+        for kappa in KAPPAS:
+            for mode in STREAM_LEVELS[backward]:
+                fit = _streamed(f, hidden, blocks, groups * rows, backward, mode, kappa)
+                if fit is not None:
+                    yield Plan("grid", groups, fit[0], hc, mode, 0, 0, blocks,
+                               sms // (blocks * tiles), sms, rows, kappa, fit[1])
+                    break
+
+
+def stream_plan(p: Plan, f: int, hidden: int, backward: bool, mode: int, kappa: int = KAPPA,
+                rho: Optional[int] = None) -> Plan:
+    """The grid plan ``p`` with the streaming ``mode`` (a level of
+    ``STREAM_LEVELS``), chunks of ``kappa`` columns and, under
+    ``STREAM_COLS``, rows [0, ``rho``) of the columns held (default: the
+    most that fit): for the launchers' ``_plan``, e.g. to hold a streamed
+    launch against the whole one at a shape that needs none.  Raises where
+    the block does not fit."""
+    if p.layout != "grid" or mode not in STREAM_LEVELS[backward]:
+        raise ValueError(f"stream_plan takes a grid plan and one of {STREAM_LEVELS[backward]}")
+    if kappa < 4 or kappa % 4 or (rho is not None and not (
+            f <= rho < f + hidden and (rho - f) % kappa == 0)):
+        raise ValueError(f"kappa={kappa}, rho={rho}: kappa a multiple of 4, rho F plus a "
+                         "multiple of it, below F + H")
+    fit = _streamed(f, hidden, p.blocks, p.groups * p.rows, backward, mode, kappa, rho)
+    if fit is None:
+        raise ValueError(f"F={f}, H={hidden}: a grid block of mode {mode}, kappa={kappa} does "
+                         "not fit its shared memory")
+    return p._replace(smem=fit[0], mode=mode, kappa=kappa, rho=fit[1])
 
 
 def _grid_plan(batch: int, f: int, hidden: int, backward: bool, sms: int) -> Optional[Plan]:
-    """Of :func:`grid_plans`, those with the fewest batch tiles; of them
-    those whose threads own the fewest rows; of them the fewest blocks of
-    at most ``GRID_THREADS`` threads (else the fewest blocks).  On an H100
-    at one lane of (B, F, H) = (32, 6, 512) that is 1 row a thread, K =
-    128 blocks of 128 threads: forward 0.36730 ms, backward 1.19990, the
-    fastest of every plan with a 32-row tile but the backward's K = 86
-    (1.20793); 4 rows a thread took 0.53502 and 1.92836 at its best K
-    (``kernel_bench.py --lstm-plans``)."""
-    plans = list(grid_plans(batch, f, hidden, backward, sms))
-    if not plans:
+    """Of :func:`grid_plans`, those that stream nothing if any, else those
+    of the least streaming (the fewest bits of ``mode``); of them those
+    with the fewest batch tiles; of them those whose threads own the fewest
+    rows; when streamed, of them those with the widest chunks, under
+    ``STREAM_COLS`` then those with the most rows held; then the fewest
+    blocks of at most ``GRID_THREADS`` threads (else the fewest blocks).  On an H100 at one lane of (B, F, H) = (32, 6, 512)
+    that is 1 row a thread, K = 128 blocks of 128 threads: forward 0.36730
+    ms, backward 1.19990, the fastest of every plan with a 32-row tile but
+    the backward's K = 86 (1.20793); 4 rows a thread took 0.53502 and
+    1.92836 at its best K (``kernel_bench.py --lstm-plans``)."""
+    whole, plans = [], []
+    for p in grid_plans(batch, f, hidden, backward, sms):
+        if not p.mode:
+            whole.append(p)
+        elif whole:
+            break           # the streamed plans come after every whole one
+        else:
+            plans.append(p)
+    if whole:
+        plans = whole
+    elif not plans:
         return None
+    else:
+        level = min(bin(p.mode).count("1") for p in plans)
+        plans = [p for p in plans if bin(p.mode).count("1") == level]
     tiles = min(-(-batch // (p.groups * p.rows)) for p in plans)
     plans = [p for p in plans if -(-batch // (p.groups * p.rows)) == tiles]
     rows = min(p.rows for p in plans)
     plans = [p for p in plans if p.rows == rows]
+    if plans[0].mode:
+        kappa = max(p.kappa for p in plans)
+        plans = [p for p in plans if p.kappa == kappa]
+    if plans[0].mode & STREAM_COLS:
+        rho = max(p.rho for p in plans)
+        plans = [p for p in plans if p.rho == rho]
     narrow = [p for p in plans if p.span * p.groups <= GRID_THREADS]
     return min(narrow or plans, key=lambda p: p.blocks)
 
@@ -278,8 +395,12 @@ def plan(batch: int, f: int, hidden: int, backward: bool = False, *, lanes: int 
     The shared-memory layout where a block of ``_groups`` groups, or fewer,
     fits ``MAX_SHARED_BYTES`` (up to H = 114 at F = 6, 115 in the forward);
     else a cluster's (up to H = 334 at F = 6, 461 in the forward); else the
-    grid's across the card (up to H = 660 at F = 6, B = 32, 924 in the
-    forward); else the weights through L2, for any F >= 1 and H >= 1.
+    grid's across the card, whole in each block up to H = 660 at F = 6,
+    B = 32 (924 in the forward) and past that with the least streaming that
+    fits (:func:`grid_plans`), up to H = 4,224 at F = 6, B = 32 in both
+    directions (past H = 1,056 at B = 128: K x tiles blocks of at most 256
+    threads no longer fit the card's SMs); else the weights through L2, for
+    any F >= 1 and H >= 1.
     ``sms`` is the card's count of SMs (:func:`device_sms`), which sizes
     the cluster and bounds the grid.  ``_layout`` forces one (the checks
     that the layouts give the same bits, through the launchers' ``_plan``)
@@ -330,15 +451,21 @@ def _work(x_seq, p: Plan, lanes: int, batch: int, hidden: int, backward: bool):
     global memory (``state`` floats for each block of the first
     ``MAX_GRID_Y`` lanes), or a grid forward's exchange of h (two (tile,
     H + 4 rounded) halves for each tile of ``per_launch`` lanes, which each
-    launch reuses).  sync: a grid launch's arrival counters, zeroed, one a
-    tile of every lane."""
+    launch reuses), followed under ``STREAM_COLS`` (in the backward alone)
+    by the packed copy of the streamed rows of the columns, (F + H - rho) x
+    Hc float4s for each block of ``per_launch`` lanes.  sync: a grid
+    launch's arrival counters, zeroed, one a tile of every lane."""
     tiles = -(-batch // (p.groups * p.rows))
     if p.layout == "grid":
         sync = torch.zeros(lanes * tiles, dtype=torch.int32, device=x_seq.device)
-        if backward:
+        blocks = min(lanes, p.per_launch) * tiles
+        exchange = 0 if backward else blocks * 2 * p.groups * p.rows * (_round4(hidden) + 4)
+        packed = 0
+        if p.mode & STREAM_COLS:
+            packed = blocks * p.blocks * (x_seq.shape[-1] + hidden - p.rho) * 4 * p.span
+        if exchange + packed == 0:
             return None, sync
-        part = p.groups * p.rows * (_round4(hidden) + 4)
-        return x_seq.new_empty(min(lanes, p.per_launch) * tiles * 2 * part), sync
+        return x_seq.new_empty(exchange + packed), sync
     if not p.state:
         return None, None
     return x_seq.new_empty(tiles * min(lanes, MAX_GRID_Y) * p.state), None
@@ -425,7 +552,7 @@ def lstm_seq_cuda(x_seq, h0, c0, wx, wh, b, save: bool = False, *,
          b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), _ptr(work), _ptr(sync), lanes, steps,
          batch, f, hidden, p.groups, int(save), x_ls, h_ls, c_ls, *w_ls,
          _LAYOUT_CODES[p.layout], p.span, p.cluster, p.blocks, p.per_launch, p.rows, p.mode,
-         p.smem, current_stream(dev))
+         p.kappa, p.rho, p.smem, current_stream(dev))
     launches += 1
     cluster_launches += p.layout == "cluster"
     grid_launches += p.layout == "grid"
@@ -461,7 +588,8 @@ def lstm_seq_backward_cuda(x_seq, h_seq, c_seq, wx, wh, b, dh_last, dc_last, *,
          wh.data_ptr(), b.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
          dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), _ptr(work), _ptr(sync), lanes,
          steps, batch, f, hidden, p.groups, x_ls, *w_ls, _LAYOUT_CODES[p.layout], p.span,
-         p.cluster, p.blocks, p.per_launch, p.rows, p.mode, p.smem, current_stream(dev))
+         p.cluster, p.blocks, p.per_launch, p.rows, p.mode, p.kappa, p.rho, p.smem,
+         current_stream(dev))
     bwd_launches += 1
     cluster_bwd_launches += p.layout == "cluster"
     grid_bwd_launches += p.layout == "grid"

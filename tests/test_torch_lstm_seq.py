@@ -292,7 +292,7 @@ def test_plan_keeps_every_shape_that_fit_before():
     groups and shared memory, so it runs the same launch; past it, fewer
     groups, then the weights through L2 (its state in shared memory, then
     the backward's dgates tile in the output, then the state in a scratch
-    buffer)."""
+    buffer; past the streamed grid's cap, at B = 128 and 32)."""
     for batch in (1, 5, 32, 45):
         for f in (1, 3, 6, 9, 141):
             for h in range(1, 131):
@@ -302,7 +302,7 @@ def test_plan_keeps_every_shape_that_fit_before():
                         p = lk.plan(batch, f, h, backward)
                         assert (p.layout, p.groups, p.smem) == ("smem",) + before
     assert lk.plan(32, 6, 113, True)[:3] == ("smem", 1, 226_528)
-    assert lk.plan(32, 6, 2100, True).mode == lk.DGATES_OUT
+    assert lk.plan(128, 6, 2100, True).mode == lk.DGATES_OUT
     big = lk.plan(32, 6, 5000, True)
     assert big.mode == lk.STATE_GLOBAL | lk.DGATES_OUT and big.state > 0
     assert big.smem == 4 * lk._l2_stage_floats(big.span)   # only the stage of wh
@@ -323,16 +323,20 @@ def test_plan_fills_the_fleet_grid_and_matches_the_stated_layout():
 
 # the largest H of the cluster layout at F = 6 (forward, backward)
 CLUSTER_CAP = {False: 461, True: 334}
-# the largest H of the grid layout at F = 6, B = 32
+# the largest H of the grid layout at F = 6, B = 32, each block holding its
+# whole share (the unstreamed grid)
 GRID_CAP = {False: 924, True: 660}
+# the largest H of the grid layout at F = 6, B = 32 with streaming: K
+# blocks of at most 256 threads (Hc <= 32 at a 32-row tile) on 132 SMs
+STREAM_CAP = 4224
 
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_plan_picks_the_cluster_up_to_its_cap(backward):
     """Past the shared-memory layout, every H up to the cap at F = 6, and
     (F, H) = (9, 128), take the cluster layout, at one lane and at the
-    fleet's 64; past the cap a lane's weights go across the card, and
-    past the grid's cap through L2."""
+    fleet's 64; past the cap a lane's weights go across the card (at
+    H = 1,100 streamed), and past the streamed grid's cap through L2."""
     cap = CLUSTER_CAP[backward]
     for lanes in (1, 64):
         for h in range(115, cap + 1):
@@ -342,25 +346,36 @@ def test_plan_picks_the_cluster_up_to_its_cap(backward):
         assert lk.plan(32, 9, 128, backward, lanes=lanes).layout == "cluster"
         for h in (cap + 1, 512):
             assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "grid", h
-        assert lk.plan(32, 6, 1100, backward, lanes=lanes).layout == "l2"
+        assert lk.plan(32, 6, 1100, backward, lanes=lanes).layout == "grid"
+        assert lk.plan(32, 6, STREAM_CAP + 1, backward, lanes=lanes).layout == "l2"
 
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_plan_picks_the_grid_past_the_clusters_cap(backward):
     """Every H from past the cluster's cap up to the grid's at F = 6,
     B = 32 (H = 335 and 512 in the backward, 462 and 512 in the forward
-    among them) takes the grid layout, at one lane and at the fleet's 64;
-    past the grid's cap (H = 1,100, 1,600) the weights go through L2.  A
-    B = 45 scoring batch has a larger h tile and a lower cap."""
+    among them) takes the grid layout, each block holding its whole share,
+    at one lane and at the fleet's 64; past that cap (H = 1,100, 1,600) the
+    grid streams, and past the streamed grid's cap the weights go through
+    L2.  A B = 45 scoring batch has a larger h tile and a lower cap for the
+    unstreamed grid."""
     for lanes in (1, 64):
         for h in range(CLUSTER_CAP[backward] + 1, GRID_CAP[backward] + 1):
-            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "grid", (lanes, h)
+            p = lk.plan(32, 6, h, backward, lanes=lanes)
+            assert p.layout == "grid" and p.mode == 0, (lanes, h)
         for h in (GRID_CAP[backward] + 1, 1100, 1600):
-            assert lk.plan(32, 6, h, backward, lanes=lanes).layout == "l2", (lanes, h)
+            p = lk.plan(32, 6, h, backward, lanes=lanes)
+            assert p.layout == "grid" and p.mode in lk.STREAM_LEVELS[backward], (lanes, h)
+        assert lk.plan(32, 6, STREAM_CAP + 1, backward, lanes=lanes).layout == "l2"
     for h in ((335, 512) if backward else (462, 512)):
         assert lk.plan(32, 6, h, backward).layout == "grid"
-    cap45 = max(h for h in range(300, 1000) if lk.plan(45, 6, h, backward).layout == "grid")
+    # grid_plans yields every whole plan before the first streamed one
+    cap45 = max(h for h in range(300, 1000)
+                if next(lk.grid_plans(45, 6, h, backward), lk.Plan("l2", 1, 0, 1, 1)).mode == 0)
     assert cap45 < GRID_CAP[backward]
+    at, past = lk.plan(45, 6, cap45, backward), lk.plan(45, 6, cap45 + 1, backward)
+    assert at.layout == past.layout == "grid" and at.mode == 0
+    assert past.mode in lk.STREAM_LEVELS[backward]
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -370,8 +385,12 @@ def test_grid_plans_fit_a_block_and_the_cards_capacity(backward):
     block's shared memory, a block holds ceil(H / K) units of the tile's
     groups in at most 256 threads, a thread 4, 2 or 1 rows, no block is
     empty, and lanes per launch x tiles x K is within the plan's capacity,
-    the card's SMs at one block an SM.  The chosen plan is one of them,
-    with the fewest tiles, then the fewest rows a thread, then the fewest
+    the card's SMs at one block an SM; a streamed plan's mode is a level
+    of STREAM_LEVELS, its chunks a width of KAPPAS, and under STREAM_COLS
+    its rows held F plus a multiple of kappa, below F + H.  The chosen
+    plan is one of them: unstreamed where one fits, else of the least
+    streaming; with the fewest tiles, then the fewest rows a thread, then
+    (streamed) the widest chunks and the most rows held, then the fewest
     blocks of at most GRID_THREADS threads."""
     seen = 0
     for sms in (lk.SMS, 114):
@@ -383,8 +402,15 @@ def test_grid_plans_fit_a_block_and_the_cards_capacity(backward):
                     tile = p.groups * p.rows
                     tiles = -(-batch // tile)
                     assert p.rows in lk.GRID_ROWS
-                    assert p.layout == "grid" and p.cluster == 0 and p.mode == 0
-                    assert p.smem == 4 * lk._grid_floats(f, h, p.blocks, tile, backward)
+                    assert p.layout == "grid" and p.cluster == 0
+                    assert p.mode in (0,) + lk.STREAM_LEVELS[backward]
+                    if p.mode & lk.STREAM_COLS:
+                        assert f <= p.rho < f + h and (p.rho - f) % p.kappa == 0
+                    else:
+                        assert p.rho == 0
+                    assert p.kappa == 0 if not p.mode else p.kappa in lk.KAPPAS
+                    assert p.smem == 4 * lk._grid_floats(f, h, p.blocks, tile, backward,
+                                                         p.mode, p.kappa, p.rho)
                     assert p.smem <= lk.MAX_SHARED_BYTES
                     assert p.span == -(-h // p.blocks) and p.span * p.groups <= lk.L2_THREADS
                     assert (p.blocks - 1) * p.span < h
@@ -397,24 +423,39 @@ def test_grid_plans_fit_a_block_and_the_cards_capacity(backward):
                     assert not every
                     continue
                 assert chosen in every
+                whole = [p for p in every if not p.mode]
+                if whole:
+                    every = whole
+                else:
+                    level = min(bin(p.mode).count("1") for p in every)
+                    every = [p for p in every if bin(p.mode).count("1") == level]
                 tiles = min(-(-batch // (q.groups * q.rows)) for q in every)
                 top = [p for p in every if -(-batch // (p.groups * p.rows)) == tiles]
                 top = [p for p in top if p.rows == min(q.rows for q in top)]
+                if top[0].mode:
+                    top = [p for p in top if p.kappa == max(q.kappa for q in top)]
+                if top[0].mode & lk.STREAM_COLS:
+                    top = [p for p in top if p.rho == max(q.rho for q in top)]
                 narrow = [p for p in top if p.span * p.groups <= lk.GRID_THREADS]
                 assert chosen.blocks == min(p.blocks for p in (narrow or top))
     assert seen > 1000
 
 
 def test_forcing_the_grid_where_it_does_not_fit_raises():
+    """Past the streamed grid's cap (at B = 32 and at B = 128), and on a
+    card of 4 SMs, forcing the grid raises; so does the launcher given
+    such a plan."""
     with pytest.raises(ValueError, match="grid layout"):
-        lk.plan(32, 6, 1100, _layout="grid")
+        lk.plan(32, 6, STREAM_CAP + 1, _layout="grid")
     with pytest.raises(ValueError, match="grid layout"):
-        lk.plan(32, 6, GRID_CAP[True] + 1, True, _layout="grid")
+        lk.plan(32, 6, STREAM_CAP + 1, True, _layout="grid")
     with pytest.raises(ValueError, match="grid layout"):
-        lk.plan(32, 6, 512, True, sms=16, _layout="grid")
+        lk.plan(128, 6, 1100, True, _layout="grid")
+    with pytest.raises(ValueError, match="grid layout"):
+        lk.plan(32, 6, 512, True, sms=4, _layout="grid")
     args = [_t(a) for a in _inputs(1, 2, 4, 6, 1100, 0)]
     with pytest.raises(ValueError, match="grid layout"):
-        lk.lstm_seq_cuda(*args, _plan=lk.plan(4, 6, 2000, _layout="grid"))
+        lk.lstm_seq_cuda(*args, _plan=lk.plan(128, 6, 2000, _layout="grid"))
 
 
 def test_grid_scratch_is_an_exchange_and_zeroed_counters():
@@ -432,6 +473,137 @@ def test_grid_scratch_is_an_exchange_and_zeroed_counters():
     work, sync = lk._work(x, q, 3, 5, 512, True)
     assert work is None and sync.numel() == 3 * -(-5 // (q.groups * q.rows))
     assert lk._work(x, lk.plan(32, 6, 64), 3, 32, 64, False) == (None, None)
+
+
+# the shapes the streamed grid must take at F = 6, B = 32, both directions
+STREAM_SHAPES = (768, 1024, 1100, 1600, 2048)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_streams_the_grid_past_its_whole_cap(backward):
+    """At H = 768 (the forward still whole), 1,024, 1,100, 1,600 and 2,048
+    (F = 6, B = 32) and at [4o]'s B = 45 scoring split of H = 1,100 the
+    plan takes the grid with the least streaming that fits, its block
+    within a block's shared memory and lanes per launch x tiles x K within
+    the card's SMs; the streamed rows of the columns appear only past
+    H = 1,100.  Past the streamed cap, and at B = 128 of H = 1,100, the L2
+    layout, where forcing the grid raises."""
+    shapes = [(32, h) for h in STREAM_SHAPES] + ([] if backward else [(45, 1100)])
+    for batch, h in shapes:
+        p = lk.plan(batch, 6, h, backward)
+        assert p.layout == "grid", (batch, h)
+        assert p.mode in ((0,) if (h, backward) == (768, False) else ()) + \
+            lk.STREAM_LEVELS[backward], (batch, h)
+        assert p.smem == 4 * lk._grid_floats(6, h, p.blocks, p.groups * p.rows, backward,
+                                             p.mode, p.kappa, p.rho) <= lk.MAX_SHARED_BYTES
+        tiles = -(-batch // (p.groups * p.rows))
+        assert p.per_launch * tiles * p.blocks <= p.capacity == lk.SMS
+        assert bool(p.mode & lk.STREAM_COLS) == (h > 1100 and (h, backward) != (1280, False))
+        # no streaming mode that stops short of this one fits the same block
+        for mode in lk.STREAM_LEVELS[backward]:
+            if p.mode and mode < p.mode:
+                with pytest.raises(ValueError, match="does not fit"):
+                    lk.stream_plan(p, 6, h, backward, mode, p.kappa)
+    for batch, h in ((32, STREAM_CAP + 1), (32, 5000), (128, 1100)):
+        assert lk.plan(batch, 6, h, backward).layout == "l2"
+        with pytest.raises(ValueError, match="grid layout"):
+            lk.plan(batch, 6, h, backward, _layout="grid")
+
+
+def _parent_grid_plan(batch, f, hidden, backward, sms=lk.SMS):
+    """The grid plan this layout's first version chose (no streaming), or
+    None where it had none: every shape, K and groups whose whole block
+    fits, then the fewest tiles, the fewest rows a thread, the fewest
+    blocks of at most GRID_THREADS threads."""
+    plans = []
+    for rows, blocks, hc, groups, tiles in lk._grid_shapes(batch, hidden, sms):
+        smem = 4 * lk._grid_floats(f, hidden, blocks, groups * rows, backward)
+        if smem <= lk.MAX_SHARED_BYTES:
+            plans.append(lk.Plan("grid", groups, smem, hc, 0, 0, 0, blocks,
+                                 sms // (blocks * tiles), sms, rows))
+    if not plans:
+        return None
+    tiles = min(-(-batch // (p.groups * p.rows)) for p in plans)
+    plans = [p for p in plans if -(-batch // (p.groups * p.rows)) == tiles]
+    plans = [p for p in plans if p.rows == min(q.rows for q in plans)]
+    narrow = [p for p in plans if p.span * p.groups <= lk.GRID_THREADS]
+    return min(narrow or plans, key=lambda p: p.blocks)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("batch", [1, 5, 32, 45])
+def test_plan_keeps_the_parents_plan_where_the_grid_held_it_whole(batch, backward):
+    """Wherever the unstreamed grid took a shape (past the cluster, up to
+    its caps, at the existing plan tests' batches, widths and lanes), the
+    plan is the one it chose, with no streaming mode, kappa or rho; the
+    shared-memory and cluster layouts keep theirs (their plans' code is
+    unchanged, and they come first)."""
+    for f, h in [(6, h) for h in range(335, 1000, 13)] + [(9, 128), (1, 300), (6, 64)]:
+        for lanes in (1, 64):
+            p = lk.plan(batch, f, h, backward, lanes=lanes)
+            parent = _parent_grid_plan(batch, f, h, backward)
+            if p.layout in ("smem", "cluster"):
+                continue
+            if parent is not None:
+                assert p == parent and (p.mode, p.kappa, p.rho) == (0, 0, 0), (f, h, lanes)
+            else:
+                assert p.layout == "grid" and p.mode, (f, h, lanes)
+
+
+def test_stream_plan_forces_each_mode_at_a_shape_that_needs_none():
+    """At H = 512 the grid holds the whole; stream_plan gives the same
+    launch geometry with each streaming mode and chunk width, the mirrored
+    bytes its own, under STREAM_COLS the most rows held (or those asked
+    for), and refuses modes the direction lacks, bad widths and rows."""
+    for backward in (False, True):
+        base = lk.plan(32, 6, 512, backward)
+        assert base.layout == "grid" and base.mode == 0
+        for mode in lk.STREAM_LEVELS[backward]:
+            for kappa in lk.KAPPAS:
+                q = lk.stream_plan(base, 6, 512, backward, mode, kappa)
+                assert q[:4] == base[:4] or q.smem != base.smem
+                assert (q.groups, q.blocks, q.rows, q.per_launch) == (
+                    base.groups, base.blocks, base.rows, base.per_launch)
+                assert (q.mode, q.kappa) == (mode, kappa)
+                assert q.smem == 4 * lk._grid_floats(6, 512, q.blocks, q.groups * q.rows,
+                                                     backward, mode, kappa, q.rho)
+                if mode & lk.STREAM_COLS:
+                    # all of H fits: every chunk but the last held
+                    assert q.rho == 6 + kappa * (511 // kappa)
+                    low = lk.stream_plan(base, 6, 512, backward, mode, kappa, rho=6)
+                    assert low.rho == 6 and low.smem < q.smem
+                else:
+                    assert q.rho == 0
+        with pytest.raises(ValueError, match="STREAM|one of"):
+            lk.stream_plan(base, 6, 512, backward, lk.STREAM_COLS)
+        with pytest.raises(ValueError, match="kappa"):
+            lk.stream_plan(base, 6, 512, backward, lk.STREAM_H, 30)
+        with pytest.raises(ValueError, match="rho"):
+            lk.stream_plan(base, 6, 512, backward, lk.STREAM_LEVELS[backward][-1], 64, rho=7)
+    with pytest.raises(ValueError, match="one of"):
+        lk.stream_plan(lk.plan(32, 6, 512), 6, 512, False, lk.STREAM_H | lk.STREAM_WH)
+    with pytest.raises(ValueError, match="grid plan"):
+        lk.stream_plan(lk.plan(32, 6, 64), 6, 64, False, lk.STREAM_H)
+
+
+def test_streamed_scratch_adds_the_packed_copy():
+    """Under STREAM_COLS the scratch holds, past the forward's exchange
+    (the backward's: from its start), (F + H - rho) x Hc float4s for each
+    block of a launch's lanes; without it a streamed launch's scratch is
+    the unstreamed one's."""
+    x = torch.zeros(1, 1, 1, 6)
+    for backward in (False, True):
+        p = lk.plan(32, 6, 1600, backward)
+        assert p.mode & lk.STREAM_COLS and p.per_launch == 1
+        work, sync = lk._work(x, p, 3, 32, 1600, backward)
+        packed = p.blocks * (6 + 1600 - p.rho) * 4 * p.span
+        exchange = 0 if backward else 2 * p.groups * p.rows * (1600 + 4)
+        assert work.numel() == exchange + packed and sync.numel() == 3 and not sync.any()
+    q = lk.plan(32, 6, 1100, True)
+    assert q.mode == lk.STREAM_H | lk.STREAM_WH
+    assert lk._work(x, q, 2, 32, 1100, True)[0] is None
+    r = lk.plan(32, 6, 1100)
+    assert lk._work(x, r, 2, 32, 1100, False)[0].numel() == 2 * r.groups * r.rows * 1104
 
 
 def test_plan_sizes_the_cluster_by_the_cards_sms():
@@ -605,14 +777,15 @@ def _fma32(a, b, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,layout", [(512, "l2"), (512, "grid"), (1100, "l2"),
+@pytest.mark.parametrize("h,layout", [(512, "l2"), (512, "grid"), (1100, "grid"),
                                       (128, "cluster"), (64, "smem")])
 def test_dh0_is_the_ascending_fma_sum_on_the_card(h, layout):
     """dh0[b, j] = sum over the 4H gate columns of dgates[0, b, col] wh[j, col],
     each term an fmaf in ascending column order, bit for bit in every
     layout (the planned one, L2 forced at H = 512): the L2 backward reads
     wh through its stage in shared memory, the grid backward the dgates
-    other blocks wrote through its stage, and both keep that order."""
+    other blocks wrote through its stage (at H = 1,100 streamed, rows J_q
+    of wh beside them), and both keep that order."""
     _need_card()
     lanes, t, b, f = 1, 2, 5, 6
     args, dh, dc = _card_inputs(lanes, t, b, f, h, 7)
@@ -690,6 +863,91 @@ def test_the_grid_layout_equals_the_l2_one_and_the_twins_on_the_card(h):
         for name, g, w in zip(("dgates", "dh0", "dc0"), got[2:], ref):
             g = g.view(torch.float32)
             assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [768, 1024, 1100, 1600])
+def test_the_streamed_grid_equals_the_l2_one_and_the_twins_on_the_card(h):
+    """Past the unstreamed grid's cap: the planned grid (streaming the h
+    tile, the backward's rows of wh, past H = 1,100 the rows of the
+    columns) gives the forced L2 layout's bits, every saved state, dgates,
+    dh0 and dc0, at B = 32, T = 4; it counts as a grid launch each way, and
+    both match the twins within the pair's limits (forward 1e-5, backward
+    1e-4 of the largest value)."""
+    _need_card()
+    from repro_torch.kernels.lstm_cell.ref import lstm_seq_backward_ref, lstm_seq_ref
+
+    lanes, t, b, f = 1, 4, 32, 6
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, h)
+    assert lk.plan(b, f, h, True).mode in lk.STREAM_LEVELS[True]
+    want = _grid_pair(args, dh, dc, _layout="l2")
+    before = kernels.layout_counts()
+    got = _grid_pair(args, dh, dc)
+    torch.cuda.synchronize()
+    after = kernels.layout_counts()
+    assert after["lstm_cell_grid"] == before["lstm_cell_grid"] + 1
+    assert after["lstm_cell_bwd_grid"] == before["lstm_cell_bwd_grid"] + 1
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), (h, name)
+    hs, cs = (o.view(torch.float32) for o in got[:2])
+    hr, cr = lstm_seq_ref(*args)
+    torch.testing.assert_close(hs, hr, rtol=0, atol=1e-5)
+    torch.testing.assert_close(cs, cr, rtol=0, atol=1e-5)
+    ref = lstm_seq_backward_ref(args[0], hs, cs, *args[3:], dh, dc)
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got[2:], ref):
+        g = g.view(torch.float32)
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 37])
+def test_each_streaming_mode_equals_the_whole_grid_on_the_card(b):
+    """At H = 512, which the grid holds whole: each streaming mode forced
+    (every chunk width; under STREAM_COLS with the most rows held and with
+    only the x rows held) gives today's grid bits, forward and backward, at
+    B = 32 and at a ragged B = 37."""
+    _need_card()
+    lanes, t, f, h = 1, 3, 6, 512
+    args, dh, dc = _card_inputs(lanes, t, b, f, h, 19)
+    fwd, bwd = (lk.plan(b, f, h, backward) for backward in (False, True))
+    assert fwd.mode == bwd.mode == 0
+    hs, cs = lk.lstm_seq_cuda(*args, save=True, _plan=fwd)
+    want = [o.view(torch.int32) for o in (hs, cs, *lk.lstm_seq_backward_cuda(
+        args[0], hs, cs, *args[3:], dh, dc, _plan=bwd))]
+    for backward, base in ((False, fwd), (True, bwd)):
+        for mode in lk.STREAM_LEVELS[backward]:
+            for kappa in lk.KAPPAS:
+                for rho in ((None, f) if mode & lk.STREAM_COLS else (None,)):
+                    q = lk.stream_plan(base, f, h, backward, mode, kappa, rho)
+                    if backward:
+                        got = lk.lstm_seq_backward_cuda(args[0], hs, cs, *args[3:], dh, dc,
+                                                        _plan=q)
+                        names, wants = ("dgates", "dh0", "dc0"), want[2:]
+                    else:
+                        got = lk.lstm_seq_cuda(*args, save=True, _plan=q)
+                        names, wants = ("h_seq", "c_seq"), want[:2]
+                    torch.cuda.synchronize()
+                    for name, a, c in zip(names, got, wants):
+                        assert torch.equal(a.view(torch.int32), c), (mode, kappa, rho, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1100, 1600])
+def test_the_streamed_grid_takes_more_lanes_than_one_launch_holds_on_the_card(h):
+    """Three lanes at H = 1,100 and 1,600 (the latter streaming the rows of
+    the columns from each launch's packed copy), B = 32, T = 3: one lane a
+    launch, three cooperative launches each way; the forced L2 layout's
+    bits."""
+    _need_card()
+    args, dh, dc = _card_inputs(3, 3, 32, 6, h, 23)
+    for backward in (False, True):
+        p = lk.plan(32, 6, h, backward, lanes=3)
+        assert p.per_launch == 1 and p.mode
+    want = _grid_pair(args, dh, dc, _layout="l2")
+    got = _grid_pair(args, dh, dc)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("h_seq", "c_seq", "dgates", "dh0", "dc0"), got, want):
+        assert torch.equal(a, c), (h, name)
 
 
 @pytest.mark.cuda
